@@ -1,0 +1,129 @@
+"""Edges table + nodes table + sampler wiring (supervised path of
+``rmm_tpu/datasets/graph_dataset.py``)."""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+
+from ..frame.dataset import Dataset
+from ..frame.stype import Stype
+from ..graph.store import GraphStore
+from ..utils.batch import GraphBatch, graph_inputs
+from .base import pack_link_column, pack_target, temporal_balanced_split
+
+
+class EdgeTable(Dataset):
+    """Transactions as edges: temporal split, per-split graphs and the packed
+    supervised target ``[label, src, dst, edge_id]``."""
+
+    def __init__(self, columns: dict[str, np.ndarray], col_to_stype: dict,
+                 src_col: str, dst_col: str, timestamp_col: str,
+                 supervised_col: Optional[str],
+                 split_type: str = "temporal_daily",
+                 splits: Sequence[float] = (0.6, 0.2, 0.2),
+                 khop_neighbors: Sequence[int] = (100, 100)):
+        if split_type != "temporal_daily":
+            raise NotImplementedError(
+                f"split_type={split_type!r}: this slice ports temporal_daily")
+        col_to_stype = dict(col_to_stype)
+        columns = temporal_balanced_split(dict(columns), list(splits),
+                                          timestamp_col)
+        src = np.asarray(columns[src_col]).astype(np.int64)
+        dst = np.asarray(columns[dst_col]).astype(np.int64)
+        self.graph = GraphStore(src, dst, split=columns["split"],
+                                fanouts=khop_neighbors)
+        supervised = (np.asarray(columns[supervised_col], np.float64)
+                      if supervised_col else None)
+        y = pack_target(pack_link_column(src, dst), supervised)
+        target_col = None
+        if y is not None:
+            columns["target"] = y
+            target_col = "target"
+            col_to_stype["target"] = Stype.relation
+        super().__init__(columns, col_to_stype, split_col="split",
+                         target_col=target_col)
+
+
+class NodeTable(Dataset):
+    @staticmethod
+    def synthetic(num_nodes: int, ego: bool = False) -> "NodeTable":
+        """Id-only nodes table: a constant ``node_attr`` relation column (and
+        an ``ego`` column the model overwrites per batch)."""
+        n = num_nodes + 1
+        columns = {"node_attr": np.ones(n)}
+        schema = {"node_attr": Stype.relation}
+        if ego:
+            columns["ego"] = np.ones(n)
+            schema["ego"] = Stype.relation
+        return NodeTable(columns, schema)
+
+
+class GraphTableDataset:
+    """``.edges`` + ``.nodes`` + batch builders; capacities <= 0 are
+    calibrated on first use."""
+
+    def __init__(self, edges: EdgeTable, nodes: NodeTable,
+                 edge_capacity: int = 0, node_capacity: int = 0):
+        self.edges = edges
+        self.nodes = nodes
+        self.edge_capacity = edge_capacity
+        self.node_capacity = node_capacity
+        edges.materialize()
+        nodes.materialize()
+
+    @property
+    def graph(self) -> GraphStore:
+        return self.edges.graph
+
+    def calibrate_capacities(self, batch_size: int, n_probe: int = 4,
+                             safety: float = 1.5) -> tuple[int, int]:
+        """Size the static subgraph buffers from probe samples: ``n_probe``
+        random seed batches per split (train and test, ``RandomState(0)``),
+        the true sampled size (kept + dropped), times ``safety``, rounded up
+        to a multiple of 256 below 1k and to a power of two above."""
+        g = self.graph
+        rng = np.random.RandomState(0)
+        b = max(int(batch_size), 1)
+        cap_e = cap_n = 1 << 16
+        need_e = need_n = 1
+        for mode in ("train", "test"):
+            for p in range(n_probe):
+                take = min(b, g.num_edges)
+                if take == 0:
+                    continue
+                idx = rng.choice(g.num_edges, size=take, replace=False)
+                seeds = np.stack([g.src[idx], g.dst[idx], idx], axis=1)
+                while True:
+                    try:
+                        sub = g.sample_edges(seeds, mode, cap_e, cap_n,
+                                             rng_seed=p + 1)
+                    except RuntimeError:   # node capacity exceeded
+                        cap_n *= 2
+                        continue
+                    if sub.num_dropped > 0:
+                        cap_e = 2 * (sub.num_edges + sub.num_dropped)
+                        continue
+                    break
+                need_e = max(need_e, sub.num_edges)
+                need_n = max(need_n, sub.num_nodes)
+
+        def rnd(x):
+            need = max(int(x * safety), 256)
+            if need <= 1024:
+                return -(-need // 256) * 256
+            return 1 << (need - 1).bit_length()
+
+        self.edge_capacity = max(rnd(need_e), b)
+        self.node_capacity = max(rnd(need_n), b)
+        return self.edge_capacity, self.node_capacity
+
+    def get_graph_inputs(self, batch_y, valid, mode="train",
+                         rng_seed: int = 0) -> GraphBatch:
+        if self.edge_capacity <= 0 or self.node_capacity <= 0:
+            self.calibrate_capacities(len(batch_y))
+        return graph_inputs(batch_y, valid, self.graph, mode,
+                            self.edge_capacity, self.node_capacity, rng_seed)
+
+    def in_degree_histogram(self) -> np.ndarray:
+        return self.graph.in_degree_histogram()

@@ -1,0 +1,59 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) with ``nvcc``.
+
+Each kernel is one source compiled into a shared library with a plain C
+interface, loaded through ctypes (no PyTorch headers, so a build takes
+seconds). Builds happen at first use into the git-ignored ``_build/``;
+:func:`build_all` starts every compiler at once (the host graph engine's
+``g++`` included) and waits for all of them.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import threading
+
+from ..graph import build as graph_build
+from ..utils import native
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc")
+KERNEL_SOURCES = {
+    "column_attention": os.path.join(_CSRC, "column_attention.cu"),
+}
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                           "source and need the CUDA toolkit")
+    return path
+
+
+def _start(name: str) -> native.Build:
+    src = KERNEL_SOURCES[name]
+    out = native.library_path(name, [src], NVCC_FLAGS)
+    return native.Build([_nvcc(), *NVCC_FLAGS, src], out)
+
+
+def build_all() -> dict[str, str]:
+    """Compile every kernel and the graph engine in parallel; returns each
+    build's compiler output (empty when the library was already built)."""
+    builds = {name: _start(name) for name in KERNEL_SOURCES}
+    builds["graph_engine"] = graph_build.start_build()
+    return {name: b.wait() for name, b in builds.items()}
+
+
+def load_kernel(name: str) -> ctypes.CDLL:
+    """The kernel library ``name``, compiled first if needed."""
+    with _lock:
+        if name not in _libs:
+            build = _start(name)
+            build.wait()
+            _libs[name] = ctypes.CDLL(build.out)
+        return _libs[name]

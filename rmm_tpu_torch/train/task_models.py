@@ -1,0 +1,139 @@
+"""Task wrapper: encoders + TABGNN + classifier head as one module
+(``rmm_tpu/train/task_models.py``: ``gather_rows``, ``apply_ego``,
+``TABGNNS``).
+
+The wrapper takes the device-resident edge and node tables and a
+:class:`~rmm_tpu_torch.utils.batch.GraphBatch` of ids and masks on the same
+device, gathers the batch's rows there and runs encode → backbone → head.
+Seed edges occupy lanes ``[0, B)``; the head reads that block.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..frame.stype import Stype
+from ..frame.tensor_frame import TensorFrame
+from ..nn.decoders import ClassifierHead
+from ..nn.encoders import (
+    EmbeddingEncoder,
+    LinearEncoder,
+    ProjectionEncoder,
+    StypeWiseFeatureEncoder,
+    TimestampEncoder,
+)
+from ..nn.models.tabgnn import TABGNN
+from ..nn.norms import MaskedBatchNorm
+from ..nn.transformer import CLSToken, MultiHeadSelfAttention
+from ..utils.batch import GraphBatch
+
+
+def gather_rows(tf: TensorFrame, ids: torch.Tensor) -> TensorFrame:
+    """Row gather on a device-resident TensorFrame."""
+    return TensorFrame(
+        feats={st: v.index_select(0, ids) for st, v in tf.feats.items()},
+        col_names=tf.col_names)
+
+
+def apply_ego(tf: TensorFrame, seed_edge_index: torch.Tensor, num_nodes: int,
+              col_name: str = "ego", seed_mask=None) -> TensorFrame:
+    """Overwrite the ``ego`` relation column with a seed-incidence flag: a
+    scatter-max of ``seed_mask`` over the seed edges' endpoints, so padded
+    seed lanes (copies of the last real row) never mark a node."""
+    names = list(tf.col_names.get(Stype.relation, []))
+    if col_name not in names:
+        return tf
+    rel = tf.feats[Stype.relation]
+    ends = seed_edge_index.reshape(-1)
+    if seed_mask is None:
+        vals = torch.ones(ends.shape[0], dtype=rel.dtype, device=rel.device)
+    else:
+        vals = seed_mask.to(rel.dtype)[None, :].expand(
+            seed_edge_index.shape).reshape(-1)
+    flags = torch.zeros(num_nodes, dtype=rel.dtype, device=rel.device)
+    flags = flags.scatter_reduce(0, ends, vals, "amax")
+    rel = rel.clone()
+    rel[:, names.index(col_name)] = flags
+    return TensorFrame(feats={**tf.feats, Stype.relation: rel},
+                       col_names=tf.col_names, y=tf.y)
+
+
+def _deghist_to_avg_log(deg_histogram) -> float:
+    hist = np.asarray(deg_histogram, dtype=np.float64)
+    d = np.arange(len(hist))
+    return float((hist * np.log(d + 1)).sum() / max(hist.sum(), 1.0))
+
+
+class TABGNNS(nn.Module):
+    """Hybrid tabular + GNN edge classifier (model ``tabgnn``)."""
+
+    def __init__(self, node_encoder: StypeWiseFeatureEncoder,
+                 edge_encoder: StypeWiseFeatureEncoder, channels: int,
+                 n_gnn_layers: int, n_classes: int = 2, dropout: float = 0.1,
+                 avg_log_deg: float = 1.0, reverse_mp: bool = False,
+                 ego: bool = False, task: str = "edge_classification"):
+        super().__init__()
+        if task != "edge_classification":
+            raise NotImplementedError(f"task {task!r} is not ported yet")
+        self.ego = ego
+        self.node_encoder = node_encoder
+        self.edge_encoder = edge_encoder
+        self.model = TABGNN(channels, n_gnn_layers, node_encoder.num_cols,
+                            edge_encoder.num_cols, nhidden=channels,
+                            avg_log_deg=avg_log_deg, reverse_mp=reverse_mp,
+                            dropout=dropout)
+        self.decoder = ClassifierHead(n_classes, channels, channels, dropout)
+
+    def forward(self, edge_table: TensorFrame, node_table: TensorFrame,
+                batch: GraphBatch) -> torch.Tensor:
+        """→ logits [B, n_classes] for the seed edges."""
+        b = batch.num_seeds
+        node_tf = gather_rows(node_table, batch.node_gather)
+        if self.ego:
+            node_tf = apply_ego(node_tf, batch.edge_index[:, :b],
+                                batch.node_gather.shape[0],
+                                seed_mask=batch.seed_mask)
+        x_tok = self.node_encoder(node_tf)
+        e_tok = self.edge_encoder(gather_rows(edge_table, batch.edge_gather))
+        x, edge_attr = self.model(x_tok, batch.edge_index, e_tok,
+                                  batch.edge_mask, batch.node_mask)
+        return self.decoder(x, batch.edge_index[:, :b], edge_attr[:b])
+
+
+def init_parameters(model: nn.Module, seed: int) -> nn.Module:
+    """Seeded initialization after the JAX modules' initializers: dense and
+    attention kernels lecun-normal, biases zero, norms one/zero, encoder
+    weights normal(0.1), the CLS token normal(0.01)."""
+    g = torch.Generator().manual_seed(int(seed))
+
+    def normal(t, std):
+        with torch.no_grad():
+            t.copy_(torch.randn(t.shape, generator=g) * std)
+
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.Linear):
+                normal(mod.weight, 1.0 / math.sqrt(mod.in_features))
+                mod.bias.zero_()
+            elif isinstance(mod, (nn.LayerNorm, MaskedBatchNorm)):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+            elif isinstance(mod, MultiHeadSelfAttention):
+                c = mod.out_kernel.shape[0]
+                normal(mod.qkv_kernel, 1.0 / math.sqrt(c))
+                normal(mod.out_kernel, 1.0 / math.sqrt(c))
+                mod.qkv_bias.zero_()
+                mod.out_bias.zero_()
+            elif isinstance(mod, EmbeddingEncoder):
+                for p in mod.parameters():
+                    normal(p, 0.1)
+            elif isinstance(mod, (LinearEncoder, TimestampEncoder,
+                                  ProjectionEncoder)):
+                normal(mod.weight, 0.1)
+                mod.bias.zero_()
+            elif isinstance(mod, CLSToken):
+                normal(mod.cls, 0.01)
+    return model

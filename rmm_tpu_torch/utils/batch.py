@@ -1,0 +1,81 @@
+"""GraphBatch: the fixed-capacity id/mask arrays of one k-hop minibatch.
+
+The host builds it in numpy from a sampled subgraph; ``.to(device)`` ships
+it to the card as pinned, non-blocking copies. Features are gathered on the
+device from the resident tables (``edge_table[edge_gather]``). Seed edges
+occupy lanes ``[0, num_seeds)``; ``seed_mask`` marks the real rows (the
+last batch is padded).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..graph.sampler import SampledSubgraph
+
+
+@dataclasses.dataclass
+class GraphBatch:
+    edge_gather: np.ndarray        # [E_cap] int32 row ids into the edge table
+    edge_mask: np.ndarray          # [E_cap] bool
+    edge_index: np.ndarray         # [2, E_cap] int32 local node ids
+    node_gather: np.ndarray        # [N_cap] int32 row ids into the node table
+    node_mask: np.ndarray          # [N_cap] bool
+    seed_mask: np.ndarray          # [B] bool
+    y: Optional[np.ndarray]        # [B, T] packed target (leading slots)
+    num_dropped: int = 0           # edges the sampler dropped at capacity
+
+    @property
+    def num_seeds(self) -> int:
+        return int(self.seed_mask.shape[0])
+
+    def to(self, device) -> "GraphBatch":
+        """Copy every array to ``device`` (pinned + non-blocking on CUDA);
+        index arrays become int64, as torch's gathers and scatters want."""
+        device = torch.device(device)
+
+        def put(a, dtype=None):
+            if a is None:
+                return None
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if device.type == "cuda":
+                t = t.pin_memory().to(device, non_blocking=True)
+            return t if dtype is None else t.to(dtype)
+
+        return GraphBatch(
+            edge_gather=put(self.edge_gather, torch.int64),
+            edge_mask=put(self.edge_mask),
+            edge_index=put(self.edge_index, torch.int64),
+            node_gather=put(self.node_gather, torch.int64),
+            node_mask=put(self.node_mask),
+            seed_mask=put(self.seed_mask),
+            y=put(self.y),
+            num_dropped=self.num_dropped)
+
+
+def _pack_sub(sub: SampledSubgraph, valid_seeds: int, y) -> GraphBatch:
+    seed_mask = np.zeros(sub.num_seeds, dtype=bool)
+    seed_mask[:valid_seeds] = True
+    return GraphBatch(
+        edge_gather=np.maximum(sub.edge_ids, 0).astype(np.int32),
+        edge_mask=sub.edge_mask.copy(),
+        edge_index=sub.edge_index.astype(np.int32),
+        node_gather=np.maximum(sub.node_ids, 0).astype(np.int32),
+        node_mask=sub.node_mask.copy(),
+        seed_mask=seed_mask,
+        y=None if y is None else np.asarray(y),
+        num_dropped=sub.num_dropped)
+
+
+def graph_inputs(batch_y: np.ndarray, valid: int, store, mode: str,
+                 edge_capacity: int, node_capacity: int,
+                 rng_seed: int) -> GraphBatch:
+    """Edge-seeded batch: seeds are the packed target's last 3 slots
+    [src, dst, edge_id]; y keeps the leading slots."""
+    edges = batch_y[:, -3:].astype(np.int64)
+    sub = store.sample_edges(edges, mode, edge_capacity, node_capacity,
+                             rng_seed)
+    return _pack_sub(sub, valid, batch_y[:, :-3])

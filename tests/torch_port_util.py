@@ -1,0 +1,54 @@
+"""Helpers shared by the port's parity tests (``tests/test_torch_*.py``)
+and ``tools/make_torch_port_fixture.py``: numpy only, no test cases."""
+from __future__ import annotations
+
+import numpy as np
+
+
+def randomize_jax_variables(variables: dict, seed: int) -> dict:
+    """Replace every leaf of a flax variable tree with seeded random values
+    (numpy arrays), biases and BatchNorm statistics included, so that a
+    wrong mapping cannot hide behind a zero or one initialization.
+    Kernels get std 1/sqrt(fan_in), 1-D leaves std 0.1 (around 1 for norm
+    scales), BatchNorm variances are drawn in [0.5, 2)."""
+    rng = np.random.RandomState(seed)
+
+    def leaf(path, a):
+        a = np.asarray(a)
+        name = path[-1]
+        if path[0] == "batch_stats":
+            if name == "var":
+                return rng.uniform(0.5, 2.0, a.shape).astype(np.float32)
+            return (rng.randn(*a.shape) * 0.3).astype(np.float32)
+        if name == "scale":
+            return (1.0 + 0.1 * rng.randn(*a.shape)).astype(np.float32)
+        std = 1.0 / np.sqrt(a.shape[0]) if a.ndim >= 2 else 0.1
+        if a.ndim == 3:   # timestamp weight [n_cols, 10, C]
+            std = 1.0 / np.sqrt(a.shape[1])
+        return (rng.randn(*a.shape) * std).astype(np.float32)
+
+    def walk(path, node):
+        if isinstance(node, dict) or hasattr(node, "items"):
+            return {k: walk(path + (k,), v) for k, v in node.items()}
+        return leaf(path, node)
+
+    return walk((), variables)
+
+
+def init_random(flax_module, *args, seed: int = 0, **kwargs) -> dict:
+    """Initialize ``flax_module`` on ``args`` and randomize every leaf."""
+    import jax
+
+    variables = flax_module.init(jax.random.PRNGKey(seed), *args, **kwargs)
+    return randomize_jax_variables(
+        {k: v for k, v in variables.items()}, seed + 1000)
+
+
+def load_from_jax(port_module, variables: dict):
+    """Load converted JAX variables into a port module (strict both ways)
+    and put it in eval mode."""
+    from rmm_tpu_torch.convert import from_jax
+
+    port_module.load_state_dict(from_jax(variables, port_module),
+                                strict=True)
+    return port_module.eval()
