@@ -3,21 +3,25 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Phases, one JSON line each; any failed check exits non-zero before the
-last line is printed:
-
-Every run goes through all four phases:
+Phases, one JSON line each (several for the kernel phase); any failed
+check exits non-zero before the last line is printed. Every run goes
+through all of them:
 
 1. device  — the card's name and power limit (``nvidia-smi``).
 2. build   — compiles every kernel and the host graph engine from the
              checkout's sources, all compilers started together.
 3. kernel  — each CUDA kernel against its plain PyTorch version on the
-             card, at the serving path's shapes (edge tokens at the edge
-             capacity, node tokens at the node capacity, both read from
-             the fixture) and more (node tokens at the edge capacity,
-             C = 128, a ragged batch, a numpy keep-mask): max error,
-             kernel / plain / library times (CUDA events, warm, median),
-             and the bound.
+             card: the forward at the serving shapes (edge tokens at the
+             edge capacity, node tokens at the node capacity, both read
+             from the fixture), at the same shapes with the training
+             keep-mask (dropout 0.083), and more (node tokens at the edge
+             capacity, C = 128, a ragged batch, a numpy keep-mask); the
+             backward (and its reduce) against ``torch.autograd.grad`` of
+             the plain version at the training shapes with the keep-mask,
+             the same unmasked, C = 128 and a ragged batch. Max error
+             (the backward's relative to each reference tensor's largest
+             entry), kernel / plain / library times (CUDA events, warm,
+             median) and the bound.
 4. serve   — the port's predict CLI (``rmm_tpu_torch.cli.predict.main``)
              at the config of record: 131,072-row synthetic AML, tabgnn,
              C = 32, 2 layers, fanouts 100/100, batch 200, test split, on
@@ -26,6 +30,19 @@ Every run goes through all four phases:
              ``tools/make_torch_port_fixture.py``). Checks 4 kernel
              launches per batch, finite scores, and the first rows against
              the JAX results.
+5. train   — the port's training CLI (``rmm_tpu_torch.cli.main.main``) at
+             the config of record (dropout 0.083), one epoch on the same
+             data, ``--testing --sampler_threads 4 --save_model``: finite
+             loss; per train step 4 forward, 4 backward and 4 reduce
+             launches, per evaluated batch 4 forward; the checkpoint it
+             wrote serves through the predict CLI. Train rows/s, the median
+             step on the device's clock, epoch seconds, val/test f1 and AUC.
+6. train_parity — three train steps on the card with dropout 0 from the
+             fixture's weights against the JAX CPU record of the same
+             steps (``tests/fixtures/torch_port/aml_train_record.npz``,
+             written by ``tools/make_torch_port_train_fixture.py`` at the
+             config's widths on 16,384 rows): the three losses and every
+             parameter after step 3.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -46,11 +63,25 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
                        "aml_record.npz")
+TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
+                             "aml_train_record.npz")
+WORK = os.path.join(ROOT, "rmm_tpu_torch", "_build", "smoke")
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12     # HBM3
 PEAK_F32_FLOP_PER_S = 67e12    # float32 outside the tensor cores
 KERNEL_TOL = 1e-4              # abs: f32, sums in another order
+GRAD_TOL = 1e-4                # relative to the reference's largest entry:
+#                                the weight gradients sum ~786k tokens
 SCORE_TOL = 1e-3               # served score vs the JAX CPU fixture
+TRAIN_DROPOUT = 0.083          # the config of record's
+# Train parity against the JAX CPU record: the losses move apart as the
+# sums' order differs. Adam moves a parameter by at most ~lr a step (its
+# m̂/√v̂ is at most 1, 1.0014 and 1.0036 at steps 1-3), so where two runs'
+# near-zero gradients differ in sign their parameters part by up to ~2·lr
+# a step: 3 steps bound the largest error by 6.01·lr. The median error
+# (0.003·lr on the CPU) is what a wrong gradient would move.
+LOSS1_RTOL, LOSS_RTOL = 1e-4, 1e-3
+PARAM_MAX_LR, PARAM_MEDIAN_LR = 6.05, 0.05
 
 
 class SmokeFailure(RuntimeError):
@@ -108,6 +139,21 @@ def attention_floor(b, s, c, h, masked) -> tuple[float, float]:
     return t_bytes, t_ops
 
 
+def attention_bwd_floor(b, s, c, h, masked, blocks) -> tuple[float, float]:
+    """The backward's least times (ms): x and do read, dx written, the
+    keep-mask, the weights read and their gradients written, and the
+    ``blocks`` partial slices written and read back; operations: about
+    11·C² FMAs a token (qkv again, dctx, dx, dWqkv, dWout) and 6·S·C for
+    the attention (scores, ctx, dP, dq, dk, dv)."""
+    total = 4 * c * c + 4 * c
+    nbytes = 4 * (3 * b * s * c + 2 * total + 2 * blocks * total)
+    if masked:
+        nbytes += b * h * s * s
+    flops = 2 * b * s * (11 * c * c + 6 * s * c)
+    return (nbytes / PEAK_BYTES_PER_S * 1e3,
+            flops / PEAK_F32_FLOP_PER_S * 1e3)
+
+
 def bound(t_bytes: float, t_ops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
@@ -119,40 +165,69 @@ def fixture_settings() -> dict:
     return json.loads(str(np.load(FIXTURE)["settings"]))
 
 
-def kernel_phase(card: str) -> list[dict]:
-    """Column attention on the card against its plain version; the first
-    two records are the shapes the serve phase gives the kernel."""
+def random_inputs(rng, b, s, c, device):
     import numpy as np
     import torch
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.randn(*shape) * scale).astype(np.float32)).to(device)
+
+    return (t(b, s, c), t(c, 3 * c, scale=c ** -0.5), t(3 * c, scale=0.1),
+            t(c, c, scale=c ** -0.5), t(c, scale=0.1))
+
+
+def library_attention(x, wqkv, bqkv, wout, bout, h):
+    """One ``torch.nn.functional.multi_head_attention_forward`` call with
+    the same weights (a yardstick only: the port never calls it)."""
     import torch.nn.functional as F
+
+    q = x.transpose(0, 1)
+    c = x.shape[-1]
+    return F.multi_head_attention_forward(
+        q, q, q, c, h, wqkv.t(), bqkv, None, None, False, 0.0, wout.t(),
+        bout, training=False, need_weights=False)[0].transpose(0, 1)
+
+
+def kernel_phase(card: str) -> dict:
+    """Column attention on the card against its plain version. Returns the
+    records of the main path's shapes: ``fwd``/``fwd_masked``/``bwd`` pairs
+    (edge tokens at the edge capacity, node tokens at the node capacity)
+    and ``bwd_unmasked`` (where the library call times the backward)."""
+    import numpy as np
+    import torch
 
     from rmm_tpu_torch.ops import column_attention as ca
 
     st = fixture_settings()
     edges, nodes, c = st["edge_capacity"], st["node_capacity"], st["n_hidden"]
-    shapes = [  # (B, S, C, H, masked)
-        (edges, 6, c, 8, False),     # serving path: edge tokens
-        (nodes, 2, c, 8, False),     # serving path: node tokens
-        (edges, 2, c, 8, False),     # node tokens at the edge capacity
-        (32768, 6, 128, 8, False),   # SSL width, weights via L2
-        (100003, 6, 32, 8, False),   # ragged batch
-        (4099, 6, 64, 4, True),      # numpy keep-mask, dropout 0.3
+    p = TRAIN_DROPOUT
+    fwd_shapes = [  # (B, S, C, H, dropout)
+        (edges, 6, c, 8, 0.0),       # serving path: edge tokens
+        (nodes, 2, c, 8, 0.0),       # serving path: node tokens
+        (edges, 6, c, 8, p),         # training path: edge tokens
+        (nodes, 2, c, 8, p),         # training path: node tokens
+        (edges, 2, c, 8, 0.0),       # node tokens at the edge capacity
+        (32768, 6, 128, 8, 0.0),     # SSL width, weights via L2
+        (100003, 6, 32, 8, 0.0),     # ragged batch
+        (4099, 6, 64, 4, 0.3),       # numpy keep-mask, dropout 0.3
+    ]
+    bwd_shapes = [
+        (edges, 6, c, 8, p),         # training path: edge tokens
+        (nodes, 2, c, 8, p),         # training path: node tokens
+        (edges, 6, c, 8, 0.0),       # the same unmasked (library time)
+        (nodes, 2, c, 8, 0.0),
+        (32768, 6, 128, 8, 0.0),     # SSL width, sums in device memory
+        (100003, 6, 32, 8, p),       # ragged batch
     ]
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
-    results = []
-    for b, s, c, h, masked in shapes:
-        def t(*shape, scale=1.0):
-            return torch.from_numpy(
-                (rng.randn(*shape) * scale).astype(np.float32)).to(dev)
-
-        x = t(b, s, c)
-        wqkv, bqkv = t(c, 3 * c, scale=c ** -0.5), t(3 * c, scale=0.1)
-        wout, bout = t(c, c, scale=c ** -0.5), t(c, scale=0.1)
-        mask, rate = None, 0.0
-        if masked:
-            mask = torch.from_numpy(rng.rand(b, h, s, s) >= 0.3).to(dev)
-            rate = 0.3
+    fwd, bwd = [], []
+    for b, s, c, h, rate in fwd_shapes:
+        x, wqkv, bqkv, wout, bout = random_inputs(rng, b, s, c, dev)
+        mask = None
+        if rate > 0:
+            mask = torch.from_numpy(rng.rand(b, h, s, s) >= rate).to(dev)
         args = (x, wqkv, bqkv, wout, bout, h, mask, rate)
         with torch.inference_mode():
             out = ca.fused_column_attention(*args)
@@ -160,91 +235,159 @@ def kernel_phase(card: str) -> list[dict]:
             torch.cuda.synchronize()
             err = float((out - ref).abs().max())
             check(math.isfinite(err) and err <= KERNEL_TOL,
-                  f"column attention {b}x{s}x{c}/{h} mask={masked}: "
+                  f"column attention {b}x{s}x{c}/{h} p={rate}: "
                   f"max_abs_err {err} > {KERNEL_TOL}")
             k_ms = time_ms(lambda: ca.fused_column_attention(*args))
             p_ms = time_ms(lambda: ca.reference_column_attention(*args))
             lib_ms = None
-            if not masked:   # no library call takes an explicit keep-mask
-                q = x.transpose(0, 1)
-                w_in, w_o = wqkv.t().contiguous(), wout.t().contiguous()
-
-                def lib():
-                    return F.multi_head_attention_forward(
-                        q, q, q, c, h, w_in, bqkv, None, None, False, 0.0,
-                        w_o, bout, training=False, need_weights=False)[0]
-
-                lib_err = float((lib().transpose(0, 1) - ref).abs().max())
+            if mask is None:   # no library call takes an explicit keep-mask
+                lib = (x, wqkv, bqkv, wout, bout, h)
+                lib_err = float((library_attention(*lib) - ref).abs().max())
                 check(lib_err <= KERNEL_TOL,
                       f"library attention disagrees: {lib_err}")
-                lib_ms = time_ms(lib)
-        t_bytes, t_ops = attention_floor(b, s, c, h, masked)
+                lib_ms = time_ms(lambda: library_attention(*lib))
+        t_bytes, t_ops = attention_floor(b, s, c, h, mask is not None)
         bound_ms, by = bound(t_bytes, t_ops)
         rec = {"phase": "kernel", "kernel": "column_attention_fwd",
-               "B": b, "S": s, "C": c, "H": h, "masked": masked,
+               "B": b, "S": s, "C": c, "H": h, "dropout": rate,
                "max_abs_err": err, "tol": KERNEL_TOL, "kernel_ms": k_ms,
                "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
                "bound_by": by, "bytes_ms": t_bytes, "ops_ms": t_ops,
                "card": card, "ok": True}
         emit(rec)
-        results.append(rec)
-        del x, out, ref, mask
+        fwd.append(rec)
+        del x, out, ref, mask, args
         torch.cuda.empty_cache()
-    return results
+
+    for b, s, c, h, rate in bwd_shapes:
+        inputs = random_inputs(rng, b, s, c, dev)
+        do = random_inputs(rng, b, s, c, dev)[0]
+        mask = None
+        if rate > 0:
+            mask = torch.from_numpy(rng.rand(b, h, s, s) >= rate).to(dev)
+        x, wqkv, bqkv, wout, _ = inputs
+        args = (x, do, wqkv, bqkv, wout, h, mask, rate)
+        got = ca.column_attention_bwd(*args)
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        out = ca.reference_column_attention(*leaves, h, mask, rate)
+        want = torch.autograd.grad(out, leaves, do, retain_graph=True)
+        torch.cuda.synchronize()
+        names = ("dx", "dwqkv", "dbqkv", "dwout", "dbout")
+        errs = {n: float((g - w).abs().max() / w.abs().max().clamp(
+            min=1e-30)) for n, g, w in zip(names, got, want)}
+        check(all(math.isfinite(e) and e <= GRAD_TOL for e in errs.values()),
+              f"column attention backward {b}x{s}x{c}/{h} p={rate}: "
+              f"relative errors {errs} > {GRAD_TOL}")
+        k_ms = time_ms(lambda: ca.column_attention_bwd(*args))
+        p_ms = time_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                   retain_graph=True))
+        lib_ms = None
+        if mask is None:   # the backward alone of the library call
+            lib_out = library_attention(*leaves, h)
+            lib_dx = torch.autograd.grad(lib_out, leaves[0], do,
+                                         retain_graph=True)[0]
+            lib_err = float((lib_dx - want[0]).abs().max()
+                            / want[0].abs().max())
+            check(lib_err <= GRAD_TOL,
+                  f"library attention backward disagrees: {lib_err}")
+            lib_ms = time_ms(lambda: torch.autograd.grad(
+                lib_out, leaves, do, retain_graph=True))
+        blocks = ca.bwd_plan(b, s, c, h)[2]
+        t_bytes, t_ops = attention_bwd_floor(b, s, c, h, mask is not None,
+                                             blocks)
+        bound_ms, by = bound(t_bytes, t_ops)
+        rec = {"phase": "kernel", "kernel": "column_attention_bwd",
+               "B": b, "S": s, "C": c, "H": h, "dropout": rate,
+               "blocks": blocks, "max_rel_err": errs, "tol": GRAD_TOL,
+               "max_abs_err": max(float((g - w).abs().max())
+                                  for g, w in zip(got, want)),
+               "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+               "bound_ms": bound_ms, "bound_by": by, "bytes_ms": t_bytes,
+               "ops_ms": t_ops, "card": card, "ok": True}
+        emit(rec)
+        bwd.append(rec)
+        del inputs, do, mask, args, got, leaves, out, want
+        torch.cuda.empty_cache()
+    return {"fwd": fwd[:2], "fwd_masked": fwd[2:4], "bwd": bwd[:2],
+            "bwd_unmasked": bwd[2:4]}
 
 
-def serve_phase(card: str) -> dict:
-    """The port's predict CLI at the config of record, on the card."""
-    import numpy as np
+def prepare_data() -> str:
+    """The config of record's synthetic AML CSV, under the build dir."""
+    from rmm_tpu_torch.datasets import write_synthetic_aml_csv
+
+    st = fixture_settings()
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    return write_synthetic_aml_csv(os.path.join(WORK, "aml.csv"),
+                                   num_rows=st["rows"],
+                                   num_accounts=st["num_accounts"],
+                                   seed=st["data_seed"])
+
+
+def record_argv(st: dict, csv: str) -> list[str]:
+    return ["--data", csv, "--model", st["model"],
+            "--n_hidden", str(st["n_hidden"]),
+            "--n_gnn_layers", str(st["n_gnn_layers"]),
+            "--num_neighs", *map(str, st["num_neighs"]),
+            "--batch_size", str(st["batch_size"]), "--seed", str(st["seed"])]
+
+
+def reset_counts():
+    from rmm_tpu_torch.ops import column_attention as ca
+
+    ca.launches = ca.bwd_launches = ca.reduce_launches = 0
+
+
+def read_counts() -> dict:
+    from rmm_tpu_torch.ops import column_attention as ca
+
+    return {"fwd": ca.launches, "bwd": ca.bwd_launches,
+            "reduce": ca.reduce_launches}
+
+
+def serve(argv: list[str], stats: dict):
+    """The predict CLI with the launch counts set to 0 just before it and
+    read just after: (output, counts, wall seconds)."""
     import torch
 
     from rmm_tpu_torch.cli import predict
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out = predict.main(argv, stats)
+    torch.cuda.synchronize()
+    return out, read_counts(), time.perf_counter() - t0
+
+
+def serve_phase(card: str, csv: str) -> dict:
+    """The port's predict CLI at the config of record, on the card."""
+    import numpy as np
+
     from rmm_tpu_torch.convert import from_jax
-    from rmm_tpu_torch.datasets import write_synthetic_aml_csv
-    from rmm_tpu_torch.ops import column_attention as ca
     from rmm_tpu_torch.utils.checkpoint import save_checkpoint
 
     fx = np.load(FIXTURE)
     st = fixture_settings()
-    work = os.path.join(ROOT, "rmm_tpu_torch", "_build", "smoke")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
-    try:
-        csv = os.path.join(work, "aml.csv")
-        write_synthetic_aml_csv(csv, num_rows=st["rows"],
-                                num_accounts=st["num_accounts"],
-                                seed=st["data_seed"])
-        prefix = "variables/"
-        state = from_jax({k[len(prefix):]: fx[k] for k in fx.files
-                          if k.startswith(prefix)})
-        ckpt = save_checkpoint(os.path.join(work, "ckpt"), state,
-                               {"model": st["model"]})
-        argv = ["--data", csv, "--model", st["model"],
-                "--n_hidden", str(st["n_hidden"]),
-                "--n_gnn_layers", str(st["n_gnn_layers"]),
-                "--num_neighs", *map(str, st["num_neighs"]),
-                "--batch_size", str(st["batch_size"]),
-                "--seed", str(st["seed"]), "--sampler_threads", "4",
-                "--load_model", ckpt, "--split", "test",
-                "--output", os.path.join(work, "preds.csv"),
-                "--device", "cuda"]
-        run: dict = {}
-        ca.launches = 0
-        t0 = time.perf_counter()
-        out = predict.main(argv, run)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = ca.launches
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    prefix = "variables/"
+    state = from_jax({k[len(prefix):]: fx[k] for k in fx.files
+                      if k.startswith(prefix)})
+    ckpt = save_checkpoint(os.path.join(WORK, "ckpt"), state,
+                           {"model": st["model"]})
+    argv = record_argv(st, csv) + [
+        "--sampler_threads", "4", "--load_model", ckpt, "--split", "test",
+        "--output", os.path.join(WORK, "preds.csv"), "--device", "cuda"]
+    run: dict = {}
+    out, counts, wall = serve(argv, run)
 
     rows = len(out["id"])
     batches = -(-rows // st["batch_size"])
+    launches = counts["fwd"]
     check(rows == st["test_rows"], f"served {rows} rows, test split has "
           f"{st['test_rows']}")
-    check(launches == 4 * batches,
-          f"{launches} kernel launches for {batches} batches (expected 4 "
-          "per batch: 2 layers x node and edge tokens)")
+    check(launches == 4 * batches and counts["bwd"] == 0,
+          f"{counts} kernel launches for {batches} batches (expected 4 "
+          "forwards per batch: 2 layers x node and edge tokens)")
     check((run["edge_capacity"], run["node_capacity"])
           == (st["edge_capacity"], st["node_capacity"]),
           f"capacities {run['edge_capacity']}/{run['node_capacity']} vs "
@@ -271,6 +414,135 @@ def serve_phase(card: str) -> dict:
     return rec
 
 
+def train_phase(card: str, csv: str) -> dict:
+    """One epoch of the port's training CLI at the config of record, then
+    its checkpoint through the predict CLI."""
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.cli import main as train_cli
+
+    st = fixture_settings()
+    argv = record_argv(st, csv) + [
+        "--epochs", "1", "--testing", "--sampler_threads", "4",
+        "--save_model", "--wandb_dir", os.path.join(WORK, "runs"),
+        "--device", "cuda"]
+    stats: dict = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    history, _ = train_cli.main(argv, stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+
+    (ep,) = history
+    b = st["batch_size"]
+    train_rows, val_rows, test_rows = stats["split_rows"]
+    steps = -(-train_rows // b)
+    evals = -(-val_rows // b) + -(-test_rows // b)
+    check(math.isfinite(ep["loss"]), f"train loss {ep['loss']}")
+    check(counts == {"fwd": 4 * (steps + evals), "bwd": 4 * steps,
+                     "reduce": 4 * steps},
+          f"launches {counts} for {steps} train steps and {evals} evaluated "
+          "batches (expected 4 forwards per batch, 4 backwards and 4 "
+          "reduces per step: 2 layers x node and edge tokens)")
+    check((stats["edge_capacity"], stats["node_capacity"])
+          == (st["edge_capacity"], st["node_capacity"]),
+          "training capacities differ from the fixture's")
+    for key in ("val_f1", "test_f1", "val_auc", "test_auc"):
+        check(math.isfinite(ep[key]), f"{key} = {ep[key]}")
+
+    ckpt = os.path.join(stats["run_dir"], "0")
+    out, serve_counts, _ = serve(record_argv(st, csv) + [
+        "--sampler_threads", "4", "--load_model", ckpt, "--split", "test",
+        "--output", os.path.join(WORK, "trained.csv"), "--device", "cuda"],
+        {})
+    check(len(out["id"]) == test_rows and np.isfinite(out["score"]).all(),
+          "the trained checkpoint did not serve the test split")
+    rec = {"phase": "train", "train_rows": train_rows, "steps": steps,
+           "evaluated_batches": evals, "launches": counts,
+           "launches_per_step": {k: counts[k] / steps
+                                 for k in ("bwd", "reduce")},
+           "loss": ep["loss"], "train_f1": ep["f1"], "train_auc": ep["auc"],
+           "val_f1": ep["val_f1"], "val_auc": ep["val_auc"],
+           "test_f1": ep["test_f1"], "test_auc": ep["test_auc"],
+           "drop_rate": ep["drop_rate"], "epoch_s": ep["sec"],
+           "train_rows_per_s": train_rows / ep["sec"],
+           "step_ms_median": ep["step_ms"], "setup_s": stats["setup_s"],
+           "fit_s": stats["fit_s"], "wall_s": wall,
+           "served_trained_rows": len(out["id"]),
+           "served_trained_launches": serve_counts["fwd"], "card": card,
+           "ok": True}
+    emit(rec)
+    return rec
+
+
+def train_parity_phase(card: str) -> dict:
+    """Three train steps on the card (dropout 0) from the fixture's
+    weights, against the JAX CPU record of the same steps."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.convert import from_jax
+    from rmm_tpu_torch.datasets import build_dataset, write_synthetic_aml_csv
+    from rmm_tpu_torch.train.trainer import Trainer
+    from rmm_tpu_torch.utils.config import config_from_args, create_parser
+
+    rec = np.load(TRAIN_FIXTURE)
+    st = json.loads(str(rec["settings"]))
+    csv = write_synthetic_aml_csv(os.path.join(WORK, "aml_parity.csv"),
+                                  num_rows=st["rows"],
+                                  num_accounts=st["num_accounts"],
+                                  seed=st["data_seed"])
+    cfg = config_from_args(create_parser().parse_args(record_argv(st, csv) + [
+        "--dropout", "0", "--edge_capacity", str(st["edge_capacity"]),
+        "--node_capacity", str(st["node_capacity"]), "--device", "cuda"]))
+    tr = Trainer(cfg, build_dataset(cfg))
+    fx = np.load(FIXTURE)
+    tr.model.load_state_dict(from_jax(
+        {k[len("variables/"):]: fx[k] for k in fx.files
+         if k.startswith("variables/")}, tr.model))
+    batches = list(itertools.islice(
+        tr._batches(tr.dataset.edges.split()[0], "train", st["epoch"]),
+        st["steps"]))
+    reset_counts()
+    tr.model.train()
+    losses = [float(tr._step(gb.to(tr.device))[0]) for gb in batches]
+    counts = read_counts()
+    want_losses = [float(v) for v in rec["losses"]]
+    want = from_jax({k[len("after/"):]: rec[k] for k in rec.files
+                     if k.startswith("after/")}, tr.model)
+    state = tr.model.state_dict()
+    errs = torch.cat([(state[k].cpu() - v).abs().flatten()
+                      for k, v in want.items()])
+    param_err, param_median = float(errs.max()), float(errs.median())
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, want_losses)]
+    n = st["steps"]
+    check(counts == {"fwd": 4 * n, "bwd": 4 * n, "reduce": 4 * n},
+          f"launches {counts} for {n} train steps")
+    check(loss_rel[0] <= LOSS1_RTOL and max(loss_rel) <= LOSS_RTOL,
+          f"losses {losses} vs the JAX record's {want_losses}")
+    param_tol = PARAM_MAX_LR * st["lr"]
+    median_tol = PARAM_MEDIAN_LR * st["lr"]
+    check(param_err <= param_tol and param_median <= median_tol,
+          f"parameters after {n} steps off the JAX record by {param_err} "
+          f"at most (> {param_tol}?) and {param_median} in the median "
+          f"(> {median_tol}?)")
+    out = {"phase": "train_parity", "rows": st["rows"], "steps": n,
+           "edge_capacity": st["edge_capacity"],
+           "node_capacity": st["node_capacity"], "losses": losses,
+           "jax_losses": want_losses, "loss_rel_err": loss_rel,
+           "loss_rtol": [LOSS1_RTOL, LOSS_RTOL], "param_max_abs_err":
+           param_err, "param_tol": param_tol,
+           "param_median_abs_err": param_median, "param_median_tol":
+           median_tol, "launches": counts,
+           "card": card, "ok": True}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -294,24 +566,37 @@ def main() -> int:
               "ptxas": [ln.strip() for log in logs.values()
                         for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]})
-        edge, node = kernel_phase(card)[:2]
-        serve = serve_phase(card)
-        # Per served batch the path launches the kernel twice at each of
-        # the two serving shapes: the times below are one such pair.
-        pair_bound, pair_by = bound(edge["bytes_ms"] + node["bytes_ms"],
-                                    edge["ops_ms"] + node["ops_ms"])
-        emit({"kernels": [{
-            "name": "column_attention_fwd", "route": "cuda",
-            "source": "rmm_tpu_torch/csrc/column_attention.cu",
-            "replaces": "rmm_tpu/ops/pallas/column_attention.py:165",
-            "launches": serve["launches"],
-            "max_abs_err": max(edge["max_abs_err"], node["max_abs_err"]),
-            "ms": edge["kernel_ms"] + node["kernel_ms"],
-            "plain_ms": edge["plain_ms"] + node["plain_ms"],
-            "bound_ms": pair_bound, "bound_by": pair_by,
-            "library_ms": edge["library_ms"] + node["library_ms"],
-            "shapes": [[r[k] for k in "BSCH"] for r in (edge, node)],
-            "ok": True}]})
+        kern = kernel_phase(card)
+        try:
+            csv = prepare_data()
+            serve_rec = serve_phase(card, csv)
+            train_rec = train_phase(card, csv)
+            train_parity_phase(card)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
+        emit({"kernels": [
+            kernel_entry("column_attention_fwd", 165, kern["fwd"],
+                         kern["fwd"], {
+                             "launches": serve_rec["launches"]
+                             + train_rec["launches"]["fwd"],
+                             "launches_by_path": {
+                                 "serve": serve_rec["launches"],
+                                 "train": train_rec["launches"]["fwd"]},
+                             "masked_ms": sum(r["kernel_ms"]
+                                              for r in kern["fwd_masked"]),
+                             "masked_plain_ms": sum(
+                                 r["plain_ms"] for r in kern["fwd_masked"]),
+                             "masked_bound_ms": bound(
+                                 sum(r["bytes_ms"] for r in kern["fwd_masked"]),
+                                 sum(r["ops_ms"] for r in kern["fwd_masked"]))[0]}),
+            kernel_entry("column_attention_bwd", 178, kern["bwd"],
+                         kern["bwd_unmasked"], {
+                             "launches": train_rec["launches"]["bwd"],
+                             "reduce_launches":
+                                 train_rec["launches"]["reduce"],
+                             "max_rel_err": max(max(r["max_rel_err"].values())
+                                                for r in kern["bwd"]),
+                             "library_masked": False})]})
         print(card, flush=True)
     except Exception:
         traceback.print_exc()
@@ -319,6 +604,25 @@ def main() -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})
     return 0
+
+
+def kernel_entry(name: str, line: int, pair: list, lib_pair: list,
+                 extra: dict) -> dict:
+    """One ``kernels`` entry: an edge + node pair of records, which is what
+    one layer of one batch launches (its bound from the pair's summed bytes
+    and operations); ``lib_pair`` gives the library time."""
+    bound_ms, by = bound(sum(r["bytes_ms"] for r in pair),
+                         sum(r["ops_ms"] for r in pair))
+    return {"name": name, "route": "cuda",
+            "source": "rmm_tpu_torch/csrc/column_attention.cu",
+            "replaces": f"rmm_tpu/ops/pallas/column_attention.py:{line}",
+            "max_abs_err": max(r["max_abs_err"] for r in pair),
+            "ms": sum(r["kernel_ms"] for r in pair),
+            "plain_ms": sum(r["plain_ms"] for r in pair),
+            "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": sum(r["library_ms"] for r in lib_pair),
+            "shapes": [[r[k] for k in "BSCH"] + [r["dropout"]]
+                       for r in pair], **extra, "ok": True}
 
 
 if __name__ == "__main__":

@@ -4,6 +4,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .dropout import GeneratorDropout
+from .gnn.conv import gather
+
 
 class _MLP50(nn.Module):
     """Linear(in→50) ReLU Dropout Linear(50→25) ReLU Dropout Linear(25→C)."""
@@ -14,7 +17,7 @@ class _MLP50(nn.Module):
         self.fc1 = nn.Linear(in_features, 50)
         self.fc2 = nn.Linear(50, 25)
         self.fc3 = nn.Linear(25, n_classes)
-        self.drop = nn.Dropout(dropout)
+        self.drop = GeneratorDropout(dropout)
 
     def forward(self, x):
         x = self.drop(torch.relu(self.fc1(x)))
@@ -32,7 +35,8 @@ class ClassifierHead(nn.Module):
         self.mlp = _MLP50(2 * n_hidden + edge_width, n_classes, dropout)
 
     def forward(self, x, edge_index, edge_attr):
-        pair = torch.cat([x[edge_index[0]], x[edge_index[1]]], dim=-1)
+        pair = torch.cat([gather(x, edge_index[0]), gather(x, edge_index[1])],
+                         dim=-1)
         h = torch.cat([torch.relu(pair),
                        edge_attr.reshape(edge_attr.shape[0], -1)], dim=-1)
         return self.mlp(h)

@@ -20,7 +20,10 @@ from ..frame.tensor_frame import TensorFrame
 
 class EmbeddingEncoder(nn.Module):
     """Categorical columns → one embedding table per column; code −1
-    (missing) maps to row 0 through ``clip(x + 1, 0, card)``."""
+    (missing) maps to row 0 through ``clip(x + 1, 0, card)``. Rows are
+    looked up with ``F.embedding``, whose backward sums the many repeats of
+    a code (a handful of codes over 131,072 lanes) by sorting, where the
+    backward of ``table[idx]`` walks each run of repeats in one thread."""
 
     def __init__(self, channels: int, cardinalities: Sequence[int]):
         super().__init__()
@@ -34,7 +37,8 @@ class EmbeddingEncoder(nn.Module):
         outs = []
         for i, card in enumerate(self.cardinalities):
             idx = torch.clamp(x[:, i].long() + 1, 0, card)
-            outs.append(getattr(self, f"embedding_{i}")[idx])
+            outs.append(nn.functional.embedding(
+                idx, getattr(self, f"embedding_{i}")))
         return torch.stack(outs, dim=1)                   # [B, n_cat, C]
 
 

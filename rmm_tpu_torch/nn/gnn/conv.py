@@ -1,12 +1,23 @@
 """Message passing over padded subgraphs (``rmm_tpu/nn/gnn/conv.py``):
 ``PNAConv``, the bidirectional ``PNAConvHetero`` and ``EdgeUpdateMLP``.
-Padded edge lanes never contribute (``edge_mask``)."""
+Padded edge lanes never contribute (``edge_mask``).
+
+Node rows are gathered per edge with :func:`gather`: every node has many
+edges and every padded lane points at node 0, so the gather's backward has
+to sum long runs of repeated indices, which ``F.embedding``'s backward
+does by sorting (``x[idx]``'s backward walks each run in one thread).
+"""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
 from ...ops.segment import pna_aggregate
+
+
+def gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` for a 2-D ``x`` and 1-D ``idx``."""
+    return nn.functional.embedding(idx, x)
 
 
 class PNAConv(nn.Module):
@@ -26,7 +37,7 @@ class PNAConv(nn.Module):
     def forward(self, x, edge_index, edge_attr, edge_mask=None):
         src, dst = edge_index[0], edge_index[1]
         e = self.edge_encoder(edge_attr)
-        h = torch.cat([x[dst], x[src], e], dim=-1)           # [E, 3F]
+        h = torch.cat([gather(x, dst), gather(x, src), e], dim=-1)   # [E, 3F]
         m = self.pre_nn(h)
         agg = pna_aggregate(m, dst, x.shape[0], self.avg_log_deg, edge_mask)
         return self.lin(self.post_nn(torch.cat([x, agg], dim=-1)))
@@ -58,5 +69,5 @@ class EdgeUpdateMLP(nn.Module):
 
     def forward(self, x, edge_index, edge_attr):
         src, dst = edge_index[0], edge_index[1]
-        h = torch.cat([x[src], x[dst], edge_attr], dim=-1)
+        h = torch.cat([gather(x, src), gather(x, dst), edge_attr], dim=-1)
         return self.lin2(torch.relu(self.lin1(h)))

@@ -6,6 +6,8 @@
 head_dim: the CUDA kernel for CUDA tensors, its plain twin on the CPU. The
 JAX package's gate (kernel off below head_dim 16 and off the TPU) was a TPU
 workaround and does not carry over. LayerNorms use flax's epsilon (1e-6).
+Dropout (the attention keep-mask and the elementwise dropouts) draws from
+the generator that :func:`~rmm_tpu_torch.nn.dropout.set_generator` gives.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 from torch import nn
 
 from ..ops.column_attention import fused_column_attention
+from .dropout import GeneratorDropout, keep_mask
 
 LN_EPS = 1e-6   # flax.linen.LayerNorm default
 
@@ -34,13 +37,14 @@ class MultiHeadSelfAttention(nn.Module):
         self.qkv_bias = nn.Parameter(torch.empty(3 * channels))
         self.out_kernel = nn.Parameter(torch.empty(channels, channels))
         self.out_bias = nn.Parameter(torch.empty(channels))
+        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, _ = x.shape
         mask = None
         if self.training and self.dropout > 0.0:
-            mask = torch.rand(b, self.nhead, s, s,
-                              device=x.device) < 1.0 - self.dropout
+            mask = keep_mask((b, self.nhead, s, s), self.dropout,
+                             self.generator, x.device)
         return fused_column_attention(
             x, self.qkv_kernel, self.qkv_bias, self.out_kernel,
             self.out_bias, self.nhead, drop_mask=mask,
@@ -63,7 +67,7 @@ class TransformerEncoderLayer(nn.Module):
         self.linear1 = nn.Linear(channels, ff)
         self.linear2 = nn.Linear(ff, channels)
         self.norm2 = nn.LayerNorm(channels, eps=LN_EPS)
-        self.drop = nn.Dropout(dropout)
+        self.drop = GeneratorDropout(dropout)
         self.act = {"relu": torch.relu,
                     "gelu": nn.functional.gelu}[activation]
 

@@ -1,17 +1,25 @@
-"""Fused column attention: the CUDA kernel's wrapper and its plain twin.
+"""Fused column attention: the CUDA kernels' wrapper and its plain twin.
 
 The tabular models attend over the column-token axis: ``S = num_cols + 1``
 tokens (2 for the AML nodes table, 6 for its edges) with a batch axis of up
 to 131,072 lanes. :func:`fused_column_attention` keeps the JAX signature and
 layout (``x [B, S, C]``, ``Wqkv [C, 3C]``, ``Wout [C, C]``, an optional
-``[B, nhead, S, S]`` bool keep-mask) and runs
-``csrc/column_attention.cu`` — the port of the TPU kernel
-``rmm_tpu/ops/pallas/column_attention.py::_fwd_kernel`` — for CUDA tensors.
-CPU tensors take :func:`reference_column_attention`, the PyTorch twin of
-``_attention_math``; a CUDA tensor launches the kernel or raises. Why the
-kernel is built the way it is, and what bounds it, is noted in its source.
+``[B, nhead, S, S]`` bool keep-mask) and runs ``csrc/column_attention.cu``
+for CUDA tensors: the forward kernel (the port of the TPU kernel
+``rmm_tpu/ops/pallas/column_attention.py::_fwd_kernel``) and, under
+autograd, the backward kernel and its reduce (the port of ``_bwd_kernel``),
+through :class:`ColumnAttentionFunction`. The backward recomputes from
+``x`` alone, as the TPU kernel does: the Function saves ``x``, the weights
+and the keep-mask, nothing of the forward's insides.
 
-``launches`` counts the kernel's launches (and nothing else).
+CPU tensors take :func:`reference_column_attention`, the PyTorch twin of
+``_attention_math``, whose backward is autograd's; a CUDA tensor launches
+the kernels or raises. Why the kernels are built the way they are, and what
+bounds them, is noted in their source.
+
+``launches`` counts forward-kernel launches, ``bwd_launches`` backward-kernel
+launches and ``reduce_launches`` launches of the backward's reduce (one per
+backward), and nothing else.
 """
 from __future__ import annotations
 
@@ -21,10 +29,13 @@ import math
 import torch
 
 launches = 0
+bwd_launches = 0
+reduce_launches = 0
 
 MAX_S = 16                   # the kernel keeps a row's S×S scores in registers
 MAX_C = 128
 _ROW_BUDGET_FLOATS = 10240   # shared memory for one group's x/ctx + qkv
+_BWD_ROW_BUDGET_FLOATS = 20480  # the backward's 10·S·C + 2·H·S² a row
 _WEIGHTS_IN_SMEM_MAX_C = 64  # 4·C² floats = 64 kB at C = 64
 
 _lib = None
@@ -41,6 +52,13 @@ def _kernel():
         lib.rmm_column_attention_fwd.argtypes = [
             p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, p]
+        lib.rmm_column_attention_bwd_grid.restype = ctypes.c_int
+        lib.rmm_column_attention_bwd_grid.argtypes = [ctypes.c_int] * 6
+        lib.rmm_column_attention_bwd.restype = ctypes.c_int
+        lib.rmm_column_attention_bwd.argtypes = [
+            p, p, p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, p]
         lib.rmm_cuda_error_string.restype = ctypes.c_char_p
         lib.rmm_cuda_error_string.argtypes = [ctypes.c_int]
         _lib = lib
@@ -90,13 +108,39 @@ def fused_column_attention(x, wqkv, bqkv, wout, bout, nhead: int,
                                           drop_mask, dropout_rate)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    return _launch(x, wqkv, bqkv, wout, bout, nhead,
-                   drop_mask if masked else None, dropout_rate)
+    keep = drop_mask if masked else None
+    rate = dropout_rate if masked else 0.0
+    _check_cuda_inputs(x, wqkv, bqkv, wout, bout, keep)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, wqkv, bqkv, wout, bout)):
+        return ColumnAttentionFunction.apply(x, wqkv, bqkv, wout, bout,
+                                             nhead, keep, rate)
+    return column_attention_fwd(x, wqkv, bqkv, wout, bout, nhead, keep,
+                                rate)
 
 
-def _launch(x, wqkv, bqkv, wout, bout, nhead, keep, dropout_rate):
-    global launches
-    b, s, c = x.shape
+class ColumnAttentionFunction(torch.autograd.Function):
+    """The forward kernel, and the backward kernel (which recomputes from
+    ``x``) as its gradient. Saves ``x``, the weights and the keep-mask."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, wout, bout, nhead, keep, rate):
+        ctx.nhead, ctx.rate = nhead, rate
+        ctx.save_for_backward(x, wqkv, bqkv, wout, keep)
+        return column_attention_fwd(x, wqkv, bqkv, wout, bout, nhead, keep,
+                                    rate)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        x, wqkv, bqkv, wout, keep = ctx.saved_tensors
+        grads = column_attention_bwd(x, do.contiguous(), wqkv, bqkv, wout,
+                                     ctx.nhead, keep, ctx.rate)
+        return (*grads, None, None, None)
+
+
+def _check_cuda_inputs(x, wqkv, bqkv, wout, bout, keep):
+    s, c = x.shape[1], x.shape[2]
     tensors = {"x": x, "wqkv": wqkv, "bqkv": bqkv, "wout": wout,
                "bout": bout}
     for name, t in tensors.items():
@@ -115,16 +159,25 @@ def _launch(x, wqkv, bqkv, wout, bout, nhead, keep, dropout_rate):
     if s > MAX_S or c > MAX_C:
         raise ValueError(f"the kernel takes S <= {MAX_S} and C <= {MAX_C}, "
                          f"got S={s}, C={c}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in tensors.values()):
-        raise NotImplementedError(
-            "the CUDA column-attention kernel has no backward yet")
+
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"column attention {what} failed to launch: "
+                           + _kernel().rmm_cuda_error_string(err).decode())
+
+
+def column_attention_fwd(x, wqkv, bqkv, wout, bout, nhead, keep=None,
+                         rate=0.0):
+    """The forward kernel on checked CUDA inputs (no autograd)."""
+    global launches
+    b, s, c = x.shape
     out = torch.empty_like(x)
     if b == 0:
         return out
     lib = _kernel()
     rows = max(1, min(b, _ROW_BUDGET_FLOATS // (4 * s * c + 2)))
-    inv_keep = 1.0 / (1.0 - dropout_rate) if keep is not None else 1.0
+    inv_keep = 1.0 / (1.0 - rate) if keep is not None else 1.0
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rmm_column_attention_fwd(
@@ -132,8 +185,51 @@ def _launch(x, wqkv, bqkv, wout, bout, nhead, keep, dropout_rate):
             bout.data_ptr(), None if keep is None else keep.data_ptr(),
             out.data_ptr(), b, s, c, nhead, inv_keep, rows,
             int(c <= _WEIGHTS_IN_SMEM_MAX_C), stream)
-    if err != 0:
-        raise RuntimeError("column attention kernel failed to launch: "
-                           + lib.rmm_cuda_error_string(err).decode())
+    _raise_on(err, "forward kernel")
     launches += 1
     return out
+
+
+def bwd_plan(b: int, s: int, c: int, nhead: int) -> tuple[int, int, int]:
+    """(rows per group, weights in shared memory, blocks) of the backward
+    kernel for this shape on the current card; one partial slice of
+    ``4C² + 4C`` floats per block."""
+    w_smem = int(c <= _WEIGHTS_IN_SMEM_MAX_C)
+    rows = max(1, min(b, _BWD_ROW_BUDGET_FLOATS
+                      // (10 * s * c + 2 * nhead * s * s + 8)))
+    grid = _kernel().rmm_column_attention_bwd_grid(b, s, c, nhead, rows,
+                                                   w_smem)
+    if grid < 0:
+        _raise_on(-grid, "backward kernel")
+    return rows, w_smem, grid
+
+
+def column_attention_bwd(x, do, wqkv, bqkv, wout, nhead, keep=None,
+                         rate=0.0):
+    """The backward kernel and its reduce on checked CUDA inputs (``do``
+    contiguous like ``x``): ``(dx, dWqkv, dbqkv, dWout, dbout)``."""
+    global bwd_launches, reduce_launches
+    b, s, c = x.shape
+    dx = torch.empty_like(x)
+    grads = torch.empty(4 * c * c + 4 * c, dtype=x.dtype, device=x.device)
+    if b == 0:
+        grads.zero_()
+    else:
+        inv_keep = 1.0 / (1.0 - rate) if keep is not None else 1.0
+        with torch.cuda.device(x.device):
+            rows, w_smem, grid = bwd_plan(b, s, c, nhead)
+            partials = torch.empty(grid, grads.numel(), dtype=x.dtype,
+                                   device=x.device)
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _kernel().rmm_column_attention_bwd(
+                x.data_ptr(), do.data_ptr(), wqkv.data_ptr(),
+                bqkv.data_ptr(), wout.data_ptr(),
+                None if keep is None else keep.data_ptr(), dx.data_ptr(),
+                partials.data_ptr(), grads.data_ptr(), b, s, c, nhead,
+                inv_keep, rows, w_smem, grid, stream)
+        _raise_on(err, "backward kernel")
+        bwd_launches += 1
+        reduce_launches += 1
+    k1, k2, k3 = 3 * c * c, 3 * c * c + 3 * c, 4 * c * c + 3 * c
+    return (dx, grads[:k1].view(c, 3 * c), grads[k1:k2],
+            grads[k2:k3].view(c, c), grads[k3:])

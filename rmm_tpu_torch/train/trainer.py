@@ -1,29 +1,42 @@
-"""Serving trainer: capacities, model, device-resident tables, host-sampled
-batches and batch inference (``rmm_tpu/train/trainer.py``: ``Trainer``
-``__init__``, ``_batches``, ``_forward_eval``, ``predict``).
+"""Trainer: capacities, model, device-resident tables, host-sampled
+batches, the train step, the epoch loop, evaluation and batch inference
+(``rmm_tpu/train/trainer.py``: ``Trainer`` without the scan/device-sampler
+paths).
 
 The host runs the C++ k-hop sampler and ships small id/mask arrays to the
 card as pinned, non-blocking copies; the edge and node feature tables go to
-the card once. The forward is only enqueued per batch: results stay on the
-device until the end of ``predict``, so the host samples the next batch
-while the card computes the last one. Training (loss, optimizer, ``fit``)
-is not part of this slice.
+the card once. Steps and forwards are only enqueued per batch: losses and
+predictions stay on the device until the end of the epoch (one host sync),
+so the host samples the next batch while the card computes the last one.
+
+Training: weighted cross-entropy on the seed edges, ``torch.optim.Adam(lr,
+eps=adam_eps)`` with no weight decay (the JAX trainer's ``optax.adam``),
+``--freeze`` keeping every ``tab_layer_*`` parameter out of the update.
+Dropout draws from one ``torch.Generator`` on the model's device, seeded
+from ``cfg.seed``.
 """
 from __future__ import annotations
 
 import collections
 import concurrent.futures
 import logging
+import statistics
+import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..frame.loader import DataLoader
 from ..frame.tensor_frame import TensorFrame
+from ..nn.dropout import set_generator
 from ..nn.encoders import make_stypewise_encoder
+from ..utils import checkpoint
 from ..utils.batch import GraphBatch
 from ..utils.config import Config
 from ..utils.device import resolve_device
+from ..utils.loss import cross_entropy
+from ..utils.metric import f1_score, roc_auc
 from ..utils.seeding import mix_seed
 from . import task_models
 
@@ -65,17 +78,35 @@ def _features(tf: TensorFrame, device) -> TensorFrame:
     return TensorFrame(feats=tf.feats, col_names=tf.col_names).to(device)
 
 
+def is_frozen(name: str) -> bool:
+    """``--freeze``: the tabular backbone layers (JAX: any path key holding
+    ``tab_layer``)."""
+    return any("tab_layer" in part for part in name.split("."))
+
+
 class Trainer:
     def __init__(self, cfg: Config, dataset, device=None):
         self.device = resolve_device(cfg.device if device is None
                                      else device)
         if cfg.precision != "f32":
-            raise NotImplementedError("this slice serves float32 only")
+            raise NotImplementedError("this port runs float32 only")
         cfg = resolve_capacities(cfg, dataset)
         self.cfg = cfg
         self.dataset = dataset
         self.model = task_models.init_parameters(
             build_task_model(cfg, dataset), cfg.seed).to(self.device).eval()
+        self.generator = torch.Generator(self.device).manual_seed(cfg.seed)
+        set_generator(self.model, self.generator)
+        if cfg.freeze:
+            for name, p in self.model.named_parameters():
+                if is_frozen(name):
+                    p.requires_grad_(False)
+        self.optimizer = torch.optim.Adam(
+            [p for p in self.model.parameters() if p.requires_grad],
+            lr=cfg.lr, eps=cfg.adam_eps)
+        self.loss_weights = torch.tensor(cfg.loss_weights,
+                                         dtype=torch.float32,
+                                         device=self.device)
         self.edge_table = _features(dataset.edges.tensor_frame, self.device)
         self.node_table = _features(dataset.nodes.tensor_frame, self.device)
 
@@ -108,21 +139,109 @@ class Trainer:
             while pending:
                 yield pending.popleft().result()
 
-    @torch.inference_mode()
-    def _forward_eval(self, batch: GraphBatch) -> dict:
-        """Device batch → device tensors ``pred_cls`` [B] and, for binary
-        heads, ``score`` [B] = P(class 1)."""
-        logits = self.model(self.edge_table, self.node_table, batch)
+    def _aux(self, logits: torch.Tensor) -> dict:
+        """Device tensors ``pred_cls`` [B] and, for binary heads, ``score``
+        [B] = P(class 1)."""
+        logits = logits.detach()
         aux = {"pred_cls": logits.argmax(dim=-1)}
         if self.cfg.n_classes == 2:
             aux["score"] = torch.softmax(logits, dim=-1)[:, 1]
         return aux
+
+    def _step(self, batch: GraphBatch):
+        """One train step on a device batch (the model in train mode): the
+        forward (BatchNorm running stats move here), the weighted loss on
+        the seed edges, the backward and the Adam update. Returns the loss
+        and ``_aux`` as device tensors; nothing waits for the card."""
+        logits = self.model(self.edge_table, self.node_table, batch)
+        loss = cross_entropy(logits, batch.y[:, 0], self.loss_weights,
+                             batch.seed_mask)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach(), self._aux(logits)
+
+    @torch.inference_mode()
+    def _forward_eval(self, batch: GraphBatch) -> dict:
+        return self._aux(self.model(self.edge_table, self.node_table, batch))
+
+    def _metrics(self, labels, preds, scores) -> dict:
+        avg = "binary" if self.cfg.n_classes == 2 else "weighted"
+        out = {"f1": f1_score(labels, preds, avg)}
+        if scores is not None:
+            out["auc"] = roc_auc(labels, scores)
+        return out
+
+    @staticmethod
+    def _gather(auxes: list, masks: list) -> tuple:
+        """Device aux tensors of a pass → host (preds, scores) on the real
+        rows; the pass's one host sync."""
+        m = np.concatenate(masks)
+        preds = torch.cat([a["pred_cls"] for a in auxes]).cpu().numpy()[m]
+        scores = None
+        if "score" in auxes[0]:
+            scores = torch.cat([a["score"] for a in auxes]).cpu().numpy()[m]
+        return preds, scores
+
+    def train_epoch(self, view, epoch: int) -> dict:
+        """One pass over the shuffled train view (``mode="train"``
+        sampling, per-epoch shuffle and sampler seeds): loss, seconds,
+        sampler drop rate, f1 (and AUC) of the train predictions, and on
+        the card the median step time on the device's clock."""
+        cfg = self.cfg
+        t0 = time.time()
+        self.model.train()
+        losses, auxes, masks, labels, events = [], [], [], [], []
+        dropped = kept = 0
+        cuda = self.device.type == "cuda"
+        for gb in self._batches(view, "train", epoch):
+            dropped += gb.num_dropped
+            kept += int(gb.edge_mask.sum())
+            masks.append(gb.seed_mask)
+            labels.append(gb.y[gb.seed_mask, 0].astype(np.int64))
+            loss, aux = self._step(gb.to(self.device))
+            losses.append(loss)
+            auxes.append(aux)
+            if cuda:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+        self.model.eval()
+        out = {"loss": float("nan")}
+        if losses:
+            out["loss"] = float(torch.stack(losses).sum().cpu()) / len(losses)
+            preds, scores = self._gather(auxes, masks)
+            out.update(self._metrics(np.concatenate(labels), preds, scores))
+        if len(events) > 1:
+            out["step_ms"] = statistics.median(
+                a.elapsed_time(b) for a, b in zip(events, events[1:]))
+        out.update(sec=time.time() - t0,
+                   drop_rate=dropped / max(dropped + kept, 1))
+        if out["drop_rate"] > cfg.max_drop_rate:
+            logger.warning(
+                "sampler dropped %.2f%% of sampled edges at edge_capacity=%d"
+                " — raise --edge_capacity (the reference keeps every sampled"
+                " edge; parity needs ~zero drops)", 100 * out["drop_rate"],
+                cfg.edge_capacity)
+        return out
+
+    def evaluate(self, view, mode: str) -> dict:
+        """f1 (binary for two classes, else support-weighted) and, for
+        binary heads, AUC over a view's real rows."""
+        self.model.eval()
+        auxes, masks, labels = [], [], []
+        for gb in self._batches(view, mode):
+            masks.append(gb.seed_mask)
+            labels.append(gb.y[gb.seed_mask, 0].astype(np.int64))
+            auxes.append(self._forward_eval(gb.to(self.device)))
+        preds, scores = self._gather(auxes, masks)
+        return self._metrics(np.concatenate(labels), preds, scores)
 
     def predict(self, view, mode: str = "test") -> dict:
         """Batch inference over a view's rows: ``id`` (edge-table row id),
         ``pred`` (argmax class) and, for binary heads, ``score``, aligned
         on real rows. ``mode`` picks the sampling graph ("test" = all
         edges)."""
+        self.model.eval()
         b = self.cfg.batch_size
         rows, masks, auxes = [], [], []
         for gb in self._batches(view, mode):
@@ -131,9 +250,42 @@ class Trainer:
             auxes.append(self._forward_eval(gb.to(self.device)))
         if not auxes:
             return {"id": np.zeros(0, np.int64), "pred": np.zeros(0, np.int64)}
-        m = np.concatenate(masks)
-        out = {"id": np.concatenate(rows)[m]}
-        out["pred"] = torch.cat([a["pred_cls"] for a in auxes]).cpu().numpy()[m]
-        if "score" in auxes[0]:
-            out["score"] = torch.cat([a["score"] for a in auxes]).cpu().numpy()[m]
+        preds, scores = self._gather(auxes, masks)
+        out = {"id": np.concatenate(rows)[np.concatenate(masks)],
+               "pred": preds}
+        if scores is not None:
+            out["score"] = scores
         return out
+
+    def fit(self, run_logger=None, run_dir: Optional[str] = None,
+            start_epoch: int = 0, best_m: Optional[float] = None):
+        """Epoch loop with best-val-f1 tracking and a checkpoint per epoch
+        (``<run_dir>/<epoch>/``, the previous one pruned; ``-1`` keeps the
+        best model under ``--save_model``). Returns (history, best_m)."""
+        cfg = self.cfg
+        tr, va, te = self.dataset.edges.split()
+        best_m = -1.0 if best_m is None else best_m
+        history = []
+        for epoch in range(start_epoch, start_epoch + cfg.epochs):
+            rec = {"epoch": epoch, **self.train_epoch(tr, epoch)}
+            val_m = self.evaluate(va, "val")
+            te_m = self.evaluate(te, "test")
+            rec.update({"val_f1": val_m["f1"], "test_f1": te_m["f1"]})
+            if "auc" in val_m:
+                rec.update({"val_auc": val_m["auc"], "test_auc": te_m["auc"]})
+            improved = val_m["f1"] > best_m
+            if improved:
+                best_m = val_m["f1"]
+            rec["best"] = improved
+            logger.info(" ".join(f"{k}={v:.4f}" if isinstance(v, float)
+                                 else f"{k}={v}" for k, v in rec.items()))
+            if run_logger is not None:
+                run_logger.log(rec, step=epoch)
+            if run_dir is not None:
+                checkpoint.save_epoch(run_dir, epoch, self.model,
+                                      self.optimizer, best_m)
+                if improved and cfg.save_model:
+                    checkpoint.save_epoch(run_dir, -1, self.model, None,
+                                          best_m, prune_previous=False)
+            history.append(rec)
+        return history, best_m

@@ -3,11 +3,19 @@
 
 Serving loads with ``strict=True``: a missing, extra or mis-shaped entry
 raises, so a model never serves with weights left at their initialization.
+
+Training writes one such directory per epoch, ``<run_dir>/<epoch>/``
+(``rmm_tpu/utils/checkpoint.py``'s layout), adding ``optimizer.pt`` (the
+Adam state) and ``best_m.json``; the previous epoch's directory is pruned,
+and ``<run_dir>/-1/`` holds the best model under ``--save_model``. Every one
+of them serves through ``cli/predict.py`` as it is.
 """
 from __future__ import annotations
 
 import json
+import logging
 import os
+import shutil
 from typing import Optional
 
 import torch
@@ -36,3 +44,46 @@ def load_checkpoint(ck_dir: str, model: torch.nn.Module) -> dict:
                        weights_only=True)
     model.load_state_dict(state, strict=True)
     return meta
+
+
+def save_epoch(run_dir: str, epoch: int, model: torch.nn.Module,
+               optimizer: Optional[torch.optim.Optimizer] = None,
+               best_m: Optional[float] = None,
+               prune_previous: bool = True) -> str:
+    """``<run_dir>/<epoch>/``: the model, the optimizer state (when given)
+    and ``best_m``; prunes ``<run_dir>/<epoch - 1>/``."""
+    ck = save_checkpoint(os.path.join(run_dir, str(epoch)),
+                         model.state_dict(), {"epoch": epoch})
+    if optimizer is not None:
+        torch.save(optimizer.state_dict(), os.path.join(ck, "optimizer.pt"))
+    if best_m is not None:
+        with open(os.path.join(ck, "best_m.json"), "w") as f:
+            json.dump({"best_m": best_m}, f)
+    if prune_previous and epoch > 0:
+        shutil.rmtree(os.path.join(run_dir, str(epoch - 1)),
+                      ignore_errors=True)
+    return ck
+
+
+def load_best_m(ck_dir: str) -> float:
+    with open(os.path.join(ck_dir, "best_m.json")) as f:
+        return json.load(f)["best_m"]
+
+
+def parse_checkpoint_path(path: str) -> tuple[str, int]:
+    """``<run_dir>/<epoch>/`` → (run id, epoch). A ``best_*`` tag resumes
+    at epoch 0; any other tag that is not an integer raises."""
+    parts = [p for p in path.rstrip("/").split(os.sep) if p]
+    tag = parts[-1]
+    run_id = parts[-2] if len(parts) > 1 else ""
+    try:
+        epoch = int(tag)
+    except ValueError:
+        if not tag.startswith("best_"):
+            raise ValueError(
+                f"checkpoint path must end in an epoch number or a best_* "
+                f"tag, got {tag!r}") from None
+        logging.warning("checkpoint %s is a weights-only best-metric "
+                        "export; resuming from epoch 0", path)
+        epoch = 0
+    return run_id, epoch

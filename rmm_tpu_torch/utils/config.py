@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 from typing import Optional, Sequence
 
 
@@ -35,6 +36,7 @@ class Config:
     num_neighs: Sequence[int] = (100, 100)
     edge_capacity: int = 0            # 0 = auto-calibrate from probe batches
     node_capacity: int = 0
+    max_drop_rate: float = 0.0        # warn when epoch drop-rate exceeds this
 
     # optimization (AML supervised config of record)
     lr: float = 0.0006116418195373612
@@ -42,14 +44,14 @@ class Config:
     batch_size: int = 200
     w_ce1: float = 1.0
     w_ce2: float = 9.23
-    weight_decay: float = 1e-3
+    weight_decay: float = 1e-3        # SSL only; supervised Adam has none
     adam_eps: float = 1e-8
     num_neg_samples: int = 64
     moo: str = "sum"
 
     # misc
     sampler_threads: int = 1      # >1: host sampling on a thread pool
-    precision: str = "f32"        # this slice serves f32 only
+    precision: str = "f32"        # this port runs f32 only
     device: str = "cuda"          # cuda | cpu (cpu: tests, no kernels)
 
     seed: int = 1
@@ -64,8 +66,17 @@ class Config:
     group: str = "null"
     log_every: int = 50
 
+    @property
+    def loss_weights(self) -> list[float]:
+        if self.n_classes == 2:
+            return [self.w_ce1, self.w_ce2]
+        return [1.0] * self.n_classes
+
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), default=str)
 
 
 #: flag → the only value this slice accepts (the JAX package's default)

@@ -1,9 +1,13 @@
 """Column attention of the PyTorch port (its plain twin, which CPU tensors
 take) against the JAX package: the XLA reference, the Pallas kernel in
 interpret mode, and the flax ``MultiHeadSelfAttention`` on both of its
-paths (head-expanded below head_dim 16, canonical at 16).
+paths (head-expanded below head_dim 16, canonical at 16); and the twin's
+gradients (autograd) against ``jax.vjp`` of the reference and of the Pallas
+kernel's custom VJP (``_bwd_kernel``), with and without a keep-mask.
 
-Tolerance 1e-5 abs/rel: float32 on both sides, sums in another order."""
+Tolerance 1e-5 abs/rel: float32 on both sides, sums in another order; 1e-4
+for the weight and bias gradients, sums over all B·S tokens."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -79,11 +83,48 @@ def test_keep_mask_matches_jax(c, h):
     np.testing.assert_allclose(out, np.asarray(pallas), **TOL)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("s", [2, 6])
+@pytest.mark.parametrize("c,h", WIDTHS)
+def test_gradients_match_jax_vjp(c, h, s, masked):
+    arrays = make_inputs(c + s + 7, B, s, c)
+    rng = np.random.RandomState(c * s)
+    cot = rng.randn(B, s, c).astype(np.float32)
+    rate = 0.3 if masked else 0.0
+    mask = rng.rand(B, h, s, s) >= rate if masked else None
+    jmask = None if mask is None else jnp.asarray(mask)
+    jarr = [jnp.asarray(a) for a in arrays]
+
+    tensors = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    out = ca.fused_column_attention(
+        *tensors, h, drop_mask=None if mask is None else torch.from_numpy(mask),
+        dropout_rate=rate)
+    grads = torch.autograd.grad(out, tensors, torch.from_numpy(cot))
+
+    def reference(*a):
+        return jax_reference(*a, h, drop_mask=jmask, dropout_rate=rate)
+
+    def pallas(*a):
+        return jax_fused(*a, h, drop_mask=jmask, dropout_rate=rate,
+                         block_rows=8, interpret=True)
+
+    for fn in (reference, pallas):
+        _, vjp = jax.vjp(fn, *jarr)
+        want = vjp(jnp.asarray(cot))
+        np.testing.assert_allclose(grads[0].numpy(), np.asarray(want[0]),
+                                   **TOL)
+        for got, ref in zip(grads[1:], want[1:]):
+            np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                                       rtol=1e-4, atol=1e-4)
+
+
 def test_cpu_tensors_never_launch_the_kernel():
     arrays = make_inputs(0, B, 6, 32)
     port_attention(arrays, 8)
     port_attention(arrays, 8, np.ones((B, 8, 6, 6), bool), 0.1)
-    assert ca.launches == 0
+    tensors = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    ca.fused_column_attention(*tensors, 8).sum().backward()
+    assert ca.launches == ca.bwd_launches == ca.reduce_launches == 0
 
 
 def test_wrapper_checks_shapes():

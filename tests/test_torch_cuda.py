@@ -1,6 +1,7 @@
 """The PyTorch port on an NVIDIA card: each CUDA kernel against its plain
-PyTorch version on the same card, and the predict CLI on the card against
-the same CLI on the CPU.
+PyTorch version on the same card (the backward against autograd of the
+plain version), the predict CLI on the card against the same CLI on the
+CPU, and three train steps on the card against the same steps on the CPU.
 
 The kernels have no CPU mode, so these tests skip on a machine without a
 card. On one with a card (JAX need not be installed there: the JAX suite's
@@ -9,7 +10,12 @@ card. On one with a card (JAX need not be installed there: the JAX suite's
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: kernel against plain 1e-5 abs/rel (float32, sums in another
-order); served scores, card against CPU, 1e-4 (PNA sums in another order).
+order), the weight and bias gradients 1e-4 relative to the largest entry
+of the reference (sums over every token in another order); served scores,
+card against CPU, 1e-4 (PNA sums in another order); train losses 1e-4 rel
+and parameters 6.05·lr abs: Adam moves a parameter by at most ~lr a step
+(m̂/√v̂ is at most 1.0036 in the first 3 steps), so where near-zero
+gradients differ in sign two runs part by up to ~2·lr a step.
 """
 import numpy as np
 import pytest
@@ -38,8 +44,7 @@ def attention_inputs(seed, b, s, c, device):
             for a in arrays]
 
 
-@pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("b,s,c,h", [
+SHAPES = [
     (1, 1, 32, 8),       # one row, one token
     (37, 2, 32, 8),      # node tokens at the serving width, ragged batch
     (4099, 6, 32, 8),    # edge tokens at the serving width
@@ -48,7 +53,11 @@ def attention_inputs(seed, b, s, c, device):
     (70, 16, 16, 1),     # the largest S, one head
     (33, 6, 96, 3),      # weights through the read-only cache
     (100, 16, 128, 8),   # the largest S and C
-])
+]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,s,c,h", SHAPES)
 def test_column_attention_kernel_matches_plain(cuda, b, s, c, h, masked):
     args = attention_inputs(b + s + c, b, s, c, cuda)
     mask, rate = None, 0.0
@@ -77,10 +86,73 @@ def test_column_attention_kernel_refuses_what_it_cannot_run(cuda):
     with pytest.raises(ValueError, match="S <= 16"):
         ca.fused_column_attention(torch.zeros(8, 17, 32, device=cuda), wqkv,
                                   bqkv, wout, bout, 8)
-    with pytest.raises(NotImplementedError, match="backward"):
-        ca.fused_column_attention(x, wqkv.requires_grad_(), bqkv, wout,
-                                  bout, 8)
     assert ca.launches == before
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,s,c,h", SHAPES)
+def test_column_attention_backward_matches_plain(cuda, b, s, c, h, masked):
+    args = [a.requires_grad_() for a in attention_inputs(b + s, b, s, c,
+                                                        cuda)]
+    do = torch.from_numpy(np.random.RandomState(c).randn(b, s, c).astype(
+        np.float32)).to(cuda)
+    mask, rate = None, 0.0
+    if masked:
+        rate = 0.3
+        mask = torch.from_numpy(
+            np.random.RandomState(b).rand(b, h, s, s) >= rate).to(cuda)
+    before = (ca.launches, ca.bwd_launches, ca.reduce_launches)
+    got = torch.autograd.grad(ca.fused_column_attention(*args, h, mask, rate),
+                              args, do)
+    assert (ca.launches, ca.bwd_launches, ca.reduce_launches) == tuple(
+        n + 1 for n in before)
+    want = torch.autograd.grad(
+        ca.reference_column_attention(*args, h, mask, rate), args, do)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               **TOL)
+    for g, w in zip(got[1:], want[1:]):
+        scale = float(w.abs().max())
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=0, atol=1e-4 * max(scale, 1.0))
+
+
+def test_three_train_steps_on_the_card_match_the_cpu(cuda, tmp_path):
+    import itertools
+
+    from rmm_tpu_torch.datasets import build_dataset, write_synthetic_aml_csv
+    from rmm_tpu_torch.train.trainer import Trainer
+    from rmm_tpu_torch.utils.config import config_from_args, create_parser
+
+    data = str(tmp_path / "aml.csv")
+    write_synthetic_aml_csv(data, num_rows=2000, num_accounts=125, seed=0)
+    argv = ["--data", data, "--model", "tabgnn", "--num_neighs", "10", "10",
+            "--batch_size", "64", "--dropout", "0"]
+    runs = []
+    for device in ("cpu", "cuda"):
+        cfg = config_from_args(create_parser().parse_args(
+            argv + ["--device", device]))
+        tr = Trainer(cfg, build_dataset(cfg))
+        tr.model.train()
+        before = (ca.launches, ca.bwd_launches, ca.reduce_launches)
+        batches = itertools.islice(
+            tr._batches(tr.dataset.edges.split()[0], "train"), 3)
+        losses = [float(tr._step(gb.to(tr.device))[0]) for gb in batches]
+        launched = tuple(n - m for n, m in zip(
+            (ca.launches, ca.bwd_launches, ca.reduce_launches), before))
+        runs.append((losses, {k: v.cpu() for k, v in
+                              tr.model.state_dict().items()}, launched,
+                     cfg.lr))
+    (cpu_losses, cpu_state, cpu_launched, lr), (losses, state, launched,
+                                               _) = runs
+    assert cpu_launched == (0, 0, 0)
+    assert launched == (12, 12, 12)    # 2 layers x nodes, edges x 3 steps
+    np.testing.assert_allclose(losses, cpu_losses, rtol=1e-4)
+    errs = np.concatenate([np.abs(v.numpy() - cpu_state[k].numpy()).ravel()
+                           for k, v in state.items()])
+    assert np.median(errs) <= 0.05 * lr     # a wrong gradient moves this
+    for k, v in state.items():
+        np.testing.assert_allclose(v.numpy(), cpu_state[k].numpy(), rtol=0,
+                                   atol=6.05 * lr, err_msg=k)
 
 
 def test_predict_on_the_card_matches_the_cpu(cuda, tmp_path):
@@ -121,3 +193,33 @@ def test_predict_on_the_card_matches_the_cpu(cuda, tmp_path):
                                atol=1e-4)
     clear = np.abs(host["score"] - 0.5) > 1e-4
     np.testing.assert_array_equal(card["pred"][clear], host["pred"][clear])
+
+
+def test_same_seed_same_training_run_on_the_card(cuda, tmp_path):
+    """The dropout masks come from the trainer's generator, seeded from
+    ``--seed``: two runs draw the same masks, so their losses agree up to
+    the order of the float atomics in PyTorch's scatter kernels (1e-5
+    rel), far closer than two different masks would give."""
+    import itertools
+
+    from rmm_tpu_torch.datasets import build_dataset, write_synthetic_aml_csv
+    from rmm_tpu_torch.train.trainer import Trainer
+    from rmm_tpu_torch.utils.config import config_from_args, create_parser
+
+    data = str(tmp_path / "aml.csv")
+    write_synthetic_aml_csv(data, num_rows=2000, num_accounts=125, seed=0)
+    cfg = config_from_args(create_parser().parse_args(
+        ["--data", data, "--model", "tabgnn", "--num_neighs", "10", "10",
+         "--batch_size", "64", "--dropout", "0.3", "--seed", "3",
+         "--device", "cuda"]))
+    runs = []
+    for mask_seed in (None, None, 99):     # the last run: other masks only
+        tr = Trainer(cfg, build_dataset(cfg))
+        if mask_seed is not None:
+            tr.generator.manual_seed(mask_seed)
+        tr.model.train()
+        batches = itertools.islice(
+            tr._batches(tr.dataset.edges.split()[0], "train"), 3)
+        runs.append([float(tr._step(gb.to(tr.device))[0]) for gb in batches])
+    np.testing.assert_allclose(runs[1], runs[0], rtol=1e-5)
+    assert not np.allclose(runs[2], runs[0], rtol=1e-3)

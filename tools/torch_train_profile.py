@@ -1,0 +1,151 @@
+"""Where the PyTorch port's training time goes, on one CUDA card.
+
+    python3 tools/torch_train_profile.py [--rows 131072] [--batches 24]
+
+Builds the supervised config of record with ``rmm_tpu_torch`` (synthetic
+AML, tabgnn, C = 32, 2 layers, fanouts 100/100, batch 200, dropout 0.083;
+random weights from the seed) and measures, over the first ``--batches``
+shuffled train batches of epoch 0:
+
+* host sampling per batch (``Trainer._batches``, ``mode="train"``, 4
+  sampler threads);
+* the device train step per batch on batches already on the card (CUDA
+  events around the whole run of steps), and its kernels by device time
+  (``torch.profiler``), the forward and the backward apart;
+* the whole train loop (``Trainer.train_epoch`` over those batches), with
+  the card's busy share (sum of kernel time over the loop's wall time).
+
+Prints one JSON line per measurement and writes the profiler's kernel table
+to ``--table`` (default ``outputs/train_profile.txt``). Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from tools.torch_serve_profile import device_us, emit, kernel_table  # noqa: E402
+
+
+def top_kernels(prof, n: int, k: int = 15) -> tuple[float, list]:
+    kernels = sorted(((e.key, device_us(e), e.count)
+                      for e in prof.key_averages() if device_us(e) > 0),
+                     key=lambda r: -r[1])
+    total = sum(r[1] for r in kernels)
+    return total, [{"name": r[0][:90], "ms_per_step": r[1] / 1e3 / n,
+                    "calls_per_step": r[2] / n, "share": r[1] / total}
+                   for r in kernels[:k]]
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--rows", type=int, default=131072)
+    p.add_argument("--batches", type=int, default=24)
+    p.add_argument("--table", default=os.path.join(
+        ROOT, "outputs", "train_profile.txt"))
+    args = p.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    from rmm_tpu_torch.datasets import (IBMTransactionsAML,
+                                        write_synthetic_aml_csv)
+    from rmm_tpu_torch.frame.dataset import DatasetView
+    from rmm_tpu_torch.train.trainer import Trainer
+    from rmm_tpu_torch.utils.config import Config
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    work = os.path.join(ROOT, "rmm_tpu_torch", "_build", "train_profile")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    csv = os.path.join(work, "aml.csv")
+    write_synthetic_aml_csv(csv, num_rows=args.rows,
+                            num_accounts=max(args.rows // 16, 64), seed=0)
+    t0 = time.perf_counter()
+    cfg = Config(model="tabgnn", data=csv, batch_size=200, n_hidden=32,
+                 n_gnn_layers=2, num_neighs=(100, 100), device="cuda",
+                 sampler_threads=4)
+    ds = IBMTransactionsAML(csv, khop_neighbors=cfg.num_neighs)
+    tr = Trainer(cfg, ds)
+    emit({"phase": "setup", "seconds": time.perf_counter() - t0,
+          "edge_capacity": tr.cfg.edge_capacity,
+          "node_capacity": tr.cfg.node_capacity, "card": card})
+    train = ds.edges.split()[0]
+    n = args.batches
+    view = DatasetView(train.parent, train.indices[:n * cfg.batch_size])
+
+    t0 = time.perf_counter()
+    host = list(tr._batches(view, "train"))
+    emit({"phase": "host_sampling", "threads": 4, "batches": n,
+          "ms_per_batch": 1e3 * (time.perf_counter() - t0) / n})
+    dev = [g.to(tr.device) for g in host]
+    tr.model.train()
+    for g in dev[:2]:
+        tr._step(g)
+    torch.cuda.synchronize()
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for g in dev:
+        tr._step(g)
+    end.record()
+    end.synchronize()
+    emit({"phase": "device_step", "ms_per_step": start.elapsed_time(end) / n,
+          "host_enqueue_ms_per_step": 1e3 * (time.perf_counter() - t0) / n,
+          "card": card})
+
+    # forward alone (train mode, grad on) and the whole step, by kernel
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for g in dev:
+            tr.model(tr.edge_table, tr.node_table, g)
+        torch.cuda.synchronize()
+    fwd_total, fwd_top = top_kernels(prof, n)
+    emit({"phase": "train_forward_kernels",
+          "device_ms_per_step": fwd_total / 1e3 / n, "top": fwd_top})
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for g in dev:
+            tr._step(g)
+        torch.cuda.synchronize()
+    total, top = top_kernels(prof, n, 25)
+    emit({"phase": "train_step_kernels",
+          "device_ms_per_step": total / 1e3 / n,
+          "launches_per_step": sum(e.count for e in prof.key_averages()
+                                   if device_us(e) > 0) / n,
+          "top": top})
+    table = kernel_table(prof)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = tr.train_epoch(view, 0)
+        wall = time.perf_counter() - t0
+    busy = sum(device_us(e) for e in prof.key_averages()) / 1e6
+    emit({"phase": "train_loop", "threads": 4, "batches": n,
+          "rows": view.tensor_frame.num_rows, "wall_s": wall,
+          "rows_per_s": view.tensor_frame.num_rows / wall,
+          "step_ms_median": out.get("step_ms"), "device_busy_s": busy,
+          "device_busy_share": busy / wall, "card": card})
+
+    os.makedirs(os.path.dirname(os.path.abspath(args.table)), exist_ok=True)
+    with open(args.table, "w") as f:
+        f.write(card + "\n" + table + "\n")
+    shutil.rmtree(work, ignore_errors=True)
+
+
+if __name__ == "__main__":
+    main()
