@@ -18,7 +18,9 @@ through all of them:
              capacity, C = 128, a ragged batch, a numpy keep-mask); the
              backward (and its reduce) against ``torch.autograd.grad`` of
              the plain version at the training shapes with the keep-mask,
-             the same unmasked, C = 128 and a ragged batch. Max error
+             the same unmasked, C = 128 and a ragged batch, each record
+             naming the backward kernel it took (tiled or scalar), and two
+             calls at the masked edge shape bitwise equal. Max error
              (the backward's relative to each reference tensor's largest
              entry), kernel / plain / library times (CUDA events, warm,
              median) and the bound.
@@ -33,8 +35,9 @@ through all of them:
 5. train   — the port's training CLI (``rmm_tpu_torch.cli.main.main``) at
              the config of record (dropout 0.083), one epoch on the same
              data, ``--testing --sampler_threads 4 --save_model``: finite
-             loss; per train step 4 forward, 4 backward and 4 reduce
-             launches, per evaluated batch 4 forward; the checkpoint it
+             loss; per train step 4 forward, 4 backward (all 4 through the
+             tiled kernel) and 4 reduce launches, per evaluated batch 4
+             forward; the checkpoint it
              wrote serves through the predict CLI. Train rows/s, the median
              step on the device's clock, epoch seconds, val/test f1 and AUC.
 6. train_parity — three train steps on the card with dropout 0 from the
@@ -139,14 +142,14 @@ def attention_floor(b, s, c, h, masked) -> tuple[float, float]:
     return t_bytes, t_ops
 
 
-def attention_bwd_floor(b, s, c, h, masked, blocks) -> tuple[float, float]:
+def attention_bwd_floor(b, s, c, h, masked, slices) -> tuple[float, float]:
     """The backward's least times (ms): x and do read, dx written, the
     keep-mask, the weights read and their gradients written, and the
-    ``blocks`` partial slices written and read back; operations: about
+    ``slices`` partial slices written and read back; operations: about
     11·C² FMAs a token (qkv again, dctx, dx, dWqkv, dWout) and 6·S·C for
     the attention (scores, ctx, dP, dq, dk, dv)."""
     total = 4 * c * c + 4 * c
-    nbytes = 4 * (3 * b * s * c + 2 * total + 2 * blocks * total)
+    nbytes = 4 * (3 * b * s * c + 2 * total + 2 * slices * total)
     if masked:
         nbytes += b * h * s * s
     flops = 2 * b * s * (11 * c * c + 6 * s * c)
@@ -267,7 +270,18 @@ def kernel_phase(card: str) -> dict:
             mask = torch.from_numpy(rng.rand(b, h, s, s) >= rate).to(dev)
         x, wqkv, bqkv, wout, _ = inputs
         args = (x, do, wqkv, bqkv, wout, h, mask, rate)
+        tiled_before = ca.bwd_tiled_launches
         got = ca.column_attention_bwd(*args)
+        route = "tiled" if ca.bwd_tiled_launches > tiled_before else "scalar"
+        check(route == ("tiled" if ca.bwd_tiled(c) else "scalar"),
+              f"backward {b}x{s}x{c}/{h} took the {route} kernel")
+        repeat_equal = None
+        if not bwd:   # the masked edge shape: the weight gradients are
+            again = ca.column_attention_bwd(*args)   # deterministic
+            repeat_equal = all(torch.equal(g, a) for g, a in zip(got, again))
+            check(repeat_equal, f"backward {b}x{s}x{c}/{h}: two calls on "
+                  "the same inputs differ")
+            del again
         leaves = [t.detach().requires_grad_() for t in inputs]
         out = ca.reference_column_attention(*leaves, h, mask, rate)
         want = torch.autograd.grad(out, leaves, do, retain_graph=True)
@@ -292,13 +306,16 @@ def kernel_phase(card: str) -> dict:
                   f"library attention backward disagrees: {lib_err}")
             lib_ms = time_ms(lambda: torch.autograd.grad(
                 lib_out, leaves, do, retain_graph=True))
-        blocks = ca.bwd_plan(b, s, c, h)[2]
+        plan = ca.bwd_plan(b, s, c, h)
         t_bytes, t_ops = attention_bwd_floor(b, s, c, h, mask is not None,
-                                             blocks)
+                                             plan.slices)
         bound_ms, by = bound(t_bytes, t_ops)
         rec = {"phase": "kernel", "kernel": "column_attention_bwd",
                "B": b, "S": s, "C": c, "H": h, "dropout": rate,
-               "blocks": blocks, "max_rel_err": errs, "tol": GRAD_TOL,
+               "route": route, "rows": plan.rows,
+               "blocks": plan.grid, "slices": plan.slices,
+               "repeat_bitwise_equal": repeat_equal,
+               "max_rel_err": errs, "tol": GRAD_TOL,
                "max_abs_err": max(float((g - w).abs().max())
                                   for g, w in zip(got, want)),
                "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
@@ -336,14 +353,15 @@ def record_argv(st: dict, csv: str) -> list[str]:
 def reset_counts():
     from rmm_tpu_torch.ops import column_attention as ca
 
-    ca.launches = ca.bwd_launches = ca.reduce_launches = 0
+    ca.launches = ca.bwd_launches = ca.bwd_tiled_launches = 0
+    ca.reduce_launches = 0
 
 
 def read_counts() -> dict:
     from rmm_tpu_torch.ops import column_attention as ca
 
     return {"fwd": ca.launches, "bwd": ca.bwd_launches,
-            "reduce": ca.reduce_launches}
+            "bwd_tiled": ca.bwd_tiled_launches, "reduce": ca.reduce_launches}
 
 
 def serve(argv: list[str], stats: dict):
@@ -442,10 +460,10 @@ def train_phase(card: str, csv: str) -> dict:
     evals = -(-val_rows // b) + -(-test_rows // b)
     check(math.isfinite(ep["loss"]), f"train loss {ep['loss']}")
     check(counts == {"fwd": 4 * (steps + evals), "bwd": 4 * steps,
-                     "reduce": 4 * steps},
+                     "bwd_tiled": 4 * steps, "reduce": 4 * steps},
           f"launches {counts} for {steps} train steps and {evals} evaluated "
-          "batches (expected 4 forwards per batch, 4 backwards and 4 "
-          "reduces per step: 2 layers x node and edge tokens)")
+          "batches (expected 4 forwards per batch, 4 backwards, all tiled, "
+          "and 4 reduces per step: 2 layers x node and edge tokens)")
     check((stats["edge_capacity"], stats["node_capacity"])
           == (st["edge_capacity"], st["node_capacity"]),
           "training capacities differ from the fixture's")
@@ -462,7 +480,7 @@ def train_phase(card: str, csv: str) -> dict:
     rec = {"phase": "train", "train_rows": train_rows, "steps": steps,
            "evaluated_batches": evals, "launches": counts,
            "launches_per_step": {k: counts[k] / steps
-                                 for k in ("bwd", "reduce")},
+                                 for k in ("bwd", "bwd_tiled", "reduce")},
            "loss": ep["loss"], "train_f1": ep["f1"], "train_auc": ep["auc"],
            "val_f1": ep["val_f1"], "val_auc": ep["val_auc"],
            "test_f1": ep["test_f1"], "test_auc": ep["test_auc"],
@@ -520,7 +538,8 @@ def train_parity_phase(card: str) -> dict:
     param_err, param_median = float(errs.max()), float(errs.median())
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, want_losses)]
     n = st["steps"]
-    check(counts == {"fwd": 4 * n, "bwd": 4 * n, "reduce": 4 * n},
+    check(counts == {"fwd": 4 * n, "bwd": 4 * n, "bwd_tiled": 4 * n,
+                     "reduce": 4 * n},
           f"launches {counts} for {n} train steps")
     check(loss_rel[0] <= LOSS1_RTOL and max(loss_rel) <= LOSS_RTOL,
           f"losses {losses} vs the JAX record's {want_losses}")
@@ -592,6 +611,8 @@ def main() -> int:
             kernel_entry("column_attention_bwd", 178, kern["bwd"],
                          kern["bwd_unmasked"], {
                              "launches": train_rec["launches"]["bwd"],
+                             "tiled_launches":
+                                 train_rec["launches"]["bwd_tiled"],
                              "reduce_launches":
                                  train_rec["launches"]["reduce"],
                              "max_rel_err": max(max(r["max_rel_err"].values())

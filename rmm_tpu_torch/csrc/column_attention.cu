@@ -224,18 +224,24 @@ cudaError_t launch(const float* x, const float* wqkv, const float* bqkv,
 // and over the whole batch dWqkv = Σ xᵀ·dqkv, dbqkv = Σ dqkv,
 // dWout = Σ ctxᵀ·do, dbout = Σ do.
 //
+// Two kernels compute it, chosen by shape: the register-tiled one further
+// down for every C <= 64 that is a multiple of 4 (the main path's C = 32),
+// and this scalar one, the first port, for the rest (C = 96 and 128, or a
+// C that is not a multiple of 4).
+//
 // The TPU kernel sums the weight gradients across its sequential grid. A
 // Hopper grid runs in parallel, so each block sums the row groups it walks
-// into its own slice of a [grid, 4C² + 4C] partials buffer (laid out as
+// into its own slice of a [slices, 4C² + 4C] partials buffer (laid out as
 // dWqkv | dbqkv | dWout | dbout), and a second kernel adds the slices in a
-// fixed order: deterministic on a given card, no atomics. Where the block's
-// 4C² + 4C sums fit in registers (C = 32: 17 a thread) they stay there and
-// are written once; above that (C = 128: 258 a thread) each thread adds into
-// its entries of the block's slice in device memory after every group.
+// fixed order: deterministic on a given card, no atomics. In the scalar
+// kernel, where a block's 4C² + 4C sums fit in registers (C <= 38) they
+// stay there and are written once; above that (C = 128: 258 a thread) each
+// thread adds into its entries of the block's slice in device memory after
+// every group.
 //
 // What bounds it: about 11·C² FMAs per token (the qkv recompute, dctx, dx
 // and the two weight-gradient products) against x, do and dx moved once;
-// float32 operations bound it. This simple version runs on the CUDA cores,
+// float32 operations bound it. The scalar kernel runs on the CUDA cores,
 // one group of rows per block at a time with every intermediate (x, do,
 // qkv, ctx, dctx, dqkv: 10·S·C floats a row, plus the S×S probabilities and
 // their gradients) in shared memory, and like the forward it is limited by
@@ -551,16 +557,572 @@ column_attention_bwd_kernel(const float* __restrict__ x,
   }
 }
 
-// grads[k] = Σ_g partials[g][k], g in order: one thread per entry.
+// ---------------------------------------------------------------------------
+// The register-tiled backward: every C <= 64 that is a multiple of 4 (the
+// main path's C = 32 among them). Same math, same recompute from x, same
+// per-block partial slices and fixed-order reduce as the kernel above; what
+// changes is how each stage maps its products onto threads and shared
+// memory.
+//
+// What bounded the kernel above at C = 32 (5.35 ms at 131072×6×32/8 with
+// the keep-mask, 18× its FMA bound, on an H100 80GB HBM3 at 700 W): shared
+// loads, about 16.6k 32-bit loads a token against 11.3k FMAs, while an SM
+// issues one warp-wide shared load a clock against four warp FMAs. Every
+// weight-gradient FMA read two scalars, every projection FMA about 1.2,
+// and the padded (+1 float) row strides ruled out 16-byte loads.
+//
+// Here every product is a register tile fed by float4 loads:
+//  * Layout. A group's tokens are token-major rows of TS = 9C + 4 floats:
+//    x | do | ctx | dctx | q | k | dq | dk | v, and dv overwrites v (no
+//    stage reads v after C), so dqkv = dq | dk | dv is contiguous. TS is a
+//    multiple of 4 (float4-aligned) and ≡ 4 (mod 32) at C = 32, so eight
+//    consecutive tokens' float4s at one column fall in eight different
+//    16-byte bank groups. The weights sit row-major with rows padded by 4.
+//  * F, the weight gradients, is the product xᵀ·dqkv | ctxᵀ·do over the
+//    group's tokens: each thread owns a 4×4 tile of [dWqkv | dWout] (C²/4
+//    tiles, exactly 256 at C = 32) and per token reads one float4 of each
+//    operand for 16 FMAs (one load per 8 FMAs, against 2 loads per FMA
+//    before). The tiles of the first 4 channels also sum the bias
+//    gradients from the float4 they already hold. Where there are fewer
+//    tiles than threads, the threads split the tokens and each split has
+//    its own partial slice; where more (C > 32), a thread owns 4 tiles.
+//  * B (qkv = x·Wqkv + b, dctx = do·Woutᵀ) and E (dx = dqkv·Wqkvᵀ) are
+//    tiles of 4 (B) or 2 (E) tokens × 4 output columns: per 4-deep step a
+//    thread reads 4 float4s of weights, which serve every token of its tile,
+//    and one float4 per token, which serves 4 columns. The tokens of a tile
+//    are NQ apart, so the 8 lanes of a quarter-warp read 8 consecutive
+//    tokens (no bank conflict) and the same weights (a broadcast).
+//  * C, one thread per (row, query, head) with the heads of a row on
+//    neighbouring lanes (no bank conflicts), reads float4s of a head's
+//    channels and the keep-mask bytes that stage A staged with x and do
+//    (16-byte loads), and multiplies by 1/Σ instead of dividing. D is one
+//    thread per (token, 4 columns of dqkv) on float4 rows.
+//  * Groups and blocks, by measurement (tools/torch_bwd_sweep.py, and the
+//    variants of tools/torch_bwd_stages.py): two blocks of 256 threads an
+//    SM (16 warps), 10 rows = 60 tokens a group at S = 6, take 3.5% less
+//    time than one block of 512 threads with twice the rows, and a
+//    quarter less than one block of 256 (8 warps); still 5 barriers a
+//    group.
+//
+// What bounds it now (131072×6×32/8 with the keep-mask: 1.29 ms against
+// 5.35 before, bound 0.29; H100 80GB HBM3, 700 W): no single unit. A
+// warp's float4 shared load takes 4 cycles for 32 addresses, 2 for a
+// broadcast, a float load 1 (tools/torch_smem_probe.py, at the 1,980 MHz
+// SM clock it sampled); so counted, the stages need about 205
+// shared-memory cycles and 97 of FMA issue a token, against about 430 the
+// kernel takes at that clock. Shared memory is the busiest unit at about
+// half its rate; the rest is latency and the waits at 5 barriers a group
+// with 16 warps an SM. By stage (tools/torch_bwd_stages.py): E+F 38%, B
+// and D 19% each, C 17%, A 8%. Registers: 16 warps an SM leave 128 a
+// thread, and stage F's 20 sums stay live through every stage. Launch
+// bounds for three blocks an SM cap a thread at 80 and spill 240 bytes;
+// at the 6 rows a group that leave shared memory for three blocks, three
+// run no faster than two, and 14% slower than two at 10 rows. 8-token B
+// tiles spill 140 bytes and run 5% slower at the same rows and blocks.
+// Overlapping the next group's loads with cp.async would save at most the
+// 5% that stage A's loads cost, for a second x/do/mask buffer
+// of about 15 kB a block: not done.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+// acc += a · w (one scalar times a float4)
+__device__ __forceinline__ void fma4(float4& acc, float a, float4 w) {
+  acc.x = fmaf(a, w.x, acc.x);
+  acc.y = fmaf(a, w.y, acc.y);
+  acc.z = fmaf(a, w.z, acc.z);
+  acc.w = fmaf(a, w.w, acc.w);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// One token of a qkv tile (outer form): acc += a[0..3] · W rows w0..w3.
+__device__ __forceinline__ void outer4(float4& acc, float4 a, float4 w0,
+                                       float4 w1, float4 w2, float4 w3) {
+  fma4(acc, a.x, w0);
+  fma4(acc, a.y, w1);
+  fma4(acc, a.z, w2);
+  fma4(acc, a.w, w3);
+}
+
+// One token of a dctx or dx tile (dot form): acc.c += a · W row c.
+__device__ __forceinline__ void dots4(float4& acc, float4 a, float4 w0,
+                                      float4 w1, float4 w2, float4 w3) {
+  acc.x = dot4(a, w0, acc.x);
+  acc.y = dot4(a, w1, acc.y);
+  acc.z = dot4(a, w2, acc.z);
+  acc.w = dot4(a, w3, acc.w);
+}
+
+constexpr int kTokB = 4;  // tokens of a stage-B tile
+constexpr int kTokE = 2;  // tokens of a stage-E tile
+constexpr int kTiledThreads = 256;  // two blocks an SM where MAXT == 1
+
+// Floats of the tiled kernel's shared memory for a group of `rows` rows:
+// the weights, the token rows (rounded up to whole stage-B tiles), the
+// P_d and dS of each row and the rows' keep-mask bytes.
+__host__ __device__ inline size_t tiled_smem_floats(int S, int C, int H,
+                                                    int rows) {
+  const size_t tp = ((size_t)rows * S + kTokB - 1) / kTokB * kTokB;
+  const size_t hss = (size_t)rows * H * S * S;
+  return (size_t)C * (3 * C + 4) + (size_t)C * (C + 4) +
+         tp * (9 * C + 4) + 2 * hss + (hss + 3) / 4;
+}
+
+// Token splits of stage F: how many partial slices each block writes.
+__host__ __device__ inline int tiled_splits(int C) {
+  const int tiles = C * C / 4;
+  return tiles >= kTiledThreads ? 1 : kTiledThreads / tiles;
+}
+
+template <int MAXS, int MAXT>
+__global__ void __launch_bounds__(kTiledThreads, MAXT == 1 ? 2 : 1)
+column_attention_bwd_tiled_kernel(const float* __restrict__ x,
+                                  const float* __restrict__ dout,
+                                  const float* __restrict__ wqkv,
+                                  const float* __restrict__ bqkv,
+                                  const float* __restrict__ wout,
+                                  const uint8_t* __restrict__ keep,
+                                  float* __restrict__ dx,
+                                  float* __restrict__ partials, int B, int S,
+                                  int C, int H, float scale, float inv_keep,
+                                  int rows) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  constexpr int NT = kTiledThreads;
+  const int tid = threadIdx.x;
+  const int C3 = 3 * C;
+  const int C4 = C / 4;
+  const int hd = C / H;
+  const int SC = S * C;
+  const int SS = S * S;
+  const int HSS = H * SS;
+  const int total = 4 * C * C + 4 * C;
+  const int WQS = C3 + 4;  // padded weight rows
+  const int WOS = C + 4;
+  const int TS = 9 * C + 4;
+  // Offsets in a token row.
+  const int DO = C, CTX = 2 * C, DCTX = 3 * C, Q = 4 * C, K = 5 * C,
+            DQKV = 6 * C, V = 8 * C;
+
+  float* sWq = smem;              // Wqkv [C][WQS]
+  float* sWo = sWq + C * WQS;     // Wout [C][WOS]
+  float* tok = sWo + C * WOS;     // token rows [TP][TS]
+  const int TP = (rows * S + kTokB - 1) / kTokB * kTokB;
+  float* pb = tok + TP * TS;      // P_d [rows][H][S][S]
+  float* sb = pb + rows * HSS;    // dS
+  uint8_t* kb = reinterpret_cast<uint8_t*>(sb + rows * HSS);  // keep-mask
+  for (int i = tid; i < C * C3; i += NT) {
+    const int c = i / C3;
+    sWq[c * WQS + (i - c * C3)] = wqkv[i];
+  }
+  for (int i = tid; i < C * C; i += NT) {
+    const int c = i / C;
+    sWo[c * WOS + (i - c * C)] = wout[i];
+  }
+
+  // Stage F's tiles: tile k < 3C²/16 is dWqkv[4ct.., 4jt..] = Σ x ⊗ dqkv,
+  // the rest dWout[4ct.., 4et..] = Σ ctx ⊗ do; a tile with ct = 0 also
+  // sums its columns' bias gradient.
+  const int tiles = C * C / 4;
+  const int qtiles = 3 * C * C / 16;
+  const int splits = tiled_splits(C);
+  const int split = tiles >= NT ? 0 : tid / tiles;
+  int aoff[MAXT], boff[MAXT], out[MAXT], ostride[MAXT], bout_at[MAXT];
+  bool own[MAXT];
+  float4 acc[MAXT][4], bacc[MAXT];
+#pragma unroll
+  for (int m = 0; m < MAXT; ++m) {
+    const int k = tiles >= NT ? tid + m * NT : tid % tiles;
+    own[m] = split < splits && k < tiles && (m == 0 || tiles >= NT);
+    if (k < qtiles) {
+      const int ct = k / (3 * C4);
+      const int jt = k - ct * 3 * C4;
+      aoff[m] = 4 * ct;
+      boff[m] = DQKV + 4 * jt;
+      out[m] = 4 * ct * C3 + 4 * jt;
+      ostride[m] = C3;
+      bout_at[m] = ct == 0 ? C * C3 + 4 * jt : -1;
+    } else {
+      const int kk = k - qtiles;
+      const int ct = kk / C4;
+      const int et = kk - ct * C4;
+      aoff[m] = CTX + 4 * ct;
+      boff[m] = DO + 4 * et;
+      out[m] = C * C3 + C3 + 4 * ct * C + 4 * et;
+      ostride[m] = C;
+      bout_at[m] = ct == 0 ? C * C3 + C3 + C * C + 4 * et : -1;
+    }
+    bacc[m] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) acc[m][cc] = bacc[m];
+  }
+
+  const int ngroups = (B + rows - 1) / rows;
+  for (int g = blockIdx.x; g < ngroups; g += gridDim.x) {
+    const int r0 = g * rows;
+    const int nr = min(rows, B - r0);
+    const int T = nr * S;
+    __syncthreads();  // weights staged / previous group done with buffers
+
+    // A. x and do rows → token rows (float4, coalesced), and the group's
+    //    keep-mask bytes
+    const float4* xg = reinterpret_cast<const float4*>(x + (size_t)r0 * SC);
+    const float4* dg =
+        reinterpret_cast<const float4*>(dout + (size_t)r0 * SC);
+    for (int i = tid; i < T * C4; i += NT) {
+      const int t = i / C4;
+      const int c = 4 * (i - t * C4);
+      st4(tok + t * TS + c, __ldg(xg + i));
+      st4(tok + t * TS + DO + c, __ldg(dg + i));
+    }
+    if (keep != nullptr) {
+      const uint8_t* kg = keep + (size_t)r0 * HSS;
+      if (HSS % 16 == 0 && reinterpret_cast<uintptr_t>(keep) % 16 == 0) {
+        const uint4* kg4 = reinterpret_cast<const uint4*>(kg);
+        uint4* kb4 = reinterpret_cast<uint4*>(kb);
+        for (int i = tid; i < nr * HSS / 16; i += NT) kb4[i] = __ldg(kg4 + i);
+      } else {
+        for (int i = tid; i < nr * HSS; i += NT) kb[i] = kg[i];
+      }
+    }
+    __syncthreads();
+
+    // B. tiles of kTokB tokens (q, q + NQ, ...) × 4 columns: column tiles
+    //    jt < 3C/4 are qkv = x·Wqkv + b, the rest dctx = do·Woutᵀ. Tokens
+    //    past T (the ragged tail of the last tile) compute unused values.
+    const int NQ = (T + kTokB - 1) / kTokB;
+    for (int it = tid; it < NQ * C; it += NT) {
+      const int jt = it / NQ;
+      float* t0 = tok + (it - jt * NQ) * TS;
+      const int step = NQ * TS;
+      float4 a4[kTokB];
+      if (jt < 3 * C4) {
+        const int j = 4 * jt;
+        const float4 bj = make_float4(__ldg(bqkv + j), __ldg(bqkv + j + 1),
+                                      __ldg(bqkv + j + 2),
+                                      __ldg(bqkv + j + 3));
+#pragma unroll
+        for (int i = 0; i < kTokB; ++i) a4[i] = bj;
+#pragma unroll 4
+        for (int c = 0; c < C; c += 4) {
+          const float* w = sWq + c * WQS + j;
+          const float4 w0 = ld4(w), w1 = ld4(w + WQS),
+                       w2 = ld4(w + 2 * WQS), w3 = ld4(w + 3 * WQS);
+#pragma unroll
+          for (int i = 0; i < kTokB; ++i)
+            outer4(a4[i], ld4(t0 + i * step + c), w0, w1, w2, w3);
+        }
+        const int dst = j < 2 * C ? Q + j : V - 2 * C + j;
+#pragma unroll
+        for (int i = 0; i < kTokB; ++i) st4(t0 + i * step + dst, a4[i]);
+      } else {
+        const int c = 4 * (jt - 3 * C4);
+#pragma unroll
+        for (int i = 0; i < kTokB; ++i) a4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+        for (int e = 0; e < C; e += 4) {
+          const float* w = sWo + c * WOS + e;
+          const float4 w0 = ld4(w), w1 = ld4(w + WOS),
+                       w2 = ld4(w + 2 * WOS), w3 = ld4(w + 3 * WOS);
+#pragma unroll
+          for (int i = 0; i < kTokB; ++i)
+            dots4(a4[i], ld4(t0 + i * step + DO + e), w0, w1, w2, w3);
+        }
+#pragma unroll
+        for (int i = 0; i < kTokB; ++i) st4(t0 + i * step + DCTX + c, a4[i]);
+      }
+    }
+    __syncthreads();
+
+    // C. one thread per (row, query i, head h), h fastest so that a
+    //    quarter-warp's 8 heads fall in 8 bank groups: the softmax row, its
+    //    dropped twin P_d, dS and the context, over float4s of the head's
+    //    channels where head_dim is a multiple of 4.
+    for (int it = tid; it < nr * S * H; it += NT) {
+      const int r = it / (S * H);
+      const int rem = it - r * S * H;
+      const int i = rem / H;
+      const int h = rem - i * H;
+      const float* rowp = tok + r * S * TS + h * hd;  // token j: + j * TS
+      const float* q = rowp + i * TS + Q;
+      const float* gi = rowp + i * TS + DCTX;
+      float p[MAXS], dp[MAXS];
+#pragma unroll
+      for (int j = 0; j < MAXS; ++j) p[j] = dp[j] = 0.f;
+      if (hd % 4 == 0) {
+        for (int t = 0; t < hd; t += 4) {
+          const float4 q4 = ld4(q + t), g4 = ld4(gi + t);
+#pragma unroll
+          for (int j = 0; j < MAXS; ++j) {
+            if (j < S) {
+              p[j] = dot4(q4, ld4(rowp + j * TS + K + t), p[j]);
+              dp[j] = dot4(g4, ld4(rowp + j * TS + V + t), dp[j]);
+            }
+          }
+        }
+      } else {
+        for (int t = 0; t < hd; ++t) {
+#pragma unroll
+          for (int j = 0; j < MAXS; ++j) {
+            if (j < S) {
+              p[j] = fmaf(q[t], rowp[j * TS + K + t], p[j]);
+              dp[j] = fmaf(gi[t], rowp[j * TS + V + t], dp[j]);
+            }
+          }
+        }
+      }
+      float m = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < MAXS; ++j) {
+        if (j < S) {
+          p[j] *= scale;
+          m = fmaxf(m, p[j]);
+        }
+      }
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < MAXS; ++j) {
+        if (j < S) {
+          p[j] = expf(p[j] - m);
+          sum += p[j];
+        }
+      }
+      const float inv_sum = 1.f / sum;
+#pragma unroll
+      for (int j = 0; j < MAXS; ++j) p[j] *= inv_sum;
+      const uint8_t* kp = kb + (r * H + h) * SS + i * S;
+      if (keep != nullptr) {
+#pragma unroll
+        for (int j = 0; j < MAXS; ++j)
+          if (j < S) dp[j] = kp[j] ? dp[j] * inv_keep : 0.f;
+      }
+      float dot = 0.f;
+#pragma unroll
+      for (int j = 0; j < MAXS; ++j)
+        if (j < S) dot = fmaf(p[j], dp[j], dot);
+      float* dsr = sb + r * HSS + (h * S + i) * S;
+#pragma unroll
+      for (int j = 0; j < MAXS; ++j)
+        if (j < S) dsr[j] = p[j] * (dp[j] - dot) * scale;
+      if (keep != nullptr) {
+#pragma unroll
+        for (int j = 0; j < MAXS; ++j)
+          if (j < S) p[j] = kp[j] ? p[j] * inv_keep : 0.f;
+      }
+      float* pdr = pb + r * HSS + (h * S + i) * S;
+#pragma unroll
+      for (int j = 0; j < MAXS; ++j)
+        if (j < S) pdr[j] = p[j];
+      float* ctx = tok + (r * S + i) * TS + CTX + h * hd;
+      if (hd % 4 == 0) {
+        for (int t = 0; t < hd; t += 4) {
+          float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int j = 0; j < MAXS; ++j)
+            if (j < S) fma4(a, p[j], ld4(rowp + j * TS + V + t));
+          st4(ctx + t, a);
+        }
+      } else {
+        for (int t = 0; t < hd; ++t) {
+          float a = 0.f;
+#pragma unroll
+          for (int j = 0; j < MAXS; ++j)
+            if (j < S) a = fmaf(p[j], rowp[j * TS + V + t], a);
+          ctx[t] = a;
+        }
+      }
+    }
+    __syncthreads();
+
+    // D. dqkv, one thread per (token, 4 columns of [dq dk dv]):
+    //    dq_s = Σ_j dS[h,s,j] k_j, dk_s = Σ_i dS[h,i,s] q_i,
+    //    dv_s = Σ_i P_d[h,i,s] dctx_i; dv lands on v, which C was the last
+    //    to read.
+    const int C34 = 3 * C4;
+    for (int it = tid; it < T * C34; it += NT) {
+      const int t = it / C34;
+      const int j = 4 * (it - t * C34);
+      const int r = t / S;
+      const int s = t - r * S;
+      const float* src;   // the S token rows this sum runs over
+      const float* coef;  // its coefficients, head 0; step cs over the sum
+      int c, cs;
+      if (j < C) {
+        c = j;
+        src = tok + r * S * TS + K + c;
+        coef = sb + r * HSS + s * S;
+        cs = 1;
+      } else if (j < 2 * C) {
+        c = j - C;
+        src = tok + r * S * TS + Q + c;
+        coef = sb + r * HSS + s;
+        cs = S;
+      } else {
+        c = j - 2 * C;
+        src = tok + r * S * TS + DCTX + c;
+        coef = pb + r * HSS + s;
+        cs = S;
+      }
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (hd % 4 == 0) {  // the 4 columns lie in one head
+        const float* cp = coef + (c / hd) * SS;
+#pragma unroll
+        for (int u = 0; u < MAXS; ++u)
+          if (u < S) fma4(a, cp[u * cs], ld4(src + u * TS));
+      } else {
+        const float* c0 = coef + (c / hd) * SS;
+        const float* c1 = coef + ((c + 1) / hd) * SS;
+        const float* c2 = coef + ((c + 2) / hd) * SS;
+        const float* c3 = coef + ((c + 3) / hd) * SS;
+#pragma unroll
+        for (int u = 0; u < MAXS; ++u) {
+          if (u < S) {
+            const float4 v = ld4(src + u * TS);
+            a.x = fmaf(c0[u * cs], v.x, a.x);
+            a.y = fmaf(c1[u * cs], v.y, a.y);
+            a.z = fmaf(c2[u * cs], v.z, a.z);
+            a.w = fmaf(c3[u * cs], v.w, a.w);
+          }
+        }
+      }
+      st4(tok + t * TS + DQKV + j, a);
+    }
+    __syncthreads();
+
+    // E. dx = dqkv·Wqkvᵀ, tiles of kTokE tokens (q, q + NQE) × 4 channels,
+    //    stored straight to device memory.
+    const int NQE = (T + kTokE - 1) / kTokE;
+    float* dxg = dx + (size_t)r0 * SC;
+    for (int it = tid; it < NQE * C4; it += NT) {
+      const int ct = it / NQE;
+      const int q = it - ct * NQE;
+      const int c = 4 * ct;
+      const float* t0 = tok + q * TS + DQKV;
+      const int step = NQE * TS;
+      float4 a4[kTokE];
+#pragma unroll
+      for (int i = 0; i < kTokE; ++i) a4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+      for (int j = 0; j < C3; j += 4) {
+        const float* w = sWq + c * WQS + j;
+        const float4 w0 = ld4(w), w1 = ld4(w + WQS), w2 = ld4(w + 2 * WQS),
+                     w3 = ld4(w + 3 * WQS);
+#pragma unroll
+        for (int i = 0; i < kTokE; ++i)
+          dots4(a4[i], ld4(t0 + i * step + j), w0, w1, w2, w3);
+      }
+#pragma unroll
+      for (int i = 0; i < kTokE; ++i)
+        if (q + i * NQE < T) st4(dxg + (q + i * NQE) * C + c, a4[i]);
+    }
+
+    // F. the weight and bias gradients of this group into the thread's
+    //    tiles (reads what E reads, so no barrier between them).
+#pragma unroll 4
+    for (int t = split; t < T; t += splits) {
+      const float* row = tok + t * TS;
+#pragma unroll
+      for (int m = 0; m < MAXT; ++m) {
+        if (own[m]) {
+          const float4 a = ld4(row + aoff[m]);
+          const float4 b = ld4(row + boff[m]);
+          fma4(acc[m][0], a.x, b);
+          fma4(acc[m][1], a.y, b);
+          fma4(acc[m][2], a.z, b);
+          fma4(acc[m][3], a.w, b);
+          if (bout_at[m] >= 0) {
+            bacc[m].x += b.x;
+            bacc[m].y += b.y;
+            bacc[m].z += b.z;
+            bacc[m].w += b.w;
+          }
+        }
+      }
+    }
+  }
+
+  float* part = partials + ((size_t)blockIdx.x * splits + split) * total;
+#pragma unroll
+  for (int m = 0; m < MAXT; ++m) {
+    if (own[m]) {
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc)
+        st4(part + out[m] + cc * ostride[m], acc[m][cc]);
+      if (bout_at[m] >= 0) st4(part + bout_at[m], bacc[m]);
+    }
+  }
+}
+
+template <int MS, int MT>
+struct TiledCfg {
+  static constexpr int kMaxS = MS, kMaxTiles = MT;
+};
+
+// Calls f(TiledCfg<...>{}) for the instantiation that takes (S, C): the
+// exact S of the main path (2 and 6), else S rounded up to 4, 8 or 16; 1
+// stage-F tile a thread, or 4 where C²/4 > kTiledThreads (C > 32).
+template <int MS, class F>
+cudaError_t tiled_by_tiles(int C, F& f) {
+  if (C * C / 4 <= kTiledThreads) return f(TiledCfg<MS, 1>{});
+  return f(TiledCfg<MS, 4>{});
+}
+
+template <class F>
+cudaError_t tiled_dispatch(int S, int C, F f) {
+  if (S <= 2) return tiled_by_tiles<2>(C, f);
+  if (S <= 4) return tiled_by_tiles<4>(C, f);
+  if (S == 6) return tiled_by_tiles<6>(C, f);
+  if (S <= 8) return tiled_by_tiles<8>(C, f);
+  return tiled_by_tiles<16>(C, f);
+}
+
+// A reduce block's entries, and the threads that share each entry.
+constexpr int kReduceEntries = 32;
+constexpr int kReduceParts = kThreads / kReduceEntries;
+
+// grads[k] = Σ_g partials[g][k] in a fixed order: 8 threads sum an entry's
+// slices g ≡ part (mod 8), each in order, and the 8 sums are then added in
+// order. Deterministic, no atomics; 132 blocks at C = 32 (4,224 entries).
 __global__ void __launch_bounds__(kThreads)
 column_attention_bwd_reduce_kernel(const float* __restrict__ partials,
                                    int nparts, int total,
                                    float* __restrict__ grads) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= total) return;
+  __shared__ float sums[kReduceParts][kReduceEntries];
+  const int e = threadIdx.x % kReduceEntries;
+  const int part = threadIdx.x / kReduceEntries;
+  const int k = blockIdx.x * kReduceEntries + e;
   float s = 0.f;
-  for (int g = 0; g < nparts; ++g) s += partials[(size_t)g * total + k];
-  grads[k] = s;
+  if (k < total)
+    for (int g = part; g < nparts; g += kReduceParts)
+      s += partials[(size_t)g * total + k];
+  sums[part][e] = s;
+  __syncthreads();
+  if (part == 0 && k < total) {
+    float t = 0.f;
+#pragma unroll
+    for (int p = 0; p < kReduceParts; ++p) t += sums[p][e];
+    grads[k] = t;
+  }
+}
+
+cudaError_t launch_reduce(const float* partials, int nparts, int total,
+                          float* grads, cudaStream_t stream) {
+  const int blocks = (total + kReduceEntries - 1) / kReduceEntries;
+  column_attention_bwd_reduce_kernel<<<blocks, kThreads, 0, stream>>>(
+      partials, nparts, total, grads);
+  return cudaGetLastError();
 }
 
 bool bwd_acc_in_regs(int C, int weights_in_smem) {
@@ -712,14 +1274,104 @@ int rmm_column_attention_bwd(const float* x, const float* dout,
                      partials, B, S, C, H, inv_keep, rows, grid, smem, st);
   }();
   if (err != cudaSuccess) return (int)err;
-  const int total = 4 * C * C + 4 * C;
-  column_attention_bwd_reduce_kernel<<<(total + kThreads - 1) / kThreads,
-                                       kThreads, 0, st>>>(partials, grid,
-                                                          total, grads);
-  return (int)cudaGetLastError();
+  return (int)launch_reduce(partials, grid, 4 * C * C + 4 * C, grads, st);
 }
 
 #undef RMM_BWD_DISPATCH
+
+// The tiled backward (C % 4 == 0, C <= 64): its shared memory for a group
+// of `rows` rows, and the partial slices each block writes (stage F's
+// token splits).
+size_t rmm_column_attention_bwd_tiled_smem_bytes(int S, int C, int H,
+                                                 int rows) {
+  return tiled_smem_floats(S, C, H, rows) * sizeof(float);
+}
+
+int rmm_column_attention_bwd_tiled_splits(int C) { return tiled_splits(C); }
+
+static bool tiled_shape_ok(int S, int C, int H, int rows) {
+  return S >= 1 && S <= 16 && C >= 4 && C <= 64 && C % 4 == 0 && H >= 1 &&
+         C % H == 0 && rows >= 1;
+}
+
+// Blocks the tiled backward launches for this shape (at most one a row
+// group), or a negative CUDA error code.
+int rmm_column_attention_bwd_tiled_grid(int B, int S, int C, int H,
+                                        int rows) {
+  if (B <= 0 || !tiled_shape_ok(S, C, H, rows))
+    return -(int)cudaErrorInvalidValue;
+  const size_t smem = tiled_smem_floats(S, C, H, rows) * sizeof(float);
+  int per_sm = 0;
+  cudaError_t err = tiled_dispatch(S, C, [&](auto cfg) {
+    using Cfg = decltype(cfg);
+    auto kernel =
+        column_attention_bwd_tiled_kernel<Cfg::kMaxS, Cfg::kMaxTiles>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                         kTiledThreads, smem);
+  });
+  if (err != cudaSuccess) return -(int)err;
+  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int ngroups = (B + rows - 1) / rows;
+  const int grid = sms * per_sm;
+  return grid < ngroups ? grid : ngroups;
+}
+
+// The tiled backward kernel, then the reduce of its grid × splits partial
+// slices into grads (layout as rmm_column_attention_bwd's). x, dout and dx
+// must be 16-byte aligned. Returns cudaGetLastError() after the launches.
+int rmm_column_attention_bwd_tiled(const float* x, const float* dout,
+                                   const float* wqkv, const float* bqkv,
+                                   const float* wout, const uint8_t* keep,
+                                   float* dx, float* partials, float* grads,
+                                   int B, int S, int C, int H,
+                                   float inv_keep, int rows, int grid,
+                                   void* stream) {
+  if (B <= 0) return 0;
+  if (!tiled_shape_ok(S, C, H, rows) || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = tiled_smem_floats(S, C, H, rows) * sizeof(float);
+  const float scale = 1.0f / sqrtf((float)(C / H));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = tiled_dispatch(S, C, [&](auto cfg) {
+    using Cfg = decltype(cfg);
+    auto kernel =
+        column_attention_bwd_tiled_kernel<Cfg::kMaxS, Cfg::kMaxTiles>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, kTiledThreads, smem, st>>>(x, dout, wqkv, bqkv, wout, keep,
+                                              dx, partials, B, S, C, H, scale,
+                                              inv_keep, rows);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_reduce(partials, grid * tiled_splits(C),
+                            4 * C * C + 4 * C, grads, st);
+}
+
+// The most shared memory a block may opt into on the current card, and an
+// SM's whole shared memory (which the blocks on it split, less 1 kB each
+// that the runtime reserves).
+int rmm_cuda_max_smem_per_block() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return bytes;
+}
+
+int rmm_cuda_smem_per_sm() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                         dev);
+  return bytes;
+}
 
 const char* rmm_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -35,10 +35,20 @@ def _nvcc() -> str:
     return path
 
 
-def _start(name: str) -> native.Build:
-    src = KERNEL_SOURCES[name]
-    out = native.library_path(name, [src], NVCC_FLAGS)
+def start_cuda_build(src: str, out_dir: str = native.BUILD_DIR
+                     ) -> native.Build:
+    """Starts ``nvcc`` on the CUDA source ``src`` with the kernels' flags;
+    the library lands in ``out_dir`` under the source's name and hash
+    (``wait()`` on the result gives its path as ``.out``)."""
+    name = os.path.splitext(os.path.basename(src))[0]
+    out = os.path.join(out_dir, os.path.basename(
+        native.library_path(name, [src], NVCC_FLAGS)))
+    os.makedirs(out_dir, exist_ok=True)
     return native.Build([_nvcc(), *NVCC_FLAGS, src], out)
+
+
+def _start(name: str) -> native.Build:
+    return start_cuda_build(KERNEL_SOURCES[name])
 
 
 def build_all() -> dict[str, str]:

@@ -7,10 +7,14 @@ layout (``x [B, S, C]``, ``Wqkv [C, 3C]``, ``Wout [C, C]``, an optional
 ``[B, nhead, S, S]`` bool keep-mask) and runs ``csrc/column_attention.cu``
 for CUDA tensors: the forward kernel (the port of the TPU kernel
 ``rmm_tpu/ops/pallas/column_attention.py::_fwd_kernel``) and, under
-autograd, the backward kernel and its reduce (the port of ``_bwd_kernel``),
-through :class:`ColumnAttentionFunction`. The backward recomputes from
-``x`` alone, as the TPU kernel does: the Function saves ``x``, the weights
-and the keep-mask, nothing of the forward's insides.
+autograd, a backward kernel and its reduce (the port of ``_bwd_kernel``),
+through :class:`ColumnAttentionFunction`. The backward takes one of two
+kernels by shape (:func:`bwd_tiled`): the register-tiled one for every C
+<= 64 that is a multiple of 4 (the main path's C = 32), the scalar one of
+the first port for the rest (C = 96, 128, or C not a multiple of 4). The
+backward recomputes from ``x`` alone, as the TPU kernel does: the Function
+saves ``x``, the weights and the keep-mask, nothing of the forward's
+insides.
 
 CPU tensors take :func:`reference_column_attention`, the PyTorch twin of
 ``_attention_math``, whose backward is autograd's; a CUDA tensor launches
@@ -18,18 +22,22 @@ the kernels or raises. Why the kernels are built the way they are, and what
 bounds them, is noted in their source.
 
 ``launches`` counts forward-kernel launches, ``bwd_launches`` backward-kernel
-launches and ``reduce_launches`` launches of the backward's reduce (one per
-backward), and nothing else.
+launches (both kernels), ``bwd_tiled_launches`` those of the tiled one and
+``reduce_launches`` launches of the backward's reduce (one per backward),
+and nothing else.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 launches = 0
 bwd_launches = 0
+bwd_tiled_launches = 0
 reduce_launches = 0
 
 MAX_S = 16                   # the kernel keeps a row's S×S scores in registers
@@ -37,16 +45,28 @@ MAX_C = 128
 _ROW_BUDGET_FLOATS = 10240   # shared memory for one group's x/ctx + qkv
 _BWD_ROW_BUDGET_FLOATS = 20480  # the backward's 10·S·C + 2·H·S² a row
 _WEIGHTS_IN_SMEM_MAX_C = 64  # 4·C² floats = 64 kB at C = 64
+_TILED_MAX_C = 64            # the tiled backward keeps its weights in smem
 
 _lib = None
 
 
-def _kernel():
+def use_library(path: str | None = None):
+    """Binds the wrapper to the kernel library at ``path`` (a variant of
+    ``csrc/column_attention.cu`` that a measurement tool built with
+    :func:`build.start_cuda_build`), or with None back to the repo's own
+    build. The cached backward plans go with the old library."""
+    global _lib
+    _lib = None
+    _bwd_plan.cache_clear()
+    return _kernel(path)
+
+
+def _kernel(path: str | None = None):
     global _lib
     if _lib is None:
         from .build import load_kernel
 
-        lib = load_kernel("column_attention")
+        lib = ctypes.CDLL(path) if path else load_kernel("column_attention")
         p = ctypes.c_void_p
         lib.rmm_column_attention_fwd.restype = ctypes.c_int
         lib.rmm_column_attention_fwd.argtypes = [
@@ -59,6 +79,22 @@ def _kernel():
             p, p, p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, p]
+        lib.rmm_column_attention_bwd_tiled_smem_bytes.restype = (
+            ctypes.c_size_t)
+        lib.rmm_column_attention_bwd_tiled_smem_bytes.argtypes = [
+            ctypes.c_int] * 4
+        lib.rmm_column_attention_bwd_tiled_splits.restype = ctypes.c_int
+        lib.rmm_column_attention_bwd_tiled_splits.argtypes = [ctypes.c_int]
+        lib.rmm_column_attention_bwd_tiled_grid.restype = ctypes.c_int
+        lib.rmm_column_attention_bwd_tiled_grid.argtypes = [ctypes.c_int] * 5
+        lib.rmm_column_attention_bwd_tiled.restype = ctypes.c_int
+        lib.rmm_column_attention_bwd_tiled.argtypes = [
+            p, p, p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+            ctypes.c_int, p]
+        for fn in (lib.rmm_cuda_max_smem_per_block, lib.rmm_cuda_smem_per_sm):
+            fn.restype = ctypes.c_int
+            fn.argtypes = []
         lib.rmm_cuda_error_string.restype = ctypes.c_char_p
         lib.rmm_cuda_error_string.argtypes = [ctypes.c_int]
         _lib = lib
@@ -190,25 +226,78 @@ def column_attention_fwd(x, wqkv, bqkv, wout, bout, nhead, keep=None,
     return out
 
 
-def bwd_plan(b: int, s: int, c: int, nhead: int) -> tuple[int, int, int]:
-    """(rows per group, weights in shared memory, blocks) of the backward
-    kernel for this shape on the current card; one partial slice of
-    ``4C² + 4C`` floats per block."""
-    w_smem = int(c <= _WEIGHTS_IN_SMEM_MAX_C)
-    rows = max(1, min(b, _BWD_ROW_BUDGET_FLOATS
-                      // (10 * s * c + 2 * nhead * s * s + 8)))
-    grid = _kernel().rmm_column_attention_bwd_grid(b, s, c, nhead, rows,
-                                                   w_smem)
+def bwd_tiled(c: int) -> bool:
+    """Whether the backward of width ``c`` takes the register-tiled kernel
+    (every ``c <= 64`` that is a multiple of 4); the rest take the scalar
+    kernel of the first port."""
+    return c % 4 == 0 and c <= _TILED_MAX_C
+
+
+class BwdPlan(NamedTuple):
+    """How the backward runs a shape: which kernel, rows a group and
+    blocks, and the partial slices of ``4C² + 4C`` floats the reduce adds
+    (blocks × stage-F token splits for the tiled kernel)."""
+    tiled: bool
+    rows: int
+    grid: int
+    slices: int
+
+
+def bwd_plan(b: int, s: int, c: int, nhead: int,
+             rows: int | None = None) -> BwdPlan:
+    """The backward's plan for this shape on the current card. The tiled
+    kernel runs blocks of 256 threads, two an SM where a thread holds one
+    stage-F tile (C <= 32), else one, each with as many rows a group as
+    its share of the SM's shared memory holds, evened out so that every
+    block walks the same number of groups (the choice of
+    ``tools/torch_bwd_sweep.py``'s runs, in ``PERF.md``); ``rows``
+    overrides the rows a group. Plans are cached by shape and card: a plan
+    costs a few dozen calls into the library, about as long as the
+    node-shape kernel itself."""
+    return _bwd_plan(b, s, c, nhead, rows, torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_plan(b, s, c, nhead, rows, device) -> BwdPlan:
+    del device  # only a cache key: the plan depends on the card
+    lib = _kernel()
+    if not bwd_tiled(c):
+        w_smem = int(c <= _WEIGHTS_IN_SMEM_MAX_C)
+        rows = rows or max(1, min(b, _BWD_ROW_BUDGET_FLOATS
+                                  // (10 * s * c + 2 * nhead * s * s + 8)))
+        grid = lib.rmm_column_attention_bwd_grid(b, s, c, nhead, rows,
+                                                 w_smem)
+        if grid < 0:
+            _raise_on(-grid, "backward kernel")
+        return BwdPlan(False, rows, grid, grid)
+    if rows is None:
+        per_sm = 2 if c * c // 4 <= 256 else 1
+        budget = min(lib.rmm_cuda_max_smem_per_block(),
+                     lib.rmm_cuda_smem_per_sm() // per_sm - 1024)
+        rows = 1
+        while (rows < b and lib.rmm_column_attention_bwd_tiled_smem_bytes(
+                s, c, nhead, rows + 1) <= budget):
+            rows += 1
+        blocks = lib.rmm_column_attention_bwd_tiled_grid(b, s, c, nhead,
+                                                         rows)
+        if blocks < 0:
+            _raise_on(-blocks, "tiled backward kernel")
+        groups = -(-b // rows)
+        waves = -(-groups // blocks)
+        rows = -(-b // (waves * blocks))
+    grid = lib.rmm_column_attention_bwd_tiled_grid(b, s, c, nhead, rows)
     if grid < 0:
-        _raise_on(-grid, "backward kernel")
-    return rows, w_smem, grid
+        _raise_on(-grid, "tiled backward kernel")
+    return BwdPlan(True, rows, grid,
+                   grid * lib.rmm_column_attention_bwd_tiled_splits(c))
 
 
 def column_attention_bwd(x, do, wqkv, bqkv, wout, nhead, keep=None,
-                         rate=0.0):
+                         rate=0.0, plan: BwdPlan | None = None):
     """The backward kernel and its reduce on checked CUDA inputs (``do``
-    contiguous like ``x``): ``(dx, dWqkv, dbqkv, dWout, dbout)``."""
-    global bwd_launches, reduce_launches
+    contiguous like ``x``): ``(dx, dWqkv, dbqkv, dWout, dbout)``. ``plan``
+    (from :func:`bwd_plan`) overrides the default one."""
+    global bwd_launches, bwd_tiled_launches, reduce_launches
     b, s, c = x.shape
     dx = torch.empty_like(x)
     grads = torch.empty(4 * c * c + 4 * c, dtype=x.dtype, device=x.device)
@@ -217,18 +306,29 @@ def column_attention_bwd(x, do, wqkv, bqkv, wout, nhead, keep=None,
     else:
         inv_keep = 1.0 / (1.0 - rate) if keep is not None else 1.0
         with torch.cuda.device(x.device):
-            rows, w_smem, grid = bwd_plan(b, s, c, nhead)
-            partials = torch.empty(grid, grads.numel(), dtype=x.dtype,
-                                   device=x.device)
+            plan = plan or bwd_plan(b, s, c, nhead)
+            partials = torch.empty(plan.slices, grads.numel(),
+                                   dtype=x.dtype, device=x.device)
             stream = torch.cuda.current_stream().cuda_stream
-            err = _kernel().rmm_column_attention_bwd(
-                x.data_ptr(), do.data_ptr(), wqkv.data_ptr(),
-                bqkv.data_ptr(), wout.data_ptr(),
-                None if keep is None else keep.data_ptr(), dx.data_ptr(),
-                partials.data_ptr(), grads.data_ptr(), b, s, c, nhead,
-                inv_keep, rows, w_smem, grid, stream)
+            if plan.tiled:
+                # float4 loads: a view at an odd offset is copied first
+                x, do = (t if t.data_ptr() % 16 == 0 else t.clone()
+                         for t in (x, do))
+            args = (x.data_ptr(), do.data_ptr(), wqkv.data_ptr(),
+                    bqkv.data_ptr(), wout.data_ptr(),
+                    None if keep is None else keep.data_ptr(), dx.data_ptr(),
+                    partials.data_ptr(), grads.data_ptr(), b, s, c, nhead,
+                    inv_keep, plan.rows)
+            if plan.tiled:
+                err = _kernel().rmm_column_attention_bwd_tiled(
+                    *args, plan.grid, stream)
+            else:
+                err = _kernel().rmm_column_attention_bwd(
+                    *args, int(c <= _WEIGHTS_IN_SMEM_MAX_C), plan.grid,
+                    stream)
         _raise_on(err, "backward kernel")
         bwd_launches += 1
+        bwd_tiled_launches += int(plan.tiled)
         reduce_launches += 1
     k1, k2, k3 = 3 * c * c, 3 * c * c + 3 * c, 4 * c * c + 3 * c
     return (dx, grads[:k1].view(c, 3 * c), grads[k1:k2],

@@ -89,31 +89,123 @@ def test_column_attention_kernel_refuses_what_it_cannot_run(cuda):
     assert ca.launches == before
 
 
-@pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("b,s,c,h", SHAPES)
-def test_column_attention_backward_matches_plain(cuda, b, s, c, h, masked):
+# The backward's further shapes: S of 1, 5 and 7, and C of 16, 48 and 64 at
+# head_dim 4 and 8 (the tiled kernel takes every C <= 64 that is a multiple
+# of 4). The rest take the scalar kernel, in one of 12 instantiations: S
+# rounded up to 2, 4, 8 or 16, times where the weight-gradient sums live
+# (registers at C <= 38, device memory with the weights in shared memory
+# at C <= 64, device memory with the weights in device memory above).
+BWD_SHAPES = SHAPES + [
+    (300, 1, 32, 8),
+    (301, 5, 32, 8),
+    (299, 7, 32, 8),
+    (203, 6, 16, 4),     # head_dim 4
+    (203, 6, 16, 2),     # head_dim 8
+    (157, 6, 48, 12),
+    (157, 6, 48, 6),
+    (131, 6, 64, 16),
+    (131, 6, 64, 8),
+    (77, 2, 30, 5),      # scalar, sums in registers
+    (61, 3, 18, 3),
+    (129, 6, 30, 6),
+    (45, 11, 14, 2),
+    (90, 2, 50, 5),      # scalar, weights in shared memory
+    (65, 3, 42, 7),
+    (47, 7, 54, 6),
+    (23, 13, 62, 2),
+    (40, 2, 72, 8),      # scalar, weights in device memory (S of 8 and 16
+    (31, 4, 100, 5),     # are the SHAPES' C = 96 and 128)
+]
+
+
+def backward_case(device, b, s, c, h, masked, plan=None):
+    """The backward kernel's gradients and autograd's of the plain version
+    on the same seeded inputs."""
     args = [a.requires_grad_() for a in attention_inputs(b + s, b, s, c,
-                                                        cuda)]
+                                                        device)]
     do = torch.from_numpy(np.random.RandomState(c).randn(b, s, c).astype(
-        np.float32)).to(cuda)
+        np.float32)).to(device)
     mask, rate = None, 0.0
     if masked:
         rate = 0.3
         mask = torch.from_numpy(
-            np.random.RandomState(b).rand(b, h, s, s) >= rate).to(cuda)
-    before = (ca.launches, ca.bwd_launches, ca.reduce_launches)
-    got = torch.autograd.grad(ca.fused_column_attention(*args, h, mask, rate),
-                              args, do)
-    assert (ca.launches, ca.bwd_launches, ca.reduce_launches) == tuple(
-        n + 1 for n in before)
+            np.random.RandomState(b).rand(b, h, s, s) >= rate).to(device)
+    if plan is None:
+        got = torch.autograd.grad(
+            ca.fused_column_attention(*args, h, mask, rate), args, do)
+    else:
+        x, wqkv, bqkv, wout, _ = (t.detach() for t in args)
+        got = ca.column_attention_bwd(x, do, wqkv, bqkv, wout, h, mask,
+                                      rate, plan=plan)
     want = torch.autograd.grad(
         ca.reference_column_attention(*args, h, mask, rate), args, do)
+    return got, want
+
+
+def assert_gradients_match(got, want):
     np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
                                **TOL)
     for g, w in zip(got[1:], want[1:]):
         scale = float(w.abs().max())
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
                                    rtol=0, atol=1e-4 * max(scale, 1.0))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,s,c,h", BWD_SHAPES)
+def test_column_attention_backward_matches_plain(cuda, b, s, c, h, masked):
+    before = (ca.launches, ca.bwd_launches, ca.reduce_launches)
+    got, want = backward_case(cuda, b, s, c, h, masked)
+    assert (ca.launches, ca.bwd_launches, ca.reduce_launches) == tuple(
+        n + 1 for n in before)
+    assert_gradients_match(got, want)
+
+
+@pytest.mark.parametrize("delta", [-1, 1])
+@pytest.mark.parametrize("s,c,h", [(6, 32, 8), (2, 32, 8), (5, 48, 6)])
+def test_tiled_backward_one_row_either_side_of_a_group(cuda, s, c, h, delta):
+    """B one row short of a group, and one row past it (a second group
+    of one row), at the group size the plan picks for a large batch."""
+    rows = ca.bwd_plan(131072, s, c, h).rows
+    b = rows + delta
+    plan = ca.bwd_plan(b, s, c, h, rows=rows)
+    assert plan.tiled and plan.rows == rows
+    before = ca.bwd_tiled_launches
+    got, want = backward_case(cuda, b, s, c, h, True, plan)
+    assert ca.bwd_tiled_launches == before + 1
+    assert_gradients_match(got, want)
+
+
+def test_backward_repeats_bitwise(cuda):
+    """No atomics: the weight gradients are summed in a fixed order, so
+    two calls on the same inputs give the same bits."""
+    b, s, c, h = 4099, 6, 32, 8
+    x, wqkv, bqkv, wout, _ = attention_inputs(0, b, s, c, cuda)
+    do = torch.randn(b, s, c, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(1))
+    mask = torch.rand(b, h, s, s, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(2)) >= 0.3
+    first = ca.column_attention_bwd(x, do, wqkv, bqkv, wout, h, mask, 0.3)
+    second = ca.column_attention_bwd(x, do, wqkv, bqkv, wout, h, mask, 0.3)
+    for g, a in zip(first, second):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("b,s,c,h,tiled", [
+    (16384, 2, 32, 8, True),     # the main path's node tokens
+    (131072, 6, 32, 8, True),    # the main path's edge tokens
+    (33, 6, 96, 3, False),
+    (100, 16, 128, 8, False),
+    (129, 6, 30, 6, False),      # C not a multiple of 4
+    (65, 3, 42, 7, False),
+])
+def test_backward_route_by_shape(cuda, b, s, c, h, tiled):
+    x, wqkv, bqkv, wout, _ = attention_inputs(0, b, s, c, cuda)
+    before = (ca.bwd_launches, ca.bwd_tiled_launches)
+    ca.column_attention_bwd(x, torch.ones_like(x), wqkv, bqkv, wout, h)
+    assert ca.bwd_tiled(c) == tiled
+    assert (ca.bwd_launches, ca.bwd_tiled_launches) == (
+        before[0] + 1, before[1] + int(tiled))
 
 
 def test_three_train_steps_on_the_card_match_the_cpu(cuda, tmp_path):
@@ -133,19 +225,21 @@ def test_three_train_steps_on_the_card_match_the_cpu(cuda, tmp_path):
             argv + ["--device", device]))
         tr = Trainer(cfg, build_dataset(cfg))
         tr.model.train()
-        before = (ca.launches, ca.bwd_launches, ca.reduce_launches)
+        counters = ("launches", "bwd_launches", "bwd_tiled_launches",
+                    "reduce_launches")
+        before = [getattr(ca, n) for n in counters]
         batches = itertools.islice(
             tr._batches(tr.dataset.edges.split()[0], "train"), 3)
         losses = [float(tr._step(gb.to(tr.device))[0]) for gb in batches]
-        launched = tuple(n - m for n, m in zip(
-            (ca.launches, ca.bwd_launches, ca.reduce_launches), before))
+        launched = tuple(getattr(ca, n) - m
+                         for n, m in zip(counters, before))
         runs.append((losses, {k: v.cpu() for k, v in
                               tr.model.state_dict().items()}, launched,
                      cfg.lr))
     (cpu_losses, cpu_state, cpu_launched, lr), (losses, state, launched,
                                                _) = runs
-    assert cpu_launched == (0, 0, 0)
-    assert launched == (12, 12, 12)    # 2 layers x nodes, edges x 3 steps
+    assert cpu_launched == (0, 0, 0, 0)
+    assert launched == (12, 12, 12, 12)   # 2 layers x nodes, edges x 3 steps
     np.testing.assert_allclose(losses, cpu_losses, rtol=1e-4)
     errs = np.concatenate([np.abs(v.numpy() - cpu_state[k].numpy()).ravel()
                            for k, v in state.items()])
