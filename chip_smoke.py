@@ -18,9 +18,10 @@ through all of them:
              capacity, C = 128, a ragged batch, a numpy keep-mask); the
              backward (and its reduce) against ``torch.autograd.grad`` of
              the plain version at the training shapes with the keep-mask,
-             the same unmasked, C = 128 and a ragged batch, each record
-             naming the backward kernel it took (tiled or scalar), and two
-             calls at the masked edge shape bitwise equal. Max error
+             the same unmasked, C = 128 and a ragged batch. Each record
+             names the kernel it took (tiled or scalar, by width), and two
+             calls of each direction at the masked edge shape are bitwise
+             equal. Max error
              (the backward's relative to each reference tensor's largest
              entry), kernel / plain / library times (CUDA events, warm,
              median) and the bound.
@@ -30,14 +31,14 @@ through all of them:
              weights converted from the committed JAX fixture
              (``tests/fixtures/torch_port/aml_record.npz``, written by
              ``tools/make_torch_port_fixture.py``). Checks 4 kernel
-             launches per batch, finite scores, and the first rows against
-             the JAX results.
+             launches per batch, all through the tiled forward, finite
+             scores, and the first rows against the JAX results.
 5. train   — the port's training CLI (``rmm_tpu_torch.cli.main.main``) at
              the config of record (dropout 0.083), one epoch on the same
              data, ``--testing --sampler_threads 4 --save_model``: finite
-             loss; per train step 4 forward, 4 backward (all 4 through the
-             tiled kernel) and 4 reduce launches, per evaluated batch 4
-             forward; the checkpoint it
+             loss; per train step 4 forward, 4 backward and 4 reduce
+             launches, per evaluated batch 4 forward, every forward and
+             backward through the tiled kernels; the checkpoint it
              wrote serves through the predict CLI. Train rows/s, the median
              step on the device's clock, epoch seconds, val/test f1 and AUC.
 6. train_parity — three train steps on the card with dropout 0 from the
@@ -45,7 +46,7 @@ through all of them:
              steps (``tests/fixtures/torch_port/aml_train_record.npz``,
              written by ``tools/make_torch_port_train_fixture.py`` at the
              config's widths on 16,384 rows): the three losses and every
-             parameter after step 3.
+             parameter after step 3 (every launch tiled).
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -233,7 +234,18 @@ def kernel_phase(card: str) -> dict:
             mask = torch.from_numpy(rng.rand(b, h, s, s) >= rate).to(dev)
         args = (x, wqkv, bqkv, wout, bout, h, mask, rate)
         with torch.inference_mode():
+            tiled_before = ca.fwd_tiled_launches
             out = ca.fused_column_attention(*args)
+            route = ("tiled" if ca.fwd_tiled_launches > tiled_before
+                     else "scalar")
+            check(route == ("tiled" if ca.tiled(c) else "scalar"),
+                  f"forward {b}x{s}x{c}/{h} took the {route} kernel")
+            repeat_equal = None
+            if len(fwd) == 2:   # the masked edge shape
+                repeat_equal = torch.equal(out,
+                                           ca.fused_column_attention(*args))
+                check(repeat_equal, f"forward {b}x{s}x{c}/{h}: two calls on "
+                      "the same inputs differ")
             ref = ca.reference_column_attention(*args)
             torch.cuda.synchronize()
             err = float((out - ref).abs().max())
@@ -251,9 +263,13 @@ def kernel_phase(card: str) -> dict:
                 lib_ms = time_ms(lambda: library_attention(*lib))
         t_bytes, t_ops = attention_floor(b, s, c, h, mask is not None)
         bound_ms, by = bound(t_bytes, t_ops)
+        plan = ca.fwd_plan(b, s, c, h) if route == "tiled" else None
         rec = {"phase": "kernel", "kernel": "column_attention_fwd",
                "B": b, "S": s, "C": c, "H": h, "dropout": rate,
-               "max_abs_err": err, "tol": KERNEL_TOL, "kernel_ms": k_ms,
+               "route": route, "rows": plan and plan.rows,
+               "blocks": plan and plan.grid,
+               "repeat_bitwise_equal": repeat_equal, "max_abs_err": err,
+               "tol": KERNEL_TOL, "kernel_ms": k_ms,
                "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
                "bound_by": by, "bytes_ms": t_bytes, "ops_ms": t_ops,
                "card": card, "ok": True}
@@ -273,7 +289,7 @@ def kernel_phase(card: str) -> dict:
         tiled_before = ca.bwd_tiled_launches
         got = ca.column_attention_bwd(*args)
         route = "tiled" if ca.bwd_tiled_launches > tiled_before else "scalar"
-        check(route == ("tiled" if ca.bwd_tiled(c) else "scalar"),
+        check(route == ("tiled" if ca.tiled(c) else "scalar"),
               f"backward {b}x{s}x{c}/{h} took the {route} kernel")
         repeat_equal = None
         if not bwd:   # the masked edge shape: the weight gradients are
@@ -353,14 +369,15 @@ def record_argv(st: dict, csv: str) -> list[str]:
 def reset_counts():
     from rmm_tpu_torch.ops import column_attention as ca
 
-    ca.launches = ca.bwd_launches = ca.bwd_tiled_launches = 0
-    ca.reduce_launches = 0
+    ca.launches = ca.fwd_tiled_launches = 0
+    ca.bwd_launches = ca.bwd_tiled_launches = ca.reduce_launches = 0
 
 
 def read_counts() -> dict:
     from rmm_tpu_torch.ops import column_attention as ca
 
-    return {"fwd": ca.launches, "bwd": ca.bwd_launches,
+    return {"fwd": ca.launches, "fwd_tiled": ca.fwd_tiled_launches,
+            "bwd": ca.bwd_launches,
             "bwd_tiled": ca.bwd_tiled_launches, "reduce": ca.reduce_launches}
 
 
@@ -403,9 +420,10 @@ def serve_phase(card: str, csv: str) -> dict:
     launches = counts["fwd"]
     check(rows == st["test_rows"], f"served {rows} rows, test split has "
           f"{st['test_rows']}")
-    check(launches == 4 * batches and counts["bwd"] == 0,
+    check(launches == 4 * batches and counts["fwd_tiled"] == launches
+          and counts["bwd"] == 0,
           f"{counts} kernel launches for {batches} batches (expected 4 "
-          "forwards per batch: 2 layers x node and edge tokens)")
+          "forwards per batch, all tiled: 2 layers x node and edge tokens)")
     check((run["edge_capacity"], run["node_capacity"])
           == (st["edge_capacity"], st["node_capacity"]),
           f"capacities {run['edge_capacity']}/{run['node_capacity']} vs "
@@ -420,7 +438,8 @@ def serve_phase(card: str, csv: str) -> dict:
     check(np.array_equal(out["pred"][:k][clear], fx["pred"][clear]),
           "predicted classes differ from the JAX fixture")
     rec = {"phase": "serve", "rows": rows, "batches": batches,
-           "launches": launches, "launches_per_batch": launches / batches,
+           "launches": launches, "tiled_launches": counts["fwd_tiled"],
+           "launches_per_batch": launches / batches,
            "edge_capacity": run["edge_capacity"],
            "node_capacity": run["node_capacity"],
            "fixture_rows": k, "max_score_err": score_err,
@@ -459,11 +478,13 @@ def train_phase(card: str, csv: str) -> dict:
     steps = -(-train_rows // b)
     evals = -(-val_rows // b) + -(-test_rows // b)
     check(math.isfinite(ep["loss"]), f"train loss {ep['loss']}")
-    check(counts == {"fwd": 4 * (steps + evals), "bwd": 4 * steps,
+    check(counts == {"fwd": 4 * (steps + evals),
+                     "fwd_tiled": 4 * (steps + evals), "bwd": 4 * steps,
                      "bwd_tiled": 4 * steps, "reduce": 4 * steps},
           f"launches {counts} for {steps} train steps and {evals} evaluated "
-          "batches (expected 4 forwards per batch, 4 backwards, all tiled, "
-          "and 4 reduces per step: 2 layers x node and edge tokens)")
+          "batches (expected 4 forwards per batch, 4 backwards and 4 "
+          "reduces per step, forwards and backwards all tiled: 2 layers x "
+          "node and edge tokens)")
     check((stats["edge_capacity"], stats["node_capacity"])
           == (st["edge_capacity"], st["node_capacity"]),
           "training capacities differ from the fixture's")
@@ -538,8 +559,8 @@ def train_parity_phase(card: str) -> dict:
     param_err, param_median = float(errs.max()), float(errs.median())
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, want_losses)]
     n = st["steps"]
-    check(counts == {"fwd": 4 * n, "bwd": 4 * n, "bwd_tiled": 4 * n,
-                     "reduce": 4 * n},
+    check(counts == {"fwd": 4 * n, "fwd_tiled": 4 * n, "bwd": 4 * n,
+                     "bwd_tiled": 4 * n, "reduce": 4 * n},
           f"launches {counts} for {n} train steps")
     check(loss_rel[0] <= LOSS1_RTOL and max(loss_rel) <= LOSS_RTOL,
           f"losses {losses} vs the JAX record's {want_losses}")
@@ -598,6 +619,8 @@ def main() -> int:
                          kern["fwd"], {
                              "launches": serve_rec["launches"]
                              + train_rec["launches"]["fwd"],
+                             "tiled_launches": serve_rec["tiled_launches"]
+                             + train_rec["launches"]["fwd_tiled"],
                              "launches_by_path": {
                                  "serve": serve_rec["launches"],
                                  "train": train_rec["launches"]["fwd"]},

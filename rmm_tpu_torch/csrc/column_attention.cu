@@ -1,7 +1,7 @@
-// Fused column attention for Hopper (sm_90a): the forward here, the
-// backward and its reduce further down.
+// Fused column attention for Hopper (sm_90a): two forward kernels, two
+// backward kernels and the backward's reduce.
 //
-// The forward replaces the TPU kernel
+// The forwards replace the TPU kernel
 // rmm_tpu/ops/pallas/column_attention.py::_fwd_kernel (math in
 // _attention_math). For each row b of x [B, S, C]:
 //   qkv = x_b · Wqkv + bqkv                      [S, 3C]
@@ -18,26 +18,71 @@
 // rows' whole attention in shared memory: device memory sees one read of x
 // and one write of o per row, plus the weights (from L2 after the first
 // block). At the floor the call is bound by float32 FMAs (about 27k per row
-// at C = 32, S = 6, against 1.5 kB moved). This simple version runs on the
-// CUDA cores and is limited by shared-memory loads: each FMA of the two
-// projections reads one weight (shared by all S tokens of the row, which sit
-// in registers as S accumulators) and one broadcast activation. Tensor cores
-// (wgmma) and TMA are later work.
+// at C = 32, S = 6, against 1.5 kB moved); on the CUDA cores both kernels
+// are bound by shared memory and issue before that. Tensor cores (wgmma)
+// and TMA are later work.
 //
-// Design, against the TPU kernel's choices:
-//  * no channel-mask trick: heads are column slices indexed directly;
-//  * no multiple-of-8 batch tiling or padding: a block walks groups of
-//    `rows` rows (grid-stride) and the ragged last group is masked;
-//  * weights are staged in shared memory only when they fit (C <= 64);
-//    above that (C = 128: 256 kB) they are read through the read-only
-//    cache (__ldg), where every block finds them in L2.
-// Supports S <= 16, C % nhead == 0, C <= 128, float32 only (the wrapper
-// checks). Launches on the caller's stream, allocates nothing, does not
-// synchronize; the C entry point returns cudaGetLastError().
+// Two kernels compute it, chosen by shape: the register-tiled one
+// (column_attention_fwd_tiled_kernel, further down) for every C <= 64 that
+// is a multiple of 4, the main path's C = 32 among them, and the first
+// port's scalar one, right below, for the rest: C = 96 and 128, and C not a
+// multiple of 4. Against the TPU kernel's choices, both index the heads as
+// column slices (no channel-mask trick), and a block walks groups of
+// `rows` rows (grid-stride) with the ragged last group masked (no
+// multiple-of-8 batch tiling or padding).
+//
+// The scalar kernel: one thread per (row, output column) in the
+// projections, the S tokens as S register sums, and one per (row, head,
+// query) in the attention, on rows padded by one float. Each projection FMA
+// reads one weight and one broadcast activation, all 32-bit loads (about
+// 5.2k a token against 4.5k FMAs at C = 32), and its attention stage has
+// 6-way bank conflicts. The weights sit in shared memory where they fit
+// (C <= 64); at C = 128 (256 kB) every block reads them through the
+// read-only cache from L2.
+//
+// The tiled kernel keeps the groups of rows and cuts the shared loads with
+// register tiles fed by float4 loads, as the tiled backward does:
+//  * Layout. A group's tokens are token-major rows of TS = 5C + 4 floats,
+//    x | ctx | q | k | v: ≡ 4 (mod 32) at C = 32, so eight tokens' float4s
+//    at one column fall in eight 16-byte bank groups. The weights sit
+//    row-major with rows padded by 4.
+//  * A. x and the keep-mask bytes come in by cp.async: the next group's
+//    are started as soon as stage B has read this group's x, and are
+//    waited for at the top of the next group, so the loads run under
+//    stages C and O (the mask into a second buffer).
+//  * B. qkv = x·Wqkv + b as tiles of 4 tokens × 4 columns, the tokens NQ
+//    apart: the 8 lanes of a quarter-warp read 8 consecutive tokens (no
+//    bank conflict) and one broadcast float4 of weights, 16 FMAs a float4.
+//  * C. one thread per (row, query, head), the heads of a row on
+//    neighbouring lanes (no bank conflicts): float4s of the head's
+//    channels, the softmax times 1/Σ, the keep-mask from shared memory.
+//  * O. o = ctx·Wout + b as tiles of 2 tokens × 4 columns, the column tiles
+//    on neighbouring lanes: a quarter-warp reads one broadcast ctx float4
+//    and 8 consecutive weight float4s, and stores one token's 128
+//    contiguous bytes straight from registers (3.5-5.5% faster than 8
+//    tokens' 16-byte pieces).
+//  * Groups and blocks, by measurement (tools/torch_attn_sweep.py and the
+//    variants of tools/torch_attn_stages.py): two blocks of 256 threads an
+//    SM, each with the most rows that leave room for the other (21 = 126
+//    tokens at S = 6). Three blocks (11 rows, 80 registers) and one block
+//    of 512 (42 rows) are 10-12% slower. 3 barriers a group.
+//  * S = 6, the main path's edge tokens, is a constant in its
+//    instantiation: 7-8% faster than the same code with a runtime S.
+// What bounds it now (131072×6×32/8: about 0.35 ms against the scalar
+// kernel's 1.23, bound 0.105; H100 80GB HBM3, 700 W): stage B, about 40%,
+// by shared loads (a distinct float4 of 4.2 cycles and a broadcast of 2.2
+// for every 16 FMAs); stage C, about a third, by issue and latency (a
+// softmax, index divisions and byte loads for a few dozen FMAs an item).
+// See PERF.md.
+// Both kernels take S <= 16, C % nhead == 0, C <= 128, float32 only (the
+// wrapper checks). They launch on the caller's stream, allocate nothing
+// and do not synchronize; the C entry points return cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -597,8 +642,8 @@ column_attention_bwd_kernel(const float* __restrict__ x,
 //    channels and the keep-mask bytes that stage A staged with x and do
 //    (16-byte loads), and multiplies by 1/Σ instead of dividing. D is one
 //    thread per (token, 4 columns of dqkv) on float4 rows.
-//  * Groups and blocks, by measurement (tools/torch_bwd_sweep.py, and the
-//    variants of tools/torch_bwd_stages.py): two blocks of 256 threads an
+//  * Groups and blocks, by measurement (tools/torch_attn_sweep.py, and the
+//    variants of tools/torch_attn_stages.py): two blocks of 256 threads an
 //    SM (16 warps), 10 rows = 60 tokens a group at S = 6, take 3.5% less
 //    time than one block of 512 threads with twice the rows, and a
 //    quarter less than one block of 256 (8 warps); still 5 barriers a
@@ -612,7 +657,7 @@ column_attention_bwd_kernel(const float* __restrict__ x,
 // shared-memory cycles and 97 of FMA issue a token, against about 430 the
 // kernel takes at that clock. Shared memory is the busiest unit at about
 // half its rate; the rest is latency and the waits at 5 barriers a group
-// with 16 warps an SM. By stage (tools/torch_bwd_stages.py): E+F 38%, B
+// with 16 warps an SM. By stage (tools/torch_attn_stages.py): E+F 38%, B
 // and D 19% each, C 17%, A 8%. Registers: 16 warps an SM leave 128 a
 // thread, and stage F's 20 sums stay live through every stage. Launch
 // bounds for three blocks an SM cap a thread at 80 and spill 240 bytes;
@@ -663,6 +708,107 @@ __device__ __forceinline__ void dots4(float4& acc, float4 a, float4 w0,
   acc.y = dot4(a, w1, acc.y);
   acc.z = dot4(a, w2, acc.z);
   acc.w = dot4(a, w3, acc.w);
+}
+
+// Stages shared by the tiled backward and the tiled forward.
+
+// The weights into shared memory, row-major with rows padded to WQS and
+// WOS floats.
+__device__ __forceinline__ void stage_weights(const float* wqkv,
+                                              const float* wout, float* sWq,
+                                              float* sWo, int C, int WQS,
+                                              int WOS, int tid, int nt) {
+  const int C3 = 3 * C;
+  for (int i = tid; i < C * C3; i += nt) {
+    const int c = i / C3;
+    sWq[c * WQS + (i - c * C3)] = wqkv[i];
+  }
+  for (int i = tid; i < C * C; i += nt) {
+    const int c = i / C;
+    sWo[c * WOS + (i - c * C)] = wout[i];
+  }
+}
+
+// A tile of NTOK tokens × output columns j .. j + 3 of a projection, in
+// the outer form: a4[i] = bias[j..] + Σ_c t_i[c] · W[c][j..], token i's
+// row at t0 + i·step, W row-major with rows WS floats apart.
+template <int NTOK>
+__device__ __forceinline__ void proj_tile(float4 (&a4)[NTOK], const float* t0,
+                                          int step, const float* W, int WS,
+                                          const float* bias, int j, int C) {
+  const float4 bj = make_float4(__ldg(bias + j), __ldg(bias + j + 1),
+                                __ldg(bias + j + 2), __ldg(bias + j + 3));
+#pragma unroll
+  for (int i = 0; i < NTOK; ++i) a4[i] = bj;
+#pragma unroll 4
+  for (int c = 0; c < C; c += 4) {
+    const float* w = W + c * WS + j;
+    const float4 w0 = ld4(w), w1 = ld4(w + WS), w2 = ld4(w + 2 * WS),
+                 w3 = ld4(w + 3 * WS);
+#pragma unroll
+    for (int i = 0; i < NTOK; ++i)
+      outer4(a4[i], ld4(t0 + i * step + c), w0, w1, w2, w3);
+  }
+}
+
+// The softmax of S scores, scaled first, in place (entries past S stay 0).
+template <int MAXS>
+__device__ __forceinline__ void softmax(float (&p)[MAXS], int S,
+                                        float scale) {
+  float m = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < MAXS; ++j) {
+    if (j < S) {
+      p[j] *= scale;
+      m = fmaxf(m, p[j]);
+    }
+  }
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < MAXS; ++j) {
+    if (j < S) {
+      p[j] = expf(p[j] - m);
+      sum += p[j];
+    }
+  }
+  const float inv_sum = 1.f / sum;
+#pragma unroll
+  for (int j = 0; j < MAXS; ++j) p[j] *= inv_sum;
+}
+
+// p_j · keep_j / (1 − rate), from the staged keep-mask bytes kp.
+template <int MAXS>
+__device__ __forceinline__ void keep_scale(float (&p)[MAXS],
+                                           const uint8_t* kp, int S,
+                                           float inv_keep) {
+#pragma unroll
+  for (int j = 0; j < MAXS; ++j)
+    if (j < S) p[j] = kp[j] ? p[j] * inv_keep : 0.f;
+}
+
+// ctx[t] = Σ_j p_j v_j[t] over a head's hd channels, token j's v at
+// v + j·TS; float4 loads where hd is a multiple of 4.
+template <int MAXS>
+__device__ __forceinline__ void context(float* ctx, const float (&p)[MAXS],
+                                        const float* v, int TS, int hd,
+                                        int S) {
+  if (hd % 4 == 0) {
+    for (int t = 0; t < hd; t += 4) {
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int j = 0; j < MAXS; ++j)
+        if (j < S) fma4(a, p[j], ld4(v + j * TS + t));
+      st4(ctx + t, a);
+    }
+  } else {
+    for (int t = 0; t < hd; ++t) {
+      float a = 0.f;
+#pragma unroll
+      for (int j = 0; j < MAXS; ++j)
+        if (j < S) a = fmaf(p[j], v[j * TS + t], a);
+      ctx[t] = a;
+    }
+  }
 }
 
 constexpr int kTokB = 4;  // tokens of a stage-B tile
@@ -723,14 +869,7 @@ column_attention_bwd_tiled_kernel(const float* __restrict__ x,
   float* pb = tok + TP * TS;      // P_d [rows][H][S][S]
   float* sb = pb + rows * HSS;    // dS
   uint8_t* kb = reinterpret_cast<uint8_t*>(sb + rows * HSS);  // keep-mask
-  for (int i = tid; i < C * C3; i += NT) {
-    const int c = i / C3;
-    sWq[c * WQS + (i - c * C3)] = wqkv[i];
-  }
-  for (int i = tid; i < C * C; i += NT) {
-    const int c = i / C;
-    sWo[c * WOS + (i - c * C)] = wout[i];
-  }
+  stage_weights(wqkv, wout, sWq, sWo, C, WQS, WOS, tid, NT);
 
   // Stage F's tiles: tile k < 3C²/16 is dWqkv[4ct.., 4jt..] = Σ x ⊗ dqkv,
   // the rest dWout[4ct.., 4et..] = Σ ctx ⊗ do; a tile with ct = 0 also
@@ -810,20 +949,7 @@ column_attention_bwd_tiled_kernel(const float* __restrict__ x,
       float4 a4[kTokB];
       if (jt < 3 * C4) {
         const int j = 4 * jt;
-        const float4 bj = make_float4(__ldg(bqkv + j), __ldg(bqkv + j + 1),
-                                      __ldg(bqkv + j + 2),
-                                      __ldg(bqkv + j + 3));
-#pragma unroll
-        for (int i = 0; i < kTokB; ++i) a4[i] = bj;
-#pragma unroll 4
-        for (int c = 0; c < C; c += 4) {
-          const float* w = sWq + c * WQS + j;
-          const float4 w0 = ld4(w), w1 = ld4(w + WQS),
-                       w2 = ld4(w + 2 * WQS), w3 = ld4(w + 3 * WQS);
-#pragma unroll
-          for (int i = 0; i < kTokB; ++i)
-            outer4(a4[i], ld4(t0 + i * step + c), w0, w1, w2, w3);
-        }
+        proj_tile(a4, t0, step, sWq, WQS, bqkv, j, C);
         const int dst = j < 2 * C ? Q + j : V - 2 * C + j;
 #pragma unroll
         for (int i = 0; i < kTokB; ++i) st4(t0 + i * step + dst, a4[i]);
@@ -883,31 +1009,9 @@ column_attention_bwd_tiled_kernel(const float* __restrict__ x,
           }
         }
       }
-      float m = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < MAXS; ++j) {
-        if (j < S) {
-          p[j] *= scale;
-          m = fmaxf(m, p[j]);
-        }
-      }
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < MAXS; ++j) {
-        if (j < S) {
-          p[j] = expf(p[j] - m);
-          sum += p[j];
-        }
-      }
-      const float inv_sum = 1.f / sum;
-#pragma unroll
-      for (int j = 0; j < MAXS; ++j) p[j] *= inv_sum;
+      softmax(p, S, scale);
       const uint8_t* kp = kb + (r * H + h) * SS + i * S;
-      if (keep != nullptr) {
-#pragma unroll
-        for (int j = 0; j < MAXS; ++j)
-          if (j < S) dp[j] = kp[j] ? dp[j] * inv_keep : 0.f;
-      }
+      if (keep != nullptr) keep_scale(dp, kp, S, inv_keep);
       float dot = 0.f;
 #pragma unroll
       for (int j = 0; j < MAXS; ++j)
@@ -916,33 +1020,12 @@ column_attention_bwd_tiled_kernel(const float* __restrict__ x,
 #pragma unroll
       for (int j = 0; j < MAXS; ++j)
         if (j < S) dsr[j] = p[j] * (dp[j] - dot) * scale;
-      if (keep != nullptr) {
-#pragma unroll
-        for (int j = 0; j < MAXS; ++j)
-          if (j < S) p[j] = kp[j] ? p[j] * inv_keep : 0.f;
-      }
+      if (keep != nullptr) keep_scale(p, kp, S, inv_keep);
       float* pdr = pb + r * HSS + (h * S + i) * S;
 #pragma unroll
       for (int j = 0; j < MAXS; ++j)
         if (j < S) pdr[j] = p[j];
-      float* ctx = tok + (r * S + i) * TS + CTX + h * hd;
-      if (hd % 4 == 0) {
-        for (int t = 0; t < hd; t += 4) {
-          float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-          for (int j = 0; j < MAXS; ++j)
-            if (j < S) fma4(a, p[j], ld4(rowp + j * TS + V + t));
-          st4(ctx + t, a);
-        }
-      } else {
-        for (int t = 0; t < hd; ++t) {
-          float a = 0.f;
-#pragma unroll
-          for (int j = 0; j < MAXS; ++j)
-            if (j < S) a = fmaf(p[j], rowp[j * TS + V + t], a);
-          ctx[t] = a;
-        }
-      }
+      context(tok + (r * S + i) * TS + CTX + h * hd, p, rowp + V, TS, hd, S);
     }
     __syncthreads();
 
@@ -1079,13 +1162,204 @@ cudaError_t tiled_by_tiles(int C, F& f) {
   return f(TiledCfg<MS, 4>{});
 }
 
+// Calls f(std::integral_constant<int, MAXS>{}) for the S a tiled kernel
+// instantiates for S: the exact S of the main path (2 and 6), else S
+// rounded up to 4, 8 or 16.
+template <class F>
+cudaError_t by_s(int S, F f) {
+  if (S <= 2) return f(std::integral_constant<int, 2>{});
+  if (S <= 4) return f(std::integral_constant<int, 4>{});
+  if (S == 6) return f(std::integral_constant<int, 6>{});
+  if (S <= 8) return f(std::integral_constant<int, 8>{});
+  return f(std::integral_constant<int, 16>{});
+}
+
 template <class F>
 cudaError_t tiled_dispatch(int S, int C, F f) {
-  if (S <= 2) return tiled_by_tiles<2>(C, f);
-  if (S <= 4) return tiled_by_tiles<4>(C, f);
-  if (S == 6) return tiled_by_tiles<6>(C, f);
-  if (S <= 8) return tiled_by_tiles<8>(C, f);
-  return tiled_by_tiles<16>(C, f);
+  return by_s(S, [&](auto ms) {
+    return tiled_by_tiles<decltype(ms)::value>(C, f);
+  });
+}
+
+// ---------------------------------------------------------------------------
+// The register-tiled forward: every C <= 64 that is a multiple of 4. Its
+// design and what bounds it are in the note at the top of this file.
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdThreads = 256;
+constexpr int kFwdTokB = 4;  // tokens of a stage-B tile
+constexpr int kFwdTokO = 2;  // tokens of a stage-O tile
+constexpr int kFwdTokPad = kFwdTokB > kFwdTokO ? kFwdTokB : kFwdTokO;
+
+// Floats of the tiled forward's shared memory for a group of `rows` rows:
+// the weights, the token rows (rounded up to whole tiles) and two buffers
+// of the rows' keep-mask bytes (16-byte aligned).
+__host__ __device__ inline size_t fwd_tiled_smem_floats(int S, int C, int H,
+                                                        int rows) {
+  const size_t tp =
+      ((size_t)rows * S + kFwdTokPad - 1) / kFwdTokPad * kFwdTokPad;
+  const size_t hss = (size_t)rows * H * S * S;
+  return (size_t)C * (3 * C + 4) + (size_t)C * (C + 4) + tp * (5 * C + 4) +
+         2 * ((hss + 15) / 16 * 4);
+}
+
+// 16 bytes from device memory to shared memory, asynchronously (cp.async,
+// not through registers or L1); they land by cp_async_wait_all().
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Starts the loads of rows r0 .. r0 + nr: x into the token rows' x slots
+// (TS floats apart) and the keep-mask bytes (HSS a row) into kb.
+__device__ __forceinline__ void fwd_load_group(const float* x,
+                                               const uint8_t* keep,
+                                               float* tok, uint8_t* kb,
+                                               int r0, int nr, int S, int C,
+                                               int HSS, int TS, int tid) {
+  const int C4 = C / 4;
+  const float* xg = x + (size_t)r0 * S * C;
+  for (int i = tid; i < nr * S * C4; i += kFwdThreads) {
+    const int t = i / C4;
+    cp_async16(tok + t * TS + 4 * (i - t * C4), xg + 4 * i);
+  }
+  if (keep == nullptr) return;
+  const uint8_t* kg = keep + (size_t)r0 * HSS;
+  if (HSS % 16 == 0 && reinterpret_cast<uintptr_t>(keep) % 16 == 0) {
+    for (int i = tid; i < nr * HSS / 16; i += kFwdThreads)
+      cp_async16(kb + 16 * i, kg + 16 * i);
+  } else {
+    for (int i = tid; i < nr * HSS; i += kFwdThreads) kb[i] = kg[i];
+  }
+}
+
+template <int MAXS>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+column_attention_fwd_tiled_kernel(const float* __restrict__ x,
+                                  const float* __restrict__ wqkv,
+                                  const float* __restrict__ bqkv,
+                                  const float* __restrict__ wout,
+                                  const float* __restrict__ bout,
+                                  const uint8_t* __restrict__ keep,
+                                  float* __restrict__ out, int B, int S,
+                                  int C, int H, float scale, float inv_keep,
+                                  int rows) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  constexpr int NT = kFwdThreads;
+  // by_s instantiates MAXS = 6 for S = 6 alone: as a constant, S takes the
+  // bounds checks out of the main path's loops over the keys.
+  if (MAXS == 6) S = 6;
+  const int tid = threadIdx.x;
+  const int C3 = 3 * C;
+  const int C4 = C / 4;
+  const int hd = C / H;
+  const int SC = S * C;
+  const int SS = S * S;
+  const int HSS = H * SS;
+  const int WQS = C3 + 4;  // padded weight rows
+  const int WOS = C + 4;
+  const int TS = 5 * C + 4;
+  const int CTX = C, Q = 2 * C, K = 3 * C, V = 4 * C;  // x at 0
+
+  float* sWq = smem;              // Wqkv [C][WQS]
+  float* sWo = sWq + C * WQS;     // Wout [C][WOS]
+  float* tok = sWo + C * WOS;     // token rows [TP][TS]
+  const int TP = (rows * S + kFwdTokPad - 1) / kFwdTokPad * kFwdTokPad;
+  const int KBS = (rows * HSS + 15) / 16 * 16;  // bytes of a mask buffer
+  uint8_t* kb = reinterpret_cast<uint8_t*>(tok + TP * TS);  // 2 buffers
+  stage_weights(wqkv, wout, sWq, sWo, C, WQS, WOS, tid, NT);
+
+  const int ngroups = (B + rows - 1) / rows;
+  int g = blockIdx.x;
+  if (g < ngroups)
+    fwd_load_group(x, keep, tok, kb, g * rows, min(rows, B - g * rows), S,
+                   C, HSS, TS, tid);
+  for (int par = 0; g < ngroups; g += gridDim.x, par ^= 1) {
+    const int r0 = g * rows;
+    const int nr = min(rows, B - r0);
+    const int T = nr * S;
+    cp_async_wait_all();
+    __syncthreads();  // the group's x and keep-mask landed, weights staged
+
+    // B. qkv = x·Wqkv + b, tiles of kFwdTokB tokens (q, q + NQ, ...) × 4
+    //    columns. Tokens past T (the ragged tail of the last tile) compute
+    //    unused values.
+    const int NQ = (T + kFwdTokB - 1) / kFwdTokB;
+    for (int it = tid; it < NQ * 3 * C4; it += NT) {
+      const int jt = it / NQ;
+      float* t0 = tok + (it - jt * NQ) * TS;
+      const int step = NQ * TS;
+      float4 a4[kFwdTokB];
+      proj_tile(a4, t0, step, sWq, WQS, bqkv, 4 * jt, C);
+#pragma unroll
+      for (int i = 0; i < kFwdTokB; ++i)
+        st4(t0 + i * step + Q + 4 * jt, a4[i]);
+    }
+    __syncthreads();
+
+    // A. the next group's loads, into the x slots B is done with and the
+    //    other mask buffer: they run under C and O.
+    const int gn = g + gridDim.x;
+    if (gn < ngroups)
+      fwd_load_group(x, keep, tok, kb + (par ^ 1) * KBS, gn * rows,
+                     min(rows, B - gn * rows), S, C, HSS, TS, tid);
+
+    // C. one thread per (row, query i, head h), h fastest so that a
+    //    quarter-warp's 8 heads fall in 8 bank groups: the scores, the
+    //    softmax (with the keep-mask) and the context.
+    const uint8_t* kp0 = kb + par * KBS;
+    for (int it = tid; it < nr * S * H; it += NT) {
+      const int r = it / (S * H);
+      const int rem = it - r * S * H;
+      const int i = rem / H;
+      const int h = rem - i * H;
+      float* rowp = tok + r * S * TS + h * hd;  // token j: + j * TS
+      const float* q = rowp + i * TS + Q;
+      float p[MAXS];
+#pragma unroll
+      for (int j = 0; j < MAXS; ++j) p[j] = 0.f;
+      if (hd % 4 == 0) {
+        for (int t = 0; t < hd; t += 4) {
+          const float4 q4 = ld4(q + t);
+#pragma unroll
+          for (int j = 0; j < MAXS; ++j)
+            if (j < S) p[j] = dot4(q4, ld4(rowp + j * TS + K + t), p[j]);
+        }
+      } else {
+        for (int t = 0; t < hd; ++t) {
+#pragma unroll
+          for (int j = 0; j < MAXS; ++j)
+            if (j < S) p[j] = fmaf(q[t], rowp[j * TS + K + t], p[j]);
+        }
+      }
+      softmax(p, S, scale);
+      if (keep != nullptr)
+        keep_scale(p, kp0 + (r * H + h) * SS + i * S, S, inv_keep);
+      context(rowp + i * TS + CTX, p, rowp + V, TS, hd, S);
+    }
+    __syncthreads();
+
+    // O. o = ctx·Wout + b, tiles of kFwdTokO tokens (q, q + NQO) × 4
+    //    columns with the columns fastest, stored straight to device
+    //    memory: a quarter-warp stores one token's 128 contiguous bytes.
+    const int NQO = (T + kFwdTokO - 1) / kFwdTokO;
+    float* og = out + (size_t)r0 * SC;
+    for (int it = tid; it < NQO * C4; it += NT) {
+      const int q = it / C4;
+      const int ct = it - q * C4;
+      float4 a4[kFwdTokO];
+      proj_tile(a4, tok + q * TS + CTX, NQO * TS, sWo, WOS, bout, 4 * ct, C);
+#pragma unroll
+      for (int i = 0; i < kFwdTokO; ++i)
+        if (q + i * NQO < T) st4(og + (q + i * NQO) * C + 4 * ct, a4[i]);
+    }
+  }
 }
 
 // A reduce block's entries, and the threads that share each entry.
@@ -1154,6 +1428,26 @@ cudaError_t launch_bwd(const float* x, const float* dout, const float* wqkv,
                                            dx, partials, B, S, C, H, scale,
                                            inv_keep, rows);
   return cudaGetLastError();
+}
+
+// Blocks a tiled kernel launches with `smem` bytes a block: as many as
+// fill every SM, at most one a row group; or a negative CUDA error code.
+template <class K>
+int tiled_grid(K kernel, int threads, size_t smem, int B, int rows) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int per_sm = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (e != cudaSuccess) return -(int)e;
+  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int ngroups = (B + rows - 1) / rows;
+  const int grid = sms * per_sm;
+  return grid < ngroups ? grid : ngroups;
 }
 
 }  // namespace
@@ -1301,25 +1595,15 @@ int rmm_column_attention_bwd_tiled_grid(int B, int S, int C, int H,
   if (B <= 0 || !tiled_shape_ok(S, C, H, rows))
     return -(int)cudaErrorInvalidValue;
   const size_t smem = tiled_smem_floats(S, C, H, rows) * sizeof(float);
-  int per_sm = 0;
-  cudaError_t err = tiled_dispatch(S, C, [&](auto cfg) {
+  int grid = 0;
+  tiled_dispatch(S, C, [&](auto cfg) {
     using Cfg = decltype(cfg);
-    auto kernel =
-        column_attention_bwd_tiled_kernel<Cfg::kMaxS, Cfg::kMaxTiles>;
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                         kTiledThreads, smem);
+    grid = tiled_grid(
+        column_attention_bwd_tiled_kernel<Cfg::kMaxS, Cfg::kMaxTiles>,
+        kTiledThreads, smem, B, rows);
+    return cudaSuccess;
   });
-  if (err != cudaSuccess) return -(int)err;
-  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int ngroups = (B + rows - 1) / rows;
-  const int grid = sms * per_sm;
-  return grid < ngroups ? grid : ngroups;
+  return grid;
 }
 
 // The tiled backward kernel, then the reduce of its grid × splits partial
@@ -1353,6 +1637,54 @@ int rmm_column_attention_bwd_tiled(const float* x, const float* dout,
   if (err != cudaSuccess) return (int)err;
   return (int)launch_reduce(partials, grid * tiled_splits(C),
                             4 * C * C + 4 * C, grads, st);
+}
+
+// The tiled forward (C % 4 == 0, C <= 64): its shared memory for a group
+// of `rows` rows, and the blocks it launches for this shape (or a negative
+// CUDA error code).
+size_t rmm_column_attention_fwd_tiled_smem_bytes(int S, int C, int H,
+                                                 int rows) {
+  return fwd_tiled_smem_floats(S, C, H, rows) * sizeof(float);
+}
+
+int rmm_column_attention_fwd_tiled_grid(int B, int S, int C, int H,
+                                        int rows) {
+  if (B <= 0 || !tiled_shape_ok(S, C, H, rows))
+    return -(int)cudaErrorInvalidValue;
+  const size_t smem = fwd_tiled_smem_floats(S, C, H, rows) * sizeof(float);
+  int grid = 0;
+  by_s(S, [&](auto ms) {
+    grid = tiled_grid(column_attention_fwd_tiled_kernel<decltype(ms)::value>,
+                      kFwdThreads, smem, B, rows);
+    return cudaSuccess;
+  });
+  return grid;
+}
+
+// The tiled forward kernel. x and out must be 16-byte aligned. Returns
+// cudaGetLastError() after the launch (0 = launched).
+int rmm_column_attention_fwd_tiled(const float* x, const float* wqkv,
+                                   const float* bqkv, const float* wout,
+                                   const float* bout, const uint8_t* keep,
+                                   float* out, int B, int S, int C, int H,
+                                   float inv_keep, int rows, int grid,
+                                   void* stream) {
+  if (B <= 0) return 0;
+  if (!tiled_shape_ok(S, C, H, rows) || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_tiled_smem_floats(S, C, H, rows) * sizeof(float);
+  const float scale = 1.0f / sqrtf((float)(C / H));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)by_s(S, [&](auto ms) {
+    auto kernel = column_attention_fwd_tiled_kernel<decltype(ms)::value>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, kFwdThreads, smem, st>>>(x, wqkv, bqkv, wout, bout, keep,
+                                            out, B, S, C, H, scale, inv_keep,
+                                            rows);
+    return cudaGetLastError();
+  });
 }
 
 // The most shared memory a block may opt into on the current card, and an

@@ -8,10 +8,10 @@ layout (``x [B, S, C]``, ``Wqkv [C, 3C]``, ``Wout [C, C]``, an optional
 for CUDA tensors: the forward kernel (the port of the TPU kernel
 ``rmm_tpu/ops/pallas/column_attention.py::_fwd_kernel``) and, under
 autograd, a backward kernel and its reduce (the port of ``_bwd_kernel``),
-through :class:`ColumnAttentionFunction`. The backward takes one of two
-kernels by shape (:func:`bwd_tiled`): the register-tiled one for every C
-<= 64 that is a multiple of 4 (the main path's C = 32), the scalar one of
-the first port for the rest (C = 96, 128, or C not a multiple of 4). The
+through :class:`ColumnAttentionFunction`. Each direction takes one of two
+kernels by shape (:func:`tiled`): the register-tiled one for every C <= 64
+that is a multiple of 4 (the main path's C = 32), the scalar one of the
+first port for the rest (C = 96, 128, or C not a multiple of 4). The
 backward recomputes from ``x`` alone, as the TPU kernel does: the Function
 saves ``x``, the weights and the keep-mask, nothing of the forward's
 insides.
@@ -21,10 +21,11 @@ CPU tensors take :func:`reference_column_attention`, the PyTorch twin of
 the kernels or raises. Why the kernels are built the way they are, and what
 bounds them, is noted in their source.
 
-``launches`` counts forward-kernel launches, ``bwd_launches`` backward-kernel
-launches (both kernels), ``bwd_tiled_launches`` those of the tiled one and
-``reduce_launches`` launches of the backward's reduce (one per backward),
-and nothing else.
+``launches`` counts forward-kernel launches (both kernels),
+``fwd_tiled_launches`` those of the tiled one, ``bwd_launches``
+backward-kernel launches (both kernels), ``bwd_tiled_launches`` those of the
+tiled one and ``reduce_launches`` launches of the backward's reduce (one per
+backward), and nothing else.
 """
 from __future__ import annotations
 
@@ -36,16 +37,17 @@ from typing import NamedTuple
 import torch
 
 launches = 0
+fwd_tiled_launches = 0
 bwd_launches = 0
 bwd_tiled_launches = 0
 reduce_launches = 0
 
 MAX_S = 16                   # the kernel keeps a row's S×S scores in registers
 MAX_C = 128
-_ROW_BUDGET_FLOATS = 10240   # shared memory for one group's x/ctx + qkv
+_ROW_BUDGET_FLOATS = 10240   # the scalar forward's x/ctx + qkv a group
 _BWD_ROW_BUDGET_FLOATS = 20480  # the backward's 10·S·C + 2·H·S² a row
 _WEIGHTS_IN_SMEM_MAX_C = 64  # 4·C² floats = 64 kB at C = 64
-_TILED_MAX_C = 64            # the tiled backward keeps its weights in smem
+_TILED_MAX_C = 64            # the tiled kernels keep their weights in smem
 
 _lib = None
 
@@ -54,9 +56,10 @@ def use_library(path: str | None = None):
     """Binds the wrapper to the kernel library at ``path`` (a variant of
     ``csrc/column_attention.cu`` that a measurement tool built with
     :func:`build.start_cuda_build`), or with None back to the repo's own
-    build. The cached backward plans go with the old library."""
+    build. The cached plans go with the old library."""
     global _lib
     _lib = None
+    _fwd_plan.cache_clear()
     _bwd_plan.cache_clear()
     return _kernel(path)
 
@@ -70,6 +73,16 @@ def _kernel(path: str | None = None):
         p = ctypes.c_void_p
         lib.rmm_column_attention_fwd.restype = ctypes.c_int
         lib.rmm_column_attention_fwd.argtypes = [
+            p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, p]
+        lib.rmm_column_attention_fwd_tiled_smem_bytes.restype = (
+            ctypes.c_size_t)
+        lib.rmm_column_attention_fwd_tiled_smem_bytes.argtypes = [
+            ctypes.c_int] * 4
+        lib.rmm_column_attention_fwd_tiled_grid.restype = ctypes.c_int
+        lib.rmm_column_attention_fwd_tiled_grid.argtypes = [ctypes.c_int] * 5
+        lib.rmm_column_attention_fwd_tiled.restype = ctypes.c_int
+        lib.rmm_column_attention_fwd_tiled.argtypes = [
             p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, p]
         lib.rmm_column_attention_bwd_grid.restype = ctypes.c_int
@@ -203,34 +216,105 @@ def _raise_on(err: int, what: str):
                            + _kernel().rmm_cuda_error_string(err).decode())
 
 
+def tiled(c: int) -> bool:
+    """Whether width ``c`` takes the register-tiled kernels, forward and
+    backward (every ``c <= 64`` that is a multiple of 4); the rest take the
+    scalar kernels of the first port."""
+    return c % 4 == 0 and c <= _TILED_MAX_C
+
+
+def _aligned(t):
+    """``t``, or a copy of it where a view's offset rules out the tiled
+    kernels' float4 loads."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def column_attention_fwd(x, wqkv, bqkv, wout, bout, nhead, keep=None,
-                         rate=0.0):
-    """The forward kernel on checked CUDA inputs (no autograd)."""
-    global launches
+                         rate=0.0, plan: FwdPlan | None = None):
+    """The forward kernel on checked CUDA inputs (no autograd). ``plan``
+    (from :func:`fwd_plan`, tiled widths only) overrides the default one."""
+    global launches, fwd_tiled_launches
     b, s, c = x.shape
     out = torch.empty_like(x)
     if b == 0:
         return out
     lib = _kernel()
-    rows = max(1, min(b, _ROW_BUDGET_FLOATS // (4 * s * c + 2)))
     inv_keep = 1.0 / (1.0 - rate) if keep is not None else 1.0
+    use_tiled = tiled(c)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rmm_column_attention_fwd(
-            x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wout.data_ptr(),
-            bout.data_ptr(), None if keep is None else keep.data_ptr(),
-            out.data_ptr(), b, s, c, nhead, inv_keep, rows,
-            int(c <= _WEIGHTS_IN_SMEM_MAX_C), stream)
+        if use_tiled:
+            plan = plan or fwd_plan(b, s, c, nhead)
+            x = _aligned(x)
+            rows, grid = plan
+        else:
+            rows = max(1, min(b, _ROW_BUDGET_FLOATS // (4 * s * c + 2)))
+        args = (x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+                wout.data_ptr(), bout.data_ptr(),
+                None if keep is None else keep.data_ptr(), out.data_ptr(), b,
+                s, c, nhead, inv_keep, rows)
+        if use_tiled:
+            err = lib.rmm_column_attention_fwd_tiled(*args, grid, stream)
+        else:
+            err = lib.rmm_column_attention_fwd(
+                *args, int(c <= _WEIGHTS_IN_SMEM_MAX_C), stream)
     _raise_on(err, "forward kernel")
     launches += 1
+    fwd_tiled_launches += int(use_tiled)
     return out
 
 
-def bwd_tiled(c: int) -> bool:
-    """Whether the backward of width ``c`` takes the register-tiled kernel
-    (every ``c <= 64`` that is a multiple of 4); the rest take the scalar
-    kernel of the first port."""
-    return c % 4 == 0 and c <= _TILED_MAX_C
+class FwdPlan(NamedTuple):
+    """How the tiled forward runs a shape: rows a group and blocks."""
+    rows: int
+    grid: int
+
+
+def fwd_plan(b: int, s: int, c: int, nhead: int,
+             rows: int | None = None) -> FwdPlan:
+    """The tiled forward's plan for this shape on the current card: blocks
+    of 256 threads, two an SM, each with as many rows a group as its share
+    of the SM's shared memory holds, evened out so that every block walks
+    the same number of groups (the choice of ``tools/torch_attn_sweep.py``'s
+    and ``tools/torch_attn_stages.py``'s runs, in ``PERF.md``); ``rows``
+    overrides the rows a group. Cached by shape and card, as
+    :func:`bwd_plan` is."""
+    return _fwd_plan(b, s, c, nhead, rows, torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=256)
+def _fwd_plan(b, s, c, nhead, rows, device) -> FwdPlan:
+    del device  # only a cache key: the plan depends on the card
+    lib = _kernel()
+    if rows is None:
+        rows = _tiled_rows(
+            b, 2,
+            lambda r: lib.rmm_column_attention_fwd_tiled_smem_bytes(
+                s, c, nhead, r),
+            lambda r: lib.rmm_column_attention_fwd_tiled_grid(
+                b, s, c, nhead, r))
+    grid = lib.rmm_column_attention_fwd_tiled_grid(b, s, c, nhead, rows)
+    if grid < 0:
+        _raise_on(-grid, "tiled forward kernel")
+    return FwdPlan(rows, grid)
+
+
+def _tiled_rows(b: int, per_sm: int, smem_bytes, grid) -> int:
+    """Rows a group for a tiled kernel at ``per_sm`` blocks an SM: as many
+    as a block's share of the SM's shared memory holds (``smem_bytes(rows)``
+    a block), evened out over the blocks that ``grid(rows)`` launches."""
+    lib = _kernel()
+    budget = min(lib.rmm_cuda_max_smem_per_block(),
+                 lib.rmm_cuda_smem_per_sm() // per_sm - 1024)
+    rows = 1
+    while rows < b and smem_bytes(rows + 1) <= budget:
+        rows += 1
+    blocks = grid(rows)
+    if blocks < 0:
+        _raise_on(-blocks, "tiled kernel")
+    groups = -(-b // rows)
+    waves = -(-groups // blocks)
+    return -(-b // (waves * blocks))
 
 
 class BwdPlan(NamedTuple):
@@ -250,7 +334,7 @@ def bwd_plan(b: int, s: int, c: int, nhead: int,
     stage-F tile (C <= 32), else one, each with as many rows a group as
     its share of the SM's shared memory holds, evened out so that every
     block walks the same number of groups (the choice of
-    ``tools/torch_bwd_sweep.py``'s runs, in ``PERF.md``); ``rows``
+    ``tools/torch_attn_sweep.py``'s runs, in ``PERF.md``); ``rows``
     overrides the rows a group. Plans are cached by shape and card: a plan
     costs a few dozen calls into the library, about as long as the
     node-shape kernel itself."""
@@ -261,7 +345,7 @@ def bwd_plan(b: int, s: int, c: int, nhead: int,
 def _bwd_plan(b, s, c, nhead, rows, device) -> BwdPlan:
     del device  # only a cache key: the plan depends on the card
     lib = _kernel()
-    if not bwd_tiled(c):
+    if not tiled(c):
         w_smem = int(c <= _WEIGHTS_IN_SMEM_MAX_C)
         rows = rows or max(1, min(b, _BWD_ROW_BUDGET_FLOATS
                                   // (10 * s * c + 2 * nhead * s * s + 8)))
@@ -271,20 +355,12 @@ def _bwd_plan(b, s, c, nhead, rows, device) -> BwdPlan:
             _raise_on(-grid, "backward kernel")
         return BwdPlan(False, rows, grid, grid)
     if rows is None:
-        per_sm = 2 if c * c // 4 <= 256 else 1
-        budget = min(lib.rmm_cuda_max_smem_per_block(),
-                     lib.rmm_cuda_smem_per_sm() // per_sm - 1024)
-        rows = 1
-        while (rows < b and lib.rmm_column_attention_bwd_tiled_smem_bytes(
-                s, c, nhead, rows + 1) <= budget):
-            rows += 1
-        blocks = lib.rmm_column_attention_bwd_tiled_grid(b, s, c, nhead,
-                                                         rows)
-        if blocks < 0:
-            _raise_on(-blocks, "tiled backward kernel")
-        groups = -(-b // rows)
-        waves = -(-groups // blocks)
-        rows = -(-b // (waves * blocks))
+        rows = _tiled_rows(
+            b, 2 if c * c // 4 <= 256 else 1,
+            lambda r: lib.rmm_column_attention_bwd_tiled_smem_bytes(
+                s, c, nhead, r),
+            lambda r: lib.rmm_column_attention_bwd_tiled_grid(
+                b, s, c, nhead, r))
     grid = lib.rmm_column_attention_bwd_tiled_grid(b, s, c, nhead, rows)
     if grid < 0:
         _raise_on(-grid, "tiled backward kernel")
@@ -311,9 +387,7 @@ def column_attention_bwd(x, do, wqkv, bqkv, wout, nhead, keep=None,
                                    dtype=x.dtype, device=x.device)
             stream = torch.cuda.current_stream().cuda_stream
             if plan.tiled:
-                # float4 loads: a view at an odd offset is copied first
-                x, do = (t if t.data_ptr() % 16 == 0 else t.clone()
-                         for t in (x, do))
+                x, do = _aligned(x), _aligned(do)
             args = (x.data_ptr(), do.data_ptr(), wqkv.data_ptr(),
                     bqkv.data_ptr(), wout.data_ptr(),
                     None if keep is None else keep.data_ptr(), dx.data_ptr(),

@@ -44,6 +44,11 @@ def attention_inputs(seed, b, s, c, device):
             for a in arrays]
 
 
+# Both directions' shapes. The tiled kernels take every C <= 64 that is a
+# multiple of 4, the scalar ones C = 96 and 128 (the forward's weights
+# through the read-only cache). S of 1, 5 and 7 and C of 16, 48 and 64 at
+# head_dim 2, 4, 6 and 8: the tiled kernels instantiate S = 2, 4, 6, 8 and
+# 16, and a head_dim that is not a multiple of 4 takes their scalar loops.
 SHAPES = [
     (1, 1, 32, 8),       # one row, one token
     (37, 2, 32, 8),      # node tokens at the serving width, ragged batch
@@ -53,6 +58,17 @@ SHAPES = [
     (70, 16, 16, 1),     # the largest S, one head
     (33, 6, 96, 3),      # weights through the read-only cache
     (100, 16, 128, 8),   # the largest S and C
+    (300, 1, 32, 8),
+    (301, 5, 32, 8),
+    (299, 7, 32, 8),
+    (203, 6, 16, 4),     # head_dim 4
+    (203, 6, 16, 2),     # head_dim 8
+    (203, 6, 16, 8),     # head_dim 2
+    (157, 6, 48, 12),
+    (157, 6, 48, 6),
+    (157, 6, 48, 8),     # head_dim 6
+    (131, 6, 64, 16),
+    (131, 6, 64, 8),
 ]
 
 
@@ -65,12 +81,49 @@ def test_column_attention_kernel_matches_plain(cuda, b, s, c, h, masked):
         rate = 0.3
         mask = torch.from_numpy(
             np.random.RandomState(b).rand(b, h, s, s) >= rate).to(cuda)
-    before = ca.launches
+    before = (ca.launches, ca.fwd_tiled_launches)
     with torch.inference_mode():
         out = ca.fused_column_attention(*args, h, mask, rate)
         ref = ca.reference_column_attention(*args, h, mask, rate)
-    assert ca.launches == before + 1
+    assert (ca.launches, ca.fwd_tiled_launches) == (
+        before[0] + 1, before[1] + int(ca.tiled(c)))
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
+
+
+def forward_case(device, b, s, c, h, plan):
+    """The tiled forward at ``plan`` and the plain version on the same
+    seeded inputs, with the keep-mask."""
+    args = attention_inputs(b + s + c, b, s, c, device)
+    mask = torch.from_numpy(
+        np.random.RandomState(b).rand(b, h, s, s) >= 0.3).to(device)
+    with torch.inference_mode():
+        return (ca.column_attention_fwd(*args, h, mask, 0.3, plan=plan),
+                ca.reference_column_attention(*args, h, mask, 0.3))
+
+
+@pytest.mark.parametrize("delta", [-1, 1])
+@pytest.mark.parametrize("s,c,h", [(6, 32, 8), (2, 32, 8), (5, 48, 6)])
+def test_tiled_forward_one_row_either_side_of_a_group(cuda, s, c, h, delta):
+    """B one row short of a group, and one row past it (a second group
+    of one row), at the group size the plan picks for a large batch."""
+    rows = ca.fwd_plan(131072, s, c, h).rows
+    b = rows + delta
+    plan = ca.fwd_plan(b, s, c, h, rows=rows)
+    assert plan.rows == rows
+    before = ca.fwd_tiled_launches
+    out, ref = forward_case(cuda, b, s, c, h, plan)
+    assert ca.fwd_tiled_launches == before + 1
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
+
+
+def test_forward_repeats_bitwise(cuda):
+    """Each output is one thread's sums in a fixed order: two calls on the
+    same inputs give the same bits."""
+    b, s, c, h = 4099, 6, 32, 8
+    plan = ca.fwd_plan(b, s, c, h)
+    first, _ = forward_case(cuda, b, s, c, h, plan)
+    second, _ = forward_case(cuda, b, s, c, h, plan)
+    assert torch.equal(first, second)
 
 
 def test_column_attention_kernel_refuses_what_it_cannot_run(cuda):
@@ -89,22 +142,12 @@ def test_column_attention_kernel_refuses_what_it_cannot_run(cuda):
     assert ca.launches == before
 
 
-# The backward's further shapes: S of 1, 5 and 7, and C of 16, 48 and 64 at
-# head_dim 4 and 8 (the tiled kernel takes every C <= 64 that is a multiple
-# of 4). The rest take the scalar kernel, in one of 12 instantiations: S
-# rounded up to 2, 4, 8 or 16, times where the weight-gradient sums live
-# (registers at C <= 38, device memory with the weights in shared memory
-# at C <= 64, device memory with the weights in device memory above).
+# The backward's further shapes take the scalar kernel, in one of 12
+# instantiations: S rounded up to 2, 4, 8 or 16, times where the
+# weight-gradient sums live (registers at C <= 38, device memory with the
+# weights in shared memory at C <= 64, device memory with the weights in
+# device memory above).
 BWD_SHAPES = SHAPES + [
-    (300, 1, 32, 8),
-    (301, 5, 32, 8),
-    (299, 7, 32, 8),
-    (203, 6, 16, 4),     # head_dim 4
-    (203, 6, 16, 2),     # head_dim 8
-    (157, 6, 48, 12),
-    (157, 6, 48, 6),
-    (131, 6, 64, 16),
-    (131, 6, 64, 8),
     (77, 2, 30, 5),      # scalar, sums in registers
     (61, 3, 18, 3),
     (129, 6, 30, 6),
@@ -191,20 +234,32 @@ def test_backward_repeats_bitwise(cuda):
         assert torch.equal(g, a)
 
 
-@pytest.mark.parametrize("b,s,c,h,tiled", [
+ROUTES = [
     (16384, 2, 32, 8, True),     # the main path's node tokens
     (131072, 6, 32, 8, True),    # the main path's edge tokens
     (33, 6, 96, 3, False),
     (100, 16, 128, 8, False),
     (129, 6, 30, 6, False),      # C not a multiple of 4
     (65, 3, 42, 7, False),
-])
+]
+
+
+@pytest.mark.parametrize("b,s,c,h,tiled", ROUTES)
 def test_backward_route_by_shape(cuda, b, s, c, h, tiled):
     x, wqkv, bqkv, wout, _ = attention_inputs(0, b, s, c, cuda)
     before = (ca.bwd_launches, ca.bwd_tiled_launches)
     ca.column_attention_bwd(x, torch.ones_like(x), wqkv, bqkv, wout, h)
-    assert ca.bwd_tiled(c) == tiled
+    assert ca.tiled(c) == tiled
     assert (ca.bwd_launches, ca.bwd_tiled_launches) == (
+        before[0] + 1, before[1] + int(tiled))
+
+
+@pytest.mark.parametrize("b,s,c,h,tiled", ROUTES)
+def test_forward_route_by_shape(cuda, b, s, c, h, tiled):
+    args = attention_inputs(0, b, s, c, cuda)
+    before = (ca.launches, ca.fwd_tiled_launches)
+    ca.column_attention_fwd(*args, h)
+    assert (ca.launches, ca.fwd_tiled_launches) == (
         before[0] + 1, before[1] + int(tiled))
 
 
@@ -225,8 +280,8 @@ def test_three_train_steps_on_the_card_match_the_cpu(cuda, tmp_path):
             argv + ["--device", device]))
         tr = Trainer(cfg, build_dataset(cfg))
         tr.model.train()
-        counters = ("launches", "bwd_launches", "bwd_tiled_launches",
-                    "reduce_launches")
+        counters = ("launches", "fwd_tiled_launches", "bwd_launches",
+                    "bwd_tiled_launches", "reduce_launches")
         before = [getattr(ca, n) for n in counters]
         batches = itertools.islice(
             tr._batches(tr.dataset.edges.split()[0], "train"), 3)
@@ -238,8 +293,8 @@ def test_three_train_steps_on_the_card_match_the_cpu(cuda, tmp_path):
                      cfg.lr))
     (cpu_losses, cpu_state, cpu_launched, lr), (losses, state, launched,
                                                _) = runs
-    assert cpu_launched == (0, 0, 0, 0)
-    assert launched == (12, 12, 12, 12)   # 2 layers x nodes, edges x 3 steps
+    assert cpu_launched == (0, 0, 0, 0, 0)
+    assert launched == (12,) * 5   # 2 layers x nodes, edges x 3 steps
     np.testing.assert_allclose(losses, cpu_losses, rtol=1e-4)
     errs = np.concatenate([np.abs(v.numpy() - cpu_state[k].numpy()).ravel()
                            for k, v in state.items()])
@@ -275,12 +330,14 @@ def test_predict_on_the_card_matches_the_cpu(cuda, tmp_path):
 
     host = predict.main(argv + ["--output", str(tmp_path / "cpu.csv"),
                                 "--device", "cpu"])
-    before = ca.launches
+    before = (ca.launches, ca.fwd_tiled_launches)
     card_stats = {}
     card = predict.main(argv + ["--output", str(tmp_path / "cuda.csv"),
                                 "--device", "cuda"], card_stats)
     batches = -(-len(card["id"]) // 64)
-    assert ca.launches - before == 4 * batches   # 2 layers x nodes, edges
+    # 2 layers x nodes, edges, all through the tiled forward
+    assert (ca.launches - before[0], ca.fwd_tiled_launches - before[1]) == (
+        4 * batches, 4 * batches)
     assert card_stats["device"].startswith("cuda")
     np.testing.assert_array_equal(card["id"], host["id"])
     np.testing.assert_allclose(card["score"], host["score"], rtol=1e-4,
