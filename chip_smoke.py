@@ -18,7 +18,10 @@ through all of them:
              capacity, C = 128, a ragged batch, a numpy keep-mask); the
              backward (and its reduce) against ``torch.autograd.grad`` of
              the plain version at the training shapes with the keep-mask,
-             the same unmasked, C = 128 and a ragged batch. Each record
+             the same unmasked, C = 128 and a ragged batch; both
+             directions at the SSL path's C = 128 shapes (131072x6x128/8
+             edge tokens, 13000x6x128/8 target rows) with its 0.5
+             keep-mask and without it. Each record
              names the kernel it took (tiled or scalar, by width), and two
              calls of each direction at the masked edge shape are bitwise
              equal. Max error
@@ -47,8 +50,30 @@ through all of them:
              written by ``tools/make_torch_port_train_fixture.py`` at the
              config's widths on 16,384 rows): the three losses and every
              parameter after step 3 (every launch tiled).
+7. ssl_train — SSL pretraining (``PretrainTrainer``, mcm-lp) at the SSL
+             config of record (C = 128, 3 layers, 8 heads, 64 negatives,
+             batch 200, fanouts 100/100, dropout 0.5, lr 2e-4) on the same
+             data: the first 24 train batches, then 24 val batches. Checks
+             10 forward, 10 backward and 10 reduce launches a step and 10
+             forwards an evaluated batch, all scalar (C = 128), a finite
+             loss, 0 < MRR <= 1, a finite RMSE, 0 <= accuracy <= 1. The
+             median step on the device's clock, train rows/s, host
+             sampling ms a batch and the peak memory.
+8. ssl_parity — three mcm-lp steps on the card (dropout 0) against the JAX
+             CPU record ``tests/fixtures/torch_port/ssl_record.npz``
+             (``tools/make_torch_port_ssl_fixture.py``, the SSL widths on a
+             4,096-row cut): the first batch's negatives equal, each loss
+             term of each step (total, LP, MCM categorical, MCM numerical),
+             and the recorded entries, norms and sums of every variable
+             with each component's median (``convert.check_record``).
+9. ssl_cli — the SSL CLI (``rmm_tpu_torch.cli.fused.main``) for one epoch
+             on that cut with ``--save_model``, then a resume from its
+             checkpoint.
 
-Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
+Then the seconds each phase took, a ``{"kernels": [...]}`` line (an entry
+per kernel, each with its ``path``: the main path's tiled kernels at C = 32,
+and the SSL path's scalar kernels at C = 128, ``*_scalar``),
+the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 package beside it, the script fails and prints no result.
 """
@@ -69,6 +94,8 @@ FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
                        "aml_record.npz")
 TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
                              "aml_train_record.npz")
+SSL_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
+                           "ssl_record.npz")
 WORK = os.path.join(ROOT, "rmm_tpu_torch", "_build", "smoke")
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12     # HBM3
@@ -86,6 +113,18 @@ TRAIN_DROPOUT = 0.083          # the config of record's
 # (0.003·lr on the CPU) is what a wrong gradient would move.
 LOSS1_RTOL, LOSS_RTOL = 1e-4, 1e-3
 PARAM_MAX_LR, PARAM_MEDIAN_LR = 6.05, 0.05
+# The SSL config of record (the JAX fused CLI's defaults): C = 128, 3 layers,
+# 8 heads, 64 negatives, batch 200, fanouts 100/100, dropout 0.5, lr 2e-4.
+SSL_ARGV = ["--mode", "mcm-lp", "--channels", "128", "--num_layers", "3",
+            "--num_neg_samples", "64", "--batch_size", "200",
+            "--khop_neighbors", "100", "100", "--dropout", "0.5",
+            "--lr", "2e-4"]
+SSL_DROPOUT = 0.5
+SSL_BATCHES = 24      # train and val batches of the ssl_train phase
+# column attention launches an mcm-lp step makes, each direction: two views
+# x (the top-level encoder layer on the edge tokens and on the target rows,
+# plus one a fused layer on the target rows)
+SSL_LAUNCHES = 2 * (2 + 3)
 
 
 class SmokeFailure(RuntimeError):
@@ -193,6 +232,14 @@ def library_attention(x, wqkv, bqkv, wout, bout, h):
         bout, training=False, need_weights=False)[0].transpose(0, 1)
 
 
+# The SSL path's shapes at C = 128 (the scalar kernels of both directions):
+# the edge tokens at the edge capacity and the target rows (200 seeds x 65),
+# with the SSL keep-mask and without it (where the library call times them).
+SSL_SHAPES = [(131072, 6, 128, 8, SSL_DROPOUT),
+              (13000, 6, 128, 8, SSL_DROPOUT),
+              (131072, 6, 128, 8, 0.0), (13000, 6, 128, 8, 0.0)]
+
+
 def kernel_phase(card: str) -> dict:
     """Column attention on the card against its plain version. Returns the
     records of the main path's shapes: ``fwd``/``fwd_masked``/``bwd`` pairs
@@ -215,7 +262,7 @@ def kernel_phase(card: str) -> dict:
         (32768, 6, 128, 8, 0.0),     # SSL width, weights via L2
         (100003, 6, 32, 8, 0.0),     # ragged batch
         (4099, 6, 64, 4, 0.3),       # numpy keep-mask, dropout 0.3
-    ]
+    ] + SSL_SHAPES
     bwd_shapes = [
         (edges, 6, c, 8, p),         # training path: edge tokens
         (nodes, 2, c, 8, p),         # training path: node tokens
@@ -223,7 +270,7 @@ def kernel_phase(card: str) -> dict:
         (nodes, 2, c, 8, 0.0),
         (32768, 6, 128, 8, 0.0),     # SSL width, sums in device memory
         (100003, 6, 32, 8, p),       # ragged batch
-    ]
+    ] + SSL_SHAPES
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
     fwd, bwd = [], []
@@ -341,8 +388,11 @@ def kernel_phase(card: str) -> dict:
         bwd.append(rec)
         del inputs, do, mask, args, got, leaves, out, want
         torch.cuda.empty_cache()
+    n = len(SSL_SHAPES)
     return {"fwd": fwd[:2], "fwd_masked": fwd[2:4], "bwd": bwd[:2],
-            "bwd_unmasked": bwd[2:4]}
+            "bwd_unmasked": bwd[2:4], "ssl_fwd": fwd[-n:][:2],
+            "ssl_fwd_unmasked": fwd[-n:][2:], "ssl_bwd": bwd[-n:][:2],
+            "ssl_bwd_unmasked": bwd[-n:][2:]}
 
 
 def prepare_data() -> str:
@@ -583,12 +633,219 @@ def train_parity_phase(card: str) -> dict:
     return out
 
 
+def ssl_record() -> tuple:
+    import numpy as np
+
+    rec = np.load(SSL_FIXTURE)
+    return rec, json.loads(str(rec["settings"]))
+
+
+def ssl_trainer(csv: str, argv: list[str], edge_capacity: int,
+                node_capacity: int, seed: int = 1):
+    """The port's PretrainTrainer on the card, configured by the SSL CLI's
+    parser from ``argv`` (the SSL config of record's flags)."""
+    from rmm_tpu_torch.cli import fused
+    from rmm_tpu_torch.datasets import build_dataset
+    from rmm_tpu_torch.train.pretrain import PretrainTrainer
+
+    cfg = fused.config_from_args(fused.build_parser().parse_args(
+        ["--dataset", csv, *argv, "--device", "cuda"])).replace(
+        edge_capacity=edge_capacity, node_capacity=node_capacity, seed=seed)
+    return PretrainTrainer(cfg, build_dataset(cfg), "mcm-lp")
+
+
+def ssl_train_phase(card: str, csv: str) -> dict:
+    """SSL pretraining (mcm-lp) at the SSL config of record on the config
+    of record's data: the first SSL_BATCHES train batches (a sub-view of
+    the train split), then SSL_BATCHES val batches."""
+    import torch
+
+    from rmm_tpu_torch.frame.dataset import DatasetView
+
+    st = fixture_settings()
+    t0 = time.perf_counter()
+    tr = ssl_trainer(csv, SSL_ARGV + ["--sampler_threads", "4"],
+                     st["edge_capacity"], st["node_capacity"])
+    setup_s = time.perf_counter() - t0
+    n = SSL_BATCHES
+    b = tr.cfg.batch_size
+    train, val, _ = tr.dataset.edges.split()
+    train = DatasetView(train.parent, train.indices[:n * b])
+    val = DatasetView(val.parent, val.indices[:n * b])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    tm = tr.train_epoch(train, 0)
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train_counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    vm = tr.evaluate(val, "val")
+    torch.cuda.synchronize()
+    eval_wall = time.perf_counter() - t0
+    eval_counts = read_counts()
+
+    k = SSL_LAUNCHES
+    check(train_counts == {"fwd": k * n, "fwd_tiled": 0, "bwd": k * n,
+                           "bwd_tiled": 0, "reduce": k * n},
+          f"launches {train_counts} for {n} SSL train steps (expected "
+          f"{k} forwards, backwards and reduces a step, all scalar)")
+    check(eval_counts == {"fwd": k * n, "fwd_tiled": 0, "bwd": 0,
+                          "bwd_tiled": 0, "reduce": 0},
+          f"launches {eval_counts} for {n} evaluated SSL batches (expected "
+          f"{k} scalar forwards a batch)")
+    check(math.isfinite(tm["loss"]), f"SSL train loss {tm['loss']}")
+    check(0 < vm["mrr"] <= 1, f"SSL val MRR {vm['mrr']}")
+    check(math.isfinite(vm["rmse"]), f"SSL val RMSE {vm['rmse']}")
+    check(0 <= vm["accuracy"] <= 1, f"SSL val accuracy {vm['accuracy']}")
+    rows = train.tensor_frame.num_rows
+    rec = {"phase": "ssl_train", "mode": "mcm-lp",
+           "channels": tr.cfg.n_hidden, "layers": tr.cfg.n_gnn_layers,
+           "heads": 8, "num_neg": tr.cfg.num_neg_samples, "batch": b,
+           "fanouts": list(tr.cfg.num_neighs), "dropout": tr.cfg.dropout,
+           "lr": tr.cfg.lr, "edge_capacity": tr.cfg.edge_capacity,
+           "node_capacity": tr.cfg.node_capacity, "steps": n,
+           "eval_batches": n, "train_launches": train_counts,
+           "eval_launches": eval_counts, "loss": tm["loss"],
+           "train_loss_c": tm["train_loss_c"],
+           "train_loss_n": tm["train_loss_n"], **{
+               f"val_{key}": v for key, v in vm.items()},
+           "step_ms_median": tm.get("step_ms"), "sample_ms": tm["sample_ms"],
+           "train_wall_s": train_wall, "train_rows_per_s": rows / train_wall,
+           "eval_wall_s": eval_wall,
+           "eval_rows_per_s": val.tensor_frame.num_rows / eval_wall,
+           "peak_memory_gb": peak / 1e9, "setup_s": setup_s,
+           "drop_rate": tm["drop_rate"], "card": card, "ok": True}
+    emit(rec)
+    del tr
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ssl_parity_csv() -> str:
+    from rmm_tpu_torch.datasets import write_synthetic_aml_csv
+
+    _, st = ssl_record()
+    return write_synthetic_aml_csv(os.path.join(WORK, "aml_ssl.csv"),
+                                   num_rows=st["rows"],
+                                   num_accounts=st["num_accounts"],
+                                   seed=st["data_seed"])
+
+
+def ssl_parity_phase(card: str, csv: str) -> dict:
+    """Three mcm-lp steps on the card (dropout 0) from the record's start
+    against the JAX CPU record of the same steps at the SSL widths: each
+    loss term and the sampled variables, by the limits of
+    ``rmm_tpu_torch.convert.check_record``."""
+    import itertools
+
+    import numpy as np
+
+    from rmm_tpu_torch.convert import check_record, from_jax, loss_terms, \
+        random_variables
+
+    rec, st = ssl_record()
+    ms = st["modes"]["mcm-lp"]
+    argv = ["--mode", "mcm-lp", "--channels", str(st["channels"]),
+            "--num_layers", str(st["num_layers"]),
+            "--num_neg_samples", str(st["num_neg_samples"]),
+            "--batch_size", str(st["batch_size"]), "--khop_neighbors",
+            *map(str, st["khop_neighbors"]), "--dropout", "0",
+            "--lr", str(st["lr"])]
+    tr = ssl_trainer(csv, argv, ms["edge_capacity"], ms["node_capacity"],
+                     seed=st["seed"])
+    tr.model.load_state_dict(from_jax(
+        random_variables(ms["shapes"], st["var_seed"]), tr.model))
+    batches = list(itertools.islice(
+        tr._batches(tr.dataset.edges.split()[0], "train", st["epoch"]),
+        st["steps"]))
+    check(np.array_equal(batches[0].neg_edge_index, rec["mcm-lp/neg0"]),
+          "the first batch's negatives differ from the JAX record's")
+    reset_counts()
+    tr.model.train()
+    terms = [loss_terms(*tr._step(gb.to(tr.device))) for gb in batches]
+    counts = read_counts()
+    n, k = st["steps"], SSL_LAUNCHES
+    check(counts == {"fwd": k * n, "fwd_tiled": 0, "bwd": k * n,
+                     "bwd_tiled": 0, "reduce": k * n},
+          f"launches {counts} for {n} SSL steps")
+    faults, summary = check_record(tr.model.state_dict(), terms, rec,
+                                   "mcm-lp/", st["lr"], 2 * n,
+                                   st["channels"])
+    check(not faults, "SSL steps off the JAX record: " + "; ".join(faults))
+    out = {"phase": "ssl_parity", "rows": st["rows"], "steps": n,
+           "channels": st["channels"], "layers": st["num_layers"],
+           "num_neg": st["num_neg_samples"],
+           "edge_capacity": ms["edge_capacity"],
+           "node_capacity": ms["node_capacity"], "terms": terms,
+           "jax_terms": {key[len("mcm-lp/term/"):]: rec[key].tolist()
+                         for key in rec.files
+                         if key.startswith("mcm-lp/term/")},
+           **summary, "negatives_equal": True, "launches": counts,
+           "card": card, "ok": True}
+    emit(out)
+    return out
+
+
+def ssl_cli_phase(card: str, csv: str) -> dict:
+    """The SSL CLI for one epoch on the record's cut, on the card, with
+    ``--save_model``; then a resume from its checkpoint."""
+    import torch
+
+    from rmm_tpu_torch.cli import fused
+
+    runs = os.path.join(WORK, "ssl_runs")
+    argv = ["--dataset", csv, *SSL_ARGV, "--epochs", "1", "--testing",
+            "--sampler_threads", "4", "--wandb_dir", runs,
+            "--device", "cuda"]
+    stats: dict = {}
+    reset_counts()
+    history, best = fused.main(argv + ["--save_model"], stats)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    (ep,) = history
+    b = 200
+    train_rows, val_rows, _ = stats["split_rows"]
+    steps, evals = -(-train_rows // b), -(-val_rows // b)
+    k = SSL_LAUNCHES
+    check(counts == {"fwd": k * (steps + evals), "fwd_tiled": 0,
+                     "bwd": k * steps, "bwd_tiled": 0, "reduce": k * steps},
+          f"SSL CLI launches {counts} for {steps} steps and {evals} "
+          "evaluated batches")
+    check(math.isfinite(ep["loss"]) and 0 < ep["val_mrr"] <= 1,
+          f"SSL CLI epoch {ep}")
+    ck = os.path.join(stats["run_dir"], "0")
+    check(all(os.path.exists(os.path.join(ck, f)) for f in
+              ("model.pt", "optimizer.pt", "best_m.json", "meta.json")),
+          f"no checkpoint in {ck}")
+    resumed, best2 = fused.main(argv + ["--checkpoint", ck])
+    check([h["epoch"] for h in resumed] == [1]
+          and os.path.isdir(os.path.join(stats["run_dir"], "1")),
+          "the SSL checkpoint did not resume at epoch 1")
+    rec = {"phase": "ssl_cli", "rows": sum(stats["split_rows"]),
+           "train_rows": train_rows, "steps": steps,
+           "evaluated_batches": evals, "launches": counts,
+           "loss": ep["loss"], "val_mrr": ep["val_mrr"],
+           "val_hits@10": ep["val_hits@10"],
+           "val_accuracy": ep["val_accuracy"], "val_rmse": ep["val_rmse"],
+           "best": best, "resumed_epoch": resumed[0]["epoch"],
+           "resumed_val_mrr": resumed[0]["val_mrr"],
+           "epoch_s": ep["sec"], "setup_s": stats["setup_s"],
+           "edge_capacity": stats["edge_capacity"],
+           "node_capacity": stats["node_capacity"], "card": card, "ok": True}
+    emit(rec)
+    return rec
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     try:
         sys.path.insert(0, ROOT)
         import rmm_tpu_torch  # noqa: F401
@@ -606,17 +863,32 @@ def main() -> int:
               "ptxas": [ln.strip() for log in logs.values()
                         for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]})
-        kern = kernel_phase(card)
+        seconds = {"build": time.perf_counter() - t0}
+
+        def timed(name, fn, *args):
+            t = time.perf_counter()
+            out = fn(*args)
+            seconds[name] = time.perf_counter() - t
+            return out
+
+        kern = timed("kernel", kernel_phase, card)
         try:
-            csv = prepare_data()
-            serve_rec = serve_phase(card, csv)
-            train_rec = train_phase(card, csv)
-            train_parity_phase(card)
+            csv = timed("data", prepare_data)
+            serve_rec = timed("serve", serve_phase, card, csv)
+            train_rec = timed("train", train_phase, card, csv)
+            timed("train_parity", train_parity_phase, card)
+            ssl_rec = timed("ssl_train", ssl_train_phase, card, csv)
+            ssl_csv = ssl_parity_csv()
+            timed("ssl_parity", ssl_parity_phase, card, ssl_csv)
+            timed("ssl_cli", ssl_cli_phase, card, ssl_csv)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
+        emit({"phase": "seconds", **seconds,
+              "total": time.perf_counter() - t_start})
         emit({"kernels": [
             kernel_entry("column_attention_fwd", 165, kern["fwd"],
                          kern["fwd"], {
+                             "path": "main",
                              "launches": serve_rec["launches"]
                              + train_rec["launches"]["fwd"],
                              "tiled_launches": serve_rec["tiled_launches"]
@@ -633,6 +905,7 @@ def main() -> int:
                                  sum(r["ops_ms"] for r in kern["fwd_masked"]))[0]}),
             kernel_entry("column_attention_bwd", 178, kern["bwd"],
                          kern["bwd_unmasked"], {
+                             "path": "main",
                              "launches": train_rec["launches"]["bwd"],
                              "tiled_launches":
                                  train_rec["launches"]["bwd_tiled"],
@@ -640,6 +913,23 @@ def main() -> int:
                                  train_rec["launches"]["reduce"],
                              "max_rel_err": max(max(r["max_rel_err"].values())
                                                 for r in kern["bwd"]),
+                             "library_masked": False}),
+            kernel_entry("column_attention_fwd_scalar", 165,
+                         kern["ssl_fwd"], kern["ssl_fwd_unmasked"], {
+                             "path": "ssl_train",
+                             "launches": ssl_rec["train_launches"]["fwd"]
+                             + ssl_rec["eval_launches"]["fwd"],
+                             "tiled_launches": 0,
+                             "library_masked": False}),
+            kernel_entry("column_attention_bwd_scalar", 178,
+                         kern["ssl_bwd"], kern["ssl_bwd_unmasked"], {
+                             "path": "ssl_train",
+                             "launches": ssl_rec["train_launches"]["bwd"],
+                             "tiled_launches": 0,
+                             "reduce_launches":
+                                 ssl_rec["train_launches"]["reduce"],
+                             "max_rel_err": max(max(r["max_rel_err"].values())
+                                                for r in kern["ssl_bwd"]),
                              "library_masked": False})]})
         print(card, flush=True)
     except Exception:

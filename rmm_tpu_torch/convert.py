@@ -13,15 +13,39 @@ Every other leaf (attention ``qkv_kernel``/``qkv_bias``/``out_kernel``/
 ``out_bias`` in the kernel's layout, encoder tables and weights, the CLS
 token) keeps its name and layout. Given the target module, every leaf must
 find its entry with the same shape and no entry may be left over.
+
+:func:`pretrain_variables` lays the JAX pretrainer's variables out as the
+port's ``PretrainModel``, and :func:`random_variables` is the numpy recipe
+that both packages' SSL parity records start from. :func:`check_record`
+and :func:`check_states` hold three pretraining steps against such a record
+or against a second run, with the tolerances below.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+
+# Tolerances of a three-step pretraining parity check, each with its reason:
+#   * each loss term 1e-4 relative at step 1 and 1e-3 at steps 2-3 (the PNA
+#     sums and the matmuls in another order);
+#   * parameters 6.05·lr (Adam turns a near-zero gradient of either sign
+#     into a ±lr step, so two runs part by up to ~2·lr a step), the median
+#     of each component's 0.05·lr (what a wrong gradient would move), and a
+#     variable's norm and sum within what its entries' bound implies;
+#   * BatchNorm running statistics (1 − momentum)·updates·nhidden·6.05·lr:
+#     they are no Adam step but an average of batch means, and no gradient
+#     reaches the directions a BatchNorm removes (the layer-0 node states
+#     are equal, all node features being ones), so those weights drift by
+#     the parameter bound and a batch mean sums up to nhidden of them.
+LOSS_RTOL = (1e-4, 1e-3)
+PARAM_MAX_LR, PARAM_MEDIAN_LR, BN_MOMENTUM = 6.05, 0.05, 0.9
+#: a pretraining step's loss and its terms (those of its mode)
+LOSS_TERMS = ("loss", "lp", "mcm_cat", "mcm_num")
 
 
 def flatten_variables(variables: dict) -> dict[str, np.ndarray]:
@@ -83,3 +107,173 @@ def from_jax(variables: dict,
                 raise ValueError(f"{k}: JAX shape {tuple(state[k].shape)} "
                                  f"vs torch {tuple(t.shape)}")
     return state
+
+
+def to_jax_layout(state: dict, jax_key: str) -> np.ndarray:
+    """The ``state_dict`` entry of a flat JAX variable path, as a numpy
+    array in the JAX leaf's layout."""
+    name, transpose = torch_key(jax_key)
+    arr = state[name].detach().cpu().numpy()
+    return arr.T if transpose else arr
+
+
+def pretrain_variables(params: dict, batch_stats: dict) -> dict:
+    """The JAX pretrainer's ``params`` (``encoder``, ``model``,
+    ``mcm_head``, ``lp_head``) and its model's ``batch_stats`` → variables
+    in the module layout of ``rmm_tpu_torch.train.pretrain.PretrainModel``
+    (the encoder under ``edge_encoder``, as the JAX SSL checkpoint names
+    it)."""
+    return {"params": {"edge_encoder": params["encoder"]["params"],
+                       "model": params["model"],
+                       "mcm_head": params["mcm_head"]["params"],
+                       "lp_head": params["lp_head"]["params"]},
+            "batch_stats": {"model": batch_stats}}
+
+
+def random_variables(shapes: dict, seed: int) -> dict[str, np.ndarray]:
+    """Seeded float32 values for flat variable paths (``{"params/a/b":
+    shape}``), one ``RandomState(seed + i)`` for the i-th path in sorted
+    order, so that a wrong mapping cannot hide behind a zero or one: 2-D
+    kernels std ``1/√shape[0]``, 3-D ones ``1/√shape[1]``, other
+    parameters std 0.1 (norm scales around 1), BatchNorm means std 0.3 and
+    variances in [0.5, 2)."""
+    out = {}
+    for i, path in enumerate(sorted(shapes)):
+        shape = tuple(int(d) for d in shapes[path])
+        rng = np.random.RandomState(seed + i)
+        collection, name = path.split("/")[0], path.split("/")[-1]
+        if collection == "batch_stats":
+            val = (rng.uniform(0.5, 2.0, shape) if name == "var"
+                   else rng.randn(*shape) * 0.3)
+        elif name == "scale":
+            val = 1.0 + 0.1 * rng.randn(*shape)
+        else:
+            std = 0.1
+            if len(shape) == 2:
+                std = 1.0 / np.sqrt(shape[0])
+            elif len(shape) == 3:
+                std = 1.0 / np.sqrt(shape[1])
+            val = rng.randn(*shape) * std
+        out[path] = np.asarray(val, np.float32)
+    return out
+
+
+def loss_terms(loss, sums: dict) -> dict[str, float]:
+    """A pretraining step's loss and its terms, from the loss and the
+    step's sums (``lp``; ``loss_c``, ``t_c``, ``loss_n`` and ``t_n`` under
+    MCM): the LP loss, the MCM categorical cross-entropy and the MCM
+    numerical √MSE, each where the mode has it."""
+    out = {"loss": float(loss)}
+    if "lp" in sums:
+        out["lp"] = float(sums["lp"])
+    if "loss_c" in sums:
+        out["mcm_cat"] = float(sums["loss_c"]) / max(float(sums["t_c"]), 1.0)
+        out["mcm_num"] = math.sqrt(float(sums["loss_n"])
+                                   / max(float(sums["t_n"]), 1.0))
+    return out
+
+
+def record_errors(state: dict, record, prefix: str) -> dict[str, tuple]:
+    """A ``state_dict`` against a JAX parity record (as
+    ``tools/make_torch_port_ssl_fixture.py`` writes it): for each recorded
+    variable, by its ``state_dict`` key, (the absolute errors of the sampled
+    entries that ``<prefix>idx/<path>`` picks, the error of the variable's
+    norm, that of its sum, its entry count)."""
+    out = {}
+    for key in record.files:
+        if not key.startswith(prefix + "idx/"):
+            continue
+        path = key[len(prefix) + 4:]
+        arr = to_jax_layout(state, path).astype(np.float64)
+        got = arr.reshape(-1)[record[key]]
+        out[torch_key(path)[0]] = (
+            np.abs(got - record[f"{prefix}val/{path}"]),
+            abs(float(np.linalg.norm(arr))
+                - float(record[f"{prefix}norm/{path}"])),
+            abs(float(arr.sum()) - float(record[f"{prefix}sum/{path}"])),
+            arr.size)
+    return out
+
+
+def _loss_faults(terms: Sequence[dict], want: dict[str, Sequence[float]],
+                 rtol: Sequence[float]) -> tuple[list[str], dict]:
+    faults, rel = [], {}
+    if not terms or set(terms[0]) != set(want):
+        faults.append(f"loss terms {sorted(terms[0]) if terms else []} vs "
+                      f"the reference's {sorted(want)}")
+    for name, ref in want.items():
+        got = [t.get(name, math.nan) for t in terms]
+        rel[name] = [abs(a - b) / max(abs(b), 1e-30)
+                     for a, b in zip(got, ref)]
+        if len(got) != len(ref) or rel[name][0] > rtol[0] or max(
+                rel[name]) > rtol[1]:
+            faults.append(f"loss term {name}: {got} vs {list(ref)} "
+                          f"(relative tolerance {list(rtol)})")
+    return faults, {"loss_rel_err": rel, "loss_rtol": list(rtol)}
+
+
+def _state_faults(errors: dict[str, tuple], lr: float, updates: int,
+                  nhidden: int) -> tuple[list[str], dict]:
+    param_tol = PARAM_MAX_LR * lr
+    stat_tol = (1 - BN_MOMENTUM) * updates * nhidden * param_tol
+    faults, worst, parts = [], {"param": 0.0, "stat": 0.0}, {}
+    for key, (err, norm_err, sum_err, size) in errors.items():
+        kind = ("stat" if key.endswith(tuple(_STAT_NAMES.values()))
+                else "param")
+        tol = stat_tol if kind == "stat" else param_tol
+        worst[kind] = max(worst[kind], float(err.max()))
+        if (err.max() > tol or norm_err > tol * math.sqrt(size)
+                or sum_err > tol * size):
+            faults.append(f"{key}: off by {float(err.max())} (norm "
+                          f"{norm_err}, sum {sum_err}; tolerance {tol})")
+        if kind == "param":
+            parts.setdefault(key.split(".")[0], []).append(err)
+    medians = {c: float(np.median(np.concatenate(e)))
+               for c, e in parts.items()}
+    faults += [f"median parameter error of {c}: {m} > "
+               f"{PARAM_MEDIAN_LR * lr}" for c, m in medians.items()
+               if m > PARAM_MEDIAN_LR * lr]
+    return faults, {"param_max_abs_err": worst["param"],
+                    "param_tol": param_tol,
+                    "param_median_abs_err": medians,
+                    "param_median_tol": PARAM_MEDIAN_LR * lr,
+                    "bn_stat_max_abs_err": worst["stat"],
+                    "bn_stat_tol": stat_tol,
+                    "compared_entries": int(sum(e[0].size
+                                                for e in errors.values()))}
+
+
+def check_record(state: dict, terms: Sequence[dict], record, prefix: str,
+                 lr: float, updates: int, nhidden: int
+                 ) -> tuple[list[str], dict]:
+    """Three pretraining steps against a JAX parity record: ``terms`` the
+    :func:`loss_terms` of each step, ``state`` the ``state_dict`` after
+    them, ``updates`` the BatchNorm updates they made. Returns (the faults,
+    empty when everything holds; the errors beside their limits)."""
+    want = {k: record[f"{prefix}term/{k}"] for k in LOSS_TERMS
+            if f"{prefix}term/{k}" in record.files}
+    errors = record_errors(state, record, prefix)
+    faults = ([] if set(errors) == set(state) else
+              ["the record and the model hold other variables"])
+    f1, s1 = _loss_faults(terms, want, LOSS_RTOL)
+    f2, s2 = _state_faults(errors, lr, updates, nhidden)
+    return faults + f1 + f2, {**s1, **s2}
+
+
+def check_states(state: dict, terms: Sequence[dict], ref_state: dict,
+                 ref_terms: Sequence[dict], lr: float, updates: int,
+                 nhidden: int, loss_rtol: Sequence[float] = LOSS_RTOL
+                 ) -> tuple[list[str], dict]:
+    """:func:`check_record` against a second run's ``state_dict`` and
+    terms, every entry compared."""
+    errors = {}
+    for k, ref in ref_state.items():
+        a = state[k].detach().cpu().double().numpy()
+        b = ref.detach().cpu().double().numpy()
+        errors[k] = (np.abs(a - b).reshape(-1),
+                     abs(float(np.linalg.norm(a)) - float(np.linalg.norm(b))),
+                     abs(float(a.sum()) - float(b.sum())), a.size)
+    f1, s1 = _loss_faults(terms, {k: [t[k] for t in ref_terms]
+                                  for k in ref_terms[0]}, loss_rtol)
+    f2, s2 = _state_faults(errors, lr, updates, nhidden)
+    return f1 + f2, {**s1, **s2}

@@ -1,15 +1,41 @@
-"""Dataset plumbing for the supervised path: CSV I/O, the temporal split
-and target packing (counterparts of ``rmm_tpu/datasets/base.py``).
+"""Dataset plumbing: CSV I/O, the temporal split, the pretraining masks and
+target packing (counterparts of ``rmm_tpu/datasets/base.py``).
 
-A table is an ordered ``dict`` of 1-D numpy columns. Packed supervised
-target layout: ``[label, src, dst, edge_id]`` (float32).
+A table is an ordered ``dict`` of 1-D numpy columns. Packed target layouts
+(float32):
+  supervised:        [label, src, dst, edge_id]
+  MASK + LINK_PRED:  [masked_value, masked_col_idx, src, dst, edge_id]
+  MASK only:         [masked_value, masked_col_idx]
+  LINK_PRED only:    [src, dst, edge_id]
+Masked-column indices count the numerical maskable columns first, then the
+categorical ones (the order ``SSLoss.mcm_loss`` assumes).
 """
 from __future__ import annotations
 
 import csv
+import enum
+import os
 from typing import Optional, Sequence
 
 import numpy as np
+
+from ..frame.stats import is_missing, value_counts
+
+
+class PretrainType(enum.Enum):
+    MASK = 1
+    LINK_PRED = 3
+
+
+def parse_pretrain_args(pretrain) -> set:
+    """'mask'/'lp' strings → a PretrainType set ('mv', the masked vector
+    target, is not ported)."""
+    table = {"mask": PretrainType.MASK, "lp": PretrainType.LINK_PRED}
+    for p in pretrain or ():
+        if p not in table:
+            raise NotImplementedError(
+                f"pretraining target {p!r} is not ported yet")
+    return {table[p] for p in pretrain or ()}
 
 
 # ---------------------------------------------------------------------------
@@ -108,10 +134,99 @@ def pack_link_column(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
                     axis=1)
 
 
-def pack_target(link: np.ndarray,
+def create_mask(cache_root: Optional[str], num_rows: int,
+                maskable_columns: Sequence[str]) -> np.ndarray:
+    """Per-row choice of the column to mask, ``RandomState(0)``, cached
+    in ``<cache_root>.mask.npy`` and read back only when its length
+    matches."""
+    cache = f"{cache_root}.mask.npy" if cache_root else None
+    if cache and os.path.exists(cache):
+        mask = np.load(cache, allow_pickle=True)
+        if len(mask) == num_rows:
+            return mask
+    rng = np.random.RandomState(0)
+    mask = rng.choice(list(maskable_columns), size=num_rows, replace=True)
+    if cache:
+        try:
+            np.save(cache, mask)
+        except OSError:
+            pass
+    return mask
+
+
+def _to_float(values: np.ndarray) -> np.ndarray:
+    """Each value as a float, NaN where it does not parse."""
+    values = np.asarray(values)
+    if values.dtype.kind in "fiub":
+        return values.astype(np.float64)
+
+    def parse(v):
+        try:
+            return float(v)
+        except (TypeError, ValueError):
+            return np.nan
+
+    return np.array([parse(v) for v in values], dtype=np.float64)
+
+
+def category_codes(values: np.ndarray) -> dict:
+    """Value → code by descending count (``value_counts`` order)."""
+    return {v: i for i, v in enumerate(value_counts(values)[0])}
+
+
+def build_mask_target(columns: dict[str, np.ndarray], mask_col: np.ndarray,
+                      masked_numerical: Sequence[str],
+                      masked_categorical: Sequence[str],
+                      cat_codes: dict[str, dict]) -> np.ndarray:
+    """[original value, masked column index] per row; a categorical value
+    is stored as its code (−1 when missing)."""
+    col_idx = {c: i for i, c in enumerate(masked_numerical)}
+    off = len(masked_numerical)
+    col_idx.update({c: off + i for i, c in enumerate(masked_categorical)})
+    out = np.zeros((len(mask_col), 2), dtype=np.float32)
+    for c in set(mask_col):
+        rows = mask_col == c
+        vals = np.asarray(columns[c])[rows]
+        if c in cat_codes:
+            codes = cat_codes[c]
+            vals = np.array([-1 if m else codes.get(v, -1) for v, m in
+                             zip(vals, is_missing(np.asarray(vals, object)))],
+                            dtype=np.float64)
+        else:
+            vals = _to_float(vals)
+        out[rows, 0] = vals
+        out[rows, 1] = col_idx[c]
+    return out
+
+
+def blank_masked_cells(columns: dict[str, np.ndarray],
+                       mask_col: np.ndarray) -> None:
+    """Hide each row's masked cell: it becomes NaN, so a
+    numerical cell encodes to the column mean and a categorical one to the
+    NA row. Integer columns become float64, as pandas' do."""
+    for c in set(mask_col):
+        rows = mask_col == c
+        col = np.asarray(columns[c])
+        col = (col.astype(object) if col.dtype.kind in "OUS"
+               else col.astype(np.float64))
+        col[rows] = np.nan
+        columns[c] = col
+
+
+def pack_target(pretrain: set, link: np.ndarray,
+                mask_target: Optional[np.ndarray],
                 supervised: Optional[np.ndarray]) -> Optional[np.ndarray]:
-    """Supervised packed target ``[label, src, dst, edge_id]``."""
-    if supervised is None:
-        return None
-    sup = supervised.astype(np.float32).reshape(len(supervised), -1)
-    return np.concatenate([sup, link], axis=1)
+    """The packed target column for the pretraining set (empty: the
+    supervised layout)."""
+    if not pretrain:
+        if supervised is None:
+            return None
+        sup = supervised.astype(np.float32).reshape(len(supervised), -1)
+        return np.concatenate([sup, link], axis=1)
+    if {PretrainType.MASK, PretrainType.LINK_PRED}.issubset(pretrain):
+        return np.concatenate([mask_target, link], axis=1)
+    if PretrainType.MASK in pretrain:
+        return mask_target
+    if PretrainType.LINK_PRED in pretrain:
+        return link
+    return None

@@ -1,5 +1,6 @@
-"""Edges table + nodes table + sampler wiring (supervised path of
-``rmm_tpu/datasets/graph_dataset.py``)."""
+"""Edges table + nodes table + sampler wiring
+(``rmm_tpu/datasets/graph_dataset.py``): the supervised target and the
+pretraining targets (masked cells, link prediction)."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -7,25 +8,38 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ..frame.dataset import Dataset
+from ..frame.stats import StatType
 from ..frame.stype import Stype
 from ..graph.store import GraphStore
-from ..utils.batch import GraphBatch, graph_inputs
-from .base import pack_link_column, pack_target, temporal_balanced_split
+from ..utils.batch import GraphBatch, graph_inputs, lp_inputs
+from .base import (PretrainType, blank_masked_cells, build_mask_target,
+                   category_codes, create_mask, pack_link_column,
+                   pack_target, temporal_balanced_split)
 
 
 class EdgeTable(Dataset):
     """Transactions as edges: temporal split, per-split graphs and the packed
-    supervised target ``[label, src, dst, edge_id]``."""
+    target (``base.py``'s layouts). ``pretrain`` ⊆ {MASK, LINK_PRED}; empty
+    is supervised. Under MASK each row has one masked column
+    (``create_mask``, cached next to ``cache_root``), whose cell is blanked
+    before the column statistics are computed."""
 
     def __init__(self, columns: dict[str, np.ndarray], col_to_stype: dict,
                  src_col: str, dst_col: str, timestamp_col: str,
                  supervised_col: Optional[str],
+                 masked_numerical_columns: Sequence[str] = (),
+                 masked_categorical_columns: Sequence[str] = (),
+                 pretrain: Optional[set] = None,
                  split_type: str = "temporal_daily",
                  splits: Sequence[float] = (0.6, 0.2, 0.2),
-                 khop_neighbors: Sequence[int] = (100, 100)):
+                 khop_neighbors: Sequence[int] = (100, 100),
+                 cache_root: Optional[str] = None):
         if split_type != "temporal_daily":
             raise NotImplementedError(
-                f"split_type={split_type!r}: this slice ports temporal_daily")
+                f"split_type={split_type!r}: the port has temporal_daily only")
+        self.pretrain = set(pretrain or ())
+        self.masked_numerical_columns = list(masked_numerical_columns)
+        self.masked_categorical_columns = list(masked_categorical_columns)
         col_to_stype = dict(col_to_stype)
         columns = temporal_balanced_split(dict(columns), list(splits),
                                           timestamp_col)
@@ -33,9 +47,21 @@ class EdgeTable(Dataset):
         dst = np.asarray(columns[dst_col]).astype(np.int64)
         self.graph = GraphStore(src, dst, split=columns["split"],
                                 fanouts=khop_neighbors)
+        mask_target = None
+        if PretrainType.MASK in self.pretrain:
+            maskable = (self.masked_numerical_columns
+                        + self.masked_categorical_columns)
+            mask_col = create_mask(cache_root, len(src), maskable)
+            cat_codes = {c: category_codes(columns[c])
+                         for c in self.masked_categorical_columns}
+            mask_target = build_mask_target(
+                columns, mask_col, self.masked_numerical_columns,
+                self.masked_categorical_columns, cat_codes)
+            blank_masked_cells(columns, mask_col)
         supervised = (np.asarray(columns[supervised_col], np.float64)
                       if supervised_col else None)
-        y = pack_target(pack_link_column(src, dst), supervised)
+        y = pack_target(self.pretrain, pack_link_column(src, dst),
+                        mask_target, supervised)
         target_col = None
         if y is not None:
             columns["target"] = y
@@ -43,6 +69,17 @@ class EdgeTable(Dataset):
             col_to_stype["target"] = Stype.relation
         super().__init__(columns, col_to_stype, split_col="split",
                          target_col=target_col)
+
+    def masked_categorical_cardinalities(self) -> list[int]:
+        """MCM head sizes: the category count of each masked categorical
+        column, from the statistics of the blanked table."""
+        out = []
+        for c in self.masked_categorical_columns:
+            if c in self.col_stats and StatType.COUNT in self.col_stats[c]:
+                out.append(len(self.col_stats[c][StatType.COUNT][0]))
+            else:
+                out.append(0)
+        return out
 
 
 class NodeTable(Dataset):
@@ -124,6 +161,15 @@ class GraphTableDataset:
             self.calibrate_capacities(len(batch_y))
         return graph_inputs(batch_y, valid, self.graph, mode,
                             self.edge_capacity, self.node_capacity, rng_seed)
+
+    def get_lp_inputs(self, batch_y, valid, mode="train",
+                      num_neg_samples: int = 64, rng_seed: int = 0,
+                      neg_seed: int = 0) -> GraphBatch:
+        if self.edge_capacity <= 0 or self.node_capacity <= 0:
+            self.calibrate_capacities(len(batch_y))
+        return lp_inputs(batch_y, valid, self.graph, mode,
+                         self.edge_capacity, self.node_capacity,
+                         num_neg_samples, rng_seed, neg_seed)
 
     def in_degree_histogram(self) -> np.ndarray:
         return self.graph.in_degree_histogram()

@@ -41,5 +41,9 @@ def load_library() -> ctypes.CDLL:
             ctypes.c_void_p, i64p, i64p, i64p, ctypes.c_int64, i64p,
             ctypes.c_int32, ctypes.c_uint64, ctypes.c_int32, ctypes.c_int64,
             ctypes.c_int64, i64p, i64p, i64p, i64p, i64p]
+        lib.rmm_negative_sample.restype = None
+        lib.rmm_negative_sample.argtypes = [
+            i64p, i64p, ctypes.c_int64, i64p, i64p, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_uint64, i64p, i64p]
         _lib = lib
         return _lib

@@ -3,10 +3,10 @@
 // so the port never imports rmm_tpu. Host-side C++ primitives feeding
 // static-shape device buffers.
 //
-// Only what the edge-classification serving path reads: the CSR graph, its
-// in-degrees and edge-seeded k-hop sampling (pyg-lib's NeighborSampler
-// contract: seed edges first, PADDED fixed-capacity neighborhoods, local
-// relabeling in the same pass). Node-seeded sampling, negative sampling and
+// Only what the port's paths read: the CSR graph, its in-degrees,
+// edge-seeded k-hop sampling (pyg-lib's NeighborSampler contract: seed edges
+// first, PADDED fixed-capacity neighborhoods, local relabeling in the same
+// pass) and negative sampling for link prediction. Node-seeded sampling and
 // port numbering come with the slices that use them.
 //
 // Exposed through a plain C ABI consumed via ctypes (no pybind11 in image).
@@ -214,6 +214,61 @@ int64_t rmm_sample_from_edges(void* handle, const int64_t* seed_src,
   out_counts[1] = static_cast<int64_t>(nodes.size());
   out_counts[2] = dropped;
   return 0;
+}
+
+// Negative sampling over a LOCAL subgraph: for each positive edge, emit
+// num_neg/2 (src, corrupt) pairs then num_neg - num_neg/2 (corrupt, dst)
+// pairs, where `corrupt` avoids both endpoints and their full (undirected)
+// adjacency within the subgraph. Deterministic: seeded rejection sampling
+// with a linear-probe fallback after 64 misses.
+void rmm_negative_sample(const int64_t* src, const int64_t* dst,
+                         int64_t n_edges, const int64_t* pos_src,
+                         const int64_t* pos_dst, int64_t n_pos,
+                         int64_t num_nodes, int64_t num_neg, uint64_t seed,
+                         int64_t* out_src, int64_t* out_dst) {
+  std::unordered_map<int64_t, std::unordered_set<int64_t>> adj;
+  adj.reserve(num_nodes * 2);
+  for (int64_t i = 0; i < n_edges; ++i) {
+    adj[src[i]].insert(dst[i]);
+    adj[dst[i]].insert(src[i]);
+  }
+  std::mt19937_64 rng(seed);
+  std::uniform_int_distribution<int64_t> dis(0, num_nodes - 1);
+
+  int64_t w = 0;
+  for (int64_t i = 0; i < n_pos; ++i) {
+    int64_t s = pos_src[i], d = pos_dst[i];
+    auto banned = [&](int64_t v) {
+      if (v == s || v == d) return true;
+      auto it = adj.find(s);
+      if (it != adj.end() && it->second.count(v)) return true;
+      it = adj.find(d);
+      if (it != adj.end() && it->second.count(v)) return true;
+      return false;
+    };
+    auto draw = [&]() {
+      for (int t = 0; t < 64; ++t) {
+        int64_t v = dis(rng);
+        if (!banned(v)) return v;
+      }
+      int64_t start = dis(rng);
+      for (int64_t k = 0; k < num_nodes; ++k) {
+        int64_t v = (start + k) % num_nodes;
+        if (!banned(v)) return v;
+      }
+      return (s + 1) % num_nodes;  // fully-connected fallback
+    };
+    for (int64_t j = 0; j < num_neg / 2; ++j) {
+      out_src[w] = s;
+      out_dst[w] = draw();
+      ++w;
+    }
+    for (int64_t j = 0; j < num_neg - num_neg / 2; ++j) {
+      out_src[w] = draw();
+      out_dst[w] = d;
+      ++w;
+    }
+  }
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-"""Task heads (``rmm_tpu/nn/decoders.py``): the edge classifier."""
+"""Task heads (``rmm_tpu/nn/decoders.py``): the edge classifier and the
+self-supervised heads (link prediction, masked-cell modeling)."""
 from __future__ import annotations
 
 import torch
@@ -6,6 +7,7 @@ from torch import nn
 
 from .dropout import GeneratorDropout
 from .gnn.conv import gather
+from .transformer import LN_EPS
 
 
 class _MLP50(nn.Module):
@@ -40,3 +42,68 @@ class ClassifierHead(nn.Module):
         h = torch.cat([torch.relu(pair),
                        edge_attr.reshape(edge_attr.shape[0], -1)], dim=-1)
         return self.mlp(h)
+
+
+class _LPTrunk(nn.Module):
+    """Linear(in→F) ReLU Dropout Linear(F→25) ReLU Dropout Linear(25→C),
+    sigmoid."""
+
+    def __init__(self, in_features: int, n_classes: int, n_hidden: int,
+                 dropout: float):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, n_hidden)
+        self.fc2 = nn.Linear(n_hidden, 25)
+        self.fc3 = nn.Linear(25, n_classes)
+        self.drop = GeneratorDropout(dropout)
+
+    def forward(self, h):
+        h = self.drop(torch.relu(self.fc1(h)))
+        h = self.drop(torch.relu(self.fc2(h)))
+        return torch.sigmoid(self.fc3(h))
+
+
+class LinkPredHead(nn.Module):
+    """Link prediction on (pos, neg) edge sets: ``relu([x_src, x_dst]) ∥
+    edge_attr`` → one shared trunk → probabilities ``[N, n_classes]``."""
+
+    def __init__(self, n_classes: int = 1, n_hidden: int = 128,
+                 edge_width: int = 128, dropout: float = 0.5):
+        super().__init__()
+        self.mlp = _LPTrunk(2 * n_hidden + edge_width, n_classes, n_hidden,
+                            dropout)
+
+    def forward(self, x, pos_edge_index, pos_edge_attr, neg_edge_index,
+                neg_edge_attr):
+        def feats(ei, ea):
+            pair = torch.relu(torch.cat([gather(x, ei[0]), gather(x, ei[1])],
+                                        dim=-1))
+            return torch.cat([pair, ea.reshape(ea.shape[0], -1)], dim=-1)
+
+        return (self.mlp(feats(pos_edge_index, pos_edge_attr)),
+                self.mlp(feats(neg_edge_index, neg_edge_attr)))
+
+
+class MCMHead(nn.Module):
+    """Masked-cell modeling: one regressor for the numerical columns and
+    one classifier a categorical column, each LayerNorm → ReLU → Linear
+    over ``w · channels`` inputs. → (num_out [B, n_num], cat_out: list of
+    [B, K_i])."""
+
+    def __init__(self, channels: int, num_numerical: int,
+                 num_categorical, w: int = 1):
+        super().__init__()
+        width = w * channels
+        self.num_numerical = num_numerical
+        self.num_categorical = list(num_categorical)
+        self.num_norm = nn.LayerNorm(width, eps=LN_EPS)
+        self.num_lin = nn.Linear(width, max(num_numerical, 1))
+        for i, k in enumerate(self.num_categorical):
+            self.add_module(f"cat_norm_{i}", nn.LayerNorm(width, eps=LN_EPS))
+            self.add_module(f"cat_lin_{i}", nn.Linear(width, k))
+
+    def forward(self, x):
+        num_out = self.num_lin(torch.relu(self.num_norm(x)))
+        cat_out = [getattr(self, f"cat_lin_{i}")(torch.relu(
+            getattr(self, f"cat_norm_{i}")(x)))
+            for i in range(len(self.num_categorical))]
+        return num_out[:, :self.num_numerical], cat_out

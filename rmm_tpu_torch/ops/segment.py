@@ -1,6 +1,8 @@
-"""Masked PNA aggregation over padded edge lanes (forward).
+"""Masked PNA aggregation over padded edge lanes, and the fused model's
+mean-pool update.
 
-Counterpart of ``rmm_tpu/ops/segment.py::pna_aggregate``. The JAX package
+Counterparts of ``rmm_tpu/ops/segment.py::pna_aggregate`` and
+``::scatter_mean_update``. The JAX package
 sorts edges by segment because scatters serialize on the TPU; on the GPU the
 scatters are the natural form, so this is plain PyTorch (``index_add_`` and
 ``scatter_reduce_``). Masked lanes go to an extra segment ``num_nodes`` and
@@ -51,3 +53,19 @@ def pna_aggregate(messages: torch.Tensor, dst: torch.Tensor, num_nodes: int,
     log_deg = torch.log(n.clamp(min=1.0) + 1.0)
     return torch.cat([agg, agg * (log_deg / avg_log_deg),
                       agg * (avg_log_deg / log_deg)], dim=-1)
+
+
+def scatter_mean_update(x: torch.Tensor, index: torch.Tensor,
+                        values: torch.Tensor) -> torch.Tensor:
+    """``x[u] ← (x[u] + mean_{i: index_i = u} values[i]) / 2`` for every row
+    ``u`` that ``index`` reaches; the other rows stay as they are."""
+    n = x.shape[0]
+    ids = index.long()
+    sums = torch.zeros(n, values.shape[1], dtype=values.dtype,
+                       device=values.device).index_add_(0, ids, values)
+    cnt = torch.zeros(n, dtype=values.dtype,
+                      device=values.device).index_add_(
+        0, ids, torch.ones(ids.shape[0], dtype=values.dtype,
+                           device=values.device))[:, None]
+    pooled = sums / cnt.clamp(min=1.0)
+    return torch.where(cnt > 0, (x + pooled) / 2.0, x)

@@ -103,6 +103,22 @@ class TABGNNS(nn.Module):
         return self.decoder(x, batch.edge_index[:, :b], edge_attr[:b])
 
 
+#: flax's ``lecun_normal``: a standard normal truncated at ±2 has standard
+#: deviation 0.87962566, which the draw divides out
+TRUNC_NORMAL_STD = 0.87962566103423978
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """flax's ``lecun_normal`` (``variance_scaling(1, "fan_in",
+    "truncated_normal")``) in place: a normal truncated at ±2, times
+    ``1 / (0.87962566 · √fan_in)``, so the variance is ``1 / fan_in``."""
+    draw = torch.empty(t.shape)
+    nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    with torch.no_grad():
+        return t.copy_(draw / (TRUNC_NORMAL_STD * math.sqrt(fan_in)))
+
+
 def init_parameters(model: nn.Module, seed: int) -> nn.Module:
     """Seeded initialization after the JAX modules' initializers: dense and
     attention kernels lecun-normal, biases zero, norms one/zero, encoder
@@ -116,15 +132,15 @@ def init_parameters(model: nn.Module, seed: int) -> nn.Module:
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, nn.Linear):
-                normal(mod.weight, 1.0 / math.sqrt(mod.in_features))
+                lecun_normal_(mod.weight, mod.in_features, g)
                 mod.bias.zero_()
             elif isinstance(mod, (nn.LayerNorm, MaskedBatchNorm)):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
             elif isinstance(mod, MultiHeadSelfAttention):
                 c = mod.out_kernel.shape[0]
-                normal(mod.qkv_kernel, 1.0 / math.sqrt(c))
-                normal(mod.out_kernel, 1.0 / math.sqrt(c))
+                lecun_normal_(mod.qkv_kernel, c, g)
+                lecun_normal_(mod.out_kernel, c, g)
                 mod.qkv_bias.zero_()
                 mod.out_bias.zero_()
             elif isinstance(mod, EmbeddingEncoder):

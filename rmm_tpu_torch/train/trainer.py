@@ -74,7 +74,24 @@ def resolve_capacities(cfg: Config, dataset) -> Config:
                        node_capacity=dataset.node_capacity)
 
 
-def _features(tf: TensorFrame, device) -> TensorFrame:
+def threaded_map(fn, items, threads: int):
+    """``map(fn, items)`` in order; with ``threads`` > 1 on a thread pool
+    that keeps up to ``2 · threads`` items in flight (the host samples
+    ahead while the card computes)."""
+    if threads <= 1:
+        yield from map(fn, items)
+        return
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        pending = collections.deque()
+        for item in items:
+            pending.append(pool.submit(fn, item))
+            if len(pending) >= 2 * threads:
+                yield pending.popleft().result()
+        while pending:
+            yield pending.popleft().result()
+
+
+def features(tf: TensorFrame, device) -> TensorFrame:
     return TensorFrame(feats=tf.feats, col_names=tf.col_names).to(device)
 
 
@@ -107,8 +124,8 @@ class Trainer:
         self.loss_weights = torch.tensor(cfg.loss_weights,
                                          dtype=torch.float32,
                                          device=self.device)
-        self.edge_table = _features(dataset.edges.tensor_frame, self.device)
-        self.node_table = _features(dataset.nodes.tensor_frame, self.device)
+        self.edge_table = features(dataset.edges.tensor_frame, self.device)
+        self.node_table = features(dataset.nodes.tensor_frame, self.device)
 
     def _batches(self, view, mode: str, epoch: int = 0):
         """GraphBatches (host numpy) for a split view, in order. The
@@ -125,19 +142,8 @@ class Trainer:
                 np.asarray(tf.y), valid, mode,
                 rng_seed=mix_seed(cfg.seed, epoch, i))
 
-        items = enumerate(loader)
-        threads = int(cfg.sampler_threads)
-        if threads <= 1:
-            yield from map(build, items)
-            return
-        with concurrent.futures.ThreadPoolExecutor(threads) as pool:
-            pending = collections.deque()
-            for item in items:
-                pending.append(pool.submit(build, item))
-                if len(pending) >= 2 * threads:
-                    yield pending.popleft().result()
-            while pending:
-                yield pending.popleft().result()
+        yield from threaded_map(build, enumerate(loader),
+                                int(cfg.sampler_threads))
 
     def _aux(self, logits: torch.Tensor) -> dict:
         """Device tensors ``pred_cls`` [B] and, for binary heads, ``score``

@@ -4,7 +4,8 @@ The host builds it in numpy from a sampled subgraph; ``.to(device)`` ships
 it to the card as pinned, non-blocking copies. Features are gathered on the
 device from the resident tables (``edge_table[edge_gather]``). Seed edges
 occupy lanes ``[0, num_seeds)``; ``seed_mask`` marks the real rows (the
-last batch is padded).
+last batch is padded). A link-prediction batch also carries
+``neg_edge_index``, ``num_neg`` corrupted edges for each seed edge.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..graph.negative import generate_negative_samples
 from ..graph.sampler import SampledSubgraph
 
 
@@ -27,6 +29,7 @@ class GraphBatch:
     seed_mask: np.ndarray          # [B] bool
     y: Optional[np.ndarray]        # [B, T] packed target (leading slots)
     num_dropped: int = 0           # edges the sampler dropped at capacity
+    neg_edge_index: Optional[np.ndarray] = None  # [2, B*num_neg] local ids
 
     @property
     def num_seeds(self) -> int:
@@ -53,7 +56,8 @@ class GraphBatch:
             node_mask=put(self.node_mask),
             seed_mask=put(self.seed_mask),
             y=put(self.y),
-            num_dropped=self.num_dropped)
+            num_dropped=self.num_dropped,
+            neg_edge_index=put(self.neg_edge_index, torch.int64))
 
 
 def _pack_sub(sub: SampledSubgraph, valid_seeds: int, y) -> GraphBatch:
@@ -79,3 +83,22 @@ def graph_inputs(batch_y: np.ndarray, valid: int, store, mode: str,
     sub = store.sample_edges(edges, mode, edge_capacity, node_capacity,
                              rng_seed)
     return _pack_sub(sub, valid, batch_y[:, :-3])
+
+
+def lp_inputs(batch_y: np.ndarray, valid: int, store, mode: str,
+              edge_capacity: int, node_capacity: int, num_neg_samples: int,
+              rng_seed: int, neg_seed: int) -> GraphBatch:
+    """Link-prediction batch: the edge-seeded subgraph of
+    :func:`graph_inputs`, then ``num_neg_samples`` negatives for each seed
+    edge, drawn over the local subgraph (its kept edges and its
+    ``node_mask.sum()`` nodes) with ``neg_seed``."""
+    gb = graph_inputs(batch_y, valid, store, mode, edge_capacity,
+                      node_capacity, rng_seed)
+    b = gb.num_seeds
+    n_edges = int(gb.edge_mask.sum())
+    neg = generate_negative_samples(gb.edge_index[:, :n_edges],
+                                    gb.edge_index[:, :b], num_neg_samples,
+                                    num_nodes=int(gb.node_mask.sum()),
+                                    seed=neg_seed)
+    gb.neg_edge_index = neg.astype(np.int32)
+    return gb

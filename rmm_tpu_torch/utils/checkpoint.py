@@ -9,6 +9,12 @@ Training writes one such directory per epoch, ``<run_dir>/<epoch>/``
 Adam state) and ``best_m.json``; the previous epoch's directory is pruned,
 and ``<run_dir>/-1/`` holds the best model under ``--save_model``. Every one
 of them serves through ``cli/predict.py`` as it is.
+
+SSL pretraining (``train/pretrain.py``) writes the same per-epoch
+directories for its ``PretrainModel`` (encoder, backbone, MCM and LP heads,
+BatchNorm statistics; AdamW in ``optimizer.pt``), with ``best_m.json``
+holding the best accuracy, RMSE and MRR, and a weights-only snapshot
+``best_acc``, ``best_rmse`` or ``best_mrr`` for each metric that improved.
 """
 from __future__ import annotations
 
@@ -16,7 +22,7 @@ import json
 import logging
 import os
 import shutil
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -46,12 +52,13 @@ def load_checkpoint(ck_dir: str, model: torch.nn.Module) -> dict:
     return meta
 
 
-def save_epoch(run_dir: str, epoch: int, model: torch.nn.Module,
+def save_epoch(run_dir: str, epoch: Union[int, str], model: torch.nn.Module,
                optimizer: Optional[torch.optim.Optimizer] = None,
-               best_m: Optional[float] = None,
+               best_m: Union[float, dict, None] = None,
                prune_previous: bool = True) -> str:
-    """``<run_dir>/<epoch>/``: the model, the optimizer state (when given)
-    and ``best_m``; prunes ``<run_dir>/<epoch - 1>/``."""
+    """``<run_dir>/<epoch>/`` (or a ``best_*`` tag): the model, the
+    optimizer state (when given) and ``best_m`` (a value, or the SSL
+    metrics' dict); prunes ``<run_dir>/<epoch - 1>/``."""
     ck = save_checkpoint(os.path.join(run_dir, str(epoch)),
                          model.state_dict(), {"epoch": epoch})
     if optimizer is not None:
@@ -65,7 +72,7 @@ def save_epoch(run_dir: str, epoch: int, model: torch.nn.Module,
     return ck
 
 
-def load_best_m(ck_dir: str) -> float:
+def load_best_m(ck_dir: str) -> Union[float, dict]:
     with open(os.path.join(ck_dir, "best_m.json")) as f:
         return json.load(f)["best_m"]
 

@@ -1,6 +1,8 @@
-"""Evaluation metrics (numpy): F1 and ROC-AUC, as in
-``rmm_tpu/utils/metric.py``."""
+"""Evaluation metrics (numpy), as in ``rmm_tpu/utils/metric.py``: F1,
+ROC-AUC, and the self-supervised MRR/Hits@k and MCM accuracy/RMSE."""
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 
@@ -45,3 +47,53 @@ def roc_auc(y_true, scores) -> float:
     ranks[order] = avg_rank[inv]
     u = ranks[y == 1].sum() - n_pos * (n_pos + 1) / 2.0
     return float(u / (n_pos * n_neg))
+
+
+def mrr(pos_pred, neg_pred, ks: Sequence[int], num_neg_samples: int):
+    """MRR and Hits@k of each positive ranked among its own negatives
+    (``rmm_tpu``'s ``SSMetric.mrr``): rank = 1 + #{neg ≥ pos}, so a tie
+    ranks the positive after the equal negatives."""
+    pos = np.asarray(pos_pred).reshape(-1)
+    neg = np.asarray(neg_pred).reshape(len(pos), num_neg_samples)
+    ranks = 1 + (neg >= pos[:, None]).sum(axis=1)
+    hits = {f"hits@{k}": float(np.mean(ranks <= k)) for k in ks}
+    return float(np.mean(1.0 / ranks)), hits
+
+
+class MCMAccumulator:
+    """MCM accuracy (categorical cells) and RMSE (numerical cells), summed
+    over batches."""
+
+    def __init__(self, num_numerical: int):
+        self.num_numerical = num_numerical
+        self.acc_sum = 0.0
+        self.l2_sum = 0.0
+        self.t_c = 0
+        self.t_n = 0
+
+    def update(self, cat_out, num_out, y, valid=None):
+        y = np.asarray(y)
+        n = len(y) if valid is None else int(valid)
+        y = y[:n]
+        val = y[:, 0]
+        idx = y[:, 1].astype(int)
+        num_rows = np.nonzero(idx < self.num_numerical)[0]
+        if len(num_rows):
+            pred = np.asarray(num_out)[num_rows, idx[num_rows]]
+            self.l2_sum += float(((val[num_rows] - pred) ** 2).sum())
+            self.t_n += len(num_rows)
+        for c, logits in enumerate(cat_out):
+            rows = np.nonzero(idx == self.num_numerical + c)[0]
+            if not len(rows):
+                continue
+            pred_cls = np.asarray(logits)[rows].argmax(axis=1)
+            self.acc_sum += float((pred_cls == val[rows].astype(int)).sum())
+            self.t_c += len(rows)
+
+    @property
+    def accuracy(self) -> float:
+        return self.acc_sum / max(self.t_c, 1)
+
+    @property
+    def rmse(self) -> float:
+        return float(np.sqrt(self.l2_sum / max(self.t_n, 1)))

@@ -1,7 +1,8 @@
 """The PyTorch port on an NVIDIA card: each CUDA kernel against its plain
 PyTorch version on the same card (the backward against autograd of the
 plain version), the predict CLI on the card against the same CLI on the
-CPU, and three train steps on the card against the same steps on the CPU.
+CPU, and three train steps (supervised, and SSL pretraining at C = 128) on
+the card against the same steps on the CPU.
 
 The kernels have no CPU mode, so these tests skip on a machine without a
 card. On one with a card (JAX need not be installed there: the JAX suite's
@@ -374,3 +375,79 @@ def test_same_seed_same_training_run_on_the_card(cuda, tmp_path):
         runs.append([float(tr._step(gb.to(tr.device))[0]) for gb in batches])
     np.testing.assert_allclose(runs[1], runs[0], rtol=1e-5)
     assert not np.allclose(runs[2], runs[0], rtol=1e-3)
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_ssl_target_rows_scalar_kernels_match_plain(cuda, direction):
+    """The SSL path's target rows (200 seeds x 65) at C = 128 with its 0.5
+    keep-mask: the scalar kernels, each direction against the plain
+    version."""
+    b, s, c, h, rate = 13000, 6, 128, 8, 0.5
+    args = attention_inputs(7, b, s, c, cuda)
+    mask = torch.from_numpy(
+        np.random.RandomState(8).rand(b, h, s, s) >= rate).to(cuda)
+    assert not ca.tiled(c)
+    before = (ca.launches, ca.fwd_tiled_launches, ca.bwd_launches,
+              ca.bwd_tiled_launches)
+    if direction == "fwd":
+        with torch.inference_mode():
+            out = ca.fused_column_attention(*args, h, mask, rate)
+            ref = ca.reference_column_attention(*args, h, mask, rate)
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                                   **TOL)
+        assert (ca.launches, ca.fwd_tiled_launches) == (before[0] + 1,
+                                                        before[1])
+        return
+    leaves = [a.requires_grad_() for a in args]
+    do = torch.from_numpy(np.random.RandomState(9).randn(b, s, c).astype(
+        np.float32)).to(cuda)
+    got = torch.autograd.grad(
+        ca.fused_column_attention(*leaves, h, mask, rate), leaves, do)
+    want = torch.autograd.grad(
+        ca.reference_column_attention(*leaves, h, mask, rate), leaves, do)
+    assert (ca.bwd_launches, ca.bwd_tiled_launches) == (before[2] + 1,
+                                                        before[3])
+    assert_gradients_match(got, want)
+
+
+def test_three_ssl_steps_on_the_card_match_the_cpu(cuda, tmp_path):
+    """mcm-lp at the SSL widths (C = 128, 3 layers, 8 heads; the scalar
+    kernels) on a small graph, dropout 0, from the same seeded start: each
+    loss term 1e-4 rel, and every variable by the limits of
+    ``rmm_tpu_torch.convert.check_states``."""
+    import itertools
+
+    from rmm_tpu_torch.cli import fused
+    from rmm_tpu_torch.convert import check_states, loss_terms
+    from rmm_tpu_torch.datasets import build_dataset, write_synthetic_aml_csv
+    from rmm_tpu_torch.train.pretrain import PretrainTrainer
+
+    data = str(tmp_path / "aml.csv")
+    write_synthetic_aml_csv(data, num_rows=2000, num_accounts=125, seed=0)
+    argv = ["--dataset", data, "--channels", "128", "--num_layers", "3",
+            "--num_neg_samples", "16", "--khop_neighbors", "10", "10",
+            "--batch_size", "64", "--dropout", "0"]
+    counters = ("launches", "fwd_tiled_launches", "bwd_launches",
+                "bwd_tiled_launches", "reduce_launches")
+    runs = []
+    for device in ("cpu", "cuda"):
+        cfg = fused.config_from_args(fused.build_parser().parse_args(
+            argv + ["--device", device]))
+        tr = PretrainTrainer(cfg, build_dataset(cfg), "mcm-lp")
+        tr.model.train()
+        before = [getattr(ca, n) for n in counters]
+        batches = itertools.islice(
+            tr._batches(tr.dataset.edges.split()[0], "train"), 3)
+        terms = [loss_terms(*tr._step(gb.to(tr.device))) for gb in batches]
+        launched = tuple(getattr(ca, n) - m
+                         for n, m in zip(counters, before))
+        runs.append((terms, {k: v.cpu() for k, v in
+                             tr.model.state_dict().items()}, launched))
+    (cpu_terms, cpu_state, cpu_launched), (terms, state, launched) = runs
+    assert cpu_launched == (0,) * 5
+    assert launched == (30, 0, 30, 0, 30)   # 10 a step each way, scalar
+    assert set(terms[0]) == {"loss", "lp", "mcm_cat", "mcm_num"}
+    faults, _ = check_states(state, terms, cpu_state, cpu_terms, cfg.lr,
+                             updates=2 * 3, nhidden=128,
+                             loss_rtol=(1e-4, 1e-4))
+    assert not faults, faults

@@ -15,7 +15,8 @@ from rmm_tpu.utils.config import Config as JaxConfig
 from rmm_tpu_torch.cli import predict
 from rmm_tpu_torch.convert import from_jax
 from rmm_tpu_torch.utils.checkpoint import save_checkpoint
-from tests.torch_port_util import randomize_jax_variables
+from tests.torch_port_util import one_torch_thread, \
+    randomize_jax_variables  # noqa: F401
 
 ARGS = ["--model", "tabgnn", "--n_hidden", "16", "--n_gnn_layers", "2",
         "--num_neighs", "10", "10", "--batch_size", "64"]

@@ -43,7 +43,7 @@ from rmm_tpu_torch.train.trainer import Trainer, is_frozen
 from rmm_tpu_torch.utils import checkpoint, loss, metric
 from rmm_tpu_torch.utils.config import Config
 from tests.torch_port_util import init_random, load_from_jax, \
-    randomize_jax_variables
+    one_torch_thread, randomize_jax_variables  # noqa: F401
 
 KW = dict(model="tabgnn", batch_size=32, n_hidden=16, n_gnn_layers=2,
           num_neighs=(8, 8), dropout=0.0)

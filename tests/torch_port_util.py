@@ -1,8 +1,25 @@
 """Helpers shared by the port's parity tests (``tests/test_torch_*.py``)
-and ``tools/make_torch_port_fixture.py``: numpy only, no test cases."""
+and the fixture tools (``tools/make_torch_port_fixture.py``,
+``tools/make_torch_port_ssl_fixture.py``): numpy only, no test cases.
+
+``one_torch_thread`` is an autouse fixture for a test module to import: the
+tier-1 suite runs one pytest worker a core, and torch's intra-op threads on
+top of that (a pool as wide as the machine in every worker) made the CLI
+tests spin for minutes. At these widths one thread is as fast alone."""
 from __future__ import annotations
 
 import numpy as np
+import pytest
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def randomize_jax_variables(variables: dict, seed: int) -> dict:
@@ -33,6 +50,18 @@ def randomize_jax_variables(variables: dict, seed: int) -> dict:
         return leaf(path, node)
 
     return walk((), variables)
+
+
+def nest(flat: dict) -> dict:
+    """``{"a/b/c": arr}`` → ``{"a": {"b": {"c": arr}}}``."""
+    out: dict = {}
+    for key, arr in flat.items():
+        *path, leaf = key.split("/")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = arr
+    return out
 
 
 def init_random(flax_module, *args, seed: int = 0, **kwargs) -> dict:
