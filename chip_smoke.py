@@ -18,12 +18,15 @@ through all of them:
              capacity, C = 128, a ragged batch, a numpy keep-mask); the
              backward (and its reduce) against ``torch.autograd.grad`` of
              the plain version at the training shapes with the keep-mask,
-             the same unmasked, C = 128 and a ragged batch; both
-             directions at the SSL path's C = 128 shapes (131072x6x128/8
-             edge tokens, 13000x6x128/8 target rows) with its 0.5
-             keep-mask and without it. Each record
-             names the kernel it took (tiled or scalar, by width), and two
-             calls of each direction at the masked edge shape are bitwise
+             the same unmasked, C = 128, a ragged batch and C = 126 (the
+             scalar backward's remaining widths: C not a multiple of 4);
+             both directions at the SSL path's C = 128 shapes
+             (131072x6x128/8 edge tokens, 13000x6x128/8 target rows) with
+             its 0.5 keep-mask and without it. Each record names the route
+             it took (forward: tiled or scalar; backward: tiled, split or
+             scalar, by width, held to ``route(c)``), and two calls of each
+             direction at the main path's masked edge shape, and of the
+             split backward at the SSL masked edge shape, are bitwise
              equal. Max error
              (the backward's relative to each reference tensor's largest
              entry), kernel / plain / library times (CUDA events, warm,
@@ -55,7 +58,8 @@ through all of them:
              batch 200, fanouts 100/100, dropout 0.5, lr 2e-4) on the same
              data: the first 24 train batches, then 24 val batches. Checks
              10 forward, 10 backward and 10 reduce launches a step and 10
-             forwards an evaluated batch, all scalar (C = 128), a finite
+             forwards an evaluated batch (C = 128: the scalar forward,
+             every backward through the split route), a finite
              loss, 0 < MRR <= 1, a finite RMSE, 0 <= accuracy <= 1. The
              median step on the device's clock, train rows/s, host
              sampling ms a batch and the peak memory.
@@ -72,7 +76,8 @@ through all of them:
 
 Then the seconds each phase took, a ``{"kernels": [...]}`` line (an entry
 per kernel, each with its ``path``: the main path's tiled kernels at C = 32,
-and the SSL path's scalar kernels at C = 128, ``*_scalar``),
+the SSL path's scalar forward and split backward at C = 128, and the
+scalar backward at the kernel phase's C = 126),
 the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 package beside it, the script fails and prints no result.
@@ -182,14 +187,14 @@ def attention_floor(b, s, c, h, masked) -> tuple[float, float]:
     return t_bytes, t_ops
 
 
-def attention_bwd_floor(b, s, c, h, masked, slices) -> tuple[float, float]:
-    """The backward's least times (ms): x and do read, dx written, the
-    keep-mask, the weights read and their gradients written, and the
-    ``slices`` partial slices written and read back; operations: about
-    11·C² FMAs a token (qkv again, dctx, dx, dWqkv, dWout) and 6·S·C for
-    the attention (scores, ctx, dP, dq, dk, dv)."""
+def attention_bwd_floor(b, s, c, h, masked) -> tuple[float, float]:
+    """The backward's least times (ms) for its work, whatever route does
+    it: x and do read, dx written, the keep-mask, the weights read and
+    their gradients written; operations: about 11·C² FMAs a token (qkv
+    again, dctx, dx, dWqkv, dWout) and 6·S·C for the attention (scores,
+    ctx, dP, dq, dk, dv)."""
     total = 4 * c * c + 4 * c
-    nbytes = 4 * (3 * b * s * c + 2 * total + 2 * slices * total)
+    nbytes = 4 * (3 * b * s * c + 2 * total)
     if masked:
         nbytes += b * h * s * s
     flops = 2 * b * s * (11 * c * c + 6 * s * c)
@@ -232,12 +237,14 @@ def library_attention(x, wqkv, bqkv, wout, bout, h):
         bout, training=False, need_weights=False)[0].transpose(0, 1)
 
 
-# The SSL path's shapes at C = 128 (the scalar kernels of both directions):
+# The SSL path's shapes at C = 128 (the scalar forward, the split backward):
 # the edge tokens at the edge capacity and the target rows (200 seeds x 65),
 # with the SSL keep-mask and without it (where the library call times them).
 SSL_SHAPES = [(131072, 6, 128, 8, SSL_DROPOUT),
               (13000, 6, 128, 8, SSL_DROPOUT),
               (131072, 6, 128, 8, 0.0), (13000, 6, 128, 8, 0.0)]
+# A width that only the scalar backward takes (C not a multiple of 4)
+SCALAR_BWD_SHAPE = (32768, 6, 126, 6, 0.0)
 
 
 def kernel_phase(card: str) -> dict:
@@ -268,8 +275,9 @@ def kernel_phase(card: str) -> dict:
         (nodes, 2, c, 8, p),         # training path: node tokens
         (edges, 6, c, 8, 0.0),       # the same unmasked (library time)
         (nodes, 2, c, 8, 0.0),
-        (32768, 6, 128, 8, 0.0),     # SSL width, sums in device memory
+        (32768, 6, 128, 8, 0.0),     # SSL width, the split route
         (100003, 6, 32, 8, p),       # ragged batch
+        SCALAR_BWD_SHAPE,            # C % 4 != 0: the scalar backward
     ] + SSL_SHAPES
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
@@ -285,7 +293,8 @@ def kernel_phase(card: str) -> dict:
             out = ca.fused_column_attention(*args)
             route = ("tiled" if ca.fwd_tiled_launches > tiled_before
                      else "scalar")
-            check(route == ("tiled" if ca.tiled(c) else "scalar"),
+            check(route == ("tiled" if ca.route(c) == "tiled"
+                            else "scalar"),
                   f"forward {b}x{s}x{c}/{h} took the {route} kernel")
             repeat_equal = None
             if len(fwd) == 2:   # the masked edge shape
@@ -333,14 +342,18 @@ def kernel_phase(card: str) -> dict:
             mask = torch.from_numpy(rng.rand(b, h, s, s) >= rate).to(dev)
         x, wqkv, bqkv, wout, _ = inputs
         args = (x, do, wqkv, bqkv, wout, h, mask, rate)
-        tiled_before = ca.bwd_tiled_launches
+        before = (ca.bwd_tiled_launches, ca.bwd_split_launches)
         got = ca.column_attention_bwd(*args)
-        route = "tiled" if ca.bwd_tiled_launches > tiled_before else "scalar"
-        check(route == ("tiled" if ca.tiled(c) else "scalar"),
-              f"backward {b}x{s}x{c}/{h} took the {route} kernel")
+        route = ("tiled" if ca.bwd_tiled_launches > before[0] else
+                 "split" if ca.bwd_split_launches > before[1] else "scalar")
+        check(route == ca.route(c),
+              f"backward {b}x{s}x{c}/{h} took the {route} route, not "
+              f"{ca.route(c)}")
         repeat_equal = None
-        if not bwd:   # the masked edge shape: the weight gradients are
-            again = ca.column_attention_bwd(*args)   # deterministic
+        # the masked edge shapes of the main path and of the SSL path: the
+        # weight gradients are deterministic
+        if not bwd or (b, s, c, h, rate) == SSL_SHAPES[0]:
+            again = ca.column_attention_bwd(*args)
             repeat_equal = all(torch.equal(g, a) for g, a in zip(got, again))
             check(repeat_equal, f"backward {b}x{s}x{c}/{h}: two calls on "
                   "the same inputs differ")
@@ -370,8 +383,7 @@ def kernel_phase(card: str) -> dict:
             lib_ms = time_ms(lambda: torch.autograd.grad(
                 lib_out, leaves, do, retain_graph=True))
         plan = ca.bwd_plan(b, s, c, h)
-        t_bytes, t_ops = attention_bwd_floor(b, s, c, h, mask is not None,
-                                             plan.slices)
+        t_bytes, t_ops = attention_bwd_floor(b, s, c, h, mask is not None)
         bound_ms, by = bound(t_bytes, t_ops)
         rec = {"phase": "kernel", "kernel": "column_attention_bwd",
                "B": b, "S": s, "C": c, "H": h, "dropout": rate,
@@ -392,7 +404,8 @@ def kernel_phase(card: str) -> dict:
     return {"fwd": fwd[:2], "fwd_masked": fwd[2:4], "bwd": bwd[:2],
             "bwd_unmasked": bwd[2:4], "ssl_fwd": fwd[-n:][:2],
             "ssl_fwd_unmasked": fwd[-n:][2:], "ssl_bwd": bwd[-n:][:2],
-            "ssl_bwd_unmasked": bwd[-n:][2:]}
+            "ssl_bwd_unmasked": bwd[-n:][2:],
+            "scalar_bwd": [r for r in bwd if r["route"] == "scalar"]}
 
 
 def prepare_data() -> str:
@@ -420,7 +433,8 @@ def reset_counts():
     from rmm_tpu_torch.ops import column_attention as ca
 
     ca.launches = ca.fwd_tiled_launches = 0
-    ca.bwd_launches = ca.bwd_tiled_launches = ca.reduce_launches = 0
+    ca.bwd_launches = ca.bwd_tiled_launches = ca.bwd_split_launches = 0
+    ca.reduce_launches = 0
 
 
 def read_counts() -> dict:
@@ -428,7 +442,8 @@ def read_counts() -> dict:
 
     return {"fwd": ca.launches, "fwd_tiled": ca.fwd_tiled_launches,
             "bwd": ca.bwd_launches,
-            "bwd_tiled": ca.bwd_tiled_launches, "reduce": ca.reduce_launches}
+            "bwd_tiled": ca.bwd_tiled_launches,
+            "bwd_split": ca.bwd_split_launches, "reduce": ca.reduce_launches}
 
 
 def serve(argv: list[str], stats: dict):
@@ -530,7 +545,8 @@ def train_phase(card: str, csv: str) -> dict:
     check(math.isfinite(ep["loss"]), f"train loss {ep['loss']}")
     check(counts == {"fwd": 4 * (steps + evals),
                      "fwd_tiled": 4 * (steps + evals), "bwd": 4 * steps,
-                     "bwd_tiled": 4 * steps, "reduce": 4 * steps},
+                     "bwd_tiled": 4 * steps, "bwd_split": 0,
+                     "reduce": 4 * steps},
           f"launches {counts} for {steps} train steps and {evals} evaluated "
           "batches (expected 4 forwards per batch, 4 backwards and 4 "
           "reduces per step, forwards and backwards all tiled: 2 layers x "
@@ -610,7 +626,7 @@ def train_parity_phase(card: str) -> dict:
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, want_losses)]
     n = st["steps"]
     check(counts == {"fwd": 4 * n, "fwd_tiled": 4 * n, "bwd": 4 * n,
-                     "bwd_tiled": 4 * n, "reduce": 4 * n},
+                     "bwd_tiled": 4 * n, "bwd_split": 0, "reduce": 4 * n},
           f"launches {counts} for {n} train steps")
     check(loss_rel[0] <= LOSS1_RTOL and max(loss_rel) <= LOSS_RTOL,
           f"losses {losses} vs the JAX record's {want_losses}")
@@ -689,11 +705,13 @@ def ssl_train_phase(card: str, csv: str) -> dict:
 
     k = SSL_LAUNCHES
     check(train_counts == {"fwd": k * n, "fwd_tiled": 0, "bwd": k * n,
-                           "bwd_tiled": 0, "reduce": k * n},
+                           "bwd_tiled": 0, "bwd_split": k * n,
+                           "reduce": k * n},
           f"launches {train_counts} for {n} SSL train steps (expected "
-          f"{k} forwards, backwards and reduces a step, all scalar)")
+          f"{k} forwards, backwards and reduces a step, the forwards "
+          "scalar, the backwards all through the split route)")
     check(eval_counts == {"fwd": k * n, "fwd_tiled": 0, "bwd": 0,
-                          "bwd_tiled": 0, "reduce": 0},
+                          "bwd_tiled": 0, "bwd_split": 0, "reduce": 0},
           f"launches {eval_counts} for {n} evaluated SSL batches (expected "
           f"{k} scalar forwards a batch)")
     check(math.isfinite(tm["loss"]), f"SSL train loss {tm['loss']}")
@@ -769,7 +787,7 @@ def ssl_parity_phase(card: str, csv: str) -> dict:
     counts = read_counts()
     n, k = st["steps"], SSL_LAUNCHES
     check(counts == {"fwd": k * n, "fwd_tiled": 0, "bwd": k * n,
-                     "bwd_tiled": 0, "reduce": k * n},
+                     "bwd_tiled": 0, "bwd_split": k * n, "reduce": k * n},
           f"launches {counts} for {n} SSL steps")
     faults, summary = check_record(tr.model.state_dict(), terms, rec,
                                    "mcm-lp/", st["lr"], 2 * n,
@@ -811,7 +829,8 @@ def ssl_cli_phase(card: str, csv: str) -> dict:
     steps, evals = -(-train_rows // b), -(-val_rows // b)
     k = SSL_LAUNCHES
     check(counts == {"fwd": k * (steps + evals), "fwd_tiled": 0,
-                     "bwd": k * steps, "bwd_tiled": 0, "reduce": k * steps},
+                     "bwd": k * steps, "bwd_tiled": 0,
+                     "bwd_split": k * steps, "reduce": k * steps},
           f"SSL CLI launches {counts} for {steps} steps and {evals} "
           "evaluated batches")
     check(math.isfinite(ep["loss"]) and 0 < ep["val_mrr"] <= 1,
@@ -876,11 +895,12 @@ def main() -> int:
             csv = timed("data", prepare_data)
             serve_rec = timed("serve", serve_phase, card, csv)
             train_rec = timed("train", train_phase, card, csv)
-            timed("train_parity", train_parity_phase, card)
+            parity_rec = timed("train_parity", train_parity_phase, card)
             ssl_rec = timed("ssl_train", ssl_train_phase, card, csv)
             ssl_csv = ssl_parity_csv()
-            timed("ssl_parity", ssl_parity_phase, card, ssl_csv)
-            timed("ssl_cli", ssl_cli_phase, card, ssl_csv)
+            ssl_parity_rec = timed("ssl_parity", ssl_parity_phase, card,
+                                   ssl_csv)
+            ssl_cli_rec = timed("ssl_cli", ssl_cli_phase, card, ssl_csv)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
         emit({"phase": "seconds", **seconds,
@@ -919,18 +939,34 @@ def main() -> int:
                              "path": "ssl_train",
                              "launches": ssl_rec["train_launches"]["fwd"]
                              + ssl_rec["eval_launches"]["fwd"],
-                             "tiled_launches": 0,
+                             "tiled_launches":
+                                 ssl_rec["train_launches"]["fwd_tiled"]
+                                 + ssl_rec["eval_launches"]["fwd_tiled"],
                              "library_masked": False}),
-            kernel_entry("column_attention_bwd_scalar", 178,
+            kernel_entry("column_attention_bwd_split", 178,
                          kern["ssl_bwd"], kern["ssl_bwd_unmasked"], {
                              "path": "ssl_train",
+                             "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
                              "launches": ssl_rec["train_launches"]["bwd"],
-                             "tiled_launches": 0,
+                             "split_launches":
+                                 ssl_rec["train_launches"]["bwd_split"],
                              "reduce_launches":
                                  ssl_rec["train_launches"]["reduce"],
                              "max_rel_err": max(max(r["max_rel_err"].values())
                                                 for r in kern["ssl_bwd"]),
-                             "library_masked": False})]})
+                             "library_masked": False}),
+            kernel_entry("column_attention_bwd_scalar", 178,
+                         kern["scalar_bwd"], kern["scalar_bwd"], {
+                             "path": "kernel phase: C % 4 != 0",
+                             "launches": sum(
+                                 c["bwd"] - c["bwd_tiled"] - c["bwd_split"]
+                                 for c in (train_rec["launches"],
+                                           parity_rec["launches"],
+                                           ssl_rec["train_launches"],
+                                           ssl_parity_rec["launches"],
+                                           ssl_cli_rec["launches"])),
+                             "max_rel_err": max(max(r["max_rel_err"].values())
+                                                for r in kern["scalar_bwd"])})]})
         print(card, flush=True)
     except Exception:
         traceback.print_exc()

@@ -1,5 +1,6 @@
-// Fused column attention for Hopper (sm_90a): two forward kernels, two
-// backward kernels and the backward's reduce.
+// Fused column attention for Hopper (sm_90a): two forward kernels, the
+// backward's three routes (a tiled kernel, a split route of four kernels,
+// a scalar kernel) and the backward's reduce.
 //
 // The forwards replace the TPU kernel
 // rmm_tpu/ops/pallas/column_attention.py::_fwd_kernel (math in
@@ -77,12 +78,40 @@
 // Both kernels take S <= 16, C % nhead == 0, C <= 128, float32 only (the
 // wrapper checks). They launch on the caller's stream, allocate nothing
 // and do not synchronize; the C entry points return cudaGetLastError().
+//
+// The backward's split route (64 < C <= 128, C % 4 == 0: the SSL path's
+// C = 128) replaces _bwd_kernel there. What bounded the scalar backward at
+// C = 128 (126.44 ms at 131072×6×128/8 with the 0.5 keep-mask against a
+// bound of 4.34; H100 80GB HBM3, 700 W): its 256 kB of weights fit neither
+// shared memory nor its 4C² + 4C weight-gradient sums the registers, so a
+// block of two rows read every weight from L2 once a row-thread, and added
+// its partial sums in device memory after every group, one serial sum a
+// thread: about 100 GB of L2 traffic at the edge shape. The split route
+// does the backward's 11·C² FMAs a token as matrix products over all
+// tokens instead of per row group, so no kernel keeps a weight or a
+// weight-gradient sum for long: the projections, dx and the weight
+// gradients are float32 GEMMs (gemm_f32.cuh: 128×128 tiles, cp.async
+// rings, 8×8 register microtiles), and only the per-row attention, about
+// 6·S·C FMAs a token, is a kernel of its own (the core, further down).
+// The token rows q | k | v | dctx (4C floats a token) make a round trip
+// through device memory between the launches (about 9 GB at the edge
+// shape, ~2.9 ms at 3.35 TB/s), the price of keeping each launch a dense
+// product. Bound: float32 FMAs on the CUDA cores (about 283 GFLOP at the
+// edge shape, 4.2 ms at 67 TFLOP/s); TF32 tensor cores would miss the
+// backward's 1e-4 tolerance. The weight gradients sum fixed token ranges
+// into partial slices that the reduce adds in a fixed order: two calls
+// give the same bits. Measured (H100 80GB HBM3, 700 W): 9.34 ms at the
+// edge shape, 2.2× its bound; the three GEMMs run at about half the FMA
+// peak (stalls at 4 warps a scheduler, not a unit's rate), the core at two
+// thirds of HBM's. See PERF.md.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "gemm_f32.cuh"
 
 namespace {
 
@@ -269,10 +298,11 @@ cudaError_t launch(const float* x, const float* wqkv, const float* bqkv,
 // and over the whole batch dWqkv = Σ xᵀ·dqkv, dbqkv = Σ dqkv,
 // dWout = Σ ctxᵀ·do, dbout = Σ do.
 //
-// Two kernels compute it, chosen by shape: the register-tiled one further
-// down for every C <= 64 that is a multiple of 4 (the main path's C = 32),
-// and this scalar one, the first port, for the rest (C = 96 and 128, or a
-// C that is not a multiple of 4).
+// Three routes compute it, chosen by width: the register-tiled kernel
+// further down for every C <= 64 that is a multiple of 4 (the main path's
+// C = 32), the split route (the note at the top of this file) for every
+// other multiple of 4 up to 128, and this scalar kernel, the first port,
+// for a C that is not a multiple of 4.
 //
 // The TPU kernel sums the weight gradients across its sequential grid. A
 // Hopper grid runs in parallel, so each block sums the row groups it walks
@@ -280,7 +310,7 @@ cudaError_t launch(const float* x, const float* wqkv, const float* bqkv,
 // dWqkv | dbqkv | dWout | dbout), and a second kernel adds the slices in a
 // fixed order: deterministic on a given card, no atomics. In the scalar
 // kernel, where a block's 4C² + 4C sums fit in registers (C <= 38) they
-// stay there and are written once; above that (C = 128: 258 a thread) each
+// stay there and are written once; above that (C = 126: 250 a thread) each
 // thread adds into its entries of the block's slice in device memory after
 // every group.
 //
@@ -1362,6 +1392,217 @@ column_attention_fwd_tiled_kernel(const float* __restrict__ x,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The split backward: every C with 64 < C <= 128 and C % 4 == 0 (the SSL
+// width among them). Five launches, each a kernel of this file or of
+// gemm_f32.cuh, over a scratch row of 4C floats a token (the design and
+// what bounds it are in the note at the top of this file):
+//   1. qkv = x·Wqkv + bqkv and dctx = do·Woutᵀ (one GEMM launch, two
+//      problems) into the token rows q | k | v | dctx;
+//   2. the attention core below, which writes dq | dk | dv over q | k | v
+//      and ctx over dctx;
+//   3. dx = dqkv·Wqkvᵀ (GEMM);
+//   4. [dWqkv | dbqkv] = xᵀ·[dqkv | 1] and [dWout | dbout] = ctxᵀ·[do | 1]
+//      over fixed token ranges, one partial slice each (GEMM, two
+//      problems);
+//   5. the fixed-order reduce of those slices.
+//
+// The attention core. A block stages `rows` rows (rows·S consecutive
+// token rows of `tok`) in shared memory, then one thread per (row, head,
+// query i):
+//   P = softmax(q_i k_jᵀ / √hd), P_d = P · keep/(1 − p),
+//   dP_j = (dctx_i · v_j) · keep/(1 − p), dS = P (dP − Σ_j P dP) / √hd,
+//   ctx_i = Σ_j P_d,ij v_j, dq_i = Σ_j dS_ij k_j,
+// and after a barrier one per (row, head, key t):
+//   dk_t = Σ_i dS_it q_i, dv_t = Σ_i P_d,it dctx_i.
+// Writing in place is safe: every read comes from the staged copy, and a
+// block's rows are its own.
+// ---------------------------------------------------------------------------
+
+constexpr int kCoreThreads = 256;
+
+// Floats of the core's shared memory for `rows` rows: the token rows,
+// padded to 4C + 4 floats (token i's float4s at one column fall in
+// neighbouring bank groups), and each row's P_d and dS.
+__host__ __device__ inline size_t core_smem_floats(int S, int C, int H,
+                                                   int rows) {
+  return (size_t)rows * S * (4 * C + 4) + 2 * (size_t)rows * H * S * S;
+}
+
+// W consecutive floats of a head's channels: a float4 where the head
+// width is a multiple of 4, else one float.
+template <int W>
+struct Chunk;
+
+template <>
+struct Chunk<4> {
+  float4 v;
+  __device__ static Chunk zero() { return {make_float4(0.f, 0.f, 0.f, 0.f)}; }
+  __device__ static Chunk load(const float* p) { return {ld4(p)}; }
+  __device__ void fma(float a, const Chunk& b) { fma4(v, a, b.v); }
+  __device__ float dot(const Chunk& b, float acc) const {
+    return dot4(v, b.v, acc);
+  }
+  __device__ void store(float* p) const { st4(p, v); }
+};
+
+template <>
+struct Chunk<1> {
+  float v;
+  __device__ static Chunk zero() { return {0.f}; }
+  __device__ static Chunk load(const float* p) { return {*p}; }
+  __device__ void fma(float a, const Chunk& b) { v = fmaf(a, b.v, v); }
+  __device__ float dot(const Chunk& b, float acc) const {
+    return fmaf(v, b.v, acc);
+  }
+  __device__ void store(float* p) const { *p = v; }
+};
+
+// Query i of head h of the block's row r: the softmax row and its VJP
+// into sP/sD, ctx_i and dq_i into the token row `out` (global).
+template <int W, int MAXS>
+__device__ __forceinline__ void core_query(const float* sT, float* sP,
+                                           float* sD, float* out,
+                                           const uint8_t* kp, int r, int h,
+                                           int i, int S, int C, int H,
+                                           int TS, float scale,
+                                           float inv_keep) {
+  const int hd = C / H;
+  const float* ti = sT + (r * S + i) * TS + h * hd;
+  const float* tr = sT + r * S * TS + h * hd;  // token 0 of the row
+  float p[MAXS], dp[MAXS];
+#pragma unroll
+  for (int j = 0; j < MAXS; ++j) {
+    p[j] = 0.f;
+    dp[j] = 0.f;
+    if (j < S) {
+      const float* tj = tr + j * TS;
+      float d = 0.f, e = 0.f;
+      for (int c = 0; c < hd; c += W) {
+        d = Chunk<W>::load(ti + c).dot(Chunk<W>::load(tj + C + c), d);
+        e = Chunk<W>::load(ti + 3 * C + c)
+                .dot(Chunk<W>::load(tj + 2 * C + c), e);
+      }
+      p[j] = d;
+      dp[j] = e;
+    }
+  }
+  softmax(p, S, scale);
+  if (kp != nullptr) keep_scale(dp, kp, S, inv_keep);
+  float dot = 0.f;
+#pragma unroll
+  for (int j = 0; j < MAXS; ++j)
+    if (j < S) dot = fmaf(p[j], dp[j], dot);
+  float ds[MAXS];
+#pragma unroll
+  for (int j = 0; j < MAXS; ++j) ds[j] = p[j] * (dp[j] - dot) * scale;
+  if (kp != nullptr) keep_scale(p, kp, S, inv_keep);
+  const int base = ((r * H + h) * S + i) * S;
+#pragma unroll
+  for (int j = 0; j < MAXS; ++j) {
+    if (j < S) {
+      sP[base + j] = p[j];
+      sD[base + j] = ds[j];
+    }
+  }
+  for (int c = 0; c < hd; c += W) {
+    Chunk<W> ctx = Chunk<W>::zero(), dq = Chunk<W>::zero();
+#pragma unroll
+    for (int j = 0; j < MAXS; ++j) {
+      if (j < S) {
+        const float* tj = tr + j * TS;
+        ctx.fma(p[j], Chunk<W>::load(tj + 2 * C + c));
+        dq.fma(ds[j], Chunk<W>::load(tj + C + c));
+      }
+    }
+    ctx.store(out + 3 * C + c);
+    dq.store(out + c);
+  }
+}
+
+// Key t of head h of row r: dk_t and dv_t into the token row `out`.
+template <int W, int MAXS>
+__device__ __forceinline__ void core_key(const float* sT, const float* sP,
+                                         const float* sD, float* out, int r,
+                                         int h, int t, int S, int C, int H,
+                                         int TS) {
+  const int hd = C / H;
+  const float* tr = sT + r * S * TS + h * hd;
+  const int base = (r * H + h) * S * S + t;
+  float pc[MAXS], dc[MAXS];
+#pragma unroll
+  for (int i = 0; i < MAXS; ++i) {
+    pc[i] = i < S ? sP[base + i * S] : 0.f;
+    dc[i] = i < S ? sD[base + i * S] : 0.f;
+  }
+  for (int c = 0; c < hd; c += W) {
+    Chunk<W> dk = Chunk<W>::zero(), dv = Chunk<W>::zero();
+#pragma unroll
+    for (int i = 0; i < MAXS; ++i) {
+      if (i < S) {
+        const float* ti = tr + i * TS;
+        dk.fma(dc[i], Chunk<W>::load(ti + c));
+        dv.fma(pc[i], Chunk<W>::load(ti + 3 * C + c));
+      }
+    }
+    dk.store(out + C + c);
+    dv.store(out + 2 * C + c);
+  }
+}
+
+template <int MAXS>
+__global__ void __launch_bounds__(kCoreThreads)
+column_attention_bwd_core_kernel(float* __restrict__ tok,
+                                 const uint8_t* __restrict__ keep, int B,
+                                 int S, int C, int H, float scale,
+                                 float inv_keep, int rows) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int TT = 4 * C;      // a token row in device memory
+  const int TS = TT + 4;     // in shared memory
+  const int r0 = blockIdx.x * rows;
+  const int nr = min(rows, B - r0);
+  const int HS = H * S;
+  float* sT = smem;
+  float* sP = sT + (size_t)rows * S * TS;
+  float* sD = sP + (size_t)rows * HS * S;
+  float* tg = tok + (size_t)r0 * S * TT;
+
+  for (int i = tid; i < nr * S * C; i += kCoreThreads) {  // C float4s a row
+    const int t = i / C;
+    const int q = i - t * C;
+    st4(sT + t * TS + 4 * q, ld4(tg + (size_t)t * TT + 4 * q));
+  }
+  __syncthreads();
+  const bool vec = (C / H) % 4 == 0;
+  for (int it = tid; it < nr * HS; it += kCoreThreads) {
+    const int r = it / HS;
+    const int h = (it - r * HS) / S;
+    const int i = it - r * HS - h * S;
+    float* out = tg + (size_t)(r * S + i) * TT + h * (C / H);
+    const uint8_t* kp =
+        keep == nullptr ? nullptr
+                        : keep + (((size_t)(r0 + r) * H + h) * S + i) * S;
+    if (vec)
+      core_query<4, MAXS>(sT, sP, sD, out, kp, r, h, i, S, C, H, TS, scale,
+                          inv_keep);
+    else
+      core_query<1, MAXS>(sT, sP, sD, out, kp, r, h, i, S, C, H, TS, scale,
+                          inv_keep);
+  }
+  __syncthreads();
+  for (int it = tid; it < nr * HS; it += kCoreThreads) {
+    const int r = it / HS;
+    const int h = (it - r * HS) / S;
+    const int t = it - r * HS - h * S;
+    float* out = tg + (size_t)(r * S + t) * TT + h * (C / H);
+    if (vec)
+      core_key<4, MAXS>(sT, sP, sD, out, r, h, t, S, C, H, TS);
+    else
+      core_key<1, MAXS>(sT, sP, sD, out, r, h, t, S, C, H, TS);
+  }
+}
+
 // A reduce block's entries, and the threads that share each entry.
 constexpr int kReduceEntries = 32;
 constexpr int kReduceParts = kThreads / kReduceEntries;
@@ -1639,6 +1880,85 @@ int rmm_column_attention_bwd_tiled(const float* x, const float* dout,
                             4 * C * C + 4 * C, grads, st);
 }
 
+// The split backward (C % 4 == 0, C <= 128; the wrapper routes 64 < C):
+// the attention core's shared memory for `rows` rows, and the blocks of
+// the weight-gradient GEMM an SM holds (or a negative CUDA error code).
+size_t rmm_column_attention_bwd_core_smem_bytes(int S, int C, int H,
+                                                int rows) {
+  return core_smem_floats(S, C, H, rows) * sizeof(float);
+}
+
+int rmm_column_attention_gemm_blocks_per_sm() {
+  int per_sm = 0;
+  const cudaError_t e =
+      rmm_gemm::gemm_blocks_per_sm<true, true, true, true>(&per_sm);
+  return e == cudaSuccess ? per_sm : -(int)e;
+}
+
+// The split backward's five launches (see the note at the top of this
+// file), on the scratch `tok` ([B·S, 4C] floats) and `partials`
+// (ceil(B·S / split_tokens) slices of 4C² + 4C floats), into dx and grads
+// (layout as rmm_column_attention_bwd's). x, dout, wqkv, wout and tok
+// must be 16-byte aligned. Returns the first launch's cudaGetLastError()
+// that is not 0, else 0.
+int rmm_column_attention_bwd_split(const float* x, const float* dout,
+                                   const float* wqkv, const float* bqkv,
+                                   const float* wout, const uint8_t* keep,
+                                   float* dx, float* tok, float* partials,
+                                   float* grads, int B, int S, int C, int H,
+                                   float inv_keep, int rows,
+                                   int split_tokens, void* stream) {
+  using rmm_gemm::Gemm;
+  using rmm_gemm::launch_gemm;
+  using rmm_gemm::make_gemm;
+  if (B <= 0) return 0;
+  if (S < 1 || S > 16 || C < 4 || C > 128 || C % 4 || H < 1 || C % H ||
+      rows < 1 || split_tokens < 1)
+    return (int)cudaErrorInvalidValue;
+  const int N = B * S, C3 = 3 * C, TT = 4 * C;
+  const long long total = 4LL * C * C + 4 * C;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // 1. the projections: A = x or do (tokens × channels), B = Wqkv (k-major)
+  //    or Wout read as Woutᵀ (n-major).
+  const Gemm qkv = make_gemm(x, C, wqkv, C3, tok, TT, bqkv, N, C3, C, C, 0,
+                             0);
+  const Gemm dctx = make_gemm(dout, C, wout, C, tok + C3, TT, nullptr, N, C,
+                              C, C, 0, 0);
+  cudaError_t err = launch_gemm<false, true, false, false>(qkv, &dctx, st);
+  if (err != cudaSuccess) return (int)err;
+  // 2. the attention core
+  const size_t smem = core_smem_floats(S, C, H, rows) * sizeof(float);
+  const float scale = 1.0f / sqrtf((float)(C / H));
+  err = by_s(S, [&](auto ms) {
+    auto kernel = column_attention_bwd_core_kernel<decltype(ms)::value>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<(B + rows - 1) / rows, kCoreThreads, smem, st>>>(
+        tok, keep, B, S, C, H, scale, inv_keep, rows);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return (int)err;
+  // 3. dx = dqkv·Wqkvᵀ: B(k = j, n = c) = Wqkv[c][j] is n-major
+  const Gemm gdx = make_gemm(tok, TT, wqkv, C3, dx, C, nullptr, N, C, C3,
+                             C3, 0, 0);
+  err = launch_gemm<false, false, false, false>(gdx, nullptr, st);
+  if (err != cudaSuccess) return (int)err;
+  // 4. the weight and bias gradients over token splits: A = x or ctx read
+  //    as xᵀ (k-major), B = dqkv or do (k-major); the bias rows follow
+  //    each weight in the partials layout.
+  const Gemm gwq = make_gemm(x, C, tok, TT, partials, C3, nullptr, C, C3, N,
+                             split_tokens, total, 1);
+  const Gemm gwo = make_gemm(tok + C3, TT, dout, C,
+                             partials + (size_t)C * C3 + C3, C, nullptr, C,
+                             C, N, split_tokens, total, 1);
+  err = launch_gemm<true, true, true, true>(gwq, &gwo, st);
+  if (err != cudaSuccess) return (int)err;
+  // 5. the reduce
+  return (int)launch_reduce(partials, (N + split_tokens - 1) / split_tokens,
+                            (int)total, grads, st);
+}
+
 // The tiled forward (C % 4 == 0, C <= 64): its shared memory for a group
 // of `rows` rows, and the blocks it launches for this shape (or a negative
 // CUDA error code).
@@ -1687,9 +2007,9 @@ int rmm_column_attention_fwd_tiled(const float* x, const float* wqkv,
   });
 }
 
-// The most shared memory a block may opt into on the current card, and an
+// The most shared memory a block may opt into on the current card, an
 // SM's whole shared memory (which the blocks on it split, less 1 kB each
-// that the runtime reserves).
+// that the runtime reserves), and the card's SMs.
 int rmm_cuda_max_smem_per_block() {
   int dev = 0, bytes = 0;
   cudaGetDevice(&dev);

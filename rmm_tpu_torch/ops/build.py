@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) with ``nvcc``.
 
-Each kernel is one source compiled into a shared library with a plain C
-interface, loaded through ctypes (no PyTorch headers, so a build takes
-seconds). Builds happen at first use into the git-ignored ``_build/``;
+Each kernel library is one source (with the headers it includes from
+``csrc/*.cuh``) compiled into a shared library with a plain C interface,
+loaded through ctypes (no PyTorch headers, so a build takes seconds). Builds happen at first use into the git-ignored ``_build/``;
 :func:`build_all` starts every compiler at once (the host graph engine's
 ``g++`` included) and waits for all of them.
 """
@@ -37,14 +37,18 @@ def _nvcc() -> str:
 
 def start_cuda_build(src: str, out_dir: str = native.BUILD_DIR
                      ) -> native.Build:
-    """Starts ``nvcc`` on the CUDA source ``src`` with the kernels' flags;
-    the library lands in ``out_dir`` under the source's name and hash
-    (``wait()`` on the result gives its path as ``.out``)."""
+    """Starts ``nvcc`` on the CUDA source ``src`` with the kernels' flags,
+    the package's headers (``csrc/*.cuh``) on its include path; the
+    library lands in ``out_dir`` under the source's name and a hash of it
+    and the headers (``wait()`` on the result gives its path as
+    ``.out``)."""
     name = os.path.splitext(os.path.basename(src))[0]
+    headers = sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
+                     if f.endswith(".cuh"))
     out = os.path.join(out_dir, os.path.basename(
-        native.library_path(name, [src], NVCC_FLAGS)))
+        native.library_path(name, [src, *headers], NVCC_FLAGS)))
     os.makedirs(out_dir, exist_ok=True)
-    return native.Build([_nvcc(), *NVCC_FLAGS, src], out)
+    return native.Build([_nvcc(), *NVCC_FLAGS, "-I", _CSRC, src], out)
 
 
 def _start(name: str) -> native.Build:

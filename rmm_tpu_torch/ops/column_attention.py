@@ -7,14 +7,24 @@ layout (``x [B, S, C]``, ``Wqkv [C, 3C]``, ``Wout [C, C]``, an optional
 ``[B, nhead, S, S]`` bool keep-mask) and runs ``csrc/column_attention.cu``
 for CUDA tensors: the forward kernel (the port of the TPU kernel
 ``rmm_tpu/ops/pallas/column_attention.py::_fwd_kernel``) and, under
-autograd, a backward kernel and its reduce (the port of ``_bwd_kernel``),
-through :class:`ColumnAttentionFunction`. Each direction takes one of two
-kernels by shape (:func:`tiled`): the register-tiled one for every C <= 64
-that is a multiple of 4 (the main path's C = 32), the scalar one of the
-first port for the rest (C = 96, 128, or C not a multiple of 4). The
-backward recomputes from ``x`` alone, as the TPU kernel does: the Function
-saves ``x``, the weights and the keep-mask, nothing of the forward's
-insides.
+autograd, the backward (the port of ``_bwd_kernel``), through
+:class:`ColumnAttentionFunction`. The backward takes one of three routes by
+width (:func:`route`):
+
+* ``tiled``: every C <= 64 that is a multiple of 4 (the main path's
+  C = 32), the register-tiled kernel and its reduce;
+* ``split``: every other C <= 128 that is a multiple of 4 (C = 96, and the
+  SSL path's C = 128): five launches, the projections, an attention core,
+  dx and the weight gradients as hand-written float32 GEMMs
+  (``csrc/gemm_f32.cuh``) around a per-row attention kernel, then the
+  reduce;
+* ``scalar``: C not a multiple of 4, the scalar kernel of the first port
+  and its reduce.
+
+The forward takes the tiled kernel where the backward does, else the
+scalar one. The backward recomputes from ``x`` alone, as the TPU kernel
+does: the Function saves ``x``, the weights and the keep-mask, nothing of
+the forward's insides.
 
 CPU tensors take :func:`reference_column_attention`, the PyTorch twin of
 ``_attention_math``, whose backward is autograd's; a CUDA tensor launches
@@ -22,10 +32,11 @@ the kernels or raises. Why the kernels are built the way they are, and what
 bounds them, is noted in their source.
 
 ``launches`` counts forward-kernel launches (both kernels),
-``fwd_tiled_launches`` those of the tiled one, ``bwd_launches``
-backward-kernel launches (both kernels), ``bwd_tiled_launches`` those of the
-tiled one and ``reduce_launches`` launches of the backward's reduce (one per
-backward), and nothing else.
+``fwd_tiled_launches`` those of the tiled one, ``bwd_launches`` backward
+calls on the card (every route), ``bwd_tiled_launches`` and
+``bwd_split_launches`` those through the tiled and the split route, and
+``reduce_launches`` launches of the backward's reduce (one per backward),
+and nothing else.
 """
 from __future__ import annotations
 
@@ -40,6 +51,7 @@ launches = 0
 fwd_tiled_launches = 0
 bwd_launches = 0
 bwd_tiled_launches = 0
+bwd_split_launches = 0
 reduce_launches = 0
 
 MAX_S = 16                   # the kernel keeps a row's S×S scores in registers
@@ -48,6 +60,8 @@ _ROW_BUDGET_FLOATS = 10240   # the scalar forward's x/ctx + qkv a group
 _BWD_ROW_BUDGET_FLOATS = 20480  # the backward's 10·S·C + 2·H·S² a row
 _WEIGHTS_IN_SMEM_MAX_C = 64  # 4·C² floats = 64 kB at C = 64
 _TILED_MAX_C = 64            # the tiled kernels keep their weights in smem
+_CORE_THREADS = 256          # the split route's attention core: a block
+_GEMM_TILE = 128             # rows and columns of a GEMM block tile
 
 _lib = None
 
@@ -105,7 +119,17 @@ def _kernel(path: str | None = None):
             p, p, p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
             ctypes.c_int, p]
-        for fn in (lib.rmm_cuda_max_smem_per_block, lib.rmm_cuda_smem_per_sm):
+        lib.rmm_column_attention_bwd_core_smem_bytes.restype = (
+            ctypes.c_size_t)
+        lib.rmm_column_attention_bwd_core_smem_bytes.argtypes = [
+            ctypes.c_int] * 4
+        lib.rmm_column_attention_bwd_split.restype = ctypes.c_int
+        lib.rmm_column_attention_bwd_split.argtypes = [
+            p, p, p, p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+            ctypes.c_int, p]
+        for fn in (lib.rmm_cuda_max_smem_per_block, lib.rmm_cuda_smem_per_sm,
+                   lib.rmm_column_attention_gemm_blocks_per_sm):
             fn.restype = ctypes.c_int
             fn.argtypes = []
         lib.rmm_cuda_error_string.restype = ctypes.c_char_p
@@ -216,11 +240,14 @@ def _raise_on(err: int, what: str):
                            + _kernel().rmm_cuda_error_string(err).decode())
 
 
-def tiled(c: int) -> bool:
-    """Whether width ``c`` takes the register-tiled kernels, forward and
-    backward (every ``c <= 64`` that is a multiple of 4); the rest take the
-    scalar kernels of the first port."""
-    return c % 4 == 0 and c <= _TILED_MAX_C
+def route(c: int) -> str:
+    """The backward's route for width ``c``: ``"tiled"`` for every
+    ``c <= 64`` that is a multiple of 4 (the forward takes its tiled kernel
+    there too), ``"split"`` for every other multiple of 4 up to 128, and
+    ``"scalar"`` (the first port's kernels) for the rest."""
+    if c % 4:
+        return "scalar"
+    return "tiled" if c <= _TILED_MAX_C else "split"
 
 
 def _aligned(t):
@@ -240,7 +267,7 @@ def column_attention_fwd(x, wqkv, bqkv, wout, bout, nhead, keep=None,
         return out
     lib = _kernel()
     inv_keep = 1.0 / (1.0 - rate) if keep is not None else 1.0
-    use_tiled = tiled(c)
+    use_tiled = route(c) == "tiled"
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if use_tiled:
@@ -318,13 +345,17 @@ def _tiled_rows(b: int, per_sm: int, smem_bytes, grid) -> int:
 
 
 class BwdPlan(NamedTuple):
-    """How the backward runs a shape: which kernel, rows a group and
-    blocks, and the partial slices of ``4C² + 4C`` floats the reduce adds
-    (blocks × stage-F token splits for the tiled kernel)."""
-    tiled: bool
+    """How the backward runs a shape: its route, rows a group and blocks
+    (of the tiled or scalar kernel, or of the split route's attention
+    core), the partial slices of ``4C² + 4C`` floats the reduce adds
+    (blocks × stage-F token splits for the tiled kernel, the token splits
+    of the weight-gradient GEMM for the split route) and, for the split
+    route, the tokens a split."""
+    route: str
     rows: int
     grid: int
     slices: int
+    split_tokens: int = 0
 
 
 def bwd_plan(b: int, s: int, c: int, nhead: int,
@@ -335,17 +366,65 @@ def bwd_plan(b: int, s: int, c: int, nhead: int,
     its share of the SM's shared memory holds, evened out so that every
     block walks the same number of groups (the choice of
     ``tools/torch_attn_sweep.py``'s runs, in ``PERF.md``); ``rows``
-    overrides the rows a group. Plans are cached by shape and card: a plan
-    costs a few dozen calls into the library, about as long as the
-    node-shape kernel itself."""
+    overrides the rows a group (of the attention core, on the split
+    route). The split route's plan is :func:`split_plan` on this card.
+    Plans are cached by shape and card: a plan costs a few dozen calls
+    into the library, about as long as the node-shape kernel itself."""
     return _bwd_plan(b, s, c, nhead, rows, torch.cuda.current_device())
+
+
+def split_plan(b: int, s: int, c: int, nhead: int, sms: int,
+               gemm_per_sm: int, smem_budget: int, smem_per_row: int,
+               rows: int | None = None) -> BwdPlan:
+    """The split route's plan on a card of ``sms`` SMs, where an SM holds
+    ``gemm_per_sm`` blocks of the weight-gradient GEMM and a block of the
+    attention core may take ``smem_budget`` bytes of shared memory, of
+    which it needs ``smem_per_row`` a row.
+
+    The attention core takes as many rows a block as give each of its 256
+    threads at most one (row, head, query) and fit the budget (``rows``
+    overrides it). The weight-gradient GEMM cuts the B·S tokens into
+    ranges of ``split_tokens`` (range ``i`` is tokens ``i·split_tokens`` up
+    to the next range or B·S), as many as give its output tiles (4 at
+    C = 128) one block on every slot of the card, and writes one partial
+    slice per range."""
+    if rows is None:
+        rows = max(1, min(b, _CORE_THREADS // (nhead * s),
+                          smem_budget // smem_per_row))
+    tiles = -(-c // _GEMM_TILE) * (-(-3 * c // _GEMM_TILE)
+                                   + -(-c // _GEMM_TILE))
+    n = b * s
+    want = max(1, sms * max(gemm_per_sm, 1) // tiles)
+    split_tokens = -(-n // want)
+    return BwdPlan("split", rows, -(-b // rows), -(-n // split_tokens),
+                   split_tokens)
 
 
 @functools.lru_cache(maxsize=256)
 def _bwd_plan(b, s, c, nhead, rows, device) -> BwdPlan:
     del device  # only a cache key: the plan depends on the card
     lib = _kernel()
-    if not tiled(c):
+    kind = route(c)
+    if kind == "split":
+        per_sm = lib.rmm_column_attention_gemm_blocks_per_sm()
+        if per_sm < 0:
+            _raise_on(-per_sm, "split backward's GEMM")
+        budget = min(lib.rmm_cuda_max_smem_per_block(),
+                     lib.rmm_cuda_smem_per_sm() // 2 - 1024)
+        sms = torch.cuda.get_device_properties(
+            torch.cuda.current_device()).multi_processor_count
+        plan = split_plan(
+            b, s, c, nhead, sms, per_sm, budget,
+            lib.rmm_column_attention_bwd_core_smem_bytes(s, c, nhead, 1),
+            rows)
+        if (lib.rmm_column_attention_bwd_core_smem_bytes(s, c, nhead,
+                                                         plan.rows)
+                > lib.rmm_cuda_max_smem_per_block()):
+            raise ValueError(f"the split backward's attention core does not "
+                             f"fit one row of S={s}, C={c}, nhead={nhead} "
+                             "in shared memory")
+        return plan
+    if kind == "scalar":
         w_smem = int(c <= _WEIGHTS_IN_SMEM_MAX_C)
         rows = rows or max(1, min(b, _BWD_ROW_BUDGET_FLOATS
                                   // (10 * s * c + 2 * nhead * s * s + 8)))
@@ -353,7 +432,7 @@ def _bwd_plan(b, s, c, nhead, rows, device) -> BwdPlan:
                                                  w_smem)
         if grid < 0:
             _raise_on(-grid, "backward kernel")
-        return BwdPlan(False, rows, grid, grid)
+        return BwdPlan("scalar", rows, grid, grid)
     if rows is None:
         rows = _tiled_rows(
             b, 2 if c * c // 4 <= 256 else 1,
@@ -364,16 +443,17 @@ def _bwd_plan(b, s, c, nhead, rows, device) -> BwdPlan:
     grid = lib.rmm_column_attention_bwd_tiled_grid(b, s, c, nhead, rows)
     if grid < 0:
         _raise_on(-grid, "tiled backward kernel")
-    return BwdPlan(True, rows, grid,
+    return BwdPlan("tiled", rows, grid,
                    grid * lib.rmm_column_attention_bwd_tiled_splits(c))
 
 
 def column_attention_bwd(x, do, wqkv, bqkv, wout, nhead, keep=None,
                          rate=0.0, plan: BwdPlan | None = None):
-    """The backward kernel and its reduce on checked CUDA inputs (``do``
-    contiguous like ``x``): ``(dx, dWqkv, dbqkv, dWout, dbout)``. ``plan``
-    (from :func:`bwd_plan`) overrides the default one."""
-    global bwd_launches, bwd_tiled_launches, reduce_launches
+    """The backward on checked CUDA inputs (``do`` contiguous like ``x``),
+    by the route of :func:`route`: ``(dx, dWqkv, dbqkv, dWout, dbout)``.
+    ``plan`` (from :func:`bwd_plan`) overrides the default one."""
+    global bwd_launches, bwd_tiled_launches, bwd_split_launches
+    global reduce_launches
     b, s, c = x.shape
     dx = torch.empty_like(x)
     grads = torch.empty(4 * c * c + 4 * c, dtype=x.dtype, device=x.device)
@@ -386,23 +466,36 @@ def column_attention_bwd(x, do, wqkv, bqkv, wout, nhead, keep=None,
             partials = torch.empty(plan.slices, grads.numel(),
                                    dtype=x.dtype, device=x.device)
             stream = torch.cuda.current_stream().cuda_stream
-            if plan.tiled:
+            if plan.route != "scalar":
                 x, do = _aligned(x), _aligned(do)
-            args = (x.data_ptr(), do.data_ptr(), wqkv.data_ptr(),
-                    bqkv.data_ptr(), wout.data_ptr(),
-                    None if keep is None else keep.data_ptr(), dx.data_ptr(),
-                    partials.data_ptr(), grads.data_ptr(), b, s, c, nhead,
-                    inv_keep, plan.rows)
-            if plan.tiled:
-                err = _kernel().rmm_column_attention_bwd_tiled(
-                    *args, plan.grid, stream)
+            keep_ptr = None if keep is None else keep.data_ptr()
+            if plan.route == "split":
+                wqkv, wout = _aligned(wqkv), _aligned(wout)
+                tok = torch.empty(b * s, 4 * c, dtype=x.dtype,
+                                  device=x.device)
+                err = _kernel().rmm_column_attention_bwd_split(
+                    x.data_ptr(), do.data_ptr(), wqkv.data_ptr(),
+                    bqkv.data_ptr(), wout.data_ptr(), keep_ptr,
+                    dx.data_ptr(), tok.data_ptr(), partials.data_ptr(),
+                    grads.data_ptr(), b, s, c, nhead, inv_keep, plan.rows,
+                    plan.split_tokens, stream)
             else:
-                err = _kernel().rmm_column_attention_bwd(
-                    *args, int(c <= _WEIGHTS_IN_SMEM_MAX_C), plan.grid,
-                    stream)
-        _raise_on(err, "backward kernel")
+                args = (x.data_ptr(), do.data_ptr(), wqkv.data_ptr(),
+                        bqkv.data_ptr(), wout.data_ptr(), keep_ptr,
+                        dx.data_ptr(), partials.data_ptr(),
+                        grads.data_ptr(), b, s, c, nhead, inv_keep,
+                        plan.rows)
+                if plan.route == "tiled":
+                    err = _kernel().rmm_column_attention_bwd_tiled(
+                        *args, plan.grid, stream)
+                else:
+                    err = _kernel().rmm_column_attention_bwd(
+                        *args, int(c <= _WEIGHTS_IN_SMEM_MAX_C), plan.grid,
+                        stream)
+        _raise_on(err, f"{plan.route} backward")
         bwd_launches += 1
-        bwd_tiled_launches += int(plan.tiled)
+        bwd_tiled_launches += int(plan.route == "tiled")
+        bwd_split_launches += int(plan.route == "split")
         reduce_launches += 1
     k1, k2, k3 = 3 * c * c, 3 * c * c + 3 * c, 4 * c * c + 3 * c
     return (dx, grads[:k1].view(c, 3 * c), grads[k1:k2],

@@ -138,3 +138,49 @@ def test_wrapper_checks_shapes():
         ca.fused_column_attention(x, wqkv, bqkv, wout, bout, 8,
                                   drop_mask=torch.ones(4, 8, 5, 5, dtype=bool),
                                   dropout_rate=0.1)
+
+
+@pytest.mark.parametrize("c,want", [(30, "scalar"), (32, "tiled"),
+                                    (64, "tiled"), (96, "split"),
+                                    (128, "split"), (126, "scalar"),
+                                    (68, "split")])
+def test_backward_route_by_width(c, want):
+    """The tiled kernels take every multiple of 4 up to 64, the split route
+    the rest up to 128, the scalar kernels every C not a multiple of 4."""
+    assert ca.route(c) == want
+
+
+@pytest.mark.parametrize("b,s,sms,per_sm", [
+    (131072, 6, 132, 2),      # the SSL edge tokens on an H100
+    (13000, 6, 132, 2),       # the SSL target rows
+    (100003, 5, 132, 1),      # ragged
+    (1, 1, 132, 2),
+    (37, 16, 7, 3),
+])
+def test_split_plan_token_ranges_cover_every_token_once(b, s, sms, per_sm):
+    """The weight-gradient GEMM's splits cover the B·S tokens once each,
+    in order, one partial slice each; the attention core gives each thread
+    at most one (row, head, query) and fits its shared-memory budget."""
+    c, h, budget = 128, 8, 113 * 1024
+    # the core's bytes a row at C = 128, nhead 8, as the library reports
+    # them: S token rows of 4C + 4 floats and 2·nhead·S² floats of P and dS
+    per_row = 4 * (s * (4 * c + 4) + 2 * h * s * s)
+    plan = ca.split_plan(b, s, c, h, sms, per_sm, budget, per_row)
+    n = b * s
+    # the kernel's ranges: split i sums tokens i·split_tokens up to the
+    # next split or n
+    ranges = [(k, min(n, k + plan.split_tokens))
+              for k in range(0, n, plan.split_tokens)]
+    assert plan.route == "split"
+    assert len(ranges) == plan.slices
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    assert all(e > k for k, e in ranges)
+    assert all(a[1] == b_[0] for a, b_ in zip(ranges, ranges[1:]))
+    covered = np.zeros(n, int)
+    for k, e in ranges:
+        covered[k:e] += 1
+    assert (covered == 1).all()
+    assert plan.slices <= max(1, sms * per_sm // 4) + 1
+    assert 1 <= plan.rows <= max(1, 256 // (h * s))
+    assert plan.grid == -(-b // plan.rows)
+    assert plan.rows * per_row <= budget

@@ -46,8 +46,8 @@ def attention_inputs(seed, b, s, c, device):
 
 
 # Both directions' shapes. The tiled kernels take every C <= 64 that is a
-# multiple of 4, the scalar ones C = 96 and 128 (the forward's weights
-# through the read-only cache). S of 1, 5 and 7 and C of 16, 48 and 64 at
+# multiple of 4; at C = 96 and 128 the forward takes the scalar kernel (its
+# weights through the read-only cache), the backward the split route. S of 1, 5 and 7 and C of 16, 48 and 64 at
 # head_dim 2, 4, 6 and 8: the tiled kernels instantiate S = 2, 4, 6, 8 and
 # 16, and a head_dim that is not a multiple of 4 takes their scalar loops.
 SHAPES = [
@@ -87,7 +87,7 @@ def test_column_attention_kernel_matches_plain(cuda, b, s, c, h, masked):
         out = ca.fused_column_attention(*args, h, mask, rate)
         ref = ca.reference_column_attention(*args, h, mask, rate)
     assert (ca.launches, ca.fwd_tiled_launches) == (
-        before[0] + 1, before[1] + int(ca.tiled(c)))
+        before[0] + 1, before[1] + int(ca.route(c) == "tiled"))
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
 
 
@@ -143,11 +143,12 @@ def test_column_attention_kernel_refuses_what_it_cannot_run(cuda):
     assert ca.launches == before
 
 
-# The backward's further shapes take the scalar kernel, in one of 12
-# instantiations: S rounded up to 2, 4, 8 or 16, times where the
-# weight-gradient sums live (registers at C <= 38, device memory with the
-# weights in shared memory at C <= 64, device memory with the weights in
-# device memory above).
+# The backward's further shapes. Where C is not a multiple of 4 they take
+# the scalar kernel, in one of 12 instantiations: S rounded up to 2, 4, 8
+# or 16, times where the weight-gradient sums live (registers at C <= 38,
+# device memory with the weights in shared memory at C <= 64, device
+# memory with the weights in device memory above). C = 72 and 100 take the
+# split route at S = 2 and 4.
 BWD_SHAPES = SHAPES + [
     (77, 2, 30, 5),      # scalar, sums in registers
     (61, 3, 18, 3),
@@ -157,8 +158,12 @@ BWD_SHAPES = SHAPES + [
     (65, 3, 42, 7),
     (47, 7, 54, 6),
     (23, 13, 62, 2),
-    (40, 2, 72, 8),      # scalar, weights in device memory (S of 8 and 16
-    (31, 4, 100, 5),     # are the SHAPES' C = 96 and 128)
+    (40, 2, 72, 8),      # split route
+    (31, 4, 100, 5),
+    (40, 2, 70, 7),      # scalar, weights in device memory
+    (31, 4, 102, 6),
+    (33, 7, 98, 7),
+    (12, 16, 126, 6),
 ]
 
 
@@ -213,7 +218,7 @@ def test_tiled_backward_one_row_either_side_of_a_group(cuda, s, c, h, delta):
     rows = ca.bwd_plan(131072, s, c, h).rows
     b = rows + delta
     plan = ca.bwd_plan(b, s, c, h, rows=rows)
-    assert plan.tiled and plan.rows == rows
+    assert plan.route == "tiled" and plan.rows == rows
     before = ca.bwd_tiled_launches
     got, want = backward_case(cuda, b, s, c, h, True, plan)
     assert ca.bwd_tiled_launches == before + 1
@@ -235,33 +240,84 @@ def test_backward_repeats_bitwise(cuda):
         assert torch.equal(g, a)
 
 
+def split_case(device, b, s, c, h, plan=None):
+    """The split backward (at ``plan``, else the default one) and autograd
+    of the plain version on the same seeded inputs, with the keep-mask."""
+    before = ca.bwd_split_launches
+    got, want = backward_case(device, b, s, c, h, True,
+                              plan or ca.bwd_plan(b, s, c, h))
+    assert ca.bwd_split_launches == before + 1
+    return got, want
+
+
+@pytest.mark.parametrize("delta", [-1, 1])
+@pytest.mark.parametrize("s", [2, 4, 16])
+def test_split_backward_one_row_either_side_of_a_gemm_tile(cuda, s, delta):
+    """B·S tokens one row short of three GEMM row tiles (3·128 tokens) and
+    one row past them: the last tile ragged, or a fourth of S tokens."""
+    b = 3 * 128 // s + delta
+    assert_gradients_match(*split_case(cuda, b, s, 128, 8))
+
+
+@pytest.mark.parametrize("split_tokens", [32, 37, 96, 1000])
+def test_split_backward_token_splits(cuda, split_tokens):
+    """The weight gradients over other token splits than the plan's: many
+    splits (the last one ragged, or all of an odd length), and one longer
+    than the tokens."""
+    b, s, c, h = 157, 6, 128, 8
+    n = b * s
+    plan = ca.bwd_plan(b, s, c, h)._replace(
+        split_tokens=split_tokens, slices=-(-n // split_tokens))
+    assert_gradients_match(*split_case(cuda, b, s, c, h, plan))
+
+
+def test_split_backward_repeats_bitwise(cuda):
+    """The split route at C = 128 sums every output in a fixed order (no
+    atomics): two calls on the same inputs give the same bits."""
+    b, s, c, h = 4099, 6, 128, 8
+    x, wqkv, bqkv, wout, _ = attention_inputs(0, b, s, c, cuda)
+    do = torch.randn(b, s, c, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(1))
+    mask = torch.rand(b, h, s, s, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(2)) >= 0.5
+    first = ca.column_attention_bwd(x, do, wqkv, bqkv, wout, h, mask, 0.5)
+    second = ca.column_attention_bwd(x, do, wqkv, bqkv, wout, h, mask, 0.5)
+    assert ca.bwd_plan(b, s, c, h).route == "split"
+    for g, a in zip(first, second):
+        assert torch.equal(g, a)
+
+
 ROUTES = [
-    (16384, 2, 32, 8, True),     # the main path's node tokens
-    (131072, 6, 32, 8, True),    # the main path's edge tokens
-    (33, 6, 96, 3, False),
-    (100, 16, 128, 8, False),
-    (129, 6, 30, 6, False),      # C not a multiple of 4
-    (65, 3, 42, 7, False),
+    (16384, 2, 32, 8, "tiled"),     # the main path's node tokens
+    (131072, 6, 32, 8, "tiled"),    # the main path's edge tokens
+    (33, 6, 96, 3, "split"),
+    (100, 16, 128, 8, "split"),
+    (129, 6, 30, 6, "scalar"),      # C not a multiple of 4
+    (65, 3, 42, 7, "scalar"),
 ]
 
 
-@pytest.mark.parametrize("b,s,c,h,tiled", ROUTES)
-def test_backward_route_by_shape(cuda, b, s, c, h, tiled):
+@pytest.mark.parametrize("b,s,c,h,route", ROUTES)
+def test_backward_route_by_shape(cuda, b, s, c, h, route):
     x, wqkv, bqkv, wout, _ = attention_inputs(0, b, s, c, cuda)
-    before = (ca.bwd_launches, ca.bwd_tiled_launches)
+    before = (ca.bwd_launches, ca.bwd_tiled_launches, ca.bwd_split_launches)
     ca.column_attention_bwd(x, torch.ones_like(x), wqkv, bqkv, wout, h)
-    assert ca.tiled(c) == tiled
-    assert (ca.bwd_launches, ca.bwd_tiled_launches) == (
-        before[0] + 1, before[1] + int(tiled))
+    assert ca.route(c) == route
+    assert (ca.bwd_launches, ca.bwd_tiled_launches,
+            ca.bwd_split_launches) == (before[0] + 1,
+                                       before[1] + int(route == "tiled"),
+                                       before[2] + int(route == "split"))
 
 
-@pytest.mark.parametrize("b,s,c,h,tiled", ROUTES)
-def test_forward_route_by_shape(cuda, b, s, c, h, tiled):
+@pytest.mark.parametrize("b,s,c,h,route", ROUTES)
+def test_forward_route_by_shape(cuda, b, s, c, h, route):
+    """The forward takes its tiled kernel where the backward does, else
+    the scalar one."""
     args = attention_inputs(0, b, s, c, cuda)
     before = (ca.launches, ca.fwd_tiled_launches)
     ca.column_attention_fwd(*args, h)
     assert (ca.launches, ca.fwd_tiled_launches) == (
-        before[0] + 1, before[1] + int(tiled))
+        before[0] + 1, before[1] + int(route == "tiled"))
 
 
 def test_three_train_steps_on_the_card_match_the_cpu(cuda, tmp_path):
@@ -282,7 +338,8 @@ def test_three_train_steps_on_the_card_match_the_cpu(cuda, tmp_path):
         tr = Trainer(cfg, build_dataset(cfg))
         tr.model.train()
         counters = ("launches", "fwd_tiled_launches", "bwd_launches",
-                    "bwd_tiled_launches", "reduce_launches")
+                    "bwd_tiled_launches", "reduce_launches",
+                    "bwd_split_launches")
         before = [getattr(ca, n) for n in counters]
         batches = itertools.islice(
             tr._batches(tr.dataset.edges.split()[0], "train"), 3)
@@ -294,8 +351,9 @@ def test_three_train_steps_on_the_card_match_the_cpu(cuda, tmp_path):
                      cfg.lr))
     (cpu_losses, cpu_state, cpu_launched, lr), (losses, state, launched,
                                                _) = runs
-    assert cpu_launched == (0, 0, 0, 0, 0)
-    assert launched == (12,) * 5   # 2 layers x nodes, edges x 3 steps
+    assert cpu_launched == (0,) * 6
+    assert launched == (12,) * 5 + (0,)   # 2 layers x nodes, edges x 3
+    #                                       steps, all tiled
     np.testing.assert_allclose(losses, cpu_losses, rtol=1e-4)
     errs = np.concatenate([np.abs(v.numpy() - cpu_state[k].numpy()).ravel()
                            for k, v in state.items()])
@@ -378,17 +436,18 @@ def test_same_seed_same_training_run_on_the_card(cuda, tmp_path):
 
 
 @pytest.mark.parametrize("direction", ["fwd", "bwd"])
-def test_ssl_target_rows_scalar_kernels_match_plain(cuda, direction):
+def test_ssl_target_rows_split_backward_scalar_forward_match_plain(
+        cuda, direction):
     """The SSL path's target rows (200 seeds x 65) at C = 128 with its 0.5
-    keep-mask: the scalar kernels, each direction against the plain
-    version."""
+    keep-mask, each direction against the plain version: the backward
+    through the split route, the forward through the scalar kernel."""
     b, s, c, h, rate = 13000, 6, 128, 8, 0.5
     args = attention_inputs(7, b, s, c, cuda)
     mask = torch.from_numpy(
         np.random.RandomState(8).rand(b, h, s, s) >= rate).to(cuda)
-    assert not ca.tiled(c)
+    assert ca.route(c) == "split"
     before = (ca.launches, ca.fwd_tiled_launches, ca.bwd_launches,
-              ca.bwd_tiled_launches)
+              ca.bwd_split_launches)
     if direction == "fwd":
         with torch.inference_mode():
             out = ca.fused_column_attention(*args, h, mask, rate)
@@ -405,14 +464,14 @@ def test_ssl_target_rows_scalar_kernels_match_plain(cuda, direction):
         ca.fused_column_attention(*leaves, h, mask, rate), leaves, do)
     want = torch.autograd.grad(
         ca.reference_column_attention(*leaves, h, mask, rate), leaves, do)
-    assert (ca.bwd_launches, ca.bwd_tiled_launches) == (before[2] + 1,
-                                                        before[3])
+    assert (ca.bwd_launches, ca.bwd_split_launches) == (before[2] + 1,
+                                                        before[3] + 1)
     assert_gradients_match(got, want)
 
 
 def test_three_ssl_steps_on_the_card_match_the_cpu(cuda, tmp_path):
     """mcm-lp at the SSL widths (C = 128, 3 layers, 8 heads; the scalar
-    kernels) on a small graph, dropout 0, from the same seeded start: each
+    forward, the split backward) on a small graph, dropout 0, from the same seeded start: each
     loss term 1e-4 rel, and every variable by the limits of
     ``rmm_tpu_torch.convert.check_states``."""
     import itertools
@@ -428,7 +487,8 @@ def test_three_ssl_steps_on_the_card_match_the_cpu(cuda, tmp_path):
             "--num_neg_samples", "16", "--khop_neighbors", "10", "10",
             "--batch_size", "64", "--dropout", "0"]
     counters = ("launches", "fwd_tiled_launches", "bwd_launches",
-                "bwd_tiled_launches", "reduce_launches")
+                "bwd_tiled_launches", "reduce_launches",
+                "bwd_split_launches")
     runs = []
     for device in ("cpu", "cuda"):
         cfg = fused.config_from_args(fused.build_parser().parse_args(
@@ -444,8 +504,9 @@ def test_three_ssl_steps_on_the_card_match_the_cpu(cuda, tmp_path):
         runs.append((terms, {k: v.cpu() for k, v in
                              tr.model.state_dict().items()}, launched))
     (cpu_terms, cpu_state, cpu_launched), (terms, state, launched) = runs
-    assert cpu_launched == (0,) * 5
-    assert launched == (30, 0, 30, 0, 30)   # 10 a step each way, scalar
+    assert cpu_launched == (0,) * 6
+    # 10 a step each way: the forwards scalar, the backwards split
+    assert launched == (30, 0, 30, 0, 30, 30)
     assert set(terms[0]) == {"loss", "lp", "mcm_cat", "mcm_num"}
     faults, _ = check_states(state, terms, cpu_state, cpu_terms, cfg.lr,
                              updates=2 * 3, nhidden=128,

@@ -1,0 +1,259 @@
+"""The split column-attention backward (C = 96..128) on one CUDA card: its
+five launches timed against their bounds, and a sweep of its GEMM knobs.
+
+    python3 tools/torch_attn_split.py [--shapes edge,target] [--sweep]
+
+At the SSL path's shapes (edge tokens 131072×6×128/8 and target rows
+13000×6×128/8, each with the 0.5 keep-mask) the default run checks the
+split route against autograd of the plain version (relative to each
+reference tensor's largest entry) and times:
+
+* the whole backward (``column_attention_bwd``, its five launches and the
+  scratch allocations), with CUDA events, warm, median of 5 windows;
+* each launch by its device time from ``torch.profiler`` over 10 calls:
+  the projections (``gemm_kernel<false, true, ...>``), the attention core,
+  dx (``gemm_kernel<false, false, ...>``), the weight gradients
+  (``gemm_kernel<true, true, ...>``) and the reduce, each beside its own
+  bound (the larger of its bytes over 3.35 TB/s and its FMAs, 2 flops
+  each, over 67 TFLOP/s: one H100 SXM's published peaks).
+
+``--sweep`` builds variants of ``csrc/column_attention.cu`` with other
+values of the GEMM's compile-time constants in ``csrc/gemm_f32.cuh``
+(``kBK``, ``kStages``, ``kMinBlocks``: a copy of the header with those
+lines replaced, beside a copy of the source, built with the port's own
+nvcc flags into the git-ignored ``rmm_tpu_torch/_build/split_sweep/``)
+and times each at the edge shape, in turns, at the plan's splits and at
+a half and twice as many. Prints one JSON line per measurement, the card's name
+and power limit in each, and the registers and spills ``ptxas`` reports.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import re
+import shutil
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from chip_smoke import (GRAD_TOL, PEAK_BYTES_PER_S,  # noqa: E402
+                        PEAK_F32_FLOP_PER_S, SSL_DROPOUT, bound, emit,
+                        nvidia_smi, time_ms)
+
+SHAPES = {"edge": (131072, 6, 128, 8, SSL_DROPOUT),
+          "target": (13000, 6, 128, 8, SSL_DROPOUT)}
+# (kBK, kStages, kMinBlocks) of each sweep variant; the checkout's values
+# are the first
+VARIANTS = [(16, 3, 2), (16, 2, 2), (16, 4, 2), (32, 3, 2), (32, 2, 2),
+            (16, 3, 1), (16, 4, 1), (32, 3, 1), (32, 2, 1)]
+OUT = os.path.join(ROOT, "rmm_tpu_torch", "_build", "split_sweep")
+
+
+def launch_bounds(b, s, c, h, masked, slices) -> dict:
+    """Each launch's least time (ms) and what sets it: bytes each input
+    read once and each output written once, FMAs as 2 flops and adds as
+    one."""
+    n, total = b * s, 4 * c * c + 4 * c
+
+    def one(nbytes, flops):
+        return bound(nbytes / PEAK_BYTES_PER_S * 1e3,
+                     flops / PEAK_F32_FLOP_PER_S * 1e3)
+
+    hd = c // h
+    return {
+        "projections": one(4 * (2 * n * c + 4 * c * c + 3 * c + 4 * n * c),
+                           2 * n * c * 4 * c),
+        "core": one(4 * 8 * n * c + (b * h * s * s if masked else 0),
+                    2 * 6 * b * h * s * s * hd),
+        "dx": one(4 * (3 * n * c + 3 * c * c + n * c), 2 * n * 3 * c * c),
+        "weight_grads": one(4 * (6 * n * c + slices * total),
+                            2 * n * 4 * c * c + n * 4 * c),
+        "reduce": one(4 * (slices * total + total), slices * total),
+    }
+
+
+def kernel_kind(name: str) -> str | None:
+    if "bwd_core" in name:
+        return "core"
+    if "bwd_reduce" in name:
+        return "reduce"
+    if "gemm_kernel" in name:
+        flags = name[name.index("gemm_kernel"):].replace(" ", "")
+        if flags.startswith("gemm_kernel<false,true"):
+            return "projections"
+        if flags.startswith("gemm_kernel<false,false"):
+            return "dx"
+        if flags.startswith("gemm_kernel<true,true"):
+            return "weight_grads"
+    return None
+
+
+def inputs(b, s, c, h, rate, seed=0):
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(
+            np.float32)).cuda()
+
+    x, do = t(b, s, c), t(b, s, c)
+    w = (t(c, 3 * c, scale=c ** -0.5), t(3 * c, scale=0.1),
+         t(c, c, scale=c ** -0.5), t(c, scale=0.1))
+    mask = torch.from_numpy(rng.rand(b, h, s, s) >= rate).cuda()
+    return x, do, w, mask
+
+
+def profile_launches(call, reps: int = 10) -> dict:
+    """Device ms a call of each of the split route's launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.key_averages():
+        kind = kernel_kind(e.key)
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        if kind is not None and us > 0:
+            out[kind] = out.get(kind, 0.0) + us / 1e3 / reps
+    return out
+
+
+def shape_run(card, name, b, s, c, h, rate):
+    import torch
+
+    from rmm_tpu_torch.ops import column_attention as ca
+
+    x, do, (wqkv, bqkv, wout, bout), mask = inputs(b, s, c, h, rate)
+    plan = ca.bwd_plan(b, s, c, h)
+    got = ca.column_attention_bwd(x, do, wqkv, bqkv, wout, h, mask, rate)
+    leaves = [t.detach().requires_grad_() for t in (x, wqkv, bqkv, wout,
+                                                    bout)]
+    out = ca.reference_column_attention(*leaves, h, mask, rate)
+    want = torch.autograd.grad(out, leaves, do)
+    errs = [float((g - w).abs().max() / w.abs().max()) for g, w in
+            zip(got, want)]
+    del out, want, leaves
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+
+    def call():
+        return ca.column_attention_bwd(x, do, wqkv, bqkv, wout, h, mask,
+                                       rate)
+
+    ms = time_ms(call)
+    scratch = torch.cuda.max_memory_allocated() - base
+    per_launch = profile_launches(call)
+    bounds = launch_bounds(b, s, c, h, True, plan.slices)
+    emit({"tool": "torch_attn_split", "shape": name, "B": b, "S": s, "C": c,
+          "H": h, "dropout": rate, "route": ca.route(c),
+          "plan": plan._asdict(), "max_rel_err": errs, "tol": GRAD_TOL,
+          "ok": max(errs) <= GRAD_TOL, "ms": ms,
+          "scratch_gb": scratch / 1e9,
+          "launches": {k: {"ms": per_launch.get(k), "bound_ms": v[0],
+                           "bound_by": v[1]} for k, v in bounds.items()},
+          "launches_sum_ms": sum(per_launch.values()), "card": card})
+    return max(errs) <= GRAD_TOL
+
+
+def sweep(card):
+    import torch
+
+    from rmm_tpu_torch.ops import column_attention as ca
+    from rmm_tpu_torch.ops.build import KERNEL_SOURCES, start_cuda_build
+
+    src = KERNEL_SOURCES["column_attention"]
+    header = open(os.path.join(os.path.dirname(src), "gemm_f32.cuh")).read()
+    builds = {}
+    for bk, stages, min_blocks in VARIANTS:
+        out = os.path.join(OUT, f"bk{bk}_st{stages}_mb{min_blocks}")
+        os.makedirs(out, exist_ok=True)
+        variant = header
+        for name, value in (("kBK", bk), ("kStages", stages),
+                            ("kMinBlocks", min_blocks)):
+            variant, n = re.subn(rf"constexpr int {name} = \d+;",
+                                 f"constexpr int {name} = {value};", variant)
+            assert n == 1, name
+        with open(os.path.join(out, "gemm_f32.cuh"), "w") as f:
+            f.write(variant)
+        shutil.copy(src, out)
+        # nvcc finds the header beside the source before the package's
+        builds[(bk, stages, min_blocks)] = start_cuda_build(
+            os.path.join(out, os.path.basename(src)), out)
+    libs = {}
+    for key, bld in builds.items():
+        log = bld.wait()
+        libs[key] = bld.out
+        emit({"tool": "torch_attn_split", "variant": key, "ptxas": [
+            ln.strip() for ln in log.splitlines()
+            if "gemm_kernel" in ln or "registers" in ln or "spill" in ln][-12:]})
+    b, s, c, h, rate = SHAPES["edge"]
+    x, do, (wqkv, bqkv, wout, _), mask = inputs(b, s, c, h, rate)
+    want = None
+    for rnd in range(2):
+        for key, lib in libs.items():
+            ca.use_library(lib)
+            base = ca.bwd_plan(b, s, c, h)
+            for mult in (0.5, 1, 2):
+                n = b * s
+                splits = max(1, int(base.slices * mult))
+                tokens = -(-n // splits)
+                plan = base._replace(split_tokens=tokens,
+                                     slices=-(-n // tokens))
+                got = ca.column_attention_bwd(x, do, wqkv, bqkv, wout, h,
+                                              mask, rate, plan=plan)
+                if want is None:
+                    want = [g.clone() for g in got]
+                diff = max(float((g - w).abs().max() / w.abs().max())
+                           for g, w in zip(got, want))
+                ms = time_ms(lambda: ca.column_attention_bwd(
+                    x, do, wqkv, bqkv, wout, h, mask, rate, plan=plan))
+                per = profile_launches(lambda: ca.column_attention_bwd(
+                    x, do, wqkv, bqkv, wout, h, mask, rate, plan=plan), 5)
+                emit({"tool": "torch_attn_split", "round": rnd,
+                      "variant": {"BK": key[0], "stages": key[1],
+                                  "min_blocks": key[2]},
+                      "slices": plan.slices, "split_tokens": tokens,
+                      "ms": ms, "launches_ms": per,
+                      "max_rel_diff": diff, "card": card})
+        torch.cuda.empty_cache()
+    ca.use_library()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--shapes", default="edge,target")
+    ap.add_argument("--sweep", action="store_true")
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    from rmm_tpu_torch.ops.build import build_all
+
+    card = nvidia_smi()
+    logs = build_all()
+    emit({"tool": "torch_attn_split", "card": card, "ptxas": [
+        ln.strip() for log in logs.values() for ln in log.splitlines()
+        if "registers" in ln or "spill" in ln or "Compiling entry" in ln]})
+    ok = True
+    for name in args.shapes.split(","):
+        if name:
+            ok &= shape_run(card, name, *SHAPES[name])
+    if args.sweep:
+        sweep(card)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
