@@ -15,20 +15,20 @@ through all of them:
              edge capacity, node tokens at the node capacity, both read
              from the fixture), at the same shapes with the training
              keep-mask (dropout 0.083), and more (node tokens at the edge
-             capacity, C = 128, a ragged batch, a numpy keep-mask); the
-             backward (and its reduce) against ``torch.autograd.grad`` of
-             the plain version at the training shapes with the keep-mask,
-             the same unmasked, C = 128, a ragged batch and C = 126 (the
-             scalar backward's remaining widths: C not a multiple of 4);
-             both directions at the SSL path's C = 128 shapes
-             (131072x6x128/8 edge tokens, 13000x6x128/8 target rows) with
-             its 0.5 keep-mask and without it. Each record names the route
-             it took (forward: tiled or scalar; backward: tiled, split or
-             scalar, by width, held to ``route(c)``), and two calls of each
-             direction at the main path's masked edge shape, and of the
-             split backward at the SSL masked edge shape, are bitwise
-             equal. Max error
-             (the backward's relative to each reference tensor's largest
+             capacity, C = 128, a ragged batch, a numpy keep-mask, and
+             C = 126, the scalar kernels' remaining widths: C not a
+             multiple of 4); the backward (and its reduce) against
+             ``torch.autograd.grad`` of the plain version at the training
+             shapes with the keep-mask, the same unmasked, C = 128, a
+             ragged batch and C = 126; both directions at the SSL path's
+             C = 128 shapes (131072x6x128/8 edge tokens, 13000x6x128/8
+             target rows) with its 0.5 keep-mask and without it, and the
+             split forward's attention core alone there against its plain
+             twin. Each record names the route it took (tiled, split or
+             scalar, by width, held to ``route(c)``), and two calls of
+             each direction at the main path's masked edge shape and at
+             the SSL masked edge shape are bitwise equal. Max error (the
+             backward's relative to each reference tensor's largest
              entry), kernel / plain / library times (CUDA events, warm,
              median) and the bound.
 4. serve   — the port's predict CLI (``rmm_tpu_torch.cli.predict.main``)
@@ -58,8 +58,8 @@ through all of them:
              batch 200, fanouts 100/100, dropout 0.5, lr 2e-4) on the same
              data: the first 24 train batches, then 24 val batches. Checks
              10 forward, 10 backward and 10 reduce launches a step and 10
-             forwards an evaluated batch (C = 128: the scalar forward,
-             every backward through the split route), a finite
+             forwards an evaluated batch (C = 128: every forward and
+             backward through the split routes), a finite
              loss, 0 < MRR <= 1, a finite RMSE, 0 <= accuracy <= 1. The
              median step on the device's clock, train rows/s, host
              sampling ms a batch and the peak memory.
@@ -76,8 +76,8 @@ through all of them:
 
 Then the seconds each phase took, a ``{"kernels": [...]}`` line (an entry
 per kernel, each with its ``path``: the main path's tiled kernels at C = 32,
-the SSL path's scalar forward and split backward at C = 128, and the
-scalar backward at the kernel phase's C = 126),
+the SSL path's split forward and backward at C = 128, and the scalar
+forward and backward at the kernel phase's C = 126),
 the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 package beside it, the script fails and prints no result.
@@ -237,14 +237,14 @@ def library_attention(x, wqkv, bqkv, wout, bout, h):
         bout, training=False, need_weights=False)[0].transpose(0, 1)
 
 
-# The SSL path's shapes at C = 128 (the scalar forward, the split backward):
-# the edge tokens at the edge capacity and the target rows (200 seeds x 65),
+# The SSL path's shapes at C = 128 (the split forward and backward): the
+# edge tokens at the edge capacity and the target rows (200 seeds x 65),
 # with the SSL keep-mask and without it (where the library call times them).
 SSL_SHAPES = [(131072, 6, 128, 8, SSL_DROPOUT),
               (13000, 6, 128, 8, SSL_DROPOUT),
               (131072, 6, 128, 8, 0.0), (13000, 6, 128, 8, 0.0)]
-# A width that only the scalar backward takes (C not a multiple of 4)
-SCALAR_BWD_SHAPE = (32768, 6, 126, 6, 0.0)
+# A width that only the scalar kernels take (C not a multiple of 4)
+SCALAR_SHAPE = (32768, 6, 126, 6, 0.0)
 
 
 def kernel_phase(card: str) -> dict:
@@ -266,9 +266,10 @@ def kernel_phase(card: str) -> dict:
         (edges, 6, c, 8, p),         # training path: edge tokens
         (nodes, 2, c, 8, p),         # training path: node tokens
         (edges, 2, c, 8, 0.0),       # node tokens at the edge capacity
-        (32768, 6, 128, 8, 0.0),     # SSL width, weights via L2
+        (32768, 6, 128, 8, 0.0),     # SSL width, the split route
         (100003, 6, 32, 8, 0.0),     # ragged batch
         (4099, 6, 64, 4, 0.3),       # numpy keep-mask, dropout 0.3
+        SCALAR_SHAPE,                # C % 4 != 0: the scalar forward
     ] + SSL_SHAPES
     bwd_shapes = [
         (edges, 6, c, 8, p),         # training path: edge tokens
@@ -277,7 +278,7 @@ def kernel_phase(card: str) -> dict:
         (nodes, 2, c, 8, 0.0),
         (32768, 6, 128, 8, 0.0),     # SSL width, the split route
         (100003, 6, 32, 8, p),       # ragged batch
-        SCALAR_BWD_SHAPE,            # C % 4 != 0: the scalar backward
+        SCALAR_SHAPE,                # C % 4 != 0: the scalar backward
     ] + SSL_SHAPES
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
@@ -289,15 +290,17 @@ def kernel_phase(card: str) -> dict:
             mask = torch.from_numpy(rng.rand(b, h, s, s) >= rate).to(dev)
         args = (x, wqkv, bqkv, wout, bout, h, mask, rate)
         with torch.inference_mode():
-            tiled_before = ca.fwd_tiled_launches
+            before = (ca.fwd_tiled_launches, ca.fwd_split_launches)
             out = ca.fused_column_attention(*args)
-            route = ("tiled" if ca.fwd_tiled_launches > tiled_before
-                     else "scalar")
-            check(route == ("tiled" if ca.route(c) == "tiled"
-                            else "scalar"),
-                  f"forward {b}x{s}x{c}/{h} took the {route} kernel")
+            route = ("tiled" if ca.fwd_tiled_launches > before[0] else
+                     "split" if ca.fwd_split_launches > before[1] else
+                     "scalar")
+            check(route == ca.route(c),
+                  f"forward {b}x{s}x{c}/{h} took the {route} route, not "
+                  f"{ca.route(c)}")
             repeat_equal = None
-            if len(fwd) == 2:   # the masked edge shape
+            # the masked edge shapes of the main path and of the SSL path
+            if len(fwd) == 2 or (b, s, c, h, rate) == SSL_SHAPES[0]:
                 repeat_equal = torch.equal(out,
                                            ca.fused_column_attention(*args))
                 check(repeat_equal, f"forward {b}x{s}x{c}/{h}: two calls on "
@@ -308,6 +311,16 @@ def kernel_phase(card: str) -> dict:
             check(math.isfinite(err) and err <= KERNEL_TOL,
                   f"column attention {b}x{s}x{c}/{h} p={rate}: "
                   f"max_abs_err {err} > {KERNEL_TOL}")
+            core_err = None
+            if route == "split":   # the attention core alone, on the qkv
+                tok = torch.matmul(x, wqkv) + bqkv
+                core_err = float((ca.attention_core_fwd(tok, h, mask, rate)
+                                  - ca.reference_attention_core(
+                                      tok, h, mask, rate)).abs().max())
+                check(math.isfinite(core_err) and core_err <= KERNEL_TOL,
+                      f"split forward's core {b}x{s}x{c}/{h} p={rate}: "
+                      f"max_abs_err {core_err} > {KERNEL_TOL}")
+                del tok
             k_ms = time_ms(lambda: ca.fused_column_attention(*args))
             p_ms = time_ms(lambda: ca.reference_column_attention(*args))
             lib_ms = None
@@ -319,12 +332,13 @@ def kernel_phase(card: str) -> dict:
                 lib_ms = time_ms(lambda: library_attention(*lib))
         t_bytes, t_ops = attention_floor(b, s, c, h, mask is not None)
         bound_ms, by = bound(t_bytes, t_ops)
-        plan = ca.fwd_plan(b, s, c, h) if route == "tiled" else None
+        plan = ca.fwd_plan(b, s, c, h) if route != "scalar" else None
         rec = {"phase": "kernel", "kernel": "column_attention_fwd",
                "B": b, "S": s, "C": c, "H": h, "dropout": rate,
                "route": route, "rows": plan and plan.rows,
                "blocks": plan and plan.grid,
                "repeat_bitwise_equal": repeat_equal, "max_abs_err": err,
+               "core_max_abs_err": core_err,
                "tol": KERNEL_TOL, "kernel_ms": k_ms,
                "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
                "bound_by": by, "bytes_ms": t_bytes, "ops_ms": t_ops,
@@ -405,6 +419,7 @@ def kernel_phase(card: str) -> dict:
             "bwd_unmasked": bwd[2:4], "ssl_fwd": fwd[-n:][:2],
             "ssl_fwd_unmasked": fwd[-n:][2:], "ssl_bwd": bwd[-n:][:2],
             "ssl_bwd_unmasked": bwd[-n:][2:],
+            "scalar_fwd": [r for r in fwd if r["route"] == "scalar"],
             "scalar_bwd": [r for r in bwd if r["route"] == "scalar"]}
 
 
@@ -432,7 +447,7 @@ def record_argv(st: dict, csv: str) -> list[str]:
 def reset_counts():
     from rmm_tpu_torch.ops import column_attention as ca
 
-    ca.launches = ca.fwd_tiled_launches = 0
+    ca.launches = ca.fwd_tiled_launches = ca.fwd_split_launches = 0
     ca.bwd_launches = ca.bwd_tiled_launches = ca.bwd_split_launches = 0
     ca.reduce_launches = 0
 
@@ -441,7 +456,7 @@ def read_counts() -> dict:
     from rmm_tpu_torch.ops import column_attention as ca
 
     return {"fwd": ca.launches, "fwd_tiled": ca.fwd_tiled_launches,
-            "bwd": ca.bwd_launches,
+            "fwd_split": ca.fwd_split_launches, "bwd": ca.bwd_launches,
             "bwd_tiled": ca.bwd_tiled_launches,
             "bwd_split": ca.bwd_split_launches, "reduce": ca.reduce_launches}
 
@@ -504,7 +519,7 @@ def serve_phase(card: str, csv: str) -> dict:
           "predicted classes differ from the JAX fixture")
     rec = {"phase": "serve", "rows": rows, "batches": batches,
            "launches": launches, "tiled_launches": counts["fwd_tiled"],
-           "launches_per_batch": launches / batches,
+           "counts": counts, "launches_per_batch": launches / batches,
            "edge_capacity": run["edge_capacity"],
            "node_capacity": run["node_capacity"],
            "fixture_rows": k, "max_score_err": score_err,
@@ -544,7 +559,8 @@ def train_phase(card: str, csv: str) -> dict:
     evals = -(-val_rows // b) + -(-test_rows // b)
     check(math.isfinite(ep["loss"]), f"train loss {ep['loss']}")
     check(counts == {"fwd": 4 * (steps + evals),
-                     "fwd_tiled": 4 * (steps + evals), "bwd": 4 * steps,
+                     "fwd_tiled": 4 * (steps + evals), "fwd_split": 0,
+                     "bwd": 4 * steps,
                      "bwd_tiled": 4 * steps, "bwd_split": 0,
                      "reduce": 4 * steps},
           f"launches {counts} for {steps} train steps and {evals} evaluated "
@@ -625,8 +641,9 @@ def train_parity_phase(card: str) -> dict:
     param_err, param_median = float(errs.max()), float(errs.median())
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, want_losses)]
     n = st["steps"]
-    check(counts == {"fwd": 4 * n, "fwd_tiled": 4 * n, "bwd": 4 * n,
-                     "bwd_tiled": 4 * n, "bwd_split": 0, "reduce": 4 * n},
+    check(counts == {"fwd": 4 * n, "fwd_tiled": 4 * n, "fwd_split": 0,
+                     "bwd": 4 * n, "bwd_tiled": 4 * n, "bwd_split": 0,
+                     "reduce": 4 * n},
           f"launches {counts} for {n} train steps")
     check(loss_rel[0] <= LOSS1_RTOL and max(loss_rel) <= LOSS_RTOL,
           f"losses {losses} vs the JAX record's {want_losses}")
@@ -704,16 +721,17 @@ def ssl_train_phase(card: str, csv: str) -> dict:
     eval_counts = read_counts()
 
     k = SSL_LAUNCHES
-    check(train_counts == {"fwd": k * n, "fwd_tiled": 0, "bwd": k * n,
-                           "bwd_tiled": 0, "bwd_split": k * n,
+    check(train_counts == {"fwd": k * n, "fwd_tiled": 0, "fwd_split": k * n,
+                           "bwd": k * n, "bwd_tiled": 0, "bwd_split": k * n,
                            "reduce": k * n},
           f"launches {train_counts} for {n} SSL train steps (expected "
-          f"{k} forwards, backwards and reduces a step, the forwards "
-          "scalar, the backwards all through the split route)")
-    check(eval_counts == {"fwd": k * n, "fwd_tiled": 0, "bwd": 0,
-                          "bwd_tiled": 0, "bwd_split": 0, "reduce": 0},
+          f"{k} forwards, backwards and reduces a step, the forwards and "
+          "backwards all through the split routes)")
+    check(eval_counts == {"fwd": k * n, "fwd_tiled": 0, "fwd_split": k * n,
+                          "bwd": 0, "bwd_tiled": 0, "bwd_split": 0,
+                          "reduce": 0},
           f"launches {eval_counts} for {n} evaluated SSL batches (expected "
-          f"{k} scalar forwards a batch)")
+          f"{k} split forwards a batch)")
     check(math.isfinite(tm["loss"]), f"SSL train loss {tm['loss']}")
     check(0 < vm["mrr"] <= 1, f"SSL val MRR {vm['mrr']}")
     check(math.isfinite(vm["rmse"]), f"SSL val RMSE {vm['rmse']}")
@@ -786,8 +804,9 @@ def ssl_parity_phase(card: str, csv: str) -> dict:
     terms = [loss_terms(*tr._step(gb.to(tr.device))) for gb in batches]
     counts = read_counts()
     n, k = st["steps"], SSL_LAUNCHES
-    check(counts == {"fwd": k * n, "fwd_tiled": 0, "bwd": k * n,
-                     "bwd_tiled": 0, "bwd_split": k * n, "reduce": k * n},
+    check(counts == {"fwd": k * n, "fwd_tiled": 0, "fwd_split": k * n,
+                     "bwd": k * n, "bwd_tiled": 0, "bwd_split": k * n,
+                     "reduce": k * n},
           f"launches {counts} for {n} SSL steps")
     faults, summary = check_record(tr.model.state_dict(), terms, rec,
                                    "mcm-lp/", st["lr"], 2 * n,
@@ -829,6 +848,7 @@ def ssl_cli_phase(card: str, csv: str) -> dict:
     steps, evals = -(-train_rows // b), -(-val_rows // b)
     k = SSL_LAUNCHES
     check(counts == {"fwd": k * (steps + evals), "fwd_tiled": 0,
+                     "fwd_split": k * (steps + evals),
                      "bwd": k * steps, "bwd_tiled": 0,
                      "bwd_split": k * steps, "reduce": k * steps},
           f"SSL CLI launches {counts} for {steps} steps and {evals} "
@@ -934,15 +954,31 @@ def main() -> int:
                              "max_rel_err": max(max(r["max_rel_err"].values())
                                                 for r in kern["bwd"]),
                              "library_masked": False}),
-            kernel_entry("column_attention_fwd_scalar", 165,
+            kernel_entry("column_attention_fwd_split", 165,
                          kern["ssl_fwd"], kern["ssl_fwd_unmasked"], {
                              "path": "ssl_train",
+                             "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
                              "launches": ssl_rec["train_launches"]["fwd"]
                              + ssl_rec["eval_launches"]["fwd"],
-                             "tiled_launches":
-                                 ssl_rec["train_launches"]["fwd_tiled"]
-                                 + ssl_rec["eval_launches"]["fwd_tiled"],
+                             "split_launches":
+                                 ssl_rec["train_launches"]["fwd_split"]
+                                 + ssl_rec["eval_launches"]["fwd_split"],
+                             "core_max_abs_err": max(
+                                 r["core_max_abs_err"]
+                                 for r in kern["ssl_fwd"]),
                              "library_masked": False}),
+            kernel_entry("column_attention_fwd_scalar", 165,
+                         kern["scalar_fwd"], kern["scalar_fwd"], {
+                             "path": "kernel phase: C % 4 != 0",
+                             "launches": sum(
+                                 c["fwd"] - c["fwd_tiled"] - c["fwd_split"]
+                                 for c in (serve_rec["counts"],
+                                           train_rec["launches"],
+                                           parity_rec["launches"],
+                                           ssl_rec["train_launches"],
+                                           ssl_rec["eval_launches"],
+                                           ssl_parity_rec["launches"],
+                                           ssl_cli_rec["launches"]))}),
             kernel_entry("column_attention_bwd_split", 178,
                          kern["ssl_bwd"], kern["ssl_bwd_unmasked"], {
                              "path": "ssl_train",

@@ -1,4 +1,5 @@
-// Fused column attention for Hopper (sm_90a): two forward kernels, the
+// Fused column attention for Hopper (sm_90a): the forward's three routes
+// (a tiled kernel, a split route of three launches, a scalar kernel), the
 // backward's three routes (a tiled kernel, a split route of four kernels,
 // a scalar kernel) and the backward's reduce.
 //
@@ -23,14 +24,16 @@
 // are bound by shared memory and issue before that. Tensor cores (wgmma)
 // and TMA are later work.
 //
-// Two kernels compute it, chosen by shape: the register-tiled one
-// (column_attention_fwd_tiled_kernel, further down) for every C <= 64 that
-// is a multiple of 4, the main path's C = 32 among them, and the first
-// port's scalar one, right below, for the rest: C = 96 and 128, and C not a
-// multiple of 4. Against the TPU kernel's choices, both index the heads as
-// column slices (no channel-mask trick), and a block walks groups of
-// `rows` rows (grid-stride) with the ragged last group masked (no
-// multiple-of-8 batch tiling or padding).
+// Three routes compute it, chosen by width as the backward's are: the
+// register-tiled kernel (column_attention_fwd_tiled_kernel, further down)
+// for every C <= 64 that is a multiple of 4, the main path's C = 32 among
+// them; the split route (GEMMs around column_attention_fwd_core_kernel,
+// further down) for the other multiples of 4 up to 128, C = 96 and the SSL
+// path's C = 128; and the first port's scalar kernel, right below, for C
+// not a multiple of 4. Against the TPU kernel's choices, the two kernels
+// index the heads as column slices (no channel-mask trick), and a block
+// walks groups of `rows` rows (grid-stride) with the ragged last group
+// masked (no multiple-of-8 batch tiling or padding).
 //
 // The scalar kernel: one thread per (row, output column) in the
 // projections, the S tokens as S register sums, and one per (row, head,
@@ -38,8 +41,10 @@
 // reads one weight and one broadcast activation, all 32-bit loads (about
 // 5.2k a token against 4.5k FMAs at C = 32), and its attention stage has
 // 6-way bank conflicts. The weights sit in shared memory where they fit
-// (C <= 64); at C = 128 (256 kB) every block reads them through the
-// read-only cache from L2.
+// (C <= 64); above (256 kB at C = 128) every block reads them through the
+// read-only cache from L2, once a group of a few rows: that made it 22.88
+// ms at 131072×6×128/8 with the 0.5 keep-mask against a bound of 1.57
+// (H100 80GB HBM3, 700 W), and is why C = 96..128 take the split route.
 //
 // The tiled kernel keeps the groups of rows and cuts the shared loads with
 // register tiles fed by float4 loads, as the tiled backward does:
@@ -75,7 +80,18 @@
 // for every 16 FMAs); stage C, about a third, by issue and latency (a
 // softmax, index divisions and byte loads for a few dozen FMAs an item).
 // See PERF.md.
-// Both kernels take S <= 16, C % nhead == 0, C <= 128, float32 only (the
+// The split forward (64 < C <= 128, C % 4 == 0) does the forward's 4·C²
+// FMAs a token as two float32 GEMMs over all tokens (gemm_f32.cuh, the
+// backward's), qkv = x·Wqkv + b before and o = ctx·Wout + b after a
+// per-row attention core, on a scratch row of 3C floats a token: q | k | v,
+// then ctx over q. No kernel keeps a weight, and the weights are read from
+// L2 once a 128×128 output tile, not once a group of rows. The scratch
+// makes a round trip through device memory (3C floats written, 3C read, C
+// written and C read again a token: 3.2 GB at the edge shape, ~1 ms at
+// 3.35 TB/s). Bound: float32 FMAs (103 GFLOP at 131072×6×128/8, 1.54 ms
+// at 67 TFLOP/s); the core by bytes. Outputs are one thread's FMA chain
+// each: two calls give the same bits.
+// All routes take S <= 16, C % nhead == 0, C <= 128, float32 only (the
 // wrapper checks). They launch on the caller's stream, allocate nothing
 // and do not synchronize; the C entry points return cudaGetLastError().
 //
@@ -1603,6 +1619,125 @@ column_attention_bwd_core_kernel(float* __restrict__ tok,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The split forward: every C with 64 < C <= 128 and C % 4 == 0 (the SSL
+// width among them). Three launches over a scratch row of 3C floats a
+// token (the design and what bounds it are in the note at the top of this
+// file):
+//   1. tok = x·Wqkv + bqkv (GEMM): the token rows q | k | v;
+//   2. the forward attention core below, which writes ctx over q;
+//   3. out = ctx·Wout + bout (GEMM, A read from tok with a row stride of
+//      3C).
+//
+// The core. A block copies `rows` rows (rows·S consecutive token rows of
+// `tok`) into shared memory by cp.async, rows padded to 3C + 4 floats
+// (≡ 4 mod 32 words apart: token i's float4s at one column fall in
+// distinct bank groups), then one thread per (row, head, query i):
+//   P = softmax(q_i k_jᵀ / √hd) (· keep/(1 − p)), ctx_i = Σ_j P_ij v_j,
+// stored over q_i's head slice. Writing in place is safe: every read
+// comes from the staged copy, and a block's rows are its own. Neighbouring
+// threads take neighbouring queries of one head (distinct bank groups for
+// q_i, one broadcast for k_j and v_j), as the backward's core does.
+// ---------------------------------------------------------------------------
+
+// Floats of the forward core's shared memory for `rows` rows.
+__host__ __device__ inline size_t fwd_core_smem_floats(int S, int C,
+                                                       int rows) {
+  return (size_t)rows * S * (3 * C + 4);
+}
+
+// Query i of head h of the block's row r: ctx_i into `out` (global, q_i's
+// head slice).
+template <int W, int MAXS>
+__device__ __forceinline__ void fwd_core_query(const float* sT, float* out,
+                                               const uint8_t* kp, int r,
+                                               int h, int i, int S, int C,
+                                               int H, int TS, float scale,
+                                               float inv_keep) {
+  const int hd = C / H;
+  const float* ti = sT + (r * S + i) * TS + h * hd;
+  const float* tr = sT + r * S * TS + h * hd;  // token 0 of the row
+  float p[MAXS];
+#pragma unroll
+  for (int j = 0; j < MAXS; ++j) {
+    p[j] = 0.f;
+    if (j < S) {
+      const float* tj = tr + j * TS;
+      float d = 0.f;
+      for (int c = 0; c < hd; c += W)
+        d = Chunk<W>::load(ti + c).dot(Chunk<W>::load(tj + C + c), d);
+      p[j] = d;
+    }
+  }
+  softmax(p, S, scale);
+  if (kp != nullptr) keep_scale(p, kp, S, inv_keep);
+  for (int c = 0; c < hd; c += W) {
+    Chunk<W> ctx = Chunk<W>::zero();
+#pragma unroll
+    for (int j = 0; j < MAXS; ++j)
+      if (j < S) ctx.fma(p[j], Chunk<W>::load(tr + j * TS + 2 * C + c));
+    ctx.store(out + c);
+  }
+}
+
+template <int MAXS>
+__global__ void __launch_bounds__(kCoreThreads)
+column_attention_fwd_core_kernel(float* __restrict__ tok,
+                                 const uint8_t* __restrict__ keep, int B,
+                                 int S, int C, int H, float scale,
+                                 float inv_keep, int rows) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int TT = 3 * C;      // a token row in device memory
+  const int TS = TT + 4;     // in shared memory
+  const int Q4 = TT / 4;     // its float4s
+  const int r0 = blockIdx.x * rows;
+  const int nr = min(rows, B - r0);
+  const int HS = H * S;
+  float* tg = tok + (size_t)r0 * S * TT;
+
+  for (int i = tid; i < nr * S * Q4; i += kCoreThreads) {
+    const int t = i / Q4;
+    const int q = i - t * Q4;
+    cp_async16(smem + t * TS + 4 * q, tg + (size_t)t * TT + 4 * q);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  const bool vec = (C / H) % 4 == 0;
+  for (int it = tid; it < nr * HS; it += kCoreThreads) {
+    const int r = it / HS;
+    const int h = (it - r * HS) / S;
+    const int i = it - r * HS - h * S;
+    float* out = tg + (size_t)(r * S + i) * TT + h * (C / H);
+    const uint8_t* kp =
+        keep == nullptr ? nullptr
+                        : keep + (((size_t)(r0 + r) * H + h) * S + i) * S;
+    if (vec)
+      fwd_core_query<4, MAXS>(smem, out, kp, r, h, i, S, C, H, TS, scale,
+                              inv_keep);
+    else
+      fwd_core_query<1, MAXS>(smem, out, kp, r, h, i, S, C, H, TS, scale,
+                              inv_keep);
+  }
+}
+
+// The forward core on `tok` ([B·S, 3C] floats, 16-byte aligned).
+cudaError_t launch_fwd_core(float* tok, const uint8_t* keep, int B, int S,
+                            int C, int H, float inv_keep, int rows,
+                            cudaStream_t st) {
+  const size_t smem = fwd_core_smem_floats(S, C, rows) * sizeof(float);
+  const float scale = 1.0f / sqrtf((float)(C / H));
+  return by_s(S, [&](auto ms) {
+    auto kernel = column_attention_fwd_core_kernel<decltype(ms)::value>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<(B + rows - 1) / rows, kCoreThreads, smem, st>>>(
+        tok, keep, B, S, C, H, scale, inv_keep, rows);
+    return cudaGetLastError();
+  });
+}
+
 // A reduce block's entries, and the threads that share each entry.
 constexpr int kReduceEntries = 32;
 constexpr int kReduceParts = kThreads / kReduceEntries;
@@ -1880,6 +2015,12 @@ int rmm_column_attention_bwd_tiled(const float* x, const float* dout,
                             4 * C * C + 4 * C, grads, st);
 }
 
+// The shapes both split routes take.
+static bool split_shape_ok(int S, int C, int H, int rows) {
+  return S >= 1 && S <= 16 && C >= 4 && C <= 128 && C % 4 == 0 && H >= 1 &&
+         C % H == 0 && rows >= 1;
+}
+
 // The split backward (C % 4 == 0, C <= 128; the wrapper routes 64 < C):
 // the attention core's shared memory for `rows` rows, and the blocks of
 // the weight-gradient GEMM an SM holds (or a negative CUDA error code).
@@ -1912,8 +2053,7 @@ int rmm_column_attention_bwd_split(const float* x, const float* dout,
   using rmm_gemm::launch_gemm;
   using rmm_gemm::make_gemm;
   if (B <= 0) return 0;
-  if (S < 1 || S > 16 || C < 4 || C > 128 || C % 4 || H < 1 || C % H ||
-      rows < 1 || split_tokens < 1)
+  if (!split_shape_ok(S, C, H, rows) || split_tokens < 1)
     return (int)cudaErrorInvalidValue;
   const int N = B * S, C3 = 3 * C, TT = 4 * C;
   const long long total = 4LL * C * C + 4 * C;
@@ -1957,6 +2097,59 @@ int rmm_column_attention_bwd_split(const float* x, const float* dout,
   // 5. the reduce
   return (int)launch_reduce(partials, (N + split_tokens - 1) / split_tokens,
                             (int)total, grads, st);
+}
+
+// The split forward (C % 4 == 0, C <= 128; the wrapper routes 64 < C):
+// the forward core's shared memory for `rows` rows (H is not needed: the
+// forward core keeps no S×S tiles).
+size_t rmm_column_attention_fwd_core_smem_bytes(int S, int C, int H,
+                                                int rows) {
+  (void)H;
+  return fwd_core_smem_floats(S, C, rows) * sizeof(float);
+}
+
+// The forward core alone, in place on `tok` ([B·S, 3C] floats of
+// q | k | v, 16-byte aligned): ctx over q. The split forward's second
+// launch, for holding it against its plain twin.
+int rmm_column_attention_fwd_core(float* tok, const uint8_t* keep, int B,
+                                  int S, int C, int H, float inv_keep,
+                                  int rows, void* stream) {
+  if (B <= 0) return 0;
+  if (!split_shape_ok(S, C, H, rows)) return (int)cudaErrorInvalidValue;
+  return (int)launch_fwd_core(tok, keep, B, S, C, H, inv_keep, rows,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The split forward's three launches (see the note at the top of this
+// file) on the scratch `tok` ([B·S, 3C] floats), into out. x, wqkv, wout,
+// out and tok must be 16-byte aligned. Returns the first launch's
+// cudaGetLastError() that is not 0, else 0.
+int rmm_column_attention_fwd_split(const float* x, const float* wqkv,
+                                   const float* bqkv, const float* wout,
+                                   const float* bout, const uint8_t* keep,
+                                   float* out, float* tok, int B, int S,
+                                   int C, int H, float inv_keep, int rows,
+                                   void* stream) {
+  using rmm_gemm::Gemm;
+  using rmm_gemm::launch_gemm;
+  using rmm_gemm::make_gemm;
+  if (B <= 0) return 0;
+  if (!split_shape_ok(S, C, H, rows)) return (int)cudaErrorInvalidValue;
+  const int N = B * S, C3 = 3 * C;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // 1. qkv = x·Wqkv + bqkv: A = x (tokens × channels), B = Wqkv (k-major);
+  //    the backward's projection instantiation, one problem.
+  const Gemm qkv = make_gemm(x, C, wqkv, C3, tok, C3, bqkv, N, C3, C, C, 0,
+                             0);
+  cudaError_t err = launch_gemm<false, true, false, false>(qkv, nullptr, st);
+  if (err != cudaSuccess) return (int)err;
+  // 2. the attention core: ctx over q
+  err = launch_fwd_core(tok, keep, B, S, C, H, inv_keep, rows, st);
+  if (err != cudaSuccess) return (int)err;
+  // 3. out = ctx·Wout + bout: A = ctx (the first C floats of each token
+  //    row), B = Wout (k-major)
+  const Gemm o = make_gemm(tok, C3, wout, C, out, C, bout, N, C, C, C, 0, 0);
+  return (int)launch_gemm<false, true, false, false>(o, nullptr, st);
 }
 
 // The tiled forward (C % 4 == 0, C <= 64): its shared memory for a group

@@ -8,35 +8,36 @@ layout (``x [B, S, C]``, ``Wqkv [C, 3C]``, ``Wout [C, C]``, an optional
 for CUDA tensors: the forward kernel (the port of the TPU kernel
 ``rmm_tpu/ops/pallas/column_attention.py::_fwd_kernel``) and, under
 autograd, the backward (the port of ``_bwd_kernel``), through
-:class:`ColumnAttentionFunction`. The backward takes one of three routes by
-width (:func:`route`):
+:class:`ColumnAttentionFunction`. Both directions take one of three routes
+by width (:func:`route`):
 
 * ``tiled``: every C <= 64 that is a multiple of 4 (the main path's
-  C = 32), the register-tiled kernel and its reduce;
+  C = 32), the register-tiled kernels (and the backward's reduce);
 * ``split``: every other C <= 128 that is a multiple of 4 (C = 96, and the
-  SSL path's C = 128): five launches, the projections, an attention core,
-  dx and the weight gradients as hand-written float32 GEMMs
-  (``csrc/gemm_f32.cuh``) around a per-row attention kernel, then the
-  reduce;
-* ``scalar``: C not a multiple of 4, the scalar kernel of the first port
-  and its reduce.
+  SSL path's C = 128): hand-written float32 GEMMs (``csrc/gemm_f32.cuh``)
+  around a per-row attention kernel. The forward is three launches, the
+  projections, the attention core and the output projection; the
+  backward five, the projections, its attention core, dx, the weight
+  gradients and the reduce;
+* ``scalar``: C not a multiple of 4, the scalar kernels of the first port
+  (and the backward's reduce).
 
-The forward takes the tiled kernel where the backward does, else the
-scalar one. The backward recomputes from ``x`` alone, as the TPU kernel
-does: the Function saves ``x``, the weights and the keep-mask, nothing of
-the forward's insides.
+The backward recomputes from ``x`` alone, as the TPU kernel does: the
+Function saves ``x``, the weights and the keep-mask, nothing of the
+forward's insides.
 
 CPU tensors take :func:`reference_column_attention`, the PyTorch twin of
 ``_attention_math``, whose backward is autograd's; a CUDA tensor launches
-the kernels or raises. Why the kernels are built the way they are, and what
-bounds them, is noted in their source.
+the kernels or raises. :func:`reference_attention_core` is the plain twin
+of the split forward's attention core alone. Why the kernels are built the
+way they are, and what bounds them, is noted in their source.
 
-``launches`` counts forward-kernel launches (both kernels),
-``fwd_tiled_launches`` those of the tiled one, ``bwd_launches`` backward
-calls on the card (every route), ``bwd_tiled_launches`` and
-``bwd_split_launches`` those through the tiled and the split route, and
-``reduce_launches`` launches of the backward's reduce (one per backward),
-and nothing else.
+``launches`` counts forward calls on the card (every route),
+``fwd_tiled_launches`` and ``fwd_split_launches`` those through the tiled
+and the split route, ``bwd_launches`` backward calls on the card (every
+route), ``bwd_tiled_launches`` and ``bwd_split_launches`` those through
+the tiled and the split route, and ``reduce_launches`` launches of the
+backward's reduce (one per backward), and nothing else.
 """
 from __future__ import annotations
 
@@ -49,6 +50,7 @@ import torch
 
 launches = 0
 fwd_tiled_launches = 0
+fwd_split_launches = 0
 bwd_launches = 0
 bwd_tiled_launches = 0
 bwd_split_launches = 0
@@ -60,7 +62,7 @@ _ROW_BUDGET_FLOATS = 10240   # the scalar forward's x/ctx + qkv a group
 _BWD_ROW_BUDGET_FLOATS = 20480  # the backward's 10·S·C + 2·H·S² a row
 _WEIGHTS_IN_SMEM_MAX_C = 64  # 4·C² floats = 64 kB at C = 64
 _TILED_MAX_C = 64            # the tiled kernels keep their weights in smem
-_CORE_THREADS = 256          # the split route's attention core: a block
+_CORE_THREADS = 256          # the split routes' attention cores: a block
 _GEMM_TILE = 128             # rows and columns of a GEMM block tile
 
 _lib = None
@@ -123,6 +125,18 @@ def _kernel(path: str | None = None):
             ctypes.c_size_t)
         lib.rmm_column_attention_bwd_core_smem_bytes.argtypes = [
             ctypes.c_int] * 4
+        lib.rmm_column_attention_fwd_core_smem_bytes.restype = (
+            ctypes.c_size_t)
+        lib.rmm_column_attention_fwd_core_smem_bytes.argtypes = [
+            ctypes.c_int] * 4
+        lib.rmm_column_attention_fwd_core.restype = ctypes.c_int
+        lib.rmm_column_attention_fwd_core.argtypes = [
+            p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_int, p]
+        lib.rmm_column_attention_fwd_split.restype = ctypes.c_int
+        lib.rmm_column_attention_fwd_split.argtypes = [
+            p, p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, p]
         lib.rmm_column_attention_bwd_split.restype = ctypes.c_int
         lib.rmm_column_attention_bwd_split.argtypes = [
             p, p, p, p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
@@ -143,17 +157,27 @@ def reference_column_attention(x, wqkv, bqkv, wout, bout, nhead: int,
     """Plain PyTorch version (differentiable): per head
     ``softmax(q_h k_hᵀ/√hd)`` (times ``keep/(1−p)`` with a mask) ``· v_h``,
     heads concatenated, then the output projection."""
-    b, s, c = x.shape
-    hd = c // nhead
     qkv = torch.matmul(x, wqkv) + bqkv
+    ctx = reference_attention_core(qkv, nhead, drop_mask, dropout_rate)
+    return torch.matmul(ctx, wout) + bout
+
+
+def reference_attention_core(tok, nhead: int, drop_mask=None,
+                             dropout_rate: float = 0.0):
+    """Plain PyTorch version of the attention between the projections
+    (the split forward's core): token rows ``tok`` [B, S, 3C] of
+    q | k | v → ctx [B, S, C], per head ``softmax(q_h k_hᵀ/√hd)`` (times
+    ``keep/(1−p)`` with a [B, nhead, S, S] keep-mask) ``· v_h``."""
+    b, s, c3 = tok.shape
+    c = c3 // 3
+    hd = c // nhead
     q, k, v = (t.reshape(b, s, nhead, hd).transpose(1, 2)
-               for t in qkv.split(c, dim=-1))          # [B, H, S, hd]
+               for t in tok.split(c, dim=-1))          # [B, H, S, hd]
     scale = 1.0 / math.sqrt(hd)
     attn = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, -1)
     if drop_mask is not None and dropout_rate > 0.0:
         attn = attn * drop_mask.to(attn.dtype) * (1.0 / (1.0 - dropout_rate))
-    ctx = torch.matmul(attn, v).transpose(1, 2).reshape(b, s, c)
-    return torch.matmul(ctx, wout) + bout
+    return torch.matmul(attn, v).transpose(1, 2).reshape(b, s, c)
 
 
 def fused_column_attention(x, wqkv, bqkv, wout, bout, nhead: int,
@@ -241,10 +265,10 @@ def _raise_on(err: int, what: str):
 
 
 def route(c: int) -> str:
-    """The backward's route for width ``c``: ``"tiled"`` for every
-    ``c <= 64`` that is a multiple of 4 (the forward takes its tiled kernel
-    there too), ``"split"`` for every other multiple of 4 up to 128, and
-    ``"scalar"`` (the first port's kernels) for the rest."""
+    """The route of both directions for width ``c``: ``"tiled"`` for every
+    ``c <= 64`` that is a multiple of 4, ``"split"`` for every other
+    multiple of 4 up to 128, and ``"scalar"`` (the first port's kernels)
+    for the rest."""
     if c % 4:
         return "scalar"
     return "tiled" if c <= _TILED_MAX_C else "split"
@@ -258,61 +282,146 @@ def _aligned(t):
 
 def column_attention_fwd(x, wqkv, bqkv, wout, bout, nhead, keep=None,
                          rate=0.0, plan: FwdPlan | None = None):
-    """The forward kernel on checked CUDA inputs (no autograd). ``plan``
-    (from :func:`fwd_plan`, tiled widths only) overrides the default one."""
-    global launches, fwd_tiled_launches
+    """The forward on checked CUDA inputs (no autograd), by the route of
+    :func:`route`. ``plan`` (from :func:`fwd_plan`, tiled and split
+    widths) overrides the default one."""
+    global launches, fwd_tiled_launches, fwd_split_launches
     b, s, c = x.shape
     out = torch.empty_like(x)
     if b == 0:
         return out
     lib = _kernel()
     inv_keep = 1.0 / (1.0 - rate) if keep is not None else 1.0
-    use_tiled = route(c) == "tiled"
+    keep_ptr = None if keep is None else keep.data_ptr()
+    kind = route(c)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if use_tiled:
-            plan = plan or fwd_plan(b, s, c, nhead)
-            x = _aligned(x)
-            rows, grid = plan
-        else:
+        if kind == "scalar":
             rows = max(1, min(b, _ROW_BUDGET_FLOATS // (4 * s * c + 2)))
-        args = (x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
-                wout.data_ptr(), bout.data_ptr(),
-                None if keep is None else keep.data_ptr(), out.data_ptr(), b,
-                s, c, nhead, inv_keep, rows)
-        if use_tiled:
-            err = lib.rmm_column_attention_fwd_tiled(*args, grid, stream)
-        else:
             err = lib.rmm_column_attention_fwd(
-                *args, int(c <= _WEIGHTS_IN_SMEM_MAX_C), stream)
-    _raise_on(err, "forward kernel")
+                x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+                wout.data_ptr(), bout.data_ptr(), keep_ptr, out.data_ptr(),
+                b, s, c, nhead, inv_keep, rows,
+                int(c <= _WEIGHTS_IN_SMEM_MAX_C), stream)
+        else:
+            rows, grid = plan or fwd_plan(b, s, c, nhead)
+            x = _aligned(x)
+            if kind == "tiled":
+                err = lib.rmm_column_attention_fwd_tiled(
+                    x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+                    wout.data_ptr(), bout.data_ptr(), keep_ptr,
+                    out.data_ptr(), b, s, c, nhead, inv_keep, rows, grid,
+                    stream)
+            else:
+                wqkv, wout = _aligned(wqkv), _aligned(wout)
+                tok = torch.empty(b * s, 3 * c, dtype=x.dtype,
+                                  device=x.device)
+                err = lib.rmm_column_attention_fwd_split(
+                    x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+                    wout.data_ptr(), bout.data_ptr(), keep_ptr,
+                    out.data_ptr(), tok.data_ptr(), b, s, c, nhead,
+                    inv_keep, rows, stream)
+    _raise_on(err, f"{kind} forward")
     launches += 1
-    fwd_tiled_launches += int(use_tiled)
+    fwd_tiled_launches += int(kind == "tiled")
+    fwd_split_launches += int(kind == "split")
     return out
 
 
+def attention_core_fwd(tok, nhead: int, keep=None, rate: float = 0.0,
+                       rows: int | None = None):
+    """The split forward's attention core alone on token rows ``tok``
+    [B, S, 3C] of q | k | v (C a multiple of 4, at most 128): ctx
+    [B, S, C], computed on a copy. The twin of
+    :func:`reference_attention_core` (which CPU tensors take), for holding
+    the core against it; no forward path calls it, and it counts no
+    launch."""
+    if tok.device.type == "cpu":
+        return reference_attention_core(tok, nhead, keep, rate)
+    b, s, c3 = tok.shape
+    c = c3 // 3
+    work = tok.contiguous().clone()
+    if b:
+        inv_keep = 1.0 / (1.0 - rate) if keep is not None else 1.0
+        with torch.cuda.device(tok.device):
+            rows = fwd_plan(b, s, c, nhead, rows).rows
+            err = _kernel().rmm_column_attention_fwd_core(
+                work.data_ptr(), None if keep is None else keep.data_ptr(),
+                b, s, c, nhead, inv_keep, rows,
+                torch.cuda.current_stream().cuda_stream)
+        _raise_on(err, "split forward's attention core")
+    return work[..., :c]
+
+
 class FwdPlan(NamedTuple):
-    """How the tiled forward runs a shape: rows a group and blocks."""
+    """How the tiled forward runs a shape (rows a group and blocks), or
+    the split forward's attention core (rows a block and blocks)."""
     rows: int
     grid: int
 
 
 def fwd_plan(b: int, s: int, c: int, nhead: int,
              rows: int | None = None) -> FwdPlan:
-    """The tiled forward's plan for this shape on the current card: blocks
-    of 256 threads, two an SM, each with as many rows a group as its share
-    of the SM's shared memory holds, evened out so that every block walks
-    the same number of groups (the choice of ``tools/torch_attn_sweep.py``'s
-    and ``tools/torch_attn_stages.py``'s runs, in ``PERF.md``); ``rows``
-    overrides the rows a group. Cached by shape and card, as
+    """The forward's plan for this shape on the current card. The tiled
+    kernel runs blocks of 256 threads, two an SM, each with as many rows a
+    group as its share of the SM's shared memory holds, evened out so that
+    every block walks the same number of groups (the choice of
+    ``tools/torch_attn_sweep.py``'s and ``tools/torch_attn_stages.py``'s
+    runs, in ``PERF.md``). The split route's core takes the rows of
+    :func:`split_fwd_plan` on this card. ``rows`` overrides the rows a
+    group (a block of the core). Cached by shape and card, as
     :func:`bwd_plan` is."""
     return _fwd_plan(b, s, c, nhead, rows, torch.cuda.current_device())
+
+
+def core_rows(b: int, s: int, nhead: int, smem_budget: int,
+              smem_per_row: int) -> int:
+    """Rows a block of a split route's attention core (either direction):
+    as many as give each of its 256 threads at most one (row, head, query)
+    and fit ``smem_budget`` bytes of shared memory at ``smem_per_row`` a
+    row, at least one."""
+    return max(1, min(b, _CORE_THREADS // (nhead * s),
+                      smem_budget // smem_per_row))
+
+
+def split_fwd_plan(b: int, s: int, nhead: int, smem_budget: int,
+                   smem_per_row: int, rows: int | None = None) -> FwdPlan:
+    """The split forward's plan: its attention core's rows a block
+    (:func:`core_rows`, or ``rows``) and the blocks that cover the B rows
+    once."""
+    rows = rows or core_rows(b, s, nhead, smem_budget, smem_per_row)
+    return FwdPlan(rows, -(-b // rows))
+
+
+def _core_budget() -> int:
+    """The shared memory a block of a split route's attention core may
+    take on the current card: half an SM's (two blocks an SM), at most a
+    block's."""
+    lib = _kernel()
+    return min(lib.rmm_cuda_max_smem_per_block(),
+               lib.rmm_cuda_smem_per_sm() // 2 - 1024)
+
+
+def _check_core_fits(smem_bytes, s: int, c: int, nhead: int, rows: int):
+    """Raises unless ``rows`` rows of a split route's attention core (its
+    bytes from the library's ``smem_bytes(S, C, H, rows)``) fit a block."""
+    most = _kernel().rmm_cuda_max_smem_per_block()
+    if smem_bytes(s, c, nhead, rows) > most:
+        raise ValueError(f"a split route's attention core does not fit "
+                         f"{rows} rows of S={s}, C={c}, nhead={nhead} in "
+                         "shared memory")
 
 
 @functools.lru_cache(maxsize=256)
 def _fwd_plan(b, s, c, nhead, rows, device) -> FwdPlan:
     del device  # only a cache key: the plan depends on the card
     lib = _kernel()
+    if route(c) == "split":
+        smem_bytes = lib.rmm_column_attention_fwd_core_smem_bytes
+        plan = split_fwd_plan(b, s, nhead, _core_budget(),
+                              smem_bytes(s, c, nhead, 1), rows)
+        _check_core_fits(smem_bytes, s, c, nhead, plan.rows)
+        return plan
     if rows is None:
         rows = _tiled_rows(
             b, 2,
@@ -381,16 +490,13 @@ def split_plan(b: int, s: int, c: int, nhead: int, sms: int,
     attention core may take ``smem_budget`` bytes of shared memory, of
     which it needs ``smem_per_row`` a row.
 
-    The attention core takes as many rows a block as give each of its 256
-    threads at most one (row, head, query) and fit the budget (``rows``
+    The attention core takes :func:`core_rows` rows a block (``rows``
     overrides it). The weight-gradient GEMM cuts the B·S tokens into
     ranges of ``split_tokens`` (range ``i`` is tokens ``i·split_tokens`` up
     to the next range or B·S), as many as give its output tiles (4 at
     C = 128) one block on every slot of the card, and writes one partial
     slice per range."""
-    if rows is None:
-        rows = max(1, min(b, _CORE_THREADS // (nhead * s),
-                          smem_budget // smem_per_row))
+    rows = rows or core_rows(b, s, nhead, smem_budget, smem_per_row)
     tiles = -(-c // _GEMM_TILE) * (-(-3 * c // _GEMM_TILE)
                                    + -(-c // _GEMM_TILE))
     n = b * s
@@ -409,20 +515,12 @@ def _bwd_plan(b, s, c, nhead, rows, device) -> BwdPlan:
         per_sm = lib.rmm_column_attention_gemm_blocks_per_sm()
         if per_sm < 0:
             _raise_on(-per_sm, "split backward's GEMM")
-        budget = min(lib.rmm_cuda_max_smem_per_block(),
-                     lib.rmm_cuda_smem_per_sm() // 2 - 1024)
         sms = torch.cuda.get_device_properties(
             torch.cuda.current_device()).multi_processor_count
-        plan = split_plan(
-            b, s, c, nhead, sms, per_sm, budget,
-            lib.rmm_column_attention_bwd_core_smem_bytes(s, c, nhead, 1),
-            rows)
-        if (lib.rmm_column_attention_bwd_core_smem_bytes(s, c, nhead,
-                                                         plan.rows)
-                > lib.rmm_cuda_max_smem_per_block()):
-            raise ValueError(f"the split backward's attention core does not "
-                             f"fit one row of S={s}, C={c}, nhead={nhead} "
-                             "in shared memory")
+        smem_bytes = lib.rmm_column_attention_bwd_core_smem_bytes
+        plan = split_plan(b, s, c, nhead, sms, per_sm, _core_budget(),
+                          smem_bytes(s, c, nhead, 1), rows)
+        _check_core_fits(smem_bytes, s, c, nhead, plan.rows)
         return plan
     if kind == "scalar":
         w_smem = int(c <= _WEIGHTS_IN_SMEM_MAX_C)

@@ -140,14 +140,18 @@ def test_wrapper_checks_shapes():
                                   dropout_rate=0.1)
 
 
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
 @pytest.mark.parametrize("c,want", [(30, "scalar"), (32, "tiled"),
                                     (64, "tiled"), (96, "split"),
                                     (128, "split"), (126, "scalar"),
                                     (68, "split")])
-def test_backward_route_by_width(c, want):
-    """The tiled kernels take every multiple of 4 up to 64, the split route
-    the rest up to 128, the scalar kernels every C not a multiple of 4."""
+def test_backward_route_by_width(c, want, direction):
+    """Both directions: the tiled kernels take every multiple of 4 up to
+    64, the split routes the rest up to 128, the scalar kernels every C not
+    a multiple of 4; each direction counts its tiled and split calls."""
     assert ca.route(c) == want
+    if want != "scalar":
+        assert isinstance(getattr(ca, f"{direction}_{want}_launches"), int)
 
 
 @pytest.mark.parametrize("b,s,sms,per_sm", [
@@ -184,3 +188,55 @@ def test_split_plan_token_ranges_cover_every_token_once(b, s, sms, per_sm):
     assert 1 <= plan.rows <= max(1, 256 // (h * s))
     assert plan.grid == -(-b // plan.rows)
     assert plan.rows * per_row <= budget
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("s", [1, 6, 16])
+@pytest.mark.parametrize("c,h", [(128, 8), (96, 8)])
+def test_attention_core_between_projections_matches_jax(c, h, s, masked):
+    """The split forward's plain core (token rows q | k | v in, ctx out)
+    between ``torch.matmul`` projections is the JAX reference's and the
+    Pallas kernel's attention (head_dim 16 and 12)."""
+    x, wqkv, bqkv, wout, bout = make_inputs(c * s + masked, B, s, c)
+    rate = 0.3 if masked else 0.0
+    mask = (np.random.RandomState(s).rand(B, h, s, s) >= rate
+            if masked else None)
+    tok = torch.matmul(torch.from_numpy(x), torch.from_numpy(wqkv)) \
+        + torch.from_numpy(bqkv)
+    keep = None if mask is None else torch.from_numpy(mask)
+    ctx = ca.reference_attention_core(tok, h, keep, rate)
+    assert ctx.shape == (B, s, c)
+    # the kernel's wrapper takes the plain twin for CPU tensors
+    assert torch.equal(ca.attention_core_fwd(tok, h, keep, rate), ctx)
+    out = (torch.matmul(ctx, torch.from_numpy(wout))
+           + torch.from_numpy(bout)).numpy()
+    jarr = [jnp.asarray(a) for a in (x, wqkv, bqkv, wout, bout)]
+    jmask = None if mask is None else jnp.asarray(mask)
+    ref = jax_reference(*jarr, h, drop_mask=jmask, dropout_rate=rate)
+    np.testing.assert_allclose(out, np.asarray(ref), **TOL)
+    pallas = jax_fused(*jarr, h, drop_mask=jmask, dropout_rate=rate,
+                       block_rows=8, interpret=True)
+    np.testing.assert_allclose(out, np.asarray(pallas), **TOL)
+
+
+@pytest.mark.parametrize("b,s,h,budget", [
+    (131072, 6, 8, 113 * 1024),   # the SSL edge tokens on an H100
+    (13000, 6, 8, 113 * 1024),    # the SSL target rows
+    (100003, 5, 3, 113 * 1024),   # ragged, few heads: the budget binds
+    (1, 1, 8, 113 * 1024),
+    (37, 16, 8, 113 * 1024),      # two rows a block
+    (37, 16, 16, 113 * 1024),     # 256 items a row: one row a block
+    (4099, 6, 8, 20 * 1024),      # a small card: the budget binds
+])
+def test_split_forward_plan_covers_every_row_once(b, s, h, budget):
+    """The split forward's core gives each of its 256 threads at most one
+    (row, head, query), fits its shared-memory budget (S token rows of
+    3C + 4 floats a row at C = 128) and its blocks cover the B rows once."""
+    per_row = 4 * s * (3 * 128 + 4)
+    plan = ca.split_fwd_plan(b, s, h, budget, per_row)
+    assert 1 <= plan.rows <= b
+    assert plan.rows * h * s <= 256
+    assert plan.rows * per_row <= budget
+    assert (plan.grid - 1) * plan.rows < b <= plan.grid * plan.rows
+    assert plan.rows == min(b, 256 // (h * s), budget // per_row)
+    assert ca.split_fwd_plan(b, s, h, budget, per_row, rows=3).rows == 3

@@ -46,10 +46,10 @@ def attention_inputs(seed, b, s, c, device):
 
 
 # Both directions' shapes. The tiled kernels take every C <= 64 that is a
-# multiple of 4; at C = 96 and 128 the forward takes the scalar kernel (its
-# weights through the read-only cache), the backward the split route. S of 1, 5 and 7 and C of 16, 48 and 64 at
-# head_dim 2, 4, 6 and 8: the tiled kernels instantiate S = 2, 4, 6, 8 and
-# 16, and a head_dim that is not a multiple of 4 takes their scalar loops.
+# multiple of 4; at C = 96 and 128 both directions take the split route.
+# S of 1, 5 and 7 and C of 16, 48 and 64 at head_dim 2, 4, 6 and 8: the
+# tiled kernels instantiate S = 2, 4, 6, 8 and 16, and a head_dim that is
+# not a multiple of 4 takes their scalar loops.
 SHAPES = [
     (1, 1, 32, 8),       # one row, one token
     (37, 2, 32, 8),      # node tokens at the serving width, ragged batch
@@ -57,7 +57,7 @@ SHAPES = [
     (515, 3, 48, 6),     # odd S, head_dim 8
     (257, 9, 64, 4),     # largest width with the weights in shared memory
     (70, 16, 16, 1),     # the largest S, one head
-    (33, 6, 96, 3),      # weights through the read-only cache
+    (33, 6, 96, 3),      # split route
     (100, 16, 128, 8),   # the largest S and C
     (300, 1, 32, 8),
     (301, 5, 32, 8),
@@ -82,18 +82,19 @@ def test_column_attention_kernel_matches_plain(cuda, b, s, c, h, masked):
         rate = 0.3
         mask = torch.from_numpy(
             np.random.RandomState(b).rand(b, h, s, s) >= rate).to(cuda)
-    before = (ca.launches, ca.fwd_tiled_launches)
+    before = (ca.launches, ca.fwd_tiled_launches, ca.fwd_split_launches)
     with torch.inference_mode():
         out = ca.fused_column_attention(*args, h, mask, rate)
         ref = ca.reference_column_attention(*args, h, mask, rate)
-    assert (ca.launches, ca.fwd_tiled_launches) == (
-        before[0] + 1, before[1] + int(ca.route(c) == "tiled"))
+    assert (ca.launches, ca.fwd_tiled_launches, ca.fwd_split_launches) == (
+        before[0] + 1, before[1] + int(ca.route(c) == "tiled"),
+        before[2] + int(ca.route(c) == "split"))
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
 
 
 def forward_case(device, b, s, c, h, plan):
-    """The tiled forward at ``plan`` and the plain version on the same
-    seeded inputs, with the keep-mask."""
+    """The forward at ``plan`` (None: the default one) and the plain
+    version on the same seeded inputs, with the keep-mask."""
     args = attention_inputs(b + s + c, b, s, c, device)
     mask = torch.from_numpy(
         np.random.RandomState(b).rand(b, h, s, s) >= 0.3).to(device)
@@ -124,6 +125,82 @@ def test_forward_repeats_bitwise(cuda):
     plan = ca.fwd_plan(b, s, c, h)
     first, _ = forward_case(cuda, b, s, c, h, plan)
     second, _ = forward_case(cuda, b, s, c, h, plan)
+    assert torch.equal(first, second)
+
+
+# The split forward: C = 128 (the SSL width) and 96 at head_dim 16 and 32,
+# S = 1, 6 and 16, ragged batches (B·S no multiple of a GEMM tile's 128
+# tokens).
+SPLIT_FWD_SHAPES = [
+    (1001, 1, 128, 8),
+    (1001, 6, 128, 8),
+    (203, 16, 128, 8),
+    (1001, 6, 96, 8),
+    (333, 16, 96, 3),
+]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,s,c,h", SPLIT_FWD_SHAPES)
+def test_split_forward_matches_plain(cuda, b, s, c, h, masked):
+    args = attention_inputs(b + s + c, b, s, c, cuda)
+    mask, rate = None, 0.0
+    if masked:
+        rate = 0.3
+        mask = torch.from_numpy(
+            np.random.RandomState(b).rand(b, h, s, s) >= rate).to(cuda)
+    before = ca.fwd_split_launches
+    with torch.inference_mode():
+        out = ca.column_attention_fwd(*args, h, mask, rate)
+        ref = ca.reference_column_attention(*args, h, mask, rate)
+    assert ca.fwd_split_launches == before + 1
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
+
+
+@pytest.mark.parametrize("delta", [-1, 1])
+@pytest.mark.parametrize("s", [2, 4, 16])
+def test_split_forward_one_row_either_side_of_a_gemm_tile(cuda, s, delta):
+    """B·S tokens one row short of three GEMM row tiles (3·128 tokens) and
+    one row past them, with the keep-mask."""
+    b, c, h = 3 * 128 // s + delta, 128, 8
+    before = ca.fwd_split_launches
+    out, ref = forward_case(cuda, b, s, c, h, None)
+    assert ca.fwd_split_launches == before + 1
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,s,c,h", SPLIT_FWD_SHAPES)
+def test_split_forward_core_matches_plain(cuda, b, s, c, h, masked):
+    """The split forward's attention core alone on seeded token rows
+    q | k | v against its plain twin, at the plan's rows and at one row a
+    block."""
+    rng = np.random.RandomState(b + c)
+    tok = torch.from_numpy(rng.randn(b, s, 3 * c).astype(np.float32)).to(
+        cuda)
+    mask, rate = None, 0.0
+    if masked:
+        rate = 0.5
+        mask = torch.from_numpy(rng.rand(b, h, s, s) >= rate).to(cuda)
+    want = ca.reference_attention_core(tok, h, mask, rate).cpu().numpy()
+    before = ca.launches
+    for rows in (None, 1):
+        got = ca.attention_core_fwd(tok, h, mask, rate, rows=rows)
+        np.testing.assert_allclose(got.cpu().numpy(), want, **TOL)
+    assert ca.launches == before
+
+
+def test_split_forward_repeats_bitwise(cuda):
+    """The split forward at C = 128 sums every output in a fixed order:
+    two calls on the same inputs give the same bits."""
+    b, s, c, h = 4099, 6, 128, 8
+    args = attention_inputs(0, b, s, c, cuda)
+    mask = torch.rand(b, h, s, s, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(2)) >= 0.5
+    with torch.inference_mode():
+        first = ca.column_attention_fwd(*args, h, mask, 0.5)
+        second = ca.column_attention_fwd(*args, h, mask, 0.5)
+    assert ca.route(c) == "split"
     assert torch.equal(first, second)
 
 
@@ -311,13 +388,14 @@ def test_backward_route_by_shape(cuda, b, s, c, h, route):
 
 @pytest.mark.parametrize("b,s,c,h,route", ROUTES)
 def test_forward_route_by_shape(cuda, b, s, c, h, route):
-    """The forward takes its tiled kernel where the backward does, else
-    the scalar one."""
+    """The forward takes the backward's route: tiled, split or scalar."""
     args = attention_inputs(0, b, s, c, cuda)
-    before = (ca.launches, ca.fwd_tiled_launches)
+    before = (ca.launches, ca.fwd_tiled_launches, ca.fwd_split_launches)
     ca.column_attention_fwd(*args, h)
-    assert (ca.launches, ca.fwd_tiled_launches) == (
-        before[0] + 1, before[1] + int(route == "tiled"))
+    assert ca.route(c) == route
+    assert (ca.launches, ca.fwd_tiled_launches, ca.fwd_split_launches) == (
+        before[0] + 1, before[1] + int(route == "tiled"),
+        before[2] + int(route == "split"))
 
 
 def test_three_train_steps_on_the_card_match_the_cpu(cuda, tmp_path):
@@ -339,7 +417,7 @@ def test_three_train_steps_on_the_card_match_the_cpu(cuda, tmp_path):
         tr.model.train()
         counters = ("launches", "fwd_tiled_launches", "bwd_launches",
                     "bwd_tiled_launches", "reduce_launches",
-                    "bwd_split_launches")
+                    "bwd_split_launches", "fwd_split_launches")
         before = [getattr(ca, n) for n in counters]
         batches = itertools.islice(
             tr._batches(tr.dataset.edges.split()[0], "train"), 3)
@@ -351,9 +429,9 @@ def test_three_train_steps_on_the_card_match_the_cpu(cuda, tmp_path):
                      cfg.lr))
     (cpu_losses, cpu_state, cpu_launched, lr), (losses, state, launched,
                                                _) = runs
-    assert cpu_launched == (0,) * 6
-    assert launched == (12,) * 5 + (0,)   # 2 layers x nodes, edges x 3
-    #                                       steps, all tiled
+    assert cpu_launched == (0,) * 7
+    assert launched == (12,) * 5 + (0, 0)   # 2 layers x nodes, edges x 3
+    #                                         steps, all tiled
     np.testing.assert_allclose(losses, cpu_losses, rtol=1e-4)
     errs = np.concatenate([np.abs(v.numpy() - cpu_state[k].numpy()).ravel()
                            for k, v in state.items()])
@@ -439,14 +517,15 @@ def test_same_seed_same_training_run_on_the_card(cuda, tmp_path):
 def test_ssl_target_rows_split_backward_scalar_forward_match_plain(
         cuda, direction):
     """The SSL path's target rows (200 seeds x 65) at C = 128 with its 0.5
-    keep-mask, each direction against the plain version: the backward
-    through the split route, the forward through the scalar kernel."""
+    keep-mask, each direction against the plain version, both through the
+    split route (the forward took PR 1's scalar kernel before it had
+    one)."""
     b, s, c, h, rate = 13000, 6, 128, 8, 0.5
     args = attention_inputs(7, b, s, c, cuda)
     mask = torch.from_numpy(
         np.random.RandomState(8).rand(b, h, s, s) >= rate).to(cuda)
     assert ca.route(c) == "split"
-    before = (ca.launches, ca.fwd_tiled_launches, ca.bwd_launches,
+    before = (ca.launches, ca.fwd_split_launches, ca.bwd_launches,
               ca.bwd_split_launches)
     if direction == "fwd":
         with torch.inference_mode():
@@ -454,8 +533,8 @@ def test_ssl_target_rows_split_backward_scalar_forward_match_plain(
             ref = ca.reference_column_attention(*args, h, mask, rate)
         np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
                                    **TOL)
-        assert (ca.launches, ca.fwd_tiled_launches) == (before[0] + 1,
-                                                        before[1])
+        assert (ca.launches, ca.fwd_split_launches) == (before[0] + 1,
+                                                        before[1] + 1)
         return
     leaves = [a.requires_grad_() for a in args]
     do = torch.from_numpy(np.random.RandomState(9).randn(b, s, c).astype(
@@ -470,8 +549,8 @@ def test_ssl_target_rows_split_backward_scalar_forward_match_plain(
 
 
 def test_three_ssl_steps_on_the_card_match_the_cpu(cuda, tmp_path):
-    """mcm-lp at the SSL widths (C = 128, 3 layers, 8 heads; the scalar
-    forward, the split backward) on a small graph, dropout 0, from the same seeded start: each
+    """mcm-lp at the SSL widths (C = 128, 3 layers, 8 heads; the split
+    forward and backward) on a small graph, dropout 0, from the same seeded start: each
     loss term 1e-4 rel, and every variable by the limits of
     ``rmm_tpu_torch.convert.check_states``."""
     import itertools
@@ -488,7 +567,7 @@ def test_three_ssl_steps_on_the_card_match_the_cpu(cuda, tmp_path):
             "--batch_size", "64", "--dropout", "0"]
     counters = ("launches", "fwd_tiled_launches", "bwd_launches",
                 "bwd_tiled_launches", "reduce_launches",
-                "bwd_split_launches")
+                "bwd_split_launches", "fwd_split_launches")
     runs = []
     for device in ("cpu", "cuda"):
         cfg = fused.config_from_args(fused.build_parser().parse_args(
@@ -504,9 +583,9 @@ def test_three_ssl_steps_on_the_card_match_the_cpu(cuda, tmp_path):
         runs.append((terms, {k: v.cpu() for k, v in
                              tr.model.state_dict().items()}, launched))
     (cpu_terms, cpu_state, cpu_launched), (terms, state, launched) = runs
-    assert cpu_launched == (0,) * 6
-    # 10 a step each way: the forwards scalar, the backwards split
-    assert launched == (30, 0, 30, 0, 30, 30)
+    assert cpu_launched == (0,) * 7
+    # 10 a step each way, all through the split routes
+    assert launched == (30, 0, 30, 0, 30, 30, 30)
     assert set(terms[0]) == {"loss", "lp", "mcm_cat", "mcm_num"}
     faults, _ = check_states(state, terms, cpu_state, cpu_terms, cfg.lr,
                              updates=2 * 3, nhidden=128,

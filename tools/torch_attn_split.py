@@ -1,12 +1,25 @@
-"""The split column-attention backward (C = 96..128) on one CUDA card: its
-five launches timed against their bounds, and a sweep of its GEMM knobs.
+"""The split column-attention routes (C = 96..128) on one CUDA card: the
+forward's three launches and the backward's five timed against their
+bounds, and a sweep of the backward's GEMM knobs.
 
-    python3 tools/torch_attn_split.py [--shapes edge,target] [--sweep]
+    python3 tools/torch_attn_split.py [--direction fwd,bwd]
+                                      [--shapes edge,target] [--sweep]
 
 At the SSL path's shapes (edge tokens 131072×6×128/8 and target rows
-13000×6×128/8, each with the 0.5 keep-mask) the default run checks the
-split route against autograd of the plain version (relative to each
-reference tensor's largest entry) and times:
+13000×6×128/8, each with the 0.5 keep-mask) the forward (``--direction
+fwd``) is checked against the plain version (absolute error) and timed:
+
+* the whole forward (``column_attention_fwd``, its three launches and the
+  scratch allocation), with CUDA events, warm, median of 5 windows;
+* each launch by its device time from ``torch.profiler`` over 10 calls:
+  the projection (x·Wqkv + b), the attention core and the output
+  projection (ctx·Wout + b), each beside its own bound. The two GEMM
+  launches run one kernel (``gemm_kernel<false, true, ...>``), so they
+  are told apart by their order within a call.
+
+The backward (``--direction bwd``) is checked against autograd of the
+plain version (relative to each reference tensor's largest entry) and
+timed:
 
 * the whole backward (``column_attention_bwd``, its five launches and the
   scratch allocations), with CUDA events, warm, median of 5 windows;
@@ -37,9 +50,9 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (GRAD_TOL, PEAK_BYTES_PER_S,  # noqa: E402
-                        PEAK_F32_FLOP_PER_S, SSL_DROPOUT, bound, emit,
-                        nvidia_smi, time_ms)
+from chip_smoke import (GRAD_TOL, KERNEL_TOL,  # noqa: E402
+                        PEAK_BYTES_PER_S, PEAK_F32_FLOP_PER_S, SSL_DROPOUT,
+                        bound, emit, nvidia_smi, time_ms)
 
 SHAPES = {"edge": (131072, 6, 128, 8, SSL_DROPOUT),
           "target": (13000, 6, 128, 8, SSL_DROPOUT)}
@@ -50,26 +63,44 @@ VARIANTS = [(16, 3, 2), (16, 2, 2), (16, 4, 2), (32, 3, 2), (32, 2, 2),
 OUT = os.path.join(ROOT, "rmm_tpu_torch", "_build", "split_sweep")
 
 
+def one_bound(nbytes, flops):
+    """The least time (ms) for ``nbytes`` moved and ``flops`` done, and
+    what sets it."""
+    return bound(nbytes / PEAK_BYTES_PER_S * 1e3,
+                 flops / PEAK_F32_FLOP_PER_S * 1e3)
+
+
+def fwd_launch_bounds(b, s, c, h, masked) -> dict:
+    """The split forward's launches' least times (ms) and what sets each:
+    bytes each input read once and each output written once, FMAs as 2
+    flops (the softmax's few operations a score not counted)."""
+    n, hd = b * s, c // h
+    return {
+        "projection": one_bound(4 * (n * c + 3 * c * c + 3 * c + 3 * n * c),
+                                2 * n * c * 3 * c),
+        "core": one_bound(4 * 4 * n * c + (b * h * s * s if masked else 0),
+                          2 * 2 * b * h * s * s * hd),
+        "output": one_bound(4 * (2 * n * c + c * c + c), 2 * n * c * c),
+    }
+
+
 def launch_bounds(b, s, c, h, masked, slices) -> dict:
-    """Each launch's least time (ms) and what sets it: bytes each input
-    read once and each output written once, FMAs as 2 flops and adds as
-    one."""
+    """Each backward launch's least time (ms) and what sets it: bytes each
+    input read once and each output written once, FMAs as 2 flops and adds
+    as one."""
     n, total = b * s, 4 * c * c + 4 * c
-
-    def one(nbytes, flops):
-        return bound(nbytes / PEAK_BYTES_PER_S * 1e3,
-                     flops / PEAK_F32_FLOP_PER_S * 1e3)
-
     hd = c // h
     return {
-        "projections": one(4 * (2 * n * c + 4 * c * c + 3 * c + 4 * n * c),
-                           2 * n * c * 4 * c),
-        "core": one(4 * 8 * n * c + (b * h * s * s if masked else 0),
-                    2 * 6 * b * h * s * s * hd),
-        "dx": one(4 * (3 * n * c + 3 * c * c + n * c), 2 * n * 3 * c * c),
-        "weight_grads": one(4 * (6 * n * c + slices * total),
-                            2 * n * 4 * c * c + n * 4 * c),
-        "reduce": one(4 * (slices * total + total), slices * total),
+        "projections": one_bound(
+            4 * (2 * n * c + 4 * c * c + 3 * c + 4 * n * c),
+            2 * n * c * 4 * c),
+        "core": one_bound(4 * 8 * n * c + (b * h * s * s if masked else 0),
+                          2 * 6 * b * h * s * s * hd),
+        "dx": one_bound(4 * (3 * n * c + 3 * c * c + n * c),
+                        2 * n * 3 * c * c),
+        "weight_grads": one_bound(4 * (6 * n * c + slices * total),
+                                  2 * n * 4 * c * c + n * 4 * c),
+        "reduce": one_bound(4 * (slices * total + total), slices * total),
     }
 
 
@@ -106,8 +137,9 @@ def inputs(b, s, c, h, rate, seed=0):
     return x, do, w, mask
 
 
-def profile_launches(call, reps: int = 10) -> dict:
-    """Device ms a call of each of the split route's launches."""
+def profiled(call, reps: int):
+    """``torch.profiler`` over ``reps`` calls of ``call`` (after one
+    warm-up call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -117,6 +149,38 @@ def profile_launches(call, reps: int = 10) -> dict:
         for _ in range(reps):
             call()
         torch.cuda.synchronize()
+    return prof
+
+
+def profile_fwd_launches(call, reps: int = 10) -> dict:
+    """Device ms a call of each of the split forward's launches, and how
+    many of each the profile saw (``reps`` of each if all were traced):
+    the GEMM launches alternate, the projection first."""
+    from torch.autograd import DeviceType
+
+    prof = profiled(call, reps)
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    ms: dict = {}
+    seen: dict = {}
+    gemms = 0
+    for e in kernels:
+        if "fwd_core" in e.name:
+            kind = "core"
+        elif "gemm_kernel" in e.name:
+            kind = ("projection", "output")[gemms % 2]
+            gemms += 1
+        else:
+            continue
+        ms[kind] = ms.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+        seen[kind] = seen.get(kind, 0) + 1
+    return {"ms": ms, "seen": seen}
+
+
+def profile_launches(call, reps: int = 10) -> dict:
+    """Device ms a call of each of the split backward's launches."""
+    prof = profiled(call, reps)
     out: dict = {}
     for e in prof.key_averages():
         kind = kernel_kind(e.key)
@@ -126,6 +190,40 @@ def profile_launches(call, reps: int = 10) -> dict:
         if kind is not None and us > 0:
             out[kind] = out.get(kind, 0.0) + us / 1e3 / reps
     return out
+
+
+def fwd_shape_run(card, name, b, s, c, h, rate):
+    import torch
+
+    from rmm_tpu_torch.ops import column_attention as ca
+
+    x, _, (wqkv, bqkv, wout, bout), mask = inputs(b, s, c, h, rate)
+    args = (x, wqkv, bqkv, wout, bout, h, mask, rate)
+    with torch.inference_mode():
+        err = float((ca.column_attention_fwd(*args)
+                     - ca.reference_column_attention(*args)).abs().max())
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+
+        def call():
+            return ca.column_attention_fwd(*args)
+
+        ms = time_ms(call)
+        scratch = torch.cuda.max_memory_allocated() - base
+        per_launch = profile_fwd_launches(call)
+    bounds = fwd_launch_bounds(b, s, c, h, True)
+    ok = err <= KERNEL_TOL
+    emit({"tool": "torch_attn_split", "direction": "fwd", "shape": name,
+          "B": b, "S": s, "C": c, "H": h, "dropout": rate,
+          "route": ca.route(c), "plan": ca.fwd_plan(b, s, c, h)._asdict(),
+          "max_abs_err": err, "tol": KERNEL_TOL, "ok": ok, "ms": ms,
+          "scratch_gb": scratch / 1e9,
+          "launches": {k: {"ms": per_launch["ms"].get(k),
+                           "seen": per_launch["seen"].get(k),
+                           "bound_ms": v[0], "bound_by": v[1]}
+                       for k, v in bounds.items()},
+          "launches_sum_ms": sum(per_launch["ms"].values()), "card": card})
+    return ok
 
 
 def shape_run(card, name, b, s, c, h, rate):
@@ -154,8 +252,9 @@ def shape_run(card, name, b, s, c, h, rate):
     scratch = torch.cuda.max_memory_allocated() - base
     per_launch = profile_launches(call)
     bounds = launch_bounds(b, s, c, h, True, plan.slices)
-    emit({"tool": "torch_attn_split", "shape": name, "B": b, "S": s, "C": c,
-          "H": h, "dropout": rate, "route": ca.route(c),
+    emit({"tool": "torch_attn_split", "direction": "bwd", "shape": name,
+          "B": b, "S": s, "C": c, "H": h, "dropout": rate,
+          "route": ca.route(c),
           "plan": plan._asdict(), "max_rel_err": errs, "tol": GRAD_TOL,
           "ok": max(errs) <= GRAD_TOL, "ms": ms,
           "scratch_gb": scratch / 1e9,
@@ -231,6 +330,8 @@ def sweep(card):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--direction", default="fwd,bwd",
+                    help="fwd, bwd or both, comma-separated")
     ap.add_argument("--shapes", default="edge,target")
     ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args(argv)
@@ -246,10 +347,12 @@ def main(argv=None) -> int:
     emit({"tool": "torch_attn_split", "card": card, "ptxas": [
         ln.strip() for log in logs.values() for ln in log.splitlines()
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln]})
+    runs = {"fwd": fwd_shape_run, "bwd": shape_run}
     ok = True
-    for name in args.shapes.split(","):
-        if name:
-            ok &= shape_run(card, name, *SHAPES[name])
+    for direction in args.direction.split(","):
+        for name in args.shapes.split(","):
+            if name:
+                ok &= runs[direction](card, name, *SHAPES[name])
     if args.sweep:
         sweep(card)
     return 0 if ok else 1
