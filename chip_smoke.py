@@ -74,10 +74,35 @@ through all of them:
              on that cut with ``--save_model``, then a resume from its
              checkpoint.
 
+And at ``--precision bf16`` (the reference's scheme: float32 masters,
+bf16 parameters and tables in each step; under it the AML edge tokens are
+float32, their timestamp block being so, and the node tokens bf16):
+
+3b. kernel_bf16 — both directions' bf16 builds (tiled and split) against
+             their plain twin on bf16 x, do and weights at the main path's
+             edge and node shapes (unmasked and with the training
+             keep-mask), the SSL pair (0.5 keep-mask and unmasked) and
+             32768x6x100/4 (bf16 rows of C % 8 = 4): out and dx within one
+             bf16 rounding, the float32 weight gradients at the float32
+             tolerance, bitwise repeats, kernel / plain / library times
+             and the bound from bf16 bytes.
+4b. serve_bf16 — the predict CLI at bf16 over the test split (2 of the 4
+             forwards a batch bf16), the first rows against the JAX bf16
+             record ``aml_serve_bf16_record.npz``.
+6b. train_parity_bf16 — three bf16 steps against
+             ``aml_train_bf16_record.npz`` (``convert.check_record``'s
+             bf16 limits).
+7b. ssl_train_bf16 — the ssl_train phase at bf16 (its attention float32:
+             the split float32 kernels, no bf16 launch).
+8b. ssl_parity_bf16 — three bf16 mcm-lp steps against
+             ``ssl_bf16_record.npz``.
+(the bf16 records: ``tools/make_torch_port_bf16_fixture.py``).
+
 Then the seconds each phase took, a ``{"kernels": [...]}`` line (an entry
 per kernel, each with its ``path``: the main path's tiled kernels at C = 32,
-the SSL path's split forward and backward at C = 128, and the scalar
-forward and backward at the kernel phase's C = 126),
+the SSL path's split forward and backward at C = 128, the scalar
+forward and backward at the kernel phase's C = 126, and the bf16 builds of
+the tiled and split kernels),
 the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 package beside it, the script fails and prints no result.
@@ -101,14 +126,27 @@ TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
                              "aml_train_record.npz")
 SSL_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
                            "ssl_record.npz")
+# the bf16 records of tools/make_torch_port_bf16_fixture.py
+SERVE_BF16_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
+                                  "aml_serve_bf16_record.npz")
+TRAIN_BF16_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
+                                  "aml_train_bf16_record.npz")
+SSL_BF16_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
+                                "ssl_bf16_record.npz")
 WORK = os.path.join(ROOT, "rmm_tpu_torch", "_build", "smoke")
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12     # HBM3
 PEAK_F32_FLOP_PER_S = 67e12    # float32 outside the tensor cores
+PEAK_BF16_FLOP_PER_S = 989e12  # bf16 operands, float32 sums (tensor cores)
 KERNEL_TOL = 1e-4              # abs: f32, sums in another order
 GRAD_TOL = 1e-4                # relative to the reference's largest entry:
 #                                the weight gradients sum ~786k tokens
 SCORE_TOL = 1e-3               # served score vs the JAX CPU fixture
+# bf16: the library call keeps its intermediates in bf16 (the kernels and
+# their plain twin in float32), so it is held to a bf16 step of its own
+# at the largest entry's scale
+LIBRARY_BF16_TOL = 2.0 ** -5
+# (bf16 three-step parity: the limits of convert.check_record under bf16)
 TRAIN_DROPOUT = 0.083          # the config of record's
 # Train parity against the JAX CPU record: the losses move apart as the
 # sums' order differs. Adam moves a parameter by at most ~lr a step (its
@@ -172,34 +210,38 @@ def time_ms(fn, reps: int = 10, windows: int = 5) -> float:
     return statistics.median(times)
 
 
-def attention_floor(b, s, c, h, masked) -> tuple[float, float]:
+def attention_floor(b, s, c, h, masked, elem: int = 4,
+                    peak: float = PEAK_F32_FLOP_PER_S) -> tuple[float, float]:
     """Least times (ms) for the work, by bytes and by operations: x read +
-    o written + weights (+ the keep-mask) over HBM bandwidth, and the FMAs
-    (2 flops each) of the two projections, the scores and the context over
-    the f32 peak."""
+    o written + weights (+ the keep-mask) over HBM bandwidth, at ``elem``
+    bytes an element, and the FMAs (2 flops each) of the two projections,
+    the scores and the context over ``peak`` (the float32 one; bf16
+    operands with float32 sums: the tensor cores' bf16 peak)."""
     hd = c // h
-    nbytes = 4 * (2 * b * s * c + 4 * c * c + 4 * c)
+    nbytes = elem * (2 * b * s * c + 4 * c * c + 4 * c)
     if masked:
         nbytes += b * h * s * s
     flops = 2 * b * s * (3 * c * c + c * c) + 2 * 2 * b * h * s * s * hd
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return t_bytes, t_ops
 
 
-def attention_bwd_floor(b, s, c, h, masked) -> tuple[float, float]:
+def attention_bwd_floor(b, s, c, h, masked, elem: int = 4,
+                        peak: float = PEAK_F32_FLOP_PER_S
+                        ) -> tuple[float, float]:
     """The backward's least times (ms) for its work, whatever route does
-    it: x and do read, dx written, the keep-mask, the weights read and
-    their gradients written; operations: about 11·C² FMAs a token (qkv
-    again, dctx, dx, dWqkv, dWout) and 6·S·C for the attention (scores,
-    ctx, dP, dq, dk, dv)."""
+    it: x and do read and dx written (``elem`` bytes an element), the
+    keep-mask, the weights read (``elem`` bytes) and their gradients
+    written (float32); operations: about 11·C² FMAs a token (qkv again,
+    dctx, dx, dWqkv, dWout) and 6·S·C for the attention (scores, ctx, dP,
+    dq, dk, dv), over ``peak``."""
     total = 4 * c * c + 4 * c
-    nbytes = 4 * (3 * b * s * c + 2 * total)
+    nbytes = elem * (3 * b * s * c + total) + 4 * total
     if masked:
         nbytes += b * h * s * s
     flops = 2 * b * s * (11 * c * c + 6 * s * c)
-    return (nbytes / PEAK_BYTES_PER_S * 1e3,
-            flops / PEAK_F32_FLOP_PER_S * 1e3)
+    return (nbytes / PEAK_BYTES_PER_S * 1e3, flops / peak * 1e3)
 
 
 def bound(t_bytes: float, t_ops: float) -> tuple[float, str]:
@@ -225,16 +267,37 @@ def random_inputs(rng, b, s, c, device):
             t(c, c, scale=c ** -0.5), t(c, scale=0.1))
 
 
+# The CUDA grid's y limit: PyTorch's flash attention lays the batch out
+# along y, so on bf16 it refuses to launch past 65,535 rows ("invalid
+# configuration argument"), and the library call takes its math backend
+# there (library_backend).
+GRID_Y_MAX = 65535
+
+
+def library_backend(x) -> str:
+    import torch
+
+    return ("math" if x.dtype == torch.bfloat16 and x.shape[0] > GRID_Y_MAX
+            else "default")
+
+
 def library_attention(x, wqkv, bqkv, wout, bout, h):
     """One ``torch.nn.functional.multi_head_attention_forward`` call with
-    the same weights (a yardstick only: the port never calls it)."""
+    the same weights (a yardstick only: the port never calls it), on the
+    backend of :func:`library_backend`."""
+    import contextlib
+
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     q = x.transpose(0, 1)
     c = x.shape[-1]
-    return F.multi_head_attention_forward(
-        q, q, q, c, h, wqkv.t(), bqkv, None, None, False, 0.0, wout.t(),
-        bout, training=False, need_weights=False)[0].transpose(0, 1)
+    with (sdpa_kernel(SDPBackend.MATH) if library_backend(x) == "math"
+          else contextlib.nullcontext()):
+        return F.multi_head_attention_forward(
+            q, q, q, c, h, wqkv.t(), bqkv, None, None, False, 0.0,
+            wout.t(), bout, training=False,
+            need_weights=False)[0].transpose(0, 1)
 
 
 # The SSL path's shapes at C = 128 (the split forward and backward): the
@@ -423,6 +486,180 @@ def kernel_phase(card: str) -> dict:
             "scalar_bwd": [r for r in bwd if r["route"] == "scalar"]}
 
 
+def bf16_close(got, want) -> float:
+    """How far ``got`` lies past one bf16 rounding of ``want`` (2^-7 of
+    the value, plus 1e-5 of the largest entry, as the sums of the two
+    sides run in another order): <= 0 where it holds."""
+    g, w = got.float(), want.float()
+    bound_ = 2.0 ** -7 * g.abs().maximum(w.abs()) + 1e-5 * float(
+        w.abs().max())
+    return float(((g - w).abs() - bound_).max())
+
+
+def bf16_shapes(edges: int, nodes: int, c: int) -> list:
+    """(B, S, C, H, dropout) of the bf16 kernel phase: the main path's edge
+    and node tokens unmasked and with the training keep-mask (the path
+    runs its node tokens in bf16: its edge tokens hold the float32
+    timestamp block), the SSL path's pair with and without its 0.5
+    keep-mask (the split route), and C = 100, rows of C % 8 = 4 bf16
+    values."""
+    p = TRAIN_DROPOUT
+    return [(edges, 6, c, 8, 0.0), (nodes, 2, c, 8, 0.0),
+            (edges, 6, c, 8, p), (nodes, 2, c, 8, p),
+            (131072, 6, 128, 8, SSL_DROPOUT), (13000, 6, 128, 8, SSL_DROPOUT),
+            (131072, 6, 128, 8, 0.0), (13000, 6, 128, 8, 0.0),
+            (32768, 6, 100, 4, 0.0)]
+
+
+def kernel_bf16_phase(card: str) -> dict:
+    """Both directions on bf16 x, do and weights against their plain twin
+    on the same values: out and dx within one bf16 rounding, the float32
+    weight and bias gradients at GRAD_TOL; two calls of each direction
+    bitwise equal at the masked edge shapes and at C = 100; kernel /
+    plain / library (``F.multi_head_attention_forward`` on bf16) times and
+    the bound from bf16 bytes. Returns the records by direction, in the
+    order of :func:`bf16_shapes`."""
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.ops import column_attention as ca
+
+    st = fixture_settings()
+    shapes = bf16_shapes(st["edge_capacity"], st["node_capacity"],
+                         st["n_hidden"])
+    repeat_at = {shapes[2], shapes[4], shapes[8]}
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(1)
+    recs = {"fwd": [], "bwd": []}
+    for b, s, c, h, rate in shapes:
+        x, *weights = (t.bfloat16() for t in random_inputs(rng, b, s, c,
+                                                           dev))
+        do = random_inputs(rng, b, s, c, dev)[0].bfloat16()
+        masters = [w.float() for w in weights]   # the weights' values
+        mask = None
+        if rate > 0:
+            mask = torch.from_numpy(rng.rand(b, h, s, s) >= rate).to(dev)
+        args = (x, *weights, h, mask, rate)
+        repeat = (b, s, c, h, rate) in repeat_at
+        kind = ca.route(c)
+        with torch.inference_mode():
+            before = (ca.fwd_bf16_launches, ca.fwd_tiled_launches,
+                      ca.fwd_split_launches)
+            out = ca.fused_column_attention(*args)
+            check((ca.fwd_bf16_launches - before[0],
+                   ca.fwd_tiled_launches - before[1],
+                   ca.fwd_split_launches - before[2])
+                  == (1, int(kind == "tiled"), int(kind == "split")),
+                  f"bf16 forward {b}x{s}x{c}/{h} did not take the bf16 "
+                  f"{kind} kernel")
+            repeat_equal = None
+            if repeat:
+                repeat_equal = torch.equal(out, ca.fused_column_attention(
+                    *args))
+                check(repeat_equal, f"bf16 forward {b}x{s}x{c}/{h}: two "
+                      "calls on the same inputs differ")
+            ref = ca.reference_column_attention(x, *masters, h, mask, rate)
+            torch.cuda.synchronize()
+            excess = bf16_close(out, ref)
+            err = float((out.float() - ref.float()).abs().max())
+            check(out.dtype == torch.bfloat16 and excess <= 0,
+                  f"bf16 forward {b}x{s}x{c}/{h} p={rate}: {excess} past "
+                  "one bf16 rounding of the plain twin")
+            k_ms = time_ms(lambda: ca.fused_column_attention(*args))
+            p_ms = time_ms(lambda: ca.reference_column_attention(
+                x, *masters, h, mask, rate))
+            lib_ms = None
+            if mask is None:
+                lib = (x, *weights, h)
+                lib_err = float((library_attention(*lib).float()
+                                 - ref.float()).abs().max())
+                check(lib_err <= LIBRARY_BF16_TOL * float(
+                    ref.float().abs().max()),
+                      f"bf16 library attention disagrees: {lib_err}")
+                lib_ms = time_ms(lambda: library_attention(*lib))
+        t_bytes, t_ops = attention_floor(b, s, c, h, mask is not None, 2,
+                                         PEAK_BF16_FLOP_PER_S)
+        bound_ms, by = bound(t_bytes, t_ops)
+        rec = {"phase": "kernel_bf16", "kernel": "column_attention_fwd",
+               "dtype": "bf16", "B": b, "S": s, "C": c, "H": h,
+               "dropout": rate, "route": kind,
+               "library_backend": library_backend(x),
+               "repeat_bitwise_equal": repeat_equal, "max_abs_err": err,
+               "past_one_bf16_rounding": excess, "kernel_ms": k_ms,
+               "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+               "bound_by": by, "bytes_ms": t_bytes, "ops_ms": t_ops,
+               "card": card, "ok": True}
+        emit(rec)
+        recs["fwd"].append(rec)
+        del out, ref
+
+        before = (ca.bwd_bf16_launches, ca.bwd_tiled_launches,
+                  ca.bwd_split_launches)
+        bargs = (x, do, weights[0], weights[1], weights[2], h, mask, rate)
+        got = ca.column_attention_bwd(*bargs)
+        check((ca.bwd_bf16_launches - before[0],
+               ca.bwd_tiled_launches - before[1],
+               ca.bwd_split_launches - before[2])
+              == (1, int(kind == "tiled"), int(kind == "split")),
+              f"bf16 backward {b}x{s}x{c}/{h} did not take the bf16 {kind} "
+              "kernel")
+        repeat_equal = None
+        if repeat:
+            again = ca.column_attention_bwd(*bargs)
+            repeat_equal = all(torch.equal(g, a) for g, a in zip(got, again))
+            check(repeat_equal, f"bf16 backward {b}x{s}x{c}/{h}: two calls "
+                  "on the same inputs differ")
+            del again
+        leaves = [x.detach().requires_grad_()] + [
+            m.detach().requires_grad_() for m in masters]
+        ref = ca.reference_column_attention(*leaves, h, mask, rate)
+        want = torch.autograd.grad(ref, leaves, do, retain_graph=True)
+        torch.cuda.synchronize()
+        excess = bf16_close(got[0], want[0])
+        errs = {n: float((g - w).abs().max() / w.abs().max().clamp(
+            min=1e-30)) for n, g, w in zip(
+                ("dwqkv", "dbqkv", "dwout", "dbout"), got[1:], want[1:])}
+        check(got[0].dtype == torch.bfloat16 and excess <= 0,
+              f"bf16 backward {b}x{s}x{c}/{h} p={rate}: dx {excess} past "
+              "one bf16 rounding of the plain twin")
+        check(all(g.dtype == torch.float32 for g in got[1:])
+              and all(math.isfinite(e) and e <= GRAD_TOL
+                      for e in errs.values()),
+              f"bf16 backward {b}x{s}x{c}/{h} p={rate}: weight gradients' "
+              f"relative errors {errs} > {GRAD_TOL}")
+        k_ms = time_ms(lambda: ca.column_attention_bwd(*bargs))
+        p_ms = time_ms(lambda: torch.autograd.grad(ref, leaves, do,
+                                                   retain_graph=True))
+        lib_ms = None
+        if mask is None:
+            lib_leaves = [x.detach().requires_grad_()] + [
+                w.detach().requires_grad_() for w in weights]
+            lib_out = library_attention(*lib_leaves, h)
+            lib_ms = time_ms(lambda: torch.autograd.grad(
+                lib_out, lib_leaves, do, retain_graph=True))
+            del lib_out, lib_leaves
+        t_bytes, t_ops = attention_bwd_floor(b, s, c, h, mask is not None, 2,
+                                             PEAK_BF16_FLOP_PER_S)
+        bound_ms, by = bound(t_bytes, t_ops)
+        rec = {"phase": "kernel_bf16", "kernel": "column_attention_bwd",
+               "dtype": "bf16", "B": b, "S": s, "C": c, "H": h,
+               "dropout": rate, "route": kind,
+               "library_backend": library_backend(x),
+               "repeat_bitwise_equal": repeat_equal,
+               "dx_past_one_bf16_rounding": excess, "max_rel_err": errs,
+               "tol": GRAD_TOL,
+               "max_abs_err": max(float((g.float() - w.float()).abs().max())
+                                  for g, w in zip(got, want)),
+               "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+               "bound_ms": bound_ms, "bound_by": by, "bytes_ms": t_bytes,
+               "ops_ms": t_ops, "card": card, "ok": True}
+        emit(rec)
+        recs["bwd"].append(rec)
+        del x, do, weights, masters, mask, got, leaves, ref, want
+        torch.cuda.empty_cache()
+    return recs
+
+
 def prepare_data() -> str:
     """The config of record's synthetic AML CSV, under the build dir."""
     from rmm_tpu_torch.datasets import write_synthetic_aml_csv
@@ -449,7 +686,7 @@ def reset_counts():
 
     ca.launches = ca.fwd_tiled_launches = ca.fwd_split_launches = 0
     ca.bwd_launches = ca.bwd_tiled_launches = ca.bwd_split_launches = 0
-    ca.reduce_launches = 0
+    ca.fwd_bf16_launches = ca.bwd_bf16_launches = ca.reduce_launches = 0
 
 
 def read_counts() -> dict:
@@ -458,7 +695,14 @@ def read_counts() -> dict:
     return {"fwd": ca.launches, "fwd_tiled": ca.fwd_tiled_launches,
             "fwd_split": ca.fwd_split_launches, "bwd": ca.bwd_launches,
             "bwd_tiled": ca.bwd_tiled_launches,
-            "bwd_split": ca.bwd_split_launches, "reduce": ca.reduce_launches}
+            "bwd_split": ca.bwd_split_launches, "reduce": ca.reduce_launches,
+            "fwd_bf16": ca.fwd_bf16_launches,
+            "bwd_bf16": ca.bwd_bf16_launches}
+
+
+#: float32 paths launch no bf16 kernel, and neither does the SSL path under
+#: --precision bf16 (its tokens hold the float32 timestamp block)
+NO_BF16 = {"fwd_bf16": 0, "bwd_bf16": 0}
 
 
 def serve(argv: list[str], stats: dict):
@@ -562,7 +806,7 @@ def train_phase(card: str, csv: str) -> dict:
                      "fwd_tiled": 4 * (steps + evals), "fwd_split": 0,
                      "bwd": 4 * steps,
                      "bwd_tiled": 4 * steps, "bwd_split": 0,
-                     "reduce": 4 * steps},
+                     "reduce": 4 * steps, **NO_BF16},
           f"launches {counts} for {steps} train steps and {evals} evaluated "
           "batches (expected 4 forwards per batch, 4 backwards and 4 "
           "reduces per step, forwards and backwards all tiled: 2 layers x "
@@ -643,7 +887,7 @@ def train_parity_phase(card: str) -> dict:
     n = st["steps"]
     check(counts == {"fwd": 4 * n, "fwd_tiled": 4 * n, "fwd_split": 0,
                      "bwd": 4 * n, "bwd_tiled": 4 * n, "bwd_split": 0,
-                     "reduce": 4 * n},
+                     "reduce": 4 * n, **NO_BF16},
           f"launches {counts} for {n} train steps")
     check(loss_rel[0] <= LOSS1_RTOL and max(loss_rel) <= LOSS_RTOL,
           f"losses {losses} vs the JAX record's {want_losses}")
@@ -666,11 +910,127 @@ def train_parity_phase(card: str) -> dict:
     return out
 
 
-def ssl_record() -> tuple:
+def train_parity_bf16_phase(card: str) -> dict:
+    """Three bf16 train steps on the card (dropout 0) from the record's
+    start against the JAX CPU record of the same steps
+    (``aml_train_bf16_record.npz``, the config's widths on the 16,384-row
+    cut), by ``convert.check_record`` at its bf16 limits.
+    Per step 2 of the 4 forwards and backwards are bf16 (the node tokens;
+    the edge tokens are float32, as in the reference), all tiled."""
+    import itertools
+
     import numpy as np
 
-    rec = np.load(SSL_FIXTURE)
-    return rec, json.loads(str(rec["settings"]))
+    from rmm_tpu_torch.convert import check_record, from_jax, loss_terms, \
+        random_variables
+    from rmm_tpu_torch.datasets import build_dataset, write_synthetic_aml_csv
+    from rmm_tpu_torch.train.trainer import Trainer
+    from rmm_tpu_torch.utils.config import config_from_args, create_parser
+
+    rec = np.load(TRAIN_BF16_FIXTURE)
+    top = json.loads(str(rec["settings"]))
+    st = {**top, **top["sup"]}
+    csv = write_synthetic_aml_csv(os.path.join(WORK, "aml_parity.csv"),
+                                  num_rows=st["rows"],
+                                  num_accounts=st["num_accounts"],
+                                  seed=st["data_seed"])
+    cfg = config_from_args(create_parser().parse_args([
+        "--data", csv, "--model", "tabgnn", "--n_hidden",
+        str(st["n_hidden"]), "--n_gnn_layers", str(st["n_gnn_layers"]),
+        "--num_neighs", *map(str, st["num_neighs"]), "--batch_size",
+        str(st["batch_size"]), "--seed", str(st["seed"]), "--dropout", "0",
+        "--edge_capacity", str(st["edge_capacity"]), "--node_capacity",
+        str(st["node_capacity"]), "--precision", "bf16",
+        "--device", "cuda"]))
+    tr = Trainer(cfg, build_dataset(cfg))
+    tr.model.load_state_dict(from_jax(
+        random_variables(st["shapes"], st["var_seed"]), tr.model))
+    batches = list(itertools.islice(
+        tr._batches(tr.dataset.edges.split()[0], "train", st["epoch"]),
+        st["steps"]))
+    reset_counts()
+    tr.model.train()
+    terms = [loss_terms(tr._step(gb.to(tr.device))[0], {})
+             for gb in batches]
+    counts = read_counts()
+    n = st["steps"]
+    check(counts == {"fwd": 4 * n, "fwd_tiled": 4 * n, "fwd_split": 0,
+                     "bwd": 4 * n, "bwd_tiled": 4 * n, "bwd_split": 0,
+                     "reduce": 4 * n, "fwd_bf16": 2 * n, "bwd_bf16": 2 * n},
+          f"launches {counts} for {n} bf16 train steps (expected 4 tiled "
+          "forwards and backwards a step, 2 each of them bf16)")
+    faults, summary = check_record(tr.model.state_dict(), terms, rec, "sup/",
+                                   cfg.lr, n, st["n_hidden"], "bf16")
+    check(not faults, "bf16 train steps off the JAX record: "
+          + "; ".join(faults))
+    out = {"phase": "train_parity_bf16", "rows": st["rows"], "steps": n,
+           "edge_capacity": st["edge_capacity"],
+           "node_capacity": st["node_capacity"], "terms": terms,
+           "jax_terms": rec["sup/term/loss"].tolist(),
+           "jax_f32_terms": rec["f32/sup/term/loss"].tolist(), **summary,
+           "launches": counts, "card": card, "ok": True}
+    emit(out)
+    return out
+
+
+def serve_bf16_phase(card: str, csv: str) -> dict:
+    """The predict CLI at ``--precision bf16`` over the test split on the
+    serving fixture's weights (the checkpoint the serve phase wrote): 4
+    tiled forwards a batch, 2 of them bf16 (the node tokens); finite
+    scores; the first rows' ids, and their scores within SCORE_TOL,
+    against the JAX CPU record of the same bf16 predictions
+    (``aml_serve_bf16_record.npz``)."""
+    import numpy as np
+
+    fx = np.load(SERVE_BF16_FIXTURE)
+    st = fixture_settings()
+    argv = record_argv(st, csv) + [
+        "--sampler_threads", "4", "--load_model", os.path.join(WORK, "ckpt"),
+        "--split", "test", "--output", os.path.join(WORK, "preds_bf16.csv"),
+        "--precision", "bf16", "--device", "cuda"]
+    run: dict = {}
+    out, counts, wall = serve(argv, run)
+    rows = len(out["id"])
+    batches = -(-rows // st["batch_size"])
+    check(rows == st["test_rows"] and np.isfinite(out["score"]).all(),
+          f"bf16 serve: {rows} rows (test split {st['test_rows']}) or "
+          "non-finite scores")
+    check(counts == {"fwd": 4 * batches, "fwd_tiled": 4 * batches,
+                     "fwd_split": 0, "bwd": 0, "bwd_tiled": 0,
+                     "bwd_split": 0, "reduce": 0, "fwd_bf16": 2 * batches,
+                     "bwd_bf16": 0},
+          f"bf16 serve launches {counts} for {batches} batches (expected 4 "
+          "tiled forwards a batch, 2 of them bf16)")
+    k = len(fx["id"])
+    check(np.array_equal(out["id"][:k], fx["id"]),
+          "bf16 served ids differ from the JAX record")
+    score_err = float(np.abs(out["score"][:k] - fx["score"]).max())
+    check(score_err <= SCORE_TOL, f"bf16 score error {score_err} > "
+          f"{SCORE_TOL}")
+    clear = np.abs(fx["score"] - 0.5) > SCORE_TOL
+    check(np.array_equal(out["pred"][:k][clear], fx["pred"][clear]),
+          "bf16 predicted classes differ from the JAX record")
+    rec = {"phase": "serve_bf16", "rows": rows, "batches": batches,
+           "launches": counts, "fixture_rows": k, "max_score_err": score_err,
+           "score_tol": SCORE_TOL,
+           "jax_bf16_vs_f32_score_gap": float(np.abs(
+               fx["score"] - np.load(FIXTURE)["score"]).max()),
+           "wall_s": wall, "setup_s": run["setup_s"],
+           "predict_s": run["predict_s"], "rows_per_s_wall": rows / wall,
+           "rows_per_s_predict": rows / run["predict_s"], "card": card,
+           "ok": True}
+    emit(rec)
+    return rec
+
+
+def ssl_record(path: str = SSL_FIXTURE) -> tuple:
+    """A JAX SSL record and its settings (a bf16 record keeps them under
+    ``ssl``)."""
+    import numpy as np
+
+    rec = np.load(path)
+    st = json.loads(str(rec["settings"]))
+    return rec, {**st, **st["ssl"]} if "ssl" in st else st
 
 
 def ssl_trainer(csv: str, argv: list[str], edge_capacity: int,
@@ -687,17 +1047,19 @@ def ssl_trainer(csv: str, argv: list[str], edge_capacity: int,
     return PretrainTrainer(cfg, build_dataset(cfg), "mcm-lp")
 
 
-def ssl_train_phase(card: str, csv: str) -> dict:
+def ssl_train_phase(card: str, csv: str, precision: str = "f32") -> dict:
     """SSL pretraining (mcm-lp) at the SSL config of record on the config
-    of record's data: the first SSL_BATCHES train batches (a sub-view of
-    the train split), then SSL_BATCHES val batches."""
+    of record's data, at ``precision``: the first SSL_BATCHES train
+    batches (a sub-view of the train split), then SSL_BATCHES val
+    batches."""
     import torch
 
     from rmm_tpu_torch.frame.dataset import DatasetView
 
     st = fixture_settings()
     t0 = time.perf_counter()
-    tr = ssl_trainer(csv, SSL_ARGV + ["--sampler_threads", "4"],
+    tr = ssl_trainer(csv, SSL_ARGV + ["--sampler_threads", "4",
+                                      "--precision", precision],
                      st["edge_capacity"], st["node_capacity"])
     setup_s = time.perf_counter() - t0
     n = SSL_BATCHES
@@ -723,13 +1085,13 @@ def ssl_train_phase(card: str, csv: str) -> dict:
     k = SSL_LAUNCHES
     check(train_counts == {"fwd": k * n, "fwd_tiled": 0, "fwd_split": k * n,
                            "bwd": k * n, "bwd_tiled": 0, "bwd_split": k * n,
-                           "reduce": k * n},
+                           "reduce": k * n, **NO_BF16},
           f"launches {train_counts} for {n} SSL train steps (expected "
           f"{k} forwards, backwards and reduces a step, the forwards and "
           "backwards all through the split routes)")
     check(eval_counts == {"fwd": k * n, "fwd_tiled": 0, "fwd_split": k * n,
                           "bwd": 0, "bwd_tiled": 0, "bwd_split": 0,
-                          "reduce": 0},
+                          "reduce": 0, **NO_BF16},
           f"launches {eval_counts} for {n} evaluated SSL batches (expected "
           f"{k} split forwards a batch)")
     check(math.isfinite(tm["loss"]), f"SSL train loss {tm['loss']}")
@@ -737,7 +1099,8 @@ def ssl_train_phase(card: str, csv: str) -> dict:
     check(math.isfinite(vm["rmse"]), f"SSL val RMSE {vm['rmse']}")
     check(0 <= vm["accuracy"] <= 1, f"SSL val accuracy {vm['accuracy']}")
     rows = train.tensor_frame.num_rows
-    rec = {"phase": "ssl_train", "mode": "mcm-lp",
+    rec = {"phase": "ssl_train" if precision == "f32" else
+           f"ssl_train_{precision}", "mode": "mcm-lp", "precision": precision,
            "channels": tr.cfg.n_hidden, "layers": tr.cfg.n_gnn_layers,
            "heads": 8, "num_neg": tr.cfg.num_neg_samples, "batch": b,
            "fanouts": list(tr.cfg.num_neighs), "dropout": tr.cfg.dropout,
@@ -770,11 +1133,13 @@ def ssl_parity_csv() -> str:
                                    seed=st["data_seed"])
 
 
-def ssl_parity_phase(card: str, csv: str) -> dict:
-    """Three mcm-lp steps on the card (dropout 0) from the record's start
-    against the JAX CPU record of the same steps at the SSL widths: each
-    loss term and the sampled variables, by the limits of
-    ``rmm_tpu_torch.convert.check_record``."""
+def ssl_parity_phase(card: str, csv: str, path: str = SSL_FIXTURE,
+                     precision: str = "f32") -> dict:
+    """Three mcm-lp steps on the card (dropout 0, at ``precision``) from
+    the record's start against the JAX CPU record of the same steps at the
+    SSL widths: each loss term and the sampled variables, by the limits of
+    ``rmm_tpu_torch.convert.check_record`` (a bf16 record's at its bf16
+    limits)."""
     import itertools
 
     import numpy as np
@@ -782,14 +1147,14 @@ def ssl_parity_phase(card: str, csv: str) -> dict:
     from rmm_tpu_torch.convert import check_record, from_jax, loss_terms, \
         random_variables
 
-    rec, st = ssl_record()
+    rec, st = ssl_record(path)
     ms = st["modes"]["mcm-lp"]
     argv = ["--mode", "mcm-lp", "--channels", str(st["channels"]),
             "--num_layers", str(st["num_layers"]),
             "--num_neg_samples", str(st["num_neg_samples"]),
             "--batch_size", str(st["batch_size"]), "--khop_neighbors",
             *map(str, st["khop_neighbors"]), "--dropout", "0",
-            "--lr", str(st["lr"])]
+            "--lr", str(st["lr"]), "--precision", precision]
     tr = ssl_trainer(csv, argv, ms["edge_capacity"], ms["node_capacity"],
                      seed=st["seed"])
     tr.model.load_state_dict(from_jax(
@@ -806,13 +1171,14 @@ def ssl_parity_phase(card: str, csv: str) -> dict:
     n, k = st["steps"], SSL_LAUNCHES
     check(counts == {"fwd": k * n, "fwd_tiled": 0, "fwd_split": k * n,
                      "bwd": k * n, "bwd_tiled": 0, "bwd_split": k * n,
-                     "reduce": k * n},
+                     "reduce": k * n, **NO_BF16},
           f"launches {counts} for {n} SSL steps")
     faults, summary = check_record(tr.model.state_dict(), terms, rec,
                                    "mcm-lp/", st["lr"], 2 * n,
-                                   st["channels"])
+                                   st["channels"], precision)
     check(not faults, "SSL steps off the JAX record: " + "; ".join(faults))
-    out = {"phase": "ssl_parity", "rows": st["rows"], "steps": n,
+    out = {"phase": "ssl_parity" if precision == "f32" else
+           f"ssl_parity_{precision}", "rows": st["rows"], "steps": n,
            "channels": st["channels"], "layers": st["num_layers"],
            "num_neg": st["num_neg_samples"],
            "edge_capacity": ms["edge_capacity"],
@@ -820,6 +1186,11 @@ def ssl_parity_phase(card: str, csv: str) -> dict:
            "jax_terms": {key[len("mcm-lp/term/"):]: rec[key].tolist()
                          for key in rec.files
                          if key.startswith("mcm-lp/term/")},
+           # a bf16 record's float32 run of the same steps: how far bf16
+           # moves the reference
+           "jax_f32_terms": {key[len("f32/mcm-lp/term/"):]: rec[key].tolist()
+                             for key in rec.files
+                             if key.startswith("f32/mcm-lp/term/")},
            **summary, "negatives_equal": True, "launches": counts,
            "card": card, "ok": True}
     emit(out)
@@ -850,7 +1221,7 @@ def ssl_cli_phase(card: str, csv: str) -> dict:
     check(counts == {"fwd": k * (steps + evals), "fwd_tiled": 0,
                      "fwd_split": k * (steps + evals),
                      "bwd": k * steps, "bwd_tiled": 0,
-                     "bwd_split": k * steps, "reduce": k * steps},
+                     "bwd_split": k * steps, "reduce": k * steps, **NO_BF16},
           f"SSL CLI launches {counts} for {steps} steps and {evals} "
           "evaluated batches")
     check(math.isfinite(ep["loss"]) and 0 < ep["val_mrr"] <= 1,
@@ -911,18 +1282,33 @@ def main() -> int:
             return out
 
         kern = timed("kernel", kernel_phase, card)
+        kern16 = timed("kernel_bf16", kernel_bf16_phase, card)
         try:
             csv = timed("data", prepare_data)
             serve_rec = timed("serve", serve_phase, card, csv)
+            serve16 = timed("serve_bf16", serve_bf16_phase, card, csv)
             train_rec = timed("train", train_phase, card, csv)
             parity_rec = timed("train_parity", train_parity_phase, card)
+            parity16 = timed("train_parity_bf16", train_parity_bf16_phase,
+                             card)
             ssl_rec = timed("ssl_train", ssl_train_phase, card, csv)
+            ssl16 = timed("ssl_train_bf16", ssl_train_phase, card, csv,
+                          "bf16")
             ssl_csv = ssl_parity_csv()
             ssl_parity_rec = timed("ssl_parity", ssl_parity_phase, card,
                                    ssl_csv)
+            ssl_parity16 = timed("ssl_parity_bf16", ssl_parity_phase, card,
+                                 ssl_csv, SSL_BF16_FIXTURE, "bf16")
             ssl_cli_rec = timed("ssl_cli", ssl_cli_phase, card, ssl_csv)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
+        # every phase's launch counts, for the kernels that several run
+        all_counts = (serve_rec["counts"], serve16["launches"],
+                      train_rec["launches"], parity_rec["launches"],
+                      parity16["launches"], ssl_rec["train_launches"],
+                      ssl_rec["eval_launches"], ssl16["train_launches"],
+                      ssl16["eval_launches"], ssl_parity_rec["launches"],
+                      ssl_parity16["launches"], ssl_cli_rec["launches"])
         emit({"phase": "seconds", **seconds,
               "total": time.perf_counter() - t_start})
         emit({"kernels": [
@@ -936,6 +1322,11 @@ def main() -> int:
                              "launches_by_path": {
                                  "serve": serve_rec["launches"],
                                  "train": train_rec["launches"]["fwd"]},
+                             # the float32 edge tokens at --precision bf16
+                             "launches_under_bf16": sum(
+                                 c["fwd_tiled"] - c["fwd_bf16"]
+                                 for c in (serve16["launches"],
+                                           parity16["launches"])),
                              "masked_ms": sum(r["kernel_ms"]
                                               for r in kern["fwd_masked"]),
                              "masked_plain_ms": sum(
@@ -966,19 +1357,18 @@ def main() -> int:
                              "core_max_abs_err": max(
                                  r["core_max_abs_err"]
                                  for r in kern["ssl_fwd"]),
+                             # the SSL path's float32 tokens at bf16
+                             "launches_under_bf16":
+                                 ssl16["train_launches"]["fwd_split"]
+                                 + ssl16["eval_launches"]["fwd_split"]
+                                 + ssl_parity16["launches"]["fwd_split"],
                              "library_masked": False}),
             kernel_entry("column_attention_fwd_scalar", 165,
                          kern["scalar_fwd"], kern["scalar_fwd"], {
                              "path": "kernel phase: C % 4 != 0",
                              "launches": sum(
                                  c["fwd"] - c["fwd_tiled"] - c["fwd_split"]
-                                 for c in (serve_rec["counts"],
-                                           train_rec["launches"],
-                                           parity_rec["launches"],
-                                           ssl_rec["train_launches"],
-                                           ssl_rec["eval_launches"],
-                                           ssl_parity_rec["launches"],
-                                           ssl_cli_rec["launches"]))}),
+                                 for c in all_counts)}),
             kernel_entry("column_attention_bwd_split", 178,
                          kern["ssl_bwd"], kern["ssl_bwd_unmasked"], {
                              "path": "ssl_train",
@@ -988,6 +1378,9 @@ def main() -> int:
                                  ssl_rec["train_launches"]["bwd_split"],
                              "reduce_launches":
                                  ssl_rec["train_launches"]["reduce"],
+                             "launches_under_bf16":
+                                 ssl16["train_launches"]["bwd_split"]
+                                 + ssl_parity16["launches"]["bwd_split"],
                              "max_rel_err": max(max(r["max_rel_err"].values())
                                                 for r in kern["ssl_bwd"]),
                              "library_masked": False}),
@@ -996,13 +1389,10 @@ def main() -> int:
                              "path": "kernel phase: C % 4 != 0",
                              "launches": sum(
                                  c["bwd"] - c["bwd_tiled"] - c["bwd_split"]
-                                 for c in (train_rec["launches"],
-                                           parity_rec["launches"],
-                                           ssl_rec["train_launches"],
-                                           ssl_parity_rec["launches"],
-                                           ssl_cli_rec["launches"])),
+                                 for c in all_counts),
                              "max_rel_err": max(max(r["max_rel_err"].values())
-                                                for r in kern["scalar_bwd"])})]})
+                                                for r in kern["scalar_bwd"])}),
+            *bf16_entries(kern16, serve16, parity16, ssl16, ssl_parity16)]})
         print(card, flush=True)
     except Exception:
         traceback.print_exc()
@@ -1010,6 +1400,57 @@ def main() -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})
     return 0
+
+
+def bf16_entries(kern16: dict, serve16: dict, parity16: dict, ssl16: dict,
+                 ssl_parity16: dict) -> list:
+    """The ``kernels`` entries of the bf16 builds: the tiled pair at the
+    main path's edge + node shapes (under --precision bf16 the path runs
+    its node tokens through them, the edge tokens holding the float32
+    timestamp block) and the split pair at the SSL path's (whose tokens
+    are float32 under bf16 too: the split bf16 kernels run in the kernel
+    phase alone)."""
+    fwd, bwd = kern16["fwd"], kern16["bwd"]
+    tiled_fwd = {"serve_bf16": serve16["launches"]["fwd_bf16"],
+                 "train_parity_bf16": parity16["launches"]["fwd_bf16"]}
+    split_fwd = {"ssl_train_bf16": ssl16["train_launches"]["fwd_bf16"]
+                 + ssl16["eval_launches"]["fwd_bf16"],
+                 "ssl_parity_bf16": ssl_parity16["launches"]["fwd_bf16"]}
+    return [
+        kernel_entry("column_attention_fwd_bf16", 165, fwd[0:2], fwd[0:2], {
+            "path": "main at --precision bf16: the node tokens",
+            "dtype": "bf16", "launches": sum(tiled_fwd.values()),
+            "launches_by_path": tiled_fwd,
+            "masked_ms": sum(r["kernel_ms"] for r in fwd[2:4]),
+            "masked_plain_ms": sum(r["plain_ms"] for r in fwd[2:4])}),
+        kernel_entry("column_attention_bwd_bf16", 178, bwd[2:4], bwd[0:2], {
+            "path": "main at --precision bf16: the node tokens",
+            "dtype": "bf16", "launches": parity16["launches"]["bwd_bf16"],
+            "launches_by_path": {
+                "train_parity_bf16": parity16["launches"]["bwd_bf16"]},
+            "max_rel_err": max(max(r["max_rel_err"].values())
+                               for r in bwd[2:4]),
+            "library_masked": False}),
+        kernel_entry("column_attention_fwd_split_bf16", 165, fwd[4:6],
+                     fwd[6:8], {
+                         "path": "kernel phase (the SSL path's tokens are "
+                                 "float32 under bf16)",
+                         "dtype": "bf16",
+                         "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
+                         "launches": sum(split_fwd.values()),
+                         "launches_by_path": split_fwd,
+                         "library_masked": False}),
+        kernel_entry("column_attention_bwd_split_bf16", 178, bwd[4:6],
+                     bwd[6:8], {
+                         "path": "kernel phase (the SSL path's tokens are "
+                                 "float32 under bf16)",
+                         "dtype": "bf16",
+                         "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
+                         "launches": ssl16["train_launches"]["bwd_bf16"]
+                         + ssl_parity16["launches"]["bwd_bf16"],
+                         "max_rel_err": max(max(r["max_rel_err"].values())
+                                            for r in bwd[4:6]),
+                         "library_masked": False})]
 
 
 def kernel_entry(name: str, line: int, pair: list, lib_pair: list,

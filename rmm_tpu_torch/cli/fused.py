@@ -5,8 +5,9 @@
 
 Same flags and defaults as ``rmm_tpu.cli.fused`` (the SSL config of record:
 C = 128, 3 layers, 64 negatives, batch 200, fanouts 100/100, dropout 0.5,
-lr 2e-4) plus ``--device`` (``cuda`` by default, which raises without CUDA;
-``cpu`` runs the kernels' plain versions). Flags whose behaviour is not
+lr 2e-4; ``bench.py`` pretrains it with ``--precision bf16``) plus
+``--device`` (``cuda`` by default, which raises without CUDA; ``cpu`` runs
+the kernels' plain versions). Flags whose behaviour is not
 ported are refused by name. The run directory is
 ``<wandb_dir>/run_<run_name>``: ``metrics.jsonl``, ``config.json``,
 ``logs.log`` and, under ``--save_model`` or ``--checkpoint``, the per-epoch
@@ -31,8 +32,7 @@ from typing import Optional
 #: flag → the only value the port accepts (the JAX CLI's default)
 UNPORTED = {"dp": 0, "scan_layers": False, "steps_per_dispatch": 1,
             "frontier_capacity": 0, "inflight_groups": 2, "moo": "sum",
-            "precision": "f32", "ports": False,
-            "split_type": "temporal_daily"}
+            "ports": False, "split_type": "temporal_daily"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -108,7 +108,8 @@ def config_from_args(args: argparse.Namespace):
         pretrain=(("mask",) if "mcm" in args.mode else ()) + ("lp",),
         save_model=args.save_model, testing=args.testing,
         wandb_dir=args.wandb_dir, group=str(args.group),
-        sampler_threads=args.sampler_threads, device=args.device)
+        sampler_threads=args.sampler_threads, precision=args.precision,
+        device=args.device)
 
 
 def main(argv=None, stats: Optional[dict] = None):

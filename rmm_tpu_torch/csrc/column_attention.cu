@@ -91,9 +91,21 @@
 // 3.35 TB/s). Bound: float32 FMAs (103 GFLOP at 131072×6×128/8, 1.54 ms
 // at 67 TFLOP/s); the core by bytes. Outputs are one thread's FMA chain
 // each: two calls give the same bits.
-// All routes take S <= 16, C % nhead == 0, C <= 128, float32 only (the
-// wrapper checks). They launch on the caller's stream, allocate nothing
-// and do not synchronize; the C entry points return cudaGetLastError().
+// All routes take S <= 16, C % nhead == 0, C <= 128 (the wrapper checks).
+// They launch on the caller's stream, allocate nothing and do not
+// synchronize; the C entry points return cudaGetLastError().
+//
+// Element types. This file builds two libraries: float32, and, with
+// RMM_ATTENTION_BF16 defined, bf16 (elem_t below): x, do, out, dx, the
+// weights and the biases in bf16, as the TPU kernel takes them under
+// --precision bf16. Every sum stays float32, and so do the split routes'
+// scratch rows, the weight-gradient partials and the reduce: the tiled
+// kernels convert a bf16 row to float when they stage it in shared memory
+// (4 elements at a time, 8-byte loads) and round when they store out or dx;
+// the split routes' GEMMs take each operand in its own type
+// (gemm_f32.cuh). The weight and bias gradients are float32 in both builds,
+// as the TPU kernel writes them. The scalar route is float32 only (its
+// entry points are not in the bf16 library).
 //
 // The backward's split route (64 < C <= 128, C % 4 == 0: the SSL path's
 // C = 128) replaces _bwd_kernel there. What bounded the scalar backward at
@@ -129,10 +141,20 @@
 
 #include "gemm_f32.cuh"
 
+#ifdef RMM_ATTENTION_BF16
+using elem_t = __nv_bfloat16;
+#else
+using elem_t = float;
+#endif
+
 namespace {
+
+using rmm_gemm::Elem;
+using E = Elem<elem_t>;
 
 constexpr int kThreads = 256;
 
+#ifndef RMM_ATTENTION_BF16  // the scalar route: float32 only
 template <int MAXS, bool W_SMEM>
 __global__ void __launch_bounds__(kThreads)
 column_attention_fwd_kernel(const float* __restrict__ x,
@@ -300,6 +322,8 @@ cudaError_t launch(const float* x, const float* wqkv, const float* bqkv,
   return cudaGetLastError();
 }
 
+#endif  // RMM_ATTENTION_BF16
+
 // ---------------------------------------------------------------------------
 // Backward.
 //
@@ -341,6 +365,7 @@ cudaError_t launch(const float* x, const float* wqkv, const float* bqkv,
 // without bank conflicts.
 // ---------------------------------------------------------------------------
 
+#ifndef RMM_ATTENTION_BF16  // the scalar route: float32 only
 constexpr int kAccPerThread = 24;  // register sums when 4C² + 4C <= 24·256
 
 // One weight or bias gradient entry k of the partials layout, summed over
@@ -648,6 +673,8 @@ column_attention_bwd_kernel(const float* __restrict__ x,
   }
 }
 
+#endif  // RMM_ATTENTION_BF16
+
 // ---------------------------------------------------------------------------
 // The register-tiled backward: every C <= 64 that is a multiple of 4 (the
 // main path's C = 32 among them). Same math, same recompute from x, same
@@ -758,20 +785,20 @@ __device__ __forceinline__ void dots4(float4& acc, float4 a, float4 w0,
 
 // Stages shared by the tiled backward and the tiled forward.
 
-// The weights into shared memory, row-major with rows padded to WQS and
-// WOS floats.
-__device__ __forceinline__ void stage_weights(const float* wqkv,
-                                              const float* wout, float* sWq,
+// The weights into shared memory as floats, row-major with rows padded to
+// WQS and WOS floats.
+__device__ __forceinline__ void stage_weights(const elem_t* wqkv,
+                                              const elem_t* wout, float* sWq,
                                               float* sWo, int C, int WQS,
                                               int WOS, int tid, int nt) {
   const int C3 = 3 * C;
   for (int i = tid; i < C * C3; i += nt) {
     const int c = i / C3;
-    sWq[c * WQS + (i - c * C3)] = wqkv[i];
+    sWq[c * WQS + (i - c * C3)] = E::ldg1(wqkv + i);
   }
   for (int i = tid; i < C * C; i += nt) {
     const int c = i / C;
-    sWo[c * WOS + (i - c * C)] = wout[i];
+    sWo[c * WOS + (i - c * C)] = E::ldg1(wout + i);
   }
 }
 
@@ -781,9 +808,9 @@ __device__ __forceinline__ void stage_weights(const float* wqkv,
 template <int NTOK>
 __device__ __forceinline__ void proj_tile(float4 (&a4)[NTOK], const float* t0,
                                           int step, const float* W, int WS,
-                                          const float* bias, int j, int C) {
-  const float4 bj = make_float4(__ldg(bias + j), __ldg(bias + j + 1),
-                                __ldg(bias + j + 2), __ldg(bias + j + 3));
+                                          const elem_t* bias, int j, int C) {
+  const float4 bj = make_float4(E::ldg1(bias + j), E::ldg1(bias + j + 1),
+                                E::ldg1(bias + j + 2), E::ldg1(bias + j + 3));
 #pragma unroll
   for (int i = 0; i < NTOK; ++i) a4[i] = bj;
 #pragma unroll 4
@@ -880,13 +907,13 @@ __host__ __device__ inline int tiled_splits(int C) {
 
 template <int MAXS, int MAXT>
 __global__ void __launch_bounds__(kTiledThreads, MAXT == 1 ? 2 : 1)
-column_attention_bwd_tiled_kernel(const float* __restrict__ x,
-                                  const float* __restrict__ dout,
-                                  const float* __restrict__ wqkv,
-                                  const float* __restrict__ bqkv,
-                                  const float* __restrict__ wout,
+column_attention_bwd_tiled_kernel(const elem_t* __restrict__ x,
+                                  const elem_t* __restrict__ dout,
+                                  const elem_t* __restrict__ wqkv,
+                                  const elem_t* __restrict__ bqkv,
+                                  const elem_t* __restrict__ wout,
                                   const uint8_t* __restrict__ keep,
-                                  float* __restrict__ dx,
+                                  elem_t* __restrict__ dx,
                                   float* __restrict__ partials, int B, int S,
                                   int C, int H, float scale, float inv_keep,
                                   int rows) {
@@ -961,16 +988,15 @@ column_attention_bwd_tiled_kernel(const float* __restrict__ x,
     const int T = nr * S;
     __syncthreads();  // weights staged / previous group done with buffers
 
-    // A. x and do rows → token rows (float4, coalesced), and the group's
-    //    keep-mask bytes
-    const float4* xg = reinterpret_cast<const float4*>(x + (size_t)r0 * SC);
-    const float4* dg =
-        reinterpret_cast<const float4*>(dout + (size_t)r0 * SC);
+    // A. x and do rows → token rows (4 elements a load as floats,
+    //    coalesced), and the group's keep-mask bytes
+    const elem_t* xg = x + (size_t)r0 * SC;
+    const elem_t* dg = dout + (size_t)r0 * SC;
     for (int i = tid; i < T * C4; i += NT) {
       const int t = i / C4;
       const int c = 4 * (i - t * C4);
-      st4(tok + t * TS + c, __ldg(xg + i));
-      st4(tok + t * TS + DO + c, __ldg(dg + i));
+      st4(tok + t * TS + c, E::ldg4(xg + 4 * i));
+      st4(tok + t * TS + DO + c, E::ldg4(dg + 4 * i));
     }
     if (keep != nullptr) {
       const uint8_t* kg = keep + (size_t)r0 * HSS;
@@ -1133,7 +1159,7 @@ column_attention_bwd_tiled_kernel(const float* __restrict__ x,
     // E. dx = dqkv·Wqkvᵀ, tiles of kTokE tokens (q, q + NQE) × 4 channels,
     //    stored straight to device memory.
     const int NQE = (T + kTokE - 1) / kTokE;
-    float* dxg = dx + (size_t)r0 * SC;
+    elem_t* dxg = dx + (size_t)r0 * SC;
     for (int it = tid; it < NQE * C4; it += NT) {
       const int ct = it / NQE;
       const int q = it - ct * NQE;
@@ -1154,7 +1180,7 @@ column_attention_bwd_tiled_kernel(const float* __restrict__ x,
       }
 #pragma unroll
       for (int i = 0; i < kTokE; ++i)
-        if (q + i * NQE < T) st4(dxg + (q + i * NQE) * C + c, a4[i]);
+        if (q + i * NQE < T) E::st4(dxg + (q + i * NQE) * C + c, a4[i]);
     }
 
     // F. the weight and bias gradients of this group into the thread's
@@ -1261,18 +1287,28 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// 4 elements of x into a float token row: float32 by cp.async (landing by
+// cp_async_wait_all()), bf16 through registers, converted (cp.async copies
+// bytes as they lie).
+__device__ __forceinline__ void load_x4(float* dst, const elem_t* src) {
+  if constexpr (std::is_same<elem_t, float>::value)
+    cp_async16(dst, src);
+  else
+    st4(dst, E::ldg4(src));
+}
+
 // Starts the loads of rows r0 .. r0 + nr: x into the token rows' x slots
 // (TS floats apart) and the keep-mask bytes (HSS a row) into kb.
-__device__ __forceinline__ void fwd_load_group(const float* x,
+__device__ __forceinline__ void fwd_load_group(const elem_t* x,
                                                const uint8_t* keep,
                                                float* tok, uint8_t* kb,
                                                int r0, int nr, int S, int C,
                                                int HSS, int TS, int tid) {
   const int C4 = C / 4;
-  const float* xg = x + (size_t)r0 * S * C;
+  const elem_t* xg = x + (size_t)r0 * S * C;
   for (int i = tid; i < nr * S * C4; i += kFwdThreads) {
     const int t = i / C4;
-    cp_async16(tok + t * TS + 4 * (i - t * C4), xg + 4 * i);
+    load_x4(tok + t * TS + 4 * (i - t * C4), xg + 4 * i);
   }
   if (keep == nullptr) return;
   const uint8_t* kg = keep + (size_t)r0 * HSS;
@@ -1286,13 +1322,13 @@ __device__ __forceinline__ void fwd_load_group(const float* x,
 
 template <int MAXS>
 __global__ void __launch_bounds__(kFwdThreads, 2)
-column_attention_fwd_tiled_kernel(const float* __restrict__ x,
-                                  const float* __restrict__ wqkv,
-                                  const float* __restrict__ bqkv,
-                                  const float* __restrict__ wout,
-                                  const float* __restrict__ bout,
+column_attention_fwd_tiled_kernel(const elem_t* __restrict__ x,
+                                  const elem_t* __restrict__ wqkv,
+                                  const elem_t* __restrict__ bqkv,
+                                  const elem_t* __restrict__ wout,
+                                  const elem_t* __restrict__ bout,
                                   const uint8_t* __restrict__ keep,
-                                  float* __restrict__ out, int B, int S,
+                                  elem_t* __restrict__ out, int B, int S,
                                   int C, int H, float scale, float inv_keep,
                                   int rows) {
   extern __shared__ float4 smem4[];
@@ -1350,7 +1386,8 @@ column_attention_fwd_tiled_kernel(const float* __restrict__ x,
     __syncthreads();
 
     // A. the next group's loads, into the x slots B is done with and the
-    //    other mask buffer: they run under C and O.
+    //    other mask buffer: they run under C and O (bf16 x through
+    //    registers, so its loads are waited for here).
     const int gn = g + gridDim.x;
     if (gn < ngroups)
       fwd_load_group(x, keep, tok, kb + (par ^ 1) * KBS, gn * rows,
@@ -1395,7 +1432,7 @@ column_attention_fwd_tiled_kernel(const float* __restrict__ x,
     //    columns with the columns fastest, stored straight to device
     //    memory: a quarter-warp stores one token's 128 contiguous bytes.
     const int NQO = (T + kFwdTokO - 1) / kFwdTokO;
-    float* og = out + (size_t)r0 * SC;
+    elem_t* og = out + (size_t)r0 * SC;
     for (int it = tid; it < NQO * C4; it += NT) {
       const int q = it / C4;
       const int ct = it - q * C4;
@@ -1403,7 +1440,7 @@ column_attention_fwd_tiled_kernel(const float* __restrict__ x,
       proj_tile(a4, tok + q * TS + CTX, NQO * TS, sWo, WOS, bout, 4 * ct, C);
 #pragma unroll
       for (int i = 0; i < kFwdTokO; ++i)
-        if (q + i * NQO < T) st4(og + (q + i * NQO) * C + 4 * ct, a4[i]);
+        if (q + i * NQO < T) E::st4(og + (q + i * NQO) * C + 4 * ct, a4[i]);
     }
   }
 }
@@ -1619,6 +1656,18 @@ column_attention_bwd_core_kernel(float* __restrict__ tok,
   }
 }
 
+// The split routes' GEMM problems (gemm_f32.cuh): x, do, the weights, out
+// and dx in elem_t, the scratch rows and the weight-gradient partials in
+// float. Layouts: A m-major or k-major, B k-major or n-major (the Spec's
+// two flags).
+using rmm_gemm::Spec;
+using QkvGemm = Spec<false, true, elem_t, elem_t, float>;   // x·Wqkv + b
+using DctxGemm = Spec<false, false, elem_t, elem_t, float>;  // do·Woutᵀ
+using OutGemm = Spec<false, true, float, elem_t, elem_t>;   // ctx·Wout + b
+using DxGemm = Spec<false, false, float, elem_t, elem_t>;   // dqkv·Wqkvᵀ
+using DwqGemm = Spec<true, true, elem_t, float, float>;     // xᵀ·dqkv
+using DwoGemm = Spec<true, true, float, elem_t, float>;     // ctxᵀ·do
+
 // ---------------------------------------------------------------------------
 // The split forward: every C with 64 < C <= 128 and C % 4 == 0 (the SSL
 // width among them). Three launches over a scratch row of 3C floats a
@@ -1775,6 +1824,7 @@ cudaError_t launch_reduce(const float* partials, int nparts, int total,
   return cudaGetLastError();
 }
 
+#ifndef RMM_ATTENTION_BF16  // the scalar route: float32 only
 bool bwd_acc_in_regs(int C, int weights_in_smem) {
   return weights_in_smem && 4 * C * C + 4 * C <= kAccPerThread * kThreads;
 }
@@ -1806,6 +1856,8 @@ cudaError_t launch_bwd(const float* x, const float* dout, const float* wqkv,
   return cudaGetLastError();
 }
 
+#endif  // RMM_ATTENTION_BF16
+
 // Blocks a tiled kernel launches with `smem` bytes a block: as many as
 // fill every SM, at most one a row group; or a negative CUDA error code.
 template <class K>
@@ -1830,6 +1882,7 @@ int tiled_grid(K kernel, int threads, size_t smem, int B, int rows) {
 
 extern "C" {
 
+#ifndef RMM_ATTENTION_BF16  // the scalar route: float32 only
 // Shared-memory layout the kernel uses for a group of `rows` rows; the
 // wrapper picks `rows` and the launch checks the total against the card.
 size_t rmm_column_attention_smem_bytes(int S, int C, int rows,
@@ -1949,6 +2002,8 @@ int rmm_column_attention_bwd(const float* x, const float* dout,
 
 #undef RMM_BWD_DISPATCH
 
+#endif  // RMM_ATTENTION_BF16
+
 // The tiled backward (C % 4 == 0, C <= 64): its shared memory for a group
 // of `rows` rows, and the partial slices each block writes (stage F's
 // token splits).
@@ -1985,10 +2040,10 @@ int rmm_column_attention_bwd_tiled_grid(int B, int S, int C, int H,
 // The tiled backward kernel, then the reduce of its grid × splits partial
 // slices into grads (layout as rmm_column_attention_bwd's). x, dout and dx
 // must be 16-byte aligned. Returns cudaGetLastError() after the launches.
-int rmm_column_attention_bwd_tiled(const float* x, const float* dout,
-                                   const float* wqkv, const float* bqkv,
-                                   const float* wout, const uint8_t* keep,
-                                   float* dx, float* partials, float* grads,
+int rmm_column_attention_bwd_tiled(const elem_t* x, const elem_t* dout,
+                                   const elem_t* wqkv, const elem_t* bqkv,
+                                   const elem_t* wout, const uint8_t* keep,
+                                   elem_t* dx, float* partials, float* grads,
                                    int B, int S, int C, int H,
                                    float inv_keep, int rows, int grid,
                                    void* stream) {
@@ -2032,20 +2087,20 @@ size_t rmm_column_attention_bwd_core_smem_bytes(int S, int C, int H,
 int rmm_column_attention_gemm_blocks_per_sm() {
   int per_sm = 0;
   const cudaError_t e =
-      rmm_gemm::gemm_blocks_per_sm<true, true, true, true>(&per_sm);
+      rmm_gemm::gemm_blocks_per_sm<DwqGemm, DwoGemm>(&per_sm);
   return e == cudaSuccess ? per_sm : -(int)e;
 }
 
 // The split backward's five launches (see the note at the top of this
 // file), on the scratch `tok` ([B·S, 4C] floats) and `partials`
-// (ceil(B·S / split_tokens) slices of 4C² + 4C floats), into dx and grads
-// (layout as rmm_column_attention_bwd's). x, dout, wqkv, wout and tok
+// (ceil(B·S / split_tokens) slices of 4C² + 4C floats), into dx and the
+// float grads (layout as the tiled backward's). x, dout, wqkv, wout and tok
 // must be 16-byte aligned. Returns the first launch's cudaGetLastError()
 // that is not 0, else 0.
-int rmm_column_attention_bwd_split(const float* x, const float* dout,
-                                   const float* wqkv, const float* bqkv,
-                                   const float* wout, const uint8_t* keep,
-                                   float* dx, float* tok, float* partials,
+int rmm_column_attention_bwd_split(const elem_t* x, const elem_t* dout,
+                                   const elem_t* wqkv, const elem_t* bqkv,
+                                   const elem_t* wout, const uint8_t* keep,
+                                   elem_t* dx, float* tok, float* partials,
                                    float* grads, int B, int S, int C, int H,
                                    float inv_keep, int rows,
                                    int split_tokens, void* stream) {
@@ -2064,7 +2119,7 @@ int rmm_column_attention_bwd_split(const float* x, const float* dout,
                              0);
   const Gemm dctx = make_gemm(dout, C, wout, C, tok + C3, TT, nullptr, N, C,
                               C, C, 0, 0);
-  cudaError_t err = launch_gemm<false, true, false, false>(qkv, &dctx, st);
+  cudaError_t err = launch_gemm<QkvGemm, DctxGemm>(qkv, &dctx, st);
   if (err != cudaSuccess) return (int)err;
   // 2. the attention core
   const size_t smem = core_smem_floats(S, C, H, rows) * sizeof(float);
@@ -2082,7 +2137,7 @@ int rmm_column_attention_bwd_split(const float* x, const float* dout,
   // 3. dx = dqkv·Wqkvᵀ: B(k = j, n = c) = Wqkv[c][j] is n-major
   const Gemm gdx = make_gemm(tok, TT, wqkv, C3, dx, C, nullptr, N, C, C3,
                              C3, 0, 0);
-  err = launch_gemm<false, false, false, false>(gdx, nullptr, st);
+  err = launch_gemm<DxGemm, DxGemm>(gdx, nullptr, st);
   if (err != cudaSuccess) return (int)err;
   // 4. the weight and bias gradients over token splits: A = x or ctx read
   //    as xᵀ (k-major), B = dqkv or do (k-major); the bias rows follow
@@ -2092,7 +2147,7 @@ int rmm_column_attention_bwd_split(const float* x, const float* dout,
   const Gemm gwo = make_gemm(tok + C3, TT, dout, C,
                              partials + (size_t)C * C3 + C3, C, nullptr, C,
                              C, N, split_tokens, total, 1);
-  err = launch_gemm<true, true, true, true>(gwq, &gwo, st);
+  err = launch_gemm<DwqGemm, DwoGemm>(gwq, &gwo, st);
   if (err != cudaSuccess) return (int)err;
   // 5. the reduce
   return (int)launch_reduce(partials, (N + split_tokens - 1) / split_tokens,
@@ -2124,10 +2179,10 @@ int rmm_column_attention_fwd_core(float* tok, const uint8_t* keep, int B,
 // file) on the scratch `tok` ([B·S, 3C] floats), into out. x, wqkv, wout,
 // out and tok must be 16-byte aligned. Returns the first launch's
 // cudaGetLastError() that is not 0, else 0.
-int rmm_column_attention_fwd_split(const float* x, const float* wqkv,
-                                   const float* bqkv, const float* wout,
-                                   const float* bout, const uint8_t* keep,
-                                   float* out, float* tok, int B, int S,
+int rmm_column_attention_fwd_split(const elem_t* x, const elem_t* wqkv,
+                                   const elem_t* bqkv, const elem_t* wout,
+                                   const elem_t* bout, const uint8_t* keep,
+                                   elem_t* out, float* tok, int B, int S,
                                    int C, int H, float inv_keep, int rows,
                                    void* stream) {
   using rmm_gemm::Gemm;
@@ -2141,7 +2196,7 @@ int rmm_column_attention_fwd_split(const float* x, const float* wqkv,
   //    the backward's projection instantiation, one problem.
   const Gemm qkv = make_gemm(x, C, wqkv, C3, tok, C3, bqkv, N, C3, C, C, 0,
                              0);
-  cudaError_t err = launch_gemm<false, true, false, false>(qkv, nullptr, st);
+  cudaError_t err = launch_gemm<QkvGemm, DctxGemm>(qkv, nullptr, st);
   if (err != cudaSuccess) return (int)err;
   // 2. the attention core: ctx over q
   err = launch_fwd_core(tok, keep, B, S, C, H, inv_keep, rows, st);
@@ -2149,7 +2204,7 @@ int rmm_column_attention_fwd_split(const float* x, const float* wqkv,
   // 3. out = ctx·Wout + bout: A = ctx (the first C floats of each token
   //    row), B = Wout (k-major)
   const Gemm o = make_gemm(tok, C3, wout, C, out, C, bout, N, C, C, C, 0, 0);
-  return (int)launch_gemm<false, true, false, false>(o, nullptr, st);
+  return (int)launch_gemm<OutGemm, DctxGemm>(o, nullptr, st);
 }
 
 // The tiled forward (C % 4 == 0, C <= 64): its shared memory for a group
@@ -2176,10 +2231,10 @@ int rmm_column_attention_fwd_tiled_grid(int B, int S, int C, int H,
 
 // The tiled forward kernel. x and out must be 16-byte aligned. Returns
 // cudaGetLastError() after the launch (0 = launched).
-int rmm_column_attention_fwd_tiled(const float* x, const float* wqkv,
-                                   const float* bqkv, const float* wout,
-                                   const float* bout, const uint8_t* keep,
-                                   float* out, int B, int S, int C, int H,
+int rmm_column_attention_fwd_tiled(const elem_t* x, const elem_t* wqkv,
+                                   const elem_t* bqkv, const elem_t* wout,
+                                   const elem_t* bout, const uint8_t* keep,
+                                   elem_t* out, int B, int S, int C, int H,
                                    float inv_keep, int rows, int grid,
                                    void* stream) {
   if (B <= 0) return 0;

@@ -1,14 +1,24 @@
 // Float32 GEMM tiles for Hopper's CUDA cores: the matrix products of the
-// column-attention backward's split route (csrc/column_attention.cu).
+// column attention's split routes (csrc/column_attention.cu).
 //
 //   C[m, n] = Σ_k A(m, k) · B(k, n)  (+ bias[n])
+//
+// A, B and C each have their own element type, float or bf16
+// (__nv_bfloat16; the bias has B's): bf16 tiles are staged as they lie and
+// converted to float exactly when the fragments load, every sum is float32,
+// and a bf16 output is rounded to nearest even once. So one template takes
+// the float32 route and the bf16 one (bf16 x, do, weights, out and dx
+// around float32 scratch), as the TPU kernel's products take bf16 operands
+// with preferred_element_type=float32.
 //
 // A and B each lie in device memory in one of two layouts, chosen per
 // problem at compile time: "k-major" (A stored K×M, B stored K×N: k is the
 // slow index) or "m-major" / "n-major" (A stored M×K, B stored N×K: k is
-// the fast index). Both are copied into shared memory as they lie, 16 bytes
-// at a time by cp.async, so no operand is transposed on the way; the
-// fragment loads read each layout with float4s.
+// the fast index). Both are copied into shared memory as they lie, 4
+// elements at a time by cp.async (16 bytes of float, 8 of bf16: a bf16 row
+// of C % 8 = 4 elements is 8-byte but not 16-byte aligned), so no operand is
+// transposed on the way; the fragment loads read each layout 4 elements at
+// a time (a float4, or 8 bytes of bf16).
 //
 // Design:
 //  * Block tiles of 128×128 outputs over 256 threads, each thread an 8×8
@@ -28,7 +38,7 @@
 //  * Ragged edges: rows, columns and k past the problem's bounds are
 //    zero-filled by cp.async (src-size 0), and the epilogue stores only in
 //    range. Every row stride and base pointer must be a multiple of 4
-//    floats (the caller checks: C % 4 == 0 and 16-byte aligned tensors).
+//    elements (the caller checks: C % 4 == 0 and 16-byte aligned tensors).
 //  * A K range may be cut into splits (the weight gradients' token ranges):
 //    split s sums k in [s·split_k, min(K, (s + 1)·split_k)) into its own
 //    output slice, c_split floats after the previous one. With bias_row
@@ -42,10 +52,80 @@
 // backward is held to 1e-4 of float32 autograd, which TF32 would miss).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace rmm_gemm {
+
+// Element access, 4 elements (a chunk) at a time, for float and bf16.
+// bf16 → float is exact (the bf16 bits are the float's top half); float →
+// bf16 rounds to nearest even, as PyTorch's cast does.
+__device__ __forceinline__ float4 bf16x4_to_float4(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ unsigned bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+template <class T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  // 4 elements into shared memory by cp.async; zeros where !ok (src-size
+  // 0: nothing is read, so src need only be a valid pointer)
+  static __device__ __forceinline__ void cp4(float* dst, const float* src,
+                                             bool ok) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(src), "r"(ok ? 16 : 0));
+  }
+  static __device__ __forceinline__ float4 ld4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+  static __device__ __forceinline__ float4 ldg4(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ void st4(float* p, float4 v) {
+    *reinterpret_cast<float4*>(p) = v;
+  }
+  static __device__ __forceinline__ void st1(float* p, float v) { *p = v; }
+  static __device__ __forceinline__ float ldg1(const float* p) {
+    return __ldg(p);
+  }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  using T = __nv_bfloat16;
+  static __device__ __forceinline__ void cp4(T* dst, const T* src, bool ok) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+                 "l"(src), "r"(ok ? 8 : 0));
+  }
+  static __device__ __forceinline__ float4 ld4(const T* p) {
+    return bf16x4_to_float4(*reinterpret_cast<const uint2*>(p));
+  }
+  static __device__ __forceinline__ float4 ldg4(const T* p) {
+    return bf16x4_to_float4(__ldg(reinterpret_cast<const uint2*>(p)));
+  }
+  static __device__ __forceinline__ void st4(T* p, float4 v) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(bf16x2_bits(v.x, v.y), bf16x2_bits(v.z, v.w));
+  }
+  static __device__ __forceinline__ void st1(T* p, float v) {
+    *p = __float2bfloat16_rn(v);
+  }
+  static __device__ __forceinline__ float ldg1(const T* p) {
+    return __bfloat162float(__ldg(p));
+  }
+};
 
 constexpr int kBM = 128;                       // rows of a block tile
 constexpr int kBN = 128;                       // columns of a block tile
@@ -64,13 +144,24 @@ constexpr size_t kSmemBytes = sizeof(float) * kStages * kStageFloats;
 static_assert(kBK % 4 == 0 && kBK >= 4, "kBK is a multiple of 4");
 static_assert(kBM == 128 && kBN == 128, "the thread map assumes 128x128");
 
-// One product. Pointers are in floats; ld* are row strides of the layout
-// as stored (k-major: the stride between k; otherwise between rows).
+// A problem's layouts (A k-major, B k-major) and element types (A, B, C;
+// the bias has B's type).
+template <bool AK_, bool BK_, class TA_, class TB_, class TC_>
+struct Spec {
+  static constexpr bool AK = AK_, BK = BK_;
+  using TA = TA_;
+  using TB = TB_;
+  using TC = TC_;
+};
+
+// One product. Pointers are to elements of the Spec's types; ld* are row
+// strides of the layout as stored, in elements (k-major: the stride between
+// k; otherwise between rows).
 struct Gemm {
-  const float* a;
-  const float* b;
-  float* c;
-  const float* bias;   // added to every row (N floats), or null
+  const void* a;
+  const void* b;
+  void* c;
+  const void* bias;    // added to every row (N elements), or null
   int M, N, K;
   int lda, ldb, ldc;
   int split_k;         // k a split (K when not split)
@@ -85,8 +176,8 @@ struct GemmPair {
   Gemm p[2];
 };
 
-__host__ inline Gemm make_gemm(const float* a, int lda, const float* b,
-                               int ldb, float* c, int ldc, const float* bias,
+__host__ inline Gemm make_gemm(const void* a, int lda, const void* b,
+                               int ldb, void* c, int ldc, const void* bias,
                                int M, int N, int K, int split_k,
                                long long c_split, int bias_row) {
   Gemm g;
@@ -103,19 +194,6 @@ __host__ inline Gemm make_gemm(const float* a, int lda, const float* b,
   return g;
 }
 
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// 16 bytes into shared memory by cp.async; zeros where !ok (src-size 0:
-// nothing is read, so src need only be a valid pointer).
-__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = ok ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
-}
-
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -128,10 +206,10 @@ __device__ __forceinline__ void cp_wait() {
 // The slice of one operand at k0 .. k0 + kBK (k < klim) and rows or
 // columns r0 .. r0 + 127 (< rlim) into s. K-major: g[k·ld + r] →
 // s[kk·128 + rr]; otherwise g[r·ld + k] → s[rr·kPadK + kk].
-template <bool KMAJOR>
-__device__ __forceinline__ void load_slice(float* s, const float* g, int ld,
-                                           int r0, int rlim, int k0,
-                                           int klim, int tid) {
+template <bool KMAJOR, class T>
+__device__ __forceinline__ void load_slice(T* s, const T* g, int ld, int r0,
+                                           int rlim, int k0, int klim,
+                                           int tid) {
   if (KMAJOR) {
     constexpr int kChunks = kBK * kBM / 4;
 #pragma unroll
@@ -139,7 +217,8 @@ __device__ __forceinline__ void load_slice(float* s, const float* g, int ld,
       const int kk = c / (kBM / 4), q = c % (kBM / 4);
       const int k = k0 + kk, r = r0 + 4 * q;
       const bool ok = k < klim && r < rlim;
-      cp16(s + kk * kBM + 4 * q, ok ? g + (size_t)k * ld + r : g, ok);
+      Elem<T>::cp4(s + kk * kBM + 4 * q, ok ? g + (size_t)k * ld + r : g,
+                   ok);
     }
   } else {
     constexpr int kChunks = kBM * kBK / 4;
@@ -148,7 +227,8 @@ __device__ __forceinline__ void load_slice(float* s, const float* g, int ld,
       const int rr = c / (kBK / 4), q = c % (kBK / 4);
       const int r = r0 + rr, k = k0 + 4 * q;
       const bool ok = r < rlim && k < klim;
-      cp16(s + rr * kPadK + 4 * q, ok ? g + (size_t)r * ld + k : g, ok);
+      Elem<T>::cp4(s + rr * kPadK + 4 * q, ok ? g + (size_t)r * ld + k : g,
+                   ok);
     }
   }
 }
@@ -168,8 +248,8 @@ __device__ __forceinline__ int tile_col(int j, int tx) {
 }
 
 // acc += the slice in sA, sB; cs += B's column sums where colsum.
-template <bool AK, bool BKM>
-__device__ __forceinline__ void mma_slice(const float* sA, const float* sB,
+template <bool AK, bool BKM, class TA, class TB>
+__device__ __forceinline__ void mma_slice(const TA* sA, const TB* sB,
                                           float (&acc)[8][8], float (&cs)[8],
                                           bool colsum, int ty, int tx) {
 #pragma unroll
@@ -180,7 +260,8 @@ __device__ __forceinline__ void mma_slice(const float* sA, const float* sB,
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const float4 v = lds4(sB + (k4 + kk) * kBN + 64 * h + 4 * tx);
+          const float4 v =
+              Elem<TB>::ld4(sB + (k4 + kk) * kBN + 64 * h + 4 * tx);
           b[4 * h][kk] = v.x;
           b[4 * h + 1][kk] = v.y;
           b[4 * h + 2][kk] = v.z;
@@ -189,7 +270,7 @@ __device__ __forceinline__ void mma_slice(const float* sA, const float* sB,
     } else {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float4 v = lds4(sB + (tx + 16 * j) * kPadK + k4);
+        const float4 v = Elem<TB>::ld4(sB + (tx + 16 * j) * kPadK + k4);
         b[j][0] = v.x;
         b[j][1] = v.y;
         b[j][2] = v.z;
@@ -208,7 +289,8 @@ __device__ __forceinline__ void mma_slice(const float* sA, const float* sB,
       if (AK) {
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          const float4 v = lds4(sA + (k4 + kk) * kBM + 64 * h + 4 * ty);
+          const float4 v =
+              Elem<TA>::ld4(sA + (k4 + kk) * kBM + 64 * h + 4 * ty);
           a[0][kk] = v.x;
           a[1][kk] = v.y;
           a[2][kk] = v.z;
@@ -217,7 +299,8 @@ __device__ __forceinline__ void mma_slice(const float* sA, const float* sB,
       } else {
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          const float4 v = lds4(sA + (ty + 64 * h + 16 * r) * kPadK + k4);
+          const float4 v =
+              Elem<TA>::ld4(sA + (ty + 64 * h + 16 * r) * kPadK + k4);
           a[r][0] = v.x;
           a[r][1] = v.y;
           a[r][2] = v.z;
@@ -235,23 +318,31 @@ __device__ __forceinline__ void mma_slice(const float* sA, const float* sB,
   }
 }
 
-// Stores 4 consecutive outputs of a k-major-B row (a float4; N and the
-// column are multiples of 4), plus the bias.
-__device__ __forceinline__ void store4(float* c, const float* bias, int col,
+// Stores 4 consecutive outputs of a k-major-B row (N and the column are
+// multiples of 4), plus the bias.
+template <class TC, class TB>
+__device__ __forceinline__ void store4(TC* c, const TB* bias, int col,
                                        float x, float y, float z, float w) {
   if (bias != nullptr) {
-    x += __ldg(bias + col);
-    y += __ldg(bias + col + 1);
-    z += __ldg(bias + col + 2);
-    w += __ldg(bias + col + 3);
+    x += Elem<TB>::ldg1(bias + col);
+    y += Elem<TB>::ldg1(bias + col + 1);
+    z += Elem<TB>::ldg1(bias + col + 2);
+    w += Elem<TB>::ldg1(bias + col + 3);
   }
-  *reinterpret_cast<float4*>(c) = make_float4(x, y, z, w);
+  Elem<TC>::st4(c, make_float4(x, y, z, w));
 }
 
 // One block's tile of problem g (block index `bid` within the problem).
-template <bool AK, bool BKM>
+template <class S>
 __device__ __forceinline__ void gemm_tile(const Gemm& g, int bid,
                                           float* smem) {
+  using TA = typename S::TA;
+  using TB = typename S::TB;
+  using TC = typename S::TC;
+  constexpr bool AK = S::AK, BKM = S::BK;
+  const TA* ga = static_cast<const TA*>(g.a);
+  const TB* gb = static_cast<const TB*>(g.b);
+  const TB* bias = static_cast<const TB*>(g.bias);
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int ty = (warp >> 1) * 4 + (lane >> 3);
@@ -263,7 +354,7 @@ __device__ __forceinline__ void gemm_tile(const Gemm& g, int bid,
   const int kb = split * g.split_k;
   const int ke = min(g.K, kb + g.split_k);
   const int slices = (ke - kb + kBK - 1) / kBK;
-  float* c = g.c + split * g.c_split;
+  TC* c = static_cast<TC*>(g.c) + split * g.c_split;
   // Only the weight gradients (A k-major) ask for bias rows: the other
   // instantiations keep no column sums.
   const bool colsum = AK && g.bias_row && tm == 0 && ty == 0;
@@ -277,11 +368,15 @@ __device__ __forceinline__ void gemm_tile(const Gemm& g, int bid,
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   }
 
+  // a stage holds A's tile, then B's, each in kTileFloats floats whatever
+  // its element type
   auto load = [&](int s) {
     float* st = smem + (s % kStages) * kStageFloats;
     const int k0 = kb + s * kBK;
-    load_slice<AK>(st, g.a, g.lda, m0, g.M, k0, ke, tid);
-    load_slice<BKM>(st + kTileFloats, g.b, g.ldb, n0, g.N, k0, ke, tid);
+    load_slice<AK>(reinterpret_cast<TA*>(st), ga, g.lda, m0, g.M, k0, ke,
+                   tid);
+    load_slice<BKM>(reinterpret_cast<TB*>(st + kTileFloats), gb, g.ldb, n0,
+                    g.N, k0, ke, tid);
   };
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
@@ -294,7 +389,9 @@ __device__ __forceinline__ void gemm_tile(const Gemm& g, int bid,
     if (s + kStages - 1 < slices) load(s + kStages - 1);
     cp_commit();
     const float* st = smem + (s % kStages) * kStageFloats;
-    mma_slice<AK, BKM>(st, st + kTileFloats, acc, cs, colsum, ty, tx);
+    mma_slice<AK, BKM>(reinterpret_cast<const TA*>(st),
+                       reinterpret_cast<const TB*>(st + kTileFloats), acc, cs,
+                       colsum, ty, tx);
   }
   cp_wait<0>();
 
@@ -302,13 +399,13 @@ __device__ __forceinline__ void gemm_tile(const Gemm& g, int bid,
   for (int i = 0; i < 8; ++i) {
     const int row = m0 + tile_row<AK>(i, ty);
     if (row >= g.M) continue;
-    float* cr = c + (size_t)row * g.ldc;
+    TC* cr = c + (size_t)row * g.ldc;
     if (BKM) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int col = n0 + tile_col<BKM>(4 * h, tx);
         if (col < g.N)
-          store4(cr + col, g.bias, col, acc[i][4 * h], acc[i][4 * h + 1],
+          store4(cr + col, bias, col, acc[i][4 * h], acc[i][4 * h + 1],
                  acc[i][4 * h + 2], acc[i][4 * h + 3]);
       }
     } else {
@@ -316,37 +413,39 @@ __device__ __forceinline__ void gemm_tile(const Gemm& g, int bid,
       for (int j = 0; j < 8; ++j) {
         const int col = n0 + tile_col<BKM>(j, tx);
         if (col < g.N)
-          cr[col] = acc[i][j] + (g.bias != nullptr ? __ldg(g.bias + col)
-                                                   : 0.f);
+          Elem<TC>::st1(cr + col,
+                        acc[i][j] + (bias != nullptr
+                                         ? Elem<TB>::ldg1(bias + col)
+                                         : 0.f));
       }
     }
   }
   if (colsum) {
-    float* cr = c + (size_t)g.M * g.ldc;
+    TC* cr = c + (size_t)g.M * g.ldc;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = n0 + tile_col<BKM>(j, tx);
-      if (col < g.N) cr[col] = cs[j];
+      if (col < g.N) Elem<TC>::st1(cr + col, cs[j]);
     }
   }
 }
 
-template <bool AK0, bool BK0, bool AK1, bool BK1>
+template <class S0, class S1>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 gemm_kernel(GemmPair pair) {
   extern __shared__ __align__(16) float gemm_smem[];
   const int bid = blockIdx.x;
   if (bid < pair.p[0].blocks)
-    gemm_tile<AK0, BK0>(pair.p[0], bid, gemm_smem);
+    gemm_tile<S0>(pair.p[0], bid, gemm_smem);
   else
-    gemm_tile<AK1, BK1>(pair.p[1], bid - pair.p[0].blocks, gemm_smem);
+    gemm_tile<S1>(pair.p[1], bid - pair.p[0].blocks, gemm_smem);
 }
 
-// Launches one or two problems (count) of the layouts in the template.
-template <bool AK0, bool BK0, bool AK1, bool BK1>
+// Launches one or two problems (count) of the Specs in the template.
+template <class S0, class S1>
 cudaError_t launch_gemm(const Gemm& g0, const Gemm* g1,
                         cudaStream_t stream) {
-  auto kernel = gemm_kernel<AK0, BK0, AK1, BK1>;
+  auto kernel = gemm_kernel<S0, S1>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
   if (err != cudaSuccess) return err;
@@ -359,10 +458,10 @@ cudaError_t launch_gemm(const Gemm& g0, const Gemm* g1,
   return cudaGetLastError();
 }
 
-// Blocks of the GEMM kernel (of the layouts in the template) an SM holds.
-template <bool AK0, bool BK0, bool AK1, bool BK1>
+// Blocks of the GEMM kernel (of the Specs in the template) an SM holds.
+template <class S0, class S1>
 cudaError_t gemm_blocks_per_sm(int* per_sm) {
-  auto kernel = gemm_kernel<AK0, BK0, AK1, BK1>;
+  auto kernel = gemm_kernel<S0, S1>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
   if (err != cudaSuccess) return err;

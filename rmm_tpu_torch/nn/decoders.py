@@ -7,7 +7,7 @@ from torch import nn
 
 from .dropout import GeneratorDropout
 from .gnn.conv import gather
-from .transformer import LN_EPS
+from .layers import Dense, LayerNorm
 
 
 class _MLP50(nn.Module):
@@ -16,9 +16,9 @@ class _MLP50(nn.Module):
     def __init__(self, in_features: int, n_classes: int,
                  dropout: float = 0.5):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, 50)
-        self.fc2 = nn.Linear(50, 25)
-        self.fc3 = nn.Linear(25, n_classes)
+        self.fc1 = Dense(in_features, 50)
+        self.fc2 = Dense(50, 25)
+        self.fc3 = Dense(25, n_classes)
         self.drop = GeneratorDropout(dropout)
 
     def forward(self, x):
@@ -51,9 +51,9 @@ class _LPTrunk(nn.Module):
     def __init__(self, in_features: int, n_classes: int, n_hidden: int,
                  dropout: float):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, n_hidden)
-        self.fc2 = nn.Linear(n_hidden, 25)
-        self.fc3 = nn.Linear(25, n_classes)
+        self.fc1 = Dense(in_features, n_hidden)
+        self.fc2 = Dense(n_hidden, 25)
+        self.fc3 = Dense(25, n_classes)
         self.drop = GeneratorDropout(dropout)
 
     def forward(self, h):
@@ -95,11 +95,11 @@ class MCMHead(nn.Module):
         width = w * channels
         self.num_numerical = num_numerical
         self.num_categorical = list(num_categorical)
-        self.num_norm = nn.LayerNorm(width, eps=LN_EPS)
-        self.num_lin = nn.Linear(width, max(num_numerical, 1))
+        self.num_norm = LayerNorm(width)
+        self.num_lin = Dense(width, max(num_numerical, 1))
         for i, k in enumerate(self.num_categorical):
-            self.add_module(f"cat_norm_{i}", nn.LayerNorm(width, eps=LN_EPS))
-            self.add_module(f"cat_lin_{i}", nn.Linear(width, k))
+            self.add_module(f"cat_norm_{i}", LayerNorm(width))
+            self.add_module(f"cat_lin_{i}", Dense(width, k))
 
     def forward(self, x):
         num_out = self.num_lin(torch.relu(self.num_norm(x)))

@@ -16,6 +16,7 @@ from torch import nn
 from ..frame.stats import StatType
 from ..frame.stype import STYPE_ORDER, Stype
 from ..frame.tensor_frame import TensorFrame
+from ..utils.precision import promote
 
 
 class EmbeddingEncoder(nn.Module):
@@ -58,7 +59,9 @@ class LinearEncoder(nn.Module):
         self.bias = nn.Parameter(torch.empty(n, channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:   # [B, n_num] float
-        xn = (x - self.means) / torch.clamp(self.stds, min=1e-6)
+        # the statistics in x's dtype, as the JAX encoder takes them
+        means, stds = self.means.to(x.dtype), self.stds.to(x.dtype)
+        xn = (x - means) / torch.clamp(stds, min=1e-6)
         xn = torch.nan_to_num(xn)
         return xn[:, :, None] * self.weight[None] + self.bias[None]
 
@@ -97,8 +100,12 @@ class TimestampEncoder(nn.Module):
         self.bias = nn.Parameter(torch.empty(num_cols, channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:   # [B, n_ts] int64
-        feats = timestamp_cyclic_features(x)
-        return torch.einsum("btf,tfc->btc", feats, self.weight) + self.bias[None]
+        # the features stay float32 whatever the parameters' dtype, so
+        # under bf16 the block (and the tokens it joins) is float32, as in
+        # the reference
+        feats, w, b = promote(timestamp_cyclic_features(x), self.weight,
+                              self.bias)
+        return torch.einsum("btf,tfc->btc", feats, w) + b[None]
 
 
 class ProjectionEncoder(nn.Module):

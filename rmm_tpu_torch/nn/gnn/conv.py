@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from ...ops.segment import pna_aggregate
+from ..layers import Dense
 
 
 def gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -29,10 +30,10 @@ class PNAConv(nn.Module):
         super().__init__()
         f = channels
         self.avg_log_deg = float(avg_log_deg)
-        self.edge_encoder = nn.Linear(f, f)
-        self.pre_nn = nn.Linear(3 * f, f)
-        self.post_nn = nn.Linear(13 * f, f)
-        self.lin = nn.Linear(f, f)
+        self.edge_encoder = Dense(f, f)
+        self.pre_nn = Dense(3 * f, f)
+        self.post_nn = Dense(13 * f, f)
+        self.lin = Dense(f, f)
 
     def forward(self, x, edge_index, edge_attr, edge_mask=None):
         src, dst = edge_index[0], edge_index[1]
@@ -51,7 +52,7 @@ class PNAConvHetero(nn.Module):
         super().__init__()
         self.conv_forw = PNAConv(channels, avg_log_deg)
         self.conv_back = PNAConv(channels, avg_log_deg)
-        self.lin = nn.Linear(3 * channels, channels)
+        self.lin = Dense(3 * channels, channels)
 
     def forward(self, x, edge_index, edge_attr, edge_mask=None):
         a_in = self.conv_forw(x, edge_index, edge_attr, edge_mask)
@@ -64,8 +65,8 @@ class EdgeUpdateMLP(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.lin1 = nn.Linear(3 * channels, channels)
-        self.lin2 = nn.Linear(channels, channels)
+        self.lin1 = Dense(3 * channels, channels)
+        self.lin2 = Dense(channels, channels)
 
     def forward(self, x, edge_index, edge_attr):
         src, dst = edge_index[0], edge_index[1]

@@ -28,8 +28,9 @@ from torch import nn
 from ...ops.segment import scatter_mean_update
 from ..dropout import GeneratorDropout
 from ..gnn.conv import EdgeUpdateMLP, PNAConv, PNAConvHetero, gather
+from ..layers import Dense, LayerNorm
 from ..norms import MaskedBatchNorm
-from ..transformer import LN_EPS, CLSToken, TransformerEncoderLayer
+from ..transformer import CLSToken, TransformerEncoderLayer
 
 
 class FuseMLP(nn.Module):
@@ -38,10 +39,10 @@ class FuseMLP(nn.Module):
 
     def __init__(self, dim: int, dropout: float = 0.5):
         super().__init__()
-        self.norm = nn.LayerNorm(dim, eps=LN_EPS)
-        self.fc1 = nn.Linear(dim, 4 * dim)
-        self.fc2 = nn.Linear(4 * dim, 4 * dim)
-        self.fc3 = nn.Linear(4 * dim, dim)
+        self.norm = LayerNorm(dim)
+        self.fc1 = Dense(dim, 4 * dim)
+        self.fc2 = Dense(4 * dim, 4 * dim)
+        self.fc3 = Dense(4 * dim, dim)
         self.drop = GeneratorDropout(dropout)
 
     def forward(self, z):
@@ -59,14 +60,14 @@ class FTTransformerPNAFusedLayer(nn.Module):
         self.channels, self.nhidden = channels, nhidden
         self.tab_conv = TransformerEncoderLayer(channels, nhead,
                                                 feedforward_channels, dropout)
-        self.tab_norm = nn.LayerNorm(channels, eps=LN_EPS)
+        self.tab_norm = LayerNorm(channels)
         conv = PNAConvHetero if reverse_mp else PNAConv
         self.gnn_conv = conv(nhidden, avg_log_deg)
         self.gnn_norm = MaskedBatchNorm(nhidden)
         self.gnn_edge_update = EdgeUpdateMLP(nhidden)
         fused_dim = channels + 2 * nhidden
         self.fuse = FuseMLP(fused_dim, dropout)
-        self.fuse_norm = nn.LayerNorm(fused_dim, eps=LN_EPS)
+        self.fuse_norm = LayerNorm(fused_dim)
 
     def forward(self, x_tab, x_gnn, edge_index, edge_attr, target_edge_index,
                 lp: bool = False, edge_mask=None, node_mask=None):
@@ -104,12 +105,12 @@ class TABGNNFused(nn.Module):
                  feedforward_channels: Optional[int] = None):
         super().__init__()
         self.num_layers = num_layers
-        self.node_emb = nn.Linear(node_dim, nhidden)
+        self.node_emb = Dense(node_dim, nhidden)
         self.cls_embedding = CLSToken(channels)
         self.tab_conv = TransformerEncoderLayer(channels, nhead,
                                                 feedforward_channels, dropout)
-        self.tab_norm = nn.LayerNorm(channels, eps=LN_EPS)
-        self.edge_emb = nn.Linear((edge_cols + 1) * channels, nhidden)
+        self.tab_norm = LayerNorm(channels)
+        self.edge_emb = Dense((edge_cols + 1) * channels, nhidden)
         for i in range(num_layers):
             self.add_module(f"layer_{i}", FTTransformerPNAFusedLayer(
                 channels, nhidden, avg_log_deg, reverse_mp, nhead, dropout,

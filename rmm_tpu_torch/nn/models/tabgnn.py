@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from ..gnn.conv import EdgeUpdateMLP, PNAConv, PNAConvHetero
+from ..layers import Dense
 from ..norms import MaskedBatchNorm
 from ..transformer import CLSToken, FTTransformerLayer
 
@@ -52,8 +53,8 @@ class TABGNN(nn.Module):
         for i in range(num_layers):
             self.add_module(f"tab_layer_{i}", FTTransformerLayer(
                 channels, nhead, feedforward_channels, dropout))
-        self.node_emb = nn.Linear((node_cols + 1) * channels, nhidden)
-        self.edge_emb = nn.Linear((edge_cols + 1) * channels, nhidden)
+        self.node_emb = Dense((node_cols + 1) * channels, nhidden)
+        self.edge_emb = Dense((edge_cols + 1) * channels, nhidden)
         for i in range(num_layers):
             self.add_module(f"gnn_layer_{i}", PNALayer(
                 nhidden, avg_log_deg, reverse_mp))

@@ -18,8 +18,7 @@ from torch import nn
 
 from ..ops.column_attention import fused_column_attention
 from .dropout import GeneratorDropout, keep_mask
-
-LN_EPS = 1e-6   # flax.linen.LayerNorm default
+from .layers import Dense, LayerNorm
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -63,10 +62,10 @@ class TransformerEncoderLayer(nn.Module):
         super().__init__()
         ff = feedforward_channels or channels
         self.self_attn = MultiHeadSelfAttention(channels, nhead, dropout)
-        self.norm1 = nn.LayerNorm(channels, eps=LN_EPS)
-        self.linear1 = nn.Linear(channels, ff)
-        self.linear2 = nn.Linear(ff, channels)
-        self.norm2 = nn.LayerNorm(channels, eps=LN_EPS)
+        self.norm1 = LayerNorm(channels)
+        self.linear1 = Dense(channels, ff)
+        self.linear2 = Dense(ff, channels)
+        self.norm2 = LayerNorm(channels)
         self.drop = GeneratorDropout(dropout)
         self.act = {"relu": torch.relu,
                     "gelu": nn.functional.gelu}[activation]
@@ -86,7 +85,7 @@ class FTTransformerLayer(nn.Module):
         super().__init__()
         self.tab_conv = TransformerEncoderLayer(
             channels, nhead, feedforward_channels, dropout, activation)
-        self.tab_norm = nn.LayerNorm(channels, eps=LN_EPS)
+        self.tab_norm = LayerNorm(channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return (x + self.tab_norm(self.tab_conv(x))) / 2.0

@@ -2,9 +2,11 @@
 
 Each kernel library is one source (with the headers it includes from
 ``csrc/*.cuh``) compiled into a shared library with a plain C interface,
-loaded through ctypes (no PyTorch headers, so a build takes seconds). Builds happen at first use into the git-ignored ``_build/``;
-:func:`build_all` starts every compiler at once (the host graph engine's
-``g++`` included) and waits for all of them.
+loaded through ctypes (no PyTorch headers, so a build takes seconds). One
+source may make two libraries under different macros: the column
+attention's float32 and bf16 builds. Builds happen at first use into the
+git-ignored ``_build/``; :func:`build_all` starts every compiler at once
+(the host graph engine's ``g++`` included) and waits for all of them.
 """
 from __future__ import annotations
 
@@ -20,7 +22,10 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 KERNEL_SOURCES = {
     "column_attention": os.path.join(_CSRC, "column_attention.cu"),
+    "column_attention_bf16": os.path.join(_CSRC, "column_attention.cu"),
 }
+#: the macros a library is built with beyond NVCC_FLAGS
+KERNEL_MACROS = {"column_attention_bf16": ["-DRMM_ATTENTION_BF16"]}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _lock = threading.Lock()
@@ -35,24 +40,27 @@ def _nvcc() -> str:
     return path
 
 
-def start_cuda_build(src: str, out_dir: str = native.BUILD_DIR
-                     ) -> native.Build:
-    """Starts ``nvcc`` on the CUDA source ``src`` with the kernels' flags,
-    the package's headers (``csrc/*.cuh``) on its include path; the
-    library lands in ``out_dir`` under the source's name and a hash of it
-    and the headers (``wait()`` on the result gives its path as
-    ``.out``)."""
-    name = os.path.splitext(os.path.basename(src))[0]
+def start_cuda_build(src: str, out_dir: str = native.BUILD_DIR,
+                     name: str | None = None,
+                     macros: list[str] = ()) -> native.Build:
+    """Starts ``nvcc`` on the CUDA source ``src`` with the kernels' flags
+    and ``macros``, the package's headers (``csrc/*.cuh``) on its include
+    path; the library lands in ``out_dir`` under ``name`` (the source's
+    by default) and a hash of the sources and flags (``wait()`` on the
+    result gives its path as ``.out``)."""
+    name = name or os.path.splitext(os.path.basename(src))[0]
+    flags = [*NVCC_FLAGS, *macros]
     headers = sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
                      if f.endswith(".cuh"))
     out = os.path.join(out_dir, os.path.basename(
-        native.library_path(name, [src, *headers], NVCC_FLAGS)))
+        native.library_path(name, [src, *headers], flags)))
     os.makedirs(out_dir, exist_ok=True)
-    return native.Build([_nvcc(), *NVCC_FLAGS, "-I", _CSRC, src], out)
+    return native.Build([_nvcc(), *flags, "-I", _CSRC, src], out)
 
 
 def _start(name: str) -> native.Build:
-    return start_cuda_build(KERNEL_SOURCES[name])
+    return start_cuda_build(KERNEL_SOURCES[name], name=name,
+                            macros=KERNEL_MACROS.get(name, []))
 
 
 def build_all() -> dict[str, str]:

@@ -26,6 +26,17 @@ The backward recomputes from ``x`` alone, as the TPU kernel does: the
 Function saves ``x``, the weights and the keep-mask, nothing of the
 forward's insides.
 
+Precision, as the TPU kernel's: ``x`` is float32 or bf16, the weights
+float32 or bf16. Every product sums in float32; the output and dx come out
+in ``x``'s dtype, the weight and bias gradients in float32. The tiled and
+split routes have bf16 builds (``csrc/column_attention.cu`` compiled with
+``RMM_ATTENTION_BF16``: bf16 x, do, out, dx and weights), the scalar route
+has none. Float32 ``x`` with bf16 weights (the reference's edge tokens
+under ``--precision bf16``, whose timestamp block is float32) runs the
+float32 kernels on the weights' exact float32 values. A weight cast from a
+float32 master (``utils/precision.py``) gets its gradient at the master,
+unrounded, as the reference's custom VJP delivers it.
+
 CPU tensors take :func:`reference_column_attention`, the PyTorch twin of
 ``_attention_math``, whose backward is autograd's; a CUDA tensor launches
 the kernels or raises. :func:`reference_attention_core` is the plain twin
@@ -34,10 +45,12 @@ way they are, and what bounds them, is noted in their source.
 
 ``launches`` counts forward calls on the card (every route),
 ``fwd_tiled_launches`` and ``fwd_split_launches`` those through the tiled
-and the split route, ``bwd_launches`` backward calls on the card (every
-route), ``bwd_tiled_launches`` and ``bwd_split_launches`` those through
-the tiled and the split route, and ``reduce_launches`` launches of the
-backward's reduce (one per backward), and nothing else.
+and the split route, ``fwd_bf16_launches`` those on bf16 ``x``,
+``bwd_launches`` backward calls on the card (every route),
+``bwd_tiled_launches`` and ``bwd_split_launches`` those through the tiled
+and the split route, ``bwd_bf16_launches`` those on bf16 ``x``, and
+``reduce_launches`` launches of the backward's reduce (one per backward),
+and nothing else.
 """
 from __future__ import annotations
 
@@ -48,12 +61,16 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.precision import master_of
+
 launches = 0
 fwd_tiled_launches = 0
 fwd_split_launches = 0
+fwd_bf16_launches = 0
 bwd_launches = 0
 bwd_tiled_launches = 0
 bwd_split_launches = 0
+bwd_bf16_launches = 0
 reduce_launches = 0
 
 MAX_S = 16                   # the kernel keeps a row's S×S scores in registers
@@ -65,101 +82,85 @@ _TILED_MAX_C = 64            # the tiled kernels keep their weights in smem
 _CORE_THREADS = 256          # the split routes' attention cores: a block
 _GEMM_TILE = 128             # rows and columns of a GEMM block tile
 
-_lib = None
+#: the kernel library of each element type (``ops/build.py`` builds both
+#: from ``csrc/column_attention.cu``)
+LIBRARIES = {torch.float32: "column_attention",
+             torch.bfloat16: "column_attention_bf16"}
+_libs: dict = {}
+
+_P, _I, _F, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
+#: each entry point: (return type, argument types); the scalar kernels are
+#: in the float32 library alone
+_SIGNATURES = {
+    "rmm_column_attention_fwd": (
+        _I, [_P] * 7 + [_I] * 4 + [_F, _I, _I, _P]),
+    "rmm_column_attention_fwd_tiled_smem_bytes": (_Z, [_I] * 4),
+    "rmm_column_attention_fwd_tiled_grid": (_I, [_I] * 5),
+    "rmm_column_attention_fwd_tiled": (
+        _I, [_P] * 7 + [_I] * 4 + [_F, _I, _I, _P]),
+    "rmm_column_attention_bwd_grid": (_I, [_I] * 6),
+    "rmm_column_attention_bwd": (
+        _I, [_P] * 9 + [_I] * 4 + [_F, _I, _I, _I, _P]),
+    "rmm_column_attention_bwd_tiled_smem_bytes": (_Z, [_I] * 4),
+    "rmm_column_attention_bwd_tiled_splits": (_I, [_I]),
+    "rmm_column_attention_bwd_tiled_grid": (_I, [_I] * 5),
+    "rmm_column_attention_bwd_tiled": (
+        _I, [_P] * 9 + [_I] * 4 + [_F, _I, _I, _P]),
+    "rmm_column_attention_bwd_core_smem_bytes": (_Z, [_I] * 4),
+    "rmm_column_attention_fwd_core_smem_bytes": (_Z, [_I] * 4),
+    "rmm_column_attention_fwd_core": (
+        _I, [_P, _P] + [_I] * 4 + [_F, _I, _P]),
+    "rmm_column_attention_fwd_split": (
+        _I, [_P] * 8 + [_I] * 4 + [_F, _I, _P]),
+    "rmm_column_attention_bwd_split": (
+        _I, [_P] * 10 + [_I] * 4 + [_F, _I, _I, _P]),
+    "rmm_cuda_max_smem_per_block": (_I, []),
+    "rmm_cuda_smem_per_sm": (_I, []),
+    "rmm_column_attention_gemm_blocks_per_sm": (_I, []),
+    "rmm_cuda_error_string": (ctypes.c_char_p, [_I]),
+}
 
 
 def use_library(path: str | None = None):
-    """Binds the wrapper to the kernel library at ``path`` (a variant of
-    ``csrc/column_attention.cu`` that a measurement tool built with
-    :func:`build.start_cuda_build`), or with None back to the repo's own
-    build. The cached plans go with the old library."""
-    global _lib
-    _lib = None
+    """Binds the wrapper's float32 kernels to the library at ``path`` (a
+    variant of ``csrc/column_attention.cu`` that a measurement tool built
+    with :func:`build.start_cuda_build`), or with None back to the repo's
+    own build. The cached plans go with the old library."""
+    _libs.pop(torch.float32, None)
     _fwd_plan.cache_clear()
     _bwd_plan.cache_clear()
-    return _kernel(path)
+    return _kernel(torch.float32, path)
 
 
-def _kernel(path: str | None = None):
-    global _lib
-    if _lib is None:
+def _kernel(dtype=torch.float32, path: str | None = None):
+    """The kernel library for ``x`` of ``dtype``, built and bound at first
+    use."""
+    lib = _libs.get(dtype)
+    if lib is None:
         from .build import load_kernel
 
-        lib = ctypes.CDLL(path) if path else load_kernel("column_attention")
-        p = ctypes.c_void_p
-        lib.rmm_column_attention_fwd.restype = ctypes.c_int
-        lib.rmm_column_attention_fwd.argtypes = [
-            p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, p]
-        lib.rmm_column_attention_fwd_tiled_smem_bytes.restype = (
-            ctypes.c_size_t)
-        lib.rmm_column_attention_fwd_tiled_smem_bytes.argtypes = [
-            ctypes.c_int] * 4
-        lib.rmm_column_attention_fwd_tiled_grid.restype = ctypes.c_int
-        lib.rmm_column_attention_fwd_tiled_grid.argtypes = [ctypes.c_int] * 5
-        lib.rmm_column_attention_fwd_tiled.restype = ctypes.c_int
-        lib.rmm_column_attention_fwd_tiled.argtypes = [
-            p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, p]
-        lib.rmm_column_attention_bwd_grid.restype = ctypes.c_int
-        lib.rmm_column_attention_bwd_grid.argtypes = [ctypes.c_int] * 6
-        lib.rmm_column_attention_bwd.restype = ctypes.c_int
-        lib.rmm_column_attention_bwd.argtypes = [
-            p, p, p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, p]
-        lib.rmm_column_attention_bwd_tiled_smem_bytes.restype = (
-            ctypes.c_size_t)
-        lib.rmm_column_attention_bwd_tiled_smem_bytes.argtypes = [
-            ctypes.c_int] * 4
-        lib.rmm_column_attention_bwd_tiled_splits.restype = ctypes.c_int
-        lib.rmm_column_attention_bwd_tiled_splits.argtypes = [ctypes.c_int]
-        lib.rmm_column_attention_bwd_tiled_grid.restype = ctypes.c_int
-        lib.rmm_column_attention_bwd_tiled_grid.argtypes = [ctypes.c_int] * 5
-        lib.rmm_column_attention_bwd_tiled.restype = ctypes.c_int
-        lib.rmm_column_attention_bwd_tiled.argtypes = [
-            p, p, p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-            ctypes.c_int, p]
-        lib.rmm_column_attention_bwd_core_smem_bytes.restype = (
-            ctypes.c_size_t)
-        lib.rmm_column_attention_bwd_core_smem_bytes.argtypes = [
-            ctypes.c_int] * 4
-        lib.rmm_column_attention_fwd_core_smem_bytes.restype = (
-            ctypes.c_size_t)
-        lib.rmm_column_attention_fwd_core_smem_bytes.argtypes = [
-            ctypes.c_int] * 4
-        lib.rmm_column_attention_fwd_core.restype = ctypes.c_int
-        lib.rmm_column_attention_fwd_core.argtypes = [
-            p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_int, p]
-        lib.rmm_column_attention_fwd_split.restype = ctypes.c_int
-        lib.rmm_column_attention_fwd_split.argtypes = [
-            p, p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, p]
-        lib.rmm_column_attention_bwd_split.restype = ctypes.c_int
-        lib.rmm_column_attention_bwd_split.argtypes = [
-            p, p, p, p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-            ctypes.c_int, p]
-        for fn in (lib.rmm_cuda_max_smem_per_block, lib.rmm_cuda_smem_per_sm,
-                   lib.rmm_column_attention_gemm_blocks_per_sm):
-            fn.restype = ctypes.c_int
-            fn.argtypes = []
-        lib.rmm_cuda_error_string.restype = ctypes.c_char_p
-        lib.rmm_cuda_error_string.argtypes = [ctypes.c_int]
-        _lib = lib
-    return _lib
+        lib = ctypes.CDLL(path) if path else load_kernel(LIBRARIES[dtype])
+        for name, (restype, argtypes) in _SIGNATURES.items():
+            if hasattr(lib, name):
+                fn = getattr(lib, name)
+                fn.restype, fn.argtypes = restype, argtypes
+        _libs[dtype] = lib
+    return lib
 
 
 def reference_column_attention(x, wqkv, bqkv, wout, bout, nhead: int,
                                drop_mask=None, dropout_rate: float = 0.0):
     """Plain PyTorch version (differentiable): per head
     ``softmax(q_h k_hᵀ/√hd)`` (times ``keep/(1−p)`` with a mask) ``· v_h``,
-    heads concatenated, then the output projection."""
+    heads concatenated, then the output projection. bf16 operands are
+    taken in float32 (exactly), every intermediate is float32 and the
+    output is rounded to ``x``'s dtype, as in the TPU kernel."""
+    dtype = x.dtype
+    x, wqkv, bqkv, wout, bout = (t.float()
+                                 for t in (x, wqkv, bqkv, wout, bout))
     qkv = torch.matmul(x, wqkv) + bqkv
     ctx = reference_attention_core(qkv, nhead, drop_mask, dropout_rate)
-    return torch.matmul(ctx, wout) + bout
+    return (torch.matmul(ctx, wout) + bout).to(dtype)
 
 
 def reference_attention_core(tok, nhead: int, drop_mask=None,
@@ -200,32 +201,67 @@ def fused_column_attention(x, wqkv, bqkv, wout, bout, nhead: int,
     if masked and tuple(drop_mask.shape) != (b, nhead, s, s):
         raise ValueError(f"drop_mask must be {(b, nhead, s, s)}, got "
                          f"{tuple(drop_mask.shape)}")
+    weights = (wqkv, bqkv, wout, bout)
+    wdtype = _weights_dtype(x, weights)
+    # what autograd differentiates: a weight's float32 master where it has
+    # one, so that its float32 gradient is not rounded to the weight's dtype
+    masters = [master_of(w) for w in weights]
+    leaves = tuple(w if m is None else m for w, m in zip(weights, masters))
     if x.device.type == "cpu":
-        return reference_column_attention(x, wqkv, bqkv, wout, bout, nhead,
-                                          drop_mask, dropout_rate)
+        return reference_column_attention(
+            x, *(_rounded(w, wdtype) for w in leaves), nhead, drop_mask,
+            dropout_rate)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     keep = drop_mask if masked else None
     rate = dropout_rate if masked else 0.0
-    _check_cuda_inputs(x, wqkv, bqkv, wout, bout, keep)
+    ops = weights
+    if wdtype != x.dtype:
+        with torch.no_grad():
+            ops = tuple(w.to(x.dtype) for w in weights)
+    _check_cuda_inputs(x, *ops, keep)
     if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, wqkv, bqkv, wout, bout)):
-        return ColumnAttentionFunction.apply(x, wqkv, bqkv, wout, bout,
-                                             nhead, keep, rate)
-    return column_attention_fwd(x, wqkv, bqkv, wout, bout, nhead, keep,
-                                rate)
+            t.requires_grad for t in (x, *leaves)):
+        return ColumnAttentionFunction.apply(x, *leaves, ops, nhead, keep,
+                                             rate)
+    return column_attention_fwd(x, *ops, nhead, keep, rate)
+
+
+def _weights_dtype(x, weights) -> torch.dtype:
+    """The dtype the four weights share: float32, or bf16; bf16 ``x``
+    takes bf16 weights alone."""
+    dtypes = {w.dtype for w in weights}
+    if len(dtypes) != 1:
+        raise TypeError(f"the weights must share one dtype, got {dtypes}")
+    (wdtype,) = dtypes
+    for name, dt in (("x", x.dtype), ("the weights", wdtype)):
+        if dt not in LIBRARIES:
+            raise TypeError(f"{name} must be float32 or bfloat16, got {dt}")
+    if x.dtype == torch.bfloat16 and wdtype != torch.bfloat16:
+        raise TypeError(f"bf16 x takes bf16 weights, got {wdtype}")
+    return wdtype
+
+
+def _rounded(w, dtype):
+    """``w``'s values rounded to ``dtype``, its gradient passing to ``w``
+    unrounded (the plain twin's way to a master's float32 gradient)."""
+    if w.dtype == dtype:
+        return w
+    return w + (w.to(dtype).to(w.dtype) - w).detach()
 
 
 class ColumnAttentionFunction(torch.autograd.Function):
     """The forward kernel, and the backward kernel (which recomputes from
-    ``x``) as its gradient. Saves ``x``, the weights and the keep-mask."""
+    ``x``) as its gradient. The weights are what autograd differentiates
+    (float32 masters, or the weights themselves); ``ops`` are their values
+    as the kernels take them, in ``x``'s dtype. Saves ``x``, ``ops`` and
+    the keep-mask; the weight and bias gradients are float32."""
 
     @staticmethod
-    def forward(ctx, x, wqkv, bqkv, wout, bout, nhead, keep, rate):
+    def forward(ctx, x, wqkv, bqkv, wout, bout, ops, nhead, keep, rate):
         ctx.nhead, ctx.rate = nhead, rate
-        ctx.save_for_backward(x, wqkv, bqkv, wout, keep)
-        return column_attention_fwd(x, wqkv, bqkv, wout, bout, nhead, keep,
-                                    rate)
+        ctx.save_for_backward(x, *ops[:3], keep)
+        return column_attention_fwd(x, *ops, nhead, keep, rate)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -233,7 +269,7 @@ class ColumnAttentionFunction(torch.autograd.Function):
         x, wqkv, bqkv, wout, keep = ctx.saved_tensors
         grads = column_attention_bwd(x, do.contiguous(), wqkv, bqkv, wout,
                                      ctx.nhead, keep, ctx.rate)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def _check_cuda_inputs(x, wqkv, bqkv, wout, bout, keep):
@@ -243,11 +279,15 @@ def _check_cuda_inputs(x, wqkv, bqkv, wout, bout, keep):
     for name, t in tensors.items():
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype} (the "
-                            "kernel takes float32 in this version)")
+        if t.dtype != x.dtype or t.dtype not in LIBRARIES:
+            raise TypeError(f"{name} is {t.dtype}: the kernels take x and "
+                            "the weights in one dtype, float32 or bfloat16")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if x.dtype == torch.bfloat16 and route(c) == "scalar":
+        raise NotImplementedError(
+            f"bf16 at C={c} (not a multiple of 4) has no kernel yet: the "
+            "scalar route is float32 only (ROADMAP.md, Queue 2)")
     if keep is not None and (keep.device != x.device
                              or keep.dtype != torch.bool
                              or not keep.is_contiguous()):
@@ -282,15 +322,17 @@ def _aligned(t):
 
 def column_attention_fwd(x, wqkv, bqkv, wout, bout, nhead, keep=None,
                          rate=0.0, plan: FwdPlan | None = None):
-    """The forward on checked CUDA inputs (no autograd), by the route of
-    :func:`route`. ``plan`` (from :func:`fwd_plan`, tiled and split
-    widths) overrides the default one."""
+    """The forward on checked CUDA inputs (no autograd; x and the weights
+    in one dtype), by the route of :func:`route`, into an output of x's
+    dtype. ``plan`` (from :func:`fwd_plan`, tiled and split widths)
+    overrides the default one."""
     global launches, fwd_tiled_launches, fwd_split_launches
+    global fwd_bf16_launches
     b, s, c = x.shape
     out = torch.empty_like(x)
     if b == 0:
         return out
-    lib = _kernel()
+    lib = _kernel(x.dtype)
     inv_keep = 1.0 / (1.0 - rate) if keep is not None else 1.0
     keep_ptr = None if keep is None else keep.data_ptr()
     kind = route(c)
@@ -304,7 +346,7 @@ def column_attention_fwd(x, wqkv, bqkv, wout, bout, nhead, keep=None,
                 b, s, c, nhead, inv_keep, rows,
                 int(c <= _WEIGHTS_IN_SMEM_MAX_C), stream)
         else:
-            rows, grid = plan or fwd_plan(b, s, c, nhead)
+            rows, grid = plan or fwd_plan(b, s, c, nhead, dtype=x.dtype)
             x = _aligned(x)
             if kind == "tiled":
                 err = lib.rmm_column_attention_fwd_tiled(
@@ -314,7 +356,7 @@ def column_attention_fwd(x, wqkv, bqkv, wout, bout, nhead, keep=None,
                     stream)
             else:
                 wqkv, wout = _aligned(wqkv), _aligned(wout)
-                tok = torch.empty(b * s, 3 * c, dtype=x.dtype,
+                tok = torch.empty(b * s, 3 * c, dtype=torch.float32,
                                   device=x.device)
                 err = lib.rmm_column_attention_fwd_split(
                     x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
@@ -325,6 +367,7 @@ def column_attention_fwd(x, wqkv, bqkv, wout, bout, nhead, keep=None,
     launches += 1
     fwd_tiled_launches += int(kind == "tiled")
     fwd_split_launches += int(kind == "split")
+    fwd_bf16_launches += int(x.dtype == torch.bfloat16)
     return out
 
 
@@ -360,8 +403,8 @@ class FwdPlan(NamedTuple):
     grid: int
 
 
-def fwd_plan(b: int, s: int, c: int, nhead: int,
-             rows: int | None = None) -> FwdPlan:
+def fwd_plan(b: int, s: int, c: int, nhead: int, rows: int | None = None,
+             dtype=torch.float32) -> FwdPlan:
     """The forward's plan for this shape on the current card. The tiled
     kernel runs blocks of 256 threads, two an SM, each with as many rows a
     group as its share of the SM's shared memory holds, evened out so that
@@ -369,9 +412,11 @@ def fwd_plan(b: int, s: int, c: int, nhead: int,
     ``tools/torch_attn_sweep.py``'s and ``tools/torch_attn_stages.py``'s
     runs, in ``PERF.md``). The split route's core takes the rows of
     :func:`split_fwd_plan` on this card. ``rows`` overrides the rows a
-    group (a block of the core). Cached by shape and card, as
+    group (a block of the core). ``dtype`` is x's: each has its own
+    build of the kernels. Cached by shape, dtype and card, as
     :func:`bwd_plan` is."""
-    return _fwd_plan(b, s, c, nhead, rows, torch.cuda.current_device())
+    return _fwd_plan(b, s, c, nhead, rows, dtype,
+                     torch.cuda.current_device())
 
 
 def core_rows(b: int, s: int, nhead: int, smem_budget: int,
@@ -413,9 +458,9 @@ def _check_core_fits(smem_bytes, s: int, c: int, nhead: int, rows: int):
 
 
 @functools.lru_cache(maxsize=256)
-def _fwd_plan(b, s, c, nhead, rows, device) -> FwdPlan:
+def _fwd_plan(b, s, c, nhead, rows, dtype, device) -> FwdPlan:
     del device  # only a cache key: the plan depends on the card
-    lib = _kernel()
+    lib = _kernel(dtype)
     if route(c) == "split":
         smem_bytes = lib.rmm_column_attention_fwd_core_smem_bytes
         plan = split_fwd_plan(b, s, nhead, _core_budget(),
@@ -467,8 +512,8 @@ class BwdPlan(NamedTuple):
     split_tokens: int = 0
 
 
-def bwd_plan(b: int, s: int, c: int, nhead: int,
-             rows: int | None = None) -> BwdPlan:
+def bwd_plan(b: int, s: int, c: int, nhead: int, rows: int | None = None,
+             dtype=torch.float32) -> BwdPlan:
     """The backward's plan for this shape on the current card. The tiled
     kernel runs blocks of 256 threads, two an SM where a thread holds one
     stage-F tile (C <= 32), else one, each with as many rows a group as
@@ -477,9 +522,11 @@ def bwd_plan(b: int, s: int, c: int, nhead: int,
     ``tools/torch_attn_sweep.py``'s runs, in ``PERF.md``); ``rows``
     overrides the rows a group (of the attention core, on the split
     route). The split route's plan is :func:`split_plan` on this card.
-    Plans are cached by shape and card: a plan costs a few dozen calls
-    into the library, about as long as the node-shape kernel itself."""
-    return _bwd_plan(b, s, c, nhead, rows, torch.cuda.current_device())
+    Plans are cached by shape, x's dtype (each has its own build) and
+    card: a plan costs a few dozen calls into the library, about as long
+    as the node-shape kernel itself."""
+    return _bwd_plan(b, s, c, nhead, rows, dtype,
+                     torch.cuda.current_device())
 
 
 def split_plan(b: int, s: int, c: int, nhead: int, sms: int,
@@ -507,9 +554,9 @@ def split_plan(b: int, s: int, c: int, nhead: int, sms: int,
 
 
 @functools.lru_cache(maxsize=256)
-def _bwd_plan(b, s, c, nhead, rows, device) -> BwdPlan:
+def _bwd_plan(b, s, c, nhead, rows, dtype, device) -> BwdPlan:
     del device  # only a cache key: the plan depends on the card
-    lib = _kernel()
+    lib = _kernel(dtype)
     kind = route(c)
     if kind == "split":
         per_sm = lib.rmm_column_attention_gemm_blocks_per_sm()
@@ -547,31 +594,33 @@ def _bwd_plan(b, s, c, nhead, rows, device) -> BwdPlan:
 
 def column_attention_bwd(x, do, wqkv, bqkv, wout, nhead, keep=None,
                          rate=0.0, plan: BwdPlan | None = None):
-    """The backward on checked CUDA inputs (``do`` contiguous like ``x``),
-    by the route of :func:`route`: ``(dx, dWqkv, dbqkv, dWout, dbout)``.
-    ``plan`` (from :func:`bwd_plan`) overrides the default one."""
+    """The backward on checked CUDA inputs (``do`` contiguous like ``x``,
+    x, do and the weights in one dtype), by the route of :func:`route`:
+    ``(dx, dWqkv, dbqkv, dWout, dbout)``, dx in x's dtype and the weight
+    and bias gradients in float32. ``plan`` (from :func:`bwd_plan`)
+    overrides the default one."""
     global bwd_launches, bwd_tiled_launches, bwd_split_launches
-    global reduce_launches
+    global bwd_bf16_launches, reduce_launches
     b, s, c = x.shape
     dx = torch.empty_like(x)
-    grads = torch.empty(4 * c * c + 4 * c, dtype=x.dtype, device=x.device)
+    lib = _kernel(x.dtype)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    grads = torch.empty(4 * c * c + 4 * c, **f32)
     if b == 0:
         grads.zero_()
     else:
         inv_keep = 1.0 / (1.0 - rate) if keep is not None else 1.0
         with torch.cuda.device(x.device):
-            plan = plan or bwd_plan(b, s, c, nhead)
-            partials = torch.empty(plan.slices, grads.numel(),
-                                   dtype=x.dtype, device=x.device)
+            plan = plan or bwd_plan(b, s, c, nhead, dtype=x.dtype)
+            partials = torch.empty(plan.slices, grads.numel(), **f32)
             stream = torch.cuda.current_stream().cuda_stream
             if plan.route != "scalar":
                 x, do = _aligned(x), _aligned(do)
             keep_ptr = None if keep is None else keep.data_ptr()
             if plan.route == "split":
                 wqkv, wout = _aligned(wqkv), _aligned(wout)
-                tok = torch.empty(b * s, 4 * c, dtype=x.dtype,
-                                  device=x.device)
-                err = _kernel().rmm_column_attention_bwd_split(
+                tok = torch.empty(b * s, 4 * c, **f32)
+                err = lib.rmm_column_attention_bwd_split(
                     x.data_ptr(), do.data_ptr(), wqkv.data_ptr(),
                     bqkv.data_ptr(), wout.data_ptr(), keep_ptr,
                     dx.data_ptr(), tok.data_ptr(), partials.data_ptr(),
@@ -584,16 +633,17 @@ def column_attention_bwd(x, do, wqkv, bqkv, wout, nhead, keep=None,
                         grads.data_ptr(), b, s, c, nhead, inv_keep,
                         plan.rows)
                 if plan.route == "tiled":
-                    err = _kernel().rmm_column_attention_bwd_tiled(
+                    err = lib.rmm_column_attention_bwd_tiled(
                         *args, plan.grid, stream)
                 else:
-                    err = _kernel().rmm_column_attention_bwd(
+                    err = lib.rmm_column_attention_bwd(
                         *args, int(c <= _WEIGHTS_IN_SMEM_MAX_C), plan.grid,
                         stream)
         _raise_on(err, f"{plan.route} backward")
         bwd_launches += 1
         bwd_tiled_launches += int(plan.route == "tiled")
         bwd_split_launches += int(plan.route == "split")
+        bwd_bf16_launches += int(x.dtype == torch.bfloat16)
         reduce_launches += 1
     k1, k2, k3 = 3 * c * c, 3 * c * c + 3 * c, 4 * c * c + 3 * c
     return (dx, grads[:k1].view(c, 3 * c), grads[k1:k2],

@@ -20,7 +20,15 @@ def pna_aggregate(messages: torch.Tensor, dst: torch.Tensor, num_nodes: int,
     scalers ``[identity, amplification, attenuation]`` (PyG order).
 
     ``std = sqrt(max(E[x²] − E[x]², 0) + 1e-5)``; empty segments give 0 for
-    min and max; the degree is clamped to ≥ 1 inside ``log(deg + 1)``."""
+    min and max; the degree is clamped to ≥ 1 inside ``log(deg + 1)``.
+
+    bf16 messages are summed in float32 and the result rounded to bf16
+    once. The reference sums in the messages' dtype (as differences of one
+    running cumsum, its degree exact only up to 256 in bf16); the float32
+    sums are what it means and closer to it than either of its paths
+    (``tests/test_torch_precision.py`` pins the difference)."""
+    dtype = messages.dtype
+    messages = messages.to(torch.promote_types(dtype, torch.float32))
     e, f = messages.shape
     ids = dst.long()
     if mask is not None:
@@ -52,7 +60,7 @@ def pna_aggregate(messages: torch.Tensor, dst: torch.Tensor, num_nodes: int,
     agg = torch.cat([mean, mn, mx, sd], dim=-1)
     log_deg = torch.log(n.clamp(min=1.0) + 1.0)
     return torch.cat([agg, agg * (log_deg / avg_log_deg),
-                      agg * (avg_log_deg / log_deg)], dim=-1)
+                      agg * (avg_log_deg / log_deg)], dim=-1).to(dtype)
 
 
 def scatter_mean_update(x: torch.Tensor, index: torch.Tensor,

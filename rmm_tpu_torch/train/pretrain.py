@@ -19,6 +19,12 @@ weight decay reaches only the parameters of two or more dimensions (the
 JAX mask ``ndim >= 2``; the port's parameters have the JAX leaves' shapes,
 transposed where they are kernels). A parameter that a mode does not use
 keeps a zero gradient, so AdamW decays it as optax does.
+
+``--precision bf16`` casts as ``rmm_tpu/train/pretrain.py`` does: the
+parameters at the top of each step, the edge table (once, when it goes to
+the device) and the node features to bf16; the heads' predictions go back
+to float32 before the losses and metrics; the parameters, AdamW's state
+and the BatchNorm statistics stay float32.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ from ..utils.config import Config
 from ..utils.device import resolve_device
 from ..utils.loss import SSLoss, lp_loss
 from ..utils.metric import MCMAccumulator, mrr
+from ..utils.precision import apply, compute_cast, out_f32
 from ..utils.seeding import mix_seed
 from .task_models import _deghist_to_avg_log, gather_rows, init_parameters
 from .trainer import features, resolve_capacities, threaded_map
@@ -67,6 +74,7 @@ class PretrainModel(nn.Module):
         c = cfg.n_hidden
         self.num_neg = cfg.num_neg_samples
         self.ego = cfg.ego
+        self.precision = cfg.precision
         self.edge_encoder = make_stypewise_encoder(edges, c)
         self.model = TABGNNFused(
             c, cfg.n_gnn_layers, self.edge_encoder.num_cols,
@@ -118,9 +126,9 @@ class PretrainModel(nn.Module):
         else:
             ei, emask = batch.edge_index, batch.edge_mask
             tok = self.encode(edge_table, batch.edge_gather)
-        x_gnn, _, target = self.model(self.node_feats(batch), ei, tok,
-                                      target_ei, target_tok, lp, emask,
-                                      batch.node_mask)
+        x_gnn, _, target = self.model(
+            compute_cast(self.node_feats(batch), self.precision), ei, tok,
+            target_ei, target_tok, lp, emask, batch.node_mask)
         return x_gnn, target, target_ei
 
     def forward(self, batch: GraphBatch, edge_table, mode: str):
@@ -130,8 +138,8 @@ class PretrainModel(nn.Module):
         if "lp" in mode:
             x_gnn, target, tei = self.apply_fused(batch, edge_table, lp=True,
                                                   use_neigh_only=True)
-            pos, neg = self.lp_head(x_gnn, tei[:, :b], target[:b],
-                                    tei[:, b:], target[b:])
+            pos, neg = out_f32(self.lp_head(x_gnn, tei[:, :b], target[:b],
+                                            tei[:, b:], target[b:]))
             losses["lp"] = lp_loss(
                 pos, neg, batch.seed_mask,
                 batch.seed_mask.repeat_interleave(self.num_neg))
@@ -140,9 +148,9 @@ class PretrainModel(nn.Module):
             x_gnn, target, _ = self.apply_fused(batch, edge_table, lp=False,
                                                 use_neigh_only=False)
             pos_ei = batch.edge_index[:, :b]
-            num_out, cat_out = self.mcm_head(torch.cat(
+            num_out, cat_out = out_f32(self.mcm_head(torch.cat(
                 [gather(x_gnn, pos_ei[0]), gather(x_gnn, pos_ei[1]),
-                 target[:b]], dim=-1))
+                 target[:b]], dim=-1)))
             total, (cl, tc, acc), (nl, tn) = self.ssloss.mcm_loss(
                 cat_out, num_out, batch.y, batch.seed_mask)
             losses["mcm"] = total
@@ -166,8 +174,6 @@ class PretrainTrainer:
     def __init__(self, cfg: Config, dataset, mode: str = "mcm-lp"):
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-        if cfg.precision != "f32":
-            raise NotImplementedError("this port runs float32 only")
         if cfg.moo != "sum":
             raise NotImplementedError(f"--moo {cfg.moo} is not ported yet")
         self.device = resolve_device(cfg.device)
@@ -188,7 +194,8 @@ class PretrainTrainer:
             lr=cfg.lr, eps=cfg.adam_eps)
         for p in params:
             p.grad = torch.zeros_like(p)
-        self.edge_table = features(dataset.edges.tensor_frame, self.device)
+        self.edge_table = compute_cast(
+            features(dataset.edges.tensor_frame, self.device), cfg.precision)
         self.sample_s: list[float] = []   # host seconds of each batch built
 
     def _batches(self, view, mode: str, epoch: int = 0):
@@ -219,7 +226,7 @@ class PretrainTrainer:
         views' forwards, the summed loss, the backward and the AdamW
         update. Returns the loss and its ``STEP_SUMS`` (those of the mode)
         as device tensors."""
-        losses, aux = self.model(batch, self.edge_table, self.mode)
+        losses, aux = self._forward(batch)
         loss = sum(losses.values())
         self.optimizer.zero_grad(set_to_none=False)
         loss.backward()
@@ -227,6 +234,12 @@ class PretrainTrainer:
         sums = {**losses, **aux}
         return loss.detach(), {k: sums[k].detach() for k in STEP_SUMS
                                if k in sums}
+
+    def _forward(self, batch: GraphBatch):
+        """The model's losses and aux on a device batch under the
+        precision of the config (float32 outputs)."""
+        return apply(self.model, self.cfg.precision, batch, self.edge_table,
+                     self.mode)
 
     def train_epoch(self, view, epoch: int) -> dict:
         """One pass over the shuffled train view: mean loss, seconds,
@@ -277,8 +290,7 @@ class PretrainTrainer:
         outs = []
         with torch.inference_mode():
             for gb in self._batches(view, mode):
-                _, aux = self.model(gb.to(self.device), self.edge_table,
-                                    self.mode)
+                _, aux = self._forward(gb.to(self.device))
                 outs.append((int(gb.seed_mask.sum()), gb.y, {
                     k: aux[k] for k in ("pos_pred", "neg_pred", "num_out",
                                         "cat_out") if k in aux}))
@@ -309,7 +321,8 @@ class PretrainTrainer:
         return checkpoint.save_epoch(
             run_dir, epoch, self.model,
             self.optimizer if with_opt else None, best,
-            prune_previous=isinstance(epoch, int))
+            prune_previous=isinstance(epoch, int),
+            precision=self.cfg.precision)
 
     def restore(self, ck_dir: str, with_opt: bool = True) -> dict:
         """Load a checkpoint (the optimizer's state too, when there) and

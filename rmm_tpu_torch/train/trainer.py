@@ -14,6 +14,13 @@ eps=adam_eps)`` with no weight decay (the JAX trainer's ``optax.adam``),
 ``--freeze`` keeping every ``tab_layer_*`` parameter out of the update.
 Dropout draws from one ``torch.Generator`` on the model's device, seeded
 from ``cfg.seed``.
+
+``--precision bf16`` (``utils/precision.py``): the float32 parameters are
+cast to bf16 at the top of each train and eval step, the feature tables
+once when they go to the device (the same values the reference's
+per-step cast gives), the logits back to float32 before the loss and the
+metrics; the parameters, Adam's state and the BatchNorm statistics stay
+float32.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from ..utils.config import Config
 from ..utils.device import resolve_device
 from ..utils.loss import cross_entropy
 from ..utils.metric import f1_score, roc_auc
+from ..utils.precision import apply, compute_cast
 from ..utils.seeding import mix_seed
 from . import task_models
 
@@ -105,8 +113,6 @@ class Trainer:
     def __init__(self, cfg: Config, dataset, device=None):
         self.device = resolve_device(cfg.device if device is None
                                      else device)
-        if cfg.precision != "f32":
-            raise NotImplementedError("this port runs float32 only")
         cfg = resolve_capacities(cfg, dataset)
         self.cfg = cfg
         self.dataset = dataset
@@ -124,8 +130,10 @@ class Trainer:
         self.loss_weights = torch.tensor(cfg.loss_weights,
                                          dtype=torch.float32,
                                          device=self.device)
-        self.edge_table = features(dataset.edges.tensor_frame, self.device)
-        self.node_table = features(dataset.nodes.tensor_frame, self.device)
+        self.edge_table = compute_cast(
+            features(dataset.edges.tensor_frame, self.device), cfg.precision)
+        self.node_table = compute_cast(
+            features(dataset.nodes.tensor_frame, self.device), cfg.precision)
 
     def _batches(self, view, mode: str, epoch: int = 0):
         """GraphBatches (host numpy) for a split view, in order. The
@@ -159,7 +167,7 @@ class Trainer:
         forward (BatchNorm running stats move here), the weighted loss on
         the seed edges, the backward and the Adam update. Returns the loss
         and ``_aux`` as device tensors; nothing waits for the card."""
-        logits = self.model(self.edge_table, self.node_table, batch)
+        logits = self._logits(batch)
         loss = cross_entropy(logits, batch.y[:, 0], self.loss_weights,
                              batch.seed_mask)
         self.optimizer.zero_grad(set_to_none=True)
@@ -167,9 +175,15 @@ class Trainer:
         self.optimizer.step()
         return loss.detach(), self._aux(logits)
 
+    def _logits(self, batch: GraphBatch) -> torch.Tensor:
+        """The model's float32 logits [B, n_classes] under the precision of
+        the config."""
+        return apply(self.model, self.cfg.precision, self.edge_table,
+                     self.node_table, batch)
+
     @torch.inference_mode()
     def _forward_eval(self, batch: GraphBatch) -> dict:
-        return self._aux(self.model(self.edge_table, self.node_table, batch))
+        return self._aux(self._logits(batch))
 
     def _metrics(self, labels, preds, scores) -> dict:
         avg = "binary" if self.cfg.n_classes == 2 else "weighted"
@@ -289,9 +303,11 @@ class Trainer:
                 run_logger.log(rec, step=epoch)
             if run_dir is not None:
                 checkpoint.save_epoch(run_dir, epoch, self.model,
-                                      self.optimizer, best_m)
+                                      self.optimizer, best_m,
+                                      precision=cfg.precision)
                 if improved and cfg.save_model:
                     checkpoint.save_epoch(run_dir, -1, self.model, None,
-                                          best_m, prune_previous=False)
+                                          best_m, prune_previous=False,
+                                          precision=cfg.precision)
             history.append(rec)
         return history, best_m

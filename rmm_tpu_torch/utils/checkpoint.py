@@ -55,12 +55,15 @@ def load_checkpoint(ck_dir: str, model: torch.nn.Module) -> dict:
 def save_epoch(run_dir: str, epoch: Union[int, str], model: torch.nn.Module,
                optimizer: Optional[torch.optim.Optimizer] = None,
                best_m: Union[float, dict, None] = None,
-               prune_previous: bool = True) -> str:
+               prune_previous: bool = True, precision: str = "f32") -> str:
     """``<run_dir>/<epoch>/`` (or a ``best_*`` tag): the model, the
     optimizer state (when given) and ``best_m`` (a value, or the SSL
-    metrics' dict); prunes ``<run_dir>/<epoch - 1>/``."""
+    metrics' dict); prunes ``<run_dir>/<epoch - 1>/``. The weights are the
+    float32 masters whatever ``precision`` trained them; the meta says
+    which."""
     ck = save_checkpoint(os.path.join(run_dir, str(epoch)),
-                         model.state_dict(), {"epoch": epoch})
+                         model.state_dict(),
+                         {"epoch": epoch, "precision": precision})
     if optimizer is not None:
         torch.save(optimizer.state_dict(), os.path.join(ck, "optimizer.pt"))
     if best_m is not None:

@@ -12,7 +12,10 @@ card. On one with a card (JAX need not be installed there: the JAX suite's
 
 Tolerances: kernel against plain 1e-5 abs/rel (float32, sums in another
 order), the weight and bias gradients 1e-4 relative to the largest entry
-of the reference (sums over every token in another order); served scores,
+of the reference (sums over every token in another order); bf16 out and
+dx within one bf16 rounding (2^-7 of the value: both round float32 sums
+that differ in their order) plus 1e-5 of the largest entry, their float32
+weight and bias gradients as the float32 ones; served scores,
 card against CPU, 1e-4 (PNA sums in another order); train losses 1e-4 rel
 and parameters 6.05·lr abs: Adam moves a parameter by at most ~lr a step
 (m̂/√v̂ is at most 1.0036 in the first 3 steps), so where near-zero
@@ -23,6 +26,7 @@ import pytest
 import torch
 
 from rmm_tpu_torch.ops import column_attention as ca
+from rmm_tpu_torch.utils.precision import cast_floats
 
 pytestmark = pytest.mark.cuda
 
@@ -207,8 +211,17 @@ def test_split_forward_repeats_bitwise(cuda):
 def test_column_attention_kernel_refuses_what_it_cannot_run(cuda):
     x, wqkv, bqkv, wout, bout = attention_inputs(0, 8, 6, 32, cuda)
     before = ca.launches
-    with pytest.raises(TypeError, match="float32"):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ca.fused_column_attention(x.half(), wqkv.half(), bqkv.half(),
+                                  wout.half(), bout.half(), 8)
+    with pytest.raises(TypeError, match="one dtype"):
+        ca.fused_column_attention(x, wqkv.bfloat16(), bqkv, wout, bout, 8)
+    with pytest.raises(TypeError, match="bf16 x takes bf16 weights"):
         ca.fused_column_attention(x.bfloat16(), wqkv, bqkv, wout, bout, 8)
+    x126, *w126 = attention_inputs(0, 8, 6, 126, cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ca.fused_column_attention(x126.bfloat16(),
+                                  *(t.bfloat16() for t in w126), 6)
     with pytest.raises(ValueError, match="contiguous"):
         ca.fused_column_attention(x, wqkv.t().contiguous().t(), bqkv, wout,
                                   bout, 8)
@@ -591,3 +604,133 @@ def test_three_ssl_steps_on_the_card_match_the_cpu(cuda, tmp_path):
                              updates=2 * 3, nhidden=128,
                              loss_rtol=(1e-4, 1e-4))
     assert not faults, faults
+
+
+# bf16 (--precision bf16): both directions' tiled and split routes on bf16
+# x and weights. C = 100 and 68 are rows of C % 8 = 4 bf16 elements, which
+# the split route's GEMMs copy 8 bytes at a time.
+BF16_SHAPES = [
+    (37, 2, 32, 8),      # node tokens at the serving width, ragged batch
+    (4099, 6, 32, 8),    # edge tokens
+    (515, 3, 48, 6),     # odd S, head_dim 8
+    (257, 9, 64, 4),
+    (203, 6, 16, 2),
+    (157, 6, 48, 8),     # head_dim 6
+    (1001, 6, 128, 8),   # split route, the SSL width
+    (333, 16, 96, 3),
+    (401, 6, 100, 5),
+    (77, 5, 68, 4),
+]
+
+
+def bf16_inputs(seed, b, s, c, device):
+    """The seeded inputs in bf16: x, and float32 masters of the four
+    weights whose values are bf16 (so the kernels' rounding of a master to
+    bf16 is exact and the plain version can take the masters)."""
+    x, *weights = attention_inputs(seed, b, s, c, device)
+    return x.bfloat16(), [w.bfloat16().float() for w in weights]
+
+
+def assert_bf16_close(got, want, scale):
+    """Within one bf16 rounding: both sides round float32 values that
+    differ by their sums' order, and a bf16 step is at most 2^-7 of the
+    value; plus 1e-5 of ``scale`` where the values are near 0."""
+    g, w = got.float(), want.float()
+    bound = 2.0 ** -7 * torch.maximum(g.abs(), w.abs()) + 1e-5 * scale
+    excess = float(((g - w).abs() - bound).max())
+    assert excess <= 0, excess
+
+
+COUNTERS = ("launches", "fwd_tiled_launches", "fwd_split_launches",
+            "fwd_bf16_launches", "bwd_launches", "bwd_tiled_launches",
+            "bwd_split_launches", "bwd_bf16_launches")
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,s,c,h", BF16_SHAPES)
+def test_bf16_kernels_match_plain(cuda, b, s, c, h, masked):
+    """Both directions through ``fused_column_attention`` on bf16 x and
+    bf16 weights cast from float32 masters, against autograd of the plain
+    version on the same values: out and dx in bf16 within one bf16
+    rounding, the weight and bias gradients float32 at the masters, at the
+    float32 tolerance."""
+    x, masters = bf16_inputs(b + s + c, b, s, c, cuda)
+    x.requires_grad_()
+    for m in masters:
+        m.requires_grad_()
+    rng = np.random.RandomState(c)
+    do = torch.from_numpy(rng.randn(b, s, c).astype(np.float32)).to(
+        cuda).bfloat16()
+    mask, rate = None, 0.0
+    if masked:
+        rate = 0.3
+        mask = torch.from_numpy(rng.rand(b, h, s, s) >= rate).to(cuda)
+    before = [getattr(ca, n) for n in COUNTERS]
+    out = ca.fused_column_attention(x, *cast_floats(masters, torch.bfloat16),
+                                    h, mask, rate)
+    got = torch.autograd.grad(out, [x, *masters], do)
+    tiled, split = int(ca.route(c) == "tiled"), int(ca.route(c) == "split")
+    assert [getattr(ca, n) - m for n, m in zip(COUNTERS, before)] == [
+        1, tiled, split, 1, 1, tiled, split, 1]
+    ref = ca.reference_column_attention(x, *masters, h, mask, rate)
+    want = torch.autograd.grad(ref, [x, *masters], do)
+    assert out.dtype == got[0].dtype == torch.bfloat16
+    assert_bf16_close(out, ref, float(ref.float().abs().max()))
+    assert_bf16_close(got[0], want[0], float(want[0].float().abs().max()))
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == torch.float32
+        scale = float(w.abs().max())
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=0, atol=1e-4 * max(scale, 1.0))
+
+
+@pytest.mark.parametrize("c", [32, 100, 128])
+def test_bf16_kernels_repeat_bitwise(cuda, c):
+    """The bf16 builds sum every output in a fixed order, as the float32
+    ones do: two calls of each direction give the same bits."""
+    b, s, h = 4099, 6, 4 if c == 100 else 8
+    x, masters = bf16_inputs(0, b, s, c, cuda)
+    wqkv, bqkv, wout, bout = (m.bfloat16() for m in masters)
+    do = torch.randn(b, s, c, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(1)).bfloat16()
+    mask = torch.rand(b, h, s, s, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(2)) >= 0.5
+    with torch.inference_mode():
+        outs = [ca.column_attention_fwd(x, wqkv, bqkv, wout, bout, h, mask,
+                                        0.5) for _ in range(2)]
+    assert torch.equal(*outs)
+    first, second = (ca.column_attention_bwd(x, do, wqkv, bqkv, wout, h,
+                                             mask, 0.5) for _ in range(2))
+    for g, a in zip(first, second):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("c", [32, 128])
+def test_float32_x_with_bf16_weights_takes_the_float32_kernels(cuda, c):
+    """The reference's edge tokens under --precision bf16 are float32 (the
+    timestamp block is), its weights bf16: the float32 kernels run on the
+    weights' exact values, out and dx are float32, and the gradients reach
+    the float32 masters unrounded."""
+    b, s, h = 301, 6, 8
+    x, *masters = attention_inputs(3, b, s, c, cuda)
+    x.requires_grad_()
+    for m in masters:
+        m.requires_grad_()
+    do = torch.randn(b, s, c, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(1))
+    before = [getattr(ca, n) for n in COUNTERS]
+    out = ca.fused_column_attention(x, *cast_floats(masters, torch.bfloat16),
+                                    h)
+    got = torch.autograd.grad(out, [x, *masters], do)
+    tiled, split = int(ca.route(c) == "tiled"), int(ca.route(c) == "split")
+    assert [getattr(ca, n) - m for n, m in zip(COUNTERS, before)] == [
+        1, tiled, split, 0, 1, tiled, split, 0]
+    rounded = [m.detach().bfloat16().float().requires_grad_()
+               for m in masters]
+    ref = ca.reference_column_attention(x, *rounded, h)
+    want = torch.autograd.grad(ref, [x, *rounded], do)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.detach().cpu().numpy(),
+                               ref.detach().cpu().numpy(), **TOL)
+    assert_gradients_match(got, want)
+    assert not torch.equal(got[1], got[1].bfloat16().float())

@@ -162,13 +162,30 @@ def test_cli_needs_cuda_unless_asked_for_cpu(record, tmp_path):
     (["--sampler", "device"], "--sampler device"),
     (["--frontier_capacity", "64"], "--frontier_capacity"),
     (["--inflight_groups", "3"], "--inflight_groups"),
-    (["--moo", "moco"], "--moo"), (["--precision", "bf16"], "--precision"),
-    (["--ports"], "--ports"), (["--split_type", "temporal"], "--split_type"),
+    (["--moo", "moco"], "--moo"), (["--ports"], "--ports"),
+    (["--split_type", "temporal"], "--split_type"),
 ])
 def test_cli_refuses_unported_flags_by_name(record, tmp_path, flags, name):
     _, _, csv = record
     with pytest.raises(NotImplementedError, match=name):
         fused.main(argv(csv, str(tmp_path), *flags))
+
+
+def test_cli_pretrains_an_epoch_in_bf16(record, tmp_path):
+    """``--precision bf16`` (``bench.py``'s SSL precision) trains and
+    evaluates an epoch, and the checkpoint keeps float32 masters."""
+    _, _, csv = record
+    stats = {}
+    (rec,), _ = fused.main(argv(csv, str(tmp_path), "--precision", "bf16",
+                                "--save_model"), stats)
+    assert np.isfinite(rec["loss"]) and 0 < rec["val_mrr"] <= 1
+    assert np.isfinite(rec["val_rmse"]) and 0 <= rec["val_accuracy"] <= 1
+    ck = os.path.join(stats["run_dir"], "0")
+    with open(os.path.join(ck, "meta.json")) as f:
+        assert json.load(f)["precision"] == "bf16"
+    saved = torch.load(os.path.join(ck, "model.pt"), weights_only=True)
+    assert all(v.dtype == torch.float32 for v in saved.values()
+               if v.is_floating_point())
 
 
 def test_cli_refuses_the_ethereum_dataset(tmp_path):

@@ -5,8 +5,16 @@ and the fixture tools (``tools/make_torch_port_fixture.py``,
 ``one_torch_thread`` is an autouse fixture for a test module to import: the
 tier-1 suite runs one pytest worker a core, and torch's intra-op threads on
 top of that (a pool as wide as the machine in every worker) made the CLI
-tests spin for minutes. At these widths one thread is as fast alone."""
+tests spin for minutes. At these widths one thread is as fast alone.
+
+``jax_kernel_attention`` sends ``rmm_tpu``'s column attention down its
+Pallas kernel (in interpret mode) on the CPU, the path it takes on a TPU
+and whose semantics the port's kernels copy."""
 from __future__ import annotations
+
+import contextlib
+import functools
+import os
 
 import numpy as np
 import pytest
@@ -81,3 +89,34 @@ def load_from_jax(port_module, variables: dict):
     port_module.load_state_dict(from_jax(variables, port_module),
                                 strict=True)
     return port_module.eval()
+
+
+@contextlib.contextmanager
+def jax_kernel_attention():
+    """Within the block, ``rmm_tpu.nn.transformer.MultiHeadSelfAttention``
+    takes its Pallas kernel, run in interpret mode, at every head_dim, as
+    on a TPU (on the CPU it takes an einsum path). Under ``--precision
+    bf16`` the two differ: the kernel keeps q, k, v, the softmax and the
+    context float32 and returns float32 weight gradients, the einsum path
+    rounds each to bf16. Only attributes are patched, for the block's
+    duration (jit a function inside it); nothing of ``rmm_tpu`` is
+    edited."""
+    import jax
+
+    from rmm_tpu.ops.pallas import column_attention as pallas_attention
+
+    saved = (jax.default_backend, pallas_attention.fused_column_attention,
+             os.environ.get("RMM_FORCE_PALLAS"))
+    jax.default_backend = lambda: "tpu"   # the layer's kernel gate
+    pallas_attention.fused_column_attention = functools.partial(
+        saved[1], interpret=True)
+    os.environ["RMM_FORCE_PALLAS"] = "1"  # the gate's head_dim >= 16 too
+    try:
+        yield
+    finally:
+        jax.default_backend = saved[0]
+        pallas_attention.fused_column_attention = saved[1]
+        if saved[2] is None:
+            del os.environ["RMM_FORCE_PALLAS"]
+        else:
+            os.environ["RMM_FORCE_PALLAS"] = saved[2]

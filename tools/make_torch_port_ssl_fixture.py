@@ -74,7 +74,24 @@ def sample_index(numel: int, k: int, i: int) -> np.ndarray:
     return np.sort(rng.choice(numel, min(numel, k), replace=False))
 
 
-def run_mode(spec: dict, csv: str, mode: str) -> dict:
+def sampled(after: dict, prefix: str, k: int) -> dict:
+    """A record's arrays for the variables ``after`` a run: for each, by
+    its flat path, a seeded sample of ``k`` entries, its sum and its norm
+    (``rmm_tpu_torch.convert.record_errors`` reads them)."""
+    out = {}
+    for i, key in enumerate(sorted(after)):
+        arr = np.asarray(after[key], np.float32)
+        idx = sample_index(arr.size, k, i)
+        out[f"{prefix}idx/{key}"] = idx.astype(np.int32)
+        out[f"{prefix}val/{key}"] = arr.reshape(-1)[idx]
+        out[f"{prefix}sum/{key}"] = np.float64(arr.astype(np.float64).sum())
+        out[f"{prefix}norm/{key}"] = np.float64(
+            np.linalg.norm(arr.astype(np.float64)))
+    return out
+
+
+def run_mode(spec: dict, csv: str, mode: str,
+             precision: str = "f32") -> dict:
     pretrain = {PretrainType.LINK_PRED}
     if "mcm" in mode:
         pretrain.add(PretrainType.MASK)
@@ -83,7 +100,8 @@ def run_mode(spec: dict, csv: str, mode: str) -> dict:
                  n_gnn_layers=spec["num_layers"], dropout=0.0,
                  num_neg_samples=spec["num_neg_samples"],
                  num_neighs=tuple(spec["khop_neighbors"]), lr=2e-4,
-                 weight_decay=1e-3, adam_eps=1e-8, seed=SEED)
+                 weight_decay=1e-3, adam_eps=1e-8, seed=SEED,
+                 precision=precision)
     ds = IBMTransactionsAML(root=csv, pretrain=pretrain,
                             khop_neighbors=cfg.num_neighs,
                             channels=cfg.n_hidden)
@@ -122,14 +140,7 @@ def run_mode(spec: dict, csv: str, mode: str) -> dict:
     out = {f"{mode}/term/{k}": np.asarray([t[k] for t in terms], np.float64)
            for k in terms[0]}
     out[f"{mode}/neg0"] = np.asarray(batches[0].neg_edge_index, np.int32)
-    for i, key in enumerate(sorted(after)):
-        arr = np.asarray(after[key], np.float32)
-        idx = sample_index(arr.size, spec["sample"], i)
-        out[f"{mode}/idx/{key}"] = idx.astype(np.int32)
-        out[f"{mode}/val/{key}"] = arr.reshape(-1)[idx]
-        out[f"{mode}/sum/{key}"] = np.float64(arr.astype(np.float64).sum())
-        out[f"{mode}/norm/{key}"] = np.float64(
-            np.linalg.norm(arr.astype(np.float64)))
+    out.update(sampled(after, f"{mode}/", spec["sample"]))
     settings = {"shapes": shapes, "edge_capacity": tr.cfg.edge_capacity,
                 "node_capacity": tr.cfg.node_capacity, "terms": terms}
     return out, settings

@@ -110,7 +110,7 @@ def fwd_bounds(n: int):
 
 KERNELS = {
     "bwd": {
-        "signature": "column_attention_bwd_tiled_kernel(const float*",
+        "signature": "column_attention_bwd_tiled_kernel(const elem_t*",
         "barriers": 5,
         "stages": ["staging + E+F", "A", "B", "C", "D", "last E+F"],
         "ptxas": r"bwd_tiled_kernelILi([26])ELi1EE",
@@ -126,12 +126,12 @@ KERNELS = {
              "tok_b8": constant("kTokB", 4, 8),
              "tok_e4": constant("kTokE", 2, 4),
              "no_unroll": bwd_no_unroll},
-            ["st4(tok + t * TS + c, __ldg(xg + i));",
-             "st4(tok + t * TS + DO + c, __ldg(dg + i));",
+            ["st4(tok + t * TS + c, E::ldg4(xg + 4 * i));",
+             "st4(tok + t * TS + DO + c, E::ldg4(dg + 4 * i));",
              "kb4[i] = __ldg(kg4 + i);", "kb[i] = kg[i];"]),
     },
     "fwd": {
-        "signature": "column_attention_fwd_tiled_kernel(const float*",
+        "signature": "column_attention_fwd_tiled_kernel(const elem_t*",
         "barriers": 3,
         "stages": ["staging + O + wait", "B", "A + C", "last O"],
         "ptxas": r"fwd_tiled_kernelILi([26])EE",
@@ -152,7 +152,7 @@ KERNELS = {
                     "      const int ct = it - q * C4;\n",
                  "      const int ct = it / NQO;\n"
                  "      const int q = it - ct * NQO;\n")},
-            ["cp_async16(tok + t * TS + 4 * (i - t * C4), xg + 4 * i);",
+            ["load_x4(tok + t * TS + 4 * (i - t * C4), xg + 4 * i);",
              "cp_async16(kb + 16 * i, kg + 16 * i);", "kb[i] = kg[i];"]),
     },
 }

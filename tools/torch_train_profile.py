@@ -2,6 +2,7 @@
 
     python3 tools/torch_train_profile.py [--rows 131072] [--batches 24]
     python3 tools/torch_train_profile.py --ssl [--rows 131072] [--batches 12]
+    python3 tools/torch_train_profile.py --ssl --precision bf16
 
 Builds the supervised config of record with ``rmm_tpu_torch`` (synthetic
 AML, tabgnn, C = 32, 2 layers, fanouts 100/100, batch 200, dropout 0.083;
@@ -23,9 +24,12 @@ negatives, the device step, its forward by layer (CUDA events around each
 module's forward, on the device's clock), the peak memory of a step, the
 kernels of the forward and of the whole step, and the train loop.
 
-Prints one JSON line per measurement and writes the profiler's kernel table
-to ``--table`` (default ``outputs/train_profile.txt``, ``outputs/
-ssl_profile.txt`` with ``--ssl``). Needs a CUDA card.
+``--precision bf16`` measures either at ``--precision bf16`` (the steps'
+forwards through the trainers' own cast of the parameters); every line
+names its precision. Prints one JSON line per measurement and writes the
+profiler's kernel table to ``--table`` (default ``outputs/
+train_profile.txt``, ``outputs/ssl_profile.txt`` with ``--ssl``). Needs a
+CUDA card.
 """
 from __future__ import annotations
 
@@ -39,7 +43,14 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from tools.torch_serve_profile import device_us, emit, kernel_table  # noqa: E402
+from tools.torch_serve_profile import device_us, kernel_table  # noqa: E402
+from tools.torch_serve_profile import emit as emit_line  # noqa: E402
+
+PRECISION = "f32"
+
+
+def emit(obj: dict):
+    emit_line({**obj, "precision": PRECISION})
 
 
 def top_kernels(prof, n: int, k: int = 15) -> tuple[float, list]:
@@ -109,7 +120,7 @@ def ssl_main(args, card: str, work: str):
     cfg = Config(model="tabgnnfused", data=csv, batch_size=200,
                  n_hidden=128, n_gnn_layers=3, num_neighs=(100, 100),
                  dropout=0.5, lr=2e-4, num_neg_samples=64, device="cuda",
-                 sampler_threads=4)
+                 sampler_threads=4, precision=args.precision)
     ds = IBMTransactionsAML(csv, khop_neighbors=cfg.num_neighs, pretrain={
         PretrainType.MASK, PretrainType.LINK_PRED})
     tr = PretrainTrainer(cfg, ds, "mcm-lp")
@@ -155,7 +166,7 @@ def ssl_main(args, card: str, work: str):
 
     def forwards():
         for g in dev:
-            tr.model(g, tr.edge_table, tr.mode)
+            tr._forward(g)
 
     emit({"phase": "train_forward_layers", "card": card,
           "layers": layer_times(tr.model, forwards, n)})
@@ -206,8 +217,11 @@ def main(argv=None):
     p.add_argument("--batches", type=int, default=None,
                    help="24, or 12 with --ssl")
     p.add_argument("--ssl", action="store_true")
+    p.add_argument("--precision", default="f32", choices=("f32", "bf16"))
     p.add_argument("--table", default=None)
     args = p.parse_args(argv)
+    global PRECISION
+    PRECISION = args.precision
     if args.batches is None:
         args.batches = 12 if args.ssl else 24
     if args.table is None:
@@ -246,7 +260,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     cfg = Config(model="tabgnn", data=csv, batch_size=200, n_hidden=32,
                  n_gnn_layers=2, num_neighs=(100, 100), device="cuda",
-                 sampler_threads=4)
+                 sampler_threads=4, precision=args.precision)
     ds = IBMTransactionsAML(csv, khop_neighbors=cfg.num_neighs)
     tr = Trainer(cfg, ds)
     emit({"phase": "setup", "seconds": time.perf_counter() - t0,
@@ -282,7 +296,7 @@ def main(argv=None):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for g in dev:
-            tr.model(tr.edge_table, tr.node_table, g)
+            tr._logits(g)
         torch.cuda.synchronize()
     fwd_total, fwd_top = top_kernels(prof, n)
     emit({"phase": "train_forward_kernels",
