@@ -15,19 +15,20 @@ through all of them:
              edge capacity, node tokens at the node capacity, both read
              from the fixture), at the same shapes with the training
              keep-mask (dropout 0.083), and more (node tokens at the edge
-             capacity, C = 128, a ragged batch, a numpy keep-mask, and
-             C = 126, the scalar kernels' remaining widths: C not a
-             multiple of 4); the backward (and its reduce) against
-             ``torch.autograd.grad`` of the plain version at the training
-             shapes with the keep-mask, the same unmasked, C = 128, a
-             ragged batch and C = 126; both directions at the SSL path's
-             C = 128 shapes (131072x6x128/8 edge tokens, 13000x6x128/8
-             target rows) with its 0.5 keep-mask and without it, and the
-             split forward's attention core alone there against its plain
-             twin. Each record names the route it took (tiled, split or
-             scalar, by width, held to ``route(c)``), and two calls of
-             each direction at the main path's masked edge shape and at
-             the SSL masked edge shape are bitwise equal. Max error (the
+             capacity, C = 128, a ragged batch, a numpy keep-mask); the
+             backward (and its reduce) against ``torch.autograd.grad`` of
+             the plain version at the training shapes with the keep-mask,
+             the same unmasked, C = 128 and a ragged batch; both
+             directions at the SSL path's C = 128 shapes (131072x6x128/8
+             edge tokens, 13000x6x128/8 target rows) and at the narrow
+             shapes (32768x6x126/6 and 131072x6x30/6: C not a multiple of
+             4, the split routes' narrow GEMMs), each with a 0.5 keep-mask
+             and without it, and the split forward's attention core alone
+             there against its plain twin. Each record names the route it
+             took (tiled or split, by width, held to ``route(c)``), and
+             two calls of each direction at the main path's masked edge
+             shape, at the SSL masked edge shape and at the masked
+             32768x6x126/6 are bitwise equal. Max error (the
              backward's relative to each reference tensor's largest
              entry), kernel / plain / library times (CUDA events, warm,
              median) and the bound.
@@ -81,8 +82,9 @@ float32, their timestamp block being so, and the node tokens bf16):
 3b. kernel_bf16 — both directions' bf16 builds (tiled and split) against
              their plain twin on bf16 x, do and weights at the main path's
              edge and node shapes (unmasked and with the training
-             keep-mask), the SSL pair (0.5 keep-mask and unmasked) and
-             32768x6x100/4 (bf16 rows of C % 8 = 4): out and dx within one
+             keep-mask), the SSL pair (0.5 keep-mask and unmasked),
+             32768x6x100/4 (bf16 rows of C % 8 = 4) and the narrow shapes
+             (0.5 keep-mask and unmasked): out and dx within one
              bf16 rounding, the float32 weight gradients at the float32
              tolerance, bitwise repeats, kernel / plain / library times
              and the bound from bf16 bytes.
@@ -100,9 +102,9 @@ float32, their timestamp block being so, and the node tokens bf16):
 
 Then the seconds each phase took, a ``{"kernels": [...]}`` line (an entry
 per kernel, each with its ``path``: the main path's tiled kernels at C = 32,
-the SSL path's split forward and backward at C = 128, the scalar
-forward and backward at the kernel phase's C = 126, and the bf16 builds of
-the tiled and split kernels),
+the SSL path's split forward and backward at C = 128, with their times at
+the narrow shapes beside, and the bf16 builds of the tiled and split
+kernels, likewise),
 the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 package beside it, the script fails and prints no result.
@@ -306,8 +308,11 @@ def library_attention(x, wqkv, bqkv, wout, bout, h):
 SSL_SHAPES = [(131072, 6, 128, 8, SSL_DROPOUT),
               (13000, 6, 128, 8, SSL_DROPOUT),
               (131072, 6, 128, 8, 0.0), (13000, 6, 128, 8, 0.0)]
-# A width that only the scalar kernels take (C not a multiple of 4)
-SCALAR_SHAPE = (32768, 6, 126, 6, 0.0)
+# Widths that are not a multiple of 4 (the split routes' narrow GEMMs),
+# each with the 0.5 keep-mask and without it
+NARROW_SHAPES = [(b, s, c, h, rate) for b, s, c, h in
+                 [(32768, 6, 126, 6), (131072, 6, 30, 6)]
+                 for rate in (SSL_DROPOUT, 0.0)]
 
 
 def kernel_phase(card: str) -> dict:
@@ -332,8 +337,7 @@ def kernel_phase(card: str) -> dict:
         (32768, 6, 128, 8, 0.0),     # SSL width, the split route
         (100003, 6, 32, 8, 0.0),     # ragged batch
         (4099, 6, 64, 4, 0.3),       # numpy keep-mask, dropout 0.3
-        SCALAR_SHAPE,                # C % 4 != 0: the scalar forward
-    ] + SSL_SHAPES
+    ] + NARROW_SHAPES + SSL_SHAPES
     bwd_shapes = [
         (edges, 6, c, 8, p),         # training path: edge tokens
         (nodes, 2, c, 8, p),         # training path: node tokens
@@ -341,8 +345,7 @@ def kernel_phase(card: str) -> dict:
         (nodes, 2, c, 8, 0.0),
         (32768, 6, 128, 8, 0.0),     # SSL width, the split route
         (100003, 6, 32, 8, p),       # ragged batch
-        SCALAR_SHAPE,                # C % 4 != 0: the scalar backward
-    ] + SSL_SHAPES
+    ] + NARROW_SHAPES + SSL_SHAPES
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
     fwd, bwd = [], []
@@ -356,14 +359,15 @@ def kernel_phase(card: str) -> dict:
             before = (ca.fwd_tiled_launches, ca.fwd_split_launches)
             out = ca.fused_column_attention(*args)
             route = ("tiled" if ca.fwd_tiled_launches > before[0] else
-                     "split" if ca.fwd_split_launches > before[1] else
-                     "scalar")
+                     "split" if ca.fwd_split_launches > before[1] else None)
             check(route == ca.route(c),
                   f"forward {b}x{s}x{c}/{h} took the {route} route, not "
                   f"{ca.route(c)}")
             repeat_equal = None
-            # the masked edge shapes of the main path and of the SSL path
-            if len(fwd) == 2 or (b, s, c, h, rate) == SSL_SHAPES[0]:
+            # the masked edge shapes of the main path and of the SSL path,
+            # and the first narrow shape
+            if len(fwd) == 2 or (b, s, c, h, rate) in (SSL_SHAPES[0],
+                                                       NARROW_SHAPES[0]):
                 repeat_equal = torch.equal(out,
                                            ca.fused_column_attention(*args))
                 check(repeat_equal, f"forward {b}x{s}x{c}/{h}: two calls on "
@@ -395,11 +399,10 @@ def kernel_phase(card: str) -> dict:
                 lib_ms = time_ms(lambda: library_attention(*lib))
         t_bytes, t_ops = attention_floor(b, s, c, h, mask is not None)
         bound_ms, by = bound(t_bytes, t_ops)
-        plan = ca.fwd_plan(b, s, c, h) if route != "scalar" else None
+        plan = ca.fwd_plan(b, s, c, h)
         rec = {"phase": "kernel", "kernel": "column_attention_fwd",
                "B": b, "S": s, "C": c, "H": h, "dropout": rate,
-               "route": route, "rows": plan and plan.rows,
-               "blocks": plan and plan.grid,
+               "route": route, "rows": plan.rows, "blocks": plan.grid,
                "repeat_bitwise_equal": repeat_equal, "max_abs_err": err,
                "core_max_abs_err": core_err,
                "tol": KERNEL_TOL, "kernel_ms": k_ms,
@@ -422,14 +425,15 @@ def kernel_phase(card: str) -> dict:
         before = (ca.bwd_tiled_launches, ca.bwd_split_launches)
         got = ca.column_attention_bwd(*args)
         route = ("tiled" if ca.bwd_tiled_launches > before[0] else
-                 "split" if ca.bwd_split_launches > before[1] else "scalar")
+                 "split" if ca.bwd_split_launches > before[1] else None)
         check(route == ca.route(c),
               f"backward {b}x{s}x{c}/{h} took the {route} route, not "
               f"{ca.route(c)}")
         repeat_equal = None
-        # the masked edge shapes of the main path and of the SSL path: the
-        # weight gradients are deterministic
-        if not bwd or (b, s, c, h, rate) == SSL_SHAPES[0]:
+        # the masked edge shapes of the main path and of the SSL path, and
+        # the first narrow shape: the weight gradients are deterministic
+        if not bwd or (b, s, c, h, rate) in (SSL_SHAPES[0],
+                                             NARROW_SHAPES[0]):
             again = ca.column_attention_bwd(*args)
             repeat_equal = all(torch.equal(g, a) for g, a in zip(got, again))
             check(repeat_equal, f"backward {b}x{s}x{c}/{h}: two calls on "
@@ -478,12 +482,19 @@ def kernel_phase(card: str) -> dict:
         del inputs, do, mask, args, got, leaves, out, want
         torch.cuda.empty_cache()
     n = len(SSL_SHAPES)
+    narrow = [r for r in fwd + bwd
+              if (r["B"], r["S"], r["C"], r["H"], r["dropout"])
+              in NARROW_SHAPES]
+    check(all(r["route"] == "split" for r in narrow),
+          "a narrow shape did not take the split route")
     return {"fwd": fwd[:2], "fwd_masked": fwd[2:4], "bwd": bwd[:2],
             "bwd_unmasked": bwd[2:4], "ssl_fwd": fwd[-n:][:2],
             "ssl_fwd_unmasked": fwd[-n:][2:], "ssl_bwd": bwd[-n:][:2],
             "ssl_bwd_unmasked": bwd[-n:][2:],
-            "scalar_fwd": [r for r in fwd if r["route"] == "scalar"],
-            "scalar_bwd": [r for r in bwd if r["route"] == "scalar"]}
+            "narrow_fwd": [r for r in narrow
+                           if r["kernel"] == "column_attention_fwd"],
+            "narrow_bwd": [r for r in narrow
+                           if r["kernel"] == "column_attention_bwd"]}
 
 
 def bf16_close(got, want) -> float:
@@ -501,14 +512,14 @@ def bf16_shapes(edges: int, nodes: int, c: int) -> list:
     and node tokens unmasked and with the training keep-mask (the path
     runs its node tokens in bf16: its edge tokens hold the float32
     timestamp block), the SSL path's pair with and without its 0.5
-    keep-mask (the split route), and C = 100, rows of C % 8 = 4 bf16
-    values."""
+    keep-mask (the split route), C = 100, rows of C % 8 = 4 bf16 values,
+    and the narrow shapes (the split route's narrow GEMMs)."""
     p = TRAIN_DROPOUT
     return [(edges, 6, c, 8, 0.0), (nodes, 2, c, 8, 0.0),
             (edges, 6, c, 8, p), (nodes, 2, c, 8, p),
             (131072, 6, 128, 8, SSL_DROPOUT), (13000, 6, 128, 8, SSL_DROPOUT),
             (131072, 6, 128, 8, 0.0), (13000, 6, 128, 8, 0.0),
-            (32768, 6, 100, 4, 0.0)]
+            (32768, 6, 100, 4, 0.0)] + NARROW_SHAPES
 
 
 def kernel_bf16_phase(card: str) -> dict:
@@ -518,7 +529,8 @@ def kernel_bf16_phase(card: str) -> dict:
     bitwise equal at the masked edge shapes and at C = 100; kernel /
     plain / library (``F.multi_head_attention_forward`` on bf16) times and
     the bound from bf16 bytes. Returns the records by direction, in the
-    order of :func:`bf16_shapes`."""
+    order of :func:`bf16_shapes`; every narrow shape takes the split
+    route."""
     import numpy as np
     import torch
 
@@ -527,7 +539,7 @@ def kernel_bf16_phase(card: str) -> dict:
     st = fixture_settings()
     shapes = bf16_shapes(st["edge_capacity"], st["node_capacity"],
                          st["n_hidden"])
-    repeat_at = {shapes[2], shapes[4], shapes[8]}
+    repeat_at = {shapes[2], shapes[4], shapes[8], NARROW_SHAPES[0]}
     dev = torch.device("cuda")
     rng = np.random.RandomState(1)
     recs = {"fwd": [], "bwd": []}
@@ -542,6 +554,8 @@ def kernel_bf16_phase(card: str) -> dict:
         args = (x, *weights, h, mask, rate)
         repeat = (b, s, c, h, rate) in repeat_at
         kind = ca.route(c)
+        check(kind == "split" or (b, s, c, h, rate) not in NARROW_SHAPES,
+              f"bf16 {b}x{s}x{c}/{h} does not take the split route")
         with torch.inference_mode():
             before = (ca.fwd_bf16_launches, ca.fwd_tiled_launches,
                       ca.fwd_split_launches)
@@ -1288,27 +1302,19 @@ def main() -> int:
             serve_rec = timed("serve", serve_phase, card, csv)
             serve16 = timed("serve_bf16", serve_bf16_phase, card, csv)
             train_rec = timed("train", train_phase, card, csv)
-            parity_rec = timed("train_parity", train_parity_phase, card)
+            timed("train_parity", train_parity_phase, card)
             parity16 = timed("train_parity_bf16", train_parity_bf16_phase,
                              card)
             ssl_rec = timed("ssl_train", ssl_train_phase, card, csv)
             ssl16 = timed("ssl_train_bf16", ssl_train_phase, card, csv,
                           "bf16")
             ssl_csv = ssl_parity_csv()
-            ssl_parity_rec = timed("ssl_parity", ssl_parity_phase, card,
-                                   ssl_csv)
+            timed("ssl_parity", ssl_parity_phase, card, ssl_csv)
             ssl_parity16 = timed("ssl_parity_bf16", ssl_parity_phase, card,
                                  ssl_csv, SSL_BF16_FIXTURE, "bf16")
-            ssl_cli_rec = timed("ssl_cli", ssl_cli_phase, card, ssl_csv)
+            timed("ssl_cli", ssl_cli_phase, card, ssl_csv)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
-        # every phase's launch counts, for the kernels that several run
-        all_counts = (serve_rec["counts"], serve16["launches"],
-                      train_rec["launches"], parity_rec["launches"],
-                      parity16["launches"], ssl_rec["train_launches"],
-                      ssl_rec["eval_launches"], ssl16["train_launches"],
-                      ssl16["eval_launches"], ssl_parity_rec["launches"],
-                      ssl_parity16["launches"], ssl_cli_rec["launches"])
         emit({"phase": "seconds", **seconds,
               "total": time.perf_counter() - t_start})
         emit({"kernels": [
@@ -1362,13 +1368,8 @@ def main() -> int:
                                  ssl16["train_launches"]["fwd_split"]
                                  + ssl16["eval_launches"]["fwd_split"]
                                  + ssl_parity16["launches"]["fwd_split"],
+                             "narrow": narrow_times(kern["narrow_fwd"]),
                              "library_masked": False}),
-            kernel_entry("column_attention_fwd_scalar", 165,
-                         kern["scalar_fwd"], kern["scalar_fwd"], {
-                             "path": "kernel phase: C % 4 != 0",
-                             "launches": sum(
-                                 c["fwd"] - c["fwd_tiled"] - c["fwd_split"]
-                                 for c in all_counts)}),
             kernel_entry("column_attention_bwd_split", 178,
                          kern["ssl_bwd"], kern["ssl_bwd_unmasked"], {
                              "path": "ssl_train",
@@ -1383,15 +1384,8 @@ def main() -> int:
                                  + ssl_parity16["launches"]["bwd_split"],
                              "max_rel_err": max(max(r["max_rel_err"].values())
                                                 for r in kern["ssl_bwd"]),
+                             "narrow": narrow_times(kern["narrow_bwd"]),
                              "library_masked": False}),
-            kernel_entry("column_attention_bwd_scalar", 178,
-                         kern["scalar_bwd"], kern["scalar_bwd"], {
-                             "path": "kernel phase: C % 4 != 0",
-                             "launches": sum(
-                                 c["bwd"] - c["bwd_tiled"] - c["bwd_split"]
-                                 for c in all_counts),
-                             "max_rel_err": max(max(r["max_rel_err"].values())
-                                                for r in kern["scalar_bwd"])}),
             *bf16_entries(kern16, serve16, parity16, ssl16, ssl_parity16)]})
         print(card, flush=True)
     except Exception:
@@ -1411,6 +1405,7 @@ def bf16_entries(kern16: dict, serve16: dict, parity16: dict, ssl16: dict,
     are float32 under bf16 too: the split bf16 kernels run in the kernel
     phase alone)."""
     fwd, bwd = kern16["fwd"], kern16["bwd"]
+    nn = len(NARROW_SHAPES)
     tiled_fwd = {"serve_bf16": serve16["launches"]["fwd_bf16"],
                  "train_parity_bf16": parity16["launches"]["fwd_bf16"]}
     split_fwd = {"ssl_train_bf16": ssl16["train_launches"]["fwd_bf16"]
@@ -1439,6 +1434,7 @@ def bf16_entries(kern16: dict, serve16: dict, parity16: dict, ssl16: dict,
                          "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
                          "launches": sum(split_fwd.values()),
                          "launches_by_path": split_fwd,
+                         "narrow": narrow_times(fwd[-nn:]),
                          "library_masked": False}),
         kernel_entry("column_attention_bwd_split_bf16", 178, bwd[4:6],
                      bwd[6:8], {
@@ -1450,7 +1446,19 @@ def bf16_entries(kern16: dict, serve16: dict, parity16: dict, ssl16: dict,
                          + ssl_parity16["launches"]["bwd_bf16"],
                          "max_rel_err": max(max(r["max_rel_err"].values())
                                             for r in bwd[4:6]),
+                         "narrow": narrow_times(bwd[-nn:]),
                          "library_masked": False})]
+
+
+def narrow_times(recs: list) -> dict:
+    """A split entry's times at the narrow shapes (C not a multiple of 4),
+    by shape: kernel, plain, library (unmasked only) and bound ms, and the
+    largest error."""
+    return {f'{r["B"]}x{r["S"]}x{r["C"]}/{r["H"]} p={r["dropout"]}': {
+        "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+        "library_ms": r["library_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "max_abs_err": r["max_abs_err"]}
+        for r in recs}
 
 
 def kernel_entry(name: str, line: int, pair: list, lib_pair: list,

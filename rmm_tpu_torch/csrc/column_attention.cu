@@ -1,7 +1,7 @@
-// Fused column attention for Hopper (sm_90a): the forward's three routes
-// (a tiled kernel, a split route of three launches, a scalar kernel), the
-// backward's three routes (a tiled kernel, a split route of four kernels,
-// a scalar kernel) and the backward's reduce.
+// Fused column attention for Hopper (sm_90a): the forward's two routes (a
+// tiled kernel, and a split route of three launches), the backward's two
+// routes (a tiled kernel, and a split route of four kernels) and the
+// backward's reduce.
 //
 // The forwards replace the TPU kernel
 // rmm_tpu/ops/pallas/column_attention.py::_fwd_kernel (math in
@@ -16,38 +16,26 @@
 // What bounds it on an H100. The tables of this model have tiny rows
 // (S = num_cols + 1 = 2 or 6 tokens) and a huge batch (up to 131,072 lanes),
 // so the unfused version moves qkv, the [B, H, S, S] scores and the context
-// through device memory between operators. Here one block keeps a group of
-// rows' whole attention in shared memory: device memory sees one read of x
-// and one write of o per row, plus the weights (from L2 after the first
-// block). At the floor the call is bound by float32 FMAs (about 27k per row
-// at C = 32, S = 6, against 1.5 kB moved); on the CUDA cores both kernels
-// are bound by shared memory and issue before that. Tensor cores (wgmma)
-// and TMA are later work.
+// through device memory between operators. At the floor the call is bound
+// by float32 FMAs (about 27k per row at C = 32, S = 6, against 1.5 kB
+// moved). Tensor cores (wgmma) and TMA are later work.
 //
-// Three routes compute it, chosen by width as the backward's are: the
-// register-tiled kernel (column_attention_fwd_tiled_kernel, further down)
-// for every C <= 64 that is a multiple of 4, the main path's C = 32 among
-// them; the split route (GEMMs around column_attention_fwd_core_kernel,
-// further down) for the other multiples of 4 up to 128, C = 96 and the SSL
-// path's C = 128; and the first port's scalar kernel, right below, for C
-// not a multiple of 4. Against the TPU kernel's choices, the two kernels
-// index the heads as column slices (no channel-mask trick), and a block
-// walks groups of `rows` rows (grid-stride) with the ragged last group
-// masked (no multiple-of-8 batch tiling or padding).
+// Two routes compute each direction, chosen by width: the register-tiled
+// kernels (column_attention_fwd_tiled_kernel and
+// column_attention_bwd_tiled_kernel, further down) for every C <= 64 that
+// is a multiple of 4, the main path's C = 32 among them; and the split
+// routes for every other C up to 128 (C = 96, the SSL path's C = 128, and
+// every C that is not a multiple of 4): GEMMs (gemm_f32.cuh) around a
+// per-row attention core. Against the TPU kernel's choices, the kernels
+// index the heads as column slices (no channel-mask trick), and a tiled
+// block walks groups of `rows` rows (grid-stride) with the ragged last
+// group masked (no multiple-of-8 batch tiling or padding).
 //
-// The scalar kernel: one thread per (row, output column) in the
-// projections, the S tokens as S register sums, and one per (row, head,
-// query) in the attention, on rows padded by one float. Each projection FMA
-// reads one weight and one broadcast activation, all 32-bit loads (about
-// 5.2k a token against 4.5k FMAs at C = 32), and its attention stage has
-// 6-way bank conflicts. The weights sit in shared memory where they fit
-// (C <= 64); above (256 kB at C = 128) every block reads them through the
-// read-only cache from L2, once a group of a few rows: that made it 22.88
-// ms at 131072×6×128/8 with the 0.5 keep-mask against a bound of 1.57
-// (H100 80GB HBM3, 700 W), and is why C = 96..128 take the split route.
-//
-// The tiled kernel keeps the groups of rows and cuts the shared loads with
-// register tiles fed by float4 loads, as the tiled backward does:
+// The tiled forward keeps a group of rows' whole attention in shared
+// memory: device memory sees one read of x and one write of o per row,
+// plus the weights (from L2 after the first block). It cuts the shared
+// loads with register tiles fed by float4 loads, as the tiled backward
+// does:
 //  * Layout. A group's tokens are token-major rows of TS = 5C + 4 floats,
 //    x | ctx | q | k | v: ≡ 4 (mod 32) at C = 32, so eight tokens' float4s
 //    at one column fall in eight 16-byte bank groups. The weights sit
@@ -74,25 +62,36 @@
 //    of 512 (42 rows) are 10-12% slower. 3 barriers a group.
 //  * S = 6, the main path's edge tokens, is a constant in its
 //    instantiation: 7-8% faster than the same code with a runtime S.
-// What bounds it now (131072×6×32/8: about 0.35 ms against the scalar
-// kernel's 1.23, bound 0.105; H100 80GB HBM3, 700 W): stage B, about 40%,
-// by shared loads (a distinct float4 of 4.2 cycles and a broadcast of 2.2
-// for every 16 FMAs); stage C, about a third, by issue and latency (a
-// softmax, index divisions and byte loads for a few dozen FMAs an item).
-// See PERF.md.
-// The split forward (64 < C <= 128, C % 4 == 0) does the forward's 4·C²
-// FMAs a token as two float32 GEMMs over all tokens (gemm_f32.cuh, the
-// backward's), qkv = x·Wqkv + b before and o = ctx·Wout + b after a
-// per-row attention core, on a scratch row of 3C floats a token: q | k | v,
-// then ctx over q. No kernel keeps a weight, and the weights are read from
-// L2 once a 128×128 output tile, not once a group of rows. The scratch
-// makes a round trip through device memory (3C floats written, 3C read, C
-// written and C read again a token: 3.2 GB at the edge shape, ~1 ms at
-// 3.35 TB/s). Bound: float32 FMAs (103 GFLOP at 131072×6×128/8, 1.54 ms
-// at 67 TFLOP/s); the core by bytes. Outputs are one thread's FMA chain
-// each: two calls give the same bits.
-// All routes take S <= 16, C % nhead == 0, C <= 128 (the wrapper checks).
-// They launch on the caller's stream, allocate nothing and do not
+// What bounds it now (131072×6×32/8: about 0.35 ms, bound 0.105; H100
+// 80GB HBM3, 700 W): stage
+// B, about 40%, by shared loads (a distinct float4 of 4.2 cycles and a
+// broadcast of 2.2 for every 16 FMAs); stage C, about a third, by issue
+// and latency (a softmax, index divisions and byte loads for a few dozen
+// FMAs an item). See PERF.md.
+//
+// The split forward does the forward's 4·C² FMAs a token as two float32
+// GEMMs over all tokens (gemm_f32.cuh, the backward's), qkv = x·Wqkv + b
+// before and o = ctx·Wout + b after a per-row attention core, on a scratch
+// row of 3C floats a token rounded up to a multiple of 4: q | k | v, then
+// ctx over q. No kernel keeps a weight, and the weights are read from L2
+// once a 128×128 output tile, not once a group of rows. The scratch makes a round trip through device memory (3C floats written, 3C
+// read, C written and C read again a token: 3.2 GB at that shape, ~1 ms at
+// 3.35 TB/s). Bound: float32 FMAs (103 GFLOP at 131072×6×128/8, 1.54 ms at
+// 67 TFLOP/s); the core by bytes. Outputs are one thread's FMA chain each:
+// two calls give the same bits.
+//
+// Where C is not a multiple of 4, both split routes run the narrow form of
+// the GEMMs (gemm_f32.cuh): every row stride of x, do, dx, out and the
+// weights, and the bounds N = 3C and K = 3C, then cut 4-element chunks
+// across rows, so the GEMMs copy and store one element at a time, 4
+// copies for every one of the aligned form. The cores are the same: the
+// forward's scratch row is padded to a multiple of 4 floats and the
+// backward's (4C) is one, and a head width that is not a multiple of 4
+// takes their one-float chunks. So every width that nhead divides runs
+// through GEMM kernels.
+//
+// All routes take S <= 16, C <= 128 and C % nhead == 0 (the wrapper
+// checks). They launch on the caller's stream, allocate nothing and do not
 // synchronize; the C entry points return cudaGetLastError().
 //
 // Element types. This file builds two libraries: float32, and, with
@@ -104,34 +103,28 @@
 // (4 elements at a time, 8-byte loads) and round when they store out or dx;
 // the split routes' GEMMs take each operand in its own type
 // (gemm_f32.cuh). The weight and bias gradients are float32 in both builds,
-// as the TPU kernel writes them. The scalar route is float32 only (its
-// entry points are not in the bf16 library).
+// as the TPU kernel writes them. Both builds take every width.
 //
-// The backward's split route (64 < C <= 128, C % 4 == 0: the SSL path's
-// C = 128) replaces _bwd_kernel there. What bounded the scalar backward at
-// C = 128 (126.44 ms at 131072×6×128/8 with the 0.5 keep-mask against a
-// bound of 4.34; H100 80GB HBM3, 700 W): its 256 kB of weights fit neither
-// shared memory nor its 4C² + 4C weight-gradient sums the registers, so a
-// block of two rows read every weight from L2 once a row-thread, and added
-// its partial sums in device memory after every group, one serial sum a
-// thread: about 100 GB of L2 traffic at the edge shape. The split route
-// does the backward's 11·C² FMAs a token as matrix products over all
-// tokens instead of per row group, so no kernel keeps a weight or a
-// weight-gradient sum for long: the projections, dx and the weight
-// gradients are float32 GEMMs (gemm_f32.cuh: 128×128 tiles, cp.async
-// rings, 8×8 register microtiles), and only the per-row attention, about
-// 6·S·C FMAs a token, is a kernel of its own (the core, further down).
-// The token rows q | k | v | dctx (4C floats a token) make a round trip
-// through device memory between the launches (about 9 GB at the edge
-// shape, ~2.9 ms at 3.35 TB/s), the price of keeping each launch a dense
-// product. Bound: float32 FMAs on the CUDA cores (about 283 GFLOP at the
-// edge shape, 4.2 ms at 67 TFLOP/s); TF32 tensor cores would miss the
-// backward's 1e-4 tolerance. The weight gradients sum fixed token ranges
-// into partial slices that the reduce adds in a fixed order: two calls
-// give the same bits. Measured (H100 80GB HBM3, 700 W): 9.34 ms at the
-// edge shape, 2.2× its bound; the three GEMMs run at about half the FMA
-// peak (stalls at 4 warps a scheduler, not a unit's rate), the core at two
-// thirds of HBM's. See PERF.md.
+// The backward's split route replaces _bwd_kernel at the split widths.
+// Above C = 64 a per-row kernel fits neither the weights (256 kB at C =
+// 128) in shared memory nor the 4C² + 4C weight-gradient sums in
+// registers, so the split route does the backward's 11·C² FMAs a token as
+// matrix products over all tokens, and no kernel keeps a weight or a
+// weight-gradient sum for long:
+// the projections, dx and the weight gradients are float32 GEMMs
+// (gemm_f32.cuh: 128×128 tiles, cp.async rings, 8×8 register microtiles),
+// and only the per-row attention, about 6·S·C FMAs a token, is a kernel of
+// its own (the core, further down). The token rows q | k | v | dctx (4C
+// floats a token) make a round trip through device memory between the
+// launches (about 9 GB at the edge shape, ~2.9 ms at 3.35 TB/s), the price
+// of keeping each launch a dense product. Bound: float32 FMAs on the CUDA
+// cores (about 283 GFLOP at the edge shape, 4.2 ms at 67 TFLOP/s); TF32
+// tensor cores would miss the backward's 1e-4 tolerance. The weight
+// gradients sum fixed token ranges into partial slices that the reduce
+// adds in a fixed order: two calls give the same bits. Measured (H100 80GB
+// HBM3, 700 W): 9.34 ms at the edge shape, 2.2× its bound; the three GEMMs
+// run at about half the FMA peak (stalls at 4 warps a scheduler, not a
+// unit's rate), the core at two thirds of HBM's. See PERF.md.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -154,176 +147,6 @@ using E = Elem<elem_t>;
 
 constexpr int kThreads = 256;
 
-#ifndef RMM_ATTENTION_BF16  // the scalar route: float32 only
-template <int MAXS, bool W_SMEM>
-__global__ void __launch_bounds__(kThreads)
-column_attention_fwd_kernel(const float* __restrict__ x,
-                            const float* __restrict__ wqkv,
-                            const float* __restrict__ bqkv,
-                            const float* __restrict__ wout,
-                            const float* __restrict__ bout,
-                            const uint8_t* __restrict__ keep,
-                            float* __restrict__ out, int B, int S, int C,
-                            int H, float scale, float inv_keep, int rows) {
-  extern __shared__ float smem[];
-  const int C3 = 3 * C;
-  const int hd = C / H;
-  const float* Wq = wqkv;
-  const float* Wo = wout;
-  float* buf = smem;
-  if (W_SMEM) {
-    float* sWq = smem;
-    float* sWo = smem + C * C3;
-    for (int i = threadIdx.x; i < C * C3; i += blockDim.x) sWq[i] = wqkv[i];
-    for (int i = threadIdx.x; i < C * C; i += blockDim.x) sWo[i] = wout[i];
-    Wq = sWq;
-    Wo = sWo;
-    buf = smem + C * C3 + C * C;
-  }
-  // Per row: x (later ctx) [S*C] and qkv [S*3C]. Row strides are padded by
-  // one float so neighbouring rows start in different banks.
-  const int xs = S * C + 1;
-  const int qs = S * C3 + 1;
-  float* xb = buf;
-  float* qb = buf + rows * xs;
-
-  const int ngroups = (B + rows - 1) / rows;
-  for (int g = blockIdx.x; g < ngroups; g += gridDim.x) {
-    const int r0 = g * rows;
-    const int nr = min(rows, B - r0);
-    __syncthreads();  // weights staged / previous group done with xb, qb
-
-    // 1. x rows → shared (coalesced: nr*S*C contiguous floats)
-    const float* xg = x + (size_t)r0 * S * C;
-    for (int i = threadIdx.x; i < nr * S * C; i += blockDim.x) {
-      const int r = i / (S * C);
-      xb[r * xs + (i - r * S * C)] = xg[i];
-    }
-    __syncthreads();
-
-    // 2. qkv[r, s, j] = bqkv[j] + Σ_c x[r, s, c] Wqkv[c, j]; one thread per
-    //    (row, output column), all S tokens at once in registers.
-    for (int it = threadIdx.x; it < nr * C3; it += blockDim.x) {
-      const int r = it / C3;
-      const int j = it - r * C3;
-      const float* xr = xb + r * xs;
-      float acc[MAXS];
-      const float bj = __ldg(bqkv + j);
-#pragma unroll
-      for (int s = 0; s < MAXS; ++s) acc[s] = bj;
-      for (int c = 0; c < C; ++c) {
-        const float w = W_SMEM ? Wq[c * C3 + j] : __ldg(Wq + c * C3 + j);
-#pragma unroll
-        for (int s = 0; s < MAXS; ++s)
-          if (s < S) acc[s] = fmaf(xr[s * C + c], w, acc[s]);
-      }
-      float* qr = qb + r * qs;
-#pragma unroll
-      for (int s = 0; s < MAXS; ++s)
-        if (s < S) qr[s * C3 + j] = acc[s];
-    }
-    __syncthreads();
-
-    // 3. one thread per (row, head, query): scores over the S keys in
-    //    registers, softmax, optional keep-mask, context into xb.
-    for (int it = threadIdx.x; it < nr * H * S; it += blockDim.x) {
-      const int r = it / (H * S);
-      const int rem = it - r * H * S;
-      const int h = rem / S;
-      const int i = rem - h * S;
-      const float* qr = qb + r * qs;
-      const float* q = qr + i * C3 + h * hd;
-      float p[MAXS];
-      float m = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < MAXS; ++j) {
-        if (j < S) {
-          const float* k = qr + j * C3 + C + h * hd;
-          float d = 0.f;
-          for (int t = 0; t < hd; ++t) d = fmaf(q[t], k[t], d);
-          p[j] = d * scale;
-          m = fmaxf(m, p[j]);
-        }
-      }
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < MAXS; ++j) {
-        if (j < S) {
-          p[j] = expf(p[j] - m);
-          sum += p[j];
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < MAXS; ++j)
-        if (j < S) p[j] = p[j] / sum;
-      if (keep != nullptr) {
-        const uint8_t* kp = keep + (((size_t)(r0 + r) * H + h) * S + i) * S;
-#pragma unroll
-        for (int j = 0; j < MAXS; ++j)
-          if (j < S) p[j] = kp[j] ? p[j] * inv_keep : 0.f;
-      }
-      float* ctx = xb + r * xs + i * C + h * hd;
-      const float* v = qr + 2 * C + h * hd;
-      for (int t = 0; t < hd; ++t) {
-        float a = 0.f;
-#pragma unroll
-        for (int j = 0; j < MAXS; ++j)
-          if (j < S) a = fmaf(p[j], v[j * C3 + t], a);
-        ctx[t] = a;
-      }
-    }
-    __syncthreads();
-
-    // 4. o[r, s, j] = bout[j] + Σ_c ctx[r, s, c] Wout[c, j]; stores are
-    //    coalesced over j.
-    float* og = out + (size_t)r0 * S * C;
-    for (int it = threadIdx.x; it < nr * C; it += blockDim.x) {
-      const int r = it / C;
-      const int j = it - r * C;
-      const float* cr = xb + r * xs;
-      float acc[MAXS];
-      const float bj = __ldg(bout + j);
-#pragma unroll
-      for (int s = 0; s < MAXS; ++s) acc[s] = bj;
-      for (int c = 0; c < C; ++c) {
-        const float w = W_SMEM ? Wo[c * C + j] : __ldg(Wo + c * C + j);
-#pragma unroll
-        for (int s = 0; s < MAXS; ++s)
-          if (s < S) acc[s] = fmaf(cr[s * C + c], w, acc[s]);
-      }
-#pragma unroll
-      for (int s = 0; s < MAXS; ++s)
-        if (s < S) og[(r * S + s) * C + j] = acc[s];
-    }
-  }
-}
-
-template <int MAXS, bool W_SMEM>
-cudaError_t launch(const float* x, const float* wqkv, const float* bqkv,
-                   const float* wout, const float* bout, const uint8_t* keep,
-                   float* out, int B, int S, int C, int H, float inv_keep,
-                   int rows, size_t smem, cudaStream_t stream) {
-  auto kernel = column_attention_fwd_kernel<MAXS, W_SMEM>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                smem);
-  const int ngroups = (B + rows - 1) / rows;
-  int grid = sms * (per_sm > 0 ? per_sm : 1);
-  if (grid > ngroups) grid = ngroups;
-  const float scale = 1.0f / sqrtf((float)(C / H));
-  kernel<<<grid, kThreads, smem, stream>>>(x, wqkv, bqkv, wout, bout, keep,
-                                           out, B, S, C, H, scale, inv_keep,
-                                           rows);
-  return cudaGetLastError();
-}
-
-#endif  // RMM_ATTENTION_BF16
-
 // ---------------------------------------------------------------------------
 // Backward.
 //
@@ -338,358 +161,32 @@ cudaError_t launch(const float* x, const float* wqkv, const float* bqkv,
 // and over the whole batch dWqkv = Σ xᵀ·dqkv, dbqkv = Σ dqkv,
 // dWout = Σ ctxᵀ·do, dbout = Σ do.
 //
-// Three routes compute it, chosen by width: the register-tiled kernel
-// further down for every C <= 64 that is a multiple of 4 (the main path's
-// C = 32), the split route (the note at the top of this file) for every
-// other multiple of 4 up to 128, and this scalar kernel, the first port,
-// for a C that is not a multiple of 4.
+// Two routes compute it, chosen by width as the forward's are: the
+// register-tiled kernel right below for every C <= 64 that is a multiple
+// of 4 (the main path's C = 32), and the split route (the note at the top
+// of this file) for every other C up to 128.
 //
 // The TPU kernel sums the weight gradients across its sequential grid. A
-// Hopper grid runs in parallel, so each block sums the row groups it walks
-// into its own slice of a [slices, 4C² + 4C] partials buffer (laid out as
+// Hopper grid runs in parallel, so both routes sum fixed parts of the
+// tokens into slices of a [slices, 4C² + 4C] partials buffer (laid out as
 // dWqkv | dbqkv | dWout | dbout), and a second kernel adds the slices in a
-// fixed order: deterministic on a given card, no atomics. In the scalar
-// kernel, where a block's 4C² + 4C sums fit in registers (C <= 38) they
-// stay there and are written once; above that (C = 126: 250 a thread) each
-// thread adds into its entries of the block's slice in device memory after
-// every group.
+// fixed order: deterministic on a given card, no atomics.
 //
 // What bounds it: about 11·C² FMAs per token (the qkv recompute, dctx, dx
 // and the two weight-gradient products) against x, do and dx moved once;
-// float32 operations bound it. The scalar kernel runs on the CUDA cores,
-// one group of rows per block at a time with every intermediate (x, do,
-// qkv, ctx, dctx, dqkv: 10·S·C floats a row, plus the S×S probabilities and
-// their gradients) in shared memory, and like the forward it is limited by
-// shared-memory loads. The weights are staged transposed with a padded row
-// (C + 1) so that both the row-wise and the column-wise products read them
-// without bank conflicts.
+// float32 operations bound it.
 // ---------------------------------------------------------------------------
-
-#ifndef RMM_ATTENTION_BF16  // the scalar route: float32 only
-constexpr int kAccPerThread = 24;  // register sums when 4C² + 4C <= 24·256
-
-// One weight or bias gradient entry k of the partials layout, summed over
-// the group's rows r < nr and tokens t < S.
-__device__ __forceinline__ float weight_grad_term(
-    int k, int C, int S, int nr, const float* xb, const float* db,
-    const float* cb, const float* hb, int xs, int qs) {
-  const int C3 = 3 * C;
-  const float* a = nullptr;
-  const float* b;
-  int ars = 0, ats = 0, brs, bts;
-  if (k < C * C3) {                       // dWqkv[c, j] = Σ x[c] dqkv[j]
-    const int c = k / C3;
-    a = xb + c; ars = xs; ats = C;
-    b = hb + (k - c * C3); brs = qs; bts = C3;
-  } else if (k < C * C3 + C3) {           // dbqkv[j] = Σ dqkv[j]
-    b = hb + (k - C * C3); brs = qs; bts = C3;
-  } else if (k < C * C3 + C3 + C * C) {   // dWout[c, e] = Σ ctx[c] do[e]
-    const int kk = k - C * C3 - C3;
-    const int c = kk / C;
-    a = cb + c; ars = xs; ats = C;
-    b = db + (kk - c * C); brs = xs; bts = C;
-  } else {                                // dbout[e] = Σ do[e]
-    b = db + (k - C * C3 - C3 - C * C); brs = xs; bts = C;
-  }
-  float s = 0.f;
-  if (a != nullptr) {
-    for (int r = 0; r < nr; ++r)
-      for (int t = 0; t < S; ++t)
-        s = fmaf(a[r * ars + t * ats], b[r * brs + t * bts], s);
-  } else {
-    for (int r = 0; r < nr; ++r)
-      for (int t = 0; t < S; ++t) s += b[r * brs + t * bts];
-  }
-  return s;
-}
-
-template <int MAXS, bool W_SMEM, bool ACC_REGS>
-__global__ void __launch_bounds__(kThreads, 2)
-column_attention_bwd_kernel(const float* __restrict__ x,
-                            const float* __restrict__ dout,
-                            const float* __restrict__ wqkv,
-                            const float* __restrict__ bqkv,
-                            const float* __restrict__ wout,
-                            const uint8_t* __restrict__ keep,
-                            float* __restrict__ dx,
-                            float* __restrict__ partials, int B, int S,
-                            int C, int H, float scale, float inv_keep,
-                            int rows) {
-  extern __shared__ float smem[];
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int C3 = 3 * C;
-  const int hd = C / H;
-  const int SC = S * C;
-  const int CP = C + 1;
-  const int total = 4 * C * C + 4 * C;
-  float* part = partials + (size_t)blockIdx.x * total;
-
-  // Weights transposed with padded rows: sWqT[j][c] = Wqkv[c][j],
-  // sWoT[e][c] = Wout[c][e].
-  float* sWqT = smem;
-  float* sWoT = smem + C3 * CP;
-  float* buf = smem;
-  if (W_SMEM) {
-    for (int i = tid; i < C * C3; i += nt) {
-      const int c = i / C3;
-      sWqT[(i - c * C3) * CP + c] = wqkv[i];
-    }
-    for (int i = tid; i < C * C; i += nt) {
-      const int c = i / C;
-      sWoT[(i - c * C) * CP + c] = wout[i];
-    }
-    buf = smem + 4 * C * CP;
-  }
-#define WQ(c, j) (W_SMEM ? sWqT[(j) * CP + (c)] : __ldg(wqkv + (c) * C3 + (j)))
-#define WO(c, e) (W_SMEM ? sWoT[(e) * CP + (c)] : __ldg(wout + (c) * C + (e)))
-
-  // Per row of the group, each buffer padded by one float.
-  const int xs = SC + 1;
-  const int qs = 3 * SC + 1;
-  const int ps = H * S * S + 1;
-  float* xb = buf;              // x       [rows][xs]
-  float* db = xb + rows * xs;   // do
-  float* cb = db + rows * xs;   // ctx
-  float* gb = cb + rows * xs;   // dctx
-  float* qb = gb + rows * xs;   // qkv     [rows][qs]
-  float* hb = qb + rows * qs;   // dqkv
-  float* pb = hb + rows * qs;   // P_d     [rows][ps]: [h][i][j]
-  float* sb = pb + rows * ps;   // dS
-
-  float acc[ACC_REGS ? kAccPerThread : 1];
-#pragma unroll
-  for (int m = 0; m < (ACC_REGS ? kAccPerThread : 1); ++m) acc[m] = 0.f;
-  if (!ACC_REGS)
-    for (int k = tid; k < total; k += nt) part[k] = 0.f;
-
-  const int ngroups = (B + rows - 1) / rows;
-  for (int g = blockIdx.x; g < ngroups; g += gridDim.x) {
-    const int r0 = g * rows;
-    const int nr = min(rows, B - r0);
-    __syncthreads();  // weights staged / previous group done with buffers
-
-    // A. x and do rows → shared (coalesced)
-    const float* xg = x + (size_t)r0 * SC;
-    const float* dg = dout + (size_t)r0 * SC;
-    for (int i = tid; i < nr * SC; i += nt) {
-      const int r = i / SC;
-      const int o = r * xs + (i - r * SC);
-      xb[o] = xg[i];
-      db[o] = dg[i];
-    }
-    __syncthreads();
-
-    // B. qkv = x·Wqkv + bqkv and dctx = do·Woutᵀ; one thread per (row,
-    //    column), all S tokens in registers.
-    for (int it = tid; it < nr * (C3 + C); it += nt) {
-      const int r = it / (C3 + C);
-      const int j = it - r * (C3 + C);
-      float a[MAXS];
-      if (j < C3) {
-        const float* xr = xb + r * xs;
-        const float bj = __ldg(bqkv + j);
-#pragma unroll
-        for (int s = 0; s < MAXS; ++s) a[s] = bj;
-        for (int c = 0; c < C; ++c) {
-          const float w = WQ(c, j);
-#pragma unroll
-          for (int s = 0; s < MAXS; ++s)
-            if (s < S) a[s] = fmaf(xr[s * C + c], w, a[s]);
-        }
-        float* qr = qb + r * qs;
-#pragma unroll
-        for (int s = 0; s < MAXS; ++s)
-          if (s < S) qr[s * C3 + j] = a[s];
-      } else {
-        const int c = j - C3;
-        const float* dr = db + r * xs;
-#pragma unroll
-        for (int s = 0; s < MAXS; ++s) a[s] = 0.f;
-        for (int e = 0; e < C; ++e) {
-          const float w = WO(c, e);
-#pragma unroll
-          for (int s = 0; s < MAXS; ++s)
-            if (s < S) a[s] = fmaf(dr[s * C + e], w, a[s]);
-        }
-        float* gr = gb + r * xs;
-#pragma unroll
-        for (int s = 0; s < MAXS; ++s)
-          if (s < S) gr[s * C + c] = a[s];
-      }
-    }
-    __syncthreads();
-
-    // C. one thread per (row, head, query i): the softmax row in registers,
-    //    its dropped twin, the context and the softmax VJP.
-    for (int it = tid; it < nr * H * S; it += nt) {
-      const int r = it / (H * S);
-      const int rem = it - r * H * S;
-      const int h = rem / S;
-      const int i = rem - h * S;
-      const float* qr = qb + r * qs;
-      const float* q = qr + i * C3 + h * hd;
-      const float* gi = gb + r * xs + i * C + h * hd;
-      float p[MAXS], dp[MAXS];
-      float m = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < MAXS; ++j) {
-        if (j < S) {
-          const float* k = qr + j * C3 + C + h * hd;
-          const float* v = k + C;
-          float d = 0.f, dv = 0.f;
-          for (int t = 0; t < hd; ++t) {
-            d = fmaf(q[t], k[t], d);
-            dv = fmaf(gi[t], v[t], dv);
-          }
-          p[j] = d * scale;
-          dp[j] = dv;
-          m = fmaxf(m, p[j]);
-        }
-      }
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < MAXS; ++j) {
-        if (j < S) {
-          p[j] = expf(p[j] - m);
-          sum += p[j];
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < MAXS; ++j)
-        if (j < S) p[j] = p[j] / sum;
-      if (keep != nullptr) {
-        const uint8_t* kp = keep + (((size_t)(r0 + r) * H + h) * S + i) * S;
-#pragma unroll
-        for (int j = 0; j < MAXS; ++j)
-          if (j < S) dp[j] = kp[j] ? dp[j] * inv_keep : 0.f;
-      }
-      float dot = 0.f;
-#pragma unroll
-      for (int j = 0; j < MAXS; ++j)
-        if (j < S) dot = fmaf(p[j], dp[j], dot);
-      float* dsr = sb + r * ps + (h * S + i) * S;
-#pragma unroll
-      for (int j = 0; j < MAXS; ++j)
-        if (j < S) dsr[j] = p[j] * (dp[j] - dot) * scale;
-      if (keep != nullptr) {
-        const uint8_t* kp = keep + (((size_t)(r0 + r) * H + h) * S + i) * S;
-#pragma unroll
-        for (int j = 0; j < MAXS; ++j)
-          if (j < S) p[j] = kp[j] ? p[j] * inv_keep : 0.f;
-      }
-      float* pdr = pb + r * ps + (h * S + i) * S;
-#pragma unroll
-      for (int j = 0; j < MAXS; ++j)
-        if (j < S) pdr[j] = p[j];
-      float* ctx = cb + r * xs + i * C + h * hd;
-      const float* v = qr + 2 * C + h * hd;
-      for (int t = 0; t < hd; ++t) {
-        float a = 0.f;
-#pragma unroll
-        for (int j = 0; j < MAXS; ++j)
-          if (j < S) a = fmaf(p[j], v[j * C3 + t], a);
-        ctx[t] = a;
-      }
-    }
-    __syncthreads();
-
-    // D. dqkv, one thread per (row, token, column of [dq dk dv]).
-    for (int it = tid; it < nr * S * C3; it += nt) {
-      const int r = it / (S * C3);
-      const int rem = it - r * S * C3;
-      const int s = rem / C3;
-      const int j = rem - s * C3;
-      const float* qr = qb + r * qs;
-      const float* P = pb + r * ps;
-      const float* D = sb + r * ps;
-      float a = 0.f;
-      if (j < C) {              // dq[s, j] = Σ_j' dS[h, s, j'] k[j', j]
-        const float* dsr = D + ((j / hd) * S + s) * S;
-#pragma unroll
-        for (int jj = 0; jj < MAXS; ++jj)
-          if (jj < S) a = fmaf(dsr[jj], qr[jj * C3 + C + j], a);
-      } else if (j < 2 * C) {   // dk[s, c] = Σ_i dS[h, i, s] q[i, c]
-        const int c = j - C;
-        const float* dsc = D + (c / hd) * S * S + s;
-#pragma unroll
-        for (int i = 0; i < MAXS; ++i)
-          if (i < S) a = fmaf(dsc[i * S], qr[i * C3 + c], a);
-      } else {                  // dv[s, c] = Σ_i P_d[h, i, s] dctx[i, c]
-        const int c = j - 2 * C;
-        const float* pc = P + (c / hd) * S * S + s;
-        const float* gr = gb + r * xs;
-#pragma unroll
-        for (int i = 0; i < MAXS; ++i)
-          if (i < S) a = fmaf(pc[i * S], gr[i * C + c], a);
-      }
-      hb[r * qs + s * C3 + j] = a;
-    }
-    __syncthreads();
-
-    // E. dx = dqkv·Wqkvᵀ, one thread per (row, channel), S tokens in
-    //    registers; stores coalesced over the channel.
-    float* dxg = dx + (size_t)r0 * SC;
-    for (int it = tid; it < nr * C; it += nt) {
-      const int r = it / C;
-      const int c = it - r * C;
-      const float* hr = hb + r * qs;
-      float a[MAXS];
-#pragma unroll
-      for (int s = 0; s < MAXS; ++s) a[s] = 0.f;
-      for (int j = 0; j < C3; ++j) {
-        const float w = WQ(c, j);
-#pragma unroll
-        for (int s = 0; s < MAXS; ++s)
-          if (s < S) a[s] = fmaf(hr[s * C3 + j], w, a[s]);
-      }
-#pragma unroll
-      for (int s = 0; s < MAXS; ++s)
-        if (s < S) dxg[(r * S + s) * C + c] = a[s];
-    }
-
-    // F. this group's weight and bias gradients into the thread's sums
-    //    (reads what E reads, so no barrier between them).
-    if (ACC_REGS) {
-#pragma unroll
-      for (int m = 0; m < kAccPerThread; ++m) {
-        const int k = tid + m * nt;
-        if (k < total)
-          acc[m] += weight_grad_term(k, C, S, nr, xb, db, cb, hb, xs, qs);
-      }
-    } else {
-      for (int k = tid; k < total; k += nt)
-        part[k] += weight_grad_term(k, C, S, nr, xb, db, cb, hb, xs, qs);
-    }
-  }
-#undef WQ
-#undef WO
-  if (ACC_REGS) {
-#pragma unroll
-    for (int m = 0; m < kAccPerThread; ++m) {
-      const int k = tid + m * nt;
-      if (k < total) part[k] = acc[m];
-    }
-  }
-}
-
-#endif  // RMM_ATTENTION_BF16
 
 // ---------------------------------------------------------------------------
 // The register-tiled backward: every C <= 64 that is a multiple of 4 (the
-// main path's C = 32 among them). Same math, same recompute from x, same
-// per-block partial slices and fixed-order reduce as the kernel above; what
-// changes is how each stage maps its products onto threads and shared
-// memory.
+// main path's C = 32 among them). Each block recomputes from x a group of
+// rows at a time and sums the weight gradients of the groups it walks into
+// its own partial slices.
 //
-// What bounded the kernel above at C = 32 (5.35 ms at 131072×6×32/8 with
-// the keep-mask, 18× its FMA bound, on an H100 80GB HBM3 at 700 W): shared
-// loads, about 16.6k 32-bit loads a token against 11.3k FMAs, while an SM
-// issues one warp-wide shared load a clock against four warp FMAs. Every
-// weight-gradient FMA read two scalars, every projection FMA about 1.2,
-// and the padded (+1 float) row strides ruled out 16-byte loads.
-//
-// Here every product is a register tile fed by float4 loads:
+// An SM issues one warp-wide shared load a clock against four warp FMAs,
+// so a product that reads a 32-bit scalar from shared memory an FMA is
+// bound by the loads. Here every product is a register tile fed by float4
+// loads:
 //  * Layout. A group's tokens are token-major rows of TS = 9C + 4 floats:
 //    x | do | ctx | dctx | q | k | dq | dk | v, and dv overwrites v (no
 //    stage reads v after C), so dqkv = dq | dk | dv is contiguous. TS is a
@@ -1446,10 +943,11 @@ column_attention_fwd_tiled_kernel(const elem_t* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// The split backward: every C with 64 < C <= 128 and C % 4 == 0 (the SSL
-// width among them). Five launches, each a kernel of this file or of
-// gemm_f32.cuh, over a scratch row of 4C floats a token (the design and
-// what bounds it are in the note at the top of this file):
+// The split backward: every C <= 128 that the tiled kernel does not take
+// (64 < C, the SSL width among them, or C not a multiple of 4). Five
+// launches, each a kernel of this file or of gemm_f32.cuh, over a scratch
+// row of 4C floats a token (the design and what bounds it are in the note
+// at the top of this file):
 //   1. qkv = x·Wqkv + bqkv and dctx = do·Woutᵀ (one GEMM launch, two
 //      problems) into the token rows q | k | v | dctx;
 //   2. the attention core below, which writes dq | dk | dv over q | k | v
@@ -1659,29 +1157,38 @@ column_attention_bwd_core_kernel(float* __restrict__ tok,
 // The split routes' GEMM problems (gemm_f32.cuh): x, do, the weights, out
 // and dx in elem_t, the scratch rows and the weight-gradient partials in
 // float. Layouts: A m-major or k-major, B k-major or n-major (the Spec's
-// two flags).
-using rmm_gemm::Spec;
-using QkvGemm = Spec<false, true, elem_t, elem_t, float>;   // x·Wqkv + b
-using DctxGemm = Spec<false, false, elem_t, elem_t, float>;  // do·Woutᵀ
-using OutGemm = Spec<false, true, float, elem_t, elem_t>;   // ctx·Wout + b
-using DxGemm = Spec<false, false, float, elem_t, elem_t>;   // dqkv·Wqkvᵀ
-using DwqGemm = Spec<true, true, elem_t, float, float>;     // xᵀ·dqkv
-using DwoGemm = Spec<true, true, float, elem_t, float>;     // ctxᵀ·do
+// two flags). NARROW: the narrow form, for C not a multiple of 4 (every
+// row stride, a bound of each problem, and some bases are then not
+// multiples of 4 elements).
+template <bool NARROW>
+struct SplitGemms {
+  template <bool AK, bool BK, class TA, class TB, class TC>
+  using S = rmm_gemm::Spec<AK, BK, TA, TB, TC, NARROW>;
+  using Qkv = S<false, true, elem_t, elem_t, float>;   // x·Wqkv + b
+  using Dctx = S<false, false, elem_t, elem_t, float>;  // do·Woutᵀ
+  using Out = S<false, true, float, elem_t, elem_t>;   // ctx·Wout + b
+  using Dx = S<false, false, float, elem_t, elem_t>;   // dqkv·Wqkvᵀ
+  using Dwq = S<true, true, elem_t, float, float>;     // xᵀ·dqkv
+  using Dwo = S<true, true, float, elem_t, float>;     // ctxᵀ·do
+};
 
 // ---------------------------------------------------------------------------
-// The split forward: every C with 64 < C <= 128 and C % 4 == 0 (the SSL
-// width among them). Three launches over a scratch row of 3C floats a
-// token (the design and what bounds it are in the note at the top of this
-// file):
+// The split forward: every C <= 128 that the tiled kernel does not take
+// (64 < C, the SSL width among them, or C not a multiple of 4). Three
+// launches over a scratch row of TT = 3C floats a token, rounded up to a
+// multiple of 4 (fwd_row_floats; the design and what bounds it are in the
+// note at the top of this file):
 //   1. tok = x·Wqkv + bqkv (GEMM): the token rows q | k | v;
 //   2. the forward attention core below, which writes ctx over q;
 //   3. out = ctx·Wout + bout (GEMM, A read from tok with a row stride of
-//      3C).
+//      TT).
 //
 // The core. A block copies `rows` rows (rows·S consecutive token rows of
-// `tok`) into shared memory by cp.async, rows padded to 3C + 4 floats
-// (≡ 4 mod 32 words apart: token i's float4s at one column fall in
-// distinct bank groups), then one thread per (row, head, query i):
+// `tok`) into shared memory by 16-byte cp.async, rows padded to a stride
+// of fwd_core_stride floats (≡ 4 mod 32 at C = 96 and 128 and where C is
+// not a multiple of 4: token i's float4s at one column fall in distinct
+// bank groups, and so do its floats where the head width is not a
+// multiple of 4), then one thread per (row, head, query i):
 //   P = softmax(q_i k_jᵀ / √hd) (· keep/(1 − p)), ctx_i = Σ_j P_ij v_j,
 // stored over q_i's head slice. Writing in place is safe: every read
 // comes from the staged copy, and a block's rows are its own. Neighbouring
@@ -1689,10 +1196,27 @@ using DwoGemm = Spec<true, true, float, elem_t, float>;     // ctxᵀ·do
 // q_i, one broadcast for k_j and v_j), as the backward's core does.
 // ---------------------------------------------------------------------------
 
+// Floats of the split forward's scratch row a token: q | k | v, padded to
+// a multiple of 4 so that the core stages it 16 bytes at a time whatever
+// C is. (Staging a narrow row element by element would take 4 copies for
+// each of these; the pad costs at most 3 floats of 3C.)
+__host__ __device__ inline int fwd_row_floats(int C) {
+  return (3 * C + 3) / 4 * 4;
+}
+
+// Floats between token rows in the forward core's shared memory: TT + 4
+// where C % 4 == 0 (≡ 4 mod 32 at C = 96 and 128); at the other widths
+// the next float ≡ 4 (mod 32) past TT, so that the one-float chunks of
+// neighbouring queries fall in distinct banks too.
+__host__ __device__ inline int fwd_core_stride(int C) {
+  const int TT = fwd_row_floats(C);
+  return C % 4 ? (TT + 31) / 32 * 32 + 4 : TT + 4;
+}
+
 // Floats of the forward core's shared memory for `rows` rows.
 __host__ __device__ inline size_t fwd_core_smem_floats(int S, int C,
                                                        int rows) {
-  return (size_t)rows * S * (3 * C + 4);
+  return (size_t)rows * S * fwd_core_stride(C);
 }
 
 // Query i of head h of the block's row r: ctx_i into `out` (global, q_i's
@@ -1729,7 +1253,9 @@ __device__ __forceinline__ void fwd_core_query(const float* sT, float* out,
   }
 }
 
-template <int MAXS>
+// NARROW: C is not a multiple of 4 (padded rows); otherwise the rows'
+// sizes are computed as they always were, and the code is the same.
+template <int MAXS, bool NARROW>
 __global__ void __launch_bounds__(kCoreThreads)
 column_attention_fwd_core_kernel(float* __restrict__ tok,
                                  const uint8_t* __restrict__ keep, int B,
@@ -1737,8 +1263,10 @@ column_attention_fwd_core_kernel(float* __restrict__ tok,
                                  float inv_keep, int rows) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
-  const int TT = 3 * C;      // a token row in device memory
-  const int TS = TT + 4;     // in shared memory
+  // a token row in device memory (fwd_row_floats) and in shared memory
+  // (fwd_core_stride)
+  const int TT = NARROW ? fwd_row_floats(C) : 3 * C;
+  const int TS = NARROW ? fwd_core_stride(C) : TT + 4;
   const int Q4 = TT / 4;     // its float4s
   const int r0 = blockIdx.x * rows;
   const int nr = min(rows, B - r0);
@@ -1770,14 +1298,17 @@ column_attention_fwd_core_kernel(float* __restrict__ tok,
   }
 }
 
-// The forward core on `tok` ([B·S, 3C] floats, 16-byte aligned).
+// The forward core on `tok` ([B·S, fwd_row_floats(C)] floats, 16-byte
+// aligned).
 cudaError_t launch_fwd_core(float* tok, const uint8_t* keep, int B, int S,
                             int C, int H, float inv_keep, int rows,
                             cudaStream_t st) {
   const size_t smem = fwd_core_smem_floats(S, C, rows) * sizeof(float);
   const float scale = 1.0f / sqrtf((float)(C / H));
   return by_s(S, [&](auto ms) {
-    auto kernel = column_attention_fwd_core_kernel<decltype(ms)::value>;
+    constexpr int kMaxS = decltype(ms)::value;
+    auto kernel = C % 4 ? &column_attention_fwd_core_kernel<kMaxS, true>
+                        : &column_attention_fwd_core_kernel<kMaxS, false>;
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
@@ -1824,39 +1355,91 @@ cudaError_t launch_reduce(const float* partials, int nparts, int total,
   return cudaGetLastError();
 }
 
-#ifndef RMM_ATTENTION_BF16  // the scalar route: float32 only
-bool bwd_acc_in_regs(int C, int weights_in_smem) {
-  return weights_in_smem && 4 * C * C + 4 * C <= kAccPerThread * kThreads;
-}
-
-template <int MAXS, bool W_SMEM, bool ACC_REGS>
-cudaError_t bwd_blocks_per_sm(size_t smem, int* per_sm) {
-  auto kernel = column_attention_bwd_kernel<MAXS, W_SMEM, ACC_REGS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The split backward's five launches (rmm_column_attention_bwd_split), in
+// the aligned or the narrow GEMM form.
+template <bool NARROW>
+cudaError_t bwd_split(const elem_t* x, const elem_t* dout,
+                      const elem_t* wqkv, const elem_t* bqkv,
+                      const elem_t* wout, const uint8_t* keep, elem_t* dx,
+                      float* tok, float* partials, float* grads, int B,
+                      int S, int C, int H, float inv_keep, int rows,
+                      int split_tokens, cudaStream_t st) {
+  using rmm_gemm::Gemm;
+  using rmm_gemm::launch_gemm;
+  using rmm_gemm::make_gemm;
+  using G = SplitGemms<NARROW>;
+  const int N = B * S, C3 = 3 * C, TT = 4 * C;
+  const long long total = 4LL * C * C + 4 * C;
+  // 1. the projections: A = x or do (tokens × channels), B = Wqkv (k-major)
+  //    or Wout read as Woutᵀ (n-major).
+  const Gemm qkv = make_gemm(x, C, wqkv, C3, tok, TT, bqkv, N, C3, C, C, 0,
+                             0);
+  const Gemm dctx = make_gemm(dout, C, wout, C, tok + C3, TT, nullptr, N, C,
+                              C, C, 0, 0);
+  cudaError_t err =
+      launch_gemm<typename G::Qkv, typename G::Dctx>(qkv, &dctx, st);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
-                                                       kThreads, smem);
-}
-
-template <int MAXS, bool W_SMEM, bool ACC_REGS>
-cudaError_t launch_bwd(const float* x, const float* dout, const float* wqkv,
-                       const float* bqkv, const float* wout,
-                       const uint8_t* keep, float* dx, float* partials,
-                       int B, int S, int C, int H, float inv_keep, int rows,
-                       int grid, size_t smem, cudaStream_t stream) {
-  auto kernel = column_attention_bwd_kernel<MAXS, W_SMEM, ACC_REGS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  // 2. the attention core (4C floats a token row: 16-byte rows at any C)
+  const size_t smem = core_smem_floats(S, C, H, rows) * sizeof(float);
   const float scale = 1.0f / sqrtf((float)(C / H));
-  kernel<<<grid, kThreads, smem, stream>>>(x, dout, wqkv, bqkv, wout, keep,
-                                           dx, partials, B, S, C, H, scale,
-                                           inv_keep, rows);
-  return cudaGetLastError();
+  err = by_s(S, [&](auto ms) {
+    auto kernel = column_attention_bwd_core_kernel<decltype(ms)::value>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<(B + rows - 1) / rows, kCoreThreads, smem, st>>>(
+        tok, keep, B, S, C, H, scale, inv_keep, rows);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return err;
+  // 3. dx = dqkv·Wqkvᵀ: B(k = j, n = c) = Wqkv[c][j] is n-major
+  const Gemm gdx = make_gemm(tok, TT, wqkv, C3, dx, C, nullptr, N, C, C3,
+                             C3, 0, 0);
+  err = launch_gemm<typename G::Dx, typename G::Dx>(gdx, nullptr, st);
+  if (err != cudaSuccess) return err;
+  // 4. the weight and bias gradients over token splits: A = x or ctx read
+  //    as xᵀ (k-major), B = dqkv or do (k-major); the bias rows follow
+  //    each weight in the partials layout.
+  const Gemm gwq = make_gemm(x, C, tok, TT, partials, C3, nullptr, C, C3, N,
+                             split_tokens, total, 1);
+  const Gemm gwo = make_gemm(tok + C3, TT, dout, C,
+                             partials + (size_t)C * C3 + C3, C, nullptr, C,
+                             C, N, split_tokens, total, 1);
+  err = launch_gemm<typename G::Dwq, typename G::Dwo>(gwq, &gwo, st);
+  if (err != cudaSuccess) return err;
+  // 5. the reduce
+  return launch_reduce(partials, (N + split_tokens - 1) / split_tokens,
+                       (int)total, grads, st);
 }
 
-#endif  // RMM_ATTENTION_BF16
+// The split forward's three launches (rmm_column_attention_fwd_split), in
+// the aligned or the narrow GEMM form.
+template <bool NARROW>
+cudaError_t fwd_split(const elem_t* x, const elem_t* wqkv,
+                      const elem_t* bqkv, const elem_t* wout,
+                      const elem_t* bout, const uint8_t* keep, elem_t* out,
+                      float* tok, int B, int S, int C, int H, float inv_keep,
+                      int rows, cudaStream_t st) {
+  using rmm_gemm::Gemm;
+  using rmm_gemm::launch_gemm;
+  using rmm_gemm::make_gemm;
+  using G = SplitGemms<NARROW>;
+  const int N = B * S, C3 = 3 * C, TT = fwd_row_floats(C);
+  // 1. qkv = x·Wqkv + bqkv: A = x (tokens × channels), B = Wqkv (k-major);
+  //    the backward's projection instantiation, one problem.
+  const Gemm qkv = make_gemm(x, C, wqkv, C3, tok, TT, bqkv, N, C3, C, C, 0,
+                             0);
+  cudaError_t err =
+      launch_gemm<typename G::Qkv, typename G::Dctx>(qkv, nullptr, st);
+  if (err != cudaSuccess) return err;
+  // 2. the attention core: ctx over q
+  err = launch_fwd_core(tok, keep, B, S, C, H, inv_keep, rows, st);
+  if (err != cudaSuccess) return err;
+  // 3. out = ctx·Wout + bout: A = ctx (the first C floats of each token
+  //    row), B = Wout (k-major)
+  const Gemm o = make_gemm(tok, TT, wout, C, out, C, bout, N, C, C, C, 0, 0);
+  return launch_gemm<typename G::Out, typename G::Dctx>(o, nullptr, st);
+}
 
 // Blocks a tiled kernel launches with `smem` bytes a block: as many as
 // fill every SM, at most one a row group; or a negative CUDA error code.
@@ -1881,128 +1464,6 @@ int tiled_grid(K kernel, int threads, size_t smem, int B, int rows) {
 }  // namespace
 
 extern "C" {
-
-#ifndef RMM_ATTENTION_BF16  // the scalar route: float32 only
-// Shared-memory layout the kernel uses for a group of `rows` rows; the
-// wrapper picks `rows` and the launch checks the total against the card.
-size_t rmm_column_attention_smem_bytes(int S, int C, int rows,
-                                       int weights_in_smem) {
-  size_t floats = (size_t)rows * ((size_t)S * C + 1 + (size_t)S * 3 * C + 1);
-  if (weights_in_smem) floats += (size_t)4 * C * C;
-  return floats * sizeof(float);
-}
-
-// Returns cudaGetLastError() after the launch (0 = launched).
-int rmm_column_attention_fwd(const float* x, const float* wqkv,
-                             const float* bqkv, const float* wout,
-                             const float* bout, const uint8_t* keep,
-                             float* out, int B, int S, int C, int H,
-                             float inv_keep, int rows, int weights_in_smem,
-                             void* stream) {
-  if (B <= 0) return 0;
-  if (S < 1 || S > 16 || C < 1 || H < 1 || C % H != 0 || rows < 1)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = rmm_column_attention_smem_bytes(S, C, rows,
-                                                      weights_in_smem);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RMM_LAUNCH(MS)                                                      \
-  return (int)(weights_in_smem                                              \
-                   ? launch<MS, true>(x, wqkv, bqkv, wout, bout, keep, out, \
-                                      B, S, C, H, inv_keep, rows, smem, st) \
-                   : launch<MS, false>(x, wqkv, bqkv, wout, bout, keep, out,\
-                                       B, S, C, H, inv_keep, rows, smem, st))
-  if (S <= 2) RMM_LAUNCH(2);
-  if (S <= 4) RMM_LAUNCH(4);
-  if (S <= 8) RMM_LAUNCH(8);
-  RMM_LAUNCH(16);
-#undef RMM_LAUNCH
-}
-
-// Shared memory of the backward for a group of `rows` rows.
-size_t rmm_column_attention_bwd_smem_bytes(int S, int C, int H, int rows,
-                                           int weights_in_smem) {
-  const size_t sc = (size_t)S * C;
-  size_t per_row = 4 * (sc + 1) + 2 * (3 * sc + 1) +
-                   2 * ((size_t)H * S * S + 1);
-  size_t floats = (size_t)rows * per_row;
-  if (weights_in_smem) floats += (size_t)4 * C * (C + 1);
-  return floats * sizeof(float);
-}
-
-#define RMM_BWD_DISPATCH(FN, ...)                                           \
-  {                                                                         \
-    const bool acc = bwd_acc_in_regs(C, weights_in_smem);                   \
-    if (S <= 2) {                                                           \
-      if (acc) return FN<2, true, true>(__VA_ARGS__);                       \
-      if (weights_in_smem) return FN<2, true, false>(__VA_ARGS__);          \
-      return FN<2, false, false>(__VA_ARGS__);                              \
-    }                                                                       \
-    if (S <= 4) {                                                           \
-      if (acc) return FN<4, true, true>(__VA_ARGS__);                       \
-      if (weights_in_smem) return FN<4, true, false>(__VA_ARGS__);          \
-      return FN<4, false, false>(__VA_ARGS__);                              \
-    }                                                                       \
-    if (S <= 8) {                                                           \
-      if (acc) return FN<8, true, true>(__VA_ARGS__);                       \
-      if (weights_in_smem) return FN<8, true, false>(__VA_ARGS__);          \
-      return FN<8, false, false>(__VA_ARGS__);                              \
-    }                                                                       \
-    if (acc) return FN<16, true, true>(__VA_ARGS__);                        \
-    if (weights_in_smem) return FN<16, true, false>(__VA_ARGS__);           \
-    return FN<16, false, false>(__VA_ARGS__);                               \
-  }
-
-static cudaError_t bwd_occupancy(int S, int C, int weights_in_smem,
-                                 size_t smem, int* per_sm) {
-  RMM_BWD_DISPATCH(bwd_blocks_per_sm, smem, per_sm);
-}
-
-// Blocks the backward launches for this shape (every block owns at least
-// one row group): the number of partial slices the wrapper allocates.
-// Returns a negative CUDA error code on failure.
-int rmm_column_attention_bwd_grid(int B, int S, int C, int H, int rows,
-                                  int weights_in_smem) {
-  if (B <= 0 || rows < 1 || S < 1 || S > 16 || C < 1 || H < 1 || C % H)
-    return -(int)cudaErrorInvalidValue;
-  const size_t smem = rmm_column_attention_bwd_smem_bytes(S, C, H, rows,
-                                                          weights_in_smem);
-  int per_sm = 0, dev = 0, sms = 0;
-  cudaError_t err = bwd_occupancy(S, C, weights_in_smem, smem, &per_sm);
-  if (err != cudaSuccess) return -(int)err;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int ngroups = (B + rows - 1) / rows;
-  int grid = sms * (per_sm > 0 ? per_sm : 1);
-  return grid < ngroups ? grid : ngroups;
-}
-
-// The backward kernel, then the reduce of its `grid` partial slices into
-// grads = [dWqkv (C×3C) | dbqkv (3C) | dWout (C×C) | dbout (C)]. Returns
-// cudaGetLastError() after the launches (0 = both launched).
-int rmm_column_attention_bwd(const float* x, const float* dout,
-                             const float* wqkv, const float* bqkv,
-                             const float* wout, const uint8_t* keep,
-                             float* dx, float* partials, float* grads, int B,
-                             int S, int C, int H, float inv_keep, int rows,
-                             int weights_in_smem, int grid, void* stream) {
-  if (B <= 0) return 0;
-  if (S < 1 || S > 16 || C < 1 || H < 1 || C % H != 0 || rows < 1 ||
-      grid < 1)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = rmm_column_attention_bwd_smem_bytes(S, C, H, rows,
-                                                          weights_in_smem);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = [&]() -> cudaError_t {
-    RMM_BWD_DISPATCH(launch_bwd, x, dout, wqkv, bqkv, wout, keep, dx,
-                     partials, B, S, C, H, inv_keep, rows, grid, smem, st);
-  }();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_reduce(partials, grid, 4 * C * C + 4 * C, grads, st);
-}
-
-#undef RMM_BWD_DISPATCH
-
-#endif  // RMM_ATTENTION_BF16
 
 // The tiled backward (C % 4 == 0, C <= 64): its shared memory for a group
 // of `rows` rows, and the partial slices each block writes (stage F's
@@ -2072,30 +1533,33 @@ int rmm_column_attention_bwd_tiled(const elem_t* x, const elem_t* dout,
 
 // The shapes both split routes take.
 static bool split_shape_ok(int S, int C, int H, int rows) {
-  return S >= 1 && S <= 16 && C >= 4 && C <= 128 && C % 4 == 0 && H >= 1 &&
-         C % H == 0 && rows >= 1;
+  return S >= 1 && S <= 16 && C >= 1 && C <= 128 && H >= 1 && C % H == 0 &&
+         rows >= 1;
 }
 
-// The split backward (C % 4 == 0, C <= 128; the wrapper routes 64 < C):
-// the attention core's shared memory for `rows` rows, and the blocks of
-// the weight-gradient GEMM an SM holds (or a negative CUDA error code).
+// The split backward (C <= 128; the wrapper routes the widths the tiled
+// kernel does not take): the attention core's shared memory for `rows`
+// rows, and the blocks of the weight-gradient GEMM an SM holds (or a
+// negative CUDA error code).
 size_t rmm_column_attention_bwd_core_smem_bytes(int S, int C, int H,
                                                 int rows) {
   return core_smem_floats(S, C, H, rows) * sizeof(float);
 }
 
 int rmm_column_attention_gemm_blocks_per_sm() {
+  using G = SplitGemms<false>;
   int per_sm = 0;
   const cudaError_t e =
-      rmm_gemm::gemm_blocks_per_sm<DwqGemm, DwoGemm>(&per_sm);
+      rmm_gemm::gemm_blocks_per_sm<G::Dwq, G::Dwo>(&per_sm);
   return e == cudaSuccess ? per_sm : -(int)e;
 }
 
 // The split backward's five launches (see the note at the top of this
 // file), on the scratch `tok` ([B·S, 4C] floats) and `partials`
 // (ceil(B·S / split_tokens) slices of 4C² + 4C floats), into dx and the
-// float grads (layout as the tiled backward's). x, dout, wqkv, wout and tok
-// must be 16-byte aligned. Returns the first launch's cudaGetLastError()
+// float grads (layout as the tiled backward's). Where C % 4 == 0, x, dout,
+// wqkv, wout and tok must be 16-byte aligned; otherwise the narrow GEMMs
+// take them as they are. Returns the first launch's cudaGetLastError()
 // that is not 0, else 0.
 int rmm_column_attention_bwd_split(const elem_t* x, const elem_t* dout,
                                    const elem_t* wqkv, const elem_t* bqkv,
@@ -2104,68 +1568,30 @@ int rmm_column_attention_bwd_split(const elem_t* x, const elem_t* dout,
                                    float* grads, int B, int S, int C, int H,
                                    float inv_keep, int rows,
                                    int split_tokens, void* stream) {
-  using rmm_gemm::Gemm;
-  using rmm_gemm::launch_gemm;
-  using rmm_gemm::make_gemm;
   if (B <= 0) return 0;
   if (!split_shape_ok(S, C, H, rows) || split_tokens < 1)
     return (int)cudaErrorInvalidValue;
-  const int N = B * S, C3 = 3 * C, TT = 4 * C;
-  const long long total = 4LL * C * C + 4 * C;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // 1. the projections: A = x or do (tokens × channels), B = Wqkv (k-major)
-  //    or Wout read as Woutᵀ (n-major).
-  const Gemm qkv = make_gemm(x, C, wqkv, C3, tok, TT, bqkv, N, C3, C, C, 0,
-                             0);
-  const Gemm dctx = make_gemm(dout, C, wout, C, tok + C3, TT, nullptr, N, C,
-                              C, C, 0, 0);
-  cudaError_t err = launch_gemm<QkvGemm, DctxGemm>(qkv, &dctx, st);
-  if (err != cudaSuccess) return (int)err;
-  // 2. the attention core
-  const size_t smem = core_smem_floats(S, C, H, rows) * sizeof(float);
-  const float scale = 1.0f / sqrtf((float)(C / H));
-  err = by_s(S, [&](auto ms) {
-    auto kernel = column_attention_bwd_core_kernel<decltype(ms)::value>;
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    kernel<<<(B + rows - 1) / rows, kCoreThreads, smem, st>>>(
-        tok, keep, B, S, C, H, scale, inv_keep, rows);
-    return cudaGetLastError();
-  });
-  if (err != cudaSuccess) return (int)err;
-  // 3. dx = dqkv·Wqkvᵀ: B(k = j, n = c) = Wqkv[c][j] is n-major
-  const Gemm gdx = make_gemm(tok, TT, wqkv, C3, dx, C, nullptr, N, C, C3,
-                             C3, 0, 0);
-  err = launch_gemm<DxGemm, DxGemm>(gdx, nullptr, st);
-  if (err != cudaSuccess) return (int)err;
-  // 4. the weight and bias gradients over token splits: A = x or ctx read
-  //    as xᵀ (k-major), B = dqkv or do (k-major); the bias rows follow
-  //    each weight in the partials layout.
-  const Gemm gwq = make_gemm(x, C, tok, TT, partials, C3, nullptr, C, C3, N,
-                             split_tokens, total, 1);
-  const Gemm gwo = make_gemm(tok + C3, TT, dout, C,
-                             partials + (size_t)C * C3 + C3, C, nullptr, C,
-                             C, N, split_tokens, total, 1);
-  err = launch_gemm<DwqGemm, DwoGemm>(gwq, &gwo, st);
-  if (err != cudaSuccess) return (int)err;
-  // 5. the reduce
-  return (int)launch_reduce(partials, (N + split_tokens - 1) / split_tokens,
-                            (int)total, grads, st);
+  auto run = C % 4 ? &bwd_split<true> : &bwd_split<false>;
+  return (int)run(x, dout, wqkv, bqkv, wout, keep, dx, tok, partials, grads,
+                  B, S, C, H, inv_keep, rows, split_tokens,
+                  static_cast<cudaStream_t>(stream));
 }
 
-// The split forward (C % 4 == 0, C <= 128; the wrapper routes 64 < C):
-// the forward core's shared memory for `rows` rows (H is not needed: the
+// The split forward (C <= 128; the wrapper routes the widths the tiled
+// kernel does not take): the floats of its scratch row a token, and the
+// forward core's shared memory for `rows` rows (H is not needed: the
 // forward core keeps no S×S tiles).
+int rmm_column_attention_fwd_row_floats(int C) { return fwd_row_floats(C); }
+
 size_t rmm_column_attention_fwd_core_smem_bytes(int S, int C, int H,
                                                 int rows) {
   (void)H;
   return fwd_core_smem_floats(S, C, rows) * sizeof(float);
 }
 
-// The forward core alone, in place on `tok` ([B·S, 3C] floats of
-// q | k | v, 16-byte aligned): ctx over q. The split forward's second
-// launch, for holding it against its plain twin.
+// The forward core alone, in place on `tok` ([B·S, fwd_row_floats(C)]
+// floats, q | k | v and the pad, 16-byte aligned): ctx over q. The split
+// forward's second launch, for holding it against its plain twin.
 int rmm_column_attention_fwd_core(float* tok, const uint8_t* keep, int B,
                                   int S, int C, int H, float inv_keep,
                                   int rows, void* stream) {
@@ -2176,35 +1602,48 @@ int rmm_column_attention_fwd_core(float* tok, const uint8_t* keep, int B,
 }
 
 // The split forward's three launches (see the note at the top of this
-// file) on the scratch `tok` ([B·S, 3C] floats), into out. x, wqkv, wout,
-// out and tok must be 16-byte aligned. Returns the first launch's
-// cudaGetLastError() that is not 0, else 0.
+// file) on the scratch `tok` ([B·S, fwd_row_floats(C)] floats, 16-byte
+// aligned), into out. Where C % 4 == 0, x, wqkv, wout and out must be
+// 16-byte aligned too. Returns the first launch's cudaGetLastError() that
+// is not 0, else 0.
 int rmm_column_attention_fwd_split(const elem_t* x, const elem_t* wqkv,
                                    const elem_t* bqkv, const elem_t* wout,
                                    const elem_t* bout, const uint8_t* keep,
                                    elem_t* out, float* tok, int B, int S,
                                    int C, int H, float inv_keep, int rows,
                                    void* stream) {
-  using rmm_gemm::Gemm;
-  using rmm_gemm::launch_gemm;
-  using rmm_gemm::make_gemm;
   if (B <= 0) return 0;
   if (!split_shape_ok(S, C, H, rows)) return (int)cudaErrorInvalidValue;
-  const int N = B * S, C3 = 3 * C;
+  auto run = C % 4 ? &fwd_split<true> : &fwd_split<false>;
+  return (int)run(x, wqkv, bqkv, wout, bout, keep, out, tok, B, S, C, H,
+                  inv_keep, rows, static_cast<cudaStream_t>(stream));
+}
+
+// One problem of the narrow GEMM form alone, for holding it against a
+// float64 product: C[m, n] = Σ_k A(m, k)·B(k, n) + bias[n] into float32 C
+// (M rows of ldc), A m-major. layout 0: B k-major (the projections' form,
+// bias of B's type or null); 1: B n-major (dctx's and dx's; bias or null);
+// 2: A and B k-major, B float (the weight gradients' form), no bias, row M
+// of C taking B's column sums. A and B in elem_t but B of layout 2. Returns
+// cudaGetLastError() after the launch.
+int rmm_gemm_narrow(const void* a, int lda, const void* b, int ldb, float* c,
+                    int ldc, const void* bias, int M, int N, int K,
+                    int layout, void* stream) {
+  using rmm_gemm::launch_gemm;
+  using rmm_gemm::make_gemm;
+  using G = SplitGemms<true>;
+  if (M < 1 || N < 1 || K < 1 || layout < 0 || layout > 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // 1. qkv = x·Wqkv + bqkv: A = x (tokens × channels), B = Wqkv (k-major);
-  //    the backward's projection instantiation, one problem.
-  const Gemm qkv = make_gemm(x, C, wqkv, C3, tok, C3, bqkv, N, C3, C, C, 0,
-                             0);
-  cudaError_t err = launch_gemm<QkvGemm, DctxGemm>(qkv, nullptr, st);
-  if (err != cudaSuccess) return (int)err;
-  // 2. the attention core: ctx over q
-  err = launch_fwd_core(tok, keep, B, S, C, H, inv_keep, rows, st);
-  if (err != cudaSuccess) return (int)err;
-  // 3. out = ctx·Wout + bout: A = ctx (the first C floats of each token
-  //    row), B = Wout (k-major)
-  const Gemm o = make_gemm(tok, C3, wout, C, out, C, bout, N, C, C, C, 0, 0);
-  return (int)launch_gemm<OutGemm, DctxGemm>(o, nullptr, st);
+  const rmm_gemm::Gemm g = make_gemm(a, lda, b, ldb, c, ldc,
+                                     layout == 2 ? nullptr : bias, M, N, K,
+                                     K, 0, layout == 2);
+  // an empty first problem gives every block to the second
+  const rmm_gemm::Gemm none = make_gemm(a, lda, b, ldb, c, ldc, nullptr, 0,
+                                        N, K, K, 0, 0);
+  if (layout == 0) return (int)launch_gemm<G::Qkv, G::Dctx>(g, nullptr, st);
+  if (layout == 1) return (int)launch_gemm<G::Qkv, G::Dctx>(none, &g, st);
+  return (int)launch_gemm<G::Dwq, G::Dwo>(g, nullptr, st);
 }
 
 // The tiled forward (C % 4 == 0, C <= 64): its shared memory for a group

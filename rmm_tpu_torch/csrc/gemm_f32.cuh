@@ -20,6 +20,15 @@
 // transposed on the way; the fragment loads read each layout 4 elements at
 // a time (a float4, or 8 bytes of bf16).
 //
+// The narrow form (Spec::NARROW, for widths that are not a multiple of 4)
+// copies one element at a time instead, each guarded by its own bounds: a
+// float by a 4-byte cp.async, a bf16 (2 bytes, below cp.async's least size)
+// through a register. It stores one element at a time too, each guarded by
+// its own column bound. The shared-memory layout, the fragment loads and
+// the products are the aligned form's. It costs 4 copies for every one of
+// the aligned form (16 a thread a slice against 4), and the bf16 copies wait
+// for their loads.
+//
 // Design:
 //  * Block tiles of 128×128 outputs over 256 threads, each thread an 8×8
 //    register microtile (64 float32 sums), summed over k in order: every
@@ -37,8 +46,11 @@
 //    loads, so the FMA pipe, not shared memory, is the busier unit.
 //  * Ragged edges: rows, columns and k past the problem's bounds are
 //    zero-filled by cp.async (src-size 0), and the epilogue stores only in
-//    range. Every row stride and base pointer must be a multiple of 4
-//    elements (the caller checks: C % 4 == 0 and 16-byte aligned tensors).
+//    range. In the aligned form a chunk of 4 is in range or out of it as a
+//    whole, so every row stride and base pointer must be a multiple of 4
+//    elements, and so must K of an m- or n-major operand, M or N of a
+//    k-major one and N of the output (the caller checks: C % 4 == 0 and
+//    16-byte aligned tensors). The narrow form takes any.
 //  * A K range may be cut into splits (the weight gradients' token ranges):
 //    split s sums k in [s·split_k, min(K, (s + 1)·split_k)) into its own
 //    output slice, c_split floats after the previous one. With bias_row
@@ -86,6 +98,13 @@ struct Elem<float> {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                  "l"(src), "r"(ok ? 16 : 0));
   }
+  // 1 element by cp.async (4 bytes); a zero where !ok
+  static __device__ __forceinline__ void cp1(float* dst, const float* src,
+                                             bool ok) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(src), "r"(ok ? 4 : 0));
+  }
   static __device__ __forceinline__ float4 ld4(const float* p) {
     return *reinterpret_cast<const float4*>(p);
   }
@@ -108,6 +127,13 @@ struct Elem<__nv_bfloat16> {
     const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
                  "l"(src), "r"(ok ? 8 : 0));
+  }
+  // 1 element (2 bytes, below cp.async's least size) through a register;
+  // a zero where !ok
+  static __device__ __forceinline__ void cp1(T* dst, const T* src, bool ok) {
+    *reinterpret_cast<unsigned short*>(dst) =
+        ok ? __ldg(reinterpret_cast<const unsigned short*>(src))
+           : static_cast<unsigned short>(0);
   }
   static __device__ __forceinline__ float4 ld4(const T* p) {
     return bf16x4_to_float4(*reinterpret_cast<const uint2*>(p));
@@ -144,11 +170,13 @@ constexpr size_t kSmemBytes = sizeof(float) * kStages * kStageFloats;
 static_assert(kBK % 4 == 0 && kBK >= 4, "kBK is a multiple of 4");
 static_assert(kBM == 128 && kBN == 128, "the thread map assumes 128x128");
 
-// A problem's layouts (A k-major, B k-major) and element types (A, B, C;
-// the bias has B's type).
-template <bool AK_, bool BK_, class TA_, class TB_, class TC_>
+// A problem's layouts (A k-major, B k-major), element types (A, B, C; the
+// bias has B's type) and form: NARROW copies and stores one element at a
+// time (any stride, base and bound), else 4.
+template <bool AK_, bool BK_, class TA_, class TB_, class TC_,
+          bool NARROW_ = false>
 struct Spec {
-  static constexpr bool AK = AK_, BK = BK_;
+  static constexpr bool AK = AK_, BK = BK_, NARROW = NARROW_;
   using TA = TA_;
   using TB = TB_;
   using TC = TC_;
@@ -205,12 +233,24 @@ __device__ __forceinline__ void cp_wait() {
 
 // The slice of one operand at k0 .. k0 + kBK (k < klim) and rows or
 // columns r0 .. r0 + 127 (< rlim) into s. K-major: g[k·ld + r] →
-// s[kk·128 + rr]; otherwise g[r·ld + k] → s[rr·kPadK + kk].
-template <bool KMAJOR, class T>
+// s[kk·128 + rr]; otherwise g[r·ld + k] → s[rr·kPadK + kk]. Narrow: one
+// element at a time, neighbouring threads on neighbouring elements of g.
+template <bool KMAJOR, bool NARROW, class T>
 __device__ __forceinline__ void load_slice(T* s, const T* g, int ld, int r0,
                                            int rlim, int k0, int klim,
                                            int tid) {
-  if (KMAJOR) {
+  if constexpr (NARROW) {
+#pragma unroll
+    for (int e = tid; e < kBK * kBM; e += kThreads) {
+      const int kk = KMAJOR ? e / kBM : e % kBK;
+      const int rr = KMAJOR ? e % kBM : e / kBK;
+      const int k = k0 + kk, r = r0 + rr;
+      const bool ok = k < klim && r < rlim;
+      const size_t at = KMAJOR ? (size_t)k * ld + r : (size_t)r * ld + k;
+      Elem<T>::cp1(s + (KMAJOR ? kk * kBM + rr : rr * kPadK + kk),
+                   ok ? g + at : g, ok);
+    }
+  } else if (KMAJOR) {
     constexpr int kChunks = kBK * kBM / 4;
 #pragma unroll
     for (int c = tid; c < kChunks; c += kThreads) {
@@ -373,10 +413,10 @@ __device__ __forceinline__ void gemm_tile(const Gemm& g, int bid,
   auto load = [&](int s) {
     float* st = smem + (s % kStages) * kStageFloats;
     const int k0 = kb + s * kBK;
-    load_slice<AK>(reinterpret_cast<TA*>(st), ga, g.lda, m0, g.M, k0, ke,
-                   tid);
-    load_slice<BKM>(reinterpret_cast<TB*>(st + kTileFloats), gb, g.ldb, n0,
-                    g.N, k0, ke, tid);
+    load_slice<AK, S::NARROW>(reinterpret_cast<TA*>(st), ga, g.lda, m0,
+                              g.M, k0, ke, tid);
+    load_slice<BKM, S::NARROW>(reinterpret_cast<TB*>(st + kTileFloats), gb,
+                               g.ldb, n0, g.N, k0, ke, tid);
   };
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
@@ -404,9 +444,19 @@ __device__ __forceinline__ void gemm_tile(const Gemm& g, int bid,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int col = n0 + tile_col<BKM>(4 * h, tx);
-        if (col < g.N)
+        if constexpr (S::NARROW) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (col + j < g.N)
+              Elem<TC>::st1(cr + col + j,
+                            acc[i][4 * h + j] +
+                                (bias != nullptr
+                                     ? Elem<TB>::ldg1(bias + col + j)
+                                     : 0.f));
+        } else if (col < g.N) {
           store4(cr + col, bias, col, acc[i][4 * h], acc[i][4 * h + 1],
                  acc[i][4 * h + 2], acc[i][4 * h + 3]);
+        }
       }
     } else {
 #pragma unroll

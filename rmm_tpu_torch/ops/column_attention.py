@@ -8,19 +8,18 @@ layout (``x [B, S, C]``, ``Wqkv [C, 3C]``, ``Wout [C, C]``, an optional
 for CUDA tensors: the forward kernel (the port of the TPU kernel
 ``rmm_tpu/ops/pallas/column_attention.py::_fwd_kernel``) and, under
 autograd, the backward (the port of ``_bwd_kernel``), through
-:class:`ColumnAttentionFunction`. Both directions take one of three routes
+:class:`ColumnAttentionFunction`. Both directions take one of two routes
 by width (:func:`route`):
 
 * ``tiled``: every C <= 64 that is a multiple of 4 (the main path's
   C = 32), the register-tiled kernels (and the backward's reduce);
-* ``split``: every other C <= 128 that is a multiple of 4 (C = 96, and the
-  SSL path's C = 128): hand-written float32 GEMMs (``csrc/gemm_f32.cuh``)
-  around a per-row attention kernel. The forward is three launches, the
-  projections, the attention core and the output projection; the
+* ``split``: every other C <= 128 (C = 96, the SSL path's C = 128, and
+  every C that is not a multiple of 4): hand-written float32 GEMMs
+  (``csrc/gemm_f32.cuh``, in their narrow form where C is not a multiple
+  of 4) around a per-row attention kernel. The forward is three launches,
+  the projections, the attention core and the output projection; the
   backward five, the projections, its attention core, dx, the weight
-  gradients and the reduce;
-* ``scalar``: C not a multiple of 4, the scalar kernels of the first port
-  (and the backward's reduce).
+  gradients and the reduce.
 
 The backward recomputes from ``x`` alone, as the TPU kernel does: the
 Function saves ``x``, the weights and the keep-mask, nothing of the
@@ -28,10 +27,10 @@ forward's insides.
 
 Precision, as the TPU kernel's: ``x`` is float32 or bf16, the weights
 float32 or bf16. Every product sums in float32; the output and dx come out
-in ``x``'s dtype, the weight and bias gradients in float32. The tiled and
-split routes have bf16 builds (``csrc/column_attention.cu`` compiled with
-``RMM_ATTENTION_BF16``: bf16 x, do, out, dx and weights), the scalar route
-has none. Float32 ``x`` with bf16 weights (the reference's edge tokens
+in ``x``'s dtype, the weight and bias gradients in float32. Both routes
+have bf16 builds (``csrc/column_attention.cu`` compiled with
+``RMM_ATTENTION_BF16``: bf16 x, do, out, dx and weights) at every width.
+Float32 ``x`` with bf16 weights (the reference's edge tokens
 under ``--precision bf16``, whose timestamp block is float32) runs the
 float32 kernels on the weights' exact float32 values. A weight cast from a
 float32 master (``utils/precision.py``) gets its gradient at the master,
@@ -75,9 +74,6 @@ reduce_launches = 0
 
 MAX_S = 16                   # the kernel keeps a row's S×S scores in registers
 MAX_C = 128
-_ROW_BUDGET_FLOATS = 10240   # the scalar forward's x/ctx + qkv a group
-_BWD_ROW_BUDGET_FLOATS = 20480  # the backward's 10·S·C + 2·H·S² a row
-_WEIGHTS_IN_SMEM_MAX_C = 64  # 4·C² floats = 64 kB at C = 64
 _TILED_MAX_C = 64            # the tiled kernels keep their weights in smem
 _CORE_THREADS = 256          # the split routes' attention cores: a block
 _GEMM_TILE = 128             # rows and columns of a GEMM block tile
@@ -89,24 +85,19 @@ LIBRARIES = {torch.float32: "column_attention",
 _libs: dict = {}
 
 _P, _I, _F, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
-#: each entry point: (return type, argument types); the scalar kernels are
-#: in the float32 library alone
+#: each entry point: (return type, argument types)
 _SIGNATURES = {
-    "rmm_column_attention_fwd": (
-        _I, [_P] * 7 + [_I] * 4 + [_F, _I, _I, _P]),
     "rmm_column_attention_fwd_tiled_smem_bytes": (_Z, [_I] * 4),
     "rmm_column_attention_fwd_tiled_grid": (_I, [_I] * 5),
     "rmm_column_attention_fwd_tiled": (
         _I, [_P] * 7 + [_I] * 4 + [_F, _I, _I, _P]),
-    "rmm_column_attention_bwd_grid": (_I, [_I] * 6),
-    "rmm_column_attention_bwd": (
-        _I, [_P] * 9 + [_I] * 4 + [_F, _I, _I, _I, _P]),
     "rmm_column_attention_bwd_tiled_smem_bytes": (_Z, [_I] * 4),
     "rmm_column_attention_bwd_tiled_splits": (_I, [_I]),
     "rmm_column_attention_bwd_tiled_grid": (_I, [_I] * 5),
     "rmm_column_attention_bwd_tiled": (
         _I, [_P] * 9 + [_I] * 4 + [_F, _I, _I, _P]),
     "rmm_column_attention_bwd_core_smem_bytes": (_Z, [_I] * 4),
+    "rmm_column_attention_fwd_row_floats": (_I, [_I]),
     "rmm_column_attention_fwd_core_smem_bytes": (_Z, [_I] * 4),
     "rmm_column_attention_fwd_core": (
         _I, [_P, _P] + [_I] * 4 + [_F, _I, _P]),
@@ -117,6 +108,8 @@ _SIGNATURES = {
     "rmm_cuda_max_smem_per_block": (_I, []),
     "rmm_cuda_smem_per_sm": (_I, []),
     "rmm_column_attention_gemm_blocks_per_sm": (_I, []),
+    "rmm_gemm_narrow": (
+        _I, [_P, _I, _P, _I, _P, _I, _P] + [_I] * 4 + [_P]),
     "rmm_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -284,18 +277,14 @@ def _check_cuda_inputs(x, wqkv, bqkv, wout, bout, keep):
                             "the weights in one dtype, float32 or bfloat16")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if x.dtype == torch.bfloat16 and route(c) == "scalar":
-        raise NotImplementedError(
-            f"bf16 at C={c} (not a multiple of 4) has no kernel yet: the "
-            "scalar route is float32 only (ROADMAP.md, Queue 2)")
     if keep is not None and (keep.device != x.device
                              or keep.dtype != torch.bool
                              or not keep.is_contiguous()):
         raise ValueError("drop_mask must be a contiguous bool tensor on the "
                          "device of x")
     if s > MAX_S or c > MAX_C:
-        raise ValueError(f"the kernel takes S <= {MAX_S} and C <= {MAX_C}, "
-                         f"got S={s}, C={c}")
+        raise ValueError(f"the kernels take S <= {MAX_S} and C <= {MAX_C} "
+                         f"(C a multiple of nhead), got S={s}, C={c}")
 
 
 def _raise_on(err: int, what: str):
@@ -306,17 +295,15 @@ def _raise_on(err: int, what: str):
 
 def route(c: int) -> str:
     """The route of both directions for width ``c``: ``"tiled"`` for every
-    ``c <= 64`` that is a multiple of 4, ``"split"`` for every other
-    multiple of 4 up to 128, and ``"scalar"`` (the first port's kernels)
-    for the rest."""
-    if c % 4:
-        return "scalar"
-    return "tiled" if c <= _TILED_MAX_C else "split"
+    ``c <= 64`` that is a multiple of 4, ``"split"`` for every other ``c``
+    up to 128 (in the GEMMs' narrow form where ``c`` is not a multiple of
+    4)."""
+    return "tiled" if c <= _TILED_MAX_C and c % 4 == 0 else "split"
 
 
 def _aligned(t):
-    """``t``, or a copy of it where a view's offset rules out the tiled
-    kernels' float4 loads."""
+    """``t``, or a copy of it where a view's offset rules out the float4
+    loads of the tiled kernels and of the split routes' aligned GEMMs."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -324,8 +311,7 @@ def column_attention_fwd(x, wqkv, bqkv, wout, bout, nhead, keep=None,
                          rate=0.0, plan: FwdPlan | None = None):
     """The forward on checked CUDA inputs (no autograd; x and the weights
     in one dtype), by the route of :func:`route`, into an output of x's
-    dtype. ``plan`` (from :func:`fwd_plan`, tiled and split widths)
-    overrides the default one."""
+    dtype. ``plan`` (from :func:`fwd_plan`) overrides the default one."""
     global launches, fwd_tiled_launches, fwd_split_launches
     global fwd_bf16_launches
     b, s, c = x.shape
@@ -338,31 +324,22 @@ def column_attention_fwd(x, wqkv, bqkv, wout, bout, nhead, keep=None,
     kind = route(c)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if kind == "scalar":
-            rows = max(1, min(b, _ROW_BUDGET_FLOATS // (4 * s * c + 2)))
-            err = lib.rmm_column_attention_fwd(
+        rows, grid = plan or fwd_plan(b, s, c, nhead, dtype=x.dtype)
+        x = _aligned(x)
+        if kind == "tiled":
+            err = lib.rmm_column_attention_fwd_tiled(
                 x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
                 wout.data_ptr(), bout.data_ptr(), keep_ptr, out.data_ptr(),
-                b, s, c, nhead, inv_keep, rows,
-                int(c <= _WEIGHTS_IN_SMEM_MAX_C), stream)
+                b, s, c, nhead, inv_keep, rows, grid, stream)
         else:
-            rows, grid = plan or fwd_plan(b, s, c, nhead, dtype=x.dtype)
-            x = _aligned(x)
-            if kind == "tiled":
-                err = lib.rmm_column_attention_fwd_tiled(
-                    x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
-                    wout.data_ptr(), bout.data_ptr(), keep_ptr,
-                    out.data_ptr(), b, s, c, nhead, inv_keep, rows, grid,
-                    stream)
-            else:
-                wqkv, wout = _aligned(wqkv), _aligned(wout)
-                tok = torch.empty(b * s, 3 * c, dtype=torch.float32,
-                                  device=x.device)
-                err = lib.rmm_column_attention_fwd_split(
-                    x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
-                    wout.data_ptr(), bout.data_ptr(), keep_ptr,
-                    out.data_ptr(), tok.data_ptr(), b, s, c, nhead,
-                    inv_keep, rows, stream)
+            wqkv, wout = _aligned(wqkv), _aligned(wout)
+            row = lib.rmm_column_attention_fwd_row_floats(c)
+            tok = torch.empty(b * s, row, dtype=torch.float32,
+                              device=x.device)
+            err = lib.rmm_column_attention_fwd_split(
+                x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+                wout.data_ptr(), bout.data_ptr(), keep_ptr, out.data_ptr(),
+                tok.data_ptr(), b, s, c, nhead, inv_keep, rows, stream)
     _raise_on(err, f"{kind} forward")
     launches += 1
     fwd_tiled_launches += int(kind == "tiled")
@@ -374,8 +351,8 @@ def column_attention_fwd(x, wqkv, bqkv, wout, bout, nhead, keep=None,
 def attention_core_fwd(tok, nhead: int, keep=None, rate: float = 0.0,
                        rows: int | None = None):
     """The split forward's attention core alone on token rows ``tok``
-    [B, S, 3C] of q | k | v (C a multiple of 4, at most 128): ctx
-    [B, S, C], computed on a copy. The twin of
+    [B, S, 3C] of q | k | v (C at most 128): ctx [B, S, C], computed on a
+    copy padded as the split forward pads its scratch rows. The twin of
     :func:`reference_attention_core` (which CPU tensors take), for holding
     the core against it; no forward path calls it, and it counts no
     launch."""
@@ -383,12 +360,14 @@ def attention_core_fwd(tok, nhead: int, keep=None, rate: float = 0.0,
         return reference_attention_core(tok, nhead, keep, rate)
     b, s, c3 = tok.shape
     c = c3 // 3
-    work = tok.contiguous().clone()
+    lib = _kernel()
+    work = tok.new_zeros(b, s, lib.rmm_column_attention_fwd_row_floats(c))
+    work[..., :c3] = tok
     if b:
         inv_keep = 1.0 / (1.0 - rate) if keep is not None else 1.0
         with torch.cuda.device(tok.device):
             rows = fwd_plan(b, s, c, nhead, rows).rows
-            err = _kernel().rmm_column_attention_fwd_core(
+            err = lib.rmm_column_attention_fwd_core(
                 work.data_ptr(), None if keep is None else keep.data_ptr(),
                 b, s, c, nhead, inv_keep, rows,
                 torch.cuda.current_stream().cuda_stream)
@@ -500,11 +479,11 @@ def _tiled_rows(b: int, per_sm: int, smem_bytes, grid) -> int:
 
 class BwdPlan(NamedTuple):
     """How the backward runs a shape: its route, rows a group and blocks
-    (of the tiled or scalar kernel, or of the split route's attention
-    core), the partial slices of ``4C² + 4C`` floats the reduce adds
-    (blocks × stage-F token splits for the tiled kernel, the token splits
-    of the weight-gradient GEMM for the split route) and, for the split
-    route, the tokens a split."""
+    (of the tiled kernel, or of the split route's attention core), the
+    partial slices of ``4C² + 4C`` floats the reduce adds (blocks ×
+    stage-F token splits for the tiled kernel, the token splits of the
+    weight-gradient GEMM for the split route) and, for the split route,
+    the tokens a split."""
     route: str
     rows: int
     grid: int
@@ -569,15 +548,6 @@ def _bwd_plan(b, s, c, nhead, rows, dtype, device) -> BwdPlan:
                           smem_bytes(s, c, nhead, 1), rows)
         _check_core_fits(smem_bytes, s, c, nhead, plan.rows)
         return plan
-    if kind == "scalar":
-        w_smem = int(c <= _WEIGHTS_IN_SMEM_MAX_C)
-        rows = rows or max(1, min(b, _BWD_ROW_BUDGET_FLOATS
-                                  // (10 * s * c + 2 * nhead * s * s + 8)))
-        grid = lib.rmm_column_attention_bwd_grid(b, s, c, nhead, rows,
-                                                 w_smem)
-        if grid < 0:
-            _raise_on(-grid, "backward kernel")
-        return BwdPlan("scalar", rows, grid, grid)
     if rows is None:
         rows = _tiled_rows(
             b, 2 if c * c // 4 <= 256 else 1,
@@ -614,8 +584,7 @@ def column_attention_bwd(x, do, wqkv, bqkv, wout, nhead, keep=None,
             plan = plan or bwd_plan(b, s, c, nhead, dtype=x.dtype)
             partials = torch.empty(plan.slices, grads.numel(), **f32)
             stream = torch.cuda.current_stream().cuda_stream
-            if plan.route != "scalar":
-                x, do = _aligned(x), _aligned(do)
+            x, do = _aligned(x), _aligned(do)
             keep_ptr = None if keep is None else keep.data_ptr()
             if plan.route == "split":
                 wqkv, wout = _aligned(wqkv), _aligned(wout)
@@ -627,18 +596,11 @@ def column_attention_bwd(x, do, wqkv, bqkv, wout, nhead, keep=None,
                     grads.data_ptr(), b, s, c, nhead, inv_keep, plan.rows,
                     plan.split_tokens, stream)
             else:
-                args = (x.data_ptr(), do.data_ptr(), wqkv.data_ptr(),
-                        bqkv.data_ptr(), wout.data_ptr(), keep_ptr,
-                        dx.data_ptr(), partials.data_ptr(),
-                        grads.data_ptr(), b, s, c, nhead, inv_keep,
-                        plan.rows)
-                if plan.route == "tiled":
-                    err = lib.rmm_column_attention_bwd_tiled(
-                        *args, plan.grid, stream)
-                else:
-                    err = lib.rmm_column_attention_bwd(
-                        *args, int(c <= _WEIGHTS_IN_SMEM_MAX_C), plan.grid,
-                        stream)
+                err = lib.rmm_column_attention_bwd_tiled(
+                    x.data_ptr(), do.data_ptr(), wqkv.data_ptr(),
+                    bqkv.data_ptr(), wout.data_ptr(), keep_ptr,
+                    dx.data_ptr(), partials.data_ptr(), grads.data_ptr(), b,
+                    s, c, nhead, inv_keep, plan.rows, plan.grid, stream)
         _raise_on(err, f"{plan.route} backward")
         bwd_launches += 1
         bwd_tiled_launches += int(plan.route == "tiled")

@@ -23,7 +23,9 @@ from rmm_tpu_torch.ops import column_attention as ca
 from tests.torch_port_util import init_random, load_from_jax
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-WIDTHS = [(32, 8), (64, 4), (128, 8)]   # (C, nhead): hd 4, 16, 16
+# (C, nhead): hd 4, 16, 16, and 21 (C not a multiple of 4: the split
+# routes' narrow GEMMs on the card)
+WIDTHS = [(32, 8), (64, 4), (128, 8), (126, 6)]
 B = 13                                  # no multiple of 8
 
 
@@ -141,17 +143,17 @@ def test_wrapper_checks_shapes():
 
 
 @pytest.mark.parametrize("direction", ["fwd", "bwd"])
-@pytest.mark.parametrize("c,want", [(30, "scalar"), (32, "tiled"),
+@pytest.mark.parametrize("c,want", [(30, "split"), (32, "tiled"),
                                     (64, "tiled"), (96, "split"),
-                                    (128, "split"), (126, "scalar"),
+                                    (128, "split"), (126, "split"),
                                     (68, "split")])
 def test_backward_route_by_width(c, want, direction):
     """Both directions: the tiled kernels take every multiple of 4 up to
-    64, the split routes the rest up to 128, the scalar kernels every C not
-    a multiple of 4; each direction counts its tiled and split calls."""
+    64, the split routes every other C up to 128 (C not a multiple of 4
+    among them, through the narrow GEMMs); each direction counts its tiled
+    and split calls."""
     assert ca.route(c) == want
-    if want != "scalar":
-        assert isinstance(getattr(ca, f"{direction}_{want}_launches"), int)
+    assert isinstance(getattr(ca, f"{direction}_{want}_launches"), int)
 
 
 @pytest.mark.parametrize("b,s,sms,per_sm", [
@@ -192,11 +194,11 @@ def test_split_plan_token_ranges_cover_every_token_once(b, s, sms, per_sm):
 
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("s", [1, 6, 16])
-@pytest.mark.parametrize("c,h", [(128, 8), (96, 8)])
+@pytest.mark.parametrize("c,h", [(128, 8), (96, 8), (126, 6)])
 def test_attention_core_between_projections_matches_jax(c, h, s, masked):
     """The split forward's plain core (token rows q | k | v in, ctx out)
     between ``torch.matmul`` projections is the JAX reference's and the
-    Pallas kernel's attention (head_dim 16 and 12)."""
+    Pallas kernel's attention (head_dim 16, 12 and 21)."""
     x, wqkv, bqkv, wout, bout = make_inputs(c * s + masked, B, s, c)
     rate = 0.3 if masked else 0.0
     mask = (np.random.RandomState(s).rand(B, h, s, s) >= rate

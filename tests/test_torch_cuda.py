@@ -134,13 +134,17 @@ def test_forward_repeats_bitwise(cuda):
 
 # The split forward: C = 128 (the SSL width) and 96 at head_dim 16 and 32,
 # S = 1, 6 and 16, ragged batches (B·S no multiple of a GEMM tile's 128
-# tokens).
+# tokens); and widths that are not a multiple of 4 (the narrow GEMMs and a
+# padded scratch row): 126 and 30 at head_dim 21 and 5, odd 21 at 7.
 SPLIT_FWD_SHAPES = [
     (1001, 1, 128, 8),
     (1001, 6, 128, 8),
     (203, 16, 128, 8),
     (1001, 6, 96, 8),
     (333, 16, 96, 3),
+    (1001, 6, 126, 6),
+    (203, 16, 30, 6),
+    (129, 7, 21, 3),
 ]
 
 
@@ -218,10 +222,6 @@ def test_column_attention_kernel_refuses_what_it_cannot_run(cuda):
         ca.fused_column_attention(x, wqkv.bfloat16(), bqkv, wout, bout, 8)
     with pytest.raises(TypeError, match="bf16 x takes bf16 weights"):
         ca.fused_column_attention(x.bfloat16(), wqkv, bqkv, wout, bout, 8)
-    x126, *w126 = attention_inputs(0, 8, 6, 126, cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ca.fused_column_attention(x126.bfloat16(),
-                                  *(t.bfloat16() for t in w126), 6)
     with pytest.raises(ValueError, match="contiguous"):
         ca.fused_column_attention(x, wqkv.t().contiguous().t(), bqkv, wout,
                                   bout, 8)
@@ -234,23 +234,24 @@ def test_column_attention_kernel_refuses_what_it_cannot_run(cuda):
 
 
 # The backward's further shapes. Where C is not a multiple of 4 they take
-# the scalar kernel, in one of 12 instantiations: S rounded up to 2, 4, 8
-# or 16, times where the weight-gradient sums live (registers at C <= 38,
-# device memory with the weights in shared memory at C <= 64, device
-# memory with the weights in device memory above). C = 72 and 100 take the
-# split route at S = 2 and 4.
+# the split route with the narrow GEMMs (every stride, N = 3C and the
+# weight gradients' rows ragged), at S of 2 to 16 (the core's S = 2, 4, 8
+# and 16 instantiations), head widths of 2 to 21 (the core's one-float
+# chunks), C below and above the tiled kernels' 64, and B·S of a few
+# tokens up to several GEMM tiles. C = 72 and 100 take the aligned split
+# route at S = 2 and 4.
 BWD_SHAPES = SHAPES + [
-    (77, 2, 30, 5),      # scalar, sums in registers
+    (77, 2, 30, 5),      # narrow split route, C <= 64
     (61, 3, 18, 3),
     (129, 6, 30, 6),
     (45, 11, 14, 2),
-    (90, 2, 50, 5),      # scalar, weights in shared memory
+    (90, 2, 50, 5),
     (65, 3, 42, 7),
     (47, 7, 54, 6),
     (23, 13, 62, 2),
-    (40, 2, 72, 8),      # split route
+    (40, 2, 72, 8),      # aligned split route
     (31, 4, 100, 5),
-    (40, 2, 70, 7),      # scalar, weights in device memory
+    (40, 2, 70, 7),      # narrow split route, C > 64
     (31, 4, 102, 6),
     (33, 7, 98, 7),
     (12, 16, 126, 6),
@@ -377,13 +378,123 @@ def test_split_backward_repeats_bitwise(cuda):
         assert torch.equal(g, a)
 
 
+def test_narrow_split_routes_repeat_bitwise(cuda):
+    """Both directions at C = 126 (the narrow GEMMs) sum every output in a
+    fixed order: two calls on the same inputs give the same bits."""
+    b, s, c, h = 32768, 6, 126, 6
+    x, wqkv, bqkv, wout, bout = attention_inputs(0, b, s, c, cuda)
+    do = torch.randn(b, s, c, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(1))
+    mask = torch.rand(b, h, s, s, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(2)) >= 0.5
+    assert ca.route(c) == "split"
+    with torch.inference_mode():
+        first, second = (ca.column_attention_fwd(x, wqkv, bqkv, wout, bout,
+                                                 h, mask, 0.5)
+                         for _ in range(2))
+    assert torch.equal(first, second)
+    first, second = (ca.column_attention_bwd(x, do, wqkv, bqkv, wout, h,
+                                             mask, 0.5) for _ in range(2))
+    for g, a in zip(first, second):
+        assert torch.equal(g, a)
+
+
+def strided(rows, cols, ld, data, dtype, device):
+    """``data`` [rows, cols] in a [rows + 2, ld] buffer of NaN that starts
+    one element past an allocation (no 16-byte aligned base): the view of
+    the first ``rows`` rows, and its pointer."""
+    buf = torch.full((1 + (rows + 2) * ld,), float("nan"), dtype=dtype,
+                     device=device)
+    view = buf[1:1 + rows * ld].view(rows, ld)
+    view[:, :cols] = torch.from_numpy(data).to(device, dtype)
+    return view, view.data_ptr()
+
+
+# The narrow GEMM form alone against a float64 product, at ragged M, N and
+# K (K % 4 of 1, 2 and 3; N % 4 != 0) in the three layouts of the split
+# routes' problems, in both builds. The operands' pad columns and their
+# rows past K are NaN, so a chunk copied past K (the aligned form's
+# k < klim passes a chunk that starts in range) turns sums NaN; the
+# output's guard columns past N and rows past M keep a sentinel that a
+# store past N (store4's col < N passes 4 columns) would overwrite.
+NARROW_GEMMS = [(300, 126, 125), (129, 378, 126), (257, 30, 127),
+                (5, 3, 1), (131, 21, 42)]
+SENTINEL = 12345.0
+
+
+def narrow_gemm_case(device, m, n, k, layout, dtype):
+    """The narrow GEMM's output [m + 3, n + 3] (the sentinel outside what
+    it writes) and the float64 product it should hold in its first rows
+    and n columns."""
+    rng = np.random.RandomState(m + n + k + layout)
+    a, b = rng.randn(m, k), rng.randn(k, n)
+    bias = rng.randn(n)
+    if dtype == torch.bfloat16:   # the values the kernel sees
+        a, b, bias = (torch.from_numpy(t).bfloat16().double().numpy()
+                      for t in (a, b, bias))
+    b_dtype = torch.float32 if layout == 2 else dtype
+    if layout == 0:      # A m-major, B k-major, a bias
+        av, pa = strided(m, k, k + 3, a, dtype, device)
+        bv, pb = strided(k, n, n + 1, b, b_dtype, device)
+        want = a @ b + bias
+    elif layout == 1:    # A m-major, B n-major, a bias
+        av, pa = strided(m, k, k + 2, a, dtype, device)
+        bv, pb = strided(n, k, k + 1, b.T.copy(), b_dtype, device)
+        want = a @ b + bias
+    else:                # A and B k-major, B's column sums in row M
+        av, pa = strided(k, m, m + 1, a.T.copy(), dtype, device)
+        bv, pb = strided(k, n, n + 3, b, b_dtype, device)
+        want = np.concatenate([a @ b, b.sum(0, keepdims=True)])
+        bias = None
+    bias_t = (None if bias is None else
+              torch.from_numpy(bias).to(device, b_dtype))
+    ldc = n + 3
+    out = torch.full((m + 3, ldc), SENTINEL, device=device)
+    err = ca._kernel(dtype).rmm_gemm_narrow(
+        pa, av.stride(0), pb, bv.stride(0), out.data_ptr(), ldc,
+        None if bias_t is None else bias_t.data_ptr(), m, n, k, layout,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return out.double().cpu().numpy(), want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", [0, 1, 2])
+@pytest.mark.parametrize("m,n,k", NARROW_GEMMS)
+def test_narrow_gemm_matches_float64(cuda, m, n, k, layout, dtype):
+    got, want = narrow_gemm_case(cuda, m, n, k, layout, dtype)
+    rows = want.shape[0]
+    np.testing.assert_allclose(got[:rows, :n], want, rtol=1e-5, atol=1e-4)
+    assert (got[:, n:] == SENTINEL).all()
+    assert (got[rows:] == SENTINEL).all()
+
+
+@pytest.mark.parametrize("layout", [0, 1])
+@pytest.mark.parametrize("k", [125, 126, 127])
+def test_narrow_gemm_copies_nothing_past_k(cuda, k, layout):
+    """K % 4 of 1, 2 and 3 with NaN after each row's K elements: a copy
+    of a 4-element chunk that starts below K would bring the NaN in."""
+    got, want = narrow_gemm_case(cuda, 129, 96, k, layout, torch.float32)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got[:129, :96], want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [29, 30, 31, 126])
+def test_narrow_gemm_stores_nothing_past_n(cuda, n):
+    """N % 4 != 0 with a k-major B (4 columns a thread): the guard columns
+    past N keep their sentinel."""
+    got, want = narrow_gemm_case(cuda, 129, n, 64, 0, torch.float32)
+    np.testing.assert_allclose(got[:129, :n], want, rtol=1e-5, atol=1e-4)
+    assert (got[:, n:] == SENTINEL).all()
+
+
 ROUTES = [
     (16384, 2, 32, 8, "tiled"),     # the main path's node tokens
     (131072, 6, 32, 8, "tiled"),    # the main path's edge tokens
     (33, 6, 96, 3, "split"),
     (100, 16, 128, 8, "split"),
-    (129, 6, 30, 6, "scalar"),      # C not a multiple of 4
-    (65, 3, 42, 7, "scalar"),
+    (129, 6, 30, 6, "split"),       # C not a multiple of 4: narrow GEMMs
+    (65, 3, 42, 7, "split"),
 ]
 
 
@@ -401,7 +512,7 @@ def test_backward_route_by_shape(cuda, b, s, c, h, route):
 
 @pytest.mark.parametrize("b,s,c,h,route", ROUTES)
 def test_forward_route_by_shape(cuda, b, s, c, h, route):
-    """The forward takes the backward's route: tiled, split or scalar."""
+    """The forward takes the backward's route: tiled or split."""
     args = attention_inputs(0, b, s, c, cuda)
     before = (ca.launches, ca.fwd_tiled_launches, ca.fwd_split_launches)
     ca.column_attention_fwd(*args, h)
@@ -608,7 +719,8 @@ def test_three_ssl_steps_on_the_card_match_the_cpu(cuda, tmp_path):
 
 # bf16 (--precision bf16): both directions' tiled and split routes on bf16
 # x and weights. C = 100 and 68 are rows of C % 8 = 4 bf16 elements, which
-# the split route's GEMMs copy 8 bytes at a time.
+# the split route's GEMMs copy 8 bytes at a time; C = 126, 30 and 21, which
+# its narrow GEMMs copy one element at a time.
 BF16_SHAPES = [
     (37, 2, 32, 8),      # node tokens at the serving width, ragged batch
     (4099, 6, 32, 8),    # edge tokens
@@ -620,6 +732,9 @@ BF16_SHAPES = [
     (333, 16, 96, 3),
     (401, 6, 100, 5),
     (77, 5, 68, 4),
+    (333, 6, 126, 6),    # C not a multiple of 4: the narrow split route
+    (129, 6, 30, 6),
+    (77, 5, 21, 3),      # odd C: no two bf16 elements share 4 bytes
 ]
 
 
@@ -684,11 +799,11 @@ def test_bf16_kernels_match_plain(cuda, b, s, c, h, masked):
                                    rtol=0, atol=1e-4 * max(scale, 1.0))
 
 
-@pytest.mark.parametrize("c", [32, 100, 128])
+@pytest.mark.parametrize("c", [32, 100, 128, 126])
 def test_bf16_kernels_repeat_bitwise(cuda, c):
     """The bf16 builds sum every output in a fixed order, as the float32
     ones do: two calls of each direction give the same bits."""
-    b, s, h = 4099, 6, 4 if c == 100 else 8
+    b, s, h = 4099, 6, {100: 4, 126: 6}.get(c, 8)
     x, masters = bf16_inputs(0, b, s, c, cuda)
     wqkv, bqkv, wout, bout = (m.bfloat16() for m in masters)
     do = torch.randn(b, s, c, device=cuda,

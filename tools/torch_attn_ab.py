@@ -1,0 +1,135 @@
+"""Column attention of two checkouts on one CUDA card, in turns.
+
+    python3 tools/torch_attn_ab.py --other DIR
+
+Times the forward and the backward (+ its reduce) of this checkout's
+``rmm_tpu_torch`` and of the one under ``DIR`` (another commit's package,
+unpacked there by ``git archive <commit> rmm_tpu_torch | tar -x -C DIR``)
+on the same seeded inputs, at ``chip_smoke.py``'s shapes:
+
+* float32 and bf16 at the narrow shapes (``NARROW_SHAPES``, unmasked),
+  where a checkout takes them (a side that refuses prints its refusal);
+* float32 at the main path's tiled shape 131072×6×32/8 (the forward
+  unmasked, the backward with the training keep-mask) and the SSL path's
+  split shape (``SSL_SHAPES[0]``, with its keep-mask).
+
+Each side runs in a process of its own (the two packages share a name), in
+the order other, self, self, other; both sides' kernels are built first,
+all compilers at once. A measurement is ``chip_smoke.time_ms``: CUDA
+events, warm, the median of 5 windows of 10 calls. Each side's result is
+held against the plain version (the forward's absolute error, the
+backward's relative to each tensor's largest entry). The plain version's,
+the library call's and the bound's times at these shapes are those of
+``chip_smoke.py``'s kernel phases. One JSON line per measurement, each
+with the side, its package's path and the card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from chip_smoke import (NARROW_SHAPES, SSL_SHAPES,  # noqa: E402
+                        TRAIN_DROPOUT)
+
+ORDER = ("other", "self", "self", "other")
+NARROW = [sh[:4] for sh in NARROW_SHAPES if sh[4] == 0.0]
+TILED = (131072, 6, 32, 8)
+# (B, S, C, H, dropout, dtype) a direction
+CASES = {
+    d: [(*n, 0.0, "float32") for n in NARROW]
+    + [(*TILED, rate, "float32"), (*SSL_SHAPES[0], "float32")]
+    + [(*n, 0.0, "bfloat16") for n in NARROW]
+    for d, rate in (("fwd", 0.0), ("bwd", TRAIN_DROPOUT))
+}
+
+
+def child(root: str, label: str) -> int:
+    """One side's measurements, with ``root``'s package."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    from chip_smoke import nvidia_smi, random_inputs, time_ms
+    from rmm_tpu_torch.ops import column_attention as ca
+
+    card = nvidia_smi()
+    package = os.path.dirname(os.path.dirname(os.path.abspath(ca.__file__)))
+    assert os.path.samefile(package, os.path.join(root, "rmm_tpu_torch"))
+    dev = torch.device("cuda")
+    for direction, cases in CASES.items():
+        for b, s, c, h, rate, dtype in cases:
+            rng = np.random.RandomState(b + c)
+            dt = getattr(torch, dtype)
+            x, *w = [t.to(dt) for t in random_inputs(rng, b, s, c, dev)]
+            do = random_inputs(rng, b, s, c, dev)[0].to(dt)
+            mask = (torch.from_numpy(rng.rand(b, h, s, s) >= rate).to(dev)
+                    if rate else None)
+            rec = {"tool": "torch_attn_ab", "side": label, "root": root,
+                   "direction": direction, "B": b, "S": s, "C": c, "H": h,
+                   "dropout": rate, "dtype": dtype, "route": ca.route(c),
+                   "card": card}
+            leaves = [v.detach().float().requires_grad_() for v in (x, *w)]
+            ref = ca.reference_column_attention(*leaves, h, mask, rate)
+            try:
+                ca._check_cuda_inputs(x, *w, mask)
+                if direction == "fwd":
+                    def call():
+                        with torch.inference_mode():
+                            return ca.fused_column_attention(x, *w, h, mask,
+                                                             rate)
+                    rec["max_abs_err"] = float(
+                        (call().float() - ref.detach()).abs().max())
+                else:
+                    def call():
+                        return ca.column_attention_bwd(x, do, *w[:3], h,
+                                                       mask, rate)
+                    want = torch.autograd.grad(ref, leaves, do.float())
+                    rec["max_rel_err"] = max(
+                        float((g.float() - v).abs().max() / v.abs().max())
+                        for g, v in zip(call(), want))
+                rec["ms"] = time_ms(call)
+            except (NotImplementedError, RuntimeError, AttributeError) as e:
+                rec["refused"] = f"{type(e).__name__}: {e}"
+            print(json.dumps(rec), flush=True)
+            del x, do, w, mask, leaves, ref
+            torch.cuda.empty_cache()
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--other", help="the other checkout's root")
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    ap.add_argument("--label", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child:
+        return child(args.child, args.label)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    roots = {"self": ROOT, "other": os.path.abspath(args.other)}
+    build = ("import sys; sys.path.insert(0, sys.argv[1]); "
+             "from rmm_tpu_torch.ops.build import build_all; build_all()")
+    builds = [subprocess.Popen([sys.executable, "-c", build, r])
+              for r in roots.values()]
+    if any(p.wait() for p in builds):
+        print("a build failed", file=sys.stderr)
+        return 1
+    for label in ORDER:
+        if subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--child", roots[label], "--label",
+                           label]).returncode:
+            return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,13 +1,17 @@
-"""The split column-attention routes (C = 96..128) on one CUDA card: the
-forward's three launches and the backward's five timed against their
-bounds, and a sweep of the backward's GEMM knobs.
+"""The split column-attention routes (C = 96..128, and every C that is not
+a multiple of 4) on one CUDA card: the forward's three launches and the
+backward's five timed against their bounds, and a sweep of the backward's
+GEMM knobs.
 
     python3 tools/torch_attn_split.py [--direction fwd,bwd]
                                       [--shapes edge,target] [--sweep]
 
 At the SSL path's shapes (edge tokens 131072×6×128/8 and target rows
-13000×6×128/8, each with the 0.5 keep-mask) the forward (``--direction
-fwd``) is checked against the plain version (absolute error) and timed:
+13000×6×128/8), or at the narrow shapes (``--shapes narrow126,narrow30``:
+32768×6×126/6 and 131072×6×30/6, the GEMMs' narrow form; ``aligned128``,
+32768×6×128/8, is the first one's aligned twin), each with the 0.5
+keep-mask, the forward (``--direction fwd``) is checked against the
+plain version (absolute error) and timed:
 
 * the whole forward (``column_attention_fwd``, its three launches and the
   scratch allocation), with CUDA events, warm, median of 5 windows;
@@ -55,7 +59,10 @@ from chip_smoke import (GRAD_TOL, KERNEL_TOL,  # noqa: E402
                         bound, emit, nvidia_smi, time_ms)
 
 SHAPES = {"edge": (131072, 6, 128, 8, SSL_DROPOUT),
-          "target": (13000, 6, 128, 8, SSL_DROPOUT)}
+          "target": (13000, 6, 128, 8, SSL_DROPOUT),
+          "narrow126": (32768, 6, 126, 6, SSL_DROPOUT),
+          "aligned128": (32768, 6, 128, 8, SSL_DROPOUT),
+          "narrow30": (131072, 6, 30, 6, SSL_DROPOUT)}
 # (kBK, kStages, kMinBlocks) of each sweep variant; the checkout's values
 # are the first
 VARIANTS = [(16, 3, 2), (16, 2, 2), (16, 4, 2), (32, 3, 2), (32, 2, 2),
@@ -110,7 +117,10 @@ def kernel_kind(name: str) -> str | None:
     if "bwd_reduce" in name:
         return "reduce"
     if "gemm_kernel" in name:
-        flags = name[name.index("gemm_kernel"):].replace(" ", "")
+        # gemm_kernel<rmm_gemm::Spec<AK, BK, ...>, ...>: the first Spec's
+        # layouts
+        flags = name[name.index("gemm_kernel"):].replace(" ", "").replace(
+            "rmm_gemm::Spec<", "")
         if flags.startswith("gemm_kernel<false,true"):
             return "projections"
         if flags.startswith("gemm_kernel<false,false"):
