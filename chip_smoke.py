@@ -24,11 +24,14 @@ through all of them:
              shapes (32768x6x126/6 and 131072x6x30/6: C not a multiple of
              4, the split routes' narrow GEMMs), each with a 0.5 keep-mask
              and without it, and the split forward's attention core alone
-             there against its plain twin. Each record names the route it
+             there against its plain twin; both directions at the
+             transfer path's C = 128 shapes (130872x6x128/8 context edge
+             tokens, 200x6x128/8 target rows, with the 0.083 keep-mask and
+             without it). Each record names the route it
              took (tiled or split, by width, held to ``route(c)``), and
              two calls of each direction at the main path's masked edge
-             shape, at the SSL masked edge shape and at the masked
-             32768x6x126/6 are bitwise equal. Max error (the
+             shape, at the SSL and the transfer masked edge shapes and at
+             the masked 32768x6x126/6 are bitwise equal. Max error (the
              backward's relative to each reference tensor's largest
              entry), kernel / plain / library times (CUDA events, warm,
              median) and the bound.
@@ -74,6 +77,26 @@ through all of them:
 9. ssl_cli — the SSL CLI (``rmm_tpu_torch.cli.fused.main``) for one epoch
              on that cut with ``--save_model``, then a resume from its
              checkpoint.
+10. transfer — SSL → supervised transfer (``cli/main.py --load_model``'s
+             ``load_components``) at the SSL widths on the config of
+             record's data: ``tabgnnfused`` (C = 128, 8 heads, 3 layers,
+             fanouts 100/100, batch 200, dropout 0.083, float32) takes the
+             encoders of ``ssl_train``'s checkpoint (only its edge encoder
+             exists: all of it grafts, no BatchNorm statistic), trains on
+             the first 24 train batches and is evaluated on the first 24
+             val batches (cut from 395 and 130), is saved and serves the
+             test split through the predict CLI. Checks 5 split forwards,
+             backwards and reduces a step and 5 split forwards a batch, a
+             finite loss and scores. Grafted and kept leaves, train rows/s,
+             the median step, val f1, served rows/s, peak memory.
+11. transfer_parity — three ``--freeze`` steps of ``tabgnnfused`` on the
+             card after a transfer from the committed JAX checkpoint
+             (``tests/fixtures/torch_port/transfer_ssl_ckpt``, read by the
+             port's msgpack reader) against the JAX CPU record
+             ``transfer_record.npz`` (``tools/make_torch_port_transfer_
+             fixture.py``: C = 16, 2 layers, a 1,000-row cut; the tiled
+             kernels): the grafted leaves, each loss and the sampled
+             variables (``convert.check_record``), the unmoved parameters.
 
 And at ``--precision bf16`` (the reference's scheme: float32 masters,
 bf16 parameters and tables in each step; under it the AML edge tokens are
@@ -102,9 +125,9 @@ float32, their timestamp block being so, and the node tokens bf16):
 
 Then the seconds each phase took, a ``{"kernels": [...]}`` line (an entry
 per kernel, each with its ``path``: the main path's tiled kernels at C = 32,
-the SSL path's split forward and backward at C = 128, with their times at
-the narrow shapes beside, and the bf16 builds of the tiled and split
-kernels, likewise),
+the SSL and transfer paths' split forward and backward at C = 128 (their
+launches by path), with their times at the transfer and the narrow shapes
+beside, and the bf16 builds of the tiled and split kernels, likewise),
 the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 package beside it, the script fails and prints no result.
@@ -166,10 +189,27 @@ SSL_ARGV = ["--mode", "mcm-lp", "--channels", "128", "--num_layers", "3",
             "--lr", "2e-4"]
 SSL_DROPOUT = 0.5
 SSL_BATCHES = 24      # train and val batches of the ssl_train phase
+TRANSFER_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
+                                "transfer_record.npz")
+# The transfer phase's fine-tune: tabgnnfused at the SSL widths on the
+# supervised config of record's data and flags (dropout 0.083), its train
+# and val splits cut to the first TRANSFER_BATCHES batches as ssl_train's
+# are (a step is about one SSL view over the edge tokens, ~0.1 s)
+TRANSFER_BATCHES = 24
+TRANSFER_ARGV = ["--model", "tabgnnfused", "--n_hidden", "128",
+                 "--n_gnn_layers", "3"]
+
 # column attention launches an mcm-lp step makes, each direction: two views
 # x (the top-level encoder layer on the edge tokens and on the target rows,
 # plus one a fused layer on the target rows)
 SSL_LAUNCHES = 2 * (2 + 3)
+
+
+def fused_launches(layers: int) -> int:
+    """Column-attention calls a tabgnnfused step makes, each direction: the
+    top-level encoder layer on the context edge tokens and on the target
+    rows, and one a fused layer on the target rows."""
+    return 2 + layers
 
 
 class SmokeFailure(RuntimeError):
@@ -308,6 +348,16 @@ def library_attention(x, wqkv, bqkv, wout, bout, h):
 SSL_SHAPES = [(131072, 6, 128, 8, SSL_DROPOUT),
               (13000, 6, 128, 8, SSL_DROPOUT),
               (131072, 6, 128, 8, 0.0), (13000, 6, 128, 8, 0.0)]
+# The transfer path's shapes at C = 128 (supervised tabgnnfused, batch 200,
+# the split routes): the context edge tokens (the edge capacity less the
+# 200 seed lanes) and the 200 target rows, with the training keep-mask and
+# without it (evaluation and serving, where the library call times them).
+def transfer_shapes(edges: int, batch: int) -> list:
+    return [(edges - batch, 6, 128, 8, TRAIN_DROPOUT),
+            (batch, 6, 128, 8, TRAIN_DROPOUT),
+            (edges - batch, 6, 128, 8, 0.0), (batch, 6, 128, 8, 0.0)]
+
+
 # Widths that are not a multiple of 4 (the split routes' narrow GEMMs),
 # each with the 0.5 keep-mask and without it
 NARROW_SHAPES = [(b, s, c, h, rate) for b, s, c, h in
@@ -328,6 +378,7 @@ def kernel_phase(card: str) -> dict:
     st = fixture_settings()
     edges, nodes, c = st["edge_capacity"], st["node_capacity"], st["n_hidden"]
     p = TRAIN_DROPOUT
+    transfer = transfer_shapes(edges, st["batch_size"])
     fwd_shapes = [  # (B, S, C, H, dropout)
         (edges, 6, c, 8, 0.0),       # serving path: edge tokens
         (nodes, 2, c, 8, 0.0),       # serving path: node tokens
@@ -337,7 +388,7 @@ def kernel_phase(card: str) -> dict:
         (32768, 6, 128, 8, 0.0),     # SSL width, the split route
         (100003, 6, 32, 8, 0.0),     # ragged batch
         (4099, 6, 64, 4, 0.3),       # numpy keep-mask, dropout 0.3
-    ] + NARROW_SHAPES + SSL_SHAPES
+    ] + NARROW_SHAPES + transfer + SSL_SHAPES
     bwd_shapes = [
         (edges, 6, c, 8, p),         # training path: edge tokens
         (nodes, 2, c, 8, p),         # training path: node tokens
@@ -345,7 +396,7 @@ def kernel_phase(card: str) -> dict:
         (nodes, 2, c, 8, 0.0),
         (32768, 6, 128, 8, 0.0),     # SSL width, the split route
         (100003, 6, 32, 8, p),       # ragged batch
-    ] + NARROW_SHAPES + SSL_SHAPES
+    ] + NARROW_SHAPES + transfer + SSL_SHAPES
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
     fwd, bwd = [], []
@@ -364,10 +415,10 @@ def kernel_phase(card: str) -> dict:
                   f"forward {b}x{s}x{c}/{h} took the {route} route, not "
                   f"{ca.route(c)}")
             repeat_equal = None
-            # the masked edge shapes of the main path and of the SSL path,
-            # and the first narrow shape
-            if len(fwd) == 2 or (b, s, c, h, rate) in (SSL_SHAPES[0],
-                                                       NARROW_SHAPES[0]):
+            # the masked edge shapes of the main path, of the SSL path and
+            # of the transfer path, and the first narrow shape
+            if len(fwd) == 2 or (b, s, c, h, rate) in (
+                    SSL_SHAPES[0], NARROW_SHAPES[0], transfer[0]):
                 repeat_equal = torch.equal(out,
                                            ca.fused_column_attention(*args))
                 check(repeat_equal, f"forward {b}x{s}x{c}/{h}: two calls on "
@@ -430,10 +481,11 @@ def kernel_phase(card: str) -> dict:
               f"backward {b}x{s}x{c}/{h} took the {route} route, not "
               f"{ca.route(c)}")
         repeat_equal = None
-        # the masked edge shapes of the main path and of the SSL path, and
-        # the first narrow shape: the weight gradients are deterministic
+        # the masked edge shapes of the main path, of the SSL path and of
+        # the transfer path, and the first narrow shape: the weight
+        # gradients are deterministic
         if not bwd or (b, s, c, h, rate) in (SSL_SHAPES[0],
-                                             NARROW_SHAPES[0]):
+                                             NARROW_SHAPES[0], transfer[0]):
             again = ca.column_attention_bwd(*args)
             repeat_equal = all(torch.equal(g, a) for g, a in zip(got, again))
             check(repeat_equal, f"backward {b}x{s}x{c}/{h}: two calls on "
@@ -481,7 +533,7 @@ def kernel_phase(card: str) -> dict:
         bwd.append(rec)
         del inputs, do, mask, args, got, leaves, out, want
         torch.cuda.empty_cache()
-    n = len(SSL_SHAPES)
+    n, m = len(SSL_SHAPES), len(transfer)
     narrow = [r for r in fwd + bwd
               if (r["B"], r["S"], r["C"], r["H"], r["dropout"])
               in NARROW_SHAPES]
@@ -491,6 +543,7 @@ def kernel_phase(card: str) -> dict:
             "bwd_unmasked": bwd[2:4], "ssl_fwd": fwd[-n:][:2],
             "ssl_fwd_unmasked": fwd[-n:][2:], "ssl_bwd": bwd[-n:][:2],
             "ssl_bwd_unmasked": bwd[-n:][2:],
+            "transfer_fwd": fwd[-n - m:-n], "transfer_bwd": bwd[-n - m:-n],
             "narrow_fwd": [r for r in narrow
                            if r["kernel"] == "column_attention_fwd"],
             "narrow_bwd": [r for r in narrow
@@ -1065,10 +1118,12 @@ def ssl_train_phase(card: str, csv: str, precision: str = "f32") -> dict:
     """SSL pretraining (mcm-lp) at the SSL config of record on the config
     of record's data, at ``precision``: the first SSL_BATCHES train
     batches (a sub-view of the train split), then SSL_BATCHES val
-    batches."""
+    batches. The model after them is saved (``save_epoch``) to
+    ``<WORK>/ssl_<precision>/0``, the record's ``checkpoint``."""
     import torch
 
     from rmm_tpu_torch.frame.dataset import DatasetView
+    from rmm_tpu_torch.utils.checkpoint import save_epoch
 
     st = fixture_settings()
     t0 = time.perf_counter()
@@ -1130,11 +1185,198 @@ def ssl_train_phase(card: str, csv: str, precision: str = "f32") -> dict:
            "eval_wall_s": eval_wall,
            "eval_rows_per_s": val.tensor_frame.num_rows / eval_wall,
            "peak_memory_gb": peak / 1e9, "setup_s": setup_s,
-           "drop_rate": tm["drop_rate"], "card": card, "ok": True}
+           "drop_rate": tm["drop_rate"], "checkpoint": save_epoch(
+               os.path.join(WORK, f"ssl_{precision}"), 0, tr.model,
+               precision=precision), "card": card, "ok": True}
     emit(rec)
     del tr
     torch.cuda.empty_cache()
     return rec
+
+
+def transfer_phase(card: str, csv: str, ssl_ck: str) -> dict:
+    """SSL → supervised transfer at the SSL widths on the config of
+    record's data, on the card: ``tabgnnfused`` (C = 128, 8 heads, 3
+    layers, fanouts 100/100, batch 200, dropout 0.083, float32, the config
+    of record's capacities) takes the ``node_encoder`` and
+    ``edge_encoder`` of ``ssl_train``'s checkpoint, as ``cli/main.py
+    --load_model`` does (the SSL model has no node encoder: only the edge
+    encoder grafts, all of it, and no BatchNorm statistic); trains on the
+    first TRANSFER_BATCHES train batches, is evaluated on the first
+    TRANSFER_BATCHES val batches, is saved, and serves the test split
+    through the predict CLI. Every column-attention call is split (C =
+    128): ``fused_launches(3)`` forwards, backwards and reduces a step, as
+    many forwards an evaluated or served batch."""
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.datasets import build_dataset
+    from rmm_tpu_torch.frame.dataset import DatasetView
+    from rmm_tpu_torch.train.trainer import Trainer
+    from rmm_tpu_torch.utils.checkpoint import (load_components, read_state,
+                                                save_epoch)
+    from rmm_tpu_torch.utils.config import config_from_args, create_parser
+
+    st = fixture_settings()
+    argv = ["--data", csv, *TRANSFER_ARGV, "--num_neighs",
+            *map(str, st["num_neighs"]), "--batch_size",
+            str(st["batch_size"]), "--seed", str(st["seed"]),
+            "--sampler_threads", "4", "--edge_capacity",
+            str(st["edge_capacity"]), "--node_capacity",
+            str(st["node_capacity"]), "--device", "cuda"]
+    t0 = time.perf_counter()
+    cfg = config_from_args(create_parser().parse_args(argv))
+    tr = Trainer(cfg, build_dataset(cfg))
+    loaded = load_components(ssl_ck, tr.model, ["node_encoder",
+                                                "edge_encoder"])
+    setup_s = time.perf_counter() - t0
+    src, state = read_state(ssl_ck), tr.model.state_dict()
+    encoder = [k for k in state if k.startswith("edge_encoder.")]
+    check(loaded["grafted"] == encoder
+          and all(torch.equal(state[k].cpu(), src[k]) for k in encoder),
+          f"grafted {loaded['grafted']}, not the edge encoder {encoder}")
+    n, b = TRANSFER_BATCHES, cfg.batch_size
+    train, val, test = tr.dataset.edges.split()
+    train = DatasetView(train.parent, train.indices[:n * b])
+    val = DatasetView(val.parent, val.indices[:n * b])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    tm = tr.train_epoch(train, 0)
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train_counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    reset_counts()
+    vm = tr.evaluate(val, "val")
+    eval_counts = read_counts()
+    ck = save_epoch(os.path.join(WORK, "transfer_run"), 0, tr.model,
+                    tr.optimizer)
+    del tr
+    torch.cuda.empty_cache()
+    run: dict = {}
+    out, serve_counts, wall = serve([*argv, "--load_model", ck, "--split",
+                                     "test", "--output",
+                                     os.path.join(WORK, "transfer.csv")],
+                                    run)
+    rows = len(out["id"])
+    batches = -(-rows // b)
+    k = fused_launches(cfg.n_gnn_layers)
+
+    def split_only(fwd, bwd):
+        return {"fwd": fwd, "fwd_tiled": 0, "fwd_split": fwd, "bwd": bwd,
+                "bwd_tiled": 0, "bwd_split": bwd, "reduce": bwd, **NO_BF16}
+
+    check(train_counts == split_only(k * n, k * n),
+          f"launches {train_counts} for {n} transfer steps (expected {k} "
+          "split forwards, backwards and reduces a step)")
+    check(eval_counts == split_only(k * n, 0)
+          and serve_counts == split_only(k * batches, 0),
+          f"launches {eval_counts} for {n} evaluated and {serve_counts} "
+          f"for {batches} served batches (expected {k} split forwards a "
+          "batch)")
+    check(math.isfinite(tm["loss"]) and 0 <= vm["f1"] <= 1,
+          f"transfer loss {tm['loss']}, val f1 {vm['f1']}")
+    check(rows == len(test.indices) and np.isfinite(out["score"]).all(),
+          f"the transferred model served {rows} rows of "
+          f"{len(test.indices)}, or non-finite scores")
+    rec = {"phase": "transfer", "checkpoint_from": "ssl_train",
+           "channels": cfg.n_hidden, "layers": cfg.n_gnn_layers,
+           "heads": 8, "batch": b, "fanouts": list(cfg.num_neighs),
+           "dropout": cfg.dropout, "lr": cfg.lr,
+           "edge_capacity": cfg.edge_capacity,
+           "node_capacity": cfg.node_capacity,
+           "grafted": len(loaded["grafted"]), "kept": len(loaded["kept"]),
+           "steps": n, "eval_batches": n, "train_launches": train_counts,
+           "eval_launches": eval_counts, "serve_launches": serve_counts,
+           "loss": tm["loss"], "train_f1": tm["f1"], "val_f1": vm["f1"],
+           "val_auc": vm["auc"], "step_ms_median": tm.get("step_ms"),
+           "train_wall_s": train_wall,
+           "train_rows_per_s": train.tensor_frame.num_rows / train_wall,
+           "peak_memory_gb": peak / 1e9, "setup_s": setup_s,
+           "served_rows": rows, "served_batches": batches,
+           "serve_wall_s": wall, "serve_setup_s": run["setup_s"],
+           "rows_per_s_predict": rows / run["predict_s"],
+           "rows_per_s_wall": rows / wall, "drop_rate": tm["drop_rate"],
+           "card": card, "ok": True}
+    emit(rec)
+    return rec
+
+
+def transfer_parity_phase(card: str) -> dict:
+    """Three supervised ``tabgnnfused`` steps on the card after a transfer
+    from the committed JAX checkpoint, read by the port's msgpack reader,
+    against the JAX CPU record of the same steps
+    (``transfer_record.npz``, ``tools/make_torch_port_transfer_fixture.py``:
+    C = 16, 2 layers, 8 heads, batch 32 on a 1,000-row cut, dropout 0,
+    ``--freeze``): the same leaves grafted, each loss and the sampled
+    variables by ``convert.check_record``'s float32 limits, and the
+    parameters no step moved. C = 16: every launch tiled."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.convert import (check_record, from_jax, loss_terms,
+                                       random_variables, torch_key)
+    from rmm_tpu_torch.datasets import build_dataset, write_synthetic_aml_csv
+    from rmm_tpu_torch.train.trainer import Trainer
+    from rmm_tpu_torch.utils.checkpoint import load_components
+    from rmm_tpu_torch.utils.config import config_from_args, create_parser
+
+    rec = np.load(TRANSFER_FIXTURE)
+    st = json.loads(str(rec["settings"]))
+    csv = write_synthetic_aml_csv(os.path.join(WORK, "aml_transfer.csv"),
+                                  num_rows=st["rows"],
+                                  num_accounts=st["num_accounts"],
+                                  seed=st["data_seed"])
+    cfg = config_from_args(create_parser().parse_args([
+        "--data", csv, "--model", "tabgnnfused", "--n_hidden",
+        str(st["channels"]), "--n_gnn_layers", str(st["num_layers"]),
+        "--num_neighs", *map(str, st["khop_neighbors"]), "--batch_size",
+        str(st["batch_size"]), "--seed", str(st["seed"]), "--dropout", "0",
+        "--lr", str(st["lr"]), "--freeze", "--edge_capacity",
+        str(st["edge_capacity"]), "--node_capacity",
+        str(st["node_capacity"]), "--device", "cuda"]))
+    tr = Trainer(cfg, build_dataset(cfg))
+    tr.model.load_state_dict(from_jax(
+        random_variables(st["shapes"], st["var_seed"]), tr.model))
+    ck = os.path.join(os.path.dirname(TRANSFER_FIXTURE), st["checkpoint"])
+    loaded = load_components(ck, tr.model, st["transfer"])
+    want = {torch_key(k)[0] for k in st["grafted"]}
+    check(set(loaded["grafted"]) == want,
+          f"grafted {loaded['grafted']}, the reference {sorted(want)}")
+    batches = list(itertools.islice(
+        tr._batches(tr.dataset.edges.split()[0], "train", st["epoch"]),
+        st["steps"]))
+    before = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    reset_counts()
+    tr.model.train()
+    terms = [loss_terms(tr._step(gb.to(tr.device))[0], {})
+             for gb in batches]
+    counts = read_counts()
+    n, k = st["steps"], fused_launches(st["num_layers"])
+    check(counts == {"fwd": k * n, "fwd_tiled": k * n, "fwd_split": 0,
+                     "bwd": k * n, "bwd_tiled": k * n, "bwd_split": 0,
+                     "reduce": k * n, **NO_BF16},
+          f"launches {counts} for {n} transfer parity steps")
+    state = tr.model.state_dict()
+    faults, summary = check_record(state, terms, rec, "sup/", st["lr"], n,
+                                   st["channels"])
+    unmoved = {name for name, _ in tr.model.named_parameters()
+               if torch.equal(state[name], before[name])}
+    if unmoved != {torch_key(k)[0] for k in st["unmoved"]}:
+        faults.append(f"unmoved parameters {sorted(unmoved)}, the "
+                      f"reference's {st['unmoved']}")
+    check(not faults, "transfer steps off the JAX record: "
+          + "; ".join(faults))
+    out = {"phase": "transfer_parity", "rows": st["rows"], "steps": n,
+           "channels": st["channels"], "layers": st["num_layers"],
+           "grafted": len(loaded["grafted"]), "kept": len(loaded["kept"]),
+           "terms": terms, "jax_terms": rec["sup/term/loss"].tolist(),
+           **summary, "launches": counts, "card": card, "ok": True}
+    emit(out)
+    return out
 
 
 def ssl_parity_csv() -> str:
@@ -1313,10 +1555,24 @@ def main() -> int:
             ssl_parity16 = timed("ssl_parity_bf16", ssl_parity_phase, card,
                                  ssl_csv, SSL_BF16_FIXTURE, "bf16")
             timed("ssl_cli", ssl_cli_phase, card, ssl_csv)
+            transfer = timed("transfer", transfer_phase, card, csv,
+                             ssl_rec["checkpoint"])
+            timed("transfer_parity", transfer_parity_phase, card)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
         emit({"phase": "seconds", **seconds,
               "total": time.perf_counter() - t_start})
+        # the split launches of each path (the transfer's train, eval and
+        # serve runs; ssl_train's train and eval runs)
+        transfer_split = {
+            "fwd": sum(transfer[f"{r}_launches"]["fwd_split"]
+                       for r in ("train", "eval", "serve")),
+            "bwd": transfer["train_launches"]["bwd_split"]}
+        split_fwd = {"ssl_train": ssl_rec["train_launches"]["fwd"]
+                     + ssl_rec["eval_launches"]["fwd"],
+                     "transfer": transfer_split["fwd"]}
+        split_bwd = {"ssl_train": ssl_rec["train_launches"]["bwd"],
+                     "transfer": transfer_split["bwd"]}
         emit({"kernels": [
             kernel_entry("column_attention_fwd", 165, kern["fwd"],
                          kern["fwd"], {
@@ -1353,13 +1609,14 @@ def main() -> int:
                              "library_masked": False}),
             kernel_entry("column_attention_fwd_split", 165,
                          kern["ssl_fwd"], kern["ssl_fwd_unmasked"], {
-                             "path": "ssl_train",
+                             "path": "ssl_train, transfer",
                              "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
-                             "launches": ssl_rec["train_launches"]["fwd"]
-                             + ssl_rec["eval_launches"]["fwd"],
+                             "launches": sum(split_fwd.values()),
+                             "launches_by_path": split_fwd,
                              "split_launches":
                                  ssl_rec["train_launches"]["fwd_split"]
-                                 + ssl_rec["eval_launches"]["fwd_split"],
+                                 + ssl_rec["eval_launches"]["fwd_split"]
+                                 + transfer_split["fwd"],
                              "core_max_abs_err": max(
                                  r["core_max_abs_err"]
                                  for r in kern["ssl_fwd"]),
@@ -1368,23 +1625,28 @@ def main() -> int:
                                  ssl16["train_launches"]["fwd_split"]
                                  + ssl16["eval_launches"]["fwd_split"]
                                  + ssl_parity16["launches"]["fwd_split"],
-                             "narrow": narrow_times(kern["narrow_fwd"]),
+                             "narrow": shape_times(kern["narrow_fwd"]),
+                             "transfer": shape_times(kern["transfer_fwd"]),
                              "library_masked": False}),
             kernel_entry("column_attention_bwd_split", 178,
                          kern["ssl_bwd"], kern["ssl_bwd_unmasked"], {
-                             "path": "ssl_train",
+                             "path": "ssl_train, transfer",
                              "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
-                             "launches": ssl_rec["train_launches"]["bwd"],
+                             "launches": sum(split_bwd.values()),
+                             "launches_by_path": split_bwd,
                              "split_launches":
-                                 ssl_rec["train_launches"]["bwd_split"],
+                                 ssl_rec["train_launches"]["bwd_split"]
+                                 + transfer_split["bwd"],
                              "reduce_launches":
-                                 ssl_rec["train_launches"]["reduce"],
+                                 ssl_rec["train_launches"]["reduce"]
+                                 + transfer["train_launches"]["reduce"],
                              "launches_under_bf16":
                                  ssl16["train_launches"]["bwd_split"]
                                  + ssl_parity16["launches"]["bwd_split"],
                              "max_rel_err": max(max(r["max_rel_err"].values())
                                                 for r in kern["ssl_bwd"]),
-                             "narrow": narrow_times(kern["narrow_bwd"]),
+                             "narrow": shape_times(kern["narrow_bwd"]),
+                             "transfer": shape_times(kern["transfer_bwd"]),
                              "library_masked": False}),
             *bf16_entries(kern16, serve16, parity16, ssl16, ssl_parity16)]})
         print(card, flush=True)
@@ -1434,7 +1696,7 @@ def bf16_entries(kern16: dict, serve16: dict, parity16: dict, ssl16: dict,
                          "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
                          "launches": sum(split_fwd.values()),
                          "launches_by_path": split_fwd,
-                         "narrow": narrow_times(fwd[-nn:]),
+                         "narrow": shape_times(fwd[-nn:]),
                          "library_masked": False}),
         kernel_entry("column_attention_bwd_split_bf16", 178, bwd[4:6],
                      bwd[6:8], {
@@ -1446,14 +1708,14 @@ def bf16_entries(kern16: dict, serve16: dict, parity16: dict, ssl16: dict,
                          + ssl_parity16["launches"]["bwd_bf16"],
                          "max_rel_err": max(max(r["max_rel_err"].values())
                                             for r in bwd[4:6]),
-                         "narrow": narrow_times(bwd[-nn:]),
+                         "narrow": shape_times(bwd[-nn:]),
                          "library_masked": False})]
 
 
-def narrow_times(recs: list) -> dict:
-    """A split entry's times at the narrow shapes (C not a multiple of 4),
-    by shape: kernel, plain, library (unmasked only) and bound ms, and the
-    largest error."""
+def shape_times(recs: list) -> dict:
+    """A split entry's times at more shapes (the narrow ones, C not a
+    multiple of 4; the transfer path's), by shape: kernel, plain, library
+    (unmasked only) and bound ms, and the largest error."""
     return {f'{r["B"]}x{r["S"]}x{r["C"]}/{r["H"]} p={r["dropout"]}': {
         "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
         "library_ms": r["library_ms"], "bound_ms": r["bound_ms"],

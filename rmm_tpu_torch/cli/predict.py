@@ -3,6 +3,9 @@
     python -m rmm_tpu_torch.cli.predict --data <csv> --model tabgnn \\
         --load_model <checkpoint dir> --split test --output preds.csv
 
+``--model`` is ``tabgnn`` or ``tabgnnfused``; the checkpoint is the port's
+or the JAX package's (``utils/checkpoint.py::load_strict``).
+
 Same flags as ``rmm_tpu.cli.predict`` plus ``--device`` (``cuda`` by
 default, which raises without CUDA; ``cpu`` runs the kernels' plain
 versions). Writes one row per scored seed edge (``id,pred[,score]``).
@@ -24,7 +27,7 @@ from typing import Optional
 def main(argv=None, stats: Optional[dict] = None) -> dict:
     from ..datasets import build_dataset
     from ..train.trainer import Trainer
-    from ..utils.checkpoint import load_checkpoint
+    from ..utils.checkpoint import load_strict
     from ..utils.config import config_from_args, create_parser
     from ..utils.device import resolve_device
 
@@ -41,9 +44,9 @@ def main(argv=None, stats: Optional[dict] = None) -> dict:
     t0 = time.perf_counter()
     dataset = build_dataset(cfg)
     trainer = Trainer(cfg, dataset, device)
-    # serving never runs on fresh-init weights: strict load raises on any
-    # missing, extra or mis-shaped entry
-    load_checkpoint(args.load_model, trainer.model)
+    # serving never runs on fresh-init weights: any missing or mis-shaped
+    # entry raises (and any extra one in a port checkpoint)
+    load_strict(args.load_model, trainer.model)
     t1 = time.perf_counter()
 
     table = dataset.edges

@@ -14,6 +14,9 @@ Every other leaf (attention ``qkv_kernel``/``qkv_bias``/``out_kernel``/
 token) keeps its name and layout. Given the target module, every leaf must
 find its entry with the same shape and no entry may be left over.
 
+:func:`from_jax_checkpoint` reads a JAX checkpoint directory (the task
+models' components ``node_encoder``, ``edge_encoder``, ``model``,
+``decoder``, or the pretrainer's) into such a ``state_dict``.
 :func:`pretrain_variables` lays the JAX pretrainer's variables out as the
 port's ``PretrainModel``, and :func:`random_variables` is the numpy recipe
 that both packages' SSL parity records start from. :func:`check_record`
@@ -121,6 +124,19 @@ def from_jax(variables: dict,
                 raise ValueError(f"{k}: JAX shape {tuple(state[k].shape)} "
                                  f"vs torch {tuple(t.shape)}")
     return state
+
+
+def from_jax_checkpoint(ck_dir: str) -> dict[str, torch.Tensor]:
+    """A checkpoint directory of the JAX package (its ``params`` components
+    and ``extras``' ``batch_stats``, read by
+    ``utils/jax_checkpoint.read_checkpoint``) → ``state_dict`` entries. The
+    statistics keep the layout of ``extras``: a pretrainer's have no
+    ``model.`` prefix."""
+    from .utils.jax_checkpoint import read_checkpoint
+
+    tree = read_checkpoint(ck_dir)
+    return from_jax({k: tree[k] for k in ("params", "batch_stats")
+                     if k in tree})
 
 
 def to_jax_layout(state: dict, jax_key: str) -> np.ndarray:

@@ -325,9 +325,13 @@ class PretrainTrainer:
             precision=self.cfg.precision)
 
     def restore(self, ck_dir: str, with_opt: bool = True) -> dict:
-        """Load a checkpoint (the optimizer's state too, when there) and
-        return its best metrics."""
-        checkpoint.load_checkpoint(ck_dir, self.model)
+        """Load a checkpoint of either package (the port's optimizer state
+        too, when there; the JAX package's ``opt_state`` is not read, so
+        AdamW starts afresh) and return its best metrics."""
+        checkpoint.load_strict(ck_dir, self.model)
+        if not checkpoint.is_port_checkpoint(ck_dir):
+            logger.warning("%s is a JAX checkpoint: its optimizer state is "
+                           "not read, AdamW starts afresh", ck_dir)
         opt = os.path.join(ck_dir, "optimizer.pt")
         if with_opt and os.path.exists(opt):
             self.optimizer.load_state_dict(torch.load(

@@ -1,11 +1,13 @@
-"""Task wrapper: encoders + TABGNN + classifier head as one module
+"""Task wrappers: encoders + backbone + classifier head as one module
 (``rmm_tpu/train/task_models.py``: ``gather_rows``, ``apply_ego``,
-``TABGNNS``).
+``TABGNNS``, ``TABGNNFusedS``).
 
-The wrapper takes the device-resident edge and node tables and a
+A wrapper takes the device-resident edge and node tables and a
 :class:`~rmm_tpu_torch.utils.batch.GraphBatch` of ids and masks on the same
 device, gathers the batch's rows there and runs encode → backbone → head.
-Seed edges occupy lanes ``[0, B)``; the head reads that block.
+Seed edges occupy lanes ``[0, B)``; the head reads that block. The fused
+wrapper message-passes over the context lanes ``[B:)`` only and fuses the
+seed block as its targets.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from ..nn.encoders import (
     StypeWiseFeatureEncoder,
     TimestampEncoder,
 )
+from ..nn.models.fused import TABGNNFused
 from ..nn.models.tabgnn import TABGNN
 from ..nn.norms import MaskedBatchNorm
 from ..nn.transformer import CLSToken, MultiHeadSelfAttention
@@ -101,6 +104,48 @@ class TABGNNS(nn.Module):
         x, edge_attr = self.model(x_tok, batch.edge_index, e_tok,
                                   batch.edge_mask, batch.node_mask)
         return self.decoder(x, batch.edge_index[:, :b], edge_attr[:b])
+
+
+class TABGNNFusedS(nn.Module):
+    """The fused model as an edge classifier (model ``tabgnnfused``): the
+    node tokens flattened to ``node_dim = S_n·C`` into ``TABGNNFused``,
+    whose targets are the seed edges; the classifier reads the nodes and
+    the targets' embeddings."""
+
+    def __init__(self, node_encoder: StypeWiseFeatureEncoder,
+                 edge_encoder: StypeWiseFeatureEncoder, channels: int,
+                 n_gnn_layers: int, n_classes: int = 2, dropout: float = 0.1,
+                 avg_log_deg: float = 1.0, reverse_mp: bool = False,
+                 ego: bool = False, task: str = "edge_classification"):
+        super().__init__()
+        if task != "edge_classification":
+            raise NotImplementedError(f"task {task!r} is not ported yet")
+        self.ego = ego
+        self.node_encoder = node_encoder
+        self.edge_encoder = edge_encoder
+        self.model = TABGNNFused(
+            channels, n_gnn_layers, edge_encoder.num_cols,
+            node_dim=node_encoder.num_cols * channels, nhidden=channels,
+            avg_log_deg=avg_log_deg, reverse_mp=reverse_mp, dropout=dropout)
+        self.decoder = ClassifierHead(n_classes, channels, channels, dropout)
+
+    def forward(self, edge_table: TensorFrame, node_table: TensorFrame,
+                batch: GraphBatch) -> torch.Tensor:
+        """→ logits [B, n_classes] for the seed edges."""
+        b = batch.num_seeds
+        node_tf = gather_rows(node_table, batch.node_gather)
+        if self.ego:
+            node_tf = apply_ego(node_tf, batch.edge_index[:, :b],
+                                batch.node_gather.shape[0],
+                                seed_mask=batch.seed_mask)
+        x_tok = self.node_encoder(node_tf)
+        e_tok = self.edge_encoder(gather_rows(edge_table, batch.edge_gather))
+        target_ei = batch.edge_index[:, :b]
+        x, _, target = self.model(
+            x_tok.reshape(x_tok.shape[0], -1), batch.edge_index[:, b:],
+            e_tok[b:], target_ei, e_tok[:b], False, batch.edge_mask[b:],
+            batch.node_mask)
+        return self.decoder(x, target_ei, target)
 
 
 #: flax's ``lecun_normal``: a standard normal truncated at ±2 has standard

@@ -1,7 +1,7 @@
 """Trainer: capacities, model, device-resident tables, host-sampled
 batches, the train step, the epoch loop, evaluation and batch inference
 (``rmm_tpu/train/trainer.py``: ``Trainer`` without the scan/device-sampler
-paths).
+paths) for the task models ``tabgnn`` and ``tabgnnfused``.
 
 The host runs the C++ k-hop sampler and ships small id/mask arrays to the
 card as pinned, non-blocking copies; the edge and node feature tables go to
@@ -51,10 +51,15 @@ from . import task_models
 logger = logging.getLogger(__name__)
 
 
-def build_task_model(cfg: Config, dataset) -> task_models.TABGNNS:
-    if cfg.model != "tabgnn":
+#: the ported task models, by ``--model`` (``rmm_tpu/train/trainer.py:71-76``)
+TASK_MODELS = {"tabgnn": task_models.TABGNNS,
+               "tabgnnfused": task_models.TABGNNFusedS}
+
+
+def build_task_model(cfg: Config, dataset) -> torch.nn.Module:
+    if cfg.model not in TASK_MODELS:
         raise NotImplementedError(f"model {cfg.model!r} is not ported yet")
-    return task_models.TABGNNS(
+    return TASK_MODELS[cfg.model](
         node_encoder=make_stypewise_encoder(dataset.nodes, cfg.n_hidden),
         edge_encoder=make_stypewise_encoder(dataset.edges, cfg.n_hidden),
         channels=cfg.n_hidden, n_gnn_layers=cfg.n_gnn_layers,
@@ -105,7 +110,9 @@ def features(tf: TensorFrame, device) -> TensorFrame:
 
 def is_frozen(name: str) -> bool:
     """``--freeze``: the tabular backbone layers (JAX: any path key holding
-    ``tab_layer``)."""
+    ``tab_layer``, ``rmm_tpu/train/trainer.py:141-150``). ``tabgnnfused``
+    names its tabular layers ``tab_conv``, so there, as in the reference,
+    it freezes nothing."""
     return any("tab_layer" in part for part in name.split("."))
 
 

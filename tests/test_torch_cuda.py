@@ -717,6 +717,69 @@ def test_three_ssl_steps_on_the_card_match_the_cpu(cuda, tmp_path):
     assert not faults, faults
 
 
+def test_transfer_at_the_ssl_width_on_the_card_matches_the_cpu(cuda,
+                                                               tmp_path):
+    """SSL → supervised at the SSL widths (C = 128, 3 layers, 8 heads; the
+    split forward and backward): a port SSL checkpoint's encoders grafted
+    into ``tabgnnfused`` (``cli/main.py --load_model``'s
+    ``load_components``) on the CPU and on the card, then three steps with
+    dropout 0 from the same seeded start: the same leaves grafted, each
+    loss 1e-4 rel, and every variable by the limits of
+    ``rmm_tpu_torch.convert.check_states``."""
+    import itertools
+
+    from rmm_tpu_torch.cli import fused
+    from rmm_tpu_torch.convert import check_states, loss_terms
+    from rmm_tpu_torch.datasets import build_dataset, write_synthetic_aml_csv
+    from rmm_tpu_torch.train.pretrain import PretrainTrainer
+    from rmm_tpu_torch.train.trainer import Trainer
+    from rmm_tpu_torch.utils.checkpoint import load_components
+    from rmm_tpu_torch.utils.config import config_from_args, create_parser
+
+    data = str(tmp_path / "aml.csv")
+    write_synthetic_aml_csv(data, num_rows=2000, num_accounts=125, seed=0)
+    cfg = fused.config_from_args(fused.build_parser().parse_args(
+        ["--dataset", data, "--channels", "128", "--num_layers", "3",
+         "--num_neg_samples", "16", "--khop_neighbors", "10", "10",
+         "--batch_size", "64", "--device", "cpu"]))
+    ck = PretrainTrainer(cfg, build_dataset(cfg), "mcm-lp").save(
+        str(tmp_path / "ssl"), 0, {})
+    counters = ("launches", "fwd_tiled_launches", "bwd_launches",
+                "bwd_tiled_launches", "reduce_launches",
+                "bwd_split_launches", "fwd_split_launches")
+    runs = []
+    for device in ("cpu", "cuda"):
+        cfg = config_from_args(create_parser().parse_args(
+            ["--data", data, "--model", "tabgnnfused", "--n_hidden", "128",
+             "--n_gnn_layers", "3", "--num_neighs", "10", "10",
+             "--batch_size", "64", "--dropout", "0", "--device", device]))
+        tr = Trainer(cfg, build_dataset(cfg))
+        grafted = load_components(ck, tr.model, ["node_encoder",
+                                                 "edge_encoder"])["grafted"]
+        tr.model.train()
+        before = [getattr(ca, n) for n in counters]
+        batches = itertools.islice(
+            tr._batches(tr.dataset.edges.split()[0], "train"), 3)
+        terms = [loss_terms(tr._step(gb.to(tr.device))[0], {})
+                 for gb in batches]
+        launched = tuple(getattr(ca, n) - m
+                         for n, m in zip(counters, before))
+        runs.append((grafted, terms, {k: v.cpu() for k, v in
+                                      tr.model.state_dict().items()},
+                     launched))
+    (cpu_grafted, cpu_terms, cpu_state, cpu_launched), (
+        grafted, terms, state, launched) = runs
+    assert grafted == cpu_grafted and grafted
+    assert all(k.startswith("edge_encoder.") for k in grafted)
+    assert cpu_launched == (0,) * 7
+    # 5 a step each way (the top layer on the edge tokens and the targets,
+    # one a fused layer), all through the split routes
+    assert launched == (15, 0, 15, 0, 15, 15, 15)
+    faults, _ = check_states(state, terms, cpu_state, cpu_terms, cfg.lr,
+                             updates=3, nhidden=128, loss_rtol=(1e-4, 1e-4))
+    assert not faults, faults
+
+
 # bf16 (--precision bf16): both directions' tiled and split routes on bf16
 # x and weights. C = 100 and 68 are rows of C % 8 = 4 bf16 elements, which
 # the split route's GEMMs copy 8 bytes at a time; C = 126, 30 and 21, which

@@ -319,9 +319,18 @@ def test_train_cli_checkpoints_serve_and_resume(aml_csv, tmp_path):
     assert [h["epoch"] for h in history] == [1]
     assert os.path.isdir(os.path.join(run_dir, "1"))
     assert not os.path.exists(os.path.join(run_dir, "0"))   # pruned
-    with pytest.raises(NotImplementedError, match="encoder transfer"):
-        train_cli.main(["--data", aml_csv, *ARGS, "--device", "cpu",
-                        "--load_model", os.path.join(run_dir, "1")])
+    # --load_model alone transfers the encoders and, as the reference
+    # merges a checkpoint's extras whatever the components, the BatchNorm
+    # statistics of a task model's checkpoint
+    run = {}
+    train_cli.main(["--data", aml_csv, *ARGS, "--epochs", "1", "--testing",
+                    "--device", "cpu", "--wandb_dir", wandb, "--load_model",
+                    os.path.join(run_dir, "1")], run)
+    saved = torch.load(os.path.join(run_dir, "1", "model.pt"),
+                       weights_only=True)
+    assert run["transfer"]["grafted"] == [
+        k for k in saved if k.startswith(("node_encoder.", "edge_encoder."))
+        or k.endswith(("running_mean", "running_var"))]
 
 
 def test_train_cli_needs_cuda_unless_asked_for_cpu(aml_csv, tmp_path):

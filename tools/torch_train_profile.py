@@ -3,6 +3,7 @@
     python3 tools/torch_train_profile.py [--rows 131072] [--batches 24]
     python3 tools/torch_train_profile.py --ssl [--rows 131072] [--batches 12]
     python3 tools/torch_train_profile.py --ssl --precision bf16
+    python3 tools/torch_train_profile.py --model tabgnnfused
 
 Builds the supervised config of record with ``rmm_tpu_torch`` (synthetic
 AML, tabgnn, C = 32, 2 layers, fanouts 100/100, batch 200, dropout 0.083;
@@ -17,6 +18,11 @@ shuffled train batches of epoch 0:
 * the whole train loop (``Trainer.train_epoch`` over those batches), with
   the card's busy share (sum of kernel time over the loop's wall time).
 
+With ``--model tabgnnfused`` the same for the transfer cell's supervised
+fused model (C = 128, 3 layers, 8 heads, the supervised config's data and
+flags, random weights), with its forward by layer and the peak memory of
+a step.
+
 With ``--ssl`` the same for SSL pretraining at the SSL config of record
 (``PretrainTrainer``, mcm-lp, C = 128, 3 layers, 8 heads, 64 negatives,
 batch 200, fanouts 100/100, dropout 0.5, lr 2e-4): host sampling with the
@@ -28,8 +34,9 @@ kernels of the forward and of the whole step, and the train loop.
 forwards through the trainers' own cast of the parameters); every line
 names its precision. Prints one JSON line per measurement and writes the
 profiler's kernel table to ``--table`` (default ``outputs/
-train_profile.txt``, ``outputs/ssl_profile.txt`` with ``--ssl``). Needs a
-CUDA card.
+train_profile.txt``, ``outputs/tabgnnfused_profile.txt`` with ``--model
+tabgnnfused``, ``outputs/ssl_profile.txt`` with ``--ssl``). Needs a CUDA
+card.
 """
 from __future__ import annotations
 
@@ -69,12 +76,14 @@ def layer_times(model, run, n: int) -> dict:
     steps."""
     import torch
 
-    names = ["edge_encoder", "model.tab_conv", "model.edge_emb", "mcm_head",
-             "lp_head"]
+    names = ["node_encoder", "edge_encoder", "model.node_emb",
+             "model.tab_conv", "model.edge_emb", "mcm_head", "lp_head",
+             "decoder"]
     names += [f"model.layer_{i}{part}" for i in range(model.model.num_layers)
               for part in ("", ".tab_conv", ".gnn_conv", ".gnn_edge_update",
                            ".fuse")]
     mods = dict(model.named_modules())
+    names = [name for name in names if name in mods]
     events: dict = {name: [] for name in names}
     handles = []
     for name in names:
@@ -217,6 +226,8 @@ def main(argv=None):
     p.add_argument("--batches", type=int, default=None,
                    help="24, or 12 with --ssl")
     p.add_argument("--ssl", action="store_true")
+    p.add_argument("--model", default="tabgnn",
+                   choices=("tabgnn", "tabgnnfused"))
     p.add_argument("--precision", default="f32", choices=("f32", "bf16"))
     p.add_argument("--table", default=None)
     args = p.parse_args(argv)
@@ -226,7 +237,9 @@ def main(argv=None):
         args.batches = 12 if args.ssl else 24
     if args.table is None:
         args.table = os.path.join(ROOT, "outputs", "ssl_profile.txt"
-                                  if args.ssl else "train_profile.txt")
+                                  if args.ssl else "train_profile.txt"
+                                  if args.model == "tabgnn" else
+                                  "tabgnnfused_profile.txt")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -258,12 +271,15 @@ def main(argv=None):
     write_synthetic_aml_csv(csv, num_rows=args.rows,
                             num_accounts=max(args.rows // 16, 64), seed=0)
     t0 = time.perf_counter()
-    cfg = Config(model="tabgnn", data=csv, batch_size=200, n_hidden=32,
-                 n_gnn_layers=2, num_neighs=(100, 100), device="cuda",
-                 sampler_threads=4, precision=args.precision)
+    fused = args.model == "tabgnnfused"
+    cfg = Config(model=args.model, data=csv, batch_size=200,
+                 n_hidden=128 if fused else 32,
+                 n_gnn_layers=3 if fused else 2, num_neighs=(100, 100),
+                 device="cuda", sampler_threads=4, precision=args.precision)
     ds = IBMTransactionsAML(csv, khop_neighbors=cfg.num_neighs)
     tr = Trainer(cfg, ds)
-    emit({"phase": "setup", "seconds": time.perf_counter() - t0,
+    emit({"phase": "setup", "model": args.model,
+          "seconds": time.perf_counter() - t0,
           "edge_capacity": tr.cfg.edge_capacity,
           "node_capacity": tr.cfg.node_capacity, "card": card})
     train = ds.edges.split()[0]
@@ -280,6 +296,7 @@ def main(argv=None):
         tr._step(g)
     torch.cuda.synchronize()
 
+    torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -290,7 +307,15 @@ def main(argv=None):
     end.synchronize()
     emit({"phase": "device_step", "ms_per_step": start.elapsed_time(end) / n,
           "host_enqueue_ms_per_step": 1e3 * (time.perf_counter() - t0) / n,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "card": card})
+    if fused:
+        def forwards():
+            for g in dev:
+                tr._logits(g)
+
+        emit({"phase": "train_forward_layers", "card": card,
+              "layers": layer_times(tr.model, forwards, n)})
 
     # forward alone (train mode, grad on) and the whole step, by kernel
     with profile(activities=[ProfilerActivity.CPU,
