@@ -27,11 +27,11 @@ through all of them:
              there against its plain twin; both directions at the
              transfer path's C = 128 shapes (130872x6x128/8 context edge
              tokens, 200x6x128/8 target rows, with the 0.083 keep-mask and
-             without it). Each record names the route it
-             took (tiled or split, by width, held to ``route(c)``), and
-             two calls of each direction at the main path's masked edge
-             shape, at the SSL and the transfer masked edge shapes and at
-             the masked 32768x6x126/6 are bitwise equal. Max error (the
+             without it). Each record names the route it took (tiled or
+             split, by width and S, held to ``route(c, s)``), and two
+             calls of each direction at the main path's masked edge shape,
+             at the SSL and the transfer masked edge shapes and at the
+             masked 32768x6x126/6 are bitwise equal. Max error (the
              backward's relative to each reference tensor's largest
              entry), kernel / plain / library times (CUDA events, warm,
              median) and the bound.
@@ -97,6 +97,30 @@ through all of them:
              fixture.py``: C = 16, 2 layers, a 1,000-row cut; the tiled
              kernels): the grafted leaves, each loss and the sampled
              variables (``convert.check_record``), the unmoved parameters.
+12. node_train — Elliptic node classification (the reference's
+             ``elliptic`` config: tabgnn, C = 32, 8 heads, 2 layers,
+             fanouts 100/100, batch 200, dropout 0.083) on the port's
+             synthetic Elliptic at its published size (203,769
+             transactions with 166 feature columns, 234,355 edges; written
+             and read as CSV, the ``node_data`` seconds): the first 24 train
+             and 24 val batches (the transfer phase's cut), saved. Each step
+             and batch launches 2 split calls (the node tokens, S = 167:
+             the long attention cores) and 2 tiled (the edge tokens, S = 2)
+             each way. Train rows/s, the median step, peak memory, val f1.
+13. kernel_long — both directions at S > 16 against the plain twin: the
+             node path's [node capacity, 167, 32/8], 4096x17x32/8,
+             4096x40x128/8 and the longest S the cores take at C = 32 and
+             at C = 128, each with the 0.083 keep-mask and without it
+             (records as the kernel phase's; two calls bitwise equal at the
+             node shape).
+14. node_serve — the predict CLI on node_train's checkpoint over the whole
+             test split: every labelled test node's id once (no unknown
+             class), finite scores, 2 split and 2 tiled forwards a batch.
+15. node_parity — the test split served and three steps (dropout 0) on a
+             2,000-node cut at the slice's widths, from the JAX CPU record
+             ``node_record.npz`` (``tools/make_torch_port_node_fixture.py``)
+             and against it: the same node ids, scores within 1e-3, and
+             ``convert.check_record``'s float32 limits.
 
 And at ``--precision bf16`` (the reference's scheme: float32 masters,
 bf16 parameters and tables in each step; under it the AML edge tokens are
@@ -106,8 +130,11 @@ float32, their timestamp block being so, and the node tokens bf16):
              their plain twin on bf16 x, do and weights at the main path's
              edge and node shapes (unmasked and with the training
              keep-mask), the SSL pair (0.5 keep-mask and unmasked),
-             32768x6x100/4 (bf16 rows of C % 8 = 4) and the narrow shapes
-             (0.5 keep-mask and unmasked): out and dx within one
+             32768x6x100/4 (bf16 rows of C % 8 = 4), the narrow shapes
+             (0.5 keep-mask and unmasked) and, past S = 16 (the long
+             cores; Elliptic's node tokens are bf16 under bf16),
+             4096x167x32/8 and 4096x40x128/8 (the node keep-mask and
+             unmasked): out and dx within one
              bf16 rounding, the float32 weight gradients at the float32
              tolerance, bitwise repeats, kernel / plain / library times
              and the bound from bf16 bytes.
@@ -124,10 +151,13 @@ float32, their timestamp block being so, and the node tokens bf16):
 (the bf16 records: ``tools/make_torch_port_bf16_fixture.py``).
 
 Then the seconds each phase took, a ``{"kernels": [...]}`` line (an entry
-per kernel, each with its ``path``: the main path's tiled kernels at C = 32,
-the SSL and transfer paths' split forward and backward at C = 128 (their
-launches by path), with their times at the transfer and the narrow shapes
-beside, and the bf16 builds of the tiled and split kernels, likewise),
+per kernel, each with its ``path``: the main path's tiled kernels at C = 32
+(with the node path's edge tokens), the SSL and transfer paths' split
+forward and backward at C = 128 (their launches by path), with their times
+at the transfer and the narrow shapes beside, the split routes at S > 16
+(the node path's node tokens: their times at the node shape and at the
+other long shapes), and the bf16 builds of the tiled and split kernels,
+likewise),
 the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 package beside it, the script fails and prints no result.
@@ -198,6 +228,21 @@ TRANSFER_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
 TRANSFER_BATCHES = 24
 TRANSFER_ARGV = ["--model", "tabgnnfused", "--n_hidden", "128",
                  "--n_gnn_layers", "3"]
+
+# The node path (Elliptic node classification, the reference's elliptic
+# config: tabgnn, C = 32, 8 heads, 2 layers, fanouts 100/100, batch 200,
+# dropout 0.083) on the port's synthetic Elliptic at its published size:
+# 203,769 transactions with 166 feature columns (node tokens S = 167: the
+# split routes' long cores) and 234,355 edges (one dummy attribute: edge
+# tokens S = 2, the tiled kernels). Its train and val splits are cut to the
+# first NODE_BATCHES batches, as the transfer phase's are.
+ELLIPTIC_NODES, ELLIPTIC_EDGES, ELLIPTIC_FEATS = 203769, 234355, 166
+NODE_S = ELLIPTIC_FEATS + 1
+NODE_BATCHES = 24
+NODE_ARGV = ["--model", "tabgnn", "--n_hidden", "32", "--n_gnn_layers", "2",
+             "--num_neighs", "100", "100", "--batch_size", "200"]
+NODE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
+                            "node_record.npz")
 
 # column attention launches an mcm-lp step makes, each direction: two views
 # x (the top-level encoder layer on the edge tokens and on the target rows,
@@ -365,6 +410,153 @@ NARROW_SHAPES = [(b, s, c, h, rate) for b, s, c, h in
                  for rate in (SSL_DROPOUT, 0.0)]
 
 
+def fwd_record(rng, dev, b, s, c, h, rate, card, repeat=False) -> dict:
+    """The forward at one shape (seeded inputs, a keep-mask where ``rate``
+    > 0) against its plain version on the card: the route it took (held to
+    ``route(c, s)``), two calls bitwise equal where ``repeat``, the split
+    forward's core alone against its twin, kernel / plain / library times
+    and the bound."""
+    import torch
+
+    from rmm_tpu_torch.ops import column_attention as ca
+
+    x, wqkv, bqkv, wout, bout = random_inputs(rng, b, s, c, dev)
+    mask = None
+    if rate > 0:
+        mask = torch.from_numpy(rng.rand(b, h, s, s) >= rate).to(dev)
+    args = (x, wqkv, bqkv, wout, bout, h, mask, rate)
+    with torch.inference_mode():
+        before = (ca.fwd_tiled_launches, ca.fwd_split_launches)
+        out = ca.fused_column_attention(*args)
+        route = ("tiled" if ca.fwd_tiled_launches > before[0] else
+                 "split" if ca.fwd_split_launches > before[1] else None)
+        check(route == ca.route(c, s),
+              f"forward {b}x{s}x{c}/{h} took the {route} route, not "
+              f"{ca.route(c, s)}")
+        repeat_equal = None
+        if repeat:
+            repeat_equal = torch.equal(out, ca.fused_column_attention(*args))
+            check(repeat_equal, f"forward {b}x{s}x{c}/{h}: two calls on "
+                  "the same inputs differ")
+        ref = ca.reference_column_attention(*args)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        check(math.isfinite(err) and err <= KERNEL_TOL,
+              f"column attention {b}x{s}x{c}/{h} p={rate}: "
+              f"max_abs_err {err} > {KERNEL_TOL}")
+        core_err = None
+        if route == "split":   # the attention core alone, on the qkv
+            tok = torch.matmul(x, wqkv) + bqkv
+            core_err = float((ca.attention_core_fwd(tok, h, mask, rate)
+                              - ca.reference_attention_core(
+                                  tok, h, mask, rate)).abs().max())
+            check(math.isfinite(core_err) and core_err <= KERNEL_TOL,
+                  f"split forward's core {b}x{s}x{c}/{h} p={rate}: "
+                  f"max_abs_err {core_err} > {KERNEL_TOL}")
+            del tok
+        k_ms = time_ms(lambda: ca.fused_column_attention(*args))
+        p_ms = time_ms(lambda: ca.reference_column_attention(*args))
+        lib_ms = None
+        if mask is None:   # no library call takes an explicit keep-mask
+            lib = (x, wqkv, bqkv, wout, bout, h)
+            lib_err = float((library_attention(*lib) - ref).abs().max())
+            check(lib_err <= KERNEL_TOL,
+                  f"library attention disagrees: {lib_err}")
+            lib_ms = time_ms(lambda: library_attention(*lib))
+    t_bytes, t_ops = attention_floor(b, s, c, h, mask is not None)
+    bound_ms, by = bound(t_bytes, t_ops)
+    plan = ca.fwd_plan(b, s, c, h)
+    rec = {"phase": "kernel", "kernel": "column_attention_fwd",
+           "B": b, "S": s, "C": c, "H": h, "dropout": rate,
+           "route": route, "rows": plan.rows, "blocks": plan.grid,
+           "repeat_bitwise_equal": repeat_equal, "max_abs_err": err,
+           "core_max_abs_err": core_err,
+           "tol": KERNEL_TOL, "kernel_ms": k_ms,
+           "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+           "bound_by": by, "bytes_ms": t_bytes, "ops_ms": t_ops,
+           "card": card, "ok": True}
+    emit(rec)
+    del x, out, ref, mask, args
+    torch.cuda.empty_cache()
+    return rec
+
+
+def bwd_record(rng, dev, b, s, c, h, rate, card, repeat=False) -> dict:
+    """The backward (and its reduce) at one shape against
+    ``torch.autograd.grad`` of the plain version: the route (held to
+    ``route(c, s)``), two calls bitwise equal where ``repeat``, each
+    gradient's error relative to its largest entry, kernel / plain /
+    library times and the bound."""
+    import torch
+
+    from rmm_tpu_torch.ops import column_attention as ca
+
+    inputs = random_inputs(rng, b, s, c, dev)
+    do = random_inputs(rng, b, s, c, dev)[0]
+    mask = None
+    if rate > 0:
+        mask = torch.from_numpy(rng.rand(b, h, s, s) >= rate).to(dev)
+    x, wqkv, bqkv, wout, _ = inputs
+    args = (x, do, wqkv, bqkv, wout, h, mask, rate)
+    before = (ca.bwd_tiled_launches, ca.bwd_split_launches)
+    got = ca.column_attention_bwd(*args)
+    route = ("tiled" if ca.bwd_tiled_launches > before[0] else
+             "split" if ca.bwd_split_launches > before[1] else None)
+    check(route == ca.route(c, s),
+          f"backward {b}x{s}x{c}/{h} took the {route} route, not "
+          f"{ca.route(c, s)}")
+    repeat_equal = None
+    if repeat:   # the weight gradients are deterministic
+        again = ca.column_attention_bwd(*args)
+        repeat_equal = all(torch.equal(g, a) for g, a in zip(got, again))
+        check(repeat_equal, f"backward {b}x{s}x{c}/{h}: two calls on "
+              "the same inputs differ")
+        del again
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    out = ca.reference_column_attention(*leaves, h, mask, rate)
+    want = torch.autograd.grad(out, leaves, do, retain_graph=True)
+    torch.cuda.synchronize()
+    names = ("dx", "dwqkv", "dbqkv", "dwout", "dbout")
+    errs = {n: float((g - w).abs().max() / w.abs().max().clamp(
+        min=1e-30)) for n, g, w in zip(names, got, want)}
+    check(all(math.isfinite(e) and e <= GRAD_TOL for e in errs.values()),
+          f"column attention backward {b}x{s}x{c}/{h} p={rate}: "
+          f"relative errors {errs} > {GRAD_TOL}")
+    k_ms = time_ms(lambda: ca.column_attention_bwd(*args))
+    p_ms = time_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                               retain_graph=True))
+    lib_ms = None
+    if mask is None:   # the backward alone of the library call
+        lib_out = library_attention(*leaves, h)
+        lib_dx = torch.autograd.grad(lib_out, leaves[0], do,
+                                     retain_graph=True)[0]
+        lib_err = float((lib_dx - want[0]).abs().max()
+                        / want[0].abs().max())
+        check(lib_err <= GRAD_TOL,
+              f"library attention backward disagrees: {lib_err}")
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, do, retain_graph=True))
+        del lib_out, lib_dx
+    plan = ca.bwd_plan(b, s, c, h)
+    t_bytes, t_ops = attention_bwd_floor(b, s, c, h, mask is not None)
+    bound_ms, by = bound(t_bytes, t_ops)
+    rec = {"phase": "kernel", "kernel": "column_attention_bwd",
+           "B": b, "S": s, "C": c, "H": h, "dropout": rate,
+           "route": route, "rows": plan.rows,
+           "blocks": plan.grid, "slices": plan.slices,
+           "repeat_bitwise_equal": repeat_equal,
+           "max_rel_err": errs, "tol": GRAD_TOL,
+           "max_abs_err": max(float((g - w).abs().max())
+                              for g, w in zip(got, want)),
+           "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+           "bound_ms": bound_ms, "bound_by": by, "bytes_ms": t_bytes,
+           "ops_ms": t_ops, "card": card, "ok": True}
+    emit(rec)
+    del inputs, do, mask, args, got, leaves, out, want
+    torch.cuda.empty_cache()
+    return rec
+
+
 def kernel_phase(card: str) -> dict:
     """Column attention on the card against its plain version. Returns the
     records of the main path's shapes: ``fwd``/``fwd_masked``/``bwd`` pairs
@@ -372,8 +564,6 @@ def kernel_phase(card: str) -> dict:
     and ``bwd_unmasked`` (where the library call times the backward)."""
     import numpy as np
     import torch
-
-    from rmm_tpu_torch.ops import column_attention as ca
 
     st = fixture_settings()
     edges, nodes, c = st["edge_capacity"], st["node_capacity"], st["n_hidden"]
@@ -399,140 +589,16 @@ def kernel_phase(card: str) -> dict:
     ] + NARROW_SHAPES + transfer + SSL_SHAPES
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
-    fwd, bwd = [], []
-    for b, s, c, h, rate in fwd_shapes:
-        x, wqkv, bqkv, wout, bout = random_inputs(rng, b, s, c, dev)
-        mask = None
-        if rate > 0:
-            mask = torch.from_numpy(rng.rand(b, h, s, s) >= rate).to(dev)
-        args = (x, wqkv, bqkv, wout, bout, h, mask, rate)
-        with torch.inference_mode():
-            before = (ca.fwd_tiled_launches, ca.fwd_split_launches)
-            out = ca.fused_column_attention(*args)
-            route = ("tiled" if ca.fwd_tiled_launches > before[0] else
-                     "split" if ca.fwd_split_launches > before[1] else None)
-            check(route == ca.route(c),
-                  f"forward {b}x{s}x{c}/{h} took the {route} route, not "
-                  f"{ca.route(c)}")
-            repeat_equal = None
-            # the masked edge shapes of the main path, of the SSL path and
-            # of the transfer path, and the first narrow shape
-            if len(fwd) == 2 or (b, s, c, h, rate) in (
-                    SSL_SHAPES[0], NARROW_SHAPES[0], transfer[0]):
-                repeat_equal = torch.equal(out,
-                                           ca.fused_column_attention(*args))
-                check(repeat_equal, f"forward {b}x{s}x{c}/{h}: two calls on "
-                      "the same inputs differ")
-            ref = ca.reference_column_attention(*args)
-            torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            check(math.isfinite(err) and err <= KERNEL_TOL,
-                  f"column attention {b}x{s}x{c}/{h} p={rate}: "
-                  f"max_abs_err {err} > {KERNEL_TOL}")
-            core_err = None
-            if route == "split":   # the attention core alone, on the qkv
-                tok = torch.matmul(x, wqkv) + bqkv
-                core_err = float((ca.attention_core_fwd(tok, h, mask, rate)
-                                  - ca.reference_attention_core(
-                                      tok, h, mask, rate)).abs().max())
-                check(math.isfinite(core_err) and core_err <= KERNEL_TOL,
-                      f"split forward's core {b}x{s}x{c}/{h} p={rate}: "
-                      f"max_abs_err {core_err} > {KERNEL_TOL}")
-                del tok
-            k_ms = time_ms(lambda: ca.fused_column_attention(*args))
-            p_ms = time_ms(lambda: ca.reference_column_attention(*args))
-            lib_ms = None
-            if mask is None:   # no library call takes an explicit keep-mask
-                lib = (x, wqkv, bqkv, wout, bout, h)
-                lib_err = float((library_attention(*lib) - ref).abs().max())
-                check(lib_err <= KERNEL_TOL,
-                      f"library attention disagrees: {lib_err}")
-                lib_ms = time_ms(lambda: library_attention(*lib))
-        t_bytes, t_ops = attention_floor(b, s, c, h, mask is not None)
-        bound_ms, by = bound(t_bytes, t_ops)
-        plan = ca.fwd_plan(b, s, c, h)
-        rec = {"phase": "kernel", "kernel": "column_attention_fwd",
-               "B": b, "S": s, "C": c, "H": h, "dropout": rate,
-               "route": route, "rows": plan.rows, "blocks": plan.grid,
-               "repeat_bitwise_equal": repeat_equal, "max_abs_err": err,
-               "core_max_abs_err": core_err,
-               "tol": KERNEL_TOL, "kernel_ms": k_ms,
-               "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-               "bound_by": by, "bytes_ms": t_bytes, "ops_ms": t_ops,
-               "card": card, "ok": True}
-        emit(rec)
-        fwd.append(rec)
-        del x, out, ref, mask, args
-        torch.cuda.empty_cache()
-
-    for b, s, c, h, rate in bwd_shapes:
-        inputs = random_inputs(rng, b, s, c, dev)
-        do = random_inputs(rng, b, s, c, dev)[0]
-        mask = None
-        if rate > 0:
-            mask = torch.from_numpy(rng.rand(b, h, s, s) >= rate).to(dev)
-        x, wqkv, bqkv, wout, _ = inputs
-        args = (x, do, wqkv, bqkv, wout, h, mask, rate)
-        before = (ca.bwd_tiled_launches, ca.bwd_split_launches)
-        got = ca.column_attention_bwd(*args)
-        route = ("tiled" if ca.bwd_tiled_launches > before[0] else
-                 "split" if ca.bwd_split_launches > before[1] else None)
-        check(route == ca.route(c),
-              f"backward {b}x{s}x{c}/{h} took the {route} route, not "
-              f"{ca.route(c)}")
-        repeat_equal = None
-        # the masked edge shapes of the main path, of the SSL path and of
-        # the transfer path, and the first narrow shape: the weight
-        # gradients are deterministic
-        if not bwd or (b, s, c, h, rate) in (SSL_SHAPES[0],
-                                             NARROW_SHAPES[0], transfer[0]):
-            again = ca.column_attention_bwd(*args)
-            repeat_equal = all(torch.equal(g, a) for g, a in zip(got, again))
-            check(repeat_equal, f"backward {b}x{s}x{c}/{h}: two calls on "
-                  "the same inputs differ")
-            del again
-        leaves = [t.detach().requires_grad_() for t in inputs]
-        out = ca.reference_column_attention(*leaves, h, mask, rate)
-        want = torch.autograd.grad(out, leaves, do, retain_graph=True)
-        torch.cuda.synchronize()
-        names = ("dx", "dwqkv", "dbqkv", "dwout", "dbout")
-        errs = {n: float((g - w).abs().max() / w.abs().max().clamp(
-            min=1e-30)) for n, g, w in zip(names, got, want)}
-        check(all(math.isfinite(e) and e <= GRAD_TOL for e in errs.values()),
-              f"column attention backward {b}x{s}x{c}/{h} p={rate}: "
-              f"relative errors {errs} > {GRAD_TOL}")
-        k_ms = time_ms(lambda: ca.column_attention_bwd(*args))
-        p_ms = time_ms(lambda: torch.autograd.grad(out, leaves, do,
-                                                   retain_graph=True))
-        lib_ms = None
-        if mask is None:   # the backward alone of the library call
-            lib_out = library_attention(*leaves, h)
-            lib_dx = torch.autograd.grad(lib_out, leaves[0], do,
-                                         retain_graph=True)[0]
-            lib_err = float((lib_dx - want[0]).abs().max()
-                            / want[0].abs().max())
-            check(lib_err <= GRAD_TOL,
-                  f"library attention backward disagrees: {lib_err}")
-            lib_ms = time_ms(lambda: torch.autograd.grad(
-                lib_out, leaves, do, retain_graph=True))
-        plan = ca.bwd_plan(b, s, c, h)
-        t_bytes, t_ops = attention_bwd_floor(b, s, c, h, mask is not None)
-        bound_ms, by = bound(t_bytes, t_ops)
-        rec = {"phase": "kernel", "kernel": "column_attention_bwd",
-               "B": b, "S": s, "C": c, "H": h, "dropout": rate,
-               "route": route, "rows": plan.rows,
-               "blocks": plan.grid, "slices": plan.slices,
-               "repeat_bitwise_equal": repeat_equal,
-               "max_rel_err": errs, "tol": GRAD_TOL,
-               "max_abs_err": max(float((g - w).abs().max())
-                                  for g, w in zip(got, want)),
-               "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-               "bound_ms": bound_ms, "bound_by": by, "bytes_ms": t_bytes,
-               "ops_ms": t_ops, "card": card, "ok": True}
-        emit(rec)
-        bwd.append(rec)
-        del inputs, do, mask, args, got, leaves, out, want
-        torch.cuda.empty_cache()
+    # two calls of each direction are held bitwise equal at the masked edge
+    # shapes of the main path, of the SSL path and of the transfer path,
+    # and at the first narrow shape
+    repeat = (SSL_SHAPES[0], NARROW_SHAPES[0], transfer[0])
+    fwd = [fwd_record(rng, dev, *shape, card,
+                      repeat=i == 2 or shape in repeat)
+           for i, shape in enumerate(fwd_shapes)]
+    bwd = [bwd_record(rng, dev, *shape, card,
+                      repeat=i == 0 or shape in repeat)
+           for i, shape in enumerate(bwd_shapes)]
     n, m = len(SSL_SHAPES), len(transfer)
     narrow = [r for r in fwd + bwd
               if (r["B"], r["S"], r["C"], r["H"], r["dropout"])
@@ -548,6 +614,41 @@ def kernel_phase(card: str) -> dict:
                            if r["kernel"] == "column_attention_fwd"],
             "narrow_bwd": [r for r in narrow
                            if r["kernel"] == "column_attention_bwd"]}
+
+
+def long_shapes(node_capacity: int) -> list:
+    """Rows past S = 16 (the split routes' long attention cores), each with
+    the node path's 0.083 keep-mask and without it: the node path's
+    [node capacity, 167, 32/8], 4096x17x32/8, 4096x40x128/8 and the longest
+    S the cores take at C = 32 and at C = 128 (8 heads)."""
+    from rmm_tpu_torch.ops import column_attention as ca
+
+    shapes = [(node_capacity, NODE_S, 32, 8), (4096, 17, 32, 8),
+              (4096, 40, 128, 8), (4096, ca.max_s(32, 8), 32, 8),
+              (4096, ca.max_s(128, 8), 128, 8)]
+    return [(*shape, rate) for shape in shapes
+            for rate in (TRAIN_DROPOUT, 0.0)]
+
+
+def kernel_long_phase(card: str, node_capacity: int) -> dict:
+    """Both directions at S > 16 against the plain twin on the card
+    (:func:`long_shapes`), each through the split route; two calls of each
+    direction bitwise equal at the node shape. Returns the records of the
+    node shape (masked, then unmasked) and of the other shapes."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(1)
+    shapes = long_shapes(node_capacity)
+    fwd = [fwd_record(rng, dev, *shape, card, repeat=i < 2)
+           for i, shape in enumerate(shapes)]
+    bwd = [bwd_record(rng, dev, *shape, card, repeat=i < 2)
+           for i, shape in enumerate(shapes)]
+    check(all(r["route"] == "split" for r in fwd + bwd),
+          "a row past 16 tokens did not take the split route")
+    return {"node_fwd": fwd[:2], "node_bwd": bwd[:2], "fwd": fwd[2:],
+            "bwd": bwd[2:]}
 
 
 def bf16_close(got, want) -> float:
@@ -575,15 +676,27 @@ def bf16_shapes(edges: int, nodes: int, c: int) -> list:
             (32768, 6, 100, 4, 0.0)] + NARROW_SHAPES
 
 
+def bf16_long_shapes() -> list:
+    """(B, S, C, H, dropout) of the bf16 kernel phase past S = 16 (the
+    split routes' long cores, which the bf16 build holds too: Elliptic's
+    node tokens are bf16 under --precision bf16): the node path's
+    4096x167x32/8 and 4096x40x128/8, each with the node path's keep-mask
+    and without it."""
+    return [(4096, NODE_S, 32, 8, TRAIN_DROPOUT), (4096, NODE_S, 32, 8, 0.0),
+            (4096, 40, 128, 8, TRAIN_DROPOUT), (4096, 40, 128, 8, 0.0)]
+
+
 def kernel_bf16_phase(card: str) -> dict:
     """Both directions on bf16 x, do and weights against their plain twin
     on the same values: out and dx within one bf16 rounding, the float32
     weight and bias gradients at GRAD_TOL; two calls of each direction
-    bitwise equal at the masked edge shapes and at C = 100; kernel /
-    plain / library (``F.multi_head_attention_forward`` on bf16) times and
-    the bound from bf16 bytes. Returns the records by direction, in the
-    order of :func:`bf16_shapes`; every narrow shape takes the split
-    route."""
+    bitwise equal at the masked edge shapes, at C = 100 and at the masked
+    node shape past S = 16; kernel / plain / library
+    (``F.multi_head_attention_forward`` on bf16) times and the bound from
+    bf16 bytes. Returns the records by direction, in the order of
+    :func:`bf16_shapes`, and those of :func:`bf16_long_shapes` by
+    direction under ``long_fwd`` and ``long_bwd``; every narrow and every
+    long shape takes the split route."""
     import numpy as np
     import torch
 
@@ -592,11 +705,13 @@ def kernel_bf16_phase(card: str) -> dict:
     st = fixture_settings()
     shapes = bf16_shapes(st["edge_capacity"], st["node_capacity"],
                          st["n_hidden"])
-    repeat_at = {shapes[2], shapes[4], shapes[8], NARROW_SHAPES[0]}
+    long = bf16_long_shapes()
+    repeat_at = {shapes[2], shapes[4], shapes[8], NARROW_SHAPES[0], long[0]}
     dev = torch.device("cuda")
     rng = np.random.RandomState(1)
-    recs = {"fwd": [], "bwd": []}
-    for b, s, c, h, rate in shapes:
+    recs = {"fwd": [], "bwd": [], "long_fwd": [], "long_bwd": []}
+    for b, s, c, h, rate in shapes + long:
+        key = "long_" if s > 16 else ""
         x, *weights = (t.bfloat16() for t in random_inputs(rng, b, s, c,
                                                            dev))
         do = random_inputs(rng, b, s, c, dev)[0].bfloat16()
@@ -606,8 +721,9 @@ def kernel_bf16_phase(card: str) -> dict:
             mask = torch.from_numpy(rng.rand(b, h, s, s) >= rate).to(dev)
         args = (x, *weights, h, mask, rate)
         repeat = (b, s, c, h, rate) in repeat_at
-        kind = ca.route(c)
-        check(kind == "split" or (b, s, c, h, rate) not in NARROW_SHAPES,
+        kind = ca.route(c, s)
+        check(kind == "split" or ((b, s, c, h, rate) not in NARROW_SHAPES
+                                  and s <= 16),
               f"bf16 {b}x{s}x{c}/{h} does not take the split route")
         with torch.inference_mode():
             before = (ca.fwd_bf16_launches, ca.fwd_tiled_launches,
@@ -657,7 +773,7 @@ def kernel_bf16_phase(card: str) -> dict:
                "bound_by": by, "bytes_ms": t_bytes, "ops_ms": t_ops,
                "card": card, "ok": True}
         emit(rec)
-        recs["fwd"].append(rec)
+        recs[key + "fwd"].append(rec)
         del out, ref
 
         before = (ca.bwd_bf16_launches, ca.bwd_tiled_launches,
@@ -721,7 +837,7 @@ def kernel_bf16_phase(card: str) -> dict:
                "bound_ms": bound_ms, "bound_by": by, "bytes_ms": t_bytes,
                "ops_ms": t_ops, "card": card, "ok": True}
         emit(rec)
-        recs["bwd"].append(rec)
+        recs[key + "bwd"].append(rec)
         del x, do, weights, masters, mask, got, leaves, ref, want
         torch.cuda.empty_cache()
     return recs
@@ -1379,6 +1495,220 @@ def transfer_parity_phase(card: str) -> dict:
     return out
 
 
+def node_counts(fwd: int, bwd: int, layers: int = 2) -> dict:
+    """The launches of ``fwd`` node-path forwards and ``bwd`` backwards of
+    ``tabgnn`` at ``layers`` layers: each layer one column-attention call
+    on the node tokens (split: S = 167) and one on the edge tokens (tiled:
+    S = 2) each way, float32."""
+    return {"fwd": 2 * layers * fwd, "fwd_tiled": layers * fwd,
+            "fwd_split": layers * fwd, "bwd": 2 * layers * bwd,
+            "bwd_tiled": layers * bwd, "bwd_split": layers * bwd,
+            "reduce": 2 * layers * bwd, **NO_BF16}
+
+
+def prepare_node_data() -> str:
+    """The port's synthetic Elliptic directory at its published size."""
+    from rmm_tpu_torch.datasets import write_synthetic_node_dataset
+
+    return write_synthetic_node_dataset(
+        os.path.join(WORK, "elliptic"), num_nodes=ELLIPTIC_NODES,
+        num_edges=ELLIPTIC_EDGES, num_feats=ELLIPTIC_FEATS, seed=0)
+
+
+def node_train_phase(card: str, root: str) -> dict:
+    """Elliptic node classification on the card, through the training
+    CLI's pieces (``config_from_args``, whose ``elliptic`` override sets
+    the task; ``build_dataset``; the ``Trainer``; ``--save_model``'s
+    checkpoint): the first NODE_BATCHES train batches, then the first
+    NODE_BATCHES val batches. Each step and each evaluated batch launches
+    2 split calls (the node tokens, S = 167) and 2 tiled (the edge tokens)
+    each way; no launch at S > 16 takes the tiled route. Train rows/s, the
+    median step on the device's clock, peak memory, val f1 on the labelled
+    rows."""
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.datasets import build_dataset
+    from rmm_tpu_torch.frame.dataset import DatasetView
+    from rmm_tpu_torch.train.trainer import Trainer
+    from rmm_tpu_torch.utils.checkpoint import save_epoch
+    from rmm_tpu_torch.utils.config import config_from_args, create_parser
+
+    argv = ["--data", root, *NODE_ARGV, "--sampler_threads", "4",
+            "--save_model", "--device", "cuda"]
+    t0 = time.perf_counter()
+    cfg = config_from_args(create_parser().parse_args(argv))
+    check(cfg.task == "node_classification", f"task {cfg.task}")
+    dataset = build_dataset(cfg)
+    t_data = time.perf_counter() - t0
+    tr = Trainer(cfg.replace(n_classes=dataset.n_classes), dataset)
+    setup_s = time.perf_counter() - t0
+    n, b = NODE_BATCHES, cfg.batch_size
+    train, val, test = dataset.nodes.split()
+    train = DatasetView(train.parent, train.indices[:n * b])
+    val = DatasetView(val.parent, val.indices[:n * b])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    tm = tr.train_epoch(train, 0)
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train_counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    reset_counts()
+    vm = tr.evaluate(val, "val")
+    eval_counts = read_counts()
+    ck = save_epoch(os.path.join(WORK, "node_run"), 0, tr.model,
+                    tr.optimizer)
+    layers = cfg.n_gnn_layers
+    check(train_counts == node_counts(n, n, layers),
+          f"launches {train_counts} for {n} node steps (expected {layers} "
+          f"split (node tokens) and {layers} tiled (edge tokens) calls each "
+          "way a step)")
+    check(eval_counts == node_counts(n, 0, layers),
+          f"launches {eval_counts} for {n} evaluated node batches")
+    check(math.isfinite(tm["loss"]) and 0 <= vm["f1"] <= 1,
+          f"node loss {tm['loss']}, val f1 {vm['f1']}")
+    y = dataset.nodes.tensor_frame.y
+    labelled = y[test.indices][y[test.indices, 0] != dataset.ignore_label]
+    rec = {"phase": "node_train", "nodes": dataset.nodes.num_rows,
+           "edges": dataset.graph.num_edges,
+           "feature_columns": dataset.nodes.tensor_frame.num_cols,
+           "node_tokens": NODE_S, "channels": cfg.n_hidden,
+           "layers": cfg.n_gnn_layers, "heads": 8, "batch": b,
+           "fanouts": list(cfg.num_neighs), "dropout": cfg.dropout,
+           "edge_capacity": tr.cfg.edge_capacity,
+           "node_capacity": tr.cfg.node_capacity,
+           "split_rows": [len(v.indices) for v in dataset.nodes.split()],
+           "steps": n, "eval_batches": n, "train_launches": train_counts,
+           "eval_launches": eval_counts, "loss": tm["loss"],
+           "train_f1": tm["f1"], "val_f1": vm["f1"], "val_auc": vm["auc"],
+           "step_ms_median": tm.get("step_ms"), "train_wall_s": train_wall,
+           "train_rows_per_s": train.tensor_frame.num_rows / train_wall,
+           "peak_memory_gb": peak / 1e9, "data_s": t_data,
+           "setup_s": setup_s, "drop_rate": tm["drop_rate"],
+           "card": card, "ok": True}
+    emit(rec)
+    return {**rec, "checkpoint": ck,
+            "test_ids": labelled[:, 1].astype(np.int64)}
+
+
+def node_serve_phase(card: str, root: str, trained: dict) -> dict:
+    """The predict CLI on ``node_train``'s checkpoint over the whole test
+    split: node ids (every labelled test node once; no row of the unknown
+    class), finite scores, 2 split and 2 tiled forwards a batch; served
+    rows/s."""
+    import numpy as np
+
+    argv = ["--data", root, *NODE_ARGV, "--sampler_threads", "4",
+            "--load_model", trained["checkpoint"], "--split", "test",
+            "--output", os.path.join(WORK, "node_preds.csv"),
+            "--edge_capacity", str(trained["edge_capacity"]),
+            "--node_capacity", str(trained["node_capacity"]),
+            "--device", "cuda"]
+    run: dict = {}
+    out, counts, wall = serve(argv, run)
+    rows = len(out["id"])
+    batches = -(-trained["split_rows"][2] // 200)
+    check(np.array_equal(np.sort(out["id"]), np.sort(trained["test_ids"])),
+          f"served {rows} node ids, not the {len(trained['test_ids'])} "
+          "labelled test nodes")
+    check(np.isfinite(out["score"]).all(), "non-finite node scores")
+    check(counts == node_counts(batches, 0),
+          f"launches {counts} for {batches} served node batches")
+    rec = {"phase": "node_serve", "rows": rows, "batches": batches,
+           "launches": counts, "wall_s": wall, "setup_s": run["setup_s"],
+           "predict_s": run["predict_s"],
+           "rows_per_s_predict": rows / run["predict_s"],
+           "rows_per_s_wall": rows / wall,
+           "pred_mean": float(out["pred"].mean()), "card": card, "ok": True}
+    emit(rec)
+    return rec
+
+
+def node_parity_phase(card: str) -> dict:
+    """Elliptic on the card against the JAX CPU record
+    ``node_record.npz`` (``tools/make_torch_port_node_fixture.py``: the
+    slice's widths, S = 167, on a 2,000-node cut, dropout 0, the
+    reference's scatter PNA path): from the record's start, the test split
+    served (the same node ids, scores within SCORE_TOL), then three steps
+    (each loss and the sampled variables by ``convert.check_record``'s
+    float32 limits, the same parameters unmoved)."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.convert import (check_record, from_jax, loss_terms,
+                                       random_variables, torch_key)
+    from rmm_tpu_torch.datasets import (build_dataset,
+                                        write_synthetic_node_dataset)
+    from rmm_tpu_torch.train.trainer import Trainer
+    from rmm_tpu_torch.utils.config import config_from_args, create_parser
+
+    rec = np.load(NODE_FIXTURE)
+    st = json.loads(str(rec["settings"]))
+    root = write_synthetic_node_dataset(
+        os.path.join(WORK, f"elliptic_{st['nodes']}"),
+        num_nodes=st["nodes"], num_edges=st["edges"],
+        num_feats=st["num_feats"], seed=st["data_seed"])
+    cfg = config_from_args(create_parser().parse_args([
+        "--data", root, "--model", "tabgnn", "--n_hidden",
+        str(st["n_hidden"]), "--n_gnn_layers", str(st["n_gnn_layers"]),
+        "--num_neighs", *map(str, st["num_neighs"]), "--batch_size",
+        str(st["batch_size"]), "--seed", str(st["seed"]), "--lr",
+        str(st["lr"]), "--dropout", "0", "--edge_capacity",
+        str(st["edge_capacity"]), "--node_capacity",
+        str(st["node_capacity"]), "--device", "cuda"]))
+    tr = Trainer(cfg, build_dataset(cfg))
+    tr.model.load_state_dict(from_jax(
+        random_variables(st["shapes"], st["var_seed"]), tr.model))
+    train, _, test = tr.dataset.nodes.split()
+    reset_counts()
+    served = tr.predict(test, "test")
+    serve_counts = read_counts()
+    batches = -(-len(test.indices) // st["batch_size"])
+    layers = st["n_gnn_layers"]
+    check(serve_counts == node_counts(batches, 0, layers),
+          f"launches {serve_counts} serving {batches} node batches")
+    check(np.array_equal(served["id"], rec["serve/id"]),
+          "served node ids differ from the JAX record")
+    score_err = float(np.abs(served["score"] - rec["serve/score"]).max())
+    check(score_err <= SCORE_TOL,
+          f"node score error {score_err} > {SCORE_TOL}")
+    batches = list(itertools.islice(tr._batches(train, "train", st["epoch"]),
+                                    st["steps"]))
+    before = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    reset_counts()
+    tr.model.train()
+    terms = [loss_terms(tr._step(gb.to(tr.device))[0], {})
+             for gb in batches]
+    counts = read_counts()
+    n = st["steps"]
+    check(counts == node_counts(n, n, layers), f"launches {counts} for {n} "
+          "node parity steps")
+    state = tr.model.state_dict()
+    faults, summary = check_record(state, terms, rec, "sup/", st["lr"], n,
+                                   st["n_hidden"])
+    unmoved = {name for name, _ in tr.model.named_parameters()
+               if torch.equal(state[name], before[name])}
+    if unmoved != {torch_key(k)[0] for k in st["unmoved"]}:
+        faults.append(f"unmoved parameters {sorted(unmoved)}, the "
+                      f"reference's {st['unmoved']}")
+    check(not faults, "node steps off the JAX record: " + "; ".join(faults))
+    out = {"phase": "node_parity", "nodes": st["nodes"], "steps": n,
+           "node_tokens": st["num_feats"] + 1,
+           "edge_capacity": st["edge_capacity"],
+           "node_capacity": st["node_capacity"],
+           "served_rows": len(served["id"]), "max_score_err": score_err,
+           "score_tol": SCORE_TOL, "terms": terms,
+           "jax_terms": rec["sup/term/loss"].tolist(), **summary,
+           "serve_launches": serve_counts, "launches": counts,
+           "card": card, "ok": True}
+    emit(out)
+    return out
+
+
 def ssl_parity_csv() -> str:
     from rmm_tpu_torch.datasets import write_synthetic_aml_csv
 
@@ -1558,6 +1888,13 @@ def main() -> int:
             transfer = timed("transfer", transfer_phase, card, csv,
                              ssl_rec["checkpoint"])
             timed("transfer_parity", transfer_parity_phase, card)
+            node_root = timed("node_data", prepare_node_data)
+            node = timed("node_train", node_train_phase, card, node_root)
+            klong = timed("kernel_long", kernel_long_phase, card,
+                          node["node_capacity"])
+            node_serve = timed("node_serve", node_serve_phase, card,
+                               node_root, node)
+            node_parity = timed("node_parity", node_parity_phase, card)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
         emit({"phase": "seconds", **seconds,
@@ -1573,17 +1910,36 @@ def main() -> int:
                      "transfer": transfer_split["fwd"]}
         split_bwd = {"ssl_train": ssl_rec["train_launches"]["bwd"],
                      "transfer": transfer_split["bwd"]}
+        # the node path's launches by route: its node tokens (S = 167) split
+        # through the long cores, its edge tokens tiled
+        node_runs = {"node_train": [node["train_launches"],
+                                    node["eval_launches"]],
+                     "node_serve": [node_serve["launches"]],
+                     "node_parity": [node_parity["serve_launches"],
+                                     node_parity["launches"]]}
+
+        def node_launches(key):
+            return {path: sum(c[key] for c in runs)
+                    for path, runs in node_runs.items()}
+
+        node_fwd_split, node_bwd_split = (node_launches("fwd_split"),
+                                          node_launches("bwd_split"))
+        node_fwd_tiled, node_bwd_tiled = (node_launches("fwd_tiled"),
+                                          node_launches("bwd_tiled"))
         emit({"kernels": [
             kernel_entry("column_attention_fwd", 165, kern["fwd"],
                          kern["fwd"], {
-                             "path": "main",
+                             "path": "main, node (edge tokens)",
                              "launches": serve_rec["launches"]
-                             + train_rec["launches"]["fwd"],
+                             + train_rec["launches"]["fwd"]
+                             + sum(node_fwd_tiled.values()),
                              "tiled_launches": serve_rec["tiled_launches"]
-                             + train_rec["launches"]["fwd_tiled"],
+                             + train_rec["launches"]["fwd_tiled"]
+                             + sum(node_fwd_tiled.values()),
                              "launches_by_path": {
                                  "serve": serve_rec["launches"],
-                                 "train": train_rec["launches"]["fwd"]},
+                                 "train": train_rec["launches"]["fwd"],
+                                 **node_fwd_tiled},
                              # the float32 edge tokens at --precision bf16
                              "launches_under_bf16": sum(
                                  c["fwd_tiled"] - c["fwd_bf16"]
@@ -1598,10 +1954,15 @@ def main() -> int:
                                  sum(r["ops_ms"] for r in kern["fwd_masked"]))[0]}),
             kernel_entry("column_attention_bwd", 178, kern["bwd"],
                          kern["bwd_unmasked"], {
-                             "path": "main",
-                             "launches": train_rec["launches"]["bwd"],
+                             "path": "main, node (edge tokens)",
+                             "launches": train_rec["launches"]["bwd"]
+                             + sum(node_bwd_tiled.values()),
                              "tiled_launches":
-                                 train_rec["launches"]["bwd_tiled"],
+                                 train_rec["launches"]["bwd_tiled"]
+                             + sum(node_bwd_tiled.values()),
+                             "launches_by_path": {
+                                 "train": train_rec["launches"]["bwd"],
+                                 **node_bwd_tiled},
                              "reduce_launches":
                                  train_rec["launches"]["reduce"],
                              "max_rel_err": max(max(r["max_rel_err"].values())
@@ -1647,6 +2008,31 @@ def main() -> int:
                                                 for r in kern["ssl_bwd"]),
                              "narrow": shape_times(kern["narrow_bwd"]),
                              "transfer": shape_times(kern["transfer_bwd"]),
+                             "library_masked": False}),
+            kernel_entry("column_attention_fwd_long", 165,
+                         klong["node_fwd"][:1], klong["node_fwd"][1:], {
+                             "path": "node (node tokens, S = 167)",
+                             "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
+                             "core": "column_attention_fwd_core_long_kernel",
+                             "launches": sum(node_fwd_split.values()),
+                             "launches_by_path": node_fwd_split,
+                             "core_max_abs_err": max(
+                                 r["core_max_abs_err"]
+                                 for r in klong["node_fwd"]),
+                             "unmasked": shape_times(klong["node_fwd"][1:]),
+                             "long": shape_times(klong["fwd"]),
+                             "library_masked": False}),
+            kernel_entry("column_attention_bwd_long", 178,
+                         klong["node_bwd"][:1], klong["node_bwd"][1:], {
+                             "path": "node (node tokens, S = 167)",
+                             "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
+                             "core": "column_attention_bwd_core_long_kernel",
+                             "launches": sum(node_bwd_split.values()),
+                             "launches_by_path": node_bwd_split,
+                             "max_rel_err": max(max(r["max_rel_err"].values())
+                                                for r in klong["node_bwd"]),
+                             "unmasked": shape_times(klong["node_bwd"][1:]),
+                             "long": shape_times(klong["bwd"]),
                              "library_masked": False}),
             *bf16_entries(kern16, serve16, parity16, ssl16, ssl_parity16)]})
         print(card, flush=True)
@@ -1697,6 +2083,7 @@ def bf16_entries(kern16: dict, serve16: dict, parity16: dict, ssl16: dict,
                          "launches": sum(split_fwd.values()),
                          "launches_by_path": split_fwd,
                          "narrow": shape_times(fwd[-nn:]),
+                         "long": shape_times(kern16["long_fwd"]),
                          "library_masked": False}),
         kernel_entry("column_attention_bwd_split_bf16", 178, bwd[4:6],
                      bwd[6:8], {
@@ -1709,6 +2096,7 @@ def bf16_entries(kern16: dict, serve16: dict, parity16: dict, ssl16: dict,
                          "max_rel_err": max(max(r["max_rel_err"].values())
                                             for r in bwd[4:6]),
                          "narrow": shape_times(bwd[-nn:]),
+                         "long": shape_times(kern16["long_bwd"]),
                          "library_masked": False})]
 
 

@@ -89,7 +89,7 @@ def main(argv=None, stats: Optional[dict] = None):
         stats.update(run_dir=run_dir, setup_s=t1 - t0,
                      fit_s=time.perf_counter() - t1,
                      split_rows=[v.tensor_frame.num_rows
-                                 for v in dataset.edges.split()],
+                                 for v in trainer.seed_table().split()],
                      edge_capacity=trainer.cfg.edge_capacity,
                      node_capacity=trainer.cfg.node_capacity,
                      device=str(device))

@@ -8,7 +8,9 @@ or the JAX package's (``utils/checkpoint.py::load_strict``).
 
 Same flags as ``rmm_tpu.cli.predict`` plus ``--device`` (``cuda`` by
 default, which raises without CUDA; ``cpu`` runs the kernels' plain
-versions). Writes one row per scored seed edge (``id,pred[,score]``).
+versions). Writes one row per scored seed edge, or seed node for node
+classification (Elliptic's; its "unknown" rows are not scored):
+``id,pred[,score]``.
 ``--split all`` scores every row with the full-graph sampler.
 
 ``main(argv, stats)`` fills the dict ``stats``, when given, with the run's
@@ -43,13 +45,15 @@ def main(argv=None, stats: Optional[dict] = None) -> dict:
 
     t0 = time.perf_counter()
     dataset = build_dataset(cfg)
+    if hasattr(dataset, "n_classes"):
+        cfg = cfg.replace(n_classes=dataset.n_classes)
     trainer = Trainer(cfg, dataset, device)
     # serving never runs on fresh-init weights: any missing or mis-shaped
     # entry raises (and any extra one in a port checkpoint)
     load_strict(args.load_model, trainer.model)
     t1 = time.perf_counter()
 
-    table = dataset.edges
+    table = trainer.seed_table()
     if args.split == "all":
         out = trainer.predict(table, mode="test")
     else:

@@ -90,8 +90,10 @@
 // takes their one-float chunks. So every width that nhead divides runs
 // through GEMM kernels.
 //
-// All routes take S <= 16, C <= 128 and C % nhead == 0 (the wrapper
-// checks). They launch on the caller's stream, allocate nothing and do not
+// The tiled kernels take S <= 16; the split routes any S whose row fits
+// a block's shared memory (past S = 16 through the long attention cores
+// below). All take C <= 128 and C % nhead == 0 (the wrapper checks). They
+// launch on the caller's stream, allocate nothing and do not
 // synchronize; the C entry points return cudaGetLastError().
 //
 // Element types. This file builds two libraries: float32, and, with
@@ -971,13 +973,20 @@ column_attention_fwd_tiled_kernel(const elem_t* __restrict__ x,
 // ---------------------------------------------------------------------------
 
 constexpr int kCoreThreads = 256;
+// The longest S for which a core's thread keeps a query's S scores in
+// registers and the backward core stages each row's S×S P_d and dS (the
+// tiled kernels' bound too). Longer rows take the long cores further down.
+constexpr int kShortS = 16;
 
-// Floats of the core's shared memory for `rows` rows: the token rows,
-// padded to 4C + 4 floats (token i's float4s at one column fall in
-// neighbouring bank groups), and each row's P_d and dS.
+// Floats of the backward core's shared memory for `rows` rows: the token
+// rows, padded to 4C + 4 floats (token i's float4s at one column fall in
+// neighbouring bank groups), and each row's P_d and dS; past kShortS (the
+// long core) each query's log-sum-exp and D instead.
 __host__ __device__ inline size_t core_smem_floats(int S, int C, int H,
                                                    int rows) {
-  return (size_t)rows * S * (4 * C + 4) + 2 * (size_t)rows * H * S * S;
+  const size_t tokens = (size_t)rows * S * (4 * C + 4);
+  if (S > kShortS) return tokens + 2 * (size_t)rows * H * S;
+  return tokens + 2 * (size_t)rows * H * S * S;
 }
 
 // W consecutive floats of a head's channels: a float4 where the head
@@ -994,6 +1003,12 @@ struct Chunk<4> {
   __device__ float dot(const Chunk& b, float acc) const {
     return dot4(v, b.v, acc);
   }
+  __device__ void scale(float a) {
+    v.x *= a;
+    v.y *= a;
+    v.z *= a;
+    v.w *= a;
+  }
   __device__ void store(float* p) const { st4(p, v); }
 };
 
@@ -1006,6 +1021,7 @@ struct Chunk<1> {
   __device__ float dot(const Chunk& b, float acc) const {
     return fmaf(v, b.v, acc);
   }
+  __device__ void scale(float a) { v *= a; }
   __device__ void store(float* p) const { *p = v; }
 };
 
@@ -1298,13 +1314,364 @@ column_attention_fwd_core_kernel(float* __restrict__ tok,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The long cores: both split routes' attention for S > kShortS (the node
+// tokens of a feature-rich node table: S = 167 at C = 32 on Elliptic).
+// Neither a query's S scores (registers) nor a row's S×S P_d and dS
+// (892 kB at S = 167, H = 8) fit, so both cores follow the flash-attention
+// scheme on CUDA cores; the staging of the row's token rows, the thread
+// mapping (one thread per (row, head, query), then per (row, head, key),
+// each walking the items in steps of the block) and the in-place writes
+// are those of the short cores above:
+//  * forward, per query: the keys in chunks of kKeyChunk with an online
+//    softmax (a running max m and sum l; the context, kept in registers
+//    kSlice channels at a time, rescaled by exp(m_old − m_new) a chunk),
+//    then ctx = acc / l. A head wider than kSlice channels walks the keys
+//    again for each slice of kSlice.
+//  * backward, per query: the same walk gives ctx_i (stored over dctx_i)
+//    and the log-sum-exp L_i = m + log l; D_i = dctx_i · ctx_i
+//    (= Σ_j P_ij dP_ij, the keep-mask included); L_i and D_i go to shared
+//    memory (H·S floats each a row). A second walk recomputes
+//    P_ij = exp(s_ij − L_i) and dS_ij = P_ij (dP_ij − D_i) / √hd from
+//    q, k, v and dctx, into dq_i.
+//  * backward, per key t after a barrier: the same recompute over the
+//    queries i into dk_t = Σ_i dS_it q_i and dv_t = Σ_i P_d,it dctx_i.
+// The keep-mask bytes come from device memory as they are needed (the
+// key pass reads a key's column, neighbouring threads on neighbouring
+// bytes). So a row's shared memory is its S token rows and 2·H·S floats:
+// 98.9 kB at S = 167, C = 32, H = 8 (the backward), one row a block. Every
+// output is one thread's chain of FMAs in a fixed order: two calls give the
+// same bits. Simple, not tuned. Measured at the Elliptic node shape
+// [4096, 167, 32/8] (chip_smoke.py's kernel_long; H100 80GB HBM3, 700 W):
+// forward 3.45 ms unmasked and 9.97 with the keep-mask, backward 14.9 and
+// 23.3, against bounds of 0.30-0.33 and 0.88. The mask costs two thirds of
+// the masked forward: the query walks read it a byte a key, a warp's
+// queries 167 bytes apart, so each warp load touches 32 cache lines (the
+// key pass reads neighbouring bytes). Unmasked, instruction throughput
+// and latency bound the walks (one query's serial chain a thread, an exp a
+// pair, a broadcast shared load per key). See PERF.md.
+// ---------------------------------------------------------------------------
+
+constexpr int kKeyChunk = 16;  // keys between two rescales of the context
+constexpr int kSlice = 16;     // channels of a head a walk accumulates
+
+// Query i's online softmax over the S keys of its row (token 0 of the row,
+// at the head's channels, at tr; the query at ti; rows TS floats apart,
+// keys at +C, values at +2C), for channels [c0, c0 + n) of the context:
+// acc = Σ_j e_j · keep_j / (1 − p) · v_j, l = Σ_j e_j, e_j = exp(s_j − m),
+// m = max_j s_j, s_j = q_i · k_j / √hd. ctx = acc / l.
+template <int W>
+__device__ __forceinline__ void online_context(Chunk<W> (&acc)[kSlice / W],
+                                               float& m, float& l,
+                                               const float* ti,
+                                               const float* tr,
+                                               const uint8_t* kp, int S,
+                                               int C, int hd, int TS, int c0,
+                                               int n, float scale,
+                                               float inv_keep) {
+  constexpr int NW = kSlice / W;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) acc[w] = Chunk<W>::zero();
+  m = -INFINITY;
+  l = 0.f;
+  for (int j0 = 0; j0 < S; j0 += kKeyChunk) {
+    float p[kKeyChunk];
+    float cm = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < kKeyChunk; ++u) {
+      p[u] = -INFINITY;
+      if (j0 + u < S) {
+        const float* tj = tr + (j0 + u) * TS;
+        float d = 0.f;
+        for (int c = 0; c < hd; c += W)
+          d = Chunk<W>::load(ti + c).dot(Chunk<W>::load(tj + C + c), d);
+        p[u] = d * scale;
+        cm = fmaxf(cm, p[u]);
+      }
+    }
+    const float mn = fmaxf(m, cm);
+    const float corr = expf(m - mn);  // 0 at the first chunk (m = −inf)
+    l *= corr;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) acc[w].scale(corr);
+#pragma unroll
+    for (int u = 0; u < kKeyChunk; ++u) {
+      if (j0 + u < S) {
+        const float e = expf(p[u] - mn);
+        l += e;
+        const float pd =
+            kp == nullptr ? e : (kp[j0 + u] ? e * inv_keep : 0.f);
+        const float* vj = tr + (j0 + u) * TS + 2 * C + c0;
+#pragma unroll
+        for (int w = 0; w < NW; ++w)
+          if (w * W < n) acc[w].fma(pd, Chunk<W>::load(vj + w * W));
+      }
+    }
+    m = mn;
+  }
+}
+
+// The long forward core's query i of head h of the block's row r: ctx_i
+// into `out` (global, q_i's head slice).
+template <int W>
+__device__ __forceinline__ void fwd_long_query(const float* sT, float* out,
+                                               const uint8_t* kp, int r,
+                                               int h, int i, int S, int C,
+                                               int H, int TS, float scale,
+                                               float inv_keep) {
+  constexpr int NW = kSlice / W;
+  const int hd = C / H;
+  const float* ti = sT + (r * S + i) * TS + h * hd;
+  const float* tr = sT + r * S * TS + h * hd;  // token 0 of the row
+  for (int c0 = 0; c0 < hd; c0 += kSlice) {
+    const int n = min(kSlice, hd - c0);
+    Chunk<W> acc[NW];
+    float m, l;
+    online_context<W>(acc, m, l, ti, tr, kp, S, C, hd, TS, c0, n, scale,
+                      inv_keep);
+    const float inv_l = 1.f / l;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      if (w * W < n) {
+        acc[w].scale(inv_l);
+        acc[w].store(out + c0 + w * W);
+      }
+    }
+  }
+}
+
+// The long forward core (S > kShortS): staging as the short core's, then
+// one thread per (row, head, query) walking the block's items.
+template <bool NARROW>
+__global__ void __launch_bounds__(kCoreThreads)
+column_attention_fwd_core_long_kernel(float* __restrict__ tok,
+                                      const uint8_t* __restrict__ keep,
+                                      int B, int S, int C, int H,
+                                      float scale, float inv_keep,
+                                      int rows) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int TT = NARROW ? fwd_row_floats(C) : 3 * C;
+  const int TS = NARROW ? fwd_core_stride(C) : TT + 4;
+  const int Q4 = TT / 4;
+  const int r0 = blockIdx.x * rows;
+  const int nr = min(rows, B - r0);
+  const int HS = H * S;
+  float* tg = tok + (size_t)r0 * S * TT;
+
+  for (int i = tid; i < nr * S * Q4; i += kCoreThreads) {
+    const int t = i / Q4;
+    const int q = i - t * Q4;
+    cp_async16(smem + t * TS + 4 * q, tg + (size_t)t * TT + 4 * q);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  const bool vec = (C / H) % 4 == 0;
+  for (int it = tid; it < nr * HS; it += kCoreThreads) {
+    const int r = it / HS;
+    const int h = (it - r * HS) / S;
+    const int i = it - r * HS - h * S;
+    float* out = tg + (size_t)(r * S + i) * TT + h * (C / H);
+    const uint8_t* kp =
+        keep == nullptr ? nullptr
+                        : keep + (((size_t)(r0 + r) * H + h) * S + i) * S;
+    if (vec)
+      fwd_long_query<4>(smem, out, kp, r, h, i, S, C, H, TS, scale,
+                        inv_keep);
+    else
+      fwd_long_query<1>(smem, out, kp, r, h, i, S, C, H, TS, scale,
+                        inv_keep);
+  }
+}
+
+// The long backward core's query i of head h of row r: ctx_i over dctx_i
+// and dq_i over q_i in the token row `out` (global), L_i and D_i into
+// sL and sD.
+template <int W>
+__device__ __forceinline__ void bwd_long_query(const float* sT, float* sL,
+                                               float* sD, float* out,
+                                               const uint8_t* kp, int r,
+                                               int h, int i, int S, int C,
+                                               int H, int TS, float scale,
+                                               float inv_keep) {
+  constexpr int NW = kSlice / W;
+  const int hd = C / H;
+  const float* ti = sT + (r * S + i) * TS + h * hd;
+  const float* tr = sT + r * S * TS + h * hd;  // token 0 of the row
+  float m = 0.f, l = 1.f, dsum = 0.f;
+  for (int c0 = 0; c0 < hd; c0 += kSlice) {
+    const int n = min(kSlice, hd - c0);
+    Chunk<W> acc[NW];
+    online_context<W>(acc, m, l, ti, tr, kp, S, C, hd, TS, c0, n, scale,
+                      inv_keep);
+    const float inv_l = 1.f / l;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      if (w * W < n) {
+        acc[w].scale(inv_l);
+        dsum = acc[w].dot(Chunk<W>::load(ti + 3 * C + c0 + w * W), dsum);
+        acc[w].store(out + 3 * C + c0 + w * W);
+      }
+    }
+  }
+  const float lse = m + logf(l);
+  const int at = (r * H + h) * S + i;
+  sL[at] = lse;
+  sD[at] = dsum;
+  for (int c0 = 0; c0 < hd; c0 += kSlice) {
+    const int n = min(kSlice, hd - c0);
+    Chunk<W> dq[NW];
+#pragma unroll
+    for (int w = 0; w < NW; ++w) dq[w] = Chunk<W>::zero();
+    for (int j = 0; j < S; ++j) {
+      const float* tj = tr + j * TS;
+      float d = 0.f, e = 0.f;
+      for (int c = 0; c < hd; c += W) {
+        d = Chunk<W>::load(ti + c).dot(Chunk<W>::load(tj + C + c), d);
+        e = Chunk<W>::load(ti + 3 * C + c)
+                .dot(Chunk<W>::load(tj + 2 * C + c), e);
+      }
+      const float p = expf(d * scale - lse);
+      const float dp = kp == nullptr ? e : (kp[j] ? e * inv_keep : 0.f);
+      const float ds = p * (dp - dsum) * scale;
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+        if (w * W < n) dq[w].fma(ds, Chunk<W>::load(tj + C + c0 + w * W));
+    }
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+      if (w * W < n) dq[w].store(out + c0 + w * W);
+  }
+}
+
+// The long backward core's key t of head h of row r: dk_t and dv_t into
+// the token row `out` (global). kt: the keep-mask byte of (query 0, key t)
+// of the row's head, the next query's S bytes on.
+template <int W>
+__device__ __forceinline__ void bwd_long_key(const float* sT,
+                                             const float* sL,
+                                             const float* sD, float* out,
+                                             const uint8_t* kt, int r, int h,
+                                             int t, int S, int C, int H,
+                                             int TS, float scale,
+                                             float inv_keep) {
+  constexpr int NW = kSlice / W;
+  const int hd = C / H;
+  const float* tt = sT + (r * S + t) * TS + h * hd;
+  const float* tr = sT + r * S * TS + h * hd;  // token 0 of the row
+  const int base = (r * H + h) * S;
+  for (int c0 = 0; c0 < hd; c0 += kSlice) {
+    const int n = min(kSlice, hd - c0);
+    Chunk<W> dk[NW], dv[NW];
+#pragma unroll
+    for (int w = 0; w < NW; ++w) dk[w] = dv[w] = Chunk<W>::zero();
+    for (int i = 0; i < S; ++i) {
+      const float* ti = tr + i * TS;
+      float d = 0.f, e = 0.f;
+      for (int c = 0; c < hd; c += W) {
+        d = Chunk<W>::load(ti + c).dot(Chunk<W>::load(tt + C + c), d);
+        e = Chunk<W>::load(ti + 3 * C + c)
+                .dot(Chunk<W>::load(tt + 2 * C + c), e);
+      }
+      const float p = expf(d * scale - sL[base + i]);
+      const float kf =
+          kt == nullptr ? 1.f : (kt[(size_t)i * S] ? inv_keep : 0.f);
+      const float ds = p * (e * kf - sD[base + i]) * scale;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        if (w * W < n) {
+          dk[w].fma(ds, Chunk<W>::load(ti + c0 + w * W));
+          dv[w].fma(p * kf, Chunk<W>::load(ti + 3 * C + c0 + w * W));
+        }
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      if (w * W < n) {
+        dk[w].store(out + C + c0 + w * W);
+        dv[w].store(out + 2 * C + c0 + w * W);
+      }
+    }
+  }
+}
+
+// The long backward core (S > kShortS): staging as the short core's, the
+// query pass, a barrier, the key pass.
+__global__ void __launch_bounds__(kCoreThreads)
+column_attention_bwd_core_long_kernel(float* __restrict__ tok,
+                                      const uint8_t* __restrict__ keep,
+                                      int B, int S, int C, int H,
+                                      float scale, float inv_keep,
+                                      int rows) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int TT = 4 * C;      // a token row in device memory
+  const int TS = TT + 4;     // in shared memory
+  const int r0 = blockIdx.x * rows;
+  const int nr = min(rows, B - r0);
+  const int HS = H * S;
+  float* sT = smem;
+  float* sL = sT + (size_t)rows * S * TS;
+  float* sD = sL + (size_t)rows * HS;
+  float* tg = tok + (size_t)r0 * S * TT;
+
+  for (int i = tid; i < nr * S * C; i += kCoreThreads) {  // C float4s a row
+    const int t = i / C;
+    const int q = i - t * C;
+    st4(sT + t * TS + 4 * q, ld4(tg + (size_t)t * TT + 4 * q));
+  }
+  __syncthreads();
+  const bool vec = (C / H) % 4 == 0;
+  for (int it = tid; it < nr * HS; it += kCoreThreads) {
+    const int r = it / HS;
+    const int h = (it - r * HS) / S;
+    const int i = it - r * HS - h * S;
+    float* out = tg + (size_t)(r * S + i) * TT + h * (C / H);
+    const uint8_t* kp =
+        keep == nullptr ? nullptr
+                        : keep + (((size_t)(r0 + r) * H + h) * S + i) * S;
+    if (vec)
+      bwd_long_query<4>(sT, sL, sD, out, kp, r, h, i, S, C, H, TS, scale,
+                        inv_keep);
+    else
+      bwd_long_query<1>(sT, sL, sD, out, kp, r, h, i, S, C, H, TS, scale,
+                        inv_keep);
+  }
+  __syncthreads();
+  for (int it = tid; it < nr * HS; it += kCoreThreads) {
+    const int r = it / HS;
+    const int h = (it - r * HS) / S;
+    const int t = it - r * HS - h * S;
+    float* out = tg + (size_t)(r * S + t) * TT + h * (C / H);
+    const uint8_t* kt =
+        keep == nullptr ? nullptr
+                        : keep + ((size_t)(r0 + r) * H + h) * S * S + t;
+    if (vec)
+      bwd_long_key<4>(sT, sL, sD, out, kt, r, h, t, S, C, H, TS, scale,
+                      inv_keep);
+    else
+      bwd_long_key<1>(sT, sL, sD, out, kt, r, h, t, S, C, H, TS, scale,
+                      inv_keep);
+  }
+}
+
 // The forward core on `tok` ([B·S, fwd_row_floats(C)] floats, 16-byte
-// aligned).
+// aligned): the short core up to kShortS, the long one past it.
 cudaError_t launch_fwd_core(float* tok, const uint8_t* keep, int B, int S,
                             int C, int H, float inv_keep, int rows,
                             cudaStream_t st) {
   const size_t smem = fwd_core_smem_floats(S, C, rows) * sizeof(float);
   const float scale = 1.0f / sqrtf((float)(C / H));
+  if (S > kShortS) {
+    auto kernel = C % 4 ? &column_attention_fwd_core_long_kernel<true>
+                        : &column_attention_fwd_core_long_kernel<false>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<(B + rows - 1) / rows, kCoreThreads, smem, st>>>(
+        tok, keep, B, S, C, H, scale, inv_keep, rows);
+    return cudaGetLastError();
+  }
   return by_s(S, [&](auto ms) {
     constexpr int kMaxS = decltype(ms)::value;
     auto kernel = C % 4 ? &column_attention_fwd_core_kernel<kMaxS, true>
@@ -1382,15 +1749,19 @@ cudaError_t bwd_split(const elem_t* x, const elem_t* dout,
   // 2. the attention core (4C floats a token row: 16-byte rows at any C)
   const size_t smem = core_smem_floats(S, C, H, rows) * sizeof(float);
   const float scale = 1.0f / sqrtf((float)(C / H));
-  err = by_s(S, [&](auto ms) {
-    auto kernel = column_attention_bwd_core_kernel<decltype(ms)::value>;
+  auto run_core = [&](auto kernel) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     kernel<<<(B + rows - 1) / rows, kCoreThreads, smem, st>>>(
         tok, keep, B, S, C, H, scale, inv_keep, rows);
     return cudaGetLastError();
-  });
+  };
+  err = S > kShortS ? run_core(column_attention_bwd_core_long_kernel)
+                    : by_s(S, [&](auto ms) {
+                        return run_core(column_attention_bwd_core_kernel<
+                                        decltype(ms)::value>);
+                      });
   if (err != cudaSuccess) return err;
   // 3. dx = dqkv·Wqkvᵀ: B(k = j, n = c) = Wqkv[c][j] is n-major
   const Gemm gdx = make_gemm(tok, TT, wqkv, C3, dx, C, nullptr, N, C, C3,
@@ -1531,10 +1902,10 @@ int rmm_column_attention_bwd_tiled(const elem_t* x, const elem_t* dout,
                             4 * C * C + 4 * C, grads, st);
 }
 
-// The shapes both split routes take.
+// The shapes both split routes take: any S whose rows fit a block's
+// shared memory (the launch refuses the others), C <= 128.
 static bool split_shape_ok(int S, int C, int H, int rows) {
-  return S >= 1 && S <= 16 && C >= 1 && C <= 128 && H >= 1 && C % H == 0 &&
-         rows >= 1;
+  return S >= 1 && C >= 1 && C <= 128 && H >= 1 && C % H == 0 && rows >= 1;
 }
 
 // The split backward (C <= 128; the wrapper routes the widths the tiled

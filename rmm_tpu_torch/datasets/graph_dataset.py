@@ -11,7 +11,7 @@ from ..frame.dataset import Dataset
 from ..frame.stats import StatType
 from ..frame.stype import Stype
 from ..graph.store import GraphStore
-from ..utils.batch import GraphBatch, graph_inputs, lp_inputs
+from ..utils.batch import GraphBatch, graph_inputs, lp_inputs, node_inputs
 from .base import (PretrainType, blank_masked_cells, build_mask_target,
                    category_codes, create_mask, pack_link_column,
                    pack_target, temporal_balanced_split)
@@ -118,7 +118,11 @@ class GraphTableDataset:
         """Size the static subgraph buffers from probe samples: ``n_probe``
         random seed batches per split (train and test, ``RandomState(0)``),
         the true sampled size (kept + dropped), times ``safety``, rounded up
-        to a multiple of 256 below 1k and to a power of two above."""
+        to a multiple of 256 below 1k and to a power of two above. The
+        probes are seed edges for node tasks too, as the reference's are:
+        a batch of B edges has up to 2·B end nodes, so the buffers hold a
+        batch of B seed nodes. (The reference also sizes the frontier
+        buffer of its on-device sampler, which the port does not have.)"""
         g = self.graph
         rng = np.random.RandomState(0)
         b = max(int(batch_size), 1)
@@ -161,6 +165,15 @@ class GraphTableDataset:
             self.calibrate_capacities(len(batch_y))
         return graph_inputs(batch_y, valid, self.graph, mode,
                             self.edge_capacity, self.node_capacity, rng_seed)
+
+    def get_node_inputs(self, node_ids, y, valid, mode="train",
+                        rng_seed: int = 0) -> GraphBatch:
+        """Node-seeded batch (node classification): the seeds fill node
+        lanes [0, B) in input order."""
+        if self.edge_capacity <= 0 or self.node_capacity <= 0:
+            self.calibrate_capacities(len(node_ids))
+        return node_inputs(node_ids, y, valid, self.graph, mode,
+                           self.edge_capacity, self.node_capacity, rng_seed)
 
     def get_lp_inputs(self, batch_y, valid, mode="train",
                       num_neg_samples: int = 64, rng_seed: int = 0,

@@ -1,11 +1,15 @@
-"""Synthetic IBM-AML-shaped transactions (numpy only).
+"""Synthetic datasets (numpy only): IBM-AML-shaped transactions and the
+Elliptic node-classification family.
 
-Same generator as ``rmm_tpu/datasets/synthetic.py::synthetic_aml_frame``:
-the same ``RandomState`` stream, draw for draw, so a seed gives the same
-table in both packages. The table is an ordered ``dict`` of numpy columns
-in the CSV's column order.
+Same generators as ``rmm_tpu/datasets/synthetic.py``
+(``synthetic_aml_frame``, ``write_synthetic_node_dataset``): the same
+``RandomState`` stream, draw for draw, so a seed gives the same tables in
+both packages. A table is an ordered ``dict`` of numpy columns in the
+CSV's column order.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -59,3 +63,48 @@ def synthetic_aml_frame(num_rows: int = 2000, num_accounts: int = 300,
 def write_synthetic_aml_csv(path: str, **kw) -> str:
     write_csv_columns(path, synthetic_aml_frame(**kw))
     return path
+
+
+def _planted_edges(rng, n_nodes: int, n_edges: int, labels: np.ndarray):
+    """Edges with homophily, so node labels are learnable from structure:
+    70% of the edges draw their destination among the nodes of the
+    source's label. The draws of the JAX generator, in its order; the
+    candidates of each label are listed once (the JAX generator lists them
+    anew for each edge, which takes minutes at Elliptic's size)."""
+    src = rng.randint(0, n_nodes, n_edges)
+    dst = rng.randint(0, n_nodes, n_edges)
+    same = rng.rand(n_edges) < 0.7
+    by_label = {int(v): np.nonzero(labels == v)[0] for v in np.unique(labels)}
+    for i in np.nonzero(same)[0]:
+        cands = by_label[int(labels[src[i]])]
+        dst[i] = cands[rng.randint(len(cands))]
+    return src, dst
+
+
+def write_synthetic_node_dataset(root: str, family: str = "elliptic",
+                                 num_nodes: int = 300, num_edges: int = 900,
+                                 num_feats: int = 8, n_classes: int = 4,
+                                 seed: int = 0) -> str:
+    """``<root>/nodes.csv`` and ``<root>/edges.csv`` in the Elliptic schema
+    (the only family ported): ``txId`` (not contiguous), ``class`` ("1",
+    "2" by label parity, 20% "unknown"), the feature columns "1".."F" with
+    "1" the time step (an integer in [1, 50), independent of the label),
+    and edges ``txId1``, ``txId2``."""
+    if family != "elliptic":
+        raise NotImplementedError(
+            f"synthetic node family {family!r} is not ported yet")
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, n_classes, num_nodes)
+    feats = rng.randn(num_nodes, num_feats) + labels[:, None] * 0.8
+    src, dst = _planted_edges(rng, num_nodes, num_edges, labels)
+    feats[:, 0] = rng.randint(1, 50, num_nodes).astype(np.float32)
+    tx = np.arange(num_nodes) * 7 + 3
+    cls = np.where(labels % 2 == 0, "1", "2").astype(object)
+    cls[rng.rand(num_nodes) < 0.2] = "unknown"
+    nodes = {"txId": tx, "class": cls}
+    nodes.update((str(i + 1), feats[:, i]) for i in range(num_feats))
+    write_csv_columns(os.path.join(root, "nodes.csv"), nodes)
+    write_csv_columns(os.path.join(root, "edges.csv"),
+                      {"txId1": tx[src], "txId2": tx[dst]})
+    return root

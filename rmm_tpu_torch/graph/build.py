@@ -36,11 +36,14 @@ def load_library() -> ctypes.CDLL:
                                          ctypes.c_int64]
         lib.rmm_graph_destroy.argtypes = [ctypes.c_void_p]
         lib.rmm_in_degrees.argtypes = [ctypes.c_void_p, i64p]
+        tail = [ctypes.c_int64, i64p, ctypes.c_int32, ctypes.c_uint64,
+                ctypes.c_int32, ctypes.c_int64, ctypes.c_int64, i64p, i64p,
+                i64p, i64p, i64p]
         lib.rmm_sample_from_edges.restype = ctypes.c_int64
-        lib.rmm_sample_from_edges.argtypes = [
-            ctypes.c_void_p, i64p, i64p, i64p, ctypes.c_int64, i64p,
-            ctypes.c_int32, ctypes.c_uint64, ctypes.c_int32, ctypes.c_int64,
-            ctypes.c_int64, i64p, i64p, i64p, i64p, i64p]
+        lib.rmm_sample_from_edges.argtypes = [ctypes.c_void_p, i64p, i64p,
+                                              i64p, *tail]
+        lib.rmm_sample_from_nodes.restype = ctypes.c_int64
+        lib.rmm_sample_from_nodes.argtypes = [ctypes.c_void_p, i64p, *tail]
         lib.rmm_negative_sample.restype = None
         lib.rmm_negative_sample.argtypes = [
             i64p, i64p, ctypes.c_int64, i64p, i64p, ctypes.c_int64,

@@ -6,8 +6,9 @@
 // Only what the port's paths read: the CSR graph, its in-degrees,
 // edge-seeded k-hop sampling (pyg-lib's NeighborSampler contract: seed edges
 // first, PADDED fixed-capacity neighborhoods, local relabeling in the same
-// pass) and negative sampling for link prediction. Node-seeded sampling and
-// port numbering come with the slices that use them.
+// pass), node-seeded k-hop sampling (node classification: seed nodes first)
+// and negative sampling for link prediction. Port numbering comes with the
+// slice that uses it.
 //
 // Exposed through a plain C ABI consumed via ctypes (no pybind11 in image).
 
@@ -197,6 +198,68 @@ int64_t rmm_sample_from_edges(void* handle, const int64_t* seed_src,
   std::unordered_map<int64_t, int64_t> local;
   local.reserve(nodes.size() * 2);
   for (size_t i = 0; i < nodes.size(); ++i) local[nodes[i]] = i;
+
+  for (int64_t i = 0; i < kept; ++i) {
+    out_edge_ids[i] = out.edge_ids[i];
+    out_src_local[i] = local[out.esrc[i]];
+    out_dst_local[i] = local[out.edst[i]];
+  }
+  for (int64_t i = kept; i < max_edges; ++i) {
+    out_edge_ids[i] = -1;
+    out_src_local[i] = 0;
+    out_dst_local[i] = 0;
+  }
+  for (size_t i = 0; i < nodes.size(); ++i) out_node_ids[i] = nodes[i];
+  for (int64_t i = nodes.size(); i < max_nodes; ++i) out_node_ids[i] = -1;
+  out_counts[0] = kept;
+  out_counts[1] = static_cast<int64_t>(nodes.size());
+  out_counts[2] = dropped;
+  return 0;
+}
+
+// Node-seeded k-hop sampling. Node order = SEED NODES FIRST (input order,
+// a repeated seed once), then the remaining sampled nodes sorted (reference
+// node_inputs, src/utils/batch_processing.py:40-47). Outputs and return
+// code as rmm_sample_from_edges'; the sampled edges are the hops' alone.
+int64_t rmm_sample_from_nodes(void* handle, const int64_t* seed_nodes,
+                              int64_t n_seeds, const int64_t* fanouts,
+                              int32_t n_hops, uint64_t rng_seed,
+                              int32_t undirected, int64_t max_edges,
+                              int64_t max_nodes, int64_t* out_edge_ids,
+                              int64_t* out_src_local, int64_t* out_dst_local,
+                              int64_t* out_node_ids, int64_t* out_counts) {
+  auto* g = static_cast<Graph*>(handle);
+  std::mt19937_64 rng(rng_seed);
+
+  SampleOut out;
+  std::unordered_set<int64_t> seen_edges;
+  std::vector<int64_t> frontier(seed_nodes, seed_nodes + n_seeds);
+  khop_expand(*g, frontier, fanouts, n_hops, rng, seen_edges, out,
+              undirected != 0);
+
+  int64_t total = static_cast<int64_t>(out.edge_ids.size());
+  int64_t kept = std::min<int64_t>(total, max_edges);
+  int64_t dropped = total - kept;
+
+  std::unordered_map<int64_t, int64_t> local;
+  local.reserve(max_nodes * 2);
+  std::vector<int64_t> nodes;
+  for (int64_t i = 0; i < n_seeds; ++i) {
+    if (local.emplace(seed_nodes[i], nodes.size()).second)
+      nodes.push_back(seed_nodes[i]);
+  }
+  std::vector<int64_t> rest;
+  rest.reserve(2 * kept);
+  for (int64_t i = 0; i < kept; ++i) {
+    rest.push_back(out.esrc[i]);
+    rest.push_back(out.edst[i]);
+  }
+  std::sort(rest.begin(), rest.end());
+  rest.erase(std::unique(rest.begin(), rest.end()), rest.end());
+  for (int64_t v : rest) {
+    if (local.emplace(v, nodes.size()).second) nodes.push_back(v);
+  }
+  if (static_cast<int64_t>(nodes.size()) > max_nodes) return -1;
 
   for (int64_t i = 0; i < kept; ++i) {
     out_edge_ids[i] = out.edge_ids[i];

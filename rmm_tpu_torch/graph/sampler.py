@@ -2,8 +2,9 @@
 reference on request with ``use_native=False``).
 
 Same contract as ``rmm_tpu/graph/sampler.py``: padded fixed-capacity
-subgraphs, seed edges first in input order, node ids sorted-unique, incoming
-edges sampled per hop.
+subgraphs, incoming edges sampled per hop; edge-seeded: seed edges first in
+input order, node ids sorted-unique; node-seeded: seed nodes first in input
+order, then the other sampled nodes sorted.
 """
 from __future__ import annotations
 
@@ -89,17 +90,34 @@ class NeighborSampler:
             return self._numpy_sample_edges(seed_src, seed_dst, seed_ids,
                                             int(rng_seed), max_edges,
                                             max_nodes)
+        return self._native_sample(
+            self._lib.rmm_sample_from_edges, (seed_src, seed_dst, seed_ids),
+            rng_seed, max_edges, max_nodes)
+
+    def sample_nodes(self, seed_nodes, max_edges: int, max_nodes: int,
+                     rng_seed: int) -> SampledSubgraph:
+        """The k-hop subgraph of the seed nodes: node lanes ``[0, n)`` hold
+        the ``n`` distinct seeds in input order."""
+        seed_nodes = np.ascontiguousarray(seed_nodes, np.int64)
+        if self._handle is None:
+            return self._numpy_sample_nodes(seed_nodes, int(rng_seed),
+                                            max_edges, max_nodes)
+        return self._native_sample(self._lib.rmm_sample_from_nodes,
+                                   (seed_nodes,), rng_seed, max_edges,
+                                   max_nodes)
+
+    def _native_sample(self, fn, seeds, rng_seed, max_edges: int,
+                       max_nodes: int) -> SampledSubgraph:
         edge_ids = np.empty(max_edges, dtype=np.int64)
         src_l = np.empty(max_edges, dtype=np.int64)
         dst_l = np.empty(max_edges, dtype=np.int64)
         node_ids = np.empty(max_nodes, dtype=np.int64)
         counts = np.zeros(3, dtype=np.int64)
-        rc = self._lib.rmm_sample_from_edges(
-            self._handle, _i64p(seed_src), _i64p(seed_dst), _i64p(seed_ids),
-            len(seed_ids), _i64p(self.fanouts), len(self.fanouts),
-            ctypes.c_uint64(int(rng_seed)), 0,   # 0: incoming edges only
-            max_edges, max_nodes, _i64p(edge_ids), _i64p(src_l),
-            _i64p(dst_l), _i64p(node_ids), _i64p(counts))
+        rc = fn(self._handle, *map(_i64p, seeds), len(seeds[-1]),
+                _i64p(self.fanouts), len(self.fanouts),
+                ctypes.c_uint64(int(rng_seed)), 0,   # 0: incoming edges only
+                max_edges, max_nodes, _i64p(edge_ids), _i64p(src_l),
+                _i64p(dst_l), _i64p(node_ids), _i64p(counts))
         if rc != 0:
             raise RuntimeError(
                 f"sampler node capacity exceeded (max_nodes={max_nodes}); "
@@ -107,7 +125,7 @@ class NeighborSampler:
         return SampledSubgraph(
             edge_ids=edge_ids, edge_index=np.stack([src_l, dst_l]),
             edge_mask=edge_ids >= 0, node_ids=node_ids,
-            node_mask=node_ids >= 0, num_seeds=len(seed_ids),
+            node_mask=node_ids >= 0, num_seeds=len(seeds[-1]),
             num_edges=int(counts[0]), num_nodes=int(counts[1]),
             num_dropped=int(counts[2]))
 
@@ -151,9 +169,25 @@ class NeighborSampler:
         edge_ids = list(map(int, seed_ids)) + e2
         esrc = list(map(int, seed_src)) + s2
         edst = list(map(int, seed_dst)) + d2
+        kept = min(len(edge_ids), max_edges)
+        node_order = sorted(set(esrc[:kept]) | set(edst[:kept]))
+        return self._pack(edge_ids, esrc, edst, node_order, len(seed_ids),
+                          max_edges, max_nodes)
+
+    def _numpy_sample_nodes(self, seed_nodes, rng_seed, max_edges,
+                            max_nodes) -> SampledSubgraph:
+        rng = np.random.RandomState(rng_seed % (2**32))
+        e2, s2, d2 = self._expand(list(map(int, seed_nodes)), set(), rng)
+        kept = min(len(e2), max_edges)
+        node_order = list(dict.fromkeys(map(int, seed_nodes)))
+        rest = (set(s2[:kept]) | set(d2[:kept])) - set(node_order)
+        return self._pack(e2, s2, d2, node_order + sorted(rest),
+                          len(seed_nodes), max_edges, max_nodes)
+
+    def _pack(self, edge_ids, esrc, edst, node_order, n_seeds, max_edges,
+              max_nodes) -> SampledSubgraph:
         total = len(edge_ids)
         kept = min(total, max_edges)
-        node_order = sorted(set(esrc[:kept]) | set(edst[:kept]))
         if len(node_order) > max_nodes:
             raise RuntimeError(
                 f"sampler node capacity exceeded (max_nodes={max_nodes})")
@@ -169,6 +203,6 @@ class NeighborSampler:
         return SampledSubgraph(
             edge_ids=out_eid, edge_index=np.stack([out_src, out_dst]),
             edge_mask=out_eid >= 0, node_ids=out_nodes,
-            node_mask=out_nodes >= 0, num_seeds=len(seed_ids),
+            node_mask=out_nodes >= 0, num_seeds=n_seeds,
             num_edges=kept, num_nodes=len(node_order),
             num_dropped=total - kept)

@@ -1,6 +1,7 @@
 """Per-split graph store: the train graph holds split-0 edges, val splits
 {0, 1}, test all edges; each split has its own sampler, and every edge
-keeps its global row id into the edge table."""
+keeps its global row id into the edge table. Without a split (node
+classification) every mode samples the one graph of all edges."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -51,6 +52,13 @@ class GraphStore:
         se = np.asarray(seed_edges, dtype=np.int64)
         return self.sampler(mode).sample_edges(
             se[:, 0], se[:, 1], se[:, 2], max_edges, max_nodes, rng_seed)
+
+    def sample_nodes(self, seed_nodes: np.ndarray, mode: str, max_edges: int,
+                     max_nodes: int, rng_seed: int) -> SampledSubgraph:
+        """seed_nodes: [B] global node ids (node classification)."""
+        return self.sampler(mode).sample_nodes(
+            np.asarray(seed_nodes, np.int64).reshape(-1), max_edges,
+            max_nodes, rng_seed)
 
     def in_degree_histogram(self) -> np.ndarray:
         """In-degree histogram of the train graph (PNA degree scalers)."""

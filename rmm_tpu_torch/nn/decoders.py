@@ -1,5 +1,5 @@
-"""Task heads (``rmm_tpu/nn/decoders.py``): the edge classifier and the
-self-supervised heads (link prediction, masked-cell modeling)."""
+"""Task heads (``rmm_tpu/nn/decoders.py``): the edge and node classifiers
+and the self-supervised heads (link prediction, masked-cell modeling)."""
 from __future__ import annotations
 
 import torch
@@ -42,6 +42,17 @@ class ClassifierHead(nn.Module):
         h = torch.cat([torch.relu(pair),
                        edge_attr.reshape(edge_attr.shape[0], -1)], dim=-1)
         return self.mlp(h)
+
+
+class NodeClassificationHead(nn.Module):
+    """Node classification: the seed nodes' states → MLP."""
+
+    def __init__(self, n_classes: int, n_hidden: int, dropout: float = 0.5):
+        super().__init__()
+        self.mlp = _MLP50(n_hidden, n_classes, dropout)
+
+    def forward(self, x):
+        return self.mlp(x)
 
 
 class _LPTrunk(nn.Module):

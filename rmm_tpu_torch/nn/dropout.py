@@ -8,19 +8,37 @@ training run. flax's ``nn.Dropout``: keep each element with probability
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 from torch import nn
 
 
+#: elements of the largest float32 draw behind one keep-mask; a larger mask
+#: is drawn in slices along its first axis (the Elliptic node tokens'
+#: [lanes, 8, 167, 167] mask would otherwise draw 0.9 GB of floats per
+#: 1,024 lanes at once)
+MAX_DRAW = 1 << 26
+
+
 def keep_mask(shape, rate: float, generator: Optional[torch.Generator],
               device) -> torch.Tensor:
-    """Bool mask, True with probability ``1 − rate``."""
+    """Bool mask, True with probability ``1 − rate``, drawn by
+    ``torch.rand`` in slices of rows of ``shape[0]``, each at most
+    ``MAX_DRAW`` elements (or one row), in order: a mask of at most
+    ``MAX_DRAW`` elements is one draw."""
     if generator is None:
         raise RuntimeError("dropout in train mode needs a torch.Generator: "
                            "call rmm_tpu_torch.nn.dropout.set_generator")
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+    shape = tuple(shape)
+    step = max(1, MAX_DRAW // math.prod(shape[1:]))
+    out = torch.empty(shape, dtype=torch.bool, device=device)
+    for i in range(0, shape[0], step):
+        part = torch.rand((min(step, shape[0] - i), *shape[1:]),
+                          generator=generator, device=device)
+        torch.lt(part, 1.0 - rate, out=out[i:i + step])
+    return out
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,

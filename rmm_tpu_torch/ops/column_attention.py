@@ -1,25 +1,31 @@
 """Fused column attention: the CUDA kernels' wrapper and its plain twin.
 
 The tabular models attend over the column-token axis: ``S = num_cols + 1``
-tokens (2 for the AML nodes table, 6 for its edges) with a batch axis of up
-to 131,072 lanes. :func:`fused_column_attention` keeps the JAX signature and
+tokens (2 for the AML nodes table, 6 for its edges, 167 for the Elliptic
+nodes table's 166 feature columns) with a batch axis of up to 131,072
+lanes. :func:`fused_column_attention` keeps the JAX signature and
 layout (``x [B, S, C]``, ``Wqkv [C, 3C]``, ``Wout [C, C]``, an optional
 ``[B, nhead, S, S]`` bool keep-mask) and runs ``csrc/column_attention.cu``
 for CUDA tensors: the forward kernel (the port of the TPU kernel
 ``rmm_tpu/ops/pallas/column_attention.py::_fwd_kernel``) and, under
 autograd, the backward (the port of ``_bwd_kernel``), through
 :class:`ColumnAttentionFunction`. Both directions take one of two routes
-by width (:func:`route`):
+by width and row length (:func:`route`):
 
 * ``tiled``: every C <= 64 that is a multiple of 4 (the main path's
-  C = 32), the register-tiled kernels (and the backward's reduce);
-* ``split``: every other C <= 128 (C = 96, the SSL path's C = 128, and
-  every C that is not a multiple of 4): hand-written float32 GEMMs
-  (``csrc/gemm_f32.cuh``, in their narrow form where C is not a multiple
-  of 4) around a per-row attention kernel. The forward is three launches,
-  the projections, the attention core and the output projection; the
-  backward five, the projections, its attention core, dx, the weight
-  gradients and the reduce.
+  C = 32) at S <= 16, the register-tiled kernels (and the backward's
+  reduce);
+* ``split``: every other shape up to C = 128 (C = 96, the SSL path's
+  C = 128, every C that is not a multiple of 4, and every S > 16):
+  hand-written float32 GEMMs (``csrc/gemm_f32.cuh``, in their narrow form
+  where C is not a multiple of 4) around a per-row attention kernel (past
+  S = 16 its long form, which walks the keys with an online softmax). The
+  forward is three launches, the projections, the attention core and the
+  output projection; the backward five, the projections, its attention
+  core, dx, the weight gradients and the reduce. A row past S = 16 must
+  fit a block's share of shared memory (:func:`max_s`: 195 tokens at
+  C = 32 and 54 at C = 128, 8 heads, on an H100); longer rows and
+  C > 128 raise :class:`UnsupportedShape`.
 
 The backward recomputes from ``x`` alone, as the TPU kernel does: the
 Function saves ``x``, the weights and the keep-mask, nothing of the
@@ -72,7 +78,8 @@ bwd_split_launches = 0
 bwd_bf16_launches = 0
 reduce_launches = 0
 
-MAX_S = 16                   # the kernel keeps a row's S×S scores in registers
+MAX_S = 16    # rows up to here keep their S×S scores on chip (the tiled
+#               kernels, the split routes' short cores); longer, long cores
 MAX_C = 128
 _TILED_MAX_C = 64            # the tiled kernels keep their weights in smem
 _CORE_THREADS = 256          # the split routes' attention cores: a block
@@ -265,8 +272,14 @@ class ColumnAttentionFunction(torch.autograd.Function):
         return (*grads, None, None, None, None)
 
 
+class UnsupportedShape(ValueError):
+    """A shape the kernels do not take on the card: C > MAX_C, or a row of
+    S > MAX_S tokens that does not fit a block's share of shared memory in
+    a split route's attention core (:func:`max_s`)."""
+
+
 def _check_cuda_inputs(x, wqkv, bqkv, wout, bout, keep):
-    s, c = x.shape[1], x.shape[2]
+    c = x.shape[2]
     tensors = {"x": x, "wqkv": wqkv, "bqkv": bqkv, "wout": wout,
                "bout": bout}
     for name, t in tensors.items():
@@ -282,9 +295,9 @@ def _check_cuda_inputs(x, wqkv, bqkv, wout, bout, keep):
                              or not keep.is_contiguous()):
         raise ValueError("drop_mask must be a contiguous bool tensor on the "
                          "device of x")
-    if s > MAX_S or c > MAX_C:
-        raise ValueError(f"the kernels take S <= {MAX_S} and C <= {MAX_C} "
-                         f"(C a multiple of nhead), got S={s}, C={c}")
+    if c > MAX_C:
+        raise UnsupportedShape(f"the kernels take C <= {MAX_C} (C a "
+                               f"multiple of nhead), got C={c}")
 
 
 def _raise_on(err: int, what: str):
@@ -293,12 +306,14 @@ def _raise_on(err: int, what: str):
                            + _kernel().rmm_cuda_error_string(err).decode())
 
 
-def route(c: int) -> str:
-    """The route of both directions for width ``c``: ``"tiled"`` for every
-    ``c <= 64`` that is a multiple of 4, ``"split"`` for every other ``c``
-    up to 128 (in the GEMMs' narrow form where ``c`` is not a multiple of
-    4)."""
-    return "tiled" if c <= _TILED_MAX_C and c % 4 == 0 else "split"
+def route(c: int, s: int) -> str:
+    """The route of both directions for width ``c`` and rows of ``s``
+    tokens: ``"tiled"`` for every ``c <= 64`` that is a multiple of 4 at
+    ``s <= 16``, ``"split"`` for every other shape up to ``c = 128`` (in
+    the GEMMs' narrow form where ``c`` is not a multiple of 4, through the
+    long attention cores past ``s = 16``)."""
+    tiled = s <= MAX_S and c <= _TILED_MAX_C and c % 4 == 0
+    return "tiled" if tiled else "split"
 
 
 def _aligned(t):
@@ -321,7 +336,7 @@ def column_attention_fwd(x, wqkv, bqkv, wout, bout, nhead, keep=None,
     lib = _kernel(x.dtype)
     inv_keep = 1.0 / (1.0 - rate) if keep is not None else 1.0
     keep_ptr = None if keep is None else keep.data_ptr()
-    kind = route(c)
+    kind = route(c, s)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rows, grid = plan or fwd_plan(b, s, c, nhead, dtype=x.dtype)
@@ -403,7 +418,8 @@ def core_rows(b: int, s: int, nhead: int, smem_budget: int,
     """Rows a block of a split route's attention core (either direction):
     as many as give each of its 256 threads at most one (row, head, query)
     and fit ``smem_budget`` bytes of shared memory at ``smem_per_row`` a
-    row, at least one."""
+    row, at least one (where a row has more than 256 (head, query) items,
+    as at S = 167 and 8 heads, its threads walk them in steps of 256)."""
     return max(1, min(b, _CORE_THREADS // (nhead * s),
                       smem_budget // smem_per_row))
 
@@ -428,7 +444,16 @@ def _core_budget() -> int:
 
 def _check_core_fits(smem_bytes, s: int, c: int, nhead: int, rows: int):
     """Raises unless ``rows`` rows of a split route's attention core (its
-    bytes from the library's ``smem_bytes(S, C, H, rows)``) fit a block."""
+    bytes from the library's ``smem_bytes(S, C, H, rows)``) fit a block,
+    and past S = 16 unless a row fits the core's budget
+    (:class:`UnsupportedShape`: keys streamed through shared memory would
+    take longer rows)."""
+    if s > MAX_S and smem_bytes(s, c, nhead, 1) > _core_budget():
+        raise UnsupportedShape(
+            f"a row of S={s} tokens at C={c}, nhead={nhead} takes "
+            f"{smem_bytes(s, c, nhead, 1)} bytes of a split route's "
+            f"attention core, more than the {_core_budget()} a block may "
+            f"take (at most S={max_s(c, nhead)} at this width)")
     most = _kernel().rmm_cuda_max_smem_per_block()
     if smem_bytes(s, c, nhead, rows) > most:
         raise ValueError(f"a split route's attention core does not fit "
@@ -436,11 +461,24 @@ def _check_core_fits(smem_bytes, s: int, c: int, nhead: int, rows: int):
                          "shared memory")
 
 
+def max_s(c: int, nhead: int) -> int:
+    """The longest row, in tokens, that both split routes' attention cores
+    take at width ``c`` on the current card: a row's token rows (and the
+    backward's 2·nhead floats a token) within :func:`_core_budget`."""
+    lib = _kernel()
+    fits = [lib.rmm_column_attention_fwd_core_smem_bytes,
+            lib.rmm_column_attention_bwd_core_smem_bytes]
+    budget, s = _core_budget(), MAX_S
+    while all(f(s + 1, c, nhead, 1) <= budget for f in fits):
+        s += 1
+    return s
+
+
 @functools.lru_cache(maxsize=256)
 def _fwd_plan(b, s, c, nhead, rows, dtype, device) -> FwdPlan:
     del device  # only a cache key: the plan depends on the card
     lib = _kernel(dtype)
-    if route(c) == "split":
+    if route(c, s) == "split":
         smem_bytes = lib.rmm_column_attention_fwd_core_smem_bytes
         plan = split_fwd_plan(b, s, nhead, _core_budget(),
                               smem_bytes(s, c, nhead, 1), rows)
@@ -536,7 +574,7 @@ def split_plan(b: int, s: int, c: int, nhead: int, sms: int,
 def _bwd_plan(b, s, c, nhead, rows, dtype, device) -> BwdPlan:
     del device  # only a cache key: the plan depends on the card
     lib = _kernel(dtype)
-    kind = route(c)
+    kind = route(c, s)
     if kind == "split":
         per_sm = lib.rmm_column_attention_gemm_blocks_per_sm()
         if per_sm < 0:

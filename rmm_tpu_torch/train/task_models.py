@@ -5,9 +5,10 @@
 A wrapper takes the device-resident edge and node tables and a
 :class:`~rmm_tpu_torch.utils.batch.GraphBatch` of ids and masks on the same
 device, gathers the batch's rows there and runs encode → backbone → head.
-Seed edges occupy lanes ``[0, B)``; the head reads that block. The fused
-wrapper message-passes over the context lanes ``[B:)`` only and fuses the
-seed block as its targets.
+Seed edges occupy lanes ``[0, B)``; the head reads that block (for
+``tabgnn``'s node classification the seed nodes, node lanes ``[0, B)``).
+The fused wrapper message-passes over the context lanes ``[B:)`` only and
+fuses the seed block as its targets.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from torch import nn
 
 from ..frame.stype import Stype
 from ..frame.tensor_frame import TensorFrame
-from ..nn.decoders import ClassifierHead
+from ..nn.decoders import ClassifierHead, NodeClassificationHead
 from ..nn.encoders import (
     EmbeddingEncoder,
     LinearEncoder,
@@ -71,7 +72,11 @@ def _deghist_to_avg_log(deg_histogram) -> float:
 
 
 class TABGNNS(nn.Module):
-    """Hybrid tabular + GNN edge classifier (model ``tabgnn``)."""
+    """Hybrid tabular + GNN classifier (model ``tabgnn``) of the seed edges
+    (``edge_classification``) or of the seed nodes
+    (``node_classification``)."""
+
+    TASKS = ("edge_classification", "node_classification")
 
     def __init__(self, node_encoder: StypeWiseFeatureEncoder,
                  edge_encoder: StypeWiseFeatureEncoder, channels: int,
@@ -79,20 +84,26 @@ class TABGNNS(nn.Module):
                  avg_log_deg: float = 1.0, reverse_mp: bool = False,
                  ego: bool = False, task: str = "edge_classification"):
         super().__init__()
-        if task != "edge_classification":
+        if task not in self.TASKS:
             raise NotImplementedError(f"task {task!r} is not ported yet")
         self.ego = ego
+        self.task = task
         self.node_encoder = node_encoder
         self.edge_encoder = edge_encoder
         self.model = TABGNN(channels, n_gnn_layers, node_encoder.num_cols,
                             edge_encoder.num_cols, nhidden=channels,
                             avg_log_deg=avg_log_deg, reverse_mp=reverse_mp,
                             dropout=dropout)
-        self.decoder = ClassifierHead(n_classes, channels, channels, dropout)
+        if task == "node_classification":
+            self.decoder = NodeClassificationHead(n_classes, channels,
+                                                  dropout)
+        else:
+            self.decoder = ClassifierHead(n_classes, channels, channels,
+                                          dropout)
 
     def forward(self, edge_table: TensorFrame, node_table: TensorFrame,
                 batch: GraphBatch) -> torch.Tensor:
-        """→ logits [B, n_classes] for the seed edges."""
+        """→ logits [B, n_classes] for the seed edges (or nodes)."""
         b = batch.num_seeds
         node_tf = gather_rows(node_table, batch.node_gather)
         if self.ego:
@@ -103,6 +114,8 @@ class TABGNNS(nn.Module):
         e_tok = self.edge_encoder(gather_rows(edge_table, batch.edge_gather))
         x, edge_attr = self.model(x_tok, batch.edge_index, e_tok,
                                   batch.edge_mask, batch.node_mask)
+        if self.task == "node_classification":
+            return self.decoder(x[:b])
         return self.decoder(x, batch.edge_index[:, :b], edge_attr[:b])
 
 

@@ -9,9 +9,15 @@ the card once. Steps and forwards are only enqueued per batch: losses and
 predictions stay on the device until the end of the epoch (one host sync),
 so the host samples the next batch while the card computes the last one.
 
-Training: weighted cross-entropy on the seed edges, ``torch.optim.Adam(lr,
-eps=adam_eps)`` with no weight decay (the JAX trainer's ``optax.adam``),
-``--freeze`` keeping every ``tab_layer_*`` parameter out of the update.
+Node classification (``--task node_classification``, Elliptic's) seeds
+each batch with the view's node ids, which fill node lanes ``[0, B)``; rows
+of the dataset's ``ignore_label`` class are left out of the loss, the
+metrics and the predictions.
+
+Training: weighted cross-entropy on the seed edges (or nodes),
+``torch.optim.Adam(lr, eps=adam_eps)`` with no weight decay (the JAX
+trainer's ``optax.adam``), ``--freeze`` keeping every ``tab_layer_*``
+parameter out of the update.
 Dropout draws from one ``torch.Generator`` on the model's device, seeded
 from ``cfg.seed``.
 
@@ -142,20 +148,40 @@ class Trainer:
         self.node_table = compute_cast(
             features(dataset.nodes.tensor_frame, self.device), cfg.precision)
 
+    @property
+    def node_task(self) -> bool:
+        return "node" in self.cfg.task
+
+    def seed_table(self):
+        """The table whose rows seed the batches: the nodes for node
+        classification, else the edges."""
+        return self.dataset.nodes if self.node_task else self.dataset.edges
+
     def _batches(self, view, mode: str, epoch: int = 0):
         """GraphBatches (host numpy) for a split view, in order. The
         sampler seed of batch i is ``mix_seed(seed, epoch, i)``, so threaded
-        sampling gives the same batches as sequential sampling."""
+        sampling gives the same batches as sequential sampling. A node
+        batch's seeds are its rows' node ids (``y[:, 1]``); its rows of the
+        dataset's ``ignore_label`` leave ``seed_mask``."""
         cfg = self.cfg
         loader = DataLoader(view.tensor_frame, cfg.batch_size,
                             shuffle=(mode == "train"),
                             seed=mix_seed(cfg.seed, epoch))
+        ignore = getattr(self.dataset, "ignore_label", None)
 
         def build(item):
             i, (tf, valid) = item
-            return self.dataset.get_graph_inputs(
-                np.asarray(tf.y), valid, mode,
-                rng_seed=mix_seed(cfg.seed, epoch, i))
+            y = np.asarray(tf.y)
+            seed = mix_seed(cfg.seed, epoch, i)
+            if not self.node_task:
+                return self.dataset.get_graph_inputs(y, valid, mode,
+                                                     rng_seed=seed)
+            gb = self.dataset.get_node_inputs(
+                y[:, 1].astype(np.int64), y[:, :1], valid, mode,
+                rng_seed=seed)
+            if ignore is not None:
+                gb.seed_mask = gb.seed_mask & (y[:, 0] != ignore)
+            return gb
 
         yield from threaded_map(build, enumerate(loader),
                                 int(cfg.sampler_threads))
@@ -264,15 +290,17 @@ class Trainer:
         return self._metrics(np.concatenate(labels), preds, scores)
 
     def predict(self, view, mode: str = "test") -> dict:
-        """Batch inference over a view's rows: ``id`` (edge-table row id),
-        ``pred`` (argmax class) and, for binary heads, ``score``, aligned
-        on real rows. ``mode`` picks the sampling graph ("test" = all
-        edges)."""
+        """Batch inference over a view's rows: ``id`` (edge-table row id,
+        or node id for node classification), ``pred`` (argmax class) and,
+        for binary heads, ``score``, aligned on real rows (for node
+        classification those not of the ``ignore_label`` class). ``mode``
+        picks the sampling graph ("test" = all edges)."""
         self.model.eval()
         b = self.cfg.batch_size
         rows, masks, auxes = [], [], []
         for gb in self._batches(view, mode):
-            rows.append(gb.edge_gather[:b].astype(np.int64))
+            seeds = gb.node_gather if self.node_task else gb.edge_gather
+            rows.append(seeds[:b].astype(np.int64))
             masks.append(gb.seed_mask)
             auxes.append(self._forward_eval(gb.to(self.device)))
         if not auxes:
@@ -290,7 +318,7 @@ class Trainer:
         (``<run_dir>/<epoch>/``, the previous one pruned; ``-1`` keeps the
         best model under ``--save_model``). Returns (history, best_m)."""
         cfg = self.cfg
-        tr, va, te = self.dataset.edges.split()
+        tr, va, te = self.seed_table().split()
         best_m = -1.0 if best_m is None else best_m
         history = []
         for epoch in range(start_epoch, start_epoch + cfg.epochs):

@@ -3,8 +3,9 @@
 The host builds it in numpy from a sampled subgraph; ``.to(device)`` ships
 it to the card as pinned, non-blocking copies. Features are gathered on the
 device from the resident tables (``edge_table[edge_gather]``). Seed edges
-occupy lanes ``[0, num_seeds)``; ``seed_mask`` marks the real rows (the
-last batch is padded). A link-prediction batch also carries
+occupy lanes ``[0, num_seeds)`` (seed nodes, in a node-classification
+batch, node lanes ``[0, num_seeds)``); ``seed_mask`` marks the real rows
+(the last batch is padded). A link-prediction batch also carries
 ``neg_edge_index``, ``num_neg`` corrupted edges for each seed edge.
 """
 from __future__ import annotations
@@ -83,6 +84,16 @@ def graph_inputs(batch_y: np.ndarray, valid: int, store, mode: str,
     sub = store.sample_edges(edges, mode, edge_capacity, node_capacity,
                              rng_seed)
     return _pack_sub(sub, valid, batch_y[:, :-3])
+
+
+def node_inputs(node_ids: np.ndarray, y: np.ndarray, valid: int, store,
+                mode: str, edge_capacity: int, node_capacity: int,
+                rng_seed: int) -> GraphBatch:
+    """Node-seeded batch (node classification): the seed nodes occupy node
+    lanes ``[0, B)`` in input order; y is the label column."""
+    sub = store.sample_nodes(node_ids, mode, edge_capacity, node_capacity,
+                             rng_seed)
+    return _pack_sub(sub, valid, y)
 
 
 def lp_inputs(batch_y: np.ndarray, valid: int, store, mode: str,

@@ -152,8 +152,63 @@ def test_backward_route_by_width(c, want, direction):
     64, the split routes every other C up to 128 (C not a multiple of 4
     among them, through the narrow GEMMs); each direction counts its tiled
     and split calls."""
-    assert ca.route(c) == want
+    assert ca.route(c, 6) == want
     assert isinstance(getattr(ca, f"{direction}_{want}_launches"), int)
+
+
+@pytest.mark.parametrize("s", [17, 40, 167, 195])
+@pytest.mark.parametrize("c", [4, 32, 64, 128, 126])
+def test_rows_past_16_tokens_take_the_split_route(c, s):
+    """Past S = 16 every width takes the split route (its long attention
+    cores on the card); at S = 16 the tiled widths stay tiled."""
+    assert ca.route(c, s) == "split"
+    assert ca.route(c, 16) == ("tiled" if c <= 64 and c % 4 == 0
+                               else "split")
+
+
+# Rows past S = 16: S = 17, 40 and the Elliptic node tokens' 167 at C = 32
+# with 8 heads, S = 17 and 40 at C = 128 with 8 heads.
+LONG = [(17, 32, 8), (40, 32, 8), (167, 32, 8), (17, 128, 8), (40, 128, 8)]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("s,c,h", LONG)
+def test_long_rows_match_the_pallas_kernel(s, c, h, masked):
+    """The forward and the gradients of the plain twin (what CPU tensors
+    take) against the JAX reference and the Pallas kernel in interpret
+    mode (its custom VJP's ``_bwd_kernel``), with and without the 0.083
+    keep-mask of the node path."""
+    b = 5
+    arrays = make_inputs(s + c, b, s, c)
+    rng = np.random.RandomState(s * c)
+    cot = rng.randn(b, s, c).astype(np.float32)
+    rate = 0.083 if masked else 0.0
+    mask = rng.rand(b, h, s, s) >= rate if masked else None
+    jmask = None if mask is None else jnp.asarray(mask)
+    jarr = [jnp.asarray(a) for a in arrays]
+    tensors = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    tmask = None if mask is None else torch.from_numpy(mask)
+    out = ca.fused_column_attention(*tensors, h, drop_mask=tmask,
+                                    dropout_rate=rate)
+    grads = torch.autograd.grad(out, tensors, torch.from_numpy(cot))
+
+    def reference(*a):
+        return jax_reference(*a, h, drop_mask=jmask, dropout_rate=rate)
+
+    def pallas(*a):
+        return jax_fused(*a, h, drop_mask=jmask, dropout_rate=rate,
+                         block_rows=8, interpret=True)
+
+    for fn in (reference, pallas):
+        want_out, vjp = jax.vjp(fn, *jarr)
+        np.testing.assert_allclose(out.detach().numpy(),
+                                   np.asarray(want_out), **TOL)
+        want = vjp(jnp.asarray(cot))
+        np.testing.assert_allclose(grads[0].numpy(), np.asarray(want[0]),
+                                   **TOL)
+        for got, ref in zip(grads[1:], want[1:]):
+            np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                                       rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("b,s,sms,per_sm", [

@@ -91,8 +91,8 @@ def test_column_attention_kernel_matches_plain(cuda, b, s, c, h, masked):
         out = ca.fused_column_attention(*args, h, mask, rate)
         ref = ca.reference_column_attention(*args, h, mask, rate)
     assert (ca.launches, ca.fwd_tiled_launches, ca.fwd_split_launches) == (
-        before[0] + 1, before[1] + int(ca.route(c) == "tiled"),
-        before[2] + int(ca.route(c) == "split"))
+        before[0] + 1, before[1] + int(ca.route(c, s) == "tiled"),
+        before[2] + int(ca.route(c, s) == "split"))
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
 
 
@@ -208,7 +208,7 @@ def test_split_forward_repeats_bitwise(cuda):
     with torch.inference_mode():
         first = ca.column_attention_fwd(*args, h, mask, 0.5)
         second = ca.column_attention_fwd(*args, h, mask, 0.5)
-    assert ca.route(c) == "split"
+    assert ca.route(c, s) == "split"
     assert torch.equal(first, second)
 
 
@@ -227,10 +227,119 @@ def test_column_attention_kernel_refuses_what_it_cannot_run(cuda):
                                   bout, 8)
     with pytest.raises(ValueError, match="is on cpu"):
         ca.fused_column_attention(x, wqkv.cpu(), bqkv, wout, bout, 8)
-    with pytest.raises(ValueError, match="S <= 16"):
-        ca.fused_column_attention(torch.zeros(8, 17, 32, device=cuda), wqkv,
-                                  bqkv, wout, bout, 8)
+    wide = attention_inputs(0, 8, 6, 136, cuda)
+    with pytest.raises(ca.UnsupportedShape, match="C <= 128"):
+        ca.fused_column_attention(*wide, 8)
+    # past S = 16 a row must fit a split core's share of shared memory:
+    # 400 tokens fit neither core at C = 32, one past max_s not the
+    # backward's (the larger a token)
+    too_long = torch.zeros(2, 400, 32, device=cuda)
+    with pytest.raises(ca.UnsupportedShape, match="at most S="):
+        ca.fused_column_attention(too_long, wqkv, bqkv, wout, bout, 8)
+    with pytest.raises(ca.UnsupportedShape, match="at most S="):
+        ca.bwd_plan(2, ca.max_s(32, 8) + 1, 32, 8)
     assert ca.launches == before
+
+
+# Rows past S = 16: the long attention cores of the split routes. The
+# Elliptic node tokens (S = 167 at C = 32/8, the node path's shape), S = 17
+# and 40 at C = 32 and 128, head widths of 4, 16, 32 (two walks of 16
+# channels), 5 and 21 (one-float chunks; the narrow GEMMs at C = 30 and
+# 126), one head, and key counts that are no multiple of the 16-key chunk.
+LONG_SHAPES = [
+    (203, 167, 32, 8),
+    (1001, 17, 32, 8),
+    (301, 40, 32, 8),
+    (77, 17, 128, 8),
+    (129, 40, 128, 8),
+    (65, 20, 128, 4),
+    (45, 23, 30, 6),
+    (40, 33, 126, 6),
+    (37, 19, 64, 4),
+    (50, 18, 16, 1),
+]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,s,c,h", LONG_SHAPES)
+def test_long_rows_forward_takes_the_split_kernels(cuda, b, s, c, h, masked):
+    args = attention_inputs(b + s + c, b, s, c, cuda)
+    mask, rate = None, 0.0
+    if masked:
+        rate = 0.3
+        mask = torch.from_numpy(
+            np.random.RandomState(b).rand(b, h, s, s) >= rate).to(cuda)
+    before = (ca.launches, ca.fwd_split_launches)
+    with torch.inference_mode():
+        out = ca.fused_column_attention(*args, h, mask, rate)
+        ref = ca.reference_column_attention(*args, h, mask, rate)
+    assert ca.route(c, s) == "split"
+    assert (ca.launches, ca.fwd_split_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,s,c,h", LONG_SHAPES)
+def test_long_rows_forward_core_matches_plain(cuda, b, s, c, h, masked):
+    """The long forward core alone on seeded token rows q | k | v against
+    its plain twin, at the plan's rows and at one row a block."""
+    rng = np.random.RandomState(b + c)
+    tok = torch.from_numpy(rng.randn(b, s, 3 * c).astype(np.float32)).to(
+        cuda)
+    mask, rate = None, 0.0
+    if masked:
+        rate = 0.083
+        mask = torch.from_numpy(rng.rand(b, h, s, s) >= rate).to(cuda)
+    want = ca.reference_attention_core(tok, h, mask, rate).cpu().numpy()
+    for rows in (None, 1):
+        got = ca.attention_core_fwd(tok, h, mask, rate, rows=rows)
+        np.testing.assert_allclose(got.cpu().numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,s,c,h", LONG_SHAPES)
+def test_long_rows_backward_takes_the_split_kernels(cuda, b, s, c, h,
+                                                    masked):
+    before = (ca.bwd_launches, ca.bwd_split_launches, ca.reduce_launches)
+    got, want = backward_case(cuda, b, s, c, h, masked)
+    assert (ca.bwd_launches, ca.bwd_split_launches,
+            ca.reduce_launches) == tuple(n + 1 for n in before)
+    assert ca.bwd_plan(b, s, c, h).route == "split"
+    assert_gradients_match(got, want)
+
+
+@pytest.mark.parametrize("c", [32, 128])
+def test_longest_row_the_cores_take_matches_plain(cuda, c):
+    """Both directions at the longest S both cores take at C (one row of
+    a block's share of shared memory), with the keep-mask."""
+    b, s, h = 19, ca.max_s(c, 8), 8
+    assert s > 16
+    with torch.inference_mode():
+        out, ref = forward_case(cuda, b, s, c, h, None)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
+    assert_gradients_match(*backward_case(cuda, b, s, c, h, True))
+
+
+def test_long_rows_repeat_bitwise(cuda):
+    """The long cores sum every output in a fixed order, as the short ones
+    do: two calls of each direction at the node path's shape give the same
+    bits."""
+    b, s, c, h = 1024, 167, 32, 8
+    x, wqkv, bqkv, wout, bout = attention_inputs(0, b, s, c, cuda)
+    do = torch.randn(b, s, c, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(1))
+    mask = torch.rand(b, h, s, s, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(2)) >= 0.083
+    with torch.inference_mode():
+        first, second = (ca.column_attention_fwd(x, wqkv, bqkv, wout, bout,
+                                                 h, mask, 0.083)
+                         for _ in range(2))
+    assert torch.equal(first, second)
+    first, second = (ca.column_attention_bwd(x, do, wqkv, bqkv, wout, h,
+                                             mask, 0.083) for _ in range(2))
+    for g, a in zip(first, second):
+        assert torch.equal(g, a)
 
 
 # The backward's further shapes. Where C is not a multiple of 4 they take
@@ -387,7 +496,7 @@ def test_narrow_split_routes_repeat_bitwise(cuda):
                      generator=torch.Generator(cuda).manual_seed(1))
     mask = torch.rand(b, h, s, s, device=cuda,
                       generator=torch.Generator(cuda).manual_seed(2)) >= 0.5
-    assert ca.route(c) == "split"
+    assert ca.route(c, s) == "split"
     with torch.inference_mode():
         first, second = (ca.column_attention_fwd(x, wqkv, bqkv, wout, bout,
                                                  h, mask, 0.5)
@@ -495,6 +604,8 @@ ROUTES = [
     (100, 16, 128, 8, "split"),
     (129, 6, 30, 6, "split"),       # C not a multiple of 4: narrow GEMMs
     (65, 3, 42, 7, "split"),
+    (2048, 167, 32, 8, "split"),    # the Elliptic node tokens
+    (300, 17, 32, 8, "split"),      # S > 16 at a tiled width
 ]
 
 
@@ -503,7 +614,7 @@ def test_backward_route_by_shape(cuda, b, s, c, h, route):
     x, wqkv, bqkv, wout, _ = attention_inputs(0, b, s, c, cuda)
     before = (ca.bwd_launches, ca.bwd_tiled_launches, ca.bwd_split_launches)
     ca.column_attention_bwd(x, torch.ones_like(x), wqkv, bqkv, wout, h)
-    assert ca.route(c) == route
+    assert ca.route(c, s) == route
     assert (ca.bwd_launches, ca.bwd_tiled_launches,
             ca.bwd_split_launches) == (before[0] + 1,
                                        before[1] + int(route == "tiled"),
@@ -516,7 +627,7 @@ def test_forward_route_by_shape(cuda, b, s, c, h, route):
     args = attention_inputs(0, b, s, c, cuda)
     before = (ca.launches, ca.fwd_tiled_launches, ca.fwd_split_launches)
     ca.column_attention_fwd(*args, h)
-    assert ca.route(c) == route
+    assert ca.route(c, s) == route
     assert (ca.launches, ca.fwd_tiled_launches, ca.fwd_split_launches) == (
         before[0] + 1, before[1] + int(route == "tiled"),
         before[2] + int(route == "split"))
@@ -648,7 +759,7 @@ def test_ssl_target_rows_split_backward_scalar_forward_match_plain(
     args = attention_inputs(7, b, s, c, cuda)
     mask = torch.from_numpy(
         np.random.RandomState(8).rand(b, h, s, s) >= rate).to(cuda)
-    assert ca.route(c) == "split"
+    assert ca.route(c, s) == "split"
     before = (ca.launches, ca.fwd_split_launches, ca.bwd_launches,
               ca.bwd_split_launches)
     if direction == "fwd":
@@ -798,6 +909,9 @@ BF16_SHAPES = [
     (333, 6, 126, 6),    # C not a multiple of 4: the narrow split route
     (129, 6, 30, 6),
     (77, 5, 21, 3),      # odd C: no two bf16 elements share 4 bytes
+    (203, 167, 32, 8),   # Elliptic's node tokens: the long cores
+    (77, 17, 32, 8),
+    (129, 40, 128, 8),
 ]
 
 
@@ -847,7 +961,8 @@ def test_bf16_kernels_match_plain(cuda, b, s, c, h, masked):
     out = ca.fused_column_attention(x, *cast_floats(masters, torch.bfloat16),
                                     h, mask, rate)
     got = torch.autograd.grad(out, [x, *masters], do)
-    tiled, split = int(ca.route(c) == "tiled"), int(ca.route(c) == "split")
+    tiled = int(ca.route(c, s) == "tiled")
+    split = int(ca.route(c, s) == "split")
     assert [getattr(ca, n) - m for n, m in zip(COUNTERS, before)] == [
         1, tiled, split, 1, 1, tiled, split, 1]
     ref = ca.reference_column_attention(x, *masters, h, mask, rate)
@@ -900,7 +1015,8 @@ def test_float32_x_with_bf16_weights_takes_the_float32_kernels(cuda, c):
     out = ca.fused_column_attention(x, *cast_floats(masters, torch.bfloat16),
                                     h)
     got = torch.autograd.grad(out, [x, *masters], do)
-    tiled, split = int(ca.route(c) == "tiled"), int(ca.route(c) == "split")
+    tiled = int(ca.route(c, s) == "tiled")
+    split = int(ca.route(c, s) == "split")
     assert [getattr(ca, n) - m for n, m in zip(COUNTERS, before)] == [
         1, tiled, split, 0, 1, tiled, split, 0]
     rounded = [m.detach().bfloat16().float().requires_grad_()

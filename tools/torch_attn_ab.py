@@ -49,6 +49,15 @@ CASES = {
 }
 
 
+def route_of(ca, c: int, s: int) -> str:
+    """The route a side's package takes: by width and S, or, in a package
+    from before rows past 16 tokens ran, by width alone."""
+    try:
+        return ca.route(c, s)
+    except TypeError:
+        return ca.route(c)
+
+
 def child(root: str, label: str) -> int:
     """One side's measurements, with ``root``'s package."""
     sys.path.insert(0, root)
@@ -72,7 +81,8 @@ def child(root: str, label: str) -> int:
                     if rate else None)
             rec = {"tool": "torch_attn_ab", "side": label, "root": root,
                    "direction": direction, "B": b, "S": s, "C": c, "H": h,
-                   "dropout": rate, "dtype": dtype, "route": ca.route(c),
+                   "dropout": rate, "dtype": dtype,
+                   "route": route_of(ca, c, s),
                    "card": card}
             leaves = [v.detach().float().requires_grad_() for v in (x, *w)]
             ref = ca.reference_column_attention(*leaves, h, mask, rate)

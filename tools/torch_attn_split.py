@@ -225,7 +225,7 @@ def fwd_shape_run(card, name, b, s, c, h, rate):
     ok = err <= KERNEL_TOL
     emit({"tool": "torch_attn_split", "direction": "fwd", "shape": name,
           "B": b, "S": s, "C": c, "H": h, "dropout": rate,
-          "route": ca.route(c), "plan": ca.fwd_plan(b, s, c, h)._asdict(),
+          "route": ca.route(c, s), "plan": ca.fwd_plan(b, s, c, h)._asdict(),
           "max_abs_err": err, "tol": KERNEL_TOL, "ok": ok, "ms": ms,
           "scratch_gb": scratch / 1e9,
           "launches": {k: {"ms": per_launch["ms"].get(k),
@@ -264,7 +264,7 @@ def shape_run(card, name, b, s, c, h, rate):
     bounds = launch_bounds(b, s, c, h, True, plan.slices)
     emit({"tool": "torch_attn_split", "direction": "bwd", "shape": name,
           "B": b, "S": s, "C": c, "H": h, "dropout": rate,
-          "route": ca.route(c),
+          "route": ca.route(c, s),
           "plan": plan._asdict(), "max_rel_err": errs, "tol": GRAD_TOL,
           "ok": max(errs) <= GRAD_TOL, "ms": ms,
           "scratch_gb": scratch / 1e9,

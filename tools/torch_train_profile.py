@@ -4,6 +4,7 @@
     python3 tools/torch_train_profile.py --ssl [--rows 131072] [--batches 12]
     python3 tools/torch_train_profile.py --ssl --precision bf16
     python3 tools/torch_train_profile.py --model tabgnnfused
+    python3 tools/torch_train_profile.py --node
 
 Builds the supervised config of record with ``rmm_tpu_torch`` (synthetic
 AML, tabgnn, C = 32, 2 layers, fanouts 100/100, batch 200, dropout 0.083;
@@ -23,6 +24,15 @@ fused model (C = 128, 3 layers, 8 heads, the supervised config's data and
 flags, random weights), with its forward by layer and the peak memory of
 a step.
 
+With ``--node`` the same for Elliptic node classification (the
+``elliptic`` config: tabgnn, C = 32, 2 layers, 8 heads, fanouts 100/100,
+batch 200, dropout 0.083) on the port's synthetic Elliptic (Elliptic's
+203,769 transactions, 234,355 edges and 166 feature columns: node tokens
+S = 167 through the split routes' long cores, edge tokens S = 2 through
+the tiled kernels), with its forward by layer (each
+``tab_layer`` twice a step: the node and the edge tokens) and the peak
+memory of a step.
+
 With ``--ssl`` the same for SSL pretraining at the SSL config of record
 (``PretrainTrainer``, mcm-lp, C = 128, 3 layers, 8 heads, 64 negatives,
 batch 200, fanouts 100/100, dropout 0.5, lr 2e-4): host sampling with the
@@ -35,8 +45,8 @@ forwards through the trainers' own cast of the parameters); every line
 names its precision. Prints one JSON line per measurement and writes the
 profiler's kernel table to ``--table`` (default ``outputs/
 train_profile.txt``, ``outputs/tabgnnfused_profile.txt`` with ``--model
-tabgnnfused``, ``outputs/ssl_profile.txt`` with ``--ssl``). Needs a CUDA
-card.
+tabgnnfused``, ``outputs/ssl_profile.txt`` with ``--ssl``,
+``outputs/node_profile.txt`` with ``--node``). Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -54,6 +64,9 @@ from tools.torch_serve_profile import device_us, kernel_table  # noqa: E402
 from tools.torch_serve_profile import emit as emit_line  # noqa: E402
 
 PRECISION = "f32"
+
+#: Elliptic's published size (Weber et al. 2019): transactions and edges
+ELLIPTIC_NODES, ELLIPTIC_EDGES = 203769, 234355
 
 
 def emit(obj: dict):
@@ -82,6 +95,8 @@ def layer_times(model, run, n: int) -> dict:
     names += [f"model.layer_{i}{part}" for i in range(model.model.num_layers)
               for part in ("", ".tab_conv", ".gnn_conv", ".gnn_edge_update",
                            ".fuse")]
+    names += [f"model.{kind}_layer_{i}" for kind in ("tab", "gnn")
+              for i in range(model.model.num_layers)]
     mods = dict(model.named_modules())
     names = [name for name in names if name in mods]
     events: dict = {name: [] for name in names}
@@ -228,6 +243,7 @@ def main(argv=None):
     p.add_argument("--ssl", action="store_true")
     p.add_argument("--model", default="tabgnn",
                    choices=("tabgnn", "tabgnnfused"))
+    p.add_argument("--node", action="store_true")
     p.add_argument("--precision", default="f32", choices=("f32", "bf16"))
     p.add_argument("--table", default=None)
     args = p.parse_args(argv)
@@ -237,7 +253,8 @@ def main(argv=None):
         args.batches = 12 if args.ssl else 24
     if args.table is None:
         args.table = os.path.join(ROOT, "outputs", "ssl_profile.txt"
-                                  if args.ssl else "train_profile.txt"
+                                  if args.ssl else "node_profile.txt"
+                                  if args.node else "train_profile.txt"
                                   if args.model == "tabgnn" else
                                   "tabgnnfused_profile.txt")
 
@@ -246,8 +263,9 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    from rmm_tpu_torch.datasets import (IBMTransactionsAML,
-                                        write_synthetic_aml_csv)
+    from rmm_tpu_torch.datasets import (EllipticBitcoin, IBMTransactionsAML,
+                                        write_synthetic_aml_csv,
+                                        write_synthetic_node_dataset)
     from rmm_tpu_torch.frame.dataset import DatasetView
     from rmm_tpu_torch.train.trainer import Trainer
     from rmm_tpu_torch.utils.config import Config
@@ -267,22 +285,30 @@ def main(argv=None):
             f.write(card + "\n" + table + "\n")
         shutil.rmtree(work, ignore_errors=True)
         return
-    csv = os.path.join(work, "aml.csv")
-    write_synthetic_aml_csv(csv, num_rows=args.rows,
-                            num_accounts=max(args.rows // 16, 64), seed=0)
+    if args.node:
+        data = write_synthetic_node_dataset(
+            os.path.join(work, "elliptic"), num_nodes=ELLIPTIC_NODES,
+            num_edges=ELLIPTIC_EDGES, num_feats=166, seed=0)
+    else:
+        data = write_synthetic_aml_csv(
+            os.path.join(work, "aml.csv"), num_rows=args.rows,
+            num_accounts=max(args.rows // 16, 64), seed=0)
     t0 = time.perf_counter()
     fused = args.model == "tabgnnfused"
-    cfg = Config(model=args.model, data=csv, batch_size=200,
+    cfg = Config(model=args.model, data=data, batch_size=200,
+                 task="node_classification" if args.node
+                 else "edge_classification",
                  n_hidden=128 if fused else 32,
                  n_gnn_layers=3 if fused else 2, num_neighs=(100, 100),
                  device="cuda", sampler_threads=4, precision=args.precision)
-    ds = IBMTransactionsAML(csv, khop_neighbors=cfg.num_neighs)
+    ds = (EllipticBitcoin(data, khop_neighbors=cfg.num_neighs) if args.node
+          else IBMTransactionsAML(data, khop_neighbors=cfg.num_neighs))
     tr = Trainer(cfg, ds)
-    emit({"phase": "setup", "model": args.model,
+    emit({"phase": "setup", "model": args.model, "task": cfg.task,
           "seconds": time.perf_counter() - t0,
           "edge_capacity": tr.cfg.edge_capacity,
           "node_capacity": tr.cfg.node_capacity, "card": card})
-    train = ds.edges.split()[0]
+    train = tr.seed_table().split()[0]
     n = args.batches
     view = DatasetView(train.parent, train.indices[:n * cfg.batch_size])
 
@@ -309,7 +335,7 @@ def main(argv=None):
           "host_enqueue_ms_per_step": 1e3 * (time.perf_counter() - t0) / n,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "card": card})
-    if fused:
+    if fused or args.node:
         def forwards():
             for g in dev:
                 tr._logits(g)
