@@ -109,8 +109,9 @@ through all of them:
              each way. Train rows/s, the median step, peak memory, val f1.
 13. kernel_long — both directions at S > 16 against the plain twin: the
              node path's [node capacity, 167, 32/8], 4096x17x32/8,
-             4096x40x128/8 and the longest S the cores take at C = 32 and
-             at C = 128, each with the 0.083 keep-mask and without it
+             4096x65x32/8, 4096x40x128/8 and the longest S the cores take
+             at C = 32 and at C = 128, each with the 0.083 keep-mask and
+             without it
              (records as the kernel phase's; two calls bitwise equal at the
              node shape).
 14. node_serve — the predict CLI on node_train's checkpoint over the whole
@@ -133,8 +134,9 @@ float32, their timestamp block being so, and the node tokens bf16):
              32768x6x100/4 (bf16 rows of C % 8 = 4), the narrow shapes
              (0.5 keep-mask and unmasked) and, past S = 16 (the long
              cores; Elliptic's node tokens are bf16 under bf16),
-             4096x167x32/8 and 4096x40x128/8 (the node keep-mask and
-             unmasked): out and dx within one
+             4096x167x32/8, 4096x40x128/8, 4096x17x32/8, 4096x195x32/8
+             and 4096x54x128/8 (the node keep-mask and unmasked): out and
+             dx within one
              bf16 rounding, the float32 weight gradients at the float32
              tolerance, bitwise repeats, kernel / plain / library times
              and the bound from bf16 bytes.
@@ -193,6 +195,11 @@ WORK = os.path.join(ROOT, "rmm_tpu_torch", "_build", "smoke")
 PEAK_BYTES_PER_S = 3.35e12     # HBM3
 PEAK_F32_FLOP_PER_S = 67e12    # float32 outside the tensor cores
 PEAK_BF16_FLOP_PER_S = 989e12  # bf16 operands, float32 sums (tensor cores)
+# The exps of the long attention cores run on the SMs' MUFU units: 16 a
+# clock an SM (NVIDIA's Hopper tuning guide), at the H100 SXM's 1,980 MHz
+# boost clock
+MUFU_PER_CLOCK_PER_SM = 16
+SM_CLOCK_HZ = 1.98e9
 KERNEL_TOL = 1e-4              # abs: f32, sums in another order
 GRAD_TOL = 1e-4                # relative to the reference's largest entry:
 #                                the weight gradients sum ~786k tokens
@@ -329,6 +336,20 @@ def attention_bwd_floor(b, s, c, h, masked, elem: int = 4,
         nbytes += b * h * s * s
     flops = 2 * b * s * (11 * c * c + 6 * s * c)
     return (nbytes / PEAK_BYTES_PER_S * 1e3, flops / peak * 1e3)
+
+
+def exp_floor_ms(b, s, h, walks: int) -> float | None:
+    """Past S = 16 the least time of the long cores' exps: ``walks`` exps
+    a (query, key) pair of a head (1 forward, 3 backward: each walk
+    recomputes them) over the card's MUFU rate; None at S <= 16. The bound
+    of :func:`attention_floor` counts only bytes and FMAs."""
+    import torch
+
+    if s <= 16:
+        return None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (walks * b * h * s * s
+            / (MUFU_PER_CLOCK_PER_SM * sms * SM_CLOCK_HZ) * 1e3)
 
 
 def bound(t_bytes: float, t_ops: float) -> tuple[float, str]:
@@ -474,7 +495,8 @@ def fwd_record(rng, dev, b, s, c, h, rate, card, repeat=False) -> dict:
            "tol": KERNEL_TOL, "kernel_ms": k_ms,
            "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
            "bound_by": by, "bytes_ms": t_bytes, "ops_ms": t_ops,
-           "card": card, "ok": True}
+           "exp_floor_ms": exp_floor_ms(b, s, h, 1), "card": card,
+           "ok": True}
     emit(rec)
     del x, out, ref, mask, args
     torch.cuda.empty_cache()
@@ -550,7 +572,8 @@ def bwd_record(rng, dev, b, s, c, h, rate, card, repeat=False) -> dict:
                               for g, w in zip(got, want)),
            "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
            "bound_ms": bound_ms, "bound_by": by, "bytes_ms": t_bytes,
-           "ops_ms": t_ops, "card": card, "ok": True}
+           "ops_ms": t_ops, "exp_floor_ms": exp_floor_ms(b, s, h, 3),
+           "card": card, "ok": True}
     emit(rec)
     del inputs, do, mask, args, got, leaves, out, want
     torch.cuda.empty_cache()
@@ -619,12 +642,14 @@ def kernel_phase(card: str) -> dict:
 def long_shapes(node_capacity: int) -> list:
     """Rows past S = 16 (the split routes' long attention cores), each with
     the node path's 0.083 keep-mask and without it: the node path's
-    [node capacity, 167, 32/8], 4096x17x32/8, 4096x40x128/8 and the longest
-    S the cores take at C = 32 and at C = 128 (8 heads)."""
+    [node capacity, 167, 32/8], 4096x17x32/8, 4096x65x32/8 (a lane's third
+    query, a third chunk of keys), 4096x40x128/8 and the longest S the
+    cores take at C = 32 and at C = 128 (8 heads)."""
     from rmm_tpu_torch.ops import column_attention as ca
 
     shapes = [(node_capacity, NODE_S, 32, 8), (4096, 17, 32, 8),
-              (4096, 40, 128, 8), (4096, ca.max_s(32, 8), 32, 8),
+              (4096, 65, 32, 8), (4096, 40, 128, 8),
+              (4096, ca.max_s(32, 8), 32, 8),
               (4096, ca.max_s(128, 8), 128, 8)]
     return [(*shape, rate) for shape in shapes
             for rate in (TRAIN_DROPOUT, 0.0)]
@@ -680,10 +705,13 @@ def bf16_long_shapes() -> list:
     """(B, S, C, H, dropout) of the bf16 kernel phase past S = 16 (the
     split routes' long cores, which the bf16 build holds too: Elliptic's
     node tokens are bf16 under --precision bf16): the node path's
-    4096x167x32/8 and 4096x40x128/8, each with the node path's keep-mask
-    and without it."""
-    return [(4096, NODE_S, 32, 8, TRAIN_DROPOUT), (4096, NODE_S, 32, 8, 0.0),
-            (4096, 40, 128, 8, TRAIN_DROPOUT), (4096, 40, 128, 8, 0.0)]
+    4096x167x32/8, 4096x40x128/8, 4096x17x32/8 and the longest rows of
+    ``kernel_long`` (4096x195x32/8, 4096x54x128/8), each with the node
+    path's keep-mask and without it."""
+    return [(4096, s, c, 8, rate)
+            for s, c in ((NODE_S, 32), (40, 128), (17, 32), (195, 32),
+                         (54, 128))
+            for rate in (TRAIN_DROPOUT, 0.0)]
 
 
 def kernel_bf16_phase(card: str) -> dict:
@@ -771,7 +799,8 @@ def kernel_bf16_phase(card: str) -> dict:
                "past_one_bf16_rounding": excess, "kernel_ms": k_ms,
                "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
                "bound_by": by, "bytes_ms": t_bytes, "ops_ms": t_ops,
-               "card": card, "ok": True}
+               "exp_floor_ms": exp_floor_ms(b, s, h, 1), "card": card,
+               "ok": True}
         emit(rec)
         recs[key + "fwd"].append(rec)
         del out, ref
@@ -835,7 +864,8 @@ def kernel_bf16_phase(card: str) -> dict:
                                   for g, w in zip(got, want)),
                "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
                "bound_ms": bound_ms, "bound_by": by, "bytes_ms": t_bytes,
-               "ops_ms": t_ops, "card": card, "ok": True}
+               "ops_ms": t_ops, "exp_floor_ms": exp_floor_ms(b, s, h, 3),
+               "card": card, "ok": True}
         emit(rec)
         recs[key + "bwd"].append(rec)
         del x, do, weights, masters, mask, got, leaves, ref, want

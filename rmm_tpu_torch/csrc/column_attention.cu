@@ -1319,144 +1319,550 @@ column_attention_fwd_core_kernel(float* __restrict__ tok,
 // tokens of a feature-rich node table: S = 167 at C = 32 on Elliptic).
 // Neither a query's S scores (registers) nor a row's S×S P_d and dS
 // (892 kB at S = 167, H = 8) fit, so both cores follow the flash-attention
-// scheme on CUDA cores; the staging of the row's token rows, the thread
-// mapping (one thread per (row, head, query), then per (row, head, key),
-// each walking the items in steps of the block) and the in-place writes
-// are those of the short cores above:
-//  * forward, per query: the keys in chunks of kKeyChunk with an online
-//    softmax (a running max m and sum l; the context, kept in registers
-//    kSlice channels at a time, rescaled by exp(m_old − m_new) a chunk),
-//    then ctx = acc / l. A head wider than kSlice channels walks the keys
-//    again for each slice of kSlice.
-//  * backward, per query: the same walk gives ctx_i (stored over dctx_i)
-//    and the log-sum-exp L_i = m + log l; D_i = dctx_i · ctx_i
+// scheme on CUDA cores, on the staged token rows of the short cores above
+// (one row a block at these lengths) and with their in-place writes:
+//  * forward, per query: one walk over the keys with an online softmax (a
+//    running max m and sum l, the context rescaled when m moves), then
+//    ctx = acc / l;
+//  * backward, per query: the same walk gives ctx_i (stored over dctx_i),
+//    the log-sum-exp L_i = m + log2 l and D_i = dctx_i · ctx_i
 //    (= Σ_j P_ij dP_ij, the keep-mask included); L_i and D_i go to shared
-//    memory (H·S floats each a row). A second walk recomputes
-//    P_ij = exp(s_ij − L_i) and dS_ij = P_ij (dP_ij − D_i) / √hd from
-//    q, k, v and dctx, into dq_i.
+//    memory (H·S float pairs a row); a second walk recomputes
+//    P_ij = 2^(s_ij − L_i) and dS_ij = P_ij (dP_ij − D_i) / √hd into dq_i;
 //  * backward, per key t after a barrier: the same recompute over the
-//    queries i into dk_t = Σ_i dS_it q_i and dv_t = Σ_i P_d,it dctx_i.
-// The keep-mask bytes come from device memory as they are needed (the
-// key pass reads a key's column, neighbouring threads on neighbouring
-// bytes). So a row's shared memory is its S token rows and 2·H·S floats:
-// 98.9 kB at S = 167, C = 32, H = 8 (the backward), one row a block. Every
-// output is one thread's chain of FMAs in a fixed order: two calls give the
-// same bits. Simple, not tuned. Measured at the Elliptic node shape
-// [4096, 167, 32/8] (chip_smoke.py's kernel_long; H100 80GB HBM3, 700 W):
-// forward 3.45 ms unmasked and 9.97 with the keep-mask, backward 14.9 and
-// 23.3, against bounds of 0.30-0.33 and 0.88. The mask costs two thirds of
-// the masked forward: the query walks read it a byte a key, a warp's
-// queries 167 bytes apart, so each warp load touches 32 cache lines (the
-// key pass reads neighbouring bytes). Unmasked, instruction throughput
-// and latency bound the walks (one query's serial chain a thread, an exp a
-// pair, a broadcast shared load per key). See PERF.md.
+//    queries into dk_t = Σ_i dS_it q_i and dv_t = Σ_i P_d,it dctx_i.
+// What bounds them, at [4096, 167, 32/8] (0.91 G (query, key) pairs a
+// walk): FP32 issue first (~13 instructions a pair forward, ~50 over the
+// backward's three walks), then the exps on the MUFU units (one a pair a
+// walk, 16 a clock an SM: 0.22 ms forward and 0.66 backward at 1.98 GHz),
+// and, masked, the keep-mask's bytes (0.91 GB, 0.27 ms at 3.35 TB/s) and
+// the instructions that turn them into bits. The design, for those:
+//  * A warp per (row, head): its 8 warps are a row's 8 heads, the lanes run
+//    over the queries (over the keys in the key walk), R of them a lane 32
+//    apart (LongHead; one a lane up to S = 32), each with its own vector,
+//    m, l or L, D and sums in registers. Every key's k_j and v_j (every
+//    query's q_i, dctx_i, L_i and D_i in the key walk) is one broadcast
+//    shared load that feeds R positions of every lane; rows longer than
+//    32·R take more groups, each group of a row's heads one round of the
+//    block's warps.
+//  * The head width a compile-time constant where the paths need speed
+//    (hd = 4 at C = 32/8, 16 at C = 128/8): the channel loops unroll and
+//    the sums hold the head's live channels. Any other width takes the
+//    same code at a runtime width, in slices of kSlice channels (a wider
+//    head walks the keys again for each), its own vector read from shared
+//    memory.
+//  * Exps in base 2: log2(e)/√hd is folded into each lane's own q (or k)
+//    once, so a score is a dot product and 2^x one MUFU.EX2, and the
+//    log-sum-exp lives in base 2. The forward walk takes 4 keys a step:
+//    every slot's scores, one test whether any passes its running max by
+//    kRaise (then the max is raised and the sums rescaled: a few times a
+//    query), then the exps and the context, so no branch splits the
+//    slots' chains and no scores are kept.
+//  * The keep-mask by whole sectors: for a chunk of 32 keys each lane reads
+//    its query row's bytes as the one to three aligned 16-byte granules
+//    that hold them (a row is S bytes and starts anywhere), and a multiply
+//    folds each 4 bytes into 4 bits: a 32-bit word a slot, one bit test a
+//    pair, and ~2 instructions a pair for the reading. Two other ways were
+//    measured slower: reading each row's 32 bytes across the warp, lane l
+//    on byte l, gathered by __ballot_sync a row a key step (~10
+//    instructions a pair: the masked forward 4.36 ms against 2.02), and
+//    asking L2 for the next chunk's lines before computing this one
+//    (+8.5% masked). The key walk reads a query's bytes of its keys,
+//    neighbouring lanes on neighbouring bytes.
+// A row's shared memory is its S token rows and, backward, the 2·H·S
+// floats of L and D (98.9 kB at S = 167, C = 32, H = 8). Every output is
+// one lane's chain of FMAs in a fixed order: two calls give the same bits.
+// Measured at [4096, 167, 32/8] (tools/torch_attn_ab.py; H100 80GB HBM3,
+// 700 W), the whole split route: forward 1.02 ms unmasked and 2.02 with
+// the node keep-mask, backward + reduce 5.19 and 7.69 (bounds 0.30, 0.33
+// and 0.88; exp floors 0.22 and 0.66). See PERF.md.
 // ---------------------------------------------------------------------------
 
-constexpr int kKeyChunk = 16;  // keys between two rescales of the context
-constexpr int kSlice = 16;     // channels of a head a walk accumulates
+constexpr int kWarps = kCoreThreads / 32;  // warps of a long core's block
+constexpr float kLog2e = 1.4426950408889634f;
+// A walk's running max m moves only when a score passes it by more than
+// kRaise (base 2), so a term 2^(s − m) stays below 2^kRaise.
+constexpr float kRaise = 8.f;
+// Channels a walk sums at a runtime head width (a wider head walks the keys
+// again for each slice of kSlice).
+constexpr int kSlice = 16;
 
-// Query i's online softmax over the S keys of its row (token 0 of the row,
-// at the head's channels, at tr; the query at ti; rows TS floats apart,
-// keys at +C, values at +2C), for channels [c0, c0 + n) of the context:
-// acc = Σ_j e_j · keep_j / (1 − p) · v_j, l = Σ_j e_j, e_j = exp(s_j − m),
-// m = max_j s_j, s_j = q_i · k_j / √hd. ctx = acc / l.
+// 2^x: one MUFU.EX2 (a result below 2^-126 flushes to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The long cores' instantiations: a head of HD channels, 4 (C = 32, 8
+// heads: the node path) or 16 (C = 128, 8 heads) at compile time, or 0 for
+// any other width (hd at run time, in chunks of W floats). kFwdQ and kBwdQ:
+// the queries a lane of the forward's and of the backward's query walks
+// owns; kK: the keys a lane of the key walk owns. Registers bound them: two
+// blocks of 256 threads an SM leave 128 a thread, and the backward's query
+// walk at hd = 16 holds q, dctx, dq, k_j and v_j (80 floats a query).
+template <int HD>
+struct LongHead {
+  static constexpr int kFwdQ = HD == 4 ? 6 : HD == 16 ? 2 : 1;
+  static constexpr int kBwdQ = HD == 4 ? 4 : 1;
+  static constexpr int kK = HD == 4 ? 3 : 1;
+};
+
+// A head's vector as a walk reads it: HD > 0, its HD channels in registers
+// (times f); HD == 0, a pointer into the staged row, f applied to each dot.
+template <int HD, int W>
+struct Vec {
+  float4 v[HD / 4];
+  __device__ void set(const float* p, float f = 1.f) {
+#pragma unroll
+    for (int c = 0; c < HD / 4; ++c) {
+      const float4 a = ld4(p + 4 * c);
+      v[c] = make_float4(a.x * f, a.y * f, a.z * f, a.w * f);
+    }
+  }
+};
+
 template <int W>
-__device__ __forceinline__ void online_context(Chunk<W> (&acc)[kSlice / W],
-                                               float& m, float& l,
-                                               const float* ti,
-                                               const float* tr,
-                                               const uint8_t* kp, int S,
-                                               int C, int hd, int TS, int c0,
-                                               int n, float scale,
-                                               float inv_keep) {
-  constexpr int NW = kSlice / W;
+struct Vec<0, W> {
+  const float* p;
+  float f;
+  __device__ void set(const float* p_, float f_ = 1.f) {
+    p = p_;
+    f = f_;
+  }
+};
+
+// acc + a · b over the head's hd channels
+template <int HD, int W>
+__device__ __forceinline__ float vdot(const Vec<HD, W>& a,
+                                      const Vec<HD, W>& b, int hd,
+                                      float acc) {
+  if constexpr (HD > 0) {
 #pragma unroll
-  for (int w = 0; w < NW; ++w) acc[w] = Chunk<W>::zero();
-  m = -INFINITY;
-  l = 0.f;
-  for (int j0 = 0; j0 < S; j0 += kKeyChunk) {
-    float p[kKeyChunk];
-    float cm = -INFINITY;
+    for (int c = 0; c < HD / 4; ++c) acc = dot4(a.v[c], b.v[c], acc);
+    return acc;
+  } else {
+    float d = 0.f;
+    for (int c = 0; c < hd; c += W)
+      d = Chunk<W>::load(a.p + c).dot(Chunk<W>::load(b.p + c), d);
+    return fmaf(d, a.f * b.f, acc);
+  }
+}
+
+// A walk's sums over a slice of a head's channels: all HD of them, or
+// channels [c0, c0 + n) of a runtime width (n <= kSlice).
+template <int HD, int W>
+struct Sum {
+  static constexpr int kN = (HD > 0 ? HD : kSlice) / W;
+  Chunk<W> a[kN];
+  __device__ void zero() {
 #pragma unroll
-    for (int u = 0; u < kKeyChunk; ++u) {
-      p[u] = -INFINITY;
-      if (j0 + u < S) {
+    for (int w = 0; w < kN; ++w) a[w] = Chunk<W>::zero();
+  }
+  __device__ void scale(float f) {
+#pragma unroll
+    for (int w = 0; w < kN; ++w) a[w].scale(f);
+  }
+  // a += f · x over the slice (x's values as they lie)
+  __device__ void fma(float f, const Vec<HD, W>& x, int c0, int n) {
+    if constexpr (HD > 0) {
+#pragma unroll
+      for (int c = 0; c < HD / 4; ++c) fma4(a[c].v, f, x.v[c]);
+    } else {
+#pragma unroll
+      for (int w = 0; w < kN; ++w)
+        if (w * W < n) a[w].fma(f, Chunk<W>::load(x.p + c0 + w * W));
+    }
+  }
+  // acc + a · x[c0 ..] (x in shared memory)
+  __device__ float dot(const float* x, int c0, int n, float acc) const {
+#pragma unroll
+    for (int w = 0; w < kN; ++w)
+      if (HD > 0 || w * W < n)
+        acc = a[w].dot(Chunk<W>::load(x + c0 + w * W), acc);
+    return acc;
+  }
+  // f · a into p[0 ..] (device memory)
+  __device__ void store(float* p, float f, int n) const {
+#pragma unroll
+    for (int w = 0; w < kN; ++w) {
+      if (HD > 0 || w * W < n) {
+        Chunk<W> t = a[w];
+        t.scale(f);
+        t.store(p + w * W);
+      }
+    }
+  }
+};
+
+// The keep bits of keys j .. j + nk − 1 (bit u: key j + u, nk <= 32) of a
+// query's row of a head's keep-mask, from p = the row's byte of key j. A
+// row is S bytes, so it starts anywhere: the lane reads the 16-byte
+// granules that hold those bytes (one to three aligned loads, whole
+// sectors at a time, a warp's lanes on their own rows), and a multiply
+// folds each 4 bytes of 0 or 1 into 4 bits. The mask may start at any
+// byte: a granule is loaded only if it holds one of the nk bytes, so it
+// lies in the page that holds that byte (a page is whole granules), which
+// is mapped, and the bytes it holds outside the nk (another row's, or
+// none of the mask's) are shifted out or land past bit nk − 1, which no
+// caller reads.
+__device__ __forceinline__ unsigned keep_nibble(unsigned w, int k) {
+  // bytes b0..b3 (bit 0 of each) · 0x01020408: b_i lands on bit 24 + i
+  // and no other term reaches bits 24..31
+  const unsigned t = ((w & 0x01010101u) * 0x01020408u) >> 24;
+  return t << (4 * k);
+}
+
+__device__ __forceinline__ unsigned keep_bits(const uint8_t* p, int nk) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uint4* g = reinterpret_cast<const uint4*>(a & ~uintptr_t(15));
+  const int off = static_cast<int>(a & 15);
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+  const uint4 g0 = __ldg(g);
+  const uint4 g1 = off + nk > 16 ? __ldg(g + 1) : z;
+  const uint4 g2 = off + nk > 32 ? __ldg(g + 2) : z;
+  const unsigned lo = keep_nibble(g0.x, 0) | keep_nibble(g0.y, 1) |
+                      keep_nibble(g0.z, 2) | keep_nibble(g0.w, 3) |
+                      keep_nibble(g1.x, 4) | keep_nibble(g1.y, 5) |
+                      keep_nibble(g1.z, 6) | keep_nibble(g1.w, 7);
+  const unsigned hi = keep_nibble(g2.x, 0) | keep_nibble(g2.y, 1) |
+                      keep_nibble(g2.z, 2) | keep_nibble(g2.w, 3);
+  return __funnelshift_r(lo, hi, off);
+}
+
+// Each slot's keep bits for the chunk of nk keys at j (queries
+// g0 + 32r + lane, clamped to the row; kp: the head's S×S keep-mask).
+template <int R>
+__device__ __forceinline__ void keep_chunk(unsigned (&keep)[R],
+                                           const uint8_t* kp, int g0,
+                                           int nr, int S, int j, int nk,
+                                           int lane) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (r < nr)
+      keep[r] = keep_bits(
+          kp + (size_t)min(g0 + 32 * r + lane, S - 1) * S + j, nk);
+}
+
+// A group of a query walk: the slots with a query, and each slot's query
+// (clamped to the row: a lane past it computes on the last query and
+// stores nothing).
+__device__ __forceinline__ int group_slots(int R, int g0, int S) {
+  return min(R, (S - g0 + 31) / 32);
+}
+
+__device__ __forceinline__ int slot_pos(int g0, int r, int lane, int S) {
+  return min(g0 + 32 * r + lane, S - 1);
+}
+
+constexpr int kKeys = 4;  // keys of an online walk's step
+
+// One step of an online walk: keys j .. j + kKeys − 1 (RAGGED: only nk of
+// them), their keep bits at bit 0 on of kb. Every slot's scores first, one
+// test whether any passes its running max by kRaise (then raised), then the
+// exps and the context: no branch between the slots' chains.
+template <bool RAGGED, int HD, int W, int R, bool MASKED>
+__device__ __forceinline__ void online_step(
+    Sum<HD, W> (&acc)[R], float (&m)[R], float (&l)[R],
+    const Vec<HD, W> (&q)[R], const unsigned (&kb)[R], const float* tr,
+    int j, int nk, int nr, int C, int hd, int TS, int c0, int n) {
+  float d[R][kKeys];
+#pragma unroll
+  for (int t = 0; t < kKeys; ++t) {
+    Vec<HD, W> k;
+    k.set(tr + (j + (RAGGED ? min(t, nk - 1) : t)) * TS + C);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      d[r][t] = !RAGGED || t < nk ? vdot(q[r], k, hd, -m[r]) : -INFINITY;
+  }
+  bool up = false;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int t = 0; t < kKeys; ++t) up |= r < nr && d[r][t] > kRaise;
+  if (up) {  // rare: a new running max
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float mx = d[r][0];
+#pragma unroll
+      for (int t = 1; t < kKeys; ++t) mx = fmaxf(mx, d[r][t]);
+      if (mx > kRaise) {
+        const float corr = ex2(-mx);
+        l[r] *= corr;
+        acc[r].scale(corr);
+        m[r] += mx;
+#pragma unroll
+        for (int t = 0; t < kKeys; ++t) d[r][t] -= mx;
+      }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kKeys; ++t) {
+    if (!RAGGED || t < nk) {
+      Vec<HD, W> v;
+      v.set(tr + (j + t) * TS + 2 * C);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r < nr) {
+          const float e = ex2(d[r][t]);
+          l[r] += e;
+          acc[r].fma(!MASKED || (kb[r] >> t) & 1u ? e : 0.f, v, c0, n);
+        }
+      }
+    }
+  }
+}
+
+// One query walk's online softmax for channels [c0, c0 + n) of the
+// context: for each slot r, acc[r] = Σ_j keep_ij · 2^(s_ij − m[r]) · v_j,
+// l[r] = Σ_j 2^(s_ij − m[r]), s_ij = q[r] · k_j (q scaled by log2(e)/√hd),
+// m[r] within kRaise of max_j s_ij. tr: token 0 of the staged row at the
+// head's channels (k at +C, v at +2C, rows TS floats apart); kp: the
+// head's keep-mask or null.
+template <int HD, int W, int R, bool MASKED>
+__device__ __forceinline__ void online_walk(Sum<HD, W> (&acc)[R],
+                                            float (&m)[R], float (&l)[R],
+                                            const Vec<HD, W> (&q)[R],
+                                            const float* tr,
+                                            const uint8_t* kp, int g0,
+                                            int nr, int S, int C, int hd,
+                                            int TS, int c0, int n,
+                                            int lane) {
+  Vec<HD, W> k0;
+  k0.set(tr + C);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    acc[r].zero();
+    l[r] = 0.f;
+    m[r] = vdot(q[r], k0, hd, 0.f);  // key 0's score
+  }
+  unsigned keep[R], kb[R];
+  for (int j0 = 0; j0 < S; j0 += 32) {
+    const int nj = min(32, S - j0);
+    if (MASKED) keep_chunk(keep, kp, g0, nr, S, j0, nj, lane);
+    for (int u = 0; u < nj; u += kKeys) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) kb[r] = MASKED ? keep[r] >> u : 0u;
+      if (u + kKeys <= nj)
+        online_step<false, HD, W, R, MASKED>(acc, m, l, q, kb, tr, j0 + u,
+                                             kKeys, nr, C, hd, TS, c0, n);
+      else
+        online_step<true, HD, W, R, MASKED>(acc, m, l, q, kb, tr, j0 + u,
+                                            nj - u, nr, C, hd, TS, c0, n);
+    }
+  }
+}
+
+// The long forward core's queries g0 + 32r + lane (r < R) of one head of a
+// staged row (token 0 at tr, at the head's channels; q | k | v at 0, C,
+// 2C): ctx over q in the row's device copy at tg (rows TT floats apart).
+template <int HD, int W, int R, bool MASKED>
+__device__ __forceinline__ void fwd_long_group(const float* tr, float* tg,
+                                               const uint8_t* kp, int g0,
+                                               int S, int C, int hd, int TS,
+                                               int TT, float qs,
+                                               float inv_keep, int lane) {
+  const int nr = group_slots(R, g0, S);
+  Vec<HD, W> q[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) q[r].set(tr + slot_pos(g0, r, lane, S) * TS, qs);
+  for (int c0 = 0; c0 < hd; c0 += (HD > 0 ? HD : kSlice)) {
+    const int n = HD > 0 ? HD : min(kSlice, hd - c0);
+    Sum<HD, W> acc[R];
+    float m[R], l[R];
+    online_walk<HD, W, R, MASKED>(acc, m, l, q, tr, kp, g0, nr, S, C, hd,
+                                  TS, c0, n, lane);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = g0 + 32 * r + lane;
+      if (r < nr && i < S) acc[r].store(tg + (size_t)i * TT + c0,
+                                        inv_keep / l[r], n);
+    }
+  }
+}
+
+// The long backward core's queries g0 + 32r + lane (r < R) of one head of
+// a staged row (q | k | v | dctx at 0, C, 2C, 3C): ctx over dctx and dq
+// over q in the row's device copy at tg; L and D into sLD (the head's
+// pairs, query i's at 2i).
+template <int HD, int W, int R, bool MASKED>
+__device__ __forceinline__ void bwd_long_query_group(
+    const float* tr, float* sLD, float* tg, const uint8_t* kp, int g0,
+    int S, int C, int hd, int TS, int TT, float qs, float scale,
+    float inv_keep, int lane) {
+  const int nr = group_slots(R, g0, S);
+  Vec<HD, W> q[R];
+  float L[R], D[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    q[r].set(tr + slot_pos(g0, r, lane, S) * TS, qs);
+    D[r] = 0.f;
+  }
+  // walk 1: ctx, L and D
+  for (int c0 = 0; c0 < hd; c0 += (HD > 0 ? HD : kSlice)) {
+    const int n = HD > 0 ? HD : min(kSlice, hd - c0);
+    Sum<HD, W> acc[R];
+    float m[R], l[R];
+    online_walk<HD, W, R, MASKED>(acc, m, l, q, tr, kp, g0, nr, S, C, hd,
+                                  TS, c0, n, lane);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r < nr) {
+        const int i = g0 + 32 * r + lane;
+        const float* ti = tr + slot_pos(g0, r, lane, S) * TS;
+        acc[r].scale(inv_keep / l[r]);
+        D[r] = acc[r].dot(ti + 3 * C, c0, n, D[r]);
+        L[r] = m[r] + log2f(l[r]);
+        if (i < S) acc[r].store(tg + (size_t)i * TT + 3 * C + c0, 1.f, n);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = g0 + 32 * r + lane;
+    if (r < nr && i < S) {
+      sLD[2 * i] = L[r];
+      sLD[2 * i + 1] = D[r];
+    }
+  }
+  // walk 2: dq_i = Σ_j P_ij (dP_ij − D_i) k_j / √hd
+  Vec<HD, W> g[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    g[r].set(tr + slot_pos(g0, r, lane, S) * TS + 3 * C);
+  for (int c0 = 0; c0 < hd; c0 += (HD > 0 ? HD : kSlice)) {
+    const int n = HD > 0 ? HD : min(kSlice, hd - c0);
+    Sum<HD, W> dq[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) dq[r].zero();
+    unsigned keep[R];
+    for (int j0 = 0; j0 < S; j0 += 32) {
+      const int nj = min(32, S - j0);
+      if (MASKED) keep_chunk(keep, kp, g0, nr, S, j0, nj, lane);
+#pragma unroll 4
+      for (int u = 0; u < nj; ++u) {
         const float* tj = tr + (j0 + u) * TS;
-        float d = 0.f;
-        for (int c = 0; c < hd; c += W)
-          d = Chunk<W>::load(ti + c).dot(Chunk<W>::load(tj + C + c), d);
-        p[u] = d * scale;
-        cm = fmaxf(cm, p[u]);
+        Vec<HD, W> k, v;
+        k.set(tj + C);
+        v.set(tj + 2 * C);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (r < nr) {
+            const float p = ex2(vdot(q[r], k, hd, -L[r]));
+            const float e = vdot(g[r], v, hd, 0.f);
+            float t = e - D[r];
+            if (MASKED)
+              t = (keep[r] >> u) & 1u ? fmaf(e, inv_keep, -D[r]) : -D[r];
+            dq[r].fma(p * t, k, c0, n);
+          }
+        }
       }
     }
-    const float mn = fmaxf(m, cm);
-    const float corr = expf(m - mn);  // 0 at the first chunk (m = −inf)
-    l *= corr;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) acc[w].scale(corr);
-#pragma unroll
-    for (int u = 0; u < kKeyChunk; ++u) {
-      if (j0 + u < S) {
-        const float e = expf(p[u] - mn);
-        l += e;
-        const float pd =
-            kp == nullptr ? e : (kp[j0 + u] ? e * inv_keep : 0.f);
-        const float* vj = tr + (j0 + u) * TS + 2 * C + c0;
-#pragma unroll
-        for (int w = 0; w < NW; ++w)
-          if (w * W < n) acc[w].fma(pd, Chunk<W>::load(vj + w * W));
-      }
-    }
-    m = mn;
-  }
-}
-
-// The long forward core's query i of head h of the block's row r: ctx_i
-// into `out` (global, q_i's head slice).
-template <int W>
-__device__ __forceinline__ void fwd_long_query(const float* sT, float* out,
-                                               const uint8_t* kp, int r,
-                                               int h, int i, int S, int C,
-                                               int H, int TS, float scale,
-                                               float inv_keep) {
-  constexpr int NW = kSlice / W;
-  const int hd = C / H;
-  const float* ti = sT + (r * S + i) * TS + h * hd;
-  const float* tr = sT + r * S * TS + h * hd;  // token 0 of the row
-  for (int c0 = 0; c0 < hd; c0 += kSlice) {
-    const int n = min(kSlice, hd - c0);
-    Chunk<W> acc[NW];
-    float m, l;
-    online_context<W>(acc, m, l, ti, tr, kp, S, C, hd, TS, c0, n, scale,
-                      inv_keep);
-    const float inv_l = 1.f / l;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      if (w * W < n) {
-        acc[w].scale(inv_l);
-        acc[w].store(out + c0 + w * W);
-      }
+    for (int r = 0; r < R; ++r) {
+      const int i = g0 + 32 * r + lane;
+      if (r < nr && i < S) dq[r].store(tg + (size_t)i * TT + c0, scale, n);
     }
   }
 }
 
-// The long forward core (S > kShortS): staging as the short core's, then
-// one thread per (row, head, query) walking the block's items.
-template <bool NARROW>
-__global__ void __launch_bounds__(kCoreThreads)
+// The long backward core's keys g0 + 32r + lane (r < R) of one head of a
+// staged row: dk over k and dv over v in the row's device copy at tg,
+// from every query's q, dctx, L and D (sLD).
+template <int HD, int W, int R, bool MASKED>
+__device__ __forceinline__ void bwd_long_key_group(
+    const float* tr, const float* sLD, float* tg, const uint8_t* kp, int g0,
+    int S, int C, int hd, int TS, int TT, float qs, float scale,
+    float inv_keep, int lane) {
+  const int nr = group_slots(R, g0, S);
+  Vec<HD, W> k[R], v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float* tt = tr + slot_pos(g0, r, lane, S) * TS;
+    k[r].set(tt + C, qs);
+    v[r].set(tt + 2 * C);
+  }
+  for (int c0 = 0; c0 < hd; c0 += (HD > 0 ? HD : kSlice)) {
+    const int n = HD > 0 ? HD : min(kSlice, hd - c0);
+    Sum<HD, W> dk[R], dv[R];
+    uint8_t kb[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      dk[r].zero();
+      dv[r].zero();
+      const int t = g0 + 32 * r + lane;
+      kb[r] = MASKED && r < nr && t < S ? __ldg(kp + t) : 0;
+    }
+    for (int i = 0; i < S; ++i) {
+      const float* ti = tr + i * TS;
+      Vec<HD, W> qi, gi;
+      qi.set(ti);
+      gi.set(ti + 3 * C);
+      const float2 ld = *reinterpret_cast<const float2*>(sLD + 2 * i);
+      uint8_t nb[R];  // the next query's bytes, loaded ahead
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int t = g0 + 32 * r + lane;
+        nb[r] = MASKED && r < nr && t < S && i + 1 < S
+                    ? __ldg(kp + (size_t)(i + 1) * S + t)
+                    : 0;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r < nr) {
+          const float p = ex2(vdot(k[r], qi, hd, -ld.x));
+          const float e = vdot(v[r], gi, hd, 0.f);
+          float pd = p, t = e - ld.y;
+          if (MASKED) {
+            pd = kb[r] ? p * inv_keep : 0.f;
+            t = kb[r] ? fmaf(e, inv_keep, -ld.y) : -ld.y;
+          }
+          dk[r].fma(p * t, qi, c0, n);
+          dv[r].fma(pd, gi, c0, n);
+        }
+        kb[r] = nb[r];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int t = g0 + 32 * r + lane;
+      if (r < nr && t < S) {
+        dk[r].store(tg + (size_t)t * TT + C + c0, scale, n);
+        dv[r].store(tg + (size_t)t * TT + 2 * C + c0, 1.f, n);
+      }
+    }
+  }
+}
+
+// A long core's items: (group g, row r, head h) of `ng` groups a row, the
+// group slowest, so that a round of the block's warps takes every head of
+// a row in the same group.
+struct LongItem {
+  int g, r, h;
+};
+
+__device__ __forceinline__ LongItem long_item(int it, int nr, int H) {
+  const int g = it / (nr * H), rh = it - g * nr * H;
+  return {g, rh / H, rh % H};
+}
+
+// The long forward core (S > kShortS): staging as the short core's, then a
+// warp per (group of 32·kFwdQ queries, row, head); ONE: a query a lane
+// (rows of at most 32 tokens, where more would only cost registers and so
+// blocks an SM). scale = 1/√hd.
+template <int HD, int W, bool MASKED, bool ONE>
+__global__ void __launch_bounds__(kCoreThreads, 2)
 column_attention_fwd_core_long_kernel(float* __restrict__ tok,
                                       const uint8_t* __restrict__ keep,
                                       int B, int S, int C, int H,
                                       float scale, float inv_keep,
                                       int rows) {
   extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x;
-  const int TT = NARROW ? fwd_row_floats(C) : 3 * C;
-  const int TS = NARROW ? fwd_core_stride(C) : TT + 4;
-  const int Q4 = TT / 4;
+  constexpr int R = ONE ? 1 : LongHead<HD>::kFwdQ;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int TT = fwd_row_floats(C), TS = fwd_core_stride(C), Q4 = TT / 4;
   const int r0 = blockIdx.x * rows;
   const int nr = min(rows, B - r0);
-  const int HS = H * S;
   float* tg = tok + (size_t)r0 * S * TT;
 
   for (int i = tid; i < nr * S * Q4; i += kCoreThreads) {
@@ -1466,153 +1872,39 @@ column_attention_fwd_core_long_kernel(float* __restrict__ tok,
   }
   cp_async_wait_all();
   __syncthreads();
-  const bool vec = (C / H) % 4 == 0;
-  for (int it = tid; it < nr * HS; it += kCoreThreads) {
-    const int r = it / HS;
-    const int h = (it - r * HS) / S;
-    const int i = it - r * HS - h * S;
-    float* out = tg + (size_t)(r * S + i) * TT + h * (C / H);
+  const int hd = HD > 0 ? HD : C / H;
+  const int ng = (S + 32 * R - 1) / (32 * R);
+  for (int it = tid / 32; it < ng * nr * H; it += kWarps) {
+    const LongItem t = long_item(it, nr, H);
     const uint8_t* kp =
-        keep == nullptr ? nullptr
-                        : keep + (((size_t)(r0 + r) * H + h) * S + i) * S;
-    if (vec)
-      fwd_long_query<4>(smem, out, kp, r, h, i, S, C, H, TS, scale,
-                        inv_keep);
-    else
-      fwd_long_query<1>(smem, out, kp, r, h, i, S, C, H, TS, scale,
-                        inv_keep);
-  }
-}
-
-// The long backward core's query i of head h of row r: ctx_i over dctx_i
-// and dq_i over q_i in the token row `out` (global), L_i and D_i into
-// sL and sD.
-template <int W>
-__device__ __forceinline__ void bwd_long_query(const float* sT, float* sL,
-                                               float* sD, float* out,
-                                               const uint8_t* kp, int r,
-                                               int h, int i, int S, int C,
-                                               int H, int TS, float scale,
-                                               float inv_keep) {
-  constexpr int NW = kSlice / W;
-  const int hd = C / H;
-  const float* ti = sT + (r * S + i) * TS + h * hd;
-  const float* tr = sT + r * S * TS + h * hd;  // token 0 of the row
-  float m = 0.f, l = 1.f, dsum = 0.f;
-  for (int c0 = 0; c0 < hd; c0 += kSlice) {
-    const int n = min(kSlice, hd - c0);
-    Chunk<W> acc[NW];
-    online_context<W>(acc, m, l, ti, tr, kp, S, C, hd, TS, c0, n, scale,
-                      inv_keep);
-    const float inv_l = 1.f / l;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      if (w * W < n) {
-        acc[w].scale(inv_l);
-        dsum = acc[w].dot(Chunk<W>::load(ti + 3 * C + c0 + w * W), dsum);
-        acc[w].store(out + 3 * C + c0 + w * W);
-      }
-    }
-  }
-  const float lse = m + logf(l);
-  const int at = (r * H + h) * S + i;
-  sL[at] = lse;
-  sD[at] = dsum;
-  for (int c0 = 0; c0 < hd; c0 += kSlice) {
-    const int n = min(kSlice, hd - c0);
-    Chunk<W> dq[NW];
-#pragma unroll
-    for (int w = 0; w < NW; ++w) dq[w] = Chunk<W>::zero();
-    for (int j = 0; j < S; ++j) {
-      const float* tj = tr + j * TS;
-      float d = 0.f, e = 0.f;
-      for (int c = 0; c < hd; c += W) {
-        d = Chunk<W>::load(ti + c).dot(Chunk<W>::load(tj + C + c), d);
-        e = Chunk<W>::load(ti + 3 * C + c)
-                .dot(Chunk<W>::load(tj + 2 * C + c), e);
-      }
-      const float p = expf(d * scale - lse);
-      const float dp = kp == nullptr ? e : (kp[j] ? e * inv_keep : 0.f);
-      const float ds = p * (dp - dsum) * scale;
-#pragma unroll
-      for (int w = 0; w < NW; ++w)
-        if (w * W < n) dq[w].fma(ds, Chunk<W>::load(tj + C + c0 + w * W));
-    }
-#pragma unroll
-    for (int w = 0; w < NW; ++w)
-      if (w * W < n) dq[w].store(out + c0 + w * W);
-  }
-}
-
-// The long backward core's key t of head h of row r: dk_t and dv_t into
-// the token row `out` (global). kt: the keep-mask byte of (query 0, key t)
-// of the row's head, the next query's S bytes on.
-template <int W>
-__device__ __forceinline__ void bwd_long_key(const float* sT,
-                                             const float* sL,
-                                             const float* sD, float* out,
-                                             const uint8_t* kt, int r, int h,
-                                             int t, int S, int C, int H,
-                                             int TS, float scale,
-                                             float inv_keep) {
-  constexpr int NW = kSlice / W;
-  const int hd = C / H;
-  const float* tt = sT + (r * S + t) * TS + h * hd;
-  const float* tr = sT + r * S * TS + h * hd;  // token 0 of the row
-  const int base = (r * H + h) * S;
-  for (int c0 = 0; c0 < hd; c0 += kSlice) {
-    const int n = min(kSlice, hd - c0);
-    Chunk<W> dk[NW], dv[NW];
-#pragma unroll
-    for (int w = 0; w < NW; ++w) dk[w] = dv[w] = Chunk<W>::zero();
-    for (int i = 0; i < S; ++i) {
-      const float* ti = tr + i * TS;
-      float d = 0.f, e = 0.f;
-      for (int c = 0; c < hd; c += W) {
-        d = Chunk<W>::load(ti + c).dot(Chunk<W>::load(tt + C + c), d);
-        e = Chunk<W>::load(ti + 3 * C + c)
-                .dot(Chunk<W>::load(tt + 2 * C + c), e);
-      }
-      const float p = expf(d * scale - sL[base + i]);
-      const float kf =
-          kt == nullptr ? 1.f : (kt[(size_t)i * S] ? inv_keep : 0.f);
-      const float ds = p * (e * kf - sD[base + i]) * scale;
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        if (w * W < n) {
-          dk[w].fma(ds, Chunk<W>::load(ti + c0 + w * W));
-          dv[w].fma(p * kf, Chunk<W>::load(ti + 3 * C + c0 + w * W));
-        }
-      }
-    }
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      if (w * W < n) {
-        dk[w].store(out + C + c0 + w * W);
-        dv[w].store(out + 2 * C + c0 + w * W);
-      }
-    }
+        MASKED ? keep + ((size_t)(r0 + t.r) * H + t.h) * S * S : nullptr;
+    fwd_long_group<HD, W, R, MASKED>(
+        smem + t.r * S * TS + t.h * hd, tg + (size_t)t.r * S * TT + t.h * hd,
+        kp, t.g * 32 * R, S, C, hd, TS, TT, scale * kLog2e, inv_keep, lane);
   }
 }
 
 // The long backward core (S > kShortS): staging as the short core's, the
-// query pass, a barrier, the key pass.
-__global__ void __launch_bounds__(kCoreThreads)
+// query walks (a warp per (group of 32·kBwdQ queries, row, head)), a
+// barrier, the key walk (a warp per (group of 32·kK keys, row, head)); ONE
+// as the forward's.
+template <int HD, int W, bool MASKED, bool ONE>
+__global__ void __launch_bounds__(kCoreThreads, 2)
 column_attention_bwd_core_long_kernel(float* __restrict__ tok,
                                       const uint8_t* __restrict__ keep,
                                       int B, int S, int C, int H,
                                       float scale, float inv_keep,
                                       int rows) {
   extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x;
+  constexpr int RQ = ONE ? 1 : LongHead<HD>::kBwdQ;
+  constexpr int RK = ONE ? 1 : LongHead<HD>::kK;
+  const int tid = threadIdx.x, lane = tid % 32;
   const int TT = 4 * C;      // a token row in device memory
   const int TS = TT + 4;     // in shared memory
   const int r0 = blockIdx.x * rows;
   const int nr = min(rows, B - r0);
-  const int HS = H * S;
   float* sT = smem;
-  float* sL = sT + (size_t)rows * S * TS;
-  float* sD = sL + (size_t)rows * HS;
+  float* sLD = sT + (size_t)rows * S * TS;  // (L, D) of each (row, head, query)
   float* tg = tok + (size_t)r0 * S * TT;
 
   for (int i = tid; i < nr * S * C; i += kCoreThreads) {  // C float4s a row
@@ -1621,38 +1913,51 @@ column_attention_bwd_core_long_kernel(float* __restrict__ tok,
     st4(sT + t * TS + 4 * q, ld4(tg + (size_t)t * TT + 4 * q));
   }
   __syncthreads();
-  const bool vec = (C / H) % 4 == 0;
-  for (int it = tid; it < nr * HS; it += kCoreThreads) {
-    const int r = it / HS;
-    const int h = (it - r * HS) / S;
-    const int i = it - r * HS - h * S;
-    float* out = tg + (size_t)(r * S + i) * TT + h * (C / H);
+  const int hd = HD > 0 ? HD : C / H;
+  const float qs = scale * kLog2e;
+  const int ngq = (S + 32 * RQ - 1) / (32 * RQ);
+  for (int it = tid / 32; it < ngq * nr * H; it += kWarps) {
+    const LongItem t = long_item(it, nr, H);
     const uint8_t* kp =
-        keep == nullptr ? nullptr
-                        : keep + (((size_t)(r0 + r) * H + h) * S + i) * S;
-    if (vec)
-      bwd_long_query<4>(sT, sL, sD, out, kp, r, h, i, S, C, H, TS, scale,
-                        inv_keep);
-    else
-      bwd_long_query<1>(sT, sL, sD, out, kp, r, h, i, S, C, H, TS, scale,
-                        inv_keep);
+        MASKED ? keep + ((size_t)(r0 + t.r) * H + t.h) * S * S : nullptr;
+    bwd_long_query_group<HD, W, RQ, MASKED>(
+        sT + t.r * S * TS + t.h * hd, sLD + 2 * (t.r * H + t.h) * S,
+        tg + (size_t)t.r * S * TT + t.h * hd, kp, t.g * 32 * RQ, S, C, hd,
+        TS, TT, qs, scale, inv_keep, lane);
   }
   __syncthreads();
-  for (int it = tid; it < nr * HS; it += kCoreThreads) {
-    const int r = it / HS;
-    const int h = (it - r * HS) / S;
-    const int t = it - r * HS - h * S;
-    float* out = tg + (size_t)(r * S + t) * TT + h * (C / H);
-    const uint8_t* kt =
-        keep == nullptr ? nullptr
-                        : keep + ((size_t)(r0 + r) * H + h) * S * S + t;
-    if (vec)
-      bwd_long_key<4>(sT, sL, sD, out, kt, r, h, t, S, C, H, TS, scale,
-                      inv_keep);
-    else
-      bwd_long_key<1>(sT, sL, sD, out, kt, r, h, t, S, C, H, TS, scale,
-                      inv_keep);
+  const int ngk = (S + 32 * RK - 1) / (32 * RK);
+  for (int it = tid / 32; it < ngk * nr * H; it += kWarps) {
+    const LongItem t = long_item(it, nr, H);
+    const uint8_t* kp =
+        MASKED ? keep + ((size_t)(r0 + t.r) * H + t.h) * S * S : nullptr;
+    bwd_long_key_group<HD, W, RK, MASKED>(
+        sT + t.r * S * TS + t.h * hd, sLD + 2 * (t.r * H + t.h) * S,
+        tg + (size_t)t.r * S * TT + t.h * hd, kp, t.g * 32 * RK, S, C, hd,
+        TS, TT, qs, scale, inv_keep, lane);
   }
+}
+
+// Calls f(HD, W, MASKED, ONE) (std::integral_constant values) for the long
+// cores' instantiation that takes head width hd and rows of S tokens.
+template <class F>
+cudaError_t long_dispatch(int hd, int S, bool masked, F f) {
+  auto go = [&](auto head, auto w, auto one) {
+    return masked ? f(head, w, std::true_type{}, one)
+                  : f(head, w, std::false_type{}, one);
+  };
+  using I4 = std::integral_constant<int, 4>;
+  using I16 = std::integral_constant<int, 16>;
+  using I0 = std::integral_constant<int, 0>;
+  if (hd == 4)
+    return S <= 32 ? go(I4{}, I4{}, std::true_type{})
+                   : go(I4{}, I4{}, std::false_type{});
+  if (hd == 16)
+    return S <= 32 ? go(I16{}, I4{}, std::true_type{})
+                   : go(I16{}, I4{}, std::false_type{});
+  // a runtime width: a query (key) a lane whatever S is
+  if (hd % 4 == 0) return go(I0{}, I4{}, std::false_type{});
+  return go(I0{}, std::integral_constant<int, 1>{}, std::false_type{});
 }
 
 // The forward core on `tok` ([B·S, fwd_row_floats(C)] floats, 16-byte
@@ -1662,16 +1967,20 @@ cudaError_t launch_fwd_core(float* tok, const uint8_t* keep, int B, int S,
                             cudaStream_t st) {
   const size_t smem = fwd_core_smem_floats(S, C, rows) * sizeof(float);
   const float scale = 1.0f / sqrtf((float)(C / H));
-  if (S > kShortS) {
-    auto kernel = C % 4 ? &column_attention_fwd_core_long_kernel<true>
-                        : &column_attention_fwd_core_long_kernel<false>;
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    kernel<<<(B + rows - 1) / rows, kCoreThreads, smem, st>>>(
-        tok, keep, B, S, C, H, scale, inv_keep, rows);
-    return cudaGetLastError();
-  }
+  if (S > kShortS)
+    return long_dispatch(C / H, S, keep != nullptr, [&](auto hd, auto w,
+                                                        auto masked,
+                                                        auto one) {
+      auto kernel = &column_attention_fwd_core_long_kernel<
+          decltype(hd)::value, decltype(w)::value, decltype(masked)::value,
+          decltype(one)::value>;
+      cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+      kernel<<<(B + rows - 1) / rows, kCoreThreads, smem, st>>>(
+          tok, keep, B, S, C, H, scale, inv_keep, rows);
+      return cudaGetLastError();
+    });
   return by_s(S, [&](auto ms) {
     constexpr int kMaxS = decltype(ms)::value;
     auto kernel = C % 4 ? &column_attention_fwd_core_kernel<kMaxS, true>
@@ -1757,11 +2066,19 @@ cudaError_t bwd_split(const elem_t* x, const elem_t* dout,
         tok, keep, B, S, C, H, scale, inv_keep, rows);
     return cudaGetLastError();
   };
-  err = S > kShortS ? run_core(column_attention_bwd_core_long_kernel)
-                    : by_s(S, [&](auto ms) {
-                        return run_core(column_attention_bwd_core_kernel<
-                                        decltype(ms)::value>);
-                      });
+  err = S > kShortS
+            ? long_dispatch(C / H, S, keep != nullptr,
+                            [&](auto hd, auto w, auto masked, auto one) {
+                              return run_core(
+                                  column_attention_bwd_core_long_kernel<
+                                      decltype(hd)::value, decltype(w)::value,
+                                      decltype(masked)::value,
+                                      decltype(one)::value>);
+                            })
+            : by_s(S, [&](auto ms) {
+                return run_core(
+                    column_attention_bwd_core_kernel<decltype(ms)::value>);
+              });
   if (err != cudaSuccess) return err;
   // 3. dx = dqkv·Wqkvᵀ: B(k = j, n = c) = Wqkv[c][j] is n-major
   const Gemm gdx = make_gemm(tok, TT, wqkv, C3, dx, C, nullptr, N, C, C3,

@@ -417,11 +417,13 @@ def core_rows(b: int, s: int, nhead: int, smem_budget: int,
               smem_per_row: int) -> int:
     """Rows a block of a split route's attention core (either direction):
     as many as give each of its 256 threads at most one (row, head, query)
-    and fit ``smem_budget`` bytes of shared memory at ``smem_per_row`` a
-    row, at least one (where a row has more than 256 (head, query) items,
-    as at S = 167 and 8 heads, its threads walk them in steps of 256)."""
-    return max(1, min(b, _CORE_THREADS // (nhead * s),
-                      smem_budget // smem_per_row))
+    (past S = 16, the long cores: each of its 8 warps at most one (row,
+    head)) and fit ``smem_budget`` bytes of shared memory at
+    ``smem_per_row`` a row, at least one (where a row has more items, as
+    at 8 heads past S = 32, its warps walk them in steps of the block)."""
+    items = (_CORE_THREADS // (nhead * s) if s <= MAX_S
+             else _CORE_THREADS // 32 // nhead)
+    return max(1, min(b, items, smem_budget // smem_per_row))
 
 
 def split_fwd_plan(b: int, s: int, nhead: int, smem_budget: int,

@@ -166,9 +166,10 @@ def test_rows_past_16_tokens_take_the_split_route(c, s):
                                else "split")
 
 
-# Rows past S = 16: S = 17, 40 and the Elliptic node tokens' 167 at C = 32
-# with 8 heads, S = 17 and 40 at C = 128 with 8 heads.
-LONG = [(17, 32, 8), (40, 32, 8), (167, 32, 8), (17, 128, 8), (40, 128, 8)]
+# Rows past S = 16: S = 17, 33, 40, 65 and the Elliptic node tokens' 167
+# at C = 32 with 8 heads, S = 17 and 40 at C = 128 with 8 heads.
+LONG = [(17, 32, 8), (33, 32, 8), (40, 32, 8), (65, 32, 8), (167, 32, 8),
+        (17, 128, 8), (40, 128, 8)]
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -245,6 +246,30 @@ def test_split_plan_token_ranges_cover_every_token_once(b, s, sms, per_sm):
     assert 1 <= plan.rows <= max(1, 256 // (h * s))
     assert plan.grid == -(-b // plan.rows)
     assert plan.rows * per_row <= budget
+
+
+@pytest.mark.parametrize("b,s,h,budget,per_row,want", [
+    (4096, 167, 8, 113 * 1024, 98_912, 1),   # the node path: a warp a head
+    (4096, 40, 8, 113 * 1024, 84_608, 1),    # C = 128
+    (4096, 20, 4, 113 * 1024, 42_304, 2),    # 4 heads: two rows a block
+    (4096, 18, 1, 113 * 1024, 3_744, 8),     # one head: eight rows
+    (5, 18, 1, 113 * 1024, 3_744, 5),        # fewer rows than warps
+    (4096, 17, 2, 20 * 1024, 6_000, 3),      # a small card: the budget binds
+    (4096, 33, 6, 113 * 1024, 70_000, 1),    # 6 heads: 2 warps idle
+    (1, 195, 8, 113 * 1024, 115_440, 1),     # one row
+])
+def test_long_core_rows_give_each_warp_a_row_head(b, s, h, budget,
+                                                  per_row, want):
+    """Past S = 16 a split route's attention core (the long cores) takes
+    as many rows a block as give each of its 8 warps at most one (row,
+    head) and fit its budget, at least one; both routes' plans take them
+    and cover the B rows once."""
+    assert ca.core_rows(b, s, h, budget, per_row) == want
+    assert want == 1 or (want * h <= 8 and want * per_row <= budget)
+    for plan in (ca.split_fwd_plan(b, s, h, budget, per_row),
+                 ca.split_plan(b, s, 32, h, 132, 2, budget, per_row)):
+        assert plan.rows == want
+        assert (plan.grid - 1) * plan.rows < b <= plan.grid * plan.rows
 
 
 @pytest.mark.parametrize("masked", [False, True])

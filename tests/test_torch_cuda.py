@@ -241,11 +241,19 @@ def test_column_attention_kernel_refuses_what_it_cannot_run(cuda):
     assert ca.launches == before
 
 
-# Rows past S = 16: the long attention cores of the split routes. The
-# Elliptic node tokens (S = 167 at C = 32/8, the node path's shape), S = 17
-# and 40 at C = 32 and 128, head widths of 4, 16, 32 (two walks of 16
-# channels), 5 and 21 (one-float chunks; the narrow GEMMs at C = 30 and
-# 126), one head, and key counts that are no multiple of the 16-key chunk.
+# Rows past S = 16: the long attention cores of the split routes (a warp
+# per (row, head), the lanes over the queries, 6 a lane at head width 4
+# and 2 at 16 in the forward, 4 and 1 in the backward's query walks, 3
+# and 1 keys a lane in its key walk, one a lane up to S = 32; the
+# keep-mask in chunks of 32 keys).
+# The Elliptic node tokens (S = 167 at C = 32/8, the node path's shape),
+# S = 17 and 40 at C = 32 and 128, head widths of 4 and 16 (compile-time),
+# 32 (two walks of 16 channels), 5, 21 and 3 (one-float chunks; the narrow
+# GEMMs at C = 30 and 126), one head, and key counts that are no multiple
+# of 32; S either side of 32 and 64 (a lane's second and third query, a
+# second and third chunk of keys), of 192 (a second group of queries at
+# head width 4) and the longest rows the cores take at C = 32 and 128;
+# one row.
 LONG_SHAPES = [
     (203, 167, 32, 8),
     (1001, 17, 32, 8),
@@ -257,6 +265,16 @@ LONG_SHAPES = [
     (40, 33, 126, 6),
     (37, 19, 64, 4),
     (50, 18, 16, 1),
+    (33, 25, 24, 8),
+    (99, 32, 32, 8),
+    (98, 33, 32, 8),
+    (51, 64, 32, 8),
+    (52, 65, 32, 8),
+    (13, 192, 32, 8),
+    (14, 193, 32, 8),
+    (11, 195, 32, 8),
+    (21, 54, 128, 8),
+    (1, 167, 32, 8),
 ]
 
 
@@ -319,6 +337,67 @@ def test_longest_row_the_cores_take_matches_plain(cuda, c):
         out, ref = forward_case(cuda, b, s, c, h, None)
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
     assert_gradients_match(*backward_case(cuda, b, s, c, h, True))
+
+
+@pytest.mark.parametrize("b,s,c,h", [(203, 167, 32, 8), (52, 65, 32, 8),
+                                     (21, 54, 128, 8), (40, 33, 126, 6)])
+def test_long_rows_at_half_dropout_match_plain(cuda, b, s, c, h):
+    """Both directions past S = 16 with half the keep-mask's bytes 0 (the
+    SSL path's dropout): the keep bits of every chunk of 32 keys."""
+    args = attention_inputs(b + c, b, s, c, cuda)
+    do = torch.from_numpy(np.random.RandomState(s).randn(b, s, c).astype(
+        np.float32)).to(cuda)
+    mask = torch.from_numpy(
+        np.random.RandomState(b).rand(b, h, s, s) >= 0.5).to(cuda)
+    with torch.inference_mode():
+        out = ca.column_attention_fwd(*args, h, mask, 0.5)
+        ref = ca.reference_column_attention(*args, h, mask, 0.5)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
+    leaves = [a.requires_grad_() for a in args]
+    want = torch.autograd.grad(
+        ca.reference_column_attention(*leaves, h, mask, 0.5), leaves, do)
+    x, wqkv, bqkv, wout, _ = (t.detach() for t in leaves)
+    got = ca.column_attention_bwd(x, do, wqkv, bqkv, wout, h, mask, 0.5)
+    assert_gradients_match(got, want)
+
+
+@pytest.mark.parametrize("offset", [1, 7, 15])
+@pytest.mark.parametrize("b,s,c,h", [(203, 167, 32, 8), (52, 65, 32, 8),
+                                     (21, 54, 128, 8)])
+def test_long_rows_take_a_keep_mask_at_any_offset(cuda, b, s, c, h, offset):
+    """A contiguous keep-mask whose first byte is not 16-byte aligned, among
+    garbage bytes before and after it (the cores read a row's keep bytes as
+    the aligned 16-byte granules that hold them): both directions give the
+    bits they give on an aligned copy of it."""
+    args = attention_inputs(b + s, b, s, c, cuda)
+    do = torch.from_numpy(np.random.RandomState(c).randn(b, s, c).astype(
+        np.float32)).to(cuda)
+    mask = torch.from_numpy(
+        np.random.RandomState(b).rand(b, h, s, s) >= 0.3).to(cuda)
+    n = mask.numel()
+    raw = torch.randint(0, 256, (n + 64,), dtype=torch.uint8, device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(offset))
+    assert raw.data_ptr() % 16 == 0
+    raw[offset:offset + n] = mask.flatten().to(torch.uint8)
+    moved = raw[offset:offset + n].view(torch.bool).view(b, h, s, s)
+    assert moved.is_contiguous() and moved.data_ptr() % 16 == offset
+    assert torch.equal(moved, mask)
+    with torch.inference_mode():
+        got, want = (ca.column_attention_fwd(*args, h, m, 0.3)
+                     for m in (moved, mask))
+    assert torch.equal(got, want)
+    x, wqkv, bqkv, wout, _ = args
+    got, want = (ca.column_attention_bwd(x, do, wqkv, bqkv, wout, h, m, 0.3)
+                 for m in (moved, mask))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_longest_rows_of_record_fit(cuda):
+    """Both cores take the longest rows they took before their redesign:
+    195 tokens at C = 32 and 54 at C = 128, 8 heads."""
+    assert ca.max_s(32, 8) >= 195
+    assert ca.max_s(128, 8) >= 54
 
 
 def test_long_rows_repeat_bitwise(cuda):
@@ -912,6 +991,12 @@ BF16_SHAPES = [
     (203, 167, 32, 8),   # Elliptic's node tokens: the long cores
     (77, 17, 32, 8),
     (129, 40, 128, 8),
+    (98, 33, 32, 8),     # a lane's second query, a second chunk of keys
+    (52, 65, 32, 8),
+    (14, 193, 32, 8),    # a second group of queries
+    (11, 195, 32, 8),    # the longest rows the cores take
+    (21, 54, 128, 8),
+    (1, 167, 32, 8),     # one row
 ]
 
 

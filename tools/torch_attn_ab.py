@@ -11,7 +11,13 @@ on the same seeded inputs, at ``chip_smoke.py``'s shapes:
   where a checkout takes them (a side that refuses prints its refusal);
 * float32 at the main path's tiled shape 131072×6×32/8 (the forward
   unmasked, the backward with the training keep-mask) and the SSL path's
-  split shape (``SSL_SHAPES[0]``, with its keep-mask).
+  split shape (``SSL_SHAPES[0]``, with its keep-mask);
+* past S = 16 (the split routes' long cores), both directions with the
+  node path's keep-mask (dropout 0.083) and without it: the node shape
+  4096×167×32/8 in float32 and bf16, 4096×40×128/8 in float32 and bf16,
+  and 4096×17×32/8, 4096×65×32/8, 4096×195×32/8 and 4096×54×128/8 in
+  float32 (``chip_smoke.py``'s ``kernel_long`` shapes at a node capacity
+  of 4096).
 
 Each side runs in a process of its own (the two packages share a name), in
 the order other, self, self, other; both sides' kernels are built first,
@@ -34,17 +40,26 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (NARROW_SHAPES, SSL_SHAPES,  # noqa: E402
+from chip_smoke import (NARROW_SHAPES, NODE_S, SSL_SHAPES,  # noqa: E402
                         TRAIN_DROPOUT)
 
 ORDER = ("other", "self", "self", "other")
 NARROW = [sh[:4] for sh in NARROW_SHAPES if sh[4] == 0.0]
 TILED = (131072, 6, 32, 8)
+# past S = 16: (B, S, C, H) and the dtypes each is timed in
+LONG = [((4096, NODE_S, 32, 8), ("float32", "bfloat16")),
+        ((4096, 40, 128, 8), ("float32", "bfloat16")),
+        ((4096, 17, 32, 8), ("float32",)),
+        ((4096, 65, 32, 8), ("float32",)),
+        ((4096, 195, 32, 8), ("float32",)),
+        ((4096, 54, 128, 8), ("float32",))]
 # (B, S, C, H, dropout, dtype) a direction
 CASES = {
     d: [(*n, 0.0, "float32") for n in NARROW]
     + [(*TILED, rate, "float32"), (*SSL_SHAPES[0], "float32")]
     + [(*n, 0.0, "bfloat16") for n in NARROW]
+    + [(*shape, p, dtype) for shape, dtypes in LONG for dtype in dtypes
+       for p in (TRAIN_DROPOUT, 0.0)]
     for d, rate in (("fwd", 0.0), ("bwd", TRAIN_DROPOUT))
 }
 
@@ -77,7 +92,10 @@ def child(root: str, label: str) -> int:
             dt = getattr(torch, dtype)
             x, *w = [t.to(dt) for t in random_inputs(rng, b, s, c, dev)]
             do = random_inputs(rng, b, s, c, dev)[0].to(dt)
-            mask = (torch.from_numpy(rng.rand(b, h, s, s) >= rate).to(dev)
+            # the keep-mask drawn on the card (the long shapes' take
+            # gigabytes), from a seed both sides share
+            gen = torch.Generator(dev).manual_seed(b + c)
+            mask = (torch.rand(b, h, s, s, generator=gen, device=dev) >= rate
                     if rate else None)
             rec = {"tool": "torch_attn_ab", "side": label, "root": root,
                    "direction": direction, "B": b, "S": s, "C": c, "H": h,

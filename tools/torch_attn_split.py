@@ -5,13 +5,18 @@ GEMM knobs.
 
     python3 tools/torch_attn_split.py [--direction fwd,bwd]
                                       [--shapes edge,target] [--sweep]
+    python3 tools/torch_attn_split.py --shapes long40x128,long54x128 \
+                                      --precision bf16
 
 At the SSL path's shapes (edge tokens 131072×6×128/8 and target rows
 13000×6×128/8), or at the narrow shapes (``--shapes narrow126,narrow30``:
 32768×6×126/6 and 131072×6×30/6, the GEMMs' narrow form; ``aligned128``,
 32768×6×128/8, is the first one's aligned twin), each with the 0.5
-keep-mask, the forward (``--direction fwd``) is checked against the
-plain version (absolute error) and timed:
+keep-mask, or past S = 16 (``--shapes long40x128,long54x128``:
+4096×40×128/8 and 4096×54×128/8 without a keep-mask, the split routes'
+long cores at the shapes where the library call times them), the forward
+(``--direction fwd``) is checked against the plain version (absolute
+error) and timed:
 
 * the whole forward (``column_attention_fwd``, its three launches and the
   scratch allocation), with CUDA events, warm, median of 5 windows;
@@ -33,6 +38,13 @@ timed:
   (``gemm_kernel<true, true, ...>``) and the reduce, each beside its own
   bound (the larger of its bytes over 3.35 TB/s and its FMAs, 2 flops
   each, over 67 TFLOP/s: one H100 SXM's published peaks).
+
+``--precision bf16`` gives both directions bf16 x, do and weights (the
+bf16 build: bf16 GEMM operands, float32 sums and token rows), checks them
+as ``chip_smoke.py``'s ``kernel_bf16`` phase does (out and dx within one
+bf16 rounding of the plain version on the same values, the weight
+gradients at ``GRAD_TOL``) and gives no launch its bound (the bounds
+count float32 bytes).
 
 ``--sweep`` builds variants of ``csrc/column_attention.cu`` with other
 values of the GEMM's compile-time constants in ``csrc/gemm_f32.cuh``
@@ -56,13 +68,15 @@ sys.path.insert(0, ROOT)
 
 from chip_smoke import (GRAD_TOL, KERNEL_TOL,  # noqa: E402
                         PEAK_BYTES_PER_S, PEAK_F32_FLOP_PER_S, SSL_DROPOUT,
-                        bound, emit, nvidia_smi, time_ms)
+                        bf16_close, bound, emit, nvidia_smi, time_ms)
 
 SHAPES = {"edge": (131072, 6, 128, 8, SSL_DROPOUT),
           "target": (13000, 6, 128, 8, SSL_DROPOUT),
           "narrow126": (32768, 6, 126, 6, SSL_DROPOUT),
           "aligned128": (32768, 6, 128, 8, SSL_DROPOUT),
-          "narrow30": (131072, 6, 30, 6, SSL_DROPOUT)}
+          "narrow30": (131072, 6, 30, 6, SSL_DROPOUT),
+          "long40x128": (4096, 40, 128, 8, 0.0),
+          "long54x128": (4096, 54, 128, 8, 0.0)}
 # (kBK, kStages, kMinBlocks) of each sweep variant; the checkout's values
 # are the first
 VARIANTS = [(16, 3, 2), (16, 2, 2), (16, 4, 2), (32, 3, 2), (32, 2, 2),
@@ -130,7 +144,9 @@ def kernel_kind(name: str) -> str | None:
     return None
 
 
-def inputs(b, s, c, h, rate, seed=0):
+def inputs(b, s, c, h, rate, seed=0, precision="f32"):
+    """x, do, the weights (in bf16 at ``precision`` bf16) and the keep-mask
+    (None at ``rate`` 0)."""
     import numpy as np
     import torch
 
@@ -143,7 +159,10 @@ def inputs(b, s, c, h, rate, seed=0):
     x, do = t(b, s, c), t(b, s, c)
     w = (t(c, 3 * c, scale=c ** -0.5), t(3 * c, scale=0.1),
          t(c, c, scale=c ** -0.5), t(c, scale=0.1))
-    mask = torch.from_numpy(rng.rand(b, h, s, s) >= rate).cuda()
+    mask = (torch.from_numpy(rng.rand(b, h, s, s) >= rate).cuda() if rate
+            else None)
+    if precision == "bf16":
+        x, do, w = x.bfloat16(), do.bfloat16(), [v.bfloat16() for v in w]
     return x, do, w, mask
 
 
@@ -202,16 +221,21 @@ def profile_launches(call, reps: int = 10) -> dict:
     return out
 
 
-def fwd_shape_run(card, name, b, s, c, h, rate):
+def fwd_shape_run(card, name, b, s, c, h, rate, precision):
     import torch
 
     from rmm_tpu_torch.ops import column_attention as ca
 
-    x, _, (wqkv, bqkv, wout, bout), mask = inputs(b, s, c, h, rate)
-    args = (x, wqkv, bqkv, wout, bout, h, mask, rate)
+    x, _, w, mask = inputs(b, s, c, h, rate, precision=precision)
+    args = (x, *w, h, mask, rate)
     with torch.inference_mode():
-        err = float((ca.column_attention_fwd(*args)
-                     - ca.reference_column_attention(*args)).abs().max())
+        out = ca.column_attention_fwd(*args)
+        ref = ca.reference_column_attention(x, *(v.float() for v in w), h,
+                                            mask, rate)
+        err = float((out.float() - ref.float()).abs().max())
+        ok = (err <= KERNEL_TOL if precision == "f32"
+              else bf16_close(out, ref) <= 0)
+        del out, ref
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
 
@@ -221,12 +245,17 @@ def fwd_shape_run(card, name, b, s, c, h, rate):
         ms = time_ms(call)
         scratch = torch.cuda.max_memory_allocated() - base
         per_launch = profile_fwd_launches(call)
-    bounds = fwd_launch_bounds(b, s, c, h, True)
-    ok = err <= KERNEL_TOL
+    bounds = fwd_launch_bounds(b, s, c, h, mask is not None)
+    if precision != "f32":
+        bounds = dict.fromkeys(bounds, (None, None))
     emit({"tool": "torch_attn_split", "direction": "fwd", "shape": name,
           "B": b, "S": s, "C": c, "H": h, "dropout": rate,
-          "route": ca.route(c, s), "plan": ca.fwd_plan(b, s, c, h)._asdict(),
-          "max_abs_err": err, "tol": KERNEL_TOL, "ok": ok, "ms": ms,
+          "precision": precision,
+          "route": ca.route(c, s),
+          "plan": ca.fwd_plan(b, s, c, h, dtype=x.dtype)._asdict(),
+          "max_abs_err": err,
+          "tol": KERNEL_TOL if precision == "f32" else "one bf16 rounding",
+          "ok": ok, "ms": ms,
           "scratch_gb": scratch / 1e9,
           "launches": {k: {"ms": per_launch["ms"].get(k),
                            "seen": per_launch["seen"].get(k),
@@ -236,21 +265,25 @@ def fwd_shape_run(card, name, b, s, c, h, rate):
     return ok
 
 
-def shape_run(card, name, b, s, c, h, rate):
+def shape_run(card, name, b, s, c, h, rate, precision):
     import torch
 
     from rmm_tpu_torch.ops import column_attention as ca
 
-    x, do, (wqkv, bqkv, wout, bout), mask = inputs(b, s, c, h, rate)
-    plan = ca.bwd_plan(b, s, c, h)
+    x, do, (wqkv, bqkv, wout, bout), mask = inputs(b, s, c, h, rate,
+                                                   precision=precision)
+    plan = ca.bwd_plan(b, s, c, h, dtype=x.dtype)
     got = ca.column_attention_bwd(x, do, wqkv, bqkv, wout, h, mask, rate)
-    leaves = [t.detach().requires_grad_() for t in (x, wqkv, bqkv, wout,
-                                                    bout)]
+    leaves = [x.detach().requires_grad_()] + [
+        t.detach().float().requires_grad_() for t in (wqkv, bqkv, wout,
+                                                      bout)]
     out = ca.reference_column_attention(*leaves, h, mask, rate)
     want = torch.autograd.grad(out, leaves, do)
-    errs = [float((g - w).abs().max() / w.abs().max()) for g, w in
-            zip(got, want)]
-    del out, want, leaves
+    errs = [float((g.float() - w.float()).abs().max() / w.float().abs().max())
+            for g, w in zip(got, want)]
+    ok = (max(errs) <= GRAD_TOL if precision == "f32"
+          else bf16_close(got[0], want[0]) <= 0 and max(errs[1:]) <= GRAD_TOL)
+    del out, want, leaves, got
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
 
@@ -261,17 +294,19 @@ def shape_run(card, name, b, s, c, h, rate):
     ms = time_ms(call)
     scratch = torch.cuda.max_memory_allocated() - base
     per_launch = profile_launches(call)
-    bounds = launch_bounds(b, s, c, h, True, plan.slices)
+    bounds = launch_bounds(b, s, c, h, mask is not None, plan.slices)
+    if precision != "f32":
+        bounds = dict.fromkeys(bounds, (None, None))
     emit({"tool": "torch_attn_split", "direction": "bwd", "shape": name,
           "B": b, "S": s, "C": c, "H": h, "dropout": rate,
-          "route": ca.route(c, s),
+          "precision": precision, "route": ca.route(c, s),
           "plan": plan._asdict(), "max_rel_err": errs, "tol": GRAD_TOL,
-          "ok": max(errs) <= GRAD_TOL, "ms": ms,
+          "ok": ok, "ms": ms,
           "scratch_gb": scratch / 1e9,
           "launches": {k: {"ms": per_launch.get(k), "bound_ms": v[0],
                            "bound_by": v[1]} for k, v in bounds.items()},
           "launches_sum_ms": sum(per_launch.values()), "card": card})
-    return max(errs) <= GRAD_TOL
+    return ok
 
 
 def sweep(card):
@@ -343,6 +378,7 @@ def main(argv=None) -> int:
     ap.add_argument("--direction", default="fwd,bwd",
                     help="fwd, bwd or both, comma-separated")
     ap.add_argument("--shapes", default="edge,target")
+    ap.add_argument("--precision", default="f32", choices=("f32", "bf16"))
     ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args(argv)
     import torch
@@ -362,7 +398,8 @@ def main(argv=None) -> int:
     for direction in args.direction.split(","):
         for name in args.shapes.split(","):
             if name:
-                ok &= runs[direction](card, name, *SHAPES[name])
+                ok &= runs[direction](card, name, *SHAPES[name],
+                                      args.precision)
     if args.sweep:
         sweep(card)
     return 0 if ok else 1
