@@ -134,9 +134,10 @@ float32, their timestamp block being so, and the node tokens bf16):
              32768x6x100/4 (bf16 rows of C % 8 = 4), the narrow shapes
              (0.5 keep-mask and unmasked) and, past S = 16 (the long
              cores; Elliptic's node tokens are bf16 under bf16),
-             4096x167x32/8, 4096x40x128/8, 4096x17x32/8, 4096x195x32/8
-             and 4096x54x128/8 (the node keep-mask and unmasked): out and
-             dx within one
+             4096x167x32/8, 4096x40x128/8, 4096x17x32/8, 4096x65x32/8,
+             4096x195x32/8 and 4096x54x128/8 (the node keep-mask and
+             unmasked); the split route's GEMMs on the tensor cores at
+             every C % 4 = 0 (csrc/gemm_mma.cuh): out and dx within one
              bf16 rounding, the float32 weight gradients at the float32
              tolerance, bitwise repeats, kernel / plain / library times
              and the bound from bf16 bytes.
@@ -705,12 +706,12 @@ def bf16_long_shapes() -> list:
     """(B, S, C, H, dropout) of the bf16 kernel phase past S = 16 (the
     split routes' long cores, which the bf16 build holds too: Elliptic's
     node tokens are bf16 under --precision bf16): the node path's
-    4096x167x32/8, 4096x40x128/8, 4096x17x32/8 and the longest rows of
-    ``kernel_long`` (4096x195x32/8, 4096x54x128/8), each with the node
-    path's keep-mask and without it."""
+    4096x167x32/8, 4096x40x128/8, 4096x17x32/8, 4096x65x32/8 and the
+    longest rows of ``kernel_long`` (4096x195x32/8, 4096x54x128/8), each
+    with the node path's keep-mask and without it."""
     return [(4096, s, c, 8, rate)
-            for s, c in ((NODE_S, 32), (40, 128), (17, 32), (195, 32),
-                         (54, 128))
+            for s, c in ((NODE_S, 32), (40, 128), (17, 32), (65, 32),
+                         (195, 32), (54, 128))
             for rate in (TRAIN_DROPOUT, 0.0)]
 
 
@@ -2109,7 +2110,9 @@ def bf16_entries(kern16: dict, serve16: dict, parity16: dict, ssl16: dict,
                          "path": "kernel phase (the SSL path's tokens are "
                                  "float32 under bf16)",
                          "dtype": "bf16",
-                         "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
+                         "includes": "rmm_tpu_torch/csrc/gemm_mma.cuh "
+                                     "(C % 4 = 0), rmm_tpu_torch/csrc/"
+                                     "gemm_f32.cuh (narrow)",
                          "launches": sum(split_fwd.values()),
                          "launches_by_path": split_fwd,
                          "narrow": shape_times(fwd[-nn:]),
@@ -2120,7 +2123,9 @@ def bf16_entries(kern16: dict, serve16: dict, parity16: dict, ssl16: dict,
                          "path": "kernel phase (the SSL path's tokens are "
                                  "float32 under bf16)",
                          "dtype": "bf16",
-                         "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
+                         "includes": "rmm_tpu_torch/csrc/gemm_mma.cuh "
+                                     "(C % 4 = 0), rmm_tpu_torch/csrc/"
+                                     "gemm_f32.cuh (narrow)",
                          "launches": ssl16["train_launches"]["bwd_bf16"]
                          + ssl_parity16["launches"]["bwd_bf16"],
                          "max_rel_err": max(max(r["max_rel_err"].values())

@@ -103,9 +103,13 @@
 // scratch rows, the weight-gradient partials and the reduce: the tiled
 // kernels convert a bf16 row to float when they stage it in shared memory
 // (4 elements at a time, 8-byte loads) and round when they store out or dx;
-// the split routes' GEMMs take each operand in its own type
-// (gemm_f32.cuh). The weight and bias gradients are float32 in both builds,
-// as the TPU kernel writes them. Both builds take every width.
+// the split routes' GEMMs take each operand in its own type: in the bf16
+// build at every C % 4 = 0 on bf16 tensor cores (gemm_mma.cuh: mma.sync,
+// float32 sums, a float32 scratch operand split into two bf16 terms, hi
+// and lo, so that its products keep float32 accuracy), at the other widths
+// as float32 FMAs (gemm_f32.cuh's narrow form). The weight and bias
+// gradients are float32 in both builds, as the TPU kernel writes them.
+// Both builds take every width.
 //
 // The backward's split route replaces _bwd_kernel at the split widths.
 // Above C = 64 a per-row kernel fits neither the weights (256 kB at C =
@@ -135,6 +139,7 @@
 #include <type_traits>
 
 #include "gemm_f32.cuh"
+#include "gemm_mma.cuh"
 
 #ifdef RMM_ATTENTION_BF16
 using elem_t = __nv_bfloat16;
@@ -1170,12 +1175,14 @@ column_attention_bwd_core_kernel(float* __restrict__ tok,
   }
 }
 
-// The split routes' GEMM problems (gemm_f32.cuh): x, do, the weights, out
-// and dx in elem_t, the scratch rows and the weight-gradient partials in
-// float. Layouts: A m-major or k-major, B k-major or n-major (the Spec's
-// two flags). NARROW: the narrow form, for C not a multiple of 4 (every
-// row stride, a bound of each problem, and some bases are then not
-// multiples of 4 elements).
+// The split routes' GEMM problems: x, do, the weights, out and dx in
+// elem_t, the scratch rows and the weight-gradient partials in float.
+// Layouts: A m-major or k-major, B k-major or n-major (the Spec's two
+// flags). NARROW: the narrow form, for C not a multiple of 4 (every row
+// stride, a bound of each problem, and some bases are then not multiples
+// of 4 elements). The bf16 build's aligned form runs them on the tensor
+// cores (gemm_mma.cuh: bf16 MMAs, a float32 operand split into hi + lo);
+// the float32 build and the narrow form on the FMA tiles of gemm_f32.cuh.
 template <bool NARROW>
 struct SplitGemms {
   template <bool AK, bool BK, class TA, class TB, class TC>
@@ -1186,6 +1193,26 @@ struct SplitGemms {
   using Dx = S<false, false, float, elem_t, elem_t>;   // dqkv·Wqkvᵀ
   using Dwq = S<true, true, elem_t, float, float>;     // xᵀ·dqkv
   using Dwo = S<true, true, float, elem_t, float>;     // ctxᵀ·do
+  static constexpr bool kMma =
+      !NARROW && std::is_same<elem_t, __nv_bfloat16>::value;
+
+  // One or two problems of the Specs in the template in one launch.
+  template <class S0, class S1>
+  static cudaError_t launch(const rmm_gemm::Gemm& g0,
+                            const rmm_gemm::Gemm* g1, cudaStream_t st) {
+    if constexpr (kMma)
+      return rmm_mma::launch_gemm<S0, S1>(g0, g1, st);
+    else
+      return rmm_gemm::launch_gemm<S0, S1>(g0, g1, st);
+  }
+
+  // Blocks of the weight-gradient GEMM an SM holds.
+  static cudaError_t blocks_per_sm(int* per_sm) {
+    if constexpr (kMma)
+      return rmm_mma::gemm_blocks_per_sm<Dwq, Dwo>(per_sm);
+    else
+      return rmm_gemm::gemm_blocks_per_sm<Dwq, Dwo>(per_sm);
+  }
 };
 
 // ---------------------------------------------------------------------------
@@ -2041,7 +2068,6 @@ cudaError_t bwd_split(const elem_t* x, const elem_t* dout,
                       int S, int C, int H, float inv_keep, int rows,
                       int split_tokens, cudaStream_t st) {
   using rmm_gemm::Gemm;
-  using rmm_gemm::launch_gemm;
   using rmm_gemm::make_gemm;
   using G = SplitGemms<NARROW>;
   const int N = B * S, C3 = 3 * C, TT = 4 * C;
@@ -2053,7 +2079,8 @@ cudaError_t bwd_split(const elem_t* x, const elem_t* dout,
   const Gemm dctx = make_gemm(dout, C, wout, C, tok + C3, TT, nullptr, N, C,
                               C, C, 0, 0);
   cudaError_t err =
-      launch_gemm<typename G::Qkv, typename G::Dctx>(qkv, &dctx, st);
+      G::template launch<typename G::Qkv, typename G::Dctx>(qkv, &dctx,
+                                                            st);
   if (err != cudaSuccess) return err;
   // 2. the attention core (4C floats a token row: 16-byte rows at any C)
   const size_t smem = core_smem_floats(S, C, H, rows) * sizeof(float);
@@ -2083,7 +2110,8 @@ cudaError_t bwd_split(const elem_t* x, const elem_t* dout,
   // 3. dx = dqkv·Wqkvᵀ: B(k = j, n = c) = Wqkv[c][j] is n-major
   const Gemm gdx = make_gemm(tok, TT, wqkv, C3, dx, C, nullptr, N, C, C3,
                              C3, 0, 0);
-  err = launch_gemm<typename G::Dx, typename G::Dx>(gdx, nullptr, st);
+  err = G::template launch<typename G::Dx, typename G::Dx>(gdx, nullptr,
+                                                          st);
   if (err != cudaSuccess) return err;
   // 4. the weight and bias gradients over token splits: A = x or ctx read
   //    as xᵀ (k-major), B = dqkv or do (k-major); the bias rows follow
@@ -2093,7 +2121,8 @@ cudaError_t bwd_split(const elem_t* x, const elem_t* dout,
   const Gemm gwo = make_gemm(tok + C3, TT, dout, C,
                              partials + (size_t)C * C3 + C3, C, nullptr, C,
                              C, N, split_tokens, total, 1);
-  err = launch_gemm<typename G::Dwq, typename G::Dwo>(gwq, &gwo, st);
+  err = G::template launch<typename G::Dwq, typename G::Dwo>(gwq, &gwo,
+                                                            st);
   if (err != cudaSuccess) return err;
   // 5. the reduce
   return launch_reduce(partials, (N + split_tokens - 1) / split_tokens,
@@ -2109,7 +2138,6 @@ cudaError_t fwd_split(const elem_t* x, const elem_t* wqkv,
                       float* tok, int B, int S, int C, int H, float inv_keep,
                       int rows, cudaStream_t st) {
   using rmm_gemm::Gemm;
-  using rmm_gemm::launch_gemm;
   using rmm_gemm::make_gemm;
   using G = SplitGemms<NARROW>;
   const int N = B * S, C3 = 3 * C, TT = fwd_row_floats(C);
@@ -2118,7 +2146,8 @@ cudaError_t fwd_split(const elem_t* x, const elem_t* wqkv,
   const Gemm qkv = make_gemm(x, C, wqkv, C3, tok, TT, bqkv, N, C3, C, C, 0,
                              0);
   cudaError_t err =
-      launch_gemm<typename G::Qkv, typename G::Dctx>(qkv, nullptr, st);
+      G::template launch<typename G::Qkv, typename G::Dctx>(qkv, nullptr,
+                                                            st);
   if (err != cudaSuccess) return err;
   // 2. the attention core: ctx over q
   err = launch_fwd_core(tok, keep, B, S, C, H, inv_keep, rows, st);
@@ -2126,7 +2155,8 @@ cudaError_t fwd_split(const elem_t* x, const elem_t* wqkv,
   // 3. out = ctx·Wout + bout: A = ctx (the first C floats of each token
   //    row), B = Wout (k-major)
   const Gemm o = make_gemm(tok, TT, wout, C, out, C, bout, N, C, C, C, 0, 0);
-  return launch_gemm<typename G::Out, typename G::Dctx>(o, nullptr, st);
+  return G::template launch<typename G::Out, typename G::Dctx>(o, nullptr,
+                                                              st);
 }
 
 // Blocks a tiled kernel launches with `smem` bytes a block: as many as
@@ -2235,10 +2265,8 @@ size_t rmm_column_attention_bwd_core_smem_bytes(int S, int C, int H,
 }
 
 int rmm_column_attention_gemm_blocks_per_sm() {
-  using G = SplitGemms<false>;
   int per_sm = 0;
-  const cudaError_t e =
-      rmm_gemm::gemm_blocks_per_sm<G::Dwq, G::Dwo>(&per_sm);
+  const cudaError_t e = SplitGemms<false>::blocks_per_sm(&per_sm);
   return e == cudaSuccess ? per_sm : -(int)e;
 }
 
@@ -2333,6 +2361,56 @@ int rmm_gemm_narrow(const void* a, int lda, const void* b, int ldb, float* c,
   if (layout == 1) return (int)launch_gemm<G::Qkv, G::Dctx>(none, &g, st);
   return (int)launch_gemm<G::Dwq, G::Dwo>(g, nullptr, st);
 }
+
+#ifdef RMM_ATTENTION_BF16
+// One problem of the bf16 build's tensor-core GEMM (gemm_mma.cuh) alone,
+// for holding it against a float64 product, through the kernels the split
+// routes launch. problem: 0 Qkv, 1 Dctx, 2 Out, 3 Dx, 4 Dwq, 5 Dwo (the
+// types and layouts of SplitGemms; Dctx and Dwo as the second problem of
+// their launch, as the routes run them). C[m, n] = Σ_k A(m, k)·B(k, n) +
+// bias[n] (bias of B's type, or null) in the problem's output type; the K
+// range in splits of split_k, split s at c + s·(M + bias_row)·ldc;
+// bias_row (Dwq and Dwo) writes B's column sums over each split to its row
+// M. The aligned form's contract: a, b and c 16-byte aligned, lda, ldb,
+// ldc and N multiples of 4, and K (A m-major) or M (A k-major) too.
+// Returns cudaGetLastError() after the launch.
+int rmm_gemm_mma(const void* a, int lda, const void* b, int ldb, void* c,
+                 int ldc, const void* bias, int M, int N, int K, int split_k,
+                 int bias_row, int problem, void* stream) {
+  using rmm_gemm::make_gemm;
+  using G = SplitGemms<false>;
+  const bool a_kmajor = problem >= 4;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(a) |
+                          reinterpret_cast<uintptr_t>(b) |
+                          reinterpret_cast<uintptr_t>(c);
+  if (M < 1 || N < 1 || K < 1 || split_k < 1 || problem < 0 ||
+      problem > 5 || (bias_row && !a_kmajor) || bases % 16 ||
+      (lda | ldb | ldc | N | (a_kmajor ? M : K)) % 4)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const rmm_gemm::Gemm g =
+      make_gemm(a, lda, b, ldb, c, ldc, bias, M, N, K, split_k,
+                (long long)(M + (bias_row ? 1 : 0)) * ldc, bias_row);
+  // an empty first problem gives every block to the second
+  const rmm_gemm::Gemm none = make_gemm(a, lda, b, ldb, c, ldc, nullptr, 0,
+                                        N, K, K, 0, 0);
+  // qualified: the Gemm arguments would find gemm_f32.cuh's launch_gemm too
+  switch (problem) {
+    case 0:
+      return (int)rmm_mma::launch_gemm<G::Qkv, G::Dctx>(g, nullptr, st);
+    case 1:
+      return (int)rmm_mma::launch_gemm<G::Qkv, G::Dctx>(none, &g, st);
+    case 2:
+      return (int)rmm_mma::launch_gemm<G::Out, G::Dctx>(g, nullptr, st);
+    case 3:
+      return (int)rmm_mma::launch_gemm<G::Dx, G::Dx>(g, nullptr, st);
+    case 4:
+      return (int)rmm_mma::launch_gemm<G::Dwq, G::Dwo>(g, nullptr, st);
+    default:
+      return (int)rmm_mma::launch_gemm<G::Dwq, G::Dwo>(none, &g, st);
+  }
+}
+#endif
 
 // The tiled forward (C % 4 == 0, C <= 64): its shared memory for a group
 // of `rows` rows, and the blocks it launches for this shape (or a negative

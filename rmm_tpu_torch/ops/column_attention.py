@@ -17,15 +17,17 @@ by width and row length (:func:`route`):
   reduce);
 * ``split``: every other shape up to C = 128 (C = 96, the SSL path's
   C = 128, every C that is not a multiple of 4, and every S > 16):
-  hand-written float32 GEMMs (``csrc/gemm_f32.cuh``, in their narrow form
-  where C is not a multiple of 4) around a per-row attention kernel (past
-  S = 16 its long form, which walks the keys with an online softmax). The
-  forward is three launches, the projections, the attention core and the
-  output projection; the backward five, the projections, its attention
-  core, dx, the weight gradients and the reduce. A row past S = 16 must
-  fit a block's share of shared memory (:func:`max_s`: 195 tokens at
-  C = 32 and 54 at C = 128, 8 heads, on an H100); longer rows and
-  C > 128 raise :class:`UnsupportedShape`.
+  hand-written GEMMs around a per-row attention kernel (past S = 16 its
+  long form, which walks the keys with an online softmax): float32 FMA
+  tiles (``csrc/gemm_f32.cuh``, in their narrow form where C is not a
+  multiple of 4), and in the bf16 build at every C that is a multiple of
+  4 bf16 tensor-core tiles (``csrc/gemm_mma.cuh``, whose plain twin is
+  :mod:`.gemm_mma`). The forward is three launches, the projections, the
+  attention core and the output projection; the backward five, the
+  projections, its attention core, dx, the weight gradients and the
+  reduce. A row past S = 16 must fit a block's share of shared memory
+  (:func:`max_s`: 195 tokens at C = 32 and 54 at C = 128, 8 heads, on an
+  H100); longer rows and C > 128 raise :class:`UnsupportedShape`.
 
 The backward recomputes from ``x`` alone, as the TPU kernel does: the
 Function saves ``x``, the weights and the keep-mask, nothing of the
@@ -117,6 +119,8 @@ _SIGNATURES = {
     "rmm_column_attention_gemm_blocks_per_sm": (_I, []),
     "rmm_gemm_narrow": (
         _I, [_P, _I, _P, _I, _P, _I, _P] + [_I] * 4 + [_P]),
+    "rmm_gemm_mma": (
+        _I, [_P, _I, _P, _I, _P, _I, _P] + [_I] * 6 + [_P]),
     "rmm_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from rmm_tpu_torch.ops import column_attention as ca
+from rmm_tpu_torch.ops import gemm_mma as gm
 from rmm_tpu_torch.utils.precision import cast_floats
 
 pytestmark = pytest.mark.cuda
@@ -1113,3 +1114,144 @@ def test_float32_x_with_bf16_weights_takes_the_float32_kernels(cuda, c):
                                ref.detach().cpu().numpy(), **TOL)
     assert_gradients_match(got, want)
     assert not torch.equal(got[1], got[1].bfloat16().float())
+
+
+# The bf16 build's tensor-core GEMM (csrc/gemm_mma.cuh) alone, through its
+# C entry rmm_gemm_mma, against a float64 product of the values it takes:
+# each of the split routes' six problems at ragged M, N and K (K of 32,
+# 100, 128 and 384), with a bias, the weight gradients' bias row and
+# token splits. The operands lie in NaN-padded rows (a copy past K or past
+# a k-major operand's M or N turns sums NaN), the output between sentinel
+# columns and after sentinel rows (a store past N or past the last split
+# overwrites them). Tolerance: 2^-13 of Σ|a||b| (the float32 operand's
+# hi + lo split leaves 2^-16, float32 sums over K <= 384 the rest), plus
+# one bf16 rounding (2^-8 of the value) for a bf16 output.
+MMA_GEMMS = [(300, 124, 100, 0), (129, 384, 384, 160), (257, 36, 32, 0),
+             (5, 128, 128, 48), (131, 260, 128, 0), (1000, 20, 384, 0)]
+
+
+def aligned_strided(rows, cols, ld, data, dtype, device):
+    """``data`` [rows, cols] in rows of ``ld`` elements (the rest NaN) of a
+    fresh allocation (a 16-byte aligned base), two NaN rows after it."""
+    buf = torch.full(((rows + 2) * ld,), float("nan"), dtype=dtype,
+                     device=device)
+    view = buf[:rows * ld].view(rows, ld)
+    view[:, :cols] = torch.from_numpy(data).to(device, dtype)
+    return view
+
+
+def exact(data, dtype):
+    """``data``'s values as ``dtype`` holds them, in float64."""
+    return torch.from_numpy(data.astype(np.float32)).to(dtype).double(
+        ).numpy()
+
+
+def mma_gemm_case(device, problem, m, n, k, split_k):
+    """Runs one problem of the tensor-core GEMM: returns its output as
+    float64 [splits, M + bias_row, N], the float64 product it should hold
+    (a bias added to every row; the bias row is B's column sums), and
+    Σ|a||b| for the tolerance."""
+    ta, a_kmajor, tb, b_kmajor, tc = gm.PROBLEMS[problem]
+    if a_kmajor:      # the aligned form's chunks: a k-major A's M % 4 == 0
+        m = max(4, m // 4 * 4)
+    rng = np.random.RandomState(m + n + k + len(problem))
+    a, b = exact(rng.randn(m, k), ta), exact(rng.randn(k, n), tb)
+    bias = exact(rng.randn(n), tb)
+    av = (aligned_strided(k, m, m + 4, a.T.copy(), ta, device) if a_kmajor
+          else aligned_strided(m, k, k + 4, a, ta, device))
+    bv = (aligned_strided(k, n, n + 4, b, tb, device) if b_kmajor
+          else aligned_strided(n, k, k + 8, b.T.copy(), tb, device))
+    bias_t = torch.from_numpy(bias).to(device, tb)
+    bias_row = int(problem in ("dwq", "dwo"))
+    split_k = split_k or k
+    splits = -(-k // split_k)
+    rows, ldc = m + bias_row, n + 4
+    out = torch.full((splits * rows + 3, ldc), SENTINEL, dtype=tc,
+                     device=device)
+    err = ca._kernel(torch.bfloat16).rmm_gemm_mma(
+        av.data_ptr(), av.stride(0), bv.data_ptr(), bv.stride(0),
+        out.data_ptr(), ldc, bias_t.data_ptr(), m, n, k, split_k, bias_row,
+        list(gm.PROBLEMS).index(problem),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    got = out.double().cpu().numpy()
+    sentinel = float(torch.tensor(SENTINEL, dtype=tc))   # as tc holds it
+    assert (got[:, n:] == sentinel).all()
+    assert (got[splits * rows:] == sentinel).all()
+    want, mag = [], []
+    for sp in range(splits):
+        ks = slice(sp * split_k, min(k, (sp + 1) * split_k))
+        part = [a[:, ks] @ b[ks] + bias]
+        size = [np.abs(a[:, ks]) @ np.abs(b[ks]) + np.abs(bias)]
+        if bias_row:
+            part.append(b[ks].sum(0, keepdims=True))
+            size.append(np.abs(b[ks]).sum(0, keepdims=True))
+        want.append(np.concatenate(part))
+        mag.append(np.concatenate(size))
+    shape = (splits, rows, n)
+    return (got[:splits * rows, :n].reshape(shape), np.stack(want),
+            np.stack(mag), tc)
+
+
+@pytest.mark.parametrize("m,n,k,split_k", MMA_GEMMS)
+@pytest.mark.parametrize("problem", list(gm.PROBLEMS))
+def test_mma_gemm_matches_float64(cuda, problem, m, n, k, split_k):
+    got, want, mag, tc = mma_gemm_case(cuda, problem, m, n, k, split_k)
+    assert np.isfinite(got).all()
+    tol = 2.0 ** -13 * mag
+    if tc == torch.bfloat16:
+        tol = tol + 2.0 ** -8 * np.abs(want)
+    excess = np.abs(got - want) - tol
+    assert excess.max() <= 0, float(excess.max())
+
+
+@pytest.mark.parametrize("problem", list(gm.PROBLEMS))
+def test_mma_gemm_repeats_bitwise(cuda, problem):
+    first = mma_gemm_case(cuda, problem, 129, 384, 384, 160)[0]
+    second = mma_gemm_case(cuda, problem, 129, 384, 384, 160)[0]
+    assert np.array_equal(first, second)
+
+
+def test_bf16_split_gemm_occupancy(cuda):
+    """The bf16 build's plan reads the tensor-core GEMM's blocks an SM."""
+    assert ca._kernel(torch.bfloat16).rmm_column_attention_gemm_blocks_per_sm(
+        ) >= 1
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,s,c,h", [(129, 40, 128, 8), (21, 54, 128, 8),
+                                     (301, 6, 100, 4)])
+def test_bf16_split_route_matches_mma_twin(cuda, b, s, c, h, masked):
+    """The bf16 split routes (tensor-core GEMMs around the long or short
+    cores) against their plain twin of the same arithmetic
+    (``gemm_mma.reference_split_fwd_bf16`` / ``_bwd_bf16``) on the card:
+    out and dx within one bf16 rounding, the weight and bias gradients at
+    1e-4 of the largest entry."""
+    x, masters = bf16_inputs(b + s, b, s, c, cuda)
+    weights = [m.bfloat16() for m in masters]
+    rng = np.random.RandomState(s)
+    do = torch.from_numpy(rng.randn(b, s, c).astype(np.float32)).to(
+        cuda).bfloat16()
+    mask, rate = None, 0.0
+    if masked:
+        rate = 0.083
+        mask = torch.from_numpy(rng.rand(b, h, s, s) >= rate).to(cuda)
+    assert ca.route(c, s) == "split"
+    before = (ca.fwd_split_launches, ca.bwd_split_launches,
+              ca.fwd_bf16_launches, ca.bwd_bf16_launches)
+    with torch.inference_mode():
+        out = ca.column_attention_fwd(x, *weights, h, mask, rate)
+    got = ca.column_attention_bwd(x, do, *weights[:3], h, mask, rate)
+    assert (ca.fwd_split_launches, ca.bwd_split_launches,
+            ca.fwd_bf16_launches, ca.bwd_bf16_launches) == tuple(
+                n + 1 for n in before)
+    want_out = gm.reference_split_fwd_bf16(x, *weights, h, mask, rate)
+    want = gm.reference_split_bwd_bf16(x, do, *weights[:3], h, mask, rate)
+    assert_bf16_close(out, want_out, float(want_out.float().abs().max()))
+    assert_bf16_close(got[0], want[0], float(want[0].float().abs().max()))
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == torch.float32
+        scale = float(w.abs().max())
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=0, atol=1e-4 * max(scale, 1.0))

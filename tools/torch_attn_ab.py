@@ -12,12 +12,14 @@ on the same seeded inputs, at ``chip_smoke.py``'s shapes:
 * float32 at the main path's tiled shape 131072×6×32/8 (the forward
   unmasked, the backward with the training keep-mask) and the SSL path's
   split shape (``SSL_SHAPES[0]``, with its keep-mask);
+* bf16 at the SSL path's split shapes (``SSL_SHAPES``: 131072×6×128/8 and
+  13000×6×128/8, with the 0.5 keep-mask and without it) and at
+  32768×6×100/4 (bf16 rows of C % 8 = 4);
 * past S = 16 (the split routes' long cores), both directions with the
-  node path's keep-mask (dropout 0.083) and without it: the node shape
-  4096×167×32/8 in float32 and bf16, 4096×40×128/8 in float32 and bf16,
-  and 4096×17×32/8, 4096×65×32/8, 4096×195×32/8 and 4096×54×128/8 in
-  float32 (``chip_smoke.py``'s ``kernel_long`` shapes at a node capacity
-  of 4096).
+  node path's keep-mask (dropout 0.083) and without it, in float32 and
+  bf16: the node shape 4096×167×32/8, 4096×40×128/8, 4096×17×32/8,
+  4096×65×32/8, 4096×195×32/8 and 4096×54×128/8 (``chip_smoke.py``'s
+  ``kernel_long`` shapes at a node capacity of 4096).
 
 Each side runs in a process of its own (the two packages share a name), in
 the order other, self, self, other; both sides' kernels are built first,
@@ -47,17 +49,17 @@ ORDER = ("other", "self", "self", "other")
 NARROW = [sh[:4] for sh in NARROW_SHAPES if sh[4] == 0.0]
 TILED = (131072, 6, 32, 8)
 # past S = 16: (B, S, C, H) and the dtypes each is timed in
-LONG = [((4096, NODE_S, 32, 8), ("float32", "bfloat16")),
-        ((4096, 40, 128, 8), ("float32", "bfloat16")),
-        ((4096, 17, 32, 8), ("float32",)),
-        ((4096, 65, 32, 8), ("float32",)),
-        ((4096, 195, 32, 8), ("float32",)),
-        ((4096, 54, 128, 8), ("float32",))]
+LONG = [((4096, s, c, 8), ("float32", "bfloat16"))
+        for s, c in ((NODE_S, 32), (40, 128), (17, 32), (65, 32),
+                     (195, 32), (54, 128))]
+# the bf16 split shapes at C % 4 = 0 and S <= 16 (B, S, C, H, dropout)
+BF16_SPLIT = SSL_SHAPES + [(32768, 6, 100, 4, 0.0)]
 # (B, S, C, H, dropout, dtype) a direction
 CASES = {
     d: [(*n, 0.0, "float32") for n in NARROW]
     + [(*TILED, rate, "float32"), (*SSL_SHAPES[0], "float32")]
     + [(*n, 0.0, "bfloat16") for n in NARROW]
+    + [(*sh, "bfloat16") for sh in BF16_SPLIT]
     + [(*shape, p, dtype) for shape, dtypes in LONG for dtype in dtypes
        for p in (TRAIN_DROPOUT, 0.0)]
     for d, rate in (("fwd", 0.0), ("bwd", TRAIN_DROPOUT))

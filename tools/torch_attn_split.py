@@ -40,11 +40,20 @@ timed:
   each, over 67 TFLOP/s: one H100 SXM's published peaks).
 
 ``--precision bf16`` gives both directions bf16 x, do and weights (the
-bf16 build: bf16 GEMM operands, float32 sums and token rows), checks them
-as ``chip_smoke.py``'s ``kernel_bf16`` phase does (out and dx within one
-bf16 rounding of the plain version on the same values, the weight
-gradients at ``GRAD_TOL``) and gives no launch its bound (the bounds
-count float32 bytes).
+bf16 build: at C % 4 = 0 its GEMM launches run the tensor-core kernel
+``mma_gemm_kernel`` of ``csrc/gemm_mma.cuh``, at other widths the FMA
+``gemm_kernel`` of ``csrc/gemm_f32.cuh``; float32 sums and token rows) and
+checks them as ``chip_smoke.py``'s ``kernel_bf16`` phase does (out and dx
+within one bf16 rounding of the plain version on the same values, the
+weight gradients at ``GRAD_TOL``). Each launch names the GEMM kernel it
+ran (``mma`` or ``fma``). A bf16 GEMM launch's bound counts its bf16 and
+float32 bytes over 3.35 TB/s and its FLOPs over 989 TFLOP/s (a float32
+operand's products twice: its hi and lo bf16 terms); the cores and the
+reduce run on float32 rows as in the float32 build and keep its bounds.
+Beside each GEMM launch, ``matmul_ms`` times ``torch.matmul`` of the same
+products on operands of the same dtypes (a yardstick the port never
+calls): bf16 × bf16 as one bf16 product (a bf16 output), a float32
+operand's products in float32 (its bf16 partner cast up beforehand).
 
 ``--sweep`` builds variants of ``csrc/column_attention.cu`` with other
 values of the GEMM's compile-time constants in ``csrc/gemm_f32.cuh``
@@ -67,8 +76,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from chip_smoke import (GRAD_TOL, KERNEL_TOL,  # noqa: E402
-                        PEAK_BYTES_PER_S, PEAK_F32_FLOP_PER_S, SSL_DROPOUT,
-                        bf16_close, bound, emit, nvidia_smi, time_ms)
+                        PEAK_BF16_FLOP_PER_S, PEAK_BYTES_PER_S,
+                        PEAK_F32_FLOP_PER_S, SSL_DROPOUT, bf16_close, bound,
+                        emit, nvidia_smi, time_ms)
 
 SHAPES = {"edge": (131072, 6, 128, 8, SSL_DROPOUT),
           "target": (13000, 6, 128, 8, SSL_DROPOUT),
@@ -84,11 +94,67 @@ VARIANTS = [(16, 3, 2), (16, 2, 2), (16, 4, 2), (32, 3, 2), (32, 2, 2),
 OUT = os.path.join(ROOT, "rmm_tpu_torch", "_build", "split_sweep")
 
 
-def one_bound(nbytes, flops):
-    """The least time (ms) for ``nbytes`` moved and ``flops`` done, and
-    what sets it."""
-    return bound(nbytes / PEAK_BYTES_PER_S * 1e3,
-                 flops / PEAK_F32_FLOP_PER_S * 1e3)
+def one_bound(nbytes, flops, peak=PEAK_F32_FLOP_PER_S):
+    """The least time (ms) for ``nbytes`` moved and ``flops`` done at
+    ``peak`` FLOP/s, and what sets it."""
+    return bound(nbytes / PEAK_BYTES_PER_S * 1e3, flops / peak * 1e3)
+
+
+def bf16_gemm_bounds(direction, b, s, c, slices) -> dict:
+    """The bf16 build's GEMM launches' least times (ms): bf16 x, do,
+    weights, out and dx (2 bytes), float32 token rows and partials (4),
+    each read or written once; FLOPs over the bf16 tensor-core peak, a
+    float32 operand's products counted twice (hi and lo)."""
+    n, total = b * s, 4 * c * c + 4 * c
+    peak = PEAK_BF16_FLOP_PER_S
+    if direction == "fwd":
+        return {
+            "projection": one_bound(2 * (n * c + 3 * c * c + 3 * c)
+                                    + 4 * 3 * n * c, 2 * n * c * 3 * c,
+                                    peak),
+            "output": one_bound(4 * n * c + 2 * (c * c + c + n * c),
+                                2 * 2 * n * c * c, peak),
+        }
+    return {
+        "projections": one_bound(2 * (2 * n * c + 4 * c * c + 3 * c)
+                                 + 4 * 4 * n * c, 2 * n * c * 4 * c, peak),
+        "dx": one_bound(4 * 3 * n * c + 2 * (3 * c * c + n * c),
+                        2 * 2 * n * 3 * c * c, peak),
+        "weight_grads": one_bound(2 * 2 * n * c + 4 * (4 * n * c
+                                                       + slices * total),
+                                  2 * (2 * n * c * 4 * c) + n * 4 * c,
+                                  peak),
+    }
+
+
+def matmul_yardsticks(direction, b, s, c) -> dict:
+    """ms of ``torch.matmul`` of each GEMM launch's products on random
+    operands of the launch's dtypes (bf16 x, do and weights, float32 token
+    rows): bf16 × bf16 in bf16, a float32 operand's products in float32."""
+    import torch
+
+    n = b * s
+    gen = torch.Generator("cuda").manual_seed(0)
+
+    def r(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    x, do = r(n, c), r(n, c)
+    wqkv, wout = r(c, 3 * c), r(c, c)
+    f32 = torch.float32
+    if direction == "fwd":
+        ctx, wout32 = r(n, c, dtype=f32), wout.float()
+        calls = {"projection": lambda: torch.matmul(x, wqkv),
+                 "output": lambda: torch.matmul(ctx, wout32)}
+    else:
+        dqkv, ctx_t = r(n, 3 * c, dtype=f32), r(c, n, dtype=f32)
+        wqkv_t32, x_t32, do32 = wqkv.t().float(), x.t().float(), do.float()
+        calls = {"projections": lambda: (torch.matmul(x, wqkv),
+                                         torch.matmul(do, wout.t())),
+                 "dx": lambda: torch.matmul(dqkv, wqkv_t32),
+                 "weight_grads": lambda: (torch.matmul(x_t32, dqkv),
+                                          torch.matmul(ctx_t, do32))}
+    return {k: time_ms(f) for k, f in calls.items()}
 
 
 def fwd_launch_bounds(b, s, c, h, masked) -> dict:
@@ -125,14 +191,22 @@ def launch_bounds(b, s, c, h, masked, slices) -> dict:
     }
 
 
+def gemm_family(name: str) -> str | None:
+    """``mma`` for the tensor-core GEMM (``csrc/gemm_mma.cuh``), ``fma``
+    for the FMA tiles (``csrc/gemm_f32.cuh``), None for another kernel."""
+    if "mma_gemm_kernel" in name:
+        return "mma"
+    return "fma" if "gemm_kernel" in name else None
+
+
 def kernel_kind(name: str) -> str | None:
     if "bwd_core" in name:
         return "core"
     if "bwd_reduce" in name:
         return "reduce"
     if "gemm_kernel" in name:
-        # gemm_kernel<rmm_gemm::Spec<AK, BK, ...>, ...>: the first Spec's
-        # layouts
+        # [mma_]gemm_kernel<rmm_gemm::Spec<AK, BK, ...>, ...>: the first
+        # Spec's layouts
         flags = name[name.index("gemm_kernel"):].replace(" ", "").replace(
             "rmm_gemm::Spec<", "")
         if flags.startswith("gemm_kernel<false,true"):
@@ -193,6 +267,7 @@ def profile_fwd_launches(call, reps: int = 10) -> dict:
                      key=lambda e: e.time_range.start)
     ms: dict = {}
     seen: dict = {}
+    family: dict = {}
     gemms = 0
     for e in kernels:
         if "fwd_core" in e.name:
@@ -200,17 +275,21 @@ def profile_fwd_launches(call, reps: int = 10) -> dict:
         elif "gemm_kernel" in e.name:
             kind = ("projection", "output")[gemms % 2]
             gemms += 1
+            family.setdefault(kind, set()).add(gemm_family(e.name))
         else:
             continue
         ms[kind] = ms.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
         seen[kind] = seen.get(kind, 0) + 1
-    return {"ms": ms, "seen": seen}
+    return {"ms": ms, "seen": seen,
+            "gemm": {k: sorted(v) for k, v in family.items()}}
 
 
-def profile_launches(call, reps: int = 10) -> dict:
-    """Device ms a call of each of the split backward's launches."""
+def profile_launches(call, reps: int = 10) -> tuple[dict, dict]:
+    """Device ms a call of each of the split backward's launches, and the
+    GEMM kernel (``mma`` or ``fma``) each GEMM launch ran."""
     prof = profiled(call, reps)
     out: dict = {}
+    family: dict = {}
     for e in prof.key_averages():
         kind = kernel_kind(e.key)
         us = getattr(e, "device_time_total", None)
@@ -218,7 +297,9 @@ def profile_launches(call, reps: int = 10) -> dict:
             us = e.cuda_time_total
         if kind is not None and us > 0:
             out[kind] = out.get(kind, 0.0) + us / 1e3 / reps
-    return out
+            if gemm_family(e.key):
+                family.setdefault(kind, set()).add(gemm_family(e.key))
+    return out, {k: sorted(v) for k, v in family.items()}
 
 
 def fwd_shape_run(card, name, b, s, c, h, rate, precision):
@@ -246,8 +327,10 @@ def fwd_shape_run(card, name, b, s, c, h, rate, precision):
         scratch = torch.cuda.max_memory_allocated() - base
         per_launch = profile_fwd_launches(call)
     bounds = fwd_launch_bounds(b, s, c, h, mask is not None)
+    matmul = {}
     if precision != "f32":
-        bounds = dict.fromkeys(bounds, (None, None))
+        bounds.update(bf16_gemm_bounds("fwd", b, s, c, 0))
+        matmul = matmul_yardsticks("fwd", b, s, c)
     emit({"tool": "torch_attn_split", "direction": "fwd", "shape": name,
           "B": b, "S": s, "C": c, "H": h, "dropout": rate,
           "precision": precision,
@@ -259,7 +342,9 @@ def fwd_shape_run(card, name, b, s, c, h, rate, precision):
           "scratch_gb": scratch / 1e9,
           "launches": {k: {"ms": per_launch["ms"].get(k),
                            "seen": per_launch["seen"].get(k),
-                           "bound_ms": v[0], "bound_by": v[1]}
+                           "gemm": per_launch["gemm"].get(k),
+                           "bound_ms": v[0], "bound_by": v[1],
+                           "matmul_ms": matmul.get(k)}
                        for k, v in bounds.items()},
           "launches_sum_ms": sum(per_launch["ms"].values()), "card": card})
     return ok
@@ -293,18 +378,22 @@ def shape_run(card, name, b, s, c, h, rate, precision):
 
     ms = time_ms(call)
     scratch = torch.cuda.max_memory_allocated() - base
-    per_launch = profile_launches(call)
+    per_launch, family = profile_launches(call)
     bounds = launch_bounds(b, s, c, h, mask is not None, plan.slices)
+    matmul = {}
     if precision != "f32":
-        bounds = dict.fromkeys(bounds, (None, None))
+        bounds.update(bf16_gemm_bounds("bwd", b, s, c, plan.slices))
+        matmul = matmul_yardsticks("bwd", b, s, c)
     emit({"tool": "torch_attn_split", "direction": "bwd", "shape": name,
           "B": b, "S": s, "C": c, "H": h, "dropout": rate,
           "precision": precision, "route": ca.route(c, s),
           "plan": plan._asdict(), "max_rel_err": errs, "tol": GRAD_TOL,
           "ok": ok, "ms": ms,
           "scratch_gb": scratch / 1e9,
-          "launches": {k: {"ms": per_launch.get(k), "bound_ms": v[0],
-                           "bound_by": v[1]} for k, v in bounds.items()},
+          "launches": {k: {"ms": per_launch.get(k), "gemm": family.get(k),
+                           "bound_ms": v[0], "bound_by": v[1],
+                           "matmul_ms": matmul.get(k)}
+                       for k, v in bounds.items()},
           "launches_sum_ms": sum(per_launch.values()), "card": card})
     return ok
 
@@ -362,7 +451,8 @@ def sweep(card):
                 ms = time_ms(lambda: ca.column_attention_bwd(
                     x, do, wqkv, bqkv, wout, h, mask, rate, plan=plan))
                 per = profile_launches(lambda: ca.column_attention_bwd(
-                    x, do, wqkv, bqkv, wout, h, mask, rate, plan=plan), 5)
+                    x, do, wqkv, bqkv, wout, h, mask, rate, plan=plan),
+                    5)[0]
                 emit({"tool": "torch_attn_split", "round": rnd,
                       "variant": {"BK": key[0], "stages": key[1],
                                   "min_blocks": key[2]},
