@@ -27,6 +27,9 @@ through all of them:
              there against its plain twin; both directions at the
              transfer path's C = 128 shapes (130872x6x128/8 context edge
              tokens, 200x6x128/8 target rows, with the 0.083 keep-mask and
+             without it); the families' shapes (131072x5x32/8, cpnatab's
+             row attention, with its 0.1 keep-mask and without it;
+             131072x7x32/8 and 16384x3x32/8 with the 0.083 keep-mask and
              without it). Each record names the route it took (tiled or
              split, by width and S, held to ``route(c, s)``), and two
              calls of each direction at the main path's masked edge shape,
@@ -122,6 +125,27 @@ through all of them:
              ``node_record.npz`` (``tools/make_torch_port_node_fixture.py``)
              and against it: the same node ids, scores within 1e-3, and
              ``convert.check_record``'s float32 limits.
+16. family_train — the other model families at the supervised launcher's
+             flags (C = 32, 8 heads, 2 layers, fanouts 100/100, batch 200,
+             dropout 0.083, float32) on the config of record's data:
+             ``pna`` (the launcher's default) for one epoch through the
+             training CLI (``--testing --sampler_threads 4 --save_model``),
+             its checkpoint serving the test split through the predict
+             CLI; ``fttransformer``, ``gin``, ``cpna``, ``cpnatab`` and
+             ``tabgnninterleaved`` through the trainer the CLI builds, 24
+             train, 24 val and 24 served test batches each. Finite losses,
+             the median step on the device's clock, train and served
+             rows/s, and the launches a step and a batch: 4, 3 and 2 tiled
+             forwards, backwards and reduces for fttransformer,
+             tabgnninterleaved and cpnatab, none for the GNN baselines.
+17. family_parity — each family from the JAX CPU record
+             ``family_record.npz`` (``tools/make_torch_port_family_
+             fixture.py``: the launcher's widths with ``--emlps``, dropout
+             0, the 16,384-row cut): the first served test batch (the same
+             ids, scores within 1e-3) and three steps by
+             ``convert.check_record``'s float32 limits (those of
+             ``CPNA_MODELS`` for cpna and cpnatab), the same parameters
+             unmoved.
 
 And at ``--precision bf16`` (the reference's scheme: float32 masters,
 bf16 parameters and tables in each step; under it the AML edge tokens are
@@ -155,9 +179,10 @@ float32, their timestamp block being so, and the node tokens bf16):
 
 Then the seconds each phase took, a ``{"kernels": [...]}`` line (an entry
 per kernel, each with its ``path``: the main path's tiled kernels at C = 32
-(with the node path's edge tokens), the SSL and transfer paths' split
-forward and backward at C = 128 (their launches by path), with their times
-at the transfer and the narrow shapes beside, the split routes at S > 16
+(with the node path's edge tokens and the families' calls, their launches
+by path and their times at the families' shapes beside), the SSL and
+transfer paths' split forward and backward at C = 128 (their launches by
+path), with their times at the transfer and the narrow shapes beside, the split routes at S > 16
 (the node path's node tokens: their times at the node shape and at the
 other long shapes), and the bf16 builds of the tiled and split kernels,
 likewise),
@@ -251,6 +276,40 @@ NODE_ARGV = ["--model", "tabgnn", "--n_hidden", "32", "--n_gnn_layers", "2",
              "--num_neighs", "100", "100", "--batch_size", "200"]
 NODE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
                             "node_record.npz")
+
+# The other model families of the supervised launcher
+# (launchers/supervised/supervised.sh: --model "${MODEL:-pna}", C = 32, 8
+# heads, 2 layers, fanouts 100/100, batch 200, dropout 0.083, float32) on
+# the config of record's data: pna, the launcher's default, through the
+# training and predict CLIs for an epoch; the others through the trainer
+# the training CLI builds, cut to FAMILY_BATCHES train, val and test
+# batches (the node_train cut).
+FAMILIES = ("fttransformer", "gin", "pna", "cpna", "cpnatab",
+            "tabgnninterleaved")
+FAMILY_ARGV = ["--n_hidden", "32", "--n_gnn_layers", "2", "--num_neighs",
+               "100", "100", "--batch_size", "200"]
+FAMILY_BATCHES = 24
+FAMILY_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
+                              "family_record.npz")
+#: column-attention calls a step or batch of each family makes, each
+#: direction, all tiled (C = 32, S <= 16): fttransformer 2 layers x node
+#: (S = 2) and edge (S = 6) tokens; tabgnninterleaved the stem and 2 layers
+#: on the edge tokens (S = 6); cpnatab 2 row-attention layers over the 5
+#: column states (S = 5; the reference's fixed dropout 0.1 in training);
+#: the GNN baselines none
+FAMILY_CALLS = {"fttransformer": 4, "gin": 0, "pna": 0, "cpna": 0,
+                "cpnatab": 2, "tabgnninterleaved": 3}
+CPNATAB_ROW_DROPOUT = 0.1
+
+
+def family_counts(model: str, fwd: int, bwd: int) -> dict:
+    """The launches of ``fwd`` forwards and ``bwd`` backwards of a family,
+    every one tiled, float32."""
+    k = FAMILY_CALLS[model]
+    return {"fwd": k * fwd, "fwd_tiled": k * fwd, "fwd_split": 0,
+            "bwd": k * bwd, "bwd_tiled": k * bwd, "bwd_split": 0,
+            "reduce": k * bwd, **NO_BF16}
+
 
 # column attention launches an mcm-lp step makes, each direction: two views
 # x (the top-level encoder layer on the edge tokens and on the target rows,
@@ -593,6 +652,9 @@ def kernel_phase(card: str) -> dict:
     edges, nodes, c = st["edge_capacity"], st["node_capacity"], st["n_hidden"]
     p = TRAIN_DROPOUT
     transfer = transfer_shapes(edges, st["batch_size"])
+    # the families' shapes, then 32768x6x100/4 (C % 8 = 4, which the bf16
+    # phase times too)
+    extra = family_shapes(edges, nodes, c) + [(32768, 6, 100, 4, 0.0)]
     fwd_shapes = [  # (B, S, C, H, dropout)
         (edges, 6, c, 8, 0.0),       # serving path: edge tokens
         (nodes, 2, c, 8, 0.0),       # serving path: node tokens
@@ -602,7 +664,7 @@ def kernel_phase(card: str) -> dict:
         (32768, 6, 128, 8, 0.0),     # SSL width, the split route
         (100003, 6, 32, 8, 0.0),     # ragged batch
         (4099, 6, 64, 4, 0.3),       # numpy keep-mask, dropout 0.3
-    ] + NARROW_SHAPES + transfer + SSL_SHAPES
+    ] + NARROW_SHAPES + transfer + SSL_SHAPES + extra
     bwd_shapes = [
         (edges, 6, c, 8, p),         # training path: edge tokens
         (nodes, 2, c, 8, p),         # training path: node tokens
@@ -610,7 +672,7 @@ def kernel_phase(card: str) -> dict:
         (nodes, 2, c, 8, 0.0),
         (32768, 6, 128, 8, 0.0),     # SSL width, the split route
         (100003, 6, 32, 8, p),       # ragged batch
-    ] + NARROW_SHAPES + transfer + SSL_SHAPES
+    ] + NARROW_SHAPES + transfer + SSL_SHAPES + extra
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
     # two calls of each direction are held bitwise equal at the masked edge
@@ -623,6 +685,9 @@ def kernel_phase(card: str) -> dict:
     bwd = [bwd_record(rng, dev, *shape, card,
                       repeat=i == 0 or shape in repeat)
            for i, shape in enumerate(bwd_shapes)]
+    f = len(extra)
+    fwd, fam_fwd = fwd[:-f], fwd[-f:]
+    bwd, fam_bwd = bwd[:-f], bwd[-f:]
     n, m = len(SSL_SHAPES), len(transfer)
     narrow = [r for r in fwd + bwd
               if (r["B"], r["S"], r["C"], r["H"], r["dropout"])
@@ -634,10 +699,24 @@ def kernel_phase(card: str) -> dict:
             "ssl_fwd_unmasked": fwd[-n:][2:], "ssl_bwd": bwd[-n:][:2],
             "ssl_bwd_unmasked": bwd[-n:][2:],
             "transfer_fwd": fwd[-n - m:-n], "transfer_bwd": bwd[-n - m:-n],
+            "family_fwd": fam_fwd[:-1], "family_bwd": fam_bwd[:-1],
+            "c100_fwd": fam_fwd[-1], "c100_bwd": fam_bwd[-1],
             "narrow_fwd": [r for r in narrow
                            if r["kernel"] == "column_attention_fwd"],
             "narrow_bwd": [r for r in narrow
                            if r["kernel"] == "column_attention_bwd"]}
+
+
+def family_shapes(edges: int, nodes: int, c: int) -> list:
+    """The families' shapes at the config of record's capacities, each with
+    a keep-mask and without it: cpnatab's row attention over the 5 edge
+    column states (its fixed dropout 0.1), and the edge and node tokens
+    with one token more than tabgnn's (S = 7 and 3, the training dropout;
+    fttransformer and tabgnninterleaved run tabgnn's S = 6 and 2, their CLS
+    token included)."""
+    return [(edges, 5, c, 8, CPNATAB_ROW_DROPOUT), (edges, 5, c, 8, 0.0),
+            (edges, 7, c, 8, TRAIN_DROPOUT), (edges, 7, c, 8, 0.0),
+            (nodes, 3, c, 8, TRAIN_DROPOUT), (nodes, 3, c, 8, 0.0)]
 
 
 def long_shapes(node_capacity: int) -> list:
@@ -1740,6 +1819,240 @@ def node_parity_phase(card: str) -> dict:
     return out
 
 
+def family_train_phase(card: str, csv: str) -> dict:
+    """The other model families on the card at the supervised launcher's
+    flags. ``pna`` (its default) trains one epoch through the training CLI
+    (``--testing --sampler_threads 4 --save_model``), whose checkpoint then
+    serves the whole test split through the predict CLI. The other five
+    train through the trainer the training CLI builds (``config_from_args``,
+    ``build_dataset`` once, ``Trainer``) on the first FAMILY_BATCHES train
+    batches, are evaluated on the first FAMILY_BATCHES val batches and
+    serve the first FAMILY_BATCHES test batches through ``Trainer.predict``
+    (the predict CLI's path). Each: finite losses, the median step on the
+    device's clock, train and served rows/s, and ``family_counts``'
+    launches a step, an evaluated and a served batch, every one tiled."""
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.cli import main as train_cli
+    from rmm_tpu_torch.datasets import build_dataset
+    from rmm_tpu_torch.frame.dataset import DatasetView
+    from rmm_tpu_torch.train.trainer import Trainer
+    from rmm_tpu_torch.utils.config import config_from_args, create_parser
+
+    st = fixture_settings()
+    argv = ["--data", csv, *FAMILY_ARGV, "--seed", str(st["seed"]),
+            "--sampler_threads", "4", "--device", "cuda"]
+    out = {}
+
+    # pna: the training CLI for an epoch, then the predict CLI
+    stats: dict = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    history, _ = train_cli.main(argv + [
+        "--model", "pna", "--epochs", "1", "--testing", "--save_model",
+        "--wandb_dir", os.path.join(WORK, "family_runs")], stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    (ep,) = history
+    b = st["batch_size"]
+    train_rows, val_rows, test_rows = stats["split_rows"]
+    steps = -(-train_rows // b)
+    evals = -(-val_rows // b) + -(-test_rows // b)
+    check(math.isfinite(ep["loss"]), f"pna train loss {ep['loss']}")
+    check(counts == family_counts("pna", steps + evals, steps),
+          f"pna launched column attention: {counts}")
+    run: dict = {}
+    served, serve_counts, serve_wall = serve(argv + [
+        "--model", "pna", "--load_model", os.path.join(stats["run_dir"], "0"),
+        "--split", "test", "--output", os.path.join(WORK, "pna.csv")], run)
+    rows = len(served["id"])
+    check(rows == test_rows and np.isfinite(served["score"]).all(),
+          f"pna served {rows} of {test_rows} rows, or non-finite scores")
+    check(serve_counts == family_counts("pna", -(-rows // b), 0),
+          f"pna serving launched column attention: {serve_counts}")
+    out["pna"] = {
+        "through": "cli/main.py, cli/predict.py", "steps": steps,
+        "evaluated_batches": evals, "loss": ep["loss"],
+        "val_f1": ep["val_f1"], "test_f1": ep["test_f1"],
+        "step_ms_median": ep.get("step_ms"), "epoch_s": ep["sec"],
+        "train_rows_per_s": train_rows / ep["sec"], "train_wall_s": wall,
+        "setup_s": stats["setup_s"], "train_launches": counts,
+        "served_rows": rows, "served_batches": -(-rows // b),
+        "serve_launches": serve_counts,
+        "rows_per_s_predict": rows / run["predict_s"],
+        "rows_per_s_wall": rows / serve_wall,
+        "launches_per_step": {"fwd": 0, "bwd": 0, "reduce": 0},
+        "launches_per_served_batch": 0, "routes": []}
+
+    # the other five: the CLI's trainer on one loaded dataset, cut
+    t0 = time.perf_counter()
+    dataset = build_dataset(config_from_args(create_parser().parse_args(
+        argv + ["--model", "pna"])))
+    data_s = time.perf_counter() - t0
+    n = FAMILY_BATCHES
+    for model in FAMILIES:
+        if model == "pna":
+            continue
+        t0 = time.perf_counter()
+        cfg = config_from_args(create_parser().parse_args(
+            argv + ["--model", model, "--edge_capacity",
+                    str(st["edge_capacity"]), "--node_capacity",
+                    str(st["node_capacity"])]))
+        tr = Trainer(cfg, dataset)
+        setup_s = time.perf_counter() - t0
+        train, val, test = (DatasetView(v.parent, v.indices[:n * b])
+                            for v in dataset.edges.split())
+        reset_counts()
+        t0 = time.perf_counter()
+        tm = tr.train_epoch(train, 0)
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t0
+        train_counts = read_counts()
+        reset_counts()
+        vm = tr.evaluate(val, "val")
+        eval_counts = read_counts()
+        reset_counts()
+        t0 = time.perf_counter()
+        served = tr.predict(test, "test")
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        serve_counts = read_counts()
+        k = FAMILY_CALLS[model]
+        check(math.isfinite(tm["loss"]) and 0 <= vm["f1"] <= 1,
+              f"{model}: loss {tm['loss']}, val f1 {vm['f1']}")
+        check(train_counts == family_counts(model, n, n),
+              f"{model}: launches {train_counts} for {n} steps (expected "
+              f"{k} tiled forwards, backwards and reduces a step)")
+        check(eval_counts == family_counts(model, n, 0)
+              and serve_counts == family_counts(model, n, 0),
+              f"{model}: launches {eval_counts} for {n} evaluated and "
+              f"{serve_counts} for {n} served batches (expected {k} tiled "
+              "forwards a batch)")
+        check(len(served["id"]) == n * b
+              and np.isfinite(served["score"]).all(),
+              f"{model} served {len(served['id'])} rows of {n * b}, or "
+              "non-finite scores")
+        out[model] = {
+            "through": "the training CLI's Trainer, Trainer.predict",
+            "steps": n, "evaluated_batches": n, "served_batches": n,
+            "loss": tm["loss"], "val_f1": vm["f1"],
+            "step_ms_median": tm.get("step_ms"), "train_wall_s": train_wall,
+            "train_rows_per_s": n * b / train_wall, "setup_s": setup_s,
+            "train_launches": train_counts, "eval_launches": eval_counts,
+            "serve_launches": serve_counts, "served_rows": n * b,
+            "rows_per_s_predict": n * b / serve_s,
+            "launches_per_step": {key: train_counts[key] / n
+                                  for key in ("fwd", "bwd", "reduce")},
+            "launches_per_served_batch": serve_counts["fwd"] / n,
+            "routes": ["tiled"] if k else []}
+        del tr
+        torch.cuda.empty_cache()
+    rec = {"phase": "family_train", "channels": 32, "layers": 2, "heads": 8,
+           "batch": b, "dropout": TRAIN_DROPOUT,
+           "cpnatab_row_dropout": CPNATAB_ROW_DROPOUT,
+           "edge_capacity": st["edge_capacity"],
+           "node_capacity": st["node_capacity"], "data_s": data_s,
+           "models": out, "card": card, "ok": True}
+    emit(rec)
+    return rec
+
+
+def family_parity_phase(card: str) -> dict:
+    """Each family on the card against the JAX CPU record
+    ``family_record.npz`` (``tools/make_torch_port_family_fixture.py``: the
+    launcher's widths with ``--emlps``, dropout 0, cpnatab's row attention
+    at 0 too, on the 16,384-row cut of ``train_parity``, the reference's
+    scatter PNA path): from the record's start, the first test batch served
+    (the same ids, scores within SCORE_TOL), then three steps (each loss
+    and the sampled variables by ``convert.check_record``'s float32
+    limits, the same parameters unmoved); the launches of both."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.convert import (check_record, from_jax, loss_terms,
+                                       random_variables, torch_key)
+    from rmm_tpu_torch.datasets import build_dataset, write_synthetic_aml_csv
+    from rmm_tpu_torch.nn.dropout import set_rate
+    from rmm_tpu_torch.train.trainer import Trainer
+    from rmm_tpu_torch.utils.config import config_from_args, create_parser
+
+    rec = np.load(FAMILY_FIXTURE)
+    st = json.loads(str(rec["settings"]))
+    csv = write_synthetic_aml_csv(os.path.join(WORK, "aml_family.csv"),
+                                  num_rows=st["rows"],
+                                  num_accounts=st["num_accounts"],
+                                  seed=st["data_seed"])
+    dataset, out = None, {}
+    n, b = st["steps"], st["batch_size"]
+    for model in FAMILIES:
+        cfg = config_from_args(create_parser().parse_args([
+            "--data", csv, "--model", model, "--n_hidden",
+            str(st["n_hidden"]), "--n_gnn_layers", str(st["n_gnn_layers"]),
+            "--num_neighs", *map(str, st["num_neighs"]), "--batch_size",
+            str(b), "--seed", str(st["seed"]), "--lr", str(st["lr"]),
+            "--dropout", "0", "--edge_capacity", str(st["edge_capacity"]),
+            "--node_capacity", str(st["node_capacity"]), "--device", "cuda",
+            *(["--emlps"] if st["emlps"] else [])]))
+        dataset = dataset or build_dataset(cfg)
+        tr = Trainer(cfg, dataset)
+        run = st["models"][model]
+        tr.model.load_state_dict(from_jax(
+            random_variables(run["shapes"], st["var_seed"]), tr.model))
+        set_rate(tr.model, 0.0)
+        train, _, test = dataset.edges.split()
+        gb = next(tr._batches(test, "test"))
+        reset_counts()
+        score = tr._forward_eval(gb.to(tr.device))["score"].cpu().numpy()
+        serve_counts = read_counts()
+        ids = gb.edge_gather[:b][gb.seed_mask]
+        check(np.array_equal(ids, rec[f"{model}/serve/id"]),
+              f"{model}: served ids differ from the JAX record")
+        score_err = float(np.abs(score[gb.seed_mask]
+                                 - rec[f"{model}/serve/score"]).max())
+        check(score_err <= SCORE_TOL,
+              f"{model}: score error {score_err} > {SCORE_TOL}")
+        batches = list(itertools.islice(
+            tr._batches(train, "train", st["epoch"]), n))
+        before = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        reset_counts()
+        tr.model.train()
+        terms = [loss_terms(tr._step(g.to(tr.device))[0], {})
+                 for g in batches]
+        counts = read_counts()
+        check(serve_counts == family_counts(model, 1, 0)
+              and counts == family_counts(model, n, n),
+              f"{model}: launches {serve_counts} serving a batch and "
+              f"{counts} in {n} parity steps")
+        state = tr.model.state_dict()
+        faults, summary = check_record(state, terms, rec, f"{model}/",
+                                       st["lr"], n, st["n_hidden"],
+                                       model=model)
+        unmoved = {name for name, _ in tr.model.named_parameters()
+                   if torch.equal(state[name], before[name])}
+        if unmoved != {torch_key(k)[0] for k in run["unmoved"]}:
+            faults.append(f"unmoved parameters {sorted(unmoved)}, the "
+                          f"reference's {run['unmoved']}")
+        check(not faults, f"{model} steps off the JAX record: "
+              + "; ".join(faults))
+        out[model] = {"terms": terms,
+                      "jax_terms": rec[f"{model}/term/loss"].tolist(),
+                      "served_rows": len(ids), "max_score_err": score_err,
+                      **summary, "serve_launches": serve_counts,
+                      "launches": counts}
+        del tr
+        torch.cuda.empty_cache()
+    res = {"phase": "family_parity", "rows": st["rows"], "steps": n,
+           "edge_capacity": st["edge_capacity"],
+           "node_capacity": st["node_capacity"], "emlps": st["emlps"],
+           "score_tol": SCORE_TOL, "models": out, "card": card, "ok": True}
+    emit(res)
+    return res
+
+
 def ssl_parity_csv() -> str:
     from rmm_tpu_torch.datasets import write_synthetic_aml_csv
 
@@ -1906,6 +2219,8 @@ def main() -> int:
             serve16 = timed("serve_bf16", serve_bf16_phase, card, csv)
             train_rec = timed("train", train_phase, card, csv)
             timed("train_parity", train_parity_phase, card)
+            family = timed("family_train", family_train_phase, card, csv)
+            fparity = timed("family_parity", family_parity_phase, card)
             parity16 = timed("train_parity_bf16", train_parity_bf16_phase,
                              card)
             ssl_rec = timed("ssl_train", ssl_train_phase, card, csv)
@@ -1957,20 +2272,37 @@ def main() -> int:
                                           node_launches("bwd_split"))
         node_fwd_tiled, node_bwd_tiled = (node_launches("fwd_tiled"),
                                           node_launches("bwd_tiled"))
+        # the families' launches by path (all tiled: family_counts)
+        fam_fwd = {f"family_train {m}": sum(
+            r[f"{run}_launches"]["fwd"] for run in ("train", "eval", "serve")
+            if f"{run}_launches" in r) for m, r in family["models"].items()
+            if FAMILY_CALLS[m]}
+        fam_fwd["family_parity"] = sum(
+            r["serve_launches"]["fwd"] + r["launches"]["fwd"]
+            for r in fparity["models"].values())
+        fam_bwd = {f"family_train {m}": r["train_launches"]["bwd"]
+                   for m, r in family["models"].items() if FAMILY_CALLS[m]}
+        fam_bwd["family_parity"] = sum(r["launches"]["bwd"]
+                                       for r in fparity["models"].values())
         emit({"kernels": [
             kernel_entry("column_attention_fwd", 165, kern["fwd"],
                          kern["fwd"], {
-                             "path": "main, node (edge tokens)",
+                             "path": "main, node (edge tokens), families "
+                                     "(fttransformer, tabgnninterleaved, "
+                                     "cpnatab)",
                              "launches": serve_rec["launches"]
                              + train_rec["launches"]["fwd"]
-                             + sum(node_fwd_tiled.values()),
+                             + sum(node_fwd_tiled.values())
+                             + sum(fam_fwd.values()),
                              "tiled_launches": serve_rec["tiled_launches"]
                              + train_rec["launches"]["fwd_tiled"]
-                             + sum(node_fwd_tiled.values()),
+                             + sum(node_fwd_tiled.values())
+                             + sum(fam_fwd.values()),
                              "launches_by_path": {
                                  "serve": serve_rec["launches"],
                                  "train": train_rec["launches"]["fwd"],
-                                 **node_fwd_tiled},
+                                 **node_fwd_tiled, **fam_fwd},
+                             "family": shape_times(kern["family_fwd"]),
                              # the float32 edge tokens at --precision bf16
                              "launches_under_bf16": sum(
                                  c["fwd_tiled"] - c["fwd_bf16"]
@@ -1985,15 +2317,20 @@ def main() -> int:
                                  sum(r["ops_ms"] for r in kern["fwd_masked"]))[0]}),
             kernel_entry("column_attention_bwd", 178, kern["bwd"],
                          kern["bwd_unmasked"], {
-                             "path": "main, node (edge tokens)",
+                             "path": "main, node (edge tokens), families "
+                                     "(fttransformer, tabgnninterleaved, "
+                                     "cpnatab)",
                              "launches": train_rec["launches"]["bwd"]
-                             + sum(node_bwd_tiled.values()),
+                             + sum(node_bwd_tiled.values())
+                             + sum(fam_bwd.values()),
                              "tiled_launches":
                                  train_rec["launches"]["bwd_tiled"]
-                             + sum(node_bwd_tiled.values()),
+                             + sum(node_bwd_tiled.values())
+                             + sum(fam_bwd.values()),
                              "launches_by_path": {
                                  "train": train_rec["launches"]["bwd"],
-                                 **node_bwd_tiled},
+                                 **node_bwd_tiled, **fam_bwd},
+                             "family": shape_times(kern["family_bwd"]),
                              "reduce_launches":
                                  train_rec["launches"]["reduce"],
                              "max_rel_err": max(max(r["max_rel_err"].values())
@@ -2018,6 +2355,7 @@ def main() -> int:
                                  + ssl16["eval_launches"]["fwd_split"]
                                  + ssl_parity16["launches"]["fwd_split"],
                              "narrow": shape_times(kern["narrow_fwd"]),
+                             "c100": shape_times([kern["c100_fwd"]]),
                              "transfer": shape_times(kern["transfer_fwd"]),
                              "library_masked": False}),
             kernel_entry("column_attention_bwd_split", 178,
@@ -2038,6 +2376,7 @@ def main() -> int:
                              "max_rel_err": max(max(r["max_rel_err"].values())
                                                 for r in kern["ssl_bwd"]),
                              "narrow": shape_times(kern["narrow_bwd"]),
+                             "c100": shape_times([kern["c100_bwd"]]),
                              "transfer": shape_times(kern["transfer_bwd"]),
                              "library_masked": False}),
             kernel_entry("column_attention_fwd_long", 165,

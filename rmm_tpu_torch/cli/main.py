@@ -3,6 +3,10 @@
     python -m rmm_tpu_torch.cli.main --data <csv> --model tabgnn \\
         --epochs 20 --testing [--device cpu]
 
+``--model`` is one of ``fttransformer`` (the column transformer alone),
+``gin``, ``pna``, ``cpna``, ``cpnatab`` (the GNN baselines; ``--emlps``
+turns their edge updates on), ``tabgnn``, ``tabgnninterleaved`` and
+``tabgnnfused``; ``--precision bf16`` runs ``tabgnn`` and ``tabgnnfused``.
 Same flags as ``rmm_tpu.cli.main`` plus ``--device`` (``cuda`` by default,
 which raises without CUDA; ``cpu`` runs the kernels' plain versions), and
 without ``--dp``. The run directory is ``<wandb_dir>/run_<pid>`` (or the

@@ -3,8 +3,10 @@
     python -m rmm_tpu_torch.cli.predict --data <csv> --model tabgnn \\
         --load_model <checkpoint dir> --split test --output preds.csv
 
-``--model`` is ``tabgnn`` or ``tabgnnfused``; the checkpoint is the port's
-or the JAX package's (``utils/checkpoint.py::load_strict``).
+``--model`` is any of the training CLI's: ``fttransformer``, ``gin``,
+``pna``, ``cpna``, ``cpnatab``, ``tabgnn``, ``tabgnninterleaved`` or
+``tabgnnfused``; the checkpoint is the port's or the JAX package's
+(``utils/checkpoint.py::load_strict``).
 
 Same flags as ``rmm_tpu.cli.predict`` plus ``--device`` (``cuda`` by
 default, which raises without CUDA; ``cpu`` runs the kernels' plain

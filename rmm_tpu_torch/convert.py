@@ -58,9 +58,37 @@ _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 #   * the median parameter error 0.1·lr (the port lands at up to 0.062·lr,
 #     its bf16 steps at up to 0.17·lr from the float32 record); the largest
 #     stays 6.05·lr, which bounds any Adam step.
+#
+# The column-wise PNA stacks (models cpna and cpnatab) carry the node states
+# through a PNA layer and a BatchNorm per edge column and layer, ten at the
+# supervised launcher's widths, and those amplify float32 rounding (the
+# synthetic AML's node features are all ones, so the BatchNorms have
+# degenerate directions): on the families' record
+# (tools/make_torch_port_family_fixture.py) float32 runs land from a float64
+# run of the port at 0.050·lr (the port's and the reference's) in cpna's
+# median parameter and 0.105·lr (the port's) and 0.012·lr (the
+# reference's) in cpnatab's, and the reference's own step-3 loss 8.5e-4
+# off. On the card the step-3 loss alone moves from run to run on the same
+# inputs (the scatters add in no fixed order): 24 runs of
+# tools/torch_family_parity_repeat.py landed 1.2e-4 to 4.3e-3 from the
+# record at step 3, at most 4.2e-4 at step 2, medians up to 0.064·lr. The
+# BatchNorm statistics after the first column's second layer move most:
+# the reference's own default PNA path (sums as differences of a sorted
+# cumsum) lands 0.062 (cpna) and 0.106 (cpnatab) from its scatter record in
+# running_var, three times the statistic limit above (make_torch_port_
+# family_fixture.py --against sort), and the port on the CPU, its PNA lanes
+# summed in 20 random orders, 0.008-0.038 (torch_family_parity_repeat.py
+# --permute). So, for those two models:
+#   * each loss term 1e-4 relative at step 1 and 1e-2 at steps 2-3;
+#   * the median parameter error 0.15·lr (a wrong gradient moves it by
+#     about lr a step); the largest stays 6.05·lr;
+#   * the BatchNorm statistics four times the limit above, the smallest
+#     whole multiple that holds the reference's sort path with a margin.
 LOSS_RTOL = (1e-4, 1e-3)
 PARAM_MAX_LR, PARAM_MEDIAN_LR, BN_MOMENTUM = 6.05, 0.05, 0.9
 BF16_LOSS_RTOL, BF16_PARAM_MEDIAN_LR = (1e-3, 3e-3), 0.1
+CPNA_LOSS_RTOL, CPNA_PARAM_MEDIAN_LR, CPNA_STAT_SCALE = (1e-4, 1e-2), 0.15, 4
+CPNA_MODELS = ("cpna", "cpnatab")
 #: a pretraining step's loss and its terms (those of its mode)
 LOSS_TERMS = ("loss", "lp", "mcm_cat", "mcm_num")
 
@@ -243,10 +271,11 @@ def _loss_faults(terms: Sequence[dict], want: dict[str, Sequence[float]],
 
 
 def _state_faults(errors: dict[str, tuple], lr: float, updates: int,
-                  nhidden: int, median_lr: float = PARAM_MEDIAN_LR
-                  ) -> tuple[list[str], dict]:
+                  nhidden: int, median_lr: float = PARAM_MEDIAN_LR,
+                  stat_scale: float = 1.0) -> tuple[list[str], dict]:
     param_tol = PARAM_MAX_LR * lr
-    stat_tol = (1 - BN_MOMENTUM) * updates * nhidden * param_tol
+    stat_tol = (stat_scale * (1 - BN_MOMENTUM) * updates * nhidden
+                * param_tol)
     faults, worst, parts = [], {"param": 0.0, "stat": 0.0}, {}
     for key, (err, norm_err, sum_err, size) in errors.items():
         kind = ("stat" if key.endswith(tuple(_STAT_NAMES.values()))
@@ -275,22 +304,28 @@ def _state_faults(errors: dict[str, tuple], lr: float, updates: int,
 
 def check_record(state: dict, terms: Sequence[dict], record, prefix: str,
                  lr: float, updates: int, nhidden: int,
-                 precision: str = "f32") -> tuple[list[str], dict]:
+                 precision: str = "f32", model: str = ""
+                 ) -> tuple[list[str], dict]:
     """Three training steps against a JAX parity record: ``terms`` the
     :func:`loss_terms` of each step, ``state`` the ``state_dict`` after
     them, ``updates`` the BatchNorm updates they made, at the limits of
-    ``precision`` (a bf16 record's are wider, above). Returns (the
-    faults, empty when everything holds; the errors beside their
-    limits)."""
-    bf16 = precision == "bf16"
+    ``precision`` (a bf16 record's are wider, above) and ``model`` (those of
+    ``CPNA_MODELS`` are wider in float32, above). Returns (the faults,
+    empty when everything holds; the errors beside their limits)."""
+    loss_rtol, median_lr, stat_scale = LOSS_RTOL, PARAM_MEDIAN_LR, 1.0
+    if precision == "bf16":
+        loss_rtol, median_lr = BF16_LOSS_RTOL, BF16_PARAM_MEDIAN_LR
+    elif model in CPNA_MODELS:
+        loss_rtol, median_lr, stat_scale = (
+            CPNA_LOSS_RTOL, CPNA_PARAM_MEDIAN_LR, CPNA_STAT_SCALE)
     want = {k: record[f"{prefix}term/{k}"] for k in LOSS_TERMS
             if f"{prefix}term/{k}" in record.files}
     errors = record_errors(state, record, prefix)
     faults = ([] if set(errors) == set(state) else
               ["the record and the model hold other variables"])
-    f1, s1 = _loss_faults(terms, want, BF16_LOSS_RTOL if bf16 else LOSS_RTOL)
-    f2, s2 = _state_faults(errors, lr, updates, nhidden,
-                           BF16_PARAM_MEDIAN_LR if bf16 else PARAM_MEDIAN_LR)
+    f1, s1 = _loss_faults(terms, want, loss_rtol)
+    f2, s2 = _state_faults(errors, lr, updates, nhidden, median_lr,
+                           stat_scale)
     return faults + f1 + f2, {**s1, **s2}
 
 

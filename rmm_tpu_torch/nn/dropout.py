@@ -67,3 +67,16 @@ def set_generator(model: nn.Module, generator: torch.Generator) -> None:
     for mod in model.modules():
         if hasattr(mod, "generator"):
             mod.generator = generator
+
+
+def set_rate(model: nn.Module, rate: float) -> None:
+    """Set every dropout rate of ``model`` (the ``rate`` of each
+    :class:`GeneratorDropout`, the ``dropout`` of each attention layer's
+    keep-mask) to ``rate``; parity runs take 0, which reaches the rates
+    no flag sets (``CPNATAB``'s row attention keeps the reference's fixed
+    0.1)."""
+    for mod in model.modules():
+        if isinstance(mod, GeneratorDropout):
+            mod.rate = rate
+        elif hasattr(mod, "generator") and hasattr(mod, "dropout"):
+            mod.dropout = rate

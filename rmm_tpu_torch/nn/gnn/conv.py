@@ -1,6 +1,7 @@
 """Message passing over padded subgraphs (``rmm_tpu/nn/gnn/conv.py``):
-``PNAConv``, the bidirectional ``PNAConvHetero`` and ``EdgeUpdateMLP``.
-Padded edge lanes never contribute (``edge_mask``).
+``PNAConv``, ``GINEConv`` and ``TGINEConv``, the bidirectional
+``PNAConvHetero`` and ``GINEConvHetero``, and ``EdgeUpdateMLP``. Padded
+edge lanes never contribute (``edge_mask``).
 
 Node rows are gathered per edge with :func:`gather`: every node has many
 edges and every padded lane points at node 0, so the gather's backward has
@@ -12,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ...ops.segment import pna_aggregate
+from ...ops.segment import pna_aggregate, segment_sum
 from ..layers import Dense
 
 
@@ -58,6 +59,65 @@ class PNAConvHetero(nn.Module):
         a_in = self.conv_forw(x, edge_index, edge_attr, edge_mask)
         a_out = self.conv_back(x, edge_index.flip(0), edge_attr, edge_mask)
         return self.lin(torch.cat([x, a_in, a_out], dim=-1))
+
+
+class GINEConv(nn.Module):
+    """GIN-E: ``out = nn_1(relu(nn_0(x + Σ_e relu(x_src + edge_lin(e)))))``
+    (the reference's ``train_eps`` is False: no ``eps`` parameter)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        f = channels
+        self.edge_lin = Dense(f, f)
+        self.nn_0 = Dense(f, f)
+        self.nn_1 = Dense(f, f)
+
+    def forward(self, x, edge_index, edge_attr, edge_mask=None):
+        src, dst = edge_index[0], edge_index[1]
+        msg = torch.relu(gather(x, src) + self.edge_lin(edge_attr))
+        h = x + segment_sum(msg, dst, x.shape[0], edge_mask)
+        return self.nn_1(torch.relu(self.nn_0(h)))
+
+
+class GINEConvHetero(nn.Module):
+    """Reverse message passing with GINE convs, merged as in
+    :class:`PNAConvHetero`."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv_forw = GINEConv(channels)
+        self.conv_back = GINEConv(channels)
+        self.lin = Dense(3 * channels, channels)
+
+    def forward(self, x, edge_index, edge_attr, edge_mask=None):
+        a_in = self.conv_forw(x, edge_index, edge_attr, edge_mask)
+        a_out = self.conv_back(x, edge_index.flip(0), edge_attr, edge_mask)
+        return self.lin(torch.cat([x, a_in, a_out], dim=-1))
+
+
+class TGINEConv(nn.Module):
+    """GINE over multi-block edge features: the edge attribute goes through
+    the chain ``lin_0 … lin_{k-1}`` (``k = len(edge_dims)``; ``lin_0``
+    takes ``edge_in`` features) and is divided by ``k``; then as
+    :class:`GINEConv`."""
+
+    def __init__(self, channels: int, edge_dims, edge_in: int):
+        super().__init__()
+        f = channels
+        self.blocks = len(edge_dims)
+        for i in range(self.blocks):
+            self.add_module(f"lin_{i}", Dense(edge_in if i == 0 else f, f))
+        self.nn_0 = Dense(f, f)
+        self.nn_1 = Dense(f, f)
+
+    def forward(self, x, edge_index, edge_attr, edge_mask=None):
+        src, dst = edge_index[0], edge_index[1]
+        e = edge_attr
+        for i in range(self.blocks):
+            e = getattr(self, f"lin_{i}")(e)
+        msg = torch.relu(gather(x, src) + e / float(self.blocks))
+        h = x + segment_sum(msg, dst, x.shape[0], edge_mask)
+        return self.nn_1(torch.relu(self.nn_0(h)))
 
 
 class EdgeUpdateMLP(nn.Module):

@@ -101,3 +101,27 @@ class CLSToken(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:   # [B, S, C]
         tok = self.cls.expand(x.shape[0], 1, -1)
         return torch.cat([tok, x], dim=1)
+
+
+class FTTransformerConvs(nn.Module):
+    """Column-transformer backbone: prepend ``cls_token``, run the
+    ``layer_i`` encoder layers, then ``final_norm``; returns the feature
+    tokens and the CLS state: ``[B, S, C]`` → ``([B, S, C], [B, C])``."""
+
+    def __init__(self, channels: int, num_layers: int, nhead: int = 8,
+                 dropout: float = 0.2,
+                 feedforward_channels: Optional[int] = None):
+        super().__init__()
+        self.num_layers = num_layers
+        self.cls_token = CLSToken(channels)
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", TransformerEncoderLayer(
+                channels, nhead, feedforward_channels, dropout))
+        self.final_norm = LayerNorm(channels)
+
+    def forward(self, x: torch.Tensor):
+        x = self.cls_token(x)
+        for i in range(self.num_layers):
+            x = getattr(self, f"layer_{i}")(x)
+        x = self.final_norm(x)
+        return x[:, 1:], x[:, 0]

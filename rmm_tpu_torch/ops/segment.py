@@ -1,8 +1,8 @@
-"""Masked PNA aggregation over padded edge lanes, and the fused model's
-mean-pool update.
+"""Masked PNA aggregation over padded edge lanes, GINE's masked sum, and
+the fused model's mean-pool update.
 
-Counterparts of ``rmm_tpu/ops/segment.py::pna_aggregate`` and
-``::scatter_mean_update``. The JAX package
+Counterparts of ``rmm_tpu/ops/segment.py::pna_aggregate``,
+``::segment_sum`` and ``::scatter_mean_update``. The JAX package
 sorts edges by segment because scatters serialize on the TPU; on the GPU the
 scatters are the natural form, so this is plain PyTorch (``index_add_`` and
 ``scatter_reduce_``). Masked lanes go to an extra segment ``num_nodes`` and
@@ -11,6 +11,20 @@ drop out, so nothing here synchronizes with the host.
 from __future__ import annotations
 
 import torch
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int, mask: torch.Tensor | None = None
+                ) -> torch.Tensor:
+    """[E, ...] → [num_segments, ...]: the sum of the lanes of each
+    segment; lanes outside ``mask`` add nothing."""
+    ids = segment_ids.long()
+    if mask is not None:
+        ids = torch.where(mask.bool(), ids,
+                          torch.full_like(ids, num_segments))
+    out = torch.zeros((num_segments + 1, *data.shape[1:]), dtype=data.dtype,
+                      device=data.device)
+    return out.index_add_(0, ids, data)[:num_segments]
 
 
 def pna_aggregate(messages: torch.Tensor, dst: torch.Tensor, num_nodes: int,

@@ -1,6 +1,6 @@
 """Task wrappers: encoders + backbone + classifier head as one module
-(``rmm_tpu/train/task_models.py``: ``gather_rows``, ``apply_ego``,
-``TABGNNS``, ``TABGNNFusedS``).
+(``rmm_tpu/train/task_models.py``: ``gather_rows``, ``apply_ego``, ``TT``,
+``GNNWrap``, ``TABGNNS``, ``TABGNNFusedS``).
 
 A wrapper takes the device-resident edge and node tables and a
 :class:`~rmm_tpu_torch.utils.batch.GraphBatch` of ids and masks on the same
@@ -28,7 +28,10 @@ from ..nn.encoders import (
     StypeWiseFeatureEncoder,
     TimestampEncoder,
 )
+from ..nn.gnn.models import CPNA, CPNATAB, PNAS, GINe
 from ..nn.models.fused import TABGNNFused
+from ..nn.models.ft_transformer import FTTransformer
+from ..nn.models.interleaved import TABGNNInterleaved
 from ..nn.models.tabgnn import TABGNN
 from ..nn.norms import MaskedBatchNorm
 from ..nn.transformer import CLSToken, MultiHeadSelfAttention
@@ -71,29 +74,135 @@ def _deghist_to_avg_log(deg_histogram) -> float:
     return float((hist * np.log(d + 1)).sum() / max(hist.sum(), 1.0))
 
 
-class TABGNNS(nn.Module):
-    """Hybrid tabular + GNN classifier (model ``tabgnn``) of the seed edges
-    (``edge_classification``) or of the seed nodes
-    (``node_classification``)."""
+def _refuse_task(model: str, task: str, tasks=("edge_classification",)):
+    if task not in tasks:
+        raise NotImplementedError(
+            f"task {task!r} is not ported yet for model {model!r}")
 
-    TASKS = ("edge_classification", "node_classification")
+
+def _encode(wrapper: nn.Module, edge_table: TensorFrame,
+            node_table: TensorFrame, batch: GraphBatch):
+    """The batch's node and edge tokens (the ``ego`` column marked where
+    the wrapper asks for it)."""
+    node_tf = gather_rows(node_table, batch.node_gather)
+    if wrapper.ego:
+        b = batch.num_seeds
+        node_tf = apply_ego(node_tf, batch.edge_index[:, :b],
+                            batch.node_gather.shape[0],
+                            seed_mask=batch.seed_mask)
+    return (wrapper.node_encoder(node_tf),
+            wrapper.edge_encoder(gather_rows(edge_table, batch.edge_gather)))
+
+
+class TT(nn.Module):
+    """Tabular-only edge classifier (model ``fttransformer``): one shared
+    ``FTTransformer`` over the node tokens and over the edge tokens; the
+    classifier reads the nodes' and the seed edges' CLS states. Like the
+    reference it never marks the ``ego`` column."""
+
+    def __init__(self, node_encoder: StypeWiseFeatureEncoder,
+                 edge_encoder: StypeWiseFeatureEncoder, channels: int,
+                 num_layers: int, n_classes: int = 2, dropout: float = 0.1,
+                 task: str = "edge_classification", ego: bool = False):
+        super().__init__()
+        _refuse_task("fttransformer", task)
+        self.node_encoder = node_encoder
+        self.edge_encoder = edge_encoder
+        self.model = FTTransformer(channels, num_layers, dropout=dropout)
+        self.decoder = ClassifierHead(n_classes, channels, channels, dropout)
+
+    def forward(self, edge_table: TensorFrame, node_table: TensorFrame,
+                batch: GraphBatch) -> torch.Tensor:
+        b = batch.num_seeds
+        x_tok = self.node_encoder(gather_rows(node_table, batch.node_gather))
+        e_tok = self.edge_encoder(gather_rows(edge_table, batch.edge_gather))
+        _, x_cls = self.model(x_tok)
+        _, e_cls = self.model(e_tok)
+        return self.decoder(x_cls, batch.edge_index[:, :b], e_cls[:b])
+
+
+class GNNWrap(nn.Module):
+    """Pure-GNN edge classifier (models ``gin``, ``pna``, ``cpna``,
+    ``cpnatab``). ``cpna`` and ``cpnatab`` keep one edge state per column,
+    so the classifier reads ``num_edge_cols · n_hidden`` edge features.
+    Their edge updates are ``emlps``'s, as the reference passes them."""
+
+    MODELS = ("gin", "pna", "cpna", "cpnatab")
+
+    def __init__(self, node_encoder: StypeWiseFeatureEncoder,
+                 edge_encoder: StypeWiseFeatureEncoder, model_name: str,
+                 n_hidden: int, n_gnn_layers: int, num_edge_cols: int,
+                 n_classes: int = 2, dropout: float = 0.1,
+                 avg_log_deg: float = 1.0, reverse_mp: bool = False,
+                 emlps: bool = False, ego: bool = False,
+                 task: str = "edge_classification"):
+        super().__init__()
+        if model_name not in self.MODELS:
+            raise ValueError(model_name)
+        _refuse_task(model_name, task)
+        self.ego = ego
+        self.node_encoder = node_encoder
+        self.edge_encoder = edge_encoder
+        # the encoders' tokens are n_hidden wide
+        cols = (node_encoder.num_cols, edge_encoder.num_cols, n_hidden)
+        edge_width = n_hidden
+        if model_name == "gin":
+            self.model = GINe(*cols, n_hidden, n_gnn_layers, emlps,
+                              reverse_mp)
+        elif model_name == "pna":
+            self.model = PNAS(*cols, n_hidden, n_gnn_layers, avg_log_deg,
+                              emlps, reverse_mp)
+        else:
+            cls = CPNA if model_name == "cpna" else CPNATAB
+            self.model = cls(node_encoder.num_cols, n_hidden, n_hidden,
+                             n_gnn_layers, num_edge_cols, avg_log_deg, emlps,
+                             reverse_mp)
+            edge_width = num_edge_cols * n_hidden
+        self.decoder = ClassifierHead(n_classes, n_hidden, edge_width,
+                                      dropout)
+
+    def forward(self, edge_table: TensorFrame, node_table: TensorFrame,
+                batch: GraphBatch) -> torch.Tensor:
+        b = batch.num_seeds
+        x_tok, e_tok = _encode(self, edge_table, node_table, batch)
+        x, edge_attr = self.model(x_tok, batch.edge_index, e_tok,
+                                  batch.edge_mask, batch.node_mask)
+        return self.decoder(x, batch.edge_index[:, :b], edge_attr[:b])
+
+
+class TABGNNS(nn.Module):
+    """Hybrid tabular + GNN classifier (models ``tabgnn`` and
+    ``tabgnninterleaved``) of the seed edges (``edge_classification``) or,
+    for ``tabgnn``, of the seed nodes (``node_classification``)."""
+
+    TASKS = {"tabgnn": ("edge_classification", "node_classification"),
+             "tabgnninterleaved": ("edge_classification",)}
 
     def __init__(self, node_encoder: StypeWiseFeatureEncoder,
                  edge_encoder: StypeWiseFeatureEncoder, channels: int,
                  n_gnn_layers: int, n_classes: int = 2, dropout: float = 0.1,
                  avg_log_deg: float = 1.0, reverse_mp: bool = False,
-                 ego: bool = False, task: str = "edge_classification"):
+                 ego: bool = False, task: str = "edge_classification",
+                 model_name: str = "tabgnn"):
         super().__init__()
-        if task not in self.TASKS:
-            raise NotImplementedError(f"task {task!r} is not ported yet")
+        if model_name not in self.TASKS:
+            raise ValueError(model_name)
+        _refuse_task(model_name, task, self.TASKS[model_name])
         self.ego = ego
         self.task = task
         self.node_encoder = node_encoder
         self.edge_encoder = edge_encoder
-        self.model = TABGNN(channels, n_gnn_layers, node_encoder.num_cols,
-                            edge_encoder.num_cols, nhidden=channels,
-                            avg_log_deg=avg_log_deg, reverse_mp=reverse_mp,
-                            dropout=dropout)
+        if model_name == "tabgnn":
+            self.model = TABGNN(channels, n_gnn_layers,
+                                node_encoder.num_cols, edge_encoder.num_cols,
+                                nhidden=channels, avg_log_deg=avg_log_deg,
+                                reverse_mp=reverse_mp, dropout=dropout)
+        else:
+            self.model = TABGNNInterleaved(
+                channels, n_gnn_layers,
+                node_dim=node_encoder.num_cols * channels, nhidden=channels,
+                avg_log_deg=avg_log_deg, reverse_mp=reverse_mp,
+                dropout=dropout)
         if task == "node_classification":
             self.decoder = NodeClassificationHead(n_classes, channels,
                                                   dropout)
@@ -105,13 +214,7 @@ class TABGNNS(nn.Module):
                 batch: GraphBatch) -> torch.Tensor:
         """→ logits [B, n_classes] for the seed edges (or nodes)."""
         b = batch.num_seeds
-        node_tf = gather_rows(node_table, batch.node_gather)
-        if self.ego:
-            node_tf = apply_ego(node_tf, batch.edge_index[:, :b],
-                                batch.node_gather.shape[0],
-                                seed_mask=batch.seed_mask)
-        x_tok = self.node_encoder(node_tf)
-        e_tok = self.edge_encoder(gather_rows(edge_table, batch.edge_gather))
+        x_tok, e_tok = _encode(self, edge_table, node_table, batch)
         x, edge_attr = self.model(x_tok, batch.edge_index, e_tok,
                                   batch.edge_mask, batch.node_mask)
         if self.task == "node_classification":
@@ -131,8 +234,7 @@ class TABGNNFusedS(nn.Module):
                  avg_log_deg: float = 1.0, reverse_mp: bool = False,
                  ego: bool = False, task: str = "edge_classification"):
         super().__init__()
-        if task != "edge_classification":
-            raise NotImplementedError(f"task {task!r} is not ported yet")
+        _refuse_task("tabgnnfused", task)
         self.ego = ego
         self.node_encoder = node_encoder
         self.edge_encoder = edge_encoder
@@ -146,13 +248,7 @@ class TABGNNFusedS(nn.Module):
                 batch: GraphBatch) -> torch.Tensor:
         """→ logits [B, n_classes] for the seed edges."""
         b = batch.num_seeds
-        node_tf = gather_rows(node_table, batch.node_gather)
-        if self.ego:
-            node_tf = apply_ego(node_tf, batch.edge_index[:, :b],
-                                batch.node_gather.shape[0],
-                                seed_mask=batch.seed_mask)
-        x_tok = self.node_encoder(node_tf)
-        e_tok = self.edge_encoder(gather_rows(edge_table, batch.edge_gather))
+        x_tok, e_tok = _encode(self, edge_table, node_table, batch)
         target_ei = batch.edge_index[:, :b]
         x, _, target = self.model(
             x_tok.reshape(x_tok.shape[0], -1), batch.edge_index[:, b:],

@@ -1,7 +1,9 @@
 """Trainer: capacities, model, device-resident tables, host-sampled
 batches, the train step, the epoch loop, evaluation and batch inference
 (``rmm_tpu/train/trainer.py``: ``Trainer`` without the scan/device-sampler
-paths) for the task models ``tabgnn`` and ``tabgnnfused``.
+paths) for the task models of ``TASK_MODELS``: ``fttransformer``, ``gin``,
+``pna``, ``cpna``, ``cpnatab``, ``tabgnn``, ``tabgnninterleaved`` and
+``tabgnnfused``.
 
 The host runs the C++ k-hop sampler and ships small id/mask arrays to the
 card as pinned, non-blocking copies; the edge and node feature tables go to
@@ -57,22 +59,43 @@ from . import task_models
 logger = logging.getLogger(__name__)
 
 
-#: the ported task models, by ``--model`` (``rmm_tpu/train/trainer.py:71-76``)
-TASK_MODELS = {"tabgnn": task_models.TABGNNS,
+#: the ported task models, by ``--model`` (``rmm_tpu/train/trainer.py:55-76``)
+TASK_MODELS = {"fttransformer": task_models.TT,
+               **dict.fromkeys(task_models.GNNWrap.MODELS,
+                               task_models.GNNWrap),
+               "tabgnn": task_models.TABGNNS,
+               "tabgnninterleaved": task_models.TABGNNS,
                "tabgnnfused": task_models.TABGNNFusedS}
+#: the models that run under ``--precision bf16``
+BF16_MODELS = ("tabgnn", "tabgnnfused")
 
 
 def build_task_model(cfg: Config, dataset) -> torch.nn.Module:
     if cfg.model not in TASK_MODELS:
         raise NotImplementedError(f"model {cfg.model!r} is not ported yet")
-    return TASK_MODELS[cfg.model](
+    if cfg.precision != "f32" and cfg.model not in BF16_MODELS:
+        raise NotImplementedError(f"--precision {cfg.precision} is not "
+                                  f"ported yet for model {cfg.model!r}")
+    common = dict(
         node_encoder=make_stypewise_encoder(dataset.nodes, cfg.n_hidden),
         edge_encoder=make_stypewise_encoder(dataset.edges, cfg.n_hidden),
-        channels=cfg.n_hidden, n_gnn_layers=cfg.n_gnn_layers,
-        n_classes=cfg.n_classes, dropout=cfg.dropout,
-        avg_log_deg=task_models._deghist_to_avg_log(
-            dataset.in_degree_histogram()),
-        reverse_mp=cfg.reverse_mp, ego=cfg.ego, task=cfg.task)
+        n_classes=cfg.n_classes, dropout=cfg.dropout, ego=cfg.ego,
+        task=cfg.task)
+    if cfg.model == "fttransformer":
+        return task_models.TT(channels=cfg.n_hidden,
+                              num_layers=cfg.n_gnn_layers, **common)
+    common.update(avg_log_deg=task_models._deghist_to_avg_log(
+        dataset.in_degree_histogram()), reverse_mp=cfg.reverse_mp)
+    if cfg.model in task_models.GNNWrap.MODELS:
+        return task_models.GNNWrap(
+            model_name=cfg.model, n_hidden=cfg.n_hidden,
+            n_gnn_layers=cfg.n_gnn_layers,
+            num_edge_cols=dataset.edges.tensor_frame.num_cols,
+            emlps=cfg.emlps, **common)
+    if cfg.model != "tabgnnfused":
+        common["model_name"] = cfg.model
+    return TASK_MODELS[cfg.model](channels=cfg.n_hidden,
+                                  n_gnn_layers=cfg.n_gnn_layers, **common)
 
 
 def resolve_capacities(cfg: Config, dataset) -> Config:

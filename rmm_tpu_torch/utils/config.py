@@ -51,7 +51,7 @@ class Config:
 
     # misc
     sampler_threads: int = 1      # >1: host sampling on a thread pool
-    precision: str = "f32"        # this port runs f32 only
+    precision: str = "f32"        # f32 | bf16 (tabgnn, tabgnnfused)
     device: str = "cuda"          # cuda | cpu (cpu: tests, no kernels)
 
     seed: int = 1

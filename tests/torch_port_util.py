@@ -120,3 +120,26 @@ def jax_kernel_attention():
             del os.environ["RMM_FORCE_PALLAS"]
         else:
             os.environ["RMM_FORCE_PALLAS"] = saved[2]
+
+
+@contextlib.contextmanager
+def jax_cpnatab_without_row_dropout():
+    """Within the block, ``rmm_tpu``'s ``GNNWrap`` builds ``CPNATAB`` with
+    its row attention's dropout at 0 instead of the fixed 0.1 that no flag
+    reaches, so that its train steps run at dropout 0 as the port's do
+    after ``rmm_tpu_torch.nn.dropout.set_rate(model, 0)``. ``GNNWrap``
+    builds its backbone at every trace, so the steps must be traced
+    inside the block. Only a module attribute is patched, for the block's
+    duration."""
+    from rmm_tpu.nn.gnn.models import CPNATAB
+    from rmm_tpu.train import task_models
+
+    class CPNATABNoRowDropout(CPNATAB):
+        dropout: float = 0.0
+
+    saved = task_models.CPNATAB
+    task_models.CPNATAB = CPNATABNoRowDropout
+    try:
+        yield
+    finally:
+        task_models.CPNATAB = saved

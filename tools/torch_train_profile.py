@@ -5,6 +5,7 @@
     python3 tools/torch_train_profile.py --ssl --precision bf16
     python3 tools/torch_train_profile.py --model tabgnnfused
     python3 tools/torch_train_profile.py --node
+    python3 tools/torch_train_profile.py --model pna   # or any family
 
 Builds the supervised config of record with ``rmm_tpu_torch`` (synthetic
 AML, tabgnn, C = 32, 2 layers, fanouts 100/100, batch 200, dropout 0.083;
@@ -23,6 +24,13 @@ With ``--model tabgnnfused`` the same for the transfer cell's supervised
 fused model (C = 128, 3 layers, 8 heads, the supervised config's data and
 flags, random weights), with its forward by layer and the peak memory of
 a step.
+
+With ``--model`` one of ``fttransformer``, ``gin``, ``pna``, ``cpna``,
+``cpnatab`` and ``tabgnninterleaved`` the same for that model at the
+supervised launcher's flags (C = 32, 2 layers, 8 heads, fanouts 100/100,
+batch 200, dropout 0.083) on the config of record's data, with its forward
+by part (the encoders, each direct submodule of the backbone, the
+decoder).
 
 With ``--node`` the same for Elliptic node classification (the
 ``elliptic`` config: tabgnn, C = 32, 2 layers, 8 heads, fanouts 100/100,
@@ -44,8 +52,8 @@ kernels of the forward and of the whole step, and the train loop.
 forwards through the trainers' own cast of the parameters); every line
 names its precision. Prints one JSON line per measurement and writes the
 profiler's kernel table to ``--table`` (default ``outputs/
-train_profile.txt``, ``outputs/tabgnnfused_profile.txt`` with ``--model
-tabgnnfused``, ``outputs/ssl_profile.txt`` with ``--ssl``,
+train_profile.txt``, ``outputs/<model>_profile.txt`` with another
+``--model``, ``outputs/ssl_profile.txt`` with ``--ssl``,
 ``outputs/node_profile.txt`` with ``--node``). Needs a CUDA card.
 """
 from __future__ import annotations
@@ -83,12 +91,21 @@ def top_kernels(prof, n: int, k: int = 15) -> tuple[float, list]:
                    for r in kernels[:k]]
 
 
-def layer_times(model, run, n: int) -> dict:
+FAMILIES = ("fttransformer", "gin", "pna", "cpna", "cpnatab",
+            "tabgnninterleaved")
+
+
+def layer_times(model, run, n: int, children: bool = False) -> dict:
     """Device ms a step of each named module's forwards (every call summed),
     from CUDA events recorded by forward hooks while ``run()`` runs ``n``
-    steps."""
-    import torch
-
+    steps; with ``children``, of the encoders, the decoder and each direct
+    submodule of the backbone (of ``FTTransformer``'s ``backbone``)."""
+    if children:
+        body = getattr(model.model, "backbone", model.model)
+        prefix = "model.backbone." if body is not model.model else "model."
+        return _layer_times(model, ["node_encoder", "edge_encoder",
+                                    "decoder"] + [
+            prefix + c for c, _ in body.named_children()], run, n)
     names = ["node_encoder", "edge_encoder", "model.node_emb",
              "model.tab_conv", "model.edge_emb", "mcm_head", "lp_head",
              "decoder"]
@@ -97,6 +114,12 @@ def layer_times(model, run, n: int) -> dict:
                            ".fuse")]
     names += [f"model.{kind}_layer_{i}" for kind in ("tab", "gnn")
               for i in range(model.model.num_layers)]
+    return _layer_times(model, names, run, n)
+
+
+def _layer_times(model, names, run, n: int) -> dict:
+    import torch
+
     mods = dict(model.named_modules())
     names = [name for name in names if name in mods]
     events: dict = {name: [] for name in names}
@@ -242,7 +265,7 @@ def main(argv=None):
                    help="24, or 12 with --ssl")
     p.add_argument("--ssl", action="store_true")
     p.add_argument("--model", default="tabgnn",
-                   choices=("tabgnn", "tabgnnfused"))
+                   choices=("tabgnn", "tabgnnfused") + FAMILIES)
     p.add_argument("--node", action="store_true")
     p.add_argument("--precision", default="f32", choices=("f32", "bf16"))
     p.add_argument("--table", default=None)
@@ -256,7 +279,7 @@ def main(argv=None):
                                   if args.ssl else "node_profile.txt"
                                   if args.node else "train_profile.txt"
                                   if args.model == "tabgnn" else
-                                  "tabgnnfused_profile.txt")
+                                  f"{args.model}_profile.txt")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -335,13 +358,14 @@ def main(argv=None):
           "host_enqueue_ms_per_step": 1e3 * (time.perf_counter() - t0) / n,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "card": card})
-    if fused or args.node:
+    family = args.model in FAMILIES
+    if fused or args.node or family:
         def forwards():
             for g in dev:
                 tr._logits(g)
 
         emit({"phase": "train_forward_layers", "card": card,
-              "layers": layer_times(tr.model, forwards, n)})
+              "layers": layer_times(tr.model, forwards, n, family)})
 
     # forward alone (train mode, grad on) and the whole step, by kernel
     with profile(activities=[ProfilerActivity.CPU,
