@@ -146,6 +146,36 @@ through all of them:
              ``convert.check_record``'s float32 limits (those of
              ``CPNA_MODELS`` for cpna and cpnatab), the same parameters
              unmoved.
+18. tabular_mcm — the tabular MCM CLI (``rmm_tpu_torch.cli.fttransformer``)
+             at its defaults (C = 128, 8 heads, 3 layers, dropout 0.5,
+             batch 200, AdamW lr 2e-4) on the config of record's data: an
+             epoch plain, an epoch with ``--mask_vector --save_model``, a
+             resume from that epoch. Finite losses, accuracies in [0, 1],
+             3 split forwards, backwards and reduces a step (the edge rows
+             with their CLS token, 200x6x128/8) and 3 split forwards a val
+             batch. Train rows/s and the median step on the device's clock.
+19. mcm_edge — ``--task mcm_edge_table``: tabgnn at the config of record
+             through the training CLI for an epoch (``--save_model``) on
+             the MCM record's 16,384-row cut (4 tiled calls each way a
+             step, 4 forwards a val and test batch; ``best_m.json`` the
+             epoch's val ``[rmse, accuracy]``), and tabgnnfused at
+             C = 128, 3 layers (5 split) through the trainer the training
+             CLI builds, 24 train and 24 val batches; finite losses and
+             RMSEs, accuracies in [0, 1], the launches by route.
+20. ssl_moco — ssl_train with ``--moo moco``: λ on the simplex, 10 split
+             forwards a step and one backward a call for the loss whose
+             graph reaches it (10 a step: each view's 5 calls reach its
+             own loss), and at the SSL target rows two
+             ``torch.autograd.grad`` pulls from one forward bitwise equal
+             to one ``backward()`` of each loss alone on that graph.
+21. mcm_parity — the three objectives against the JAX CPU record
+             ``mcm_record.npz`` (``tools/make_torch_port_mcm_fixture.py``):
+             the tabular trainer plain and with the mask vector at the
+             CLI's widths, ``mcm_edge_table`` for tabgnn, pna, cpna and
+             tabgnnfused at the launcher's, MoCo mcm-lp at the SSL
+             widths: the first validation batch's outputs, three steps by
+             ``convert.check_record`` (MoCo at its own limits, below), the
+             launches by route.
 
 And at ``--precision bf16`` (the reference's scheme: float32 masters,
 bf16 parameters and tables in each step; under it the AML edge tokens are
@@ -185,7 +215,8 @@ transfer paths' split forward and backward at C = 128 (their launches by
 path), with their times at the transfer and the narrow shapes beside, the split routes at S > 16
 (the node path's node tokens: their times at the node shape and at the
 other long shapes), and the bf16 builds of the tiled and split kernels,
-likewise),
+likewise; the masked-cell paths' launches in the tiled and split
+entries),
 the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 package beside it, the script fails and prints no result.
@@ -302,13 +333,20 @@ FAMILY_CALLS = {"fttransformer": 4, "gin": 0, "pna": 0, "cpna": 0,
 CPNATAB_ROW_DROPOUT = 0.1
 
 
+def route_counts(fwd: int, bwd: int, route: str = "split") -> dict:
+    """The float32 launch counts of ``fwd`` forwards and ``bwd`` backwards
+    (a reduce each), all through ``route``."""
+    other = "tiled" if route == "split" else "split"
+    return {"fwd": fwd, f"fwd_{route}": fwd, f"fwd_{other}": 0,
+            "bwd": bwd, f"bwd_{route}": bwd, f"bwd_{other}": 0,
+            "reduce": bwd, **NO_BF16}
+
+
 def family_counts(model: str, fwd: int, bwd: int) -> dict:
     """The launches of ``fwd`` forwards and ``bwd`` backwards of a family,
     every one tiled, float32."""
     k = FAMILY_CALLS[model]
-    return {"fwd": k * fwd, "fwd_tiled": k * fwd, "fwd_split": 0,
-            "bwd": k * bwd, "bwd_tiled": k * bwd, "bwd_split": 0,
-            "reduce": k * bwd, **NO_BF16}
+    return route_counts(k * fwd, k * bwd, "tiled")
 
 
 # column attention launches an mcm-lp step makes, each direction: two views
@@ -2179,6 +2217,617 @@ def ssl_cli_phase(card: str, csv: str) -> dict:
     return rec
 
 
+# The masked-cell objectives. The tabular MCM entry point
+# (cli/fttransformer.py at its defaults: C = 128, 8 heads, 3 layers,
+# dropout 0.5, batch 200, AdamW lr 2e-4): one column-attention call a layer
+# on the edge rows with their CLS token, [200, 6, 128/8], through the split
+# routes.
+TABULAR_LAYERS = 3
+# --task mcm_edge_table: tabgnn at the config of record (tiled, 4 calls
+# each way a step) through the training CLI for an epoch on the MCM
+# record's cut, and tabgnnfused at the SSL widths (split, fused_launches(3)
+# each way) through the training CLI's trainer, cut to MCM_EDGE_BATCHES
+# train and val batches (the node_train cut)
+MCM_EDGE_BATCHES = 24
+MCM_EDGE_RUNS = {"tabgnn": FAMILY_ARGV, "tabgnnfused": TRANSFER_ARGV[2:] + [
+    "--num_neighs", "100", "100", "--batch_size", "200"]}
+MCM_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
+                           "mcm_record.npz")
+# The record's limits: outputs 1e-4 (relative to the largest entry where
+# that exceeds 1); the loss terms and parameters by convert.check_record
+# (MoCo's at model="moco"). MoCo's λ after each step: where the
+# reference's has an entry of 0 (its softmax underflowed: step 1 of the
+# record), each entry within 1e-5; else each entry within half of the
+# reference's smaller entry, λ_mcm (5.7e-7 after step 2, 3.8e-3 after
+# step 3), so a λ that collapsed to [1, 0] fails after step 2. An absolute
+# limit cannot be both tight and stable there: after step 3 λ is the
+# softmax of differences of y yᵀ entries of ~1e4 at the SSL widths, and
+# the cross term y_lp·y_mcm (cosine ~0.04) moves with each gradient's
+# direction, so the port's own runs over 1-3 CPU threads (only the
+# summation order differs) land λ_mcm at 0.0027-0.0040 (up to 29% off the
+# reference's 0.0038). The norms of y's rows: 5e-3 relative (the same runs
+# land within 1e-3 of the reference's).
+MCM_OUT_TOL, MOCO_LAMBDA_TOL, MOCO_LAMBDA_RTOL = 1e-4, 1e-5, 0.5
+MOCO_Y_NORM_RTOL = 5e-3
+SIMPLEX_TOL = 1e-5
+
+
+def mcm_cuts(st: dict, root: str) -> dict:
+    """The MCM record's two synthetic AML cuts, as CSVs under ``root``."""
+    from rmm_tpu_torch.datasets import write_synthetic_aml_csv
+
+    out = {}
+    for name, spec in (("cut", st["cut"]), ("moco", st["moco"])):
+        out[name] = write_synthetic_aml_csv(
+            os.path.join(root, f"aml_mcm_{name}.csv"),
+            num_rows=spec["rows"], num_accounts=spec["num_accounts"],
+            seed=spec["data_seed"])
+    return out
+
+
+def mcm_tabular_trainer(st: dict, csv: str, mask_vector: bool, device: str,
+                        edges=None):
+    """The tabular CLI's trainer at the record's flags (dropout 0), from the
+    record's start (``edges``: the MASK dataset's table, when loaded)."""
+    from rmm_tpu_torch.cli import fttransformer
+    from rmm_tpu_torch.convert import from_jax, random_variables
+    from rmm_tpu_torch.datasets import IBMTransactionsAML
+    from rmm_tpu_torch.datasets.base import PretrainType
+    from rmm_tpu_torch.train.tabular import TabularMCMTrainer
+
+    t = st["tabular"]
+    cfg = fttransformer.config_from_args(fttransformer.build_parser(
+    ).parse_args([
+        "--dataset", csv, "--channels", str(t["channels"]), "--num_layers",
+        str(t["num_layers"]), "--batch_size", str(t["batch_size"]), "--lr",
+        str(t["lr"]), "--weight_decay", str(t["weight_decay"]), "--eps",
+        str(t["adam_eps"]), "--dropout", "0", "--device", device])).replace(
+        seed=st["seed"])
+    if edges is None:
+        edges = IBMTransactionsAML(root=csv,
+                                   pretrain={PretrainType.MASK}).edges
+    tr = TabularMCMTrainer(cfg, edges, mask_vector)
+    run = st["runs"]["tabular_mv" if mask_vector else "tabular"]
+    tr.model.load_state_dict(from_jax(random_variables(
+        run["shapes"], st["var_seed"]), tr.model))
+    return tr
+
+
+def mcm_edge_trainer(st: dict, csv: str, model: str, device: str,
+                     dataset=None):
+    """The training CLI's trainer under ``--task mcm_edge_table`` at the
+    record's flags (dropout 0), from the record's start."""
+    from rmm_tpu_torch.convert import from_jax, random_variables
+    from rmm_tpu_torch.datasets import build_dataset
+    from rmm_tpu_torch.nn.dropout import set_rate
+    from rmm_tpu_torch.train.trainer import Trainer
+    from rmm_tpu_torch.utils.config import config_from_args, create_parser
+
+    e = st["edge"]
+    cfg = config_from_args(create_parser().parse_args([
+        "--data", csv, "--model", model, "--task", "mcm_edge_table",
+        "--n_hidden", str(e["n_hidden"]), "--n_gnn_layers",
+        str(e["n_gnn_layers"]), "--num_neighs", *map(str, e["num_neighs"]),
+        "--batch_size", str(e["batch_size"]), "--seed", str(st["seed"]),
+        "--lr", str(e["lr"]), "--dropout", "0", "--edge_capacity",
+        str(e["edge_capacity"]), "--node_capacity", str(e["node_capacity"]),
+        "--device", device, *(["--emlps"] if e["emlps"] else [])]))
+    tr = Trainer(cfg, dataset or build_dataset(cfg))
+    tr.model.load_state_dict(from_jax(random_variables(
+        st["runs"][f"mcm_{model}"]["shapes"], st["var_seed"]), tr.model))
+    set_rate(tr.model, 0.0)
+    return tr
+
+
+def mcm_moco_trainer(st: dict, csv: str, device: str):
+    """The SSL CLI's pretrainer (mcm-lp, ``--moo moco``) at the record's
+    flags (dropout 0), from the record's start."""
+    from rmm_tpu_torch.cli import fused
+    from rmm_tpu_torch.convert import from_jax, random_variables
+    from rmm_tpu_torch.datasets import build_dataset
+    from rmm_tpu_torch.train.pretrain import PretrainTrainer
+
+    m, run = st["moco"], st["runs"]["moco"]
+    cfg = fused.config_from_args(fused.build_parser().parse_args([
+        "--dataset", csv, "--mode", "mcm-lp", "--moo", "moco",
+        "--channels", str(m["channels"]), "--num_layers",
+        str(m["num_layers"]), "--num_neg_samples",
+        str(m["num_neg_samples"]), "--batch_size", str(m["batch_size"]),
+        "--khop_neighbors", *map(str, m["khop_neighbors"]), "--dropout",
+        "0", "--lr", str(m["lr"]), "--weight_decay", str(m["weight_decay"]),
+        "--eps", str(m["adam_eps"]), "--device", device])).replace(
+        edge_capacity=run["edge_capacity"],
+        node_capacity=run["node_capacity"], seed=st["seed"])
+    tr = PretrainTrainer(cfg, build_dataset(cfg), "mcm-lp")
+    tr.model.load_state_dict(from_jax(random_variables(
+        run["shapes"], st["var_seed"]), tr.model))
+    return tr
+
+
+def moco_faults(lambd: list, y_norm: list, rec) -> tuple[list, dict]:
+    """λ and the norms of y's rows after each step against the MCM record's
+    MoCo run, by the limits above: (the faults, the errors)."""
+    import numpy as np
+
+    want, got = rec["moco/lambd"], np.stack(lambd)
+    low = want.min(axis=1)
+    tol = np.where(low > 0, MOCO_LAMBDA_RTOL * low, MOCO_LAMBDA_TOL)
+    lam_err = np.abs(got - want).max(axis=1)
+    y_err = (np.abs(np.stack(y_norm) - rec["moco/y_norm"])
+             / rec["moco/y_norm"]).max(axis=1)
+    faults = [f"λ after step {i + 1}: {got[i].tolist()}, the reference's "
+              f"{want[i].tolist()} (limit {tol[i]})"
+              for i in np.nonzero(lam_err > tol)[0]]
+    faults += [f"y's row norms after step {i + 1} {y_err[i]} off "
+               f"(limit {MOCO_Y_NORM_RTOL})"
+               for i in np.nonzero(y_err > MOCO_Y_NORM_RTOL)[0]]
+    return faults, {"lambd": got.tolist(), "jax_lambd": want.tolist(),
+                    "lambd_abs_err": lam_err.tolist(),
+                    "lambd_tol": tol.tolist(),
+                    "y_norm_rel_err": y_err.tolist(),
+                    "y_norm_rtol": MOCO_Y_NORM_RTOL}
+
+
+def mcm_output_error(out, rec, prefix: str) -> float:
+    """The largest error of a model's MCM outputs ``(num_out, cat_out[,
+    mv_out])`` against the record's, each relative to its largest entry
+    where that exceeds 1."""
+    num_out, cat_out, *mv = out
+    got = {"num": num_out, **{f"cat_{i}": c for i, c in enumerate(cat_out)}}
+    if mv and mv[0] is not None:
+        got["mv"] = mv[0]
+    keys = {k[len(prefix) + 4:] for k in rec.files
+            if k.startswith(prefix + "out/")}
+    check(set(got) == keys, f"{prefix}: outputs {sorted(got)}, the "
+          f"record's {sorted(keys)}")
+    err = 0.0
+    for key, t in got.items():
+        want = rec[f"{prefix}out/{key}"]
+        diff = float(abs(t.detach().cpu().numpy()[:len(want)] - want).max())
+        err = max(err, diff / max(1.0, float(abs(want).max())))
+    return err
+
+
+def tabular_mcm_phase(card: str, csv: str) -> dict:
+    """The tabular MCM CLI at its defaults on the config of record's data:
+    one epoch plain, then one with ``--mask_vector --save_model`` and a
+    resume from that epoch's checkpoint. Finite losses, accuracies in
+    [0, 1], and per train step TABULAR_LAYERS split forwards, backwards and
+    reduces, per evaluated batch TABULAR_LAYERS split forwards."""
+    import torch
+
+    from rmm_tpu_torch.cli import fttransformer
+
+    runs = os.path.join(WORK, "tabular_runs")
+    argv = ["--dataset", csv, "--epochs", "1", "--testing", "--wandb_dir",
+            runs, "--device", "cuda"]
+    k, out = TABULAR_LAYERS, {}
+    for name, extra in (("plain", []),
+                        ("mask_vector", ["--mask_vector", "--save_model"])):
+        stats: dict = {}
+        reset_counts()
+        t0 = time.perf_counter()
+        (ep,), best = fttransformer.main(argv + extra, stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        b = 200
+        train_rows, val_rows, _ = stats["split_rows"]
+        steps, evals = -(-train_rows // b), -(-val_rows // b)
+        check(counts == route_counts(k * (steps + evals), k * steps),
+              f"tabular {name}: launches {counts} for {steps} steps and "
+              f"{evals} evaluated batches (expected {k} split forwards a "
+              f"batch, {k} split backwards and reduces a step)")
+        accs = [ep["val_accuracy"]] + ([ep["val_mv_accuracy"]]
+                                       if "--mask_vector" in extra else [])
+        check(math.isfinite(ep["loss"]) and math.isfinite(ep["val_rmse"])
+              and all(0 <= a <= 1 for a in accs),
+              f"tabular {name}: epoch {ep}")
+        out[name] = {"steps": steps, "evaluated_batches": evals,
+                     "launches": counts, "loss": ep["loss"],
+                     "train_acc": ep["train_acc"],
+                     "train_rmse": ep["train_rmse"],
+                     **{key: v for key, v in ep.items()
+                        if key.startswith("val_")},
+                     "step_ms_median": ep.get("step_ms"),
+                     "epoch_s": ep["sec"],
+                     "train_rows_per_s": train_rows / ep["sec"],
+                     "setup_s": stats["setup_s"], "fit_s": stats["fit_s"],
+                     "wall_s": wall, "best": best}
+    ck = os.path.join(stats["run_dir"], "0")
+    check(all(os.path.exists(os.path.join(ck, f)) for f in
+              ("model.pt", "optimizer.pt", "best_m.json", "meta.json")),
+          f"no tabular checkpoint in {ck}")
+    resumed, best = fttransformer.main(argv + ["--mask_vector",
+                                               "--checkpoint", ck])
+    check([h["epoch"] for h in resumed] == [1]
+          and os.path.isdir(os.path.join(stats["run_dir"], "1")),
+          "the tabular checkpoint did not resume at epoch 1")
+    rec = {"phase": "tabular_mcm", "channels": 128,
+           "layers": TABULAR_LAYERS, "heads": 8, "batch": 200,
+           "dropout": 0.5, "attention_rows": [200, 6, 128, 8],
+           "train_rows": train_rows, "runs": out,
+           "resumed_epoch": resumed[0]["epoch"],
+           "resumed_loss": resumed[0]["loss"], "resumed_best": best,
+           "card": card, "ok": True}
+    emit(rec)
+    return rec
+
+
+def mcm_edge_phase(card: str, csv: str) -> dict:
+    """``--task mcm_edge_table`` on the card. tabgnn at the config of
+    record trains one epoch through the training CLI (``--save_model``) on
+    the MCM record's 16,384-row cut: a finite loss, ``[rmse, accuracy]``
+    in range for val and test, the checkpoint's ``best_m.json`` holding
+    the epoch's val ``[rmse, accuracy]`` and ``-1/`` the best model where
+    the best rule says the epoch improves on ``[1000, -1]``, and 4 tiled
+    calls each way a step and 4 tiled forwards an evaluated batch.
+    tabgnnfused at C = 128, 3 layers trains through the trainer the
+    training CLI builds on MCM_EDGE_BATCHES train and val batches of the
+    config of record's data: fused_launches(3) split calls each way."""
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.cli import main as train_cli
+    from rmm_tpu_torch.datasets import build_dataset
+    from rmm_tpu_torch.frame.dataset import DatasetView
+    from rmm_tpu_torch.train.trainer import Trainer, mcm_improves
+    from rmm_tpu_torch.utils.checkpoint import load_best_m
+    from rmm_tpu_torch.utils.config import config_from_args, create_parser
+
+    st = fixture_settings()
+    out = {}
+
+    # tabgnn: the training CLI for an epoch on the MCM record's cut
+    cut = mcm_cuts(json.loads(str(np.load(MCM_FIXTURE)["settings"])),
+                   WORK)["cut"]
+    stats: dict = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    (ep,), best = train_cli.main([
+        "--data", cut, "--model", "tabgnn", *MCM_EDGE_RUNS["tabgnn"],
+        "--task", "mcm_edge_table", "--seed", str(st["seed"]),
+        "--sampler_threads", "4", "--epochs", "1", "--save_model",
+        "--wandb_dir", os.path.join(WORK, "mcm_edge_runs"), "--device",
+        "cuda"], stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    b = 200
+    train_rows, val_rows, test_rows = stats["split_rows"]
+    steps = -(-train_rows // b)
+    evals = -(-val_rows // b) + -(-test_rows // b)
+    check(counts == route_counts(4 * (steps + evals), 4 * steps, "tiled"),
+          f"mcm_edge tabgnn: launches {counts} for {steps} steps and "
+          f"{evals} evaluated batches (expected 4 tiled calls each way a "
+          "step, 4 forwards a batch)")
+    check(math.isfinite(ep["loss"]) and math.isfinite(ep["train_rmse"])
+          and all(math.isfinite(ep[f"{k}_rmse"])
+                  and 0 <= ep[f"{k}_acc"] <= 1 for k in ("val", "test"))
+          and 0 <= ep["train_acc"] <= 1, f"mcm_edge tabgnn: epoch {ep}")
+    saved = load_best_m(os.path.join(stats["run_dir"], "0"))
+    val_m = [ep["val_rmse"], ep["val_acc"]]
+    improved = mcm_improves(val_m, [1000.0, -1.0])
+    check(ep["best"] == improved
+          and saved == best == (val_m if improved else [1000.0, -1.0])
+          and os.path.exists(os.path.join(stats["run_dir"], "-1",
+                                          "model.pt")) == improved,
+          f"mcm_edge tabgnn: best_m.json {saved}, fit's {best}, the "
+          f"epoch's val {val_m}, improved {ep['best']}")
+    out["tabgnn"] = {
+        "through": "cli/main.py", "channels": 32, "layers": 2,
+        "route": "tiled", "steps": steps, "evaluated_batches": evals,
+        "loss": ep["loss"], "train_rmse": ep["train_rmse"],
+        "train_acc": ep["train_acc"],
+        **{f"{k}_{m}": ep[f"{k}_{m}"] for k in ("val", "test")
+           for m in ("rmse", "acc")},
+        "best_m": saved, "step_ms_median": ep.get("step_ms"),
+        "epoch_s": ep["sec"], "train_rows_per_s": train_rows / ep["sec"],
+        "setup_s": stats["setup_s"], "wall_s": wall,
+        "cli_launches": counts, "launches_per_step": 4}
+
+    # tabgnnfused: the CLI's trainer on the config of record's data, cut
+    base = ["--data", csv, "--task", "mcm_edge_table", "--seed",
+            str(st["seed"]), "--sampler_threads", "4", "--edge_capacity",
+            str(st["edge_capacity"]), "--node_capacity",
+            str(st["node_capacity"]), "--device", "cuda", "--model",
+            "tabgnnfused", *MCM_EDGE_RUNS["tabgnnfused"]]
+    t0 = time.perf_counter()
+    cfg = config_from_args(create_parser().parse_args(base))
+    dataset = build_dataset(cfg)
+    data_s = time.perf_counter() - t0
+    n = MCM_EDGE_BATCHES
+    tr = Trainer(cfg, dataset)
+    b = cfg.batch_size
+    train, val, _ = (DatasetView(v.parent, v.indices[:n * b])
+                     for v in dataset.edges.split())
+    reset_counts()
+    t1 = time.perf_counter()
+    tm = tr.train_epoch(train, 0)
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t1
+    train_counts = read_counts()
+    reset_counts()
+    rmse, acc = tr.evaluate(val, "val")
+    eval_counts = read_counts()
+    k = fused_launches(cfg.n_gnn_layers)
+    check(train_counts == route_counts(k * n, k * n)
+          and eval_counts == route_counts(k * n, 0),
+          f"mcm_edge tabgnnfused: launches {train_counts} for {n} steps and "
+          f"{eval_counts} for {n} evaluated batches (expected {k} split "
+          f"calls each way a step, {k} forwards a batch)")
+    check(math.isfinite(tm["loss"]) and math.isfinite(tm["train_rmse"])
+          and math.isfinite(rmse) and 0 <= tm["train_acc"] <= 1
+          and 0 <= acc <= 1,
+          f"mcm_edge tabgnnfused: {tm}, val rmse {rmse}, val acc {acc}")
+    out["tabgnnfused"] = {
+        "through": "the training CLI's Trainer", "channels": cfg.n_hidden,
+        "layers": cfg.n_gnn_layers, "route": "split", "steps": n,
+        "evaluated_batches": n, "loss": tm["loss"],
+        "train_rmse": tm["train_rmse"], "train_acc": tm["train_acc"],
+        "val_rmse": rmse, "val_acc": acc,
+        "step_ms_median": tm.get("step_ms"), "train_wall_s": train_wall,
+        "train_rows_per_s": n * b / train_wall, "data_s": data_s,
+        "train_launches": train_counts, "eval_launches": eval_counts,
+        "launches_per_step": k}
+    del tr
+    torch.cuda.empty_cache()
+    rec = {"phase": "mcm_edge", "dropout": TRAIN_DROPOUT,
+           "tabgnn_split_rows": [train_rows, val_rows, test_rows],
+           "edge_capacity": st["edge_capacity"],
+           "node_capacity": st["node_capacity"], "models": out,
+           "card": card, "ok": True}
+    emit(rec)
+    return rec
+
+
+def two_pulls_record(rng, dev) -> dict:
+    """MoCo's two pulls on one graph, at the SSL target rows (13000x6x128/8,
+    the SSL keep-mask): two ``torch.autograd.grad`` pulls from one forward
+    of the attention Function give bitwise the gradients of one
+    ``backward()`` of each loss alone on the same graph, the backward
+    launching once a pull."""
+    import torch
+
+    from rmm_tpu_torch.ops import column_attention as ca
+
+    b, s, c, h, rate = SSL_SHAPES[1]
+    leaves = [t.requires_grad_() for t in random_inputs(rng, b, s, c, dev)]
+    mask = torch.from_numpy(rng.rand(b, h, s, s) >= rate).to(dev)
+    out = ca.fused_column_attention(*leaves, h, mask, rate)
+    losses = [(out * random_inputs(rng, b, s, c, dev)[0]).sum()
+              for _ in range(2)]
+    reset_counts()
+    pulls = [torch.autograd.grad(loss, leaves, retain_graph=True)
+             for loss in losses]
+    counts = read_counts()
+    equal = []
+    for loss, grads in zip(losses, pulls):
+        for t in leaves:
+            t.grad = None
+        loss.backward(retain_graph=True)
+        equal.append(all(torch.equal(t.grad, g)
+                         for t, g in zip(leaves, grads)))
+    check(all(equal), "two pulls from one forward differ from one "
+          "backward() of each loss alone")
+    check(counts == route_counts(0, 2),
+          f"two pulls launched {counts} (expected 2 split backwards)")
+    return {"shape": [b, s, c, h, rate], "bitwise_equal": equal,
+            "launches": counts}
+
+
+def ssl_moco_phase(card: str, csv: str) -> dict:
+    """SSL pretraining (mcm-lp) with ``--moo moco`` at the SSL config of
+    record on the config of record's data: SSL_BATCHES train and val
+    batches, as ssl_train's. λ on the simplex; each step 10 split
+    forwards, and one backward a call for each loss whose graph reaches it:
+    each view's 5 calls reach its own loss alone, so 10 split backwards and
+    reduces a step, as a --moo sum step's; the two-pulls check."""
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.frame.dataset import DatasetView
+
+    st = fixture_settings()
+    pulls = two_pulls_record(np.random.RandomState(16), torch.device("cuda"))
+    t0 = time.perf_counter()
+    tr = ssl_trainer(csv, SSL_ARGV + ["--sampler_threads", "4", "--moo",
+                                      "moco"],
+                     st["edge_capacity"], st["node_capacity"])
+    setup_s = time.perf_counter() - t0
+    n, b = SSL_BATCHES, tr.cfg.batch_size
+    train, val, _ = tr.dataset.edges.split()
+    train = DatasetView(train.parent, train.indices[:n * b])
+    val = DatasetView(val.parent, val.indices[:n * b])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    tm = tr.train_epoch(train, 0)
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train_counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    reset_counts()
+    vm = tr.evaluate(val, "val")
+    eval_counts = read_counts()
+    lambd = tr.moco.lambd.cpu().numpy().astype(np.float64)
+    k = SSL_LAUNCHES
+    check(train_counts == route_counts(k * n, k * n)
+          and eval_counts == route_counts(k * n, 0),
+          f"MoCo launches {train_counts} for {n} steps and {eval_counts} "
+          f"for {n} evaluated batches (expected {k} split forwards, and a "
+          "backward a call for the loss that reaches it: "
+          f"{k} a step)")
+    check(tr.moco.step == n and abs(lambd.sum() - 1) <= SIMPLEX_TOL
+          and ((lambd >= 0) & (lambd <= 1)).all(),
+          f"MoCo λ {lambd.tolist()} after {tr.moco.step} steps is off the "
+          "simplex")
+    check(math.isfinite(tm["loss"]) and 0 < vm["mrr"] <= 1
+          and math.isfinite(vm["rmse"]) and 0 <= vm["accuracy"] <= 1,
+          f"MoCo epoch {tm}, val {vm}")
+    rows = train.tensor_frame.num_rows
+    rec = {"phase": "ssl_moco", "mode": "mcm-lp", "moo": "moco",
+           "steps": n, "eval_batches": n, "lambd": lambd.tolist(),
+           "moco_step": tr.moco.step, "grad_dim": int(tr.moco.y.shape[1]),
+           "train_launches": train_counts, "eval_launches": eval_counts,
+           "bwd_per_step": train_counts["bwd"] / n,
+           "sum_step_bwd": k, "two_pulls": pulls, "loss": tm["loss"],
+           **{f"val_{key}": v for key, v in vm.items()},
+           "step_ms_median": tm.get("step_ms"), "sample_ms": tm["sample_ms"],
+           "train_wall_s": train_wall, "train_rows_per_s": rows / train_wall,
+           "peak_memory_gb": peak / 1e9, "setup_s": setup_s, "card": card,
+           "ok": True}
+    emit(rec)
+    del tr
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mcm_parity_phase(card: str) -> dict:
+    """The masked-cell objectives on the card against the JAX CPU record
+    ``mcm_record.npz`` (``tools/make_torch_port_mcm_fixture.py``, dropout
+    0, scatter PNA sums): the tabular trainer plain and with the mask
+    vector, ``mcm_edge_table`` for tabgnn, pna, cpna and tabgnnfused, and
+    MoCo mcm-lp. From the record's start, each: the first validation
+    batch's outputs within MCM_OUT_TOL, three steps by
+    ``convert.check_record``'s float32 limits (``cpna`` at its
+    ``CPNA_*``), the same parameters unmoved; under MoCo λ and the norms
+    of y's rows after each step (``moco_faults``); the launches by
+    route."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.convert import check_record, loss_terms, torch_key
+    from rmm_tpu_torch.train.trainer import MCM_SUMS
+
+    rec = np.load(MCM_FIXTURE)
+    st = json.loads(str(rec["settings"]))
+    csvs = mcm_cuts(st, WORK)
+    n, out = st["steps"], {}
+
+    def steps(model, step, batches):
+        """The record's steps (``step(batch)`` → the loss and the step's
+        sums by name): their loss terms, launches and unmoved
+        parameters."""
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        model.train()
+        reset_counts()
+        terms = [loss_terms(*step(gb)) for gb in batches]
+        counts = read_counts()
+        state = model.state_dict()
+        unmoved = {name for name, _ in model.named_parameters()
+                   if torch.equal(state[name], before[name])}
+        return terms, counts, unmoved
+
+    def hold(run, model, terms, unmoved, lr, updates, width, kind=""):
+        faults, summary = check_record(model.state_dict(), terms, rec,
+                                       f"{run}/", lr, updates, width,
+                                       model=kind)
+        want = {torch_key(k)[0] for k in st["runs"][run].get("unmoved", [])}
+        if "unmoved" in st["runs"][run] and unmoved != want:
+            faults.append(f"unmoved parameters {sorted(unmoved)}, the "
+                          f"reference's {sorted(want)}")
+        check(not faults, f"{run} off the JAX record: " + "; ".join(faults))
+        return summary
+
+    edges = None
+    for run, mv in (("tabular", False), ("tabular_mv", True)):
+        tr = mcm_tabular_trainer(st, csvs["cut"], mv, "cuda", edges)
+        edges = tr.edges
+        train, val, _ = edges.split()
+        tf, _, _, _ = next(tr._batches(val, False))
+        reset_counts()
+        with torch.no_grad():
+            err = mcm_output_error(tr.model(tf), rec, f"{run}/")
+        fwd_counts = read_counts()
+        check(err <= MCM_OUT_TOL, f"{run}: output error {err}")
+        def step(batch):
+            loss, sums = tr._step(*batch[:2])
+            return loss, dict(zip(MCM_SUMS, sums.tolist()))
+
+        terms, counts, unmoved = steps(tr.model, step, list(
+            itertools.islice(tr._batches(train, True, 0), n)))
+        k = st["tabular"]["num_layers"]
+        check(fwd_counts == route_counts(k, 0)
+              and counts == route_counts(k * n, k * n),
+              f"{run}: launches {fwd_counts} and {counts}")
+        out[run] = {"output_err": err, "terms": terms,
+                    "jax_terms": st["runs"][run]["terms"],
+                    "launches": counts, "forward_launches": fwd_counts,
+                    **hold(run, tr.model, terms, unmoved,
+                           st["tabular"]["lr"], n,
+                           st["tabular"]["channels"])}
+        del tr
+    dataset = None
+    for model in st["edge_models"]:
+        run = f"mcm_{model}"
+        tr = mcm_edge_trainer(st, csvs["cut"], model, "cuda", dataset)
+        dataset = tr.dataset
+        train, val, _ = dataset.edges.split()
+        gb = next(tr._batches(val, "val"))
+        reset_counts()
+        with torch.no_grad():
+            err = mcm_output_error(tr.model(tr.edge_table, tr.node_table,
+                                            gb.to(tr.device)), rec,
+                                   f"{run}/")
+        fwd_counts = read_counts()
+        check(err <= MCM_OUT_TOL, f"{run}: output error {err}")
+        def step(gb):
+            loss, aux = tr._step(gb.to(tr.device))
+            return loss, dict(zip(MCM_SUMS, aux["sums"].tolist()))
+
+        terms, counts, unmoved = steps(tr.model, step, list(
+            itertools.islice(tr._batches(train, "train", 0), n)))
+        # C = 32: tabgnn's 2 layers x node and edge tokens and tabgnnfused's
+        # fused_launches, all tiled; the GNN baselines none
+        k = {"tabgnn": 4, "pna": 0, "cpna": 0, "tabgnnfused": fused_launches(
+            st["edge"]["n_gnn_layers"])}[model]
+        check(fwd_counts == route_counts(k, 0, "tiled")
+              and counts == route_counts(k * n, k * n, "tiled"),
+              f"{run}: launches {fwd_counts} and {counts}")
+        out[run] = {"output_err": err, "terms": terms,
+                    "jax_terms": st["runs"][run]["terms"],
+                    "launches": counts, "forward_launches": fwd_counts,
+                    **hold(run, tr.model, terms, unmoved, st["edge"]["lr"],
+                           n, st["edge"]["n_hidden"], model)}
+        del tr
+    tr = mcm_moco_trainer(st, csvs["moco"], "cuda")
+    batches = list(itertools.islice(
+        tr._batches(tr.dataset.edges.split()[0], "train", 0), n))
+    neg0 = rec["moco/neg0"]
+    check(np.array_equal(batches[0].neg_edge_index[:, :neg0.shape[1]],
+                         neg0),
+          "the MoCo batch's negatives differ from the JAX record's")
+    lambd, y_norm = [], []
+
+    def moco_step(gb):
+        out = tr._step(gb.to(tr.device))
+        lambd.append(tr.moco.lambd.cpu().numpy().astype(np.float64))
+        y_norm.append(torch.linalg.vector_norm(tr.moco.y, dim=1).cpu()
+                      .numpy().astype(np.float64))
+        return out
+
+    terms, counts, unmoved = steps(tr.model, moco_step, batches)
+    faults, moco_summary = moco_faults(lambd, y_norm, rec)
+    check(not faults, "MoCo off the JAX record: " + "; ".join(faults))
+    k = SSL_LAUNCHES
+    check(counts == route_counts(k * n, k * n),
+          f"MoCo parity launches {counts}")
+    out["moco"] = {"terms": terms, "jax_terms": st["runs"]["moco"]["terms"],
+                   **moco_summary, "launches": counts,
+                   **hold("moco", tr.model, terms, unmoved,
+                          st["moco"]["lr"], 2 * n, st["moco"]["channels"],
+                          "moco")}
+    del tr
+    torch.cuda.empty_cache()
+    res = {"phase": "mcm_parity", "steps": n, "out_tol": MCM_OUT_TOL,
+           "runs": out, "card": card, "ok": True}
+    emit(res)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2234,6 +2883,10 @@ def main() -> int:
             transfer = timed("transfer", transfer_phase, card, csv,
                              ssl_rec["checkpoint"])
             timed("transfer_parity", transfer_parity_phase, card)
+            tabular = timed("tabular_mcm", tabular_mcm_phase, card, csv)
+            mcm_edge = timed("mcm_edge", mcm_edge_phase, card, csv)
+            moco = timed("ssl_moco", ssl_moco_phase, card, csv)
+            mcm_parity = timed("mcm_parity", mcm_parity_phase, card)
             node_root = timed("node_data", prepare_node_data)
             node = timed("node_train", node_train_phase, card, node_root)
             klong = timed("kernel_long", kernel_long_phase, card,
@@ -2284,24 +2937,48 @@ def main() -> int:
                    for m, r in family["models"].items() if FAMILY_CALLS[m]}
         fam_bwd["family_parity"] = sum(r["launches"]["bwd"]
                                        for r in fparity["models"].values())
+        # the masked-cell paths' launches by path and route
+        mcm_runs = {
+            "tabular_mcm": [r["launches"] for r in tabular["runs"].values()],
+            "mcm_edge": [r.get(f"{run}_launches", {})
+                         for r in mcm_edge["models"].values()
+                         for run in ("cli", "train", "eval")],
+            "ssl_moco": [moco["train_launches"], moco["eval_launches"]],
+            "mcm_parity": [c for r in mcm_parity["runs"].values()
+                           for c in (r["launches"],
+                                     r.get("forward_launches", {}))]}
+
+        def mcm_launches(key):
+            out = {path: sum(c.get(key, 0) for c in runs)
+                   for path, runs in mcm_runs.items()}
+            return {path: v for path, v in out.items() if v}
+
+        mcm_fwd_tiled, mcm_bwd_tiled = (mcm_launches("fwd_tiled"),
+                                        mcm_launches("bwd_tiled"))
+        mcm_fwd_split, mcm_bwd_split = (mcm_launches("fwd_split"),
+                                        mcm_launches("bwd_split"))
         emit({"kernels": [
             kernel_entry("column_attention_fwd", 165, kern["fwd"],
                          kern["fwd"], {
                              "path": "main, node (edge tokens), families "
                                      "(fttransformer, tabgnninterleaved, "
-                                     "cpnatab)",
+                                     "cpnatab), mcm_edge (tabgnn), "
+                                     "mcm_parity",
                              "launches": serve_rec["launches"]
                              + train_rec["launches"]["fwd"]
                              + sum(node_fwd_tiled.values())
-                             + sum(fam_fwd.values()),
+                             + sum(fam_fwd.values())
+                             + sum(mcm_fwd_tiled.values()),
                              "tiled_launches": serve_rec["tiled_launches"]
                              + train_rec["launches"]["fwd_tiled"]
                              + sum(node_fwd_tiled.values())
-                             + sum(fam_fwd.values()),
+                             + sum(fam_fwd.values())
+                             + sum(mcm_fwd_tiled.values()),
                              "launches_by_path": {
                                  "serve": serve_rec["launches"],
                                  "train": train_rec["launches"]["fwd"],
-                                 **node_fwd_tiled, **fam_fwd},
+                                 **node_fwd_tiled, **fam_fwd,
+                                 **mcm_fwd_tiled},
                              "family": shape_times(kern["family_fwd"]),
                              # the float32 edge tokens at --precision bf16
                              "launches_under_bf16": sum(
@@ -2319,33 +2996,43 @@ def main() -> int:
                          kern["bwd_unmasked"], {
                              "path": "main, node (edge tokens), families "
                                      "(fttransformer, tabgnninterleaved, "
-                                     "cpnatab)",
+                                     "cpnatab), mcm_edge (tabgnn), "
+                                     "mcm_parity",
                              "launches": train_rec["launches"]["bwd"]
                              + sum(node_bwd_tiled.values())
-                             + sum(fam_bwd.values()),
+                             + sum(fam_bwd.values())
+                             + sum(mcm_bwd_tiled.values()),
                              "tiled_launches":
                                  train_rec["launches"]["bwd_tiled"]
                              + sum(node_bwd_tiled.values())
-                             + sum(fam_bwd.values()),
+                             + sum(fam_bwd.values())
+                             + sum(mcm_bwd_tiled.values()),
                              "launches_by_path": {
                                  "train": train_rec["launches"]["bwd"],
-                                 **node_bwd_tiled, **fam_bwd},
+                                 **node_bwd_tiled, **fam_bwd,
+                                 **mcm_bwd_tiled},
                              "family": shape_times(kern["family_bwd"]),
                              "reduce_launches":
-                                 train_rec["launches"]["reduce"],
+                                 train_rec["launches"]["reduce"]
+                             + sum(mcm_bwd_tiled.values()),
                              "max_rel_err": max(max(r["max_rel_err"].values())
                                                 for r in kern["bwd"]),
                              "library_masked": False}),
             kernel_entry("column_attention_fwd_split", 165,
                          kern["ssl_fwd"], kern["ssl_fwd_unmasked"], {
-                             "path": "ssl_train, transfer",
+                             "path": "ssl_train, transfer, tabular_mcm, "
+                                     "mcm_edge (tabgnnfused), ssl_moco, "
+                                     "mcm_parity",
                              "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
-                             "launches": sum(split_fwd.values()),
-                             "launches_by_path": split_fwd,
+                             "launches": sum(split_fwd.values())
+                             + sum(mcm_fwd_split.values()),
+                             "launches_by_path": {**split_fwd,
+                                                  **mcm_fwd_split},
                              "split_launches":
                                  ssl_rec["train_launches"]["fwd_split"]
                                  + ssl_rec["eval_launches"]["fwd_split"]
-                                 + transfer_split["fwd"],
+                                 + transfer_split["fwd"]
+                                 + sum(mcm_fwd_split.values()),
                              "core_max_abs_err": max(
                                  r["core_max_abs_err"]
                                  for r in kern["ssl_fwd"]),
@@ -2360,16 +3047,22 @@ def main() -> int:
                              "library_masked": False}),
             kernel_entry("column_attention_bwd_split", 178,
                          kern["ssl_bwd"], kern["ssl_bwd_unmasked"], {
-                             "path": "ssl_train, transfer",
+                             "path": "ssl_train, transfer, tabular_mcm, "
+                                     "mcm_edge (tabgnnfused), ssl_moco "
+                                     "(a pull a loss), mcm_parity",
                              "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
-                             "launches": sum(split_bwd.values()),
-                             "launches_by_path": split_bwd,
+                             "launches": sum(split_bwd.values())
+                             + sum(mcm_bwd_split.values()),
+                             "launches_by_path": {**split_bwd,
+                                                  **mcm_bwd_split},
                              "split_launches":
                                  ssl_rec["train_launches"]["bwd_split"]
-                                 + transfer_split["bwd"],
+                                 + transfer_split["bwd"]
+                                 + sum(mcm_bwd_split.values()),
                              "reduce_launches":
                                  ssl_rec["train_launches"]["reduce"]
-                                 + transfer["train_launches"]["reduce"],
+                                 + transfer["train_launches"]["reduce"]
+                                 + sum(mcm_bwd_split.values()),
                              "launches_under_bf16":
                                  ssl16["train_launches"]["bwd_split"]
                                  + ssl_parity16["launches"]["bwd_split"],

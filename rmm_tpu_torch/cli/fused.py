@@ -5,7 +5,8 @@
 
 Same flags and defaults as ``rmm_tpu.cli.fused`` (the SSL config of record:
 C = 128, 3 layers, 64 negatives, batch 200, fanouts 100/100, dropout 0.5,
-lr 2e-4; ``bench.py`` pretrains it with ``--precision bf16``) plus
+lr 2e-4; ``bench.py`` pretrains it with ``--precision bf16``; ``--moo
+moco`` weights mcm-lp's two gradients by MoCo) plus
 ``--device`` (``cuda`` by default, which raises without CUDA; ``cpu`` runs
 the kernels' plain versions). Flags whose behaviour is not
 ported are refused by name. The run directory is
@@ -13,8 +14,8 @@ ported are refused by name. The run directory is
 ``logs.log`` and, under ``--save_model`` or ``--checkpoint``, the per-epoch
 checkpoints ``<epoch>/`` and the best-metric snapshots ``best_acc``,
 ``best_rmse`` and ``best_mrr``. ``--checkpoint <run_dir>/<epoch>`` resumes
-at the next epoch with the weights, BatchNorm statistics, AdamW state and
-best metrics.
+at the next epoch with the weights, BatchNorm statistics, AdamW state (and
+MoCo's) and best metrics.
 
 ``main(argv, stats)`` fills the dict ``stats``, when given, with the run
 directory, the wall-clock split (``setup_s``, ``fit_s``), the rows of each
@@ -31,8 +32,8 @@ from typing import Optional
 
 #: flag → the only value the port accepts (the JAX CLI's default)
 UNPORTED = {"dp": 0, "scan_layers": False, "steps_per_dispatch": 1,
-            "frontier_capacity": 0, "inflight_groups": 2, "moo": "sum",
-            "ports": False, "split_type": "temporal_daily"}
+            "frontier_capacity": 0, "inflight_groups": 2, "ports": False,
+            "split_type": "temporal_daily"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -109,7 +110,7 @@ def config_from_args(args: argparse.Namespace):
         save_model=args.save_model, testing=args.testing,
         wandb_dir=args.wandb_dir, group=str(args.group),
         sampler_threads=args.sampler_threads, precision=args.precision,
-        device=args.device)
+        moo=args.moo, device=args.device)
 
 
 def main(argv=None, stats: Optional[dict] = None):

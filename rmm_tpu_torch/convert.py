@@ -18,10 +18,11 @@ find its entry with the same shape and no entry may be left over.
 models' components ``node_encoder``, ``edge_encoder``, ``model``,
 ``decoder``, or the pretrainer's) into such a ``state_dict``.
 :func:`pretrain_variables` lays the JAX pretrainer's variables out as the
-port's ``PretrainModel``, and :func:`random_variables` is the numpy recipe
-that both packages' SSL parity records start from. :func:`check_record`
-and :func:`check_states` hold three pretraining steps against such a record
-or against a second run, with the tolerances below.
+port's ``PretrainModel``, :func:`tabular_variables` the JAX tabular
+trainer's as ``TabularMCMModel``, and :func:`random_variables` is the
+numpy recipe that both packages' SSL parity records start from.
+:func:`check_record` and :func:`check_states` hold three pretraining steps
+against such a record or against a second run, with the tolerances below.
 """
 from __future__ import annotations
 
@@ -84,7 +85,19 @@ _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 #     about lr a step); the largest stays 6.05·lr;
 #   * the BatchNorm statistics four times the limit above, the smallest
 #     whole multiple that holds the reference's sort path with a margin.
+#
+# MoCo-weighted pretraining at the SSL widths (model="moco"): each loss
+# term 1e-4 relative at step 1 and 1e-2 at steps 2-3. After step 1 the MCM
+# task's weight λ_mcm is ~6e-7, so the combined gradient of the parameters
+# that the LP loss does not reach (the MCM head's) is ~5e-8 an entry,
+# beside Adam's eps of 1e-8, and their step moves with λ_mcm's last
+# digits: the port's own runs over 1-3 CPU threads spread 1.8e-3 in the
+# MCM record's step-3 MCM cross-entropy. The parameter limits stay the
+# float32 ones: a λ collapsed to [1, 0] leaves the MCM head's median
+# parameter 1.1·lr off the record after three steps, 22 times the limit
+# (tests/test_torch_mcm_record.py plants it).
 LOSS_RTOL = (1e-4, 1e-3)
+MOCO_LOSS_RTOL = (1e-4, 1e-2)
 PARAM_MAX_LR, PARAM_MEDIAN_LR, BN_MOMENTUM = 6.05, 0.05, 0.9
 BF16_LOSS_RTOL, BF16_PARAM_MEDIAN_LR = (1e-3, 3e-3), 0.1
 CPNA_LOSS_RTOL, CPNA_PARAM_MEDIAN_LR, CPNA_STAT_SCALE = (1e-4, 1e-2), 0.15, 4
@@ -186,6 +199,16 @@ def pretrain_variables(params: dict, batch_stats: dict) -> dict:
                        "mcm_head": params["mcm_head"]["params"],
                        "lp_head": params["lp_head"]["params"]},
             "batch_stats": {"model": batch_stats}}
+
+
+def tabular_variables(params: dict) -> dict:
+    """The JAX tabular trainer's ``params`` (``encoder``, ``model``,
+    ``head``, each a flax variable dict) → variables in the module layout
+    of ``rmm_tpu_torch.train.tabular.TabularMCMModel`` (the encoder under
+    ``edge_encoder``, as the JAX tabular checkpoint names it)."""
+    return {"params": {"edge_encoder": params["encoder"]["params"],
+                       "model": params["model"]["params"],
+                       "head": params["head"]["params"]}}
 
 
 def random_variables(shapes: dict, seed: int) -> dict[str, np.ndarray]:
@@ -310,14 +333,17 @@ def check_record(state: dict, terms: Sequence[dict], record, prefix: str,
     :func:`loss_terms` of each step, ``state`` the ``state_dict`` after
     them, ``updates`` the BatchNorm updates they made, at the limits of
     ``precision`` (a bf16 record's are wider, above) and ``model`` (those of
-    ``CPNA_MODELS`` are wider in float32, above). Returns (the faults,
-    empty when everything holds; the errors beside their limits)."""
+    ``CPNA_MODELS`` are wider in float32, above; ``"moco"``'s loss terms
+    too). Returns (the faults, empty when everything holds; the errors
+    beside their limits)."""
     loss_rtol, median_lr, stat_scale = LOSS_RTOL, PARAM_MEDIAN_LR, 1.0
     if precision == "bf16":
         loss_rtol, median_lr = BF16_LOSS_RTOL, BF16_PARAM_MEDIAN_LR
     elif model in CPNA_MODELS:
         loss_rtol, median_lr, stat_scale = (
             CPNA_LOSS_RTOL, CPNA_PARAM_MEDIAN_LR, CPNA_STAT_SCALE)
+    elif model == "moco":
+        loss_rtol = MOCO_LOSS_RTOL
     want = {k: record[f"{prefix}term/{k}"] for k in LOSS_TERMS
             if f"{prefix}term/{k}" in record.files}
     errors = record_errors(state, record, prefix)

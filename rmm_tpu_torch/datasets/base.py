@@ -24,17 +24,16 @@ from ..frame.stats import is_missing, value_counts
 
 class PretrainType(enum.Enum):
     MASK = 1
+    MASK_VECTOR = 2
     LINK_PRED = 3
 
 
 def parse_pretrain_args(pretrain) -> set:
-    """'mask'/'lp' strings → a PretrainType set ('mv', the masked vector
-    target, is not ported)."""
-    table = {"mask": PretrainType.MASK, "lp": PretrainType.LINK_PRED}
-    for p in pretrain or ():
-        if p not in table:
-            raise NotImplementedError(
-                f"pretraining target {p!r} is not ported yet")
+    """'mask'/'mv'/'lp' strings → a PretrainType set. MASK_VECTOR changes
+    no target: the mask vector reads the MASK target's masked-column index,
+    and :func:`pack_target` packs by MASK and LINK_PRED alone."""
+    table = {"mask": PretrainType.MASK, "mv": PretrainType.MASK_VECTOR,
+             "lp": PretrainType.LINK_PRED}
     return {table[p] for p in pretrain or ()}
 
 

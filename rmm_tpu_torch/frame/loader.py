@@ -24,7 +24,9 @@ class DataLoader:
     def __len__(self) -> int:
         return -(-self.tf.num_rows // self.batch_size)
 
-    def __iter__(self) -> Iterator[tuple[TensorFrame, int]]:
+    def index_batches(self) -> Iterator[tuple[np.ndarray, int]]:
+        """The row ids of each batch (padded) and its real rows, in the
+        order ``__iter__`` takes them."""
         n = self.tf.num_rows
         order = np.arange(n)
         if self.shuffle:
@@ -35,4 +37,8 @@ class DataLoader:
             if valid < self.batch_size:
                 idx = np.concatenate(
                     [idx, np.repeat(idx[-1:], self.batch_size - valid)])
+            yield idx, valid
+
+    def __iter__(self) -> Iterator[tuple[TensorFrame, int]]:
+        for idx, valid in self.index_batches():
             yield self.tf[idx], valid

@@ -1,5 +1,6 @@
 """Task heads (``rmm_tpu/nn/decoders.py``): the edge and node classifiers
-and the self-supervised heads (link prediction, masked-cell modeling)."""
+and the self-supervised heads (link prediction, masked-cell modeling and
+the mask vector)."""
 from __future__ import annotations
 
 import torch
@@ -118,3 +119,45 @@ class MCMHead(nn.Module):
             getattr(self, f"cat_norm_{i}")(x)))
             for i in range(len(self.num_categorical))]
         return num_out[:, :self.num_numerical], cat_out
+
+
+class SelfSupervisedHead(nn.Module):
+    """Masked-cell modeling off the CLS state: one :class:`MCMHead` of
+    width ``channels`` (``mcm``). → (num_out, cat_out)."""
+
+    def __init__(self, channels: int, num_numerical: int, num_categorical):
+        super().__init__()
+        self.mcm = MCMHead(channels, num_numerical, num_categorical, w=1)
+
+    def forward(self, x_cls):
+        return self.mcm(x_cls)
+
+
+class MVHead(nn.Module):
+    """Mask-vector head: LayerNorm → ReLU → Linear to one logit per
+    maskable column (the numerical ones, then the categorical ones)."""
+
+    def __init__(self, channels: int, num_numerical: int, num_categorical):
+        super().__init__()
+        self.norm = LayerNorm(channels)
+        self.lin = Dense(channels, num_numerical + len(num_categorical))
+
+    def forward(self, x_cls):
+        return self.lin(torch.relu(self.norm(x_cls)))
+
+
+class SelfSupervisedMVHead(nn.Module):
+    """Masked-cell modeling and the mask vector off the CLS state
+    (``mcm_decoder``, ``mask_vector_decoder``). → (num_out, cat_out,
+    mv_out)."""
+
+    def __init__(self, channels: int, num_numerical: int, num_categorical):
+        super().__init__()
+        self.mcm_decoder = SelfSupervisedHead(channels, num_numerical,
+                                              num_categorical)
+        self.mask_vector_decoder = MVHead(channels, num_numerical,
+                                          num_categorical)
+
+    def forward(self, x_cls):
+        num_out, cat_out = self.mcm_decoder(x_cls)
+        return num_out, cat_out, self.mask_vector_decoder(x_cls)

@@ -1,6 +1,6 @@
 """Self-supervised pretraining of ``TABGNNFused``: masked cell modeling
 (MCM), link prediction (LP) or both (``rmm_tpu/train/pretrain.py`` without
-its device-sampler, scan, prefetch and MoCo paths).
+its device-sampler, scan and prefetch paths).
 
 :class:`PretrainModel` is the edge encoder, the fused backbone and the two
 heads as one module; its forward gives the losses of a mode on a device
@@ -19,6 +19,15 @@ weight decay reaches only the parameters of two or more dimensions (the
 JAX mask ``ndim >= 2``; the port's parameters have the JAX leaves' shapes,
 transposed where they are kernels). A parameter that a mode does not use
 keeps a zero gradient, so AdamW decays it as optax does.
+
+``--moo moco`` (mcm-lp only, as in the reference; the other modes sum)
+weights the two tasks' gradients by MoCo (``nn/weighting.py``): one
+forward gives both losses, two ``torch.autograd.grad`` pulls (the LP loss
+first) give each task's gradient over the trainable parameters (zero where
+a task does not reach one), flattened in ``named_parameters`` order;
+``moco_combine`` mixes them, the result goes into ``.grad`` and AdamW steps
+once. The MoCo state (``y``, ``λ``, the step) is saved beside the AdamW
+state as ``moco.pt``.
 
 ``--precision bf16`` casts as ``rmm_tpu/train/pretrain.py`` does: the
 parameters at the top of each step, the edge table (once, when it goes to
@@ -44,6 +53,7 @@ from ..nn.dropout import set_generator
 from ..nn.encoders import make_stypewise_encoder
 from ..nn.gnn.conv import gather
 from ..nn.models.fused import TABGNNFused
+from ..nn.weighting import MoCoState, init_moco, moco_combine
 from ..utils import checkpoint
 from ..utils.batch import GraphBatch
 from ..utils.config import Config
@@ -61,6 +71,8 @@ MODES = ("mcm", "lp", "mcm-lp")
 #: what a train step gives beside its loss: the LP loss and the MCM sums
 STEP_SUMS = ("lp", "loss_c", "t_c", "acc", "loss_n", "t_n")
 HITS_AT = (1, 2, 5, 10)
+#: the MoCo state's file in a checkpoint directory
+MOCO_FILE = "moco.pt"
 
 
 class PretrainModel(nn.Module):
@@ -170,12 +182,23 @@ def decays(p: torch.Tensor) -> bool:
     return p.dim() >= 2
 
 
+def adamw(params: list, cfg: Config) -> torch.optim.AdamW:
+    """AdamW over ``params`` at the config's rate and eps, its weight decay
+    on those that :func:`decays`."""
+    return torch.optim.AdamW(
+        [{"params": [p for p in params if decays(p)],
+          "weight_decay": cfg.weight_decay},
+         {"params": [p for p in params if not decays(p)],
+          "weight_decay": 0.0}],
+        lr=cfg.lr, eps=cfg.adam_eps)
+
+
 class PretrainTrainer:
     def __init__(self, cfg: Config, dataset, mode: str = "mcm-lp"):
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-        if cfg.moo != "sum":
-            raise NotImplementedError(f"--moo {cfg.moo} is not ported yet")
+        if cfg.moo not in ("sum", "moco"):
+            raise ValueError(f"moo must be 'sum' or 'moco', got {cfg.moo!r}")
         self.device = resolve_device(cfg.device)
         cfg = resolve_capacities(cfg, dataset)
         self.cfg = cfg
@@ -186,14 +209,14 @@ class PretrainTrainer:
         self.generator = torch.Generator(self.device).manual_seed(cfg.seed)
         set_generator(self.model, self.generator)
         params = list(self.model.parameters())
-        self.optimizer = torch.optim.AdamW(
-            [{"params": [p for p in params if decays(p)],
-              "weight_decay": cfg.weight_decay},
-             {"params": [p for p in params if not decays(p)],
-              "weight_decay": 0.0}],
-            lr=cfg.lr, eps=cfg.adam_eps)
+        self.optimizer = adamw(params, cfg)
         for p in params:
             p.grad = torch.zeros_like(p)
+        self.params = params
+        self.moco: Optional[MoCoState] = None
+        if cfg.moo == "moco" and mode == "mcm-lp":
+            self.moco = init_moco(2, sum(p.numel() for p in params),
+                                  self.device)
         self.edge_table = compute_cast(
             features(dataset.edges.tensor_frame, self.device), cfg.precision)
         self.sample_s: list[float] = []   # host seconds of each batch built
@@ -223,17 +246,48 @@ class PretrainTrainer:
 
     def _step(self, batch: GraphBatch):
         """One train step on a device batch (the model in train mode): both
-        views' forwards, the summed loss, the backward and the AdamW
-        update. Returns the loss and its ``STEP_SUMS`` (those of the mode)
-        as device tensors."""
+        views' forwards, the summed loss, the backward (under MoCo the two
+        tasks' pulls and their combination) and the AdamW update. Returns
+        the loss and its ``STEP_SUMS`` (those of the mode) as device
+        tensors."""
         losses, aux = self._forward(batch)
         loss = sum(losses.values())
-        self.optimizer.zero_grad(set_to_none=False)
-        loss.backward()
+        if self.moco is None:
+            self.optimizer.zero_grad(set_to_none=False)
+            loss.backward()
+        else:
+            self._moco_grads(losses["lp"], losses["mcm"])
         self.optimizer.step()
         sums = {**losses, **aux}
         return loss.detach(), {k: sums[k].detach() for k in STEP_SUMS
                                if k in sums}
+
+    def task_grads(self, task_losses) -> list[torch.Tensor]:
+        """Each loss's gradient over the trainable parameters from one
+        forward, one ``torch.autograd.grad`` pull a loss in the order given
+        (the graph kept for the next), flattened in ``named_parameters``
+        order; zero where a loss does not reach a parameter."""
+        out = []
+        for i, loss in enumerate(task_losses):
+            grads = torch.autograd.grad(
+                loss, self.params, retain_graph=i + 1 < len(task_losses),
+                allow_unused=True)
+            out.append(torch.cat([
+                (torch.zeros_like(p) if g is None else g).reshape(-1)
+                for p, g in zip(self.params, grads)]))
+        return out
+
+    def _moco_grads(self, l_lp: torch.Tensor, l_mcm: torch.Tensor):
+        """MoCo's combination of the LP and MCM gradients, written into
+        ``.grad``."""
+        combined, self.moco, _ = moco_combine(
+            self.moco, self.task_grads([l_lp, l_mcm]),
+            [l_lp.detach(), l_mcm.detach()])
+        offset = 0
+        for p in self.params:
+            n = p.numel()
+            p.grad.copy_(combined[offset:offset + n].view_as(p))
+            offset += n
 
     def _forward(self, batch: GraphBatch):
         """The model's losses and aux on a device batch under the
@@ -316,29 +370,38 @@ class PretrainTrainer:
     def save(self, run_dir: str, epoch, best: dict,
              with_opt: bool = True) -> str:
         """``<run_dir>/<epoch>/``: the model (encoder, backbone, heads and
-        BatchNorm statistics), the AdamW state and ``best_m.json``; a
-        ``best_*`` tag holds the weights alone."""
-        return checkpoint.save_epoch(
+        BatchNorm statistics), the AdamW state (and under MoCo its state,
+        ``moco.pt``) and ``best_m.json``; a ``best_*`` tag holds the
+        weights alone."""
+        ck = checkpoint.save_epoch(
             run_dir, epoch, self.model,
             self.optimizer if with_opt else None, best,
             prune_previous=isinstance(epoch, int),
             precision=self.cfg.precision)
+        if self.moco is not None and with_opt:
+            torch.save({"y": self.moco.y, "lambd": self.moco.lambd,
+                        "step": self.moco.step},
+                       os.path.join(ck, MOCO_FILE))
+        return ck
 
     def restore(self, ck_dir: str, with_opt: bool = True) -> dict:
-        """Load a checkpoint of either package (the port's optimizer state
-        too, when there; the JAX package's ``opt_state`` is not read, so
-        AdamW starts afresh) and return its best metrics."""
-        checkpoint.load_strict(ck_dir, self.model)
-        if not checkpoint.is_port_checkpoint(ck_dir):
-            logger.warning("%s is a JAX checkpoint: its optimizer state is "
-                           "not read, AdamW starts afresh", ck_dir)
-        opt = os.path.join(ck_dir, "optimizer.pt")
-        if with_opt and os.path.exists(opt):
-            self.optimizer.load_state_dict(torch.load(
-                opt, map_location=self.device, weights_only=True))
+        """Load a checkpoint of either package (the port's optimizer and
+        MoCo states too, when there; the JAX package's ``opt_state`` and
+        ``moco_state`` are not read, so AdamW and MoCo start afresh) and
+        return its best metrics."""
         best = no_best()
-        if os.path.exists(os.path.join(ck_dir, "best_m.json")):
-            best.update(checkpoint.load_best_m(ck_dir))
+        best.update(checkpoint.resume(
+            ck_dir, self.model, self.optimizer if with_opt else None,
+            self.device))
+        if self.moco is not None and not checkpoint.is_port_checkpoint(
+                ck_dir) and os.path.exists(os.path.join(ck_dir,
+                                                        "moco_state")):
+            logger.warning("%s: its moco_state is not read, MoCo starts "
+                           "afresh", ck_dir)
+        moco = os.path.join(ck_dir, MOCO_FILE)
+        if with_opt and self.moco is not None and os.path.exists(moco):
+            self.moco = MoCoState(**torch.load(
+                moco, map_location=self.device, weights_only=True))
         return best
 
     def fit(self, run_logger=None, run_dir: Optional[str] = None,

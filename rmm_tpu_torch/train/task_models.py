@@ -9,6 +9,12 @@ Seed edges occupy lanes ``[0, B)``; the head reads that block (for
 ``tabgnn``'s node classification the seed nodes, node lanes ``[0, B)``).
 The fused wrapper message-passes over the context lanes ``[B:)`` only and
 fuses the seed block as its targets.
+
+Under ``mcm_edge_table`` (masked-cell modeling of the seed edges' masked
+cells) a wrapper's head is an ``MCMHead`` over each seed edge's
+``[x_src, x_dst, edge state]``: ``w = 3`` states wide, or ``num_edge_cols
++ 2`` for the column-wise ``cpna`` and ``cpnatab``, whose edge state is one
+a column. → (num_out [B, n_num], cat_out: list of [B, K_i]).
 """
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ from torch import nn
 
 from ..frame.stype import Stype
 from ..frame.tensor_frame import TensorFrame
-from ..nn.decoders import ClassifierHead, NodeClassificationHead
+from ..nn.decoders import ClassifierHead, MCMHead, NodeClassificationHead
 from ..nn.encoders import (
     EmbeddingEncoder,
     LinearEncoder,
@@ -28,6 +34,7 @@ from ..nn.encoders import (
     StypeWiseFeatureEncoder,
     TimestampEncoder,
 )
+from ..nn.gnn.conv import gather
 from ..nn.gnn.models import CPNA, CPNATAB, PNAS, GINe
 from ..nn.models.fused import TABGNNFused
 from ..nn.models.ft_transformer import FTTransformer
@@ -80,6 +87,15 @@ def _refuse_task(model: str, task: str, tasks=("edge_classification",)):
             f"task {task!r} is not ported yet for model {model!r}")
 
 
+def _mcm_target(x: torch.Tensor, target_ei: torch.Tensor,
+                target_attr: torch.Tensor) -> torch.Tensor:
+    """The MCM head's input for each seed edge: ``[x_src, x_dst, edge
+    state]``, a wide edge state flattened."""
+    return torch.cat([gather(x, target_ei[0]), gather(x, target_ei[1]),
+                      target_attr.reshape(target_attr.shape[0], -1)],
+                     dim=-1)
+
+
 def _encode(wrapper: nn.Module, edge_table: TensorFrame,
             node_table: TensorFrame, batch: GraphBatch):
     """The batch's node and edge tokens (the ``ego`` column marked where
@@ -122,12 +138,14 @@ class TT(nn.Module):
 
 
 class GNNWrap(nn.Module):
-    """Pure-GNN edge classifier (models ``gin``, ``pna``, ``cpna``,
-    ``cpnatab``). ``cpna`` and ``cpnatab`` keep one edge state per column,
-    so the classifier reads ``num_edge_cols · n_hidden`` edge features.
-    Their edge updates are ``emlps``'s, as the reference passes them."""
+    """Pure-GNN edge classifier or masked-cell model (models ``gin``,
+    ``pna``, ``cpna``, ``cpnatab``). ``cpna`` and ``cpnatab`` keep one edge
+    state per column, so the classifier reads ``num_edge_cols · n_hidden``
+    edge features. Their edge updates are ``emlps``'s, as the reference
+    passes them."""
 
     MODELS = ("gin", "pna", "cpna", "cpnatab")
+    TASKS = ("edge_classification", "mcm_edge_table")
 
     def __init__(self, node_encoder: StypeWiseFeatureEncoder,
                  edge_encoder: StypeWiseFeatureEncoder, model_name: str,
@@ -135,12 +153,14 @@ class GNNWrap(nn.Module):
                  n_classes: int = 2, dropout: float = 0.1,
                  avg_log_deg: float = 1.0, reverse_mp: bool = False,
                  emlps: bool = False, ego: bool = False,
-                 task: str = "edge_classification"):
+                 task: str = "edge_classification",
+                 mcm_num_numerical: int = 0, mcm_categorical=()):
         super().__init__()
         if model_name not in self.MODELS:
             raise ValueError(model_name)
-        _refuse_task(model_name, task)
+        _refuse_task(model_name, task, self.TASKS)
         self.ego = ego
+        self.task = task
         self.node_encoder = node_encoder
         self.edge_encoder = edge_encoder
         # the encoders' tokens are n_hidden wide
@@ -158,32 +178,43 @@ class GNNWrap(nn.Module):
                              n_gnn_layers, num_edge_cols, avg_log_deg, emlps,
                              reverse_mp)
             edge_width = num_edge_cols * n_hidden
-        self.decoder = ClassifierHead(n_classes, n_hidden, edge_width,
-                                      dropout)
+        if task == "mcm_edge_table":
+            self.decoder = MCMHead(n_hidden, mcm_num_numerical,
+                                   mcm_categorical,
+                                   w=2 + edge_width // n_hidden)
+        else:
+            self.decoder = ClassifierHead(n_classes, n_hidden, edge_width,
+                                          dropout)
 
     def forward(self, edge_table: TensorFrame, node_table: TensorFrame,
-                batch: GraphBatch) -> torch.Tensor:
+                batch: GraphBatch):
         b = batch.num_seeds
         x_tok, e_tok = _encode(self, edge_table, node_table, batch)
         x, edge_attr = self.model(x_tok, batch.edge_index, e_tok,
                                   batch.edge_mask, batch.node_mask)
+        if self.task == "mcm_edge_table":
+            return self.decoder(_mcm_target(x, batch.edge_index[:, :b],
+                                            edge_attr[:b]))
         return self.decoder(x, batch.edge_index[:, :b], edge_attr[:b])
 
 
 class TABGNNS(nn.Module):
     """Hybrid tabular + GNN classifier (models ``tabgnn`` and
     ``tabgnninterleaved``) of the seed edges (``edge_classification``) or,
-    for ``tabgnn``, of the seed nodes (``node_classification``)."""
+    for ``tabgnn``, of the seed nodes (``node_classification``), or the
+    masked-cell model of the seed edges (``mcm_edge_table``)."""
 
-    TASKS = {"tabgnn": ("edge_classification", "node_classification"),
-             "tabgnninterleaved": ("edge_classification",)}
+    TASKS = {"tabgnn": ("edge_classification", "node_classification",
+                        "mcm_edge_table"),
+             "tabgnninterleaved": ("edge_classification", "mcm_edge_table")}
 
     def __init__(self, node_encoder: StypeWiseFeatureEncoder,
                  edge_encoder: StypeWiseFeatureEncoder, channels: int,
                  n_gnn_layers: int, n_classes: int = 2, dropout: float = 0.1,
                  avg_log_deg: float = 1.0, reverse_mp: bool = False,
                  ego: bool = False, task: str = "edge_classification",
-                 model_name: str = "tabgnn"):
+                 model_name: str = "tabgnn", mcm_num_numerical: int = 0,
+                 mcm_categorical=()):
         super().__init__()
         if model_name not in self.TASKS:
             raise ValueError(model_name)
@@ -206,47 +237,64 @@ class TABGNNS(nn.Module):
         if task == "node_classification":
             self.decoder = NodeClassificationHead(n_classes, channels,
                                                   dropout)
+        elif task == "mcm_edge_table":
+            self.decoder = MCMHead(channels, mcm_num_numerical,
+                                   mcm_categorical, w=3)
         else:
             self.decoder = ClassifierHead(n_classes, channels, channels,
                                           dropout)
 
     def forward(self, edge_table: TensorFrame, node_table: TensorFrame,
-                batch: GraphBatch) -> torch.Tensor:
-        """→ logits [B, n_classes] for the seed edges (or nodes)."""
+                batch: GraphBatch):
+        """→ logits [B, n_classes] for the seed edges (or nodes), or the
+        MCM outputs."""
         b = batch.num_seeds
         x_tok, e_tok = _encode(self, edge_table, node_table, batch)
         x, edge_attr = self.model(x_tok, batch.edge_index, e_tok,
                                   batch.edge_mask, batch.node_mask)
         if self.task == "node_classification":
             return self.decoder(x[:b])
+        if self.task == "mcm_edge_table":
+            return self.decoder(_mcm_target(x, batch.edge_index[:, :b],
+                                            edge_attr[:b]))
         return self.decoder(x, batch.edge_index[:, :b], edge_attr[:b])
 
 
 class TABGNNFusedS(nn.Module):
-    """The fused model as an edge classifier (model ``tabgnnfused``): the
-    node tokens flattened to ``node_dim = S_n·C`` into ``TABGNNFused``,
-    whose targets are the seed edges; the classifier reads the nodes and
-    the targets' embeddings."""
+    """The fused model as an edge classifier or masked-cell model (model
+    ``tabgnnfused``): the node tokens flattened to ``node_dim = S_n·C`` into
+    ``TABGNNFused``, whose targets are the seed edges; the head reads the
+    nodes and the targets' embeddings."""
+
+    TASKS = ("edge_classification", "mcm_edge_table")
 
     def __init__(self, node_encoder: StypeWiseFeatureEncoder,
                  edge_encoder: StypeWiseFeatureEncoder, channels: int,
                  n_gnn_layers: int, n_classes: int = 2, dropout: float = 0.1,
                  avg_log_deg: float = 1.0, reverse_mp: bool = False,
-                 ego: bool = False, task: str = "edge_classification"):
+                 ego: bool = False, task: str = "edge_classification",
+                 mcm_num_numerical: int = 0, mcm_categorical=()):
         super().__init__()
-        _refuse_task("tabgnnfused", task)
+        _refuse_task("tabgnnfused", task, self.TASKS)
         self.ego = ego
+        self.task = task
         self.node_encoder = node_encoder
         self.edge_encoder = edge_encoder
         self.model = TABGNNFused(
             channels, n_gnn_layers, edge_encoder.num_cols,
             node_dim=node_encoder.num_cols * channels, nhidden=channels,
             avg_log_deg=avg_log_deg, reverse_mp=reverse_mp, dropout=dropout)
-        self.decoder = ClassifierHead(n_classes, channels, channels, dropout)
+        if task == "mcm_edge_table":
+            self.decoder = MCMHead(channels, mcm_num_numerical,
+                                   mcm_categorical, w=3)
+        else:
+            self.decoder = ClassifierHead(n_classes, channels, channels,
+                                          dropout)
 
     def forward(self, edge_table: TensorFrame, node_table: TensorFrame,
-                batch: GraphBatch) -> torch.Tensor:
-        """→ logits [B, n_classes] for the seed edges."""
+                batch: GraphBatch):
+        """→ logits [B, n_classes] for the seed edges, or the MCM
+        outputs."""
         b = batch.num_seeds
         x_tok, e_tok = _encode(self, edge_table, node_table, batch)
         target_ei = batch.edge_index[:, :b]
@@ -254,6 +302,8 @@ class TABGNNFusedS(nn.Module):
             x_tok.reshape(x_tok.shape[0], -1), batch.edge_index[:, b:],
             e_tok[b:], target_ei, e_tok[:b], False, batch.edge_mask[b:],
             batch.node_mask)
+        if self.task == "mcm_edge_table":
+            return self.decoder(_mcm_target(x, target_ei, target))
         return self.decoder(x, target_ei, target)
 
 

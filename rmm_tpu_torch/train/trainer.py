@@ -16,6 +16,13 @@ each batch with the view's node ids, which fill node lanes ``[0, B)``; rows
 of the dataset's ``ignore_label`` class are left out of the loss, the
 metrics and the predictions.
 
+Masked-cell modeling of the edge table (``--task mcm_edge_table``): the
+seed edges' masked cells (``y = [masked_value, masked_col_idx]``) through
+the wrapper's ``MCMHead``, the loss ``SSLoss.mcm_loss`` over the real
+seeds; its metrics are the RMSE of the numerical cells and the accuracy of
+the categorical ones, and ``fit`` keeps the reference's best rule
+(:func:`mcm_improves`). ``predict`` refuses it, as the reference does.
+
 Training: weighted cross-entropy on the seed edges (or nodes),
 ``torch.optim.Adam(lr, eps=adam_eps)`` with no weight decay (the JAX
 trainer's ``optax.adam``), ``--freeze`` keeping every ``tab_layer_*``
@@ -50,7 +57,7 @@ from ..utils import checkpoint
 from ..utils.batch import GraphBatch
 from ..utils.config import Config
 from ..utils.device import resolve_device
-from ..utils.loss import cross_entropy
+from ..utils.loss import SSLoss, cross_entropy
 from ..utils.metric import f1_score, roc_auc
 from ..utils.precision import apply, compute_cast
 from ..utils.seeding import mix_seed
@@ -76,9 +83,10 @@ def build_task_model(cfg: Config, dataset) -> torch.nn.Module:
     if cfg.precision != "f32" and cfg.model not in BF16_MODELS:
         raise NotImplementedError(f"--precision {cfg.precision} is not "
                                   f"ported yet for model {cfg.model!r}")
+    edges = dataset.edges
     common = dict(
         node_encoder=make_stypewise_encoder(dataset.nodes, cfg.n_hidden),
-        edge_encoder=make_stypewise_encoder(dataset.edges, cfg.n_hidden),
+        edge_encoder=make_stypewise_encoder(edges, cfg.n_hidden),
         n_classes=cfg.n_classes, dropout=cfg.dropout, ego=cfg.ego,
         task=cfg.task)
     if cfg.model == "fttransformer":
@@ -86,6 +94,11 @@ def build_task_model(cfg: Config, dataset) -> torch.nn.Module:
                               num_layers=cfg.n_gnn_layers, **common)
     common.update(avg_log_deg=task_models._deghist_to_avg_log(
         dataset.in_degree_histogram()), reverse_mp=cfg.reverse_mp)
+    if "mcm" in cfg.task:
+        # the MCM head's sizes (the categorical ones from the blanked table)
+        common.update(
+            mcm_num_numerical=len(edges.masked_numerical_columns),
+            mcm_categorical=edges.masked_categorical_cardinalities())
     if cfg.model in task_models.GNNWrap.MODELS:
         return task_models.GNNWrap(
             model_name=cfg.model, n_hidden=cfg.n_hidden,
@@ -133,6 +146,33 @@ def threaded_map(fn, items, threads: int):
             yield pending.popleft().result()
 
 
+#: what an MCM step or forward gives beside its loss, in this order
+MCM_SUMS = ("loss_c", "t_c", "acc", "loss_n", "t_n")
+
+
+def mcm_improves(val_m: list, best_m: list) -> bool:
+    """The reference's best rule for ``[rmse, accuracy]``
+    (``rmm_tpu/train/trainer.py:685-687``), kept as it is: the RMSE must
+    fall and the accuracy rise, unless the best accuracy is 1."""
+    return (val_m[0] < best_m[0]) and (val_m[1] > best_m[1]
+                                       or best_m[1] == 1)
+
+
+def mcm_sums(cat: tuple, num: tuple) -> torch.Tensor:
+    """``SSLoss.mcm_loss``'s ``(cat_loss, t_c, acc)`` and ``(num_loss,
+    t_n)`` as one float tensor in ``MCM_SUMS`` order."""
+    cl, tc, acc = cat
+    nl, tn = num
+    return torch.stack([cl, tc.to(cl), acc.to(cl), nl, tn.to(cl)])
+
+
+def mcm_metrics(sums: np.ndarray) -> list:
+    """Summed ``MCM_SUMS`` → ``[rmse, accuracy]``."""
+    tot = dict(zip(MCM_SUMS, np.asarray(sums, np.float64)))
+    return [float(np.sqrt(tot["loss_n"] / max(tot["t_n"], 1))),
+            float(tot["acc"] / max(tot["t_c"], 1))]
+
+
 def features(tf: TensorFrame, device) -> TensorFrame:
     return TensorFrame(feats=tf.feats, col_names=tf.col_names).to(device)
 
@@ -166,6 +206,8 @@ class Trainer:
         self.loss_weights = torch.tensor(cfg.loss_weights,
                                          dtype=torch.float32,
                                          device=self.device)
+        self.ssloss = SSLoss(len(getattr(dataset.edges,
+                                         "masked_numerical_columns", ())))
         self.edge_table = compute_cast(
             features(dataset.edges.tensor_frame, self.device), cfg.precision)
         self.node_table = compute_cast(
@@ -175,6 +217,10 @@ class Trainer:
     def node_task(self) -> bool:
         return "node" in self.cfg.task
 
+    @property
+    def mcm_task(self) -> bool:
+        return "mcm" in self.cfg.task
+
     def seed_table(self):
         """The table whose rows seed the batches: the nodes for node
         classification, else the edges."""
@@ -183,7 +229,8 @@ class Trainer:
     def _batches(self, view, mode: str, epoch: int = 0):
         """GraphBatches (host numpy) for a split view, in order. The
         sampler seed of batch i is ``mix_seed(seed, epoch, i)``, so threaded
-        sampling gives the same batches as sequential sampling. A node
+        sampling gives the same batches as sequential sampling. A masked
+        cell batch is an edge batch whose y is the MASK target. A node
         batch's seeds are its rows' node ids (``y[:, 1]``); its rows of the
         dataset's ``ignore_label`` leave ``seed_mask``."""
         cfg = self.cfg
@@ -209,6 +256,14 @@ class Trainer:
         yield from threaded_map(build, enumerate(loader),
                                 int(cfg.sampler_threads))
 
+    def _mcm_loss(self, out, batch: GraphBatch):
+        """The MCM loss of the model's ``(num_out, cat_out)`` on the real
+        seeds, and its ``MCM_SUMS`` stacked as one device tensor."""
+        num_out, cat_out = out
+        total, cat, num = self.ssloss.mcm_loss(
+            cat_out, num_out, batch.y, valid_mask=batch.seed_mask)
+        return total, mcm_sums(cat, num).detach()
+
     def _aux(self, logits: torch.Tensor) -> dict:
         """Device tensors ``pred_cls`` [B] and, for binary heads, ``score``
         [B] = P(class 1)."""
@@ -221,24 +276,32 @@ class Trainer:
     def _step(self, batch: GraphBatch):
         """One train step on a device batch (the model in train mode): the
         forward (BatchNorm running stats move here), the weighted loss on
-        the seed edges, the backward and the Adam update. Returns the loss
-        and ``_aux`` as device tensors; nothing waits for the card."""
+        the seed edges (the MCM loss under ``mcm_edge_table``), the backward
+        and the Adam update. Returns the loss and ``_aux`` (under MCM its
+        ``sums``) as device tensors; nothing waits for the card."""
         logits = self._logits(batch)
-        loss = cross_entropy(logits, batch.y[:, 0], self.loss_weights,
-                             batch.seed_mask)
+        if self.mcm_task:
+            loss, sums = self._mcm_loss(logits, batch)
+            aux = {"sums": sums}
+        else:
+            loss = cross_entropy(logits, batch.y[:, 0], self.loss_weights,
+                                 batch.seed_mask)
+            aux = self._aux(logits)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
-        return loss.detach(), self._aux(logits)
+        return loss.detach(), aux
 
-    def _logits(self, batch: GraphBatch) -> torch.Tensor:
-        """The model's float32 logits [B, n_classes] under the precision of
-        the config."""
+    def _logits(self, batch: GraphBatch):
+        """The model's float32 logits [B, n_classes] (under MCM its
+        ``(num_out, cat_out)``) under the precision of the config."""
         return apply(self.model, self.cfg.precision, self.edge_table,
                      self.node_table, batch)
 
     @torch.inference_mode()
     def _forward_eval(self, batch: GraphBatch) -> dict:
+        if self.mcm_task:
+            return {"sums": self._mcm_loss(self._logits(batch), batch)[1]}
         return self._aux(self._logits(batch))
 
     def _metrics(self, labels, preds, scores) -> dict:
@@ -262,8 +325,9 @@ class Trainer:
     def train_epoch(self, view, epoch: int) -> dict:
         """One pass over the shuffled train view (``mode="train"``
         sampling, per-epoch shuffle and sampler seeds): loss, seconds,
-        sampler drop rate, f1 (and AUC) of the train predictions, and on
-        the card the median step time on the device's clock."""
+        sampler drop rate, f1 (and AUC) of the train predictions (under MCM
+        the train RMSE and accuracy), and on the card the median step time
+        on the device's clock."""
         cfg = self.cfg
         t0 = time.time()
         self.model.train()
@@ -274,7 +338,8 @@ class Trainer:
             dropped += gb.num_dropped
             kept += int(gb.edge_mask.sum())
             masks.append(gb.seed_mask)
-            labels.append(gb.y[gb.seed_mask, 0].astype(np.int64))
+            if not self.mcm_task:
+                labels.append(gb.y[gb.seed_mask, 0].astype(np.int64))
             loss, aux = self._step(gb.to(self.device))
             losses.append(loss)
             auxes.append(aux)
@@ -285,8 +350,12 @@ class Trainer:
         out = {"loss": float("nan")}
         if losses:
             out["loss"] = float(torch.stack(losses).sum().cpu()) / len(losses)
-            preds, scores = self._gather(auxes, masks)
-            out.update(self._metrics(np.concatenate(labels), preds, scores))
+            if self.mcm_task:
+                out["train_rmse"], out["train_acc"] = self._mcm_pass(auxes)
+            else:
+                preds, scores = self._gather(auxes, masks)
+                out.update(self._metrics(np.concatenate(labels), preds,
+                                         scores))
         if len(events) > 1:
             out["step_ms"] = statistics.median(
                 a.elapsed_time(b) for a, b in zip(events, events[1:]))
@@ -300,15 +369,26 @@ class Trainer:
                 cfg.edge_capacity)
         return out
 
-    def evaluate(self, view, mode: str) -> dict:
+    @staticmethod
+    def _mcm_pass(auxes: list) -> list:
+        """A pass's MCM sums on the device → ``[rmse, accuracy]``; the
+        pass's one host sync."""
+        return mcm_metrics(torch.stack([a["sums"] for a in auxes])
+                           .sum(0).cpu().numpy())
+
+    def evaluate(self, view, mode: str):
         """f1 (binary for two classes, else support-weighted) and, for
-        binary heads, AUC over a view's real rows."""
+        binary heads, AUC over a view's real rows; under MCM ``[rmse,
+        accuracy]``."""
         self.model.eval()
         auxes, masks, labels = [], [], []
         for gb in self._batches(view, mode):
             masks.append(gb.seed_mask)
-            labels.append(gb.y[gb.seed_mask, 0].astype(np.int64))
+            if not self.mcm_task:
+                labels.append(gb.y[gb.seed_mask, 0].astype(np.int64))
             auxes.append(self._forward_eval(gb.to(self.device)))
+        if self.mcm_task:
+            return self._mcm_pass(auxes)
         preds, scores = self._gather(auxes, masks)
         return self._metrics(np.concatenate(labels), preds, scores)
 
@@ -317,7 +397,11 @@ class Trainer:
         or node id for node classification), ``pred`` (argmax class) and,
         for binary heads, ``score``, aligned on real rows (for node
         classification those not of the ``ignore_label`` class). ``mode``
-        picks the sampling graph ("test" = all edges)."""
+        picks the sampling graph ("test" = all edges). MCM, a pretraining
+        objective, raises."""
+        if self.mcm_task:
+            raise ValueError("predict() serves classification tasks; MCM "
+                             "is a pretraining objective")
         self.model.eval()
         b = self.cfg.batch_size
         rows, masks, auxes = [], [], []
@@ -336,24 +420,34 @@ class Trainer:
         return out
 
     def fit(self, run_logger=None, run_dir: Optional[str] = None,
-            start_epoch: int = 0, best_m: Optional[float] = None):
-        """Epoch loop with best-val-f1 tracking and a checkpoint per epoch
+            start_epoch: int = 0, best_m=None):
+        """Epoch loop with best-val-f1 tracking (under MCM ``[rmse,
+        accuracy]`` by :func:`mcm_improves`) and a checkpoint per epoch
         (``<run_dir>/<epoch>/``, the previous one pruned; ``-1`` keeps the
         best model under ``--save_model``). Returns (history, best_m)."""
         cfg = self.cfg
         tr, va, te = self.seed_table().split()
-        best_m = -1.0 if best_m is None else best_m
+        if best_m is None:
+            best_m = [1000.0, -1.0] if self.mcm_task else -1.0
         history = []
         for epoch in range(start_epoch, start_epoch + cfg.epochs):
             rec = {"epoch": epoch, **self.train_epoch(tr, epoch)}
             val_m = self.evaluate(va, "val")
             te_m = self.evaluate(te, "test")
-            rec.update({"val_f1": val_m["f1"], "test_f1": te_m["f1"]})
-            if "auc" in val_m:
-                rec.update({"val_auc": val_m["auc"], "test_auc": te_m["auc"]})
-            improved = val_m["f1"] > best_m
-            if improved:
-                best_m = val_m["f1"]
+            if self.mcm_task:
+                rec.update({"val_rmse": val_m[0], "val_acc": val_m[1],
+                            "test_rmse": te_m[0], "test_acc": te_m[1]})
+                improved = mcm_improves(val_m, best_m)
+                if improved:
+                    best_m = val_m
+            else:
+                rec.update({"val_f1": val_m["f1"], "test_f1": te_m["f1"]})
+                if "auc" in val_m:
+                    rec.update({"val_auc": val_m["auc"],
+                                "test_auc": te_m["auc"]})
+                improved = val_m["f1"] > best_m
+                if improved:
+                    best_m = val_m["f1"]
             rec["best"] = improved
             logger.info(" ".join(f"{k}={v:.4f}" if isinstance(v, float)
                                  else f"{k}={v}" for k, v in rec.items()))

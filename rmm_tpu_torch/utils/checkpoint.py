@@ -191,6 +191,26 @@ def load_strict(ck_dir: str, model: torch.nn.Module) -> None:
         load_components(ck_dir, model, on_mismatch="raise")
 
 
+def resume(ck_dir: str, model: torch.nn.Module,
+           optimizer: Optional[torch.optim.Optimizer], device) -> dict:
+    """A trainer's resume: every entry of ``model`` from a checkpoint of
+    either package (:func:`load_strict`) and, given an ``optimizer``, its
+    state from the port's ``optimizer.pt`` (the JAX package's ``opt_state``
+    is not read: a warning says the optimizer starts afresh). → the
+    checkpoint's ``best_m`` dict, empty when it has none."""
+    load_strict(ck_dir, model)
+    if not is_port_checkpoint(ck_dir):
+        logging.warning("%s is a JAX checkpoint: its optimizer state is not "
+                        "read, AdamW starts afresh", ck_dir)
+    opt = os.path.join(ck_dir, "optimizer.pt")
+    if optimizer is not None and os.path.exists(opt):
+        optimizer.load_state_dict(torch.load(opt, map_location=device,
+                                             weights_only=True))
+    if os.path.exists(os.path.join(ck_dir, "best_m.json")):
+        return load_best_m(ck_dir)
+    return {}
+
+
 def save_epoch(run_dir: str, epoch: Union[int, str], model: torch.nn.Module,
                optimizer: Optional[torch.optim.Optimizer] = None,
                best_m: Union[float, dict, None] = None,

@@ -5,7 +5,8 @@ reference's masks.
 
 ``mcm_loss`` → (total, (cat_loss_sum, t_c, acc_count), (num_loss_sum, t_n)),
 ``total = cat_loss_sum / t_c + sqrt(num_loss_sum / t_n)``, each term only
-when its count is positive.
+when its count is positive; ``mv_loss`` is the mask vector's
+cross-entropy against the masked column.
 """
 from __future__ import annotations
 
@@ -83,3 +84,9 @@ class SSLoss:
         total = (torch.where(t_c > 0, cat_term, 0.0)
                  + torch.where(t_n > 0, num_term, 0.0))
         return total, (cat_loss, t_c, acc), (num_loss, t_n)
+
+    def mv_loss(self, mv_out: torch.Tensor, y: torch.Tensor,
+                valid_mask=None) -> torch.Tensor:
+        """The mask vector's cross-entropy against the masked column's
+        index ``y[:, 1]``, over the rows ``valid_mask`` keeps."""
+        return cross_entropy(mv_out, y[:, 1].long(), mask=valid_mask)

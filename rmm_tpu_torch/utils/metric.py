@@ -1,5 +1,6 @@
 """Evaluation metrics (numpy), as in ``rmm_tpu/utils/metric.py``: F1,
-ROC-AUC, and the self-supervised MRR/Hits@k and MCM accuracy/RMSE."""
+ROC-AUC, and the self-supervised MRR/Hits@k, MCM accuracy/RMSE and the
+mask vector's accuracy."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -58,6 +59,13 @@ def mrr(pos_pred, neg_pred, ks: Sequence[int], num_neg_samples: int):
     ranks = 1 + (neg >= pos[:, None]).sum(axis=1)
     hits = {f"hits@{k}": float(np.mean(ranks <= k)) for k in ks}
     return float(np.mean(1.0 / ranks)), hits
+
+
+def mv_accuracy(mv_out, y) -> float:
+    """The share of rows whose mask-vector argmax is the masked column's
+    index ``y[:, 1]``."""
+    idx = np.asarray(y)[:, 1].astype(int)
+    return float(np.mean(np.asarray(mv_out).argmax(axis=1) == idx))
 
 
 class MCMAccumulator:

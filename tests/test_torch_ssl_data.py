@@ -153,8 +153,17 @@ def test_build_dataset_takes_the_pretraining_targets(mcm_lp):
                               num_neighs=FANOUTS))
     assert ds.edges.pretrain == {PretrainType.MASK, PretrainType.LINK_PRED}
     assert ds.edges.tensor_frame.y.shape[1] == 5
-    for cfg, name in ((dict(pretrain=("mask", "lp"), ports=True), "--ports"),
-                      (dict(pretrain=("mv",)), "'mv'"),
-                      (dict(task="mcm"), "'mcm'")):
-        with pytest.raises(NotImplementedError, match=name):
-            build_dataset(Config(data=csvs[1], **cfg))
+    with pytest.raises(NotImplementedError, match="--ports"):
+        build_dataset(Config(data=csvs[1], pretrain=("mask", "lp"),
+                             ports=True))
+    # 'mv' adds no target of its own (its loss reads the MASK target), and
+    # an mcm task without targets takes the masked-cell and link ones
+    mv = build_dataset(Config(data=csvs[1], pretrain=("mask", "mv")))
+    assert mv.edges.pretrain == {PretrainType.MASK,
+                                 PretrainType.MASK_VECTOR}
+    assert mv.edges.tensor_frame.y.shape[1] == 2
+    mcm = build_dataset(Config(data=csvs[1], task="mcm_edge_table",
+                               num_neighs=FANOUTS))
+    assert mcm.edges.pretrain == {PretrainType.MASK, PretrainType.LINK_PRED}
+    np.testing.assert_array_equal(mcm.edges.tensor_frame.y,
+                                  ds.edges.tensor_frame.y)

@@ -11,7 +11,8 @@ record, with the tolerances (and their reasons) stated there.
 
 The CLI trains, saves, resumes and reports MRR, Hits@k, accuracy and RMSE
 on the CPU; without ``--device cpu`` it raises where there is no CUDA, and
-every flag whose behaviour is not ported raises by name.
+every flag whose behaviour is not ported raises by name (``--moo moco`` is
+ported: ``tests/test_torch_moco.py``).
 """
 import itertools
 import json
@@ -162,7 +163,7 @@ def test_cli_needs_cuda_unless_asked_for_cpu(record, tmp_path):
     (["--sampler", "device"], "--sampler device"),
     (["--frontier_capacity", "64"], "--frontier_capacity"),
     (["--inflight_groups", "3"], "--inflight_groups"),
-    (["--moo", "moco"], "--moo"), (["--ports"], "--ports"),
+    (["--ports"], "--ports"),
     (["--split_type", "temporal"], "--split_type"),
 ])
 def test_cli_refuses_unported_flags_by_name(record, tmp_path, flags, name):

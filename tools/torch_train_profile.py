@@ -6,6 +6,8 @@
     python3 tools/torch_train_profile.py --model tabgnnfused
     python3 tools/torch_train_profile.py --node
     python3 tools/torch_train_profile.py --model pna   # or any family
+    python3 tools/torch_train_profile.py --tabular [--mask_vector]
+    python3 tools/torch_train_profile.py --ssl --moo moco
 
 Builds the supervised config of record with ``rmm_tpu_torch`` (synthetic
 AML, tabgnn, C = 32, 2 layers, fanouts 100/100, batch 200, dropout 0.083;
@@ -47,6 +49,13 @@ batch 200, fanouts 100/100, dropout 0.5, lr 2e-4): host sampling with the
 negatives, the device step, its forward by layer (CUDA events around each
 module's forward, on the device's clock), the peak memory of a step, the
 kernels of the forward and of the whole step, and the train loop.
+
+With ``--tabular`` the same for the tabular MCM trainer of
+``cli/fttransformer.py`` at its defaults (C = 128, 3 layers, 8 heads,
+dropout 0.5, batch 200, AdamW lr 2e-4; ``--mask_vector`` adds the
+mask-vector head): no sampler, the batches gathered on the card; its
+forward by part (the encoder, the backbone, the head). ``--ssl --moo
+moco`` profiles the SSL step under MoCo (two gradient pulls a step).
 
 ``--precision bf16`` measures either at ``--precision bf16`` (the steps'
 forwards through the trainers' own cast of the parameters); every line
@@ -98,13 +107,14 @@ FAMILIES = ("fttransformer", "gin", "pna", "cpna", "cpnatab",
 def layer_times(model, run, n: int, children: bool = False) -> dict:
     """Device ms a step of each named module's forwards (every call summed),
     from CUDA events recorded by forward hooks while ``run()`` runs ``n``
-    steps; with ``children``, of the encoders, the decoder and each direct
-    submodule of the backbone (of ``FTTransformer``'s ``backbone``)."""
+    steps; with ``children``, of the encoders, the decoder (the tabular
+    model's head) and each direct submodule of the backbone (of
+    ``FTTransformer``'s ``backbone``)."""
     if children:
         body = getattr(model.model, "backbone", model.model)
         prefix = "model.backbone." if body is not model.model else "model."
         return _layer_times(model, ["node_encoder", "edge_encoder",
-                                    "decoder"] + [
+                                    "decoder", "head"] + [
             prefix + c for c, _ in body.named_children()], run, n)
     names = ["node_encoder", "edge_encoder", "model.node_emb",
              "model.tab_conv", "model.edge_emb", "mcm_head", "lp_head",
@@ -167,7 +177,7 @@ def ssl_main(args, card: str, work: str):
     cfg = Config(model="tabgnnfused", data=csv, batch_size=200,
                  n_hidden=128, n_gnn_layers=3, num_neighs=(100, 100),
                  dropout=0.5, lr=2e-4, num_neg_samples=64, device="cuda",
-                 sampler_threads=4, precision=args.precision)
+                 sampler_threads=4, precision=args.precision, moo=args.moo)
     ds = IBMTransactionsAML(csv, khop_neighbors=cfg.num_neighs, pretrain={
         PretrainType.MASK, PretrainType.LINK_PRED})
     tr = PretrainTrainer(cfg, ds, "mcm-lp")
@@ -258,6 +268,85 @@ def ssl_main(args, card: str, work: str):
     return table
 
 
+def tabular_main(args, card: str, work: str):
+    """The tabular MCM trainer: its staged batches' device step, the host's
+    enqueue, the forward by part, the kernels and the train loop."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rmm_tpu_torch.cli import fttransformer
+    from rmm_tpu_torch.datasets import (IBMTransactionsAML,
+                                        write_synthetic_aml_csv)
+    from rmm_tpu_torch.datasets.base import PretrainType
+    from rmm_tpu_torch.frame.dataset import DatasetView
+    from rmm_tpu_torch.train.tabular import TabularMCMTrainer
+
+    csv = write_synthetic_aml_csv(os.path.join(work, "aml.csv"),
+                                  num_rows=args.rows,
+                                  num_accounts=max(args.rows // 16, 64),
+                                  seed=0)
+    t0 = time.perf_counter()
+    cfg = fttransformer.config_from_args(fttransformer.build_parser(
+    ).parse_args(["--dataset", csv, "--device", "cuda"]))
+    ds = IBMTransactionsAML(csv, pretrain={PretrainType.MASK})
+    tr = TabularMCMTrainer(cfg, ds.edges, args.mask_vector)
+    emit({"phase": "setup", "model": "tabular_mcm",
+          "mask_vector": args.mask_vector,
+          "seconds": time.perf_counter() - t0,
+          "parameters": sum(q.numel() for q in tr.model.parameters()),
+          "card": card})
+    train = ds.edges.split()[0]
+    n = args.batches
+    view = DatasetView(train.parent, train.indices[:n * cfg.batch_size])
+    staged = [(tf, mask) for tf, mask, _, _ in tr._batches(view, True)]
+    tr.model.train()
+    for tf, mask in staged[:2]:
+        tr._step(tf, mask)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for tf, mask in staged:
+        tr._step(tf, mask)
+    end.record()
+    end.synchronize()
+    emit({"phase": "device_step", "ms_per_step": start.elapsed_time(end) / n,
+          "host_enqueue_ms_per_step": 1e3 * (time.perf_counter() - t0) / n,
+          "card": card})
+
+    def forwards():
+        for tf, mask in staged:
+            tr._loss(tf, mask)
+
+    emit({"phase": "train_forward_layers", "card": card,
+          "layers": layer_times(tr.model, forwards, n, True)})
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for tf, mask in staged:
+            tr._step(tf, mask)
+        torch.cuda.synchronize()
+    total, top = top_kernels(prof, n, 25)
+    emit({"phase": "train_step_kernels",
+          "device_ms_per_step": total / 1e3 / n,
+          "launches_per_step": sum(e.count for e in prof.key_averages()
+                                   if device_us(e) > 0) / n,
+          "top": top})
+    table = kernel_table(prof)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = tr.train_epoch(view, 0)
+        wall = time.perf_counter() - t0
+    busy = sum(device_us(e) for e in prof.key_averages()) / 1e6
+    emit({"phase": "train_loop", "batches": n,
+          "rows": view.tensor_frame.num_rows, "wall_s": wall,
+          "rows_per_s": view.tensor_frame.num_rows / wall,
+          "step_ms_median": out.get("step_ms"), "device_busy_s": busy,
+          "device_busy_share": busy / wall, "card": card})
+    return table
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--rows", type=int, default=131072)
@@ -267,16 +356,20 @@ def main(argv=None):
     p.add_argument("--model", default="tabgnn",
                    choices=("tabgnn", "tabgnnfused") + FAMILIES)
     p.add_argument("--node", action="store_true")
+    p.add_argument("--tabular", action="store_true")
+    p.add_argument("--mask_vector", action="store_true")
+    p.add_argument("--moo", default="sum", choices=("sum", "moco"))
     p.add_argument("--precision", default="f32", choices=("f32", "bf16"))
     p.add_argument("--table", default=None)
     args = p.parse_args(argv)
     global PRECISION
     PRECISION = args.precision
     if args.batches is None:
-        args.batches = 12 if args.ssl else 24
+        args.batches = 12 if args.ssl else 48 if args.tabular else 24
     if args.table is None:
         args.table = os.path.join(ROOT, "outputs", "ssl_profile.txt"
-                                  if args.ssl else "node_profile.txt"
+                                  if args.ssl else "tabular_profile.txt"
+                                  if args.tabular else "node_profile.txt"
                                   if args.node else "train_profile.txt"
                                   if args.model == "tabgnn" else
                                   f"{args.model}_profile.txt")
@@ -300,8 +393,8 @@ def main(argv=None):
     work = os.path.join(ROOT, "rmm_tpu_torch", "_build", "train_profile")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    if args.ssl:
-        table = ssl_main(args, card, work)
+    if args.ssl or args.tabular:
+        table = (ssl_main if args.ssl else tabular_main)(args, card, work)
         os.makedirs(os.path.dirname(os.path.abspath(args.table)),
                     exist_ok=True)
         with open(args.table, "w") as f:
