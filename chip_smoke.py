@@ -30,7 +30,9 @@ through all of them:
              without it); the families' shapes (131072x5x32/8, cpnatab's
              row attention, with its 0.1 keep-mask and without it;
              131072x7x32/8 and 16384x3x32/8 with the 0.083 keep-mask and
-             without it). Each record names the route it took (tiled or
+             without it; 131072x8x32/8, ``--ports``' edge rows, with the
+             Ethereum run's 0.123 keep-mask and without it, one warm
+             repetition). Each record names the route it took (tiled or
              split, by width and S, held to ``route(c, s)``), and two
              calls of each direction at the main path's masked edge shape,
              at the SSL and the transfer masked edge shapes and at the
@@ -116,7 +118,9 @@ through all of them:
              at C = 32 and at C = 128, each with the 0.083 keep-mask and
              without it
              (records as the kernel phase's; two calls bitwise equal at the
-             node shape).
+             node shape); the node families' 4096x129x32/8 and
+             4096x130x32/8, with the 0.083 keep-mask and without it, one
+             warm repetition.
 14. node_serve — the predict CLI on node_train's checkpoint over the whole
              test split: every labelled test node's id once (no unknown
              class), finite scores, 2 split and 2 tiled forwards a batch.
@@ -176,6 +180,41 @@ through all of them:
              widths: the first validation batch's outputs, three steps by
              ``convert.check_record`` (MoCo at its own limits, below), the
              launches by route.
+22. eth_node — Ethereum phishing node classification (``tabgnn``, the
+             launcher's widths with the dataset's overrides: lr 8e-4,
+             dropout 0.123, w_ce2 1.16) on the port's synthetic Ethereum
+             phishing (57,521 accounts, 262,144 transactions, written as
+             CSV with the node families: the ``node_family_data``
+             seconds): an epoch through the training CLI (``--epochs 1
+             --save_model``: 187 steps, the val and test splits
+             evaluated; ``best_m.json`` its val f1, ``-1/`` saved), then
+             the predict CLI on ``-1/`` over the test split (the served
+             ids are its nodes). 4 tiled calls each way a step.
+23. node_menu — the other seven models and ``tabgnn`` with ``--ports``
+             and with ``--ego``, an epoch each through the training CLI
+             on a cut of 3,700 accounts and 16,862 transactions (13
+             steps); the launches by model (``NODE_MENU_CALLS``).
+24. eth_ssl — the SSL CLI (``fused.main``, its own ``eth`` dispatch) for
+             an epoch with ``--save_model`` on that cut at the SSL config
+             of record: 10 split calls each way a step, MRR and Hits@k in
+             range, an MCM accuracy of 0 (no categorical column), the
+             checkpoint's ``best_m.json`` and ``best_*`` snapshots.
+25. node_families — ``tabgnn`` node classification on ogbn-arxiv (8,192
+             papers, 56,418 citations), MUSAE GitHub (8,192, 62,799) and
+             LastFM Asia (7,624, 27,806) at 128 features (node tokens
+             S = 130, 129, 129: the long cores), an epoch each through the
+             training CLI (23-25 steps; 40 and 18 classes take the
+             weighted f1); ogbn-arxiv's test split served from its
+             ``-1/`` checkpoint through the predict CLI.
+26. node_family_parity — every run of the JAX CPU record
+             ``node_family_record.npz``
+             (``tools/make_torch_port_node_family_fixture.py``) on the
+             card: the first served batch (ids, logits within 1e-3) and
+             three steps by ``convert.check_record`` (``cpna``/``cpnatab``
+             at the default limits with ``--ego``, ``CPNA_*`` without;
+             ogbn-arxiv's steps 8 more times from the start, each
+             component's median over its limit reported), three mcm-lp
+             steps on the Ethereum data; the launches by route.
 
 And at ``--precision bf16`` (the reference's scheme: float32 masters,
 bf16 parameters and tables in each step; under it the AML edge tokens are
@@ -331,6 +370,56 @@ FAMILY_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
 FAMILY_CALLS = {"fttransformer": 4, "gin": 0, "pna": 0, "cpna": 0,
                 "cpnatab": 2, "tabgnninterleaved": 3}
 CPNATAB_ROW_DROPOUT = 0.1
+
+# Node classification on Ethereum phishing (the reference's phishing task):
+# the supervised launcher's widths (C = 32, 8 heads, fanouts 100/100, batch
+# 200) with the dataset's overrides (lr 8e-4, dropout 0.123, w_ce2 1.16, 2
+# layers), on the port's synthetic Ethereum phishing: 262,144 transactions
+# over 57,521 accounts, the published network's ~4.56 transactions an
+# account (13.6M over 3.0M), cut ~52x. Every token is tiled: the node's
+# one constant token and CLS (S = 2), the edges' four numerical columns,
+# the timestamp and CLS (S = 6; 8 with --ports). Each run is one epoch
+# through the training CLI: tabgnn's on that data (187 steps), the other
+# models' and the SSL CLI's on a cut of 3,700 accounts at the same ratio
+# (16,862 transactions: 13 node steps, 51 SSL steps an epoch).
+ETH_NODES, ETH_EDGES = 57521, 262144
+ETH_CUT_NODES, ETH_CUT_EDGES = 3700, 16862
+ETH_DROPOUT = 0.123
+#: column-attention calls (forwards, backwards) a node-classification
+#: step of each model makes on Ethereum phishing, all tiled; an evaluated
+#: or served batch makes the forwards: fttransformer 2 layers on the node
+#: tokens; cpnatab 2 row-attention layers over the 5 edge column states,
+#: whose output no node head reads (as in the reference), so no gradient
+#: reaches them; tabgnn a layer each on the node and the edge tokens, 2
+#: layers; tabgnninterleaved the stem and 2 layers on the edge tokens;
+#: tabgnnfused the top-level layer on the context edge tokens and on the
+#: targets, and one a fused layer; the GNN baselines none
+NODE_MENU_CALLS = {"fttransformer": (2, 2), "gin": (0, 0), "pna": (0, 0),
+                   "cpna": (0, 0), "cpnatab": (2, 0), "tabgnn": (4, 4),
+                   "tabgnninterleaved": (3, 3), "tabgnnfused": (4, 4)}
+# The three feature-node families at 128 features (ogbn-arxiv's published
+# width; the width of PyTorch Geometric's GitHub and LastFMAsia versions):
+# node tokens S = 129, and 130 for ogbn-arxiv, whose year is a feature too
+# (the long cores); their edges one dummy column (S = 2, tiled). Each trains
+# an epoch through the training CLI. Family → (directory, nodes, edges,
+# classes): LastFM Asia at its published size; ogbn-arxiv and MUSAE GitHub
+# at 8,192 nodes and their published edges a node (ogbn-arxiv 1,166,243
+# citations over 169,343 papers, cut ~21x; MUSAE 289,003 over 37,700, cut
+# ~4.6x), so that an epoch fits the time limit.
+FAMILY_FEATS = 128
+NODE_FAMILIES = {"ogbn": ("ogbn-arxiv", 8192, 56418, 40),
+                 "musae": ("musae-github", 8192, 62799, 2),
+                 "lastfm": ("lastfm-asia", 7624, 27806, 18)}
+NODE_FAMILY_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
+                                   "node_family_record.npz")
+#: record runs whose three steps node_family_parity takes again from the
+#: record's start, to read how far from its limits each lands: ogbn-arxiv's
+#: ``model`` median sits at 0.93 of its limit on the CPU, one of two modes
+#: (first-step gradients at rounding level that Adam turns into full steps
+#: of either sign), and the card's float atomics round each run anew. The
+#: first run is held to the limits; a repeat's faults are reported (its
+#: launches are checked)
+NODE_FAMILY_REPEATS = {"ogbn": 8}
 
 
 def route_counts(fwd: int, bwd: int, route: str = "split") -> dict:
@@ -529,12 +618,37 @@ NARROW_SHAPES = [(b, s, c, h, rate) for b, s, c, h in
                  for rate in (SSL_DROPOUT, 0.0)]
 
 
-def fwd_record(rng, dev, b, s, c, h, rate, card, repeat=False) -> dict:
+#: ``time_ms``' (reps, windows) of a record: (10, 5), or one warm
+#: repetition at the kernel phases' shapes off every path (PERF.md §4,
+#: "Widths off the paths"; every check still runs), which keeps the run
+#: inside its time limit
+PATH_TIMING, OFF_PATH_TIMING = (10, 5), (1, 1)
+
+
+def off_path(b: int, s: int, c: int, h: int) -> bool:
+    """A float32 shape that no path runs: C % 4 ≠ 0, 32768x6x100/4,
+    131072x7x32/8 and 16384x3x32/8, and past S = 16 every row but
+    Elliptic's 167 (17, 65, 40x128 and the longest rows at C = 32 and
+    128; the node families' 129 and 130 run on their paths at other
+    batch sizes and are timed once too)."""
+    if s > 16:
+        return s != NODE_S
+    return (b, s, c, h) in {(32768, 6, 126, 6), (131072, 6, 30, 6),
+                            (32768, 6, 100, 4), (131072, 7, 32, 8),
+                            (16384, 3, 32, 8)}
+
+
+def timing_of(b: int, s: int, c: int, h: int, *_) -> tuple:
+    return OFF_PATH_TIMING if off_path(b, s, c, h) else PATH_TIMING
+
+
+def fwd_record(rng, dev, b, s, c, h, rate, card, repeat=False,
+               timing=PATH_TIMING) -> dict:
     """The forward at one shape (seeded inputs, a keep-mask where ``rate``
     > 0) against its plain version on the card: the route it took (held to
     ``route(c, s)``), two calls bitwise equal where ``repeat``, the split
     forward's core alone against its twin, kernel / plain / library times
-    and the bound."""
+    (``time_ms``'s ``(reps, windows)`` = ``timing``) and the bound."""
     import torch
 
     from rmm_tpu_torch.ops import column_attention as ca
@@ -573,15 +687,16 @@ def fwd_record(rng, dev, b, s, c, h, rate, card, repeat=False) -> dict:
                   f"split forward's core {b}x{s}x{c}/{h} p={rate}: "
                   f"max_abs_err {core_err} > {KERNEL_TOL}")
             del tok
-        k_ms = time_ms(lambda: ca.fused_column_attention(*args))
-        p_ms = time_ms(lambda: ca.reference_column_attention(*args))
+        k_ms = time_ms(lambda: ca.fused_column_attention(*args), *timing)
+        p_ms = time_ms(lambda: ca.reference_column_attention(*args),
+                       *timing)
         lib_ms = None
         if mask is None:   # no library call takes an explicit keep-mask
             lib = (x, wqkv, bqkv, wout, bout, h)
             lib_err = float((library_attention(*lib) - ref).abs().max())
             check(lib_err <= KERNEL_TOL,
                   f"library attention disagrees: {lib_err}")
-            lib_ms = time_ms(lambda: library_attention(*lib))
+            lib_ms = time_ms(lambda: library_attention(*lib), *timing)
     t_bytes, t_ops = attention_floor(b, s, c, h, mask is not None)
     bound_ms, by = bound(t_bytes, t_ops)
     plan = ca.fwd_plan(b, s, c, h)
@@ -601,7 +716,8 @@ def fwd_record(rng, dev, b, s, c, h, rate, card, repeat=False) -> dict:
     return rec
 
 
-def bwd_record(rng, dev, b, s, c, h, rate, card, repeat=False) -> dict:
+def bwd_record(rng, dev, b, s, c, h, rate, card, repeat=False,
+               timing=PATH_TIMING) -> dict:
     """The backward (and its reduce) at one shape against
     ``torch.autograd.grad`` of the plain version: the route (held to
     ``route(c, s)``), two calls bitwise equal where ``repeat``, each
@@ -642,9 +758,9 @@ def bwd_record(rng, dev, b, s, c, h, rate, card, repeat=False) -> dict:
     check(all(math.isfinite(e) and e <= GRAD_TOL for e in errs.values()),
           f"column attention backward {b}x{s}x{c}/{h} p={rate}: "
           f"relative errors {errs} > {GRAD_TOL}")
-    k_ms = time_ms(lambda: ca.column_attention_bwd(*args))
+    k_ms = time_ms(lambda: ca.column_attention_bwd(*args), *timing)
     p_ms = time_ms(lambda: torch.autograd.grad(out, leaves, do,
-                                               retain_graph=True))
+                                               retain_graph=True), *timing)
     lib_ms = None
     if mask is None:   # the backward alone of the library call
         lib_out = library_attention(*leaves, h)
@@ -655,7 +771,7 @@ def bwd_record(rng, dev, b, s, c, h, rate, card, repeat=False) -> dict:
         check(lib_err <= GRAD_TOL,
               f"library attention backward disagrees: {lib_err}")
         lib_ms = time_ms(lambda: torch.autograd.grad(
-            lib_out, leaves, do, retain_graph=True))
+            lib_out, leaves, do, retain_graph=True), *timing)
         del lib_out, lib_dx
     plan = ca.bwd_plan(b, s, c, h)
     t_bytes, t_ops = attention_bwd_floor(b, s, c, h, mask is not None)
@@ -718,14 +834,23 @@ def kernel_phase(card: str) -> dict:
     # and at the first narrow shape
     repeat = (SSL_SHAPES[0], NARROW_SHAPES[0], transfer[0])
     fwd = [fwd_record(rng, dev, *shape, card,
-                      repeat=i == 2 or shape in repeat)
+                      repeat=i == 2 or shape in repeat,
+                      timing=timing_of(*shape))
            for i, shape in enumerate(fwd_shapes)]
     bwd = [bwd_record(rng, dev, *shape, card,
-                      repeat=i == 0 or shape in repeat)
+                      repeat=i == 0 or shape in repeat,
+                      timing=timing_of(*shape))
            for i, shape in enumerate(bwd_shapes)]
     f = len(extra)
     fwd, fam_fwd = fwd[:-f], fwd[-f:]
     bwd, fam_bwd = bwd[:-f], bwd[-f:]
+    # --ports: the edge tokens two columns longer (S = 8, the Ethereum
+    # run's dropout), beside the S = 7 family shape; one warm repetition
+    ports = [(edges, 8, c, 8, ETH_DROPOUT), (edges, 8, c, 8, 0.0)]
+    ports_fwd = [fwd_record(rng, dev, *shape, card, timing=OFF_PATH_TIMING)
+                 for shape in ports]
+    ports_bwd = [bwd_record(rng, dev, *shape, card, timing=OFF_PATH_TIMING)
+                 for shape in ports]
     n, m = len(SSL_SHAPES), len(transfer)
     narrow = [r for r in fwd + bwd
               if (r["B"], r["S"], r["C"], r["H"], r["dropout"])
@@ -739,6 +864,7 @@ def kernel_phase(card: str) -> dict:
             "transfer_fwd": fwd[-n - m:-n], "transfer_bwd": bwd[-n - m:-n],
             "family_fwd": fam_fwd[:-1], "family_bwd": fam_bwd[:-1],
             "c100_fwd": fam_fwd[-1], "c100_bwd": fam_bwd[-1],
+            "ports_fwd": ports_fwd, "ports_bwd": ports_bwd,
             "narrow_fwd": [r for r in narrow
                            if r["kernel"] == "column_attention_fwd"],
             "narrow_bwd": [r for r in narrow
@@ -776,22 +902,34 @@ def long_shapes(node_capacity: int) -> list:
 def kernel_long_phase(card: str, node_capacity: int) -> dict:
     """Both directions at S > 16 against the plain twin on the card
     (:func:`long_shapes`), each through the split route; two calls of each
-    direction bitwise equal at the node shape. Returns the records of the
-    node shape (masked, then unmasked) and of the other shapes."""
+    direction bitwise equal at the node shape. Then the node families'
+    rows at 128 features, 4096x129x32/8 (MUSAE GitHub, LastFM Asia) and
+    4096x130x32/8 (ogbn-arxiv: its ``year`` is a feature too), with the
+    runs' 0.083 keep-mask and without it, one warm repetition each.
+    Returns the records of the node shape (masked, then unmasked), of the
+    other shapes and of the families'."""
     import numpy as np
     import torch
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(1)
     shapes = long_shapes(node_capacity)
-    fwd = [fwd_record(rng, dev, *shape, card, repeat=i < 2)
+    fwd = [fwd_record(rng, dev, *shape, card, repeat=i < 2,
+                      timing=timing_of(*shape))
            for i, shape in enumerate(shapes)]
-    bwd = [bwd_record(rng, dev, *shape, card, repeat=i < 2)
+    bwd = [bwd_record(rng, dev, *shape, card, repeat=i < 2,
+                      timing=timing_of(*shape))
            for i, shape in enumerate(shapes)]
-    check(all(r["route"] == "split" for r in fwd + bwd),
+    fam = [(4096, FAMILY_FEATS + k, 32, 8, rate) for k in (1, 2)
+           for rate in (TRAIN_DROPOUT, 0.0)]
+    fam_fwd = [fwd_record(rng, dev, *shape, card, timing=OFF_PATH_TIMING)
+               for shape in fam]
+    fam_bwd = [bwd_record(rng, dev, *shape, card, timing=OFF_PATH_TIMING)
+               for shape in fam]
+    check(all(r["route"] == "split" for r in fwd + bwd + fam_fwd + fam_bwd),
           "a row past 16 tokens did not take the split route")
     return {"node_fwd": fwd[:2], "node_bwd": bwd[:2], "fwd": fwd[2:],
-            "bwd": bwd[2:]}
+            "bwd": bwd[2:], "family_fwd": fam_fwd, "family_bwd": fam_bwd}
 
 
 def bf16_close(got, want) -> float:
@@ -868,6 +1006,10 @@ def kernel_bf16_phase(card: str) -> dict:
         args = (x, *weights, h, mask, rate)
         repeat = (b, s, c, h, rate) in repeat_at
         kind = ca.route(c, s)
+        # every bf16 split shape but the node path's is off the paths (the
+        # SSL path's tokens are float32 under bf16)
+        timing = (PATH_TIMING if kind == "tiled" or s == NODE_S
+                  else OFF_PATH_TIMING)
         check(kind == "split" or ((b, s, c, h, rate) not in NARROW_SHAPES
                                   and s <= 16),
               f"bf16 {b}x{s}x{c}/{h} does not take the split route")
@@ -894,9 +1036,9 @@ def kernel_bf16_phase(card: str) -> dict:
             check(out.dtype == torch.bfloat16 and excess <= 0,
                   f"bf16 forward {b}x{s}x{c}/{h} p={rate}: {excess} past "
                   "one bf16 rounding of the plain twin")
-            k_ms = time_ms(lambda: ca.fused_column_attention(*args))
+            k_ms = time_ms(lambda: ca.fused_column_attention(*args), *timing)
             p_ms = time_ms(lambda: ca.reference_column_attention(
-                x, *masters, h, mask, rate))
+                x, *masters, h, mask, rate), *timing)
             lib_ms = None
             if mask is None:
                 lib = (x, *weights, h)
@@ -905,7 +1047,7 @@ def kernel_bf16_phase(card: str) -> dict:
                 check(lib_err <= LIBRARY_BF16_TOL * float(
                     ref.float().abs().max()),
                       f"bf16 library attention disagrees: {lib_err}")
-                lib_ms = time_ms(lambda: library_attention(*lib))
+                lib_ms = time_ms(lambda: library_attention(*lib), *timing)
         t_bytes, t_ops = attention_floor(b, s, c, h, mask is not None, 2,
                                          PEAK_BF16_FLOP_PER_S)
         bound_ms, by = bound(t_bytes, t_ops)
@@ -957,16 +1099,17 @@ def kernel_bf16_phase(card: str) -> dict:
                       for e in errs.values()),
               f"bf16 backward {b}x{s}x{c}/{h} p={rate}: weight gradients' "
               f"relative errors {errs} > {GRAD_TOL}")
-        k_ms = time_ms(lambda: ca.column_attention_bwd(*bargs))
+        k_ms = time_ms(lambda: ca.column_attention_bwd(*bargs), *timing)
         p_ms = time_ms(lambda: torch.autograd.grad(ref, leaves, do,
-                                                   retain_graph=True))
+                                                   retain_graph=True),
+                       *timing)
         lib_ms = None
         if mask is None:
             lib_leaves = [x.detach().requires_grad_()] + [
                 w.detach().requires_grad_() for w in weights]
             lib_out = library_attention(*lib_leaves, h)
             lib_ms = time_ms(lambda: torch.autograd.grad(
-                lib_out, lib_leaves, do, retain_graph=True))
+                lib_out, lib_leaves, do, retain_graph=True), *timing)
             del lib_out, lib_leaves
         t_bytes, t_ops = attention_bwd_floor(b, s, c, h, mask is not None, 2,
                                              PEAK_BF16_FLOP_PER_S)
@@ -1250,15 +1393,13 @@ def train_parity_bf16_phase(card: str) -> dict:
     the edge tokens are float32, as in the reference), all tiled."""
     import itertools
 
-    import numpy as np
-
-    from rmm_tpu_torch.convert import check_record, from_jax, loss_terms, \
-        random_variables
+    from rmm_tpu_torch.convert import check_record, from_jax, load_record, \
+        loss_terms, random_variables
     from rmm_tpu_torch.datasets import build_dataset, write_synthetic_aml_csv
     from rmm_tpu_torch.train.trainer import Trainer
     from rmm_tpu_torch.utils.config import config_from_args, create_parser
 
-    rec = np.load(TRAIN_BF16_FIXTURE)
+    rec = load_record(TRAIN_BF16_FIXTURE)
     top = json.loads(str(rec["settings"]))
     st = {**top, **top["sup"]}
     csv = write_synthetic_aml_csv(os.path.join(WORK, "aml_parity.csv"),
@@ -1357,9 +1498,9 @@ def serve_bf16_phase(card: str, csv: str) -> dict:
 def ssl_record(path: str = SSL_FIXTURE) -> tuple:
     """A JAX SSL record and its settings (a bf16 record keeps them under
     ``ssl``)."""
-    import numpy as np
+    from rmm_tpu_torch.convert import load_record
 
-    rec = np.load(path)
+    rec = load_record(path)
     st = json.loads(str(rec["settings"]))
     return rec, {**st, **st["ssl"]} if "ssl" in st else st
 
@@ -1367,15 +1508,16 @@ def ssl_record(path: str = SSL_FIXTURE) -> tuple:
 def ssl_trainer(csv: str, argv: list[str], edge_capacity: int,
                 node_capacity: int, seed: int = 1):
     """The port's PretrainTrainer on the card, configured by the SSL CLI's
-    parser from ``argv`` (the SSL config of record's flags)."""
+    parser from ``argv`` (the SSL config of record's flags) on the SSL
+    CLI's dataset (``fused.build_ssl_dataset``); capacities 0 are
+    calibrated."""
     from rmm_tpu_torch.cli import fused
-    from rmm_tpu_torch.datasets import build_dataset
     from rmm_tpu_torch.train.pretrain import PretrainTrainer
 
     cfg = fused.config_from_args(fused.build_parser().parse_args(
         ["--dataset", csv, *argv, "--device", "cuda"])).replace(
         edge_capacity=edge_capacity, node_capacity=node_capacity, seed=seed)
-    return PretrainTrainer(cfg, build_dataset(cfg), "mcm-lp")
+    return PretrainTrainer(cfg, fused.build_ssl_dataset(cfg), "mcm-lp")
 
 
 def ssl_train_phase(card: str, csv: str, precision: str = "f32") -> dict:
@@ -1578,17 +1720,17 @@ def transfer_parity_phase(card: str) -> dict:
     parameters no step moved. C = 16: every launch tiled."""
     import itertools
 
-    import numpy as np
     import torch
 
-    from rmm_tpu_torch.convert import (check_record, from_jax, loss_terms,
-                                       random_variables, torch_key)
+    from rmm_tpu_torch.convert import (check_record, from_jax, load_record,
+                                       loss_terms, random_variables,
+                                       torch_key)
     from rmm_tpu_torch.datasets import build_dataset, write_synthetic_aml_csv
     from rmm_tpu_torch.train.trainer import Trainer
     from rmm_tpu_torch.utils.checkpoint import load_components
     from rmm_tpu_torch.utils.config import config_from_args, create_parser
 
-    rec = np.load(TRANSFER_FIXTURE)
+    rec = load_record(TRANSFER_FIXTURE)
     st = json.loads(str(rec["settings"]))
     csv = write_synthetic_aml_csv(os.path.join(WORK, "aml_transfer.csv"),
                                   num_rows=st["rows"],
@@ -1787,14 +1929,15 @@ def node_parity_phase(card: str) -> dict:
     import numpy as np
     import torch
 
-    from rmm_tpu_torch.convert import (check_record, from_jax, loss_terms,
-                                       random_variables, torch_key)
+    from rmm_tpu_torch.convert import (check_record, from_jax, load_record,
+                                       loss_terms, random_variables,
+                                       torch_key)
     from rmm_tpu_torch.datasets import (build_dataset,
                                         write_synthetic_node_dataset)
     from rmm_tpu_torch.train.trainer import Trainer
     from rmm_tpu_torch.utils.config import config_from_args, create_parser
 
-    rec = np.load(NODE_FIXTURE)
+    rec = load_record(NODE_FIXTURE)
     st = json.loads(str(rec["settings"]))
     root = write_synthetic_node_dataset(
         os.path.join(WORK, f"elliptic_{st['nodes']}"),
@@ -1855,6 +1998,478 @@ def node_parity_phase(card: str) -> dict:
            "card": card, "ok": True}
     emit(out)
     return out
+
+
+def menu_counts(model: str, fwd: int, bwd: int) -> dict:
+    """The launches of ``fwd`` node-classification forwards and ``bwd``
+    steps' backwards of ``model`` on Ethereum phishing, every one
+    tiled."""
+    kf, kb = NODE_MENU_CALLS[model]
+    return route_counts(kf * fwd, kb * bwd, "tiled")
+
+
+def prepare_node_family_data() -> dict:
+    """The port's synthetic Ethereum phishing, its cut
+    (``ethereum-phishing-cut``: the SSL CLI's ``eth`` and the training
+    CLI's ``ethereum-phishing`` dispatch both take it) and the three
+    feature-node families (:data:`NODE_FAMILIES`), each written once."""
+    from rmm_tpu_torch.datasets import write_synthetic_node_dataset
+
+    roots = {
+        "eth": write_synthetic_node_dataset(
+            os.path.join(WORK, "ethereum-phishing"), family="eth",
+            num_nodes=ETH_NODES, num_edges=ETH_EDGES, seed=0),
+        "eth_cut": write_synthetic_node_dataset(
+            os.path.join(WORK, "ethereum-phishing-cut"), family="eth",
+            num_nodes=ETH_CUT_NODES, num_edges=ETH_CUT_EDGES, seed=0)}
+    for family, (name, nodes, edges, classes) in NODE_FAMILIES.items():
+        roots[family] = write_synthetic_node_dataset(
+            os.path.join(WORK, name), family=family, num_nodes=nodes,
+            num_edges=edges, num_feats=FAMILY_FEATS, n_classes=classes,
+            seed=0)
+    return roots
+
+
+def node_argv(root: str, *extra) -> list:
+    return ["--data", root, *NODE_ARGV, "--task", "node_classification",
+            "--sampler_threads", "4", "--device", "cuda", *extra]
+
+
+def node_cli(root: str, model: str, expect, *flags) -> dict:
+    """One epoch of node classification through the training CLI
+    (``cli/main.py --epochs 1 --save_model``) on the card, the launch
+    counts set to 0 just before it and read just after: ``expect(fwd,
+    bwd)`` of the epoch's steps and its evaluated val and test batches. A
+    finite loss; f1 in [0, 1] on train, val and test; AUC in [0, 1] where
+    the dataset has 2 classes and none otherwise; ``config.json`` holding
+    the dataset's ``n_classes``, as the CLI adopts it; the epoch's
+    checkpoint with ``best_m.json`` its val f1, and ``-1/`` (the first
+    epoch improves on -1)."""
+    import torch
+
+    from rmm_tpu_torch.cli import main as train_cli
+    from rmm_tpu_torch.utils.checkpoint import load_best_m
+
+    name = f"{model} on {os.path.basename(root)} {' '.join(flags)}".strip()
+    stats: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    (ep,), best = train_cli.main(node_argv(
+        root, "--model", model, *flags, "--epochs", "1", "--save_model",
+        "--testing", "--wandb_dir", os.path.join(WORK, "node_runs")), stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    b = 200
+    train_rows, val_rows, test_rows = stats["split_rows"]
+    steps = -(-train_rows // b)
+    evals = -(-val_rows // b) + -(-test_rows // b)
+    check(counts == expect(steps + evals, steps),
+          f"{name}: launches {counts} for {steps} steps and {evals} "
+          f"evaluated batches, not {expect(steps + evals, steps)}")
+    with open(os.path.join(stats["run_dir"], "config.json")) as f:
+        cfg = json.load(f)
+    binary = cfg["n_classes"] == 2
+    check(math.isfinite(ep["loss"])
+          and all(0 <= ep[k] <= 1 for k in ("f1", "val_f1", "test_f1"))
+          and all((0 <= ep[k] <= 1) if binary else k not in ep
+                  for k in ("auc", "val_auc", "test_auc")),
+          f"{name}: epoch {ep}")
+    ck = os.path.join(stats["run_dir"], "-1")
+    saved = load_best_m(os.path.join(stats["run_dir"], "0"))
+    check(ep["best"] and saved == best == ep["val_f1"]
+          and os.path.exists(os.path.join(ck, "model.pt")),
+          f"{name}: best_m.json {saved}, fit's {best}, the epoch's val f1 "
+          f"{ep['val_f1']}, no {ck}/model.pt")
+    return {"model": model, "flags": list(flags), "lr": cfg["lr"],
+            "dropout": cfg["dropout"], "w_ce2": cfg["w_ce2"],
+            "n_gnn_layers": cfg["n_gnn_layers"],
+            "n_classes": cfg["n_classes"],
+            "edge_capacity": stats["edge_capacity"],
+            "node_capacity": stats["node_capacity"],
+            "split_rows": stats["split_rows"], "steps": steps,
+            "evaluated_batches": evals, "loss": ep["loss"],
+            "train_f1": ep["f1"], "val_f1": ep["val_f1"],
+            "test_f1": ep["test_f1"],
+            **{k: ep[k] for k in ("val_auc", "test_auc") if k in ep},
+            "best_m": saved, "step_ms_median": ep.get("step_ms"),
+            "epoch_s": ep["sec"], "train_rows_per_s": train_rows / ep["sec"],
+            "drop_rate": ep["drop_rate"], "setup_s": stats["setup_s"],
+            "wall_s": wall,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": counts, "checkpoint": ck}
+
+
+def node_serve(root: str, run: dict) -> dict:
+    """The predict CLI on a node run's ``-1/`` checkpoint over the whole
+    test split: the served ids are the test split's nodes, once each and
+    in order; finite scores (where the head is binary). The launches and
+    rows/s."""
+    import numpy as np
+
+    from rmm_tpu_torch.datasets import build_dataset
+    from rmm_tpu_torch.utils.config import config_from_args, create_parser
+
+    argv = node_argv(root, "--model", run["model"], *run["flags"],
+                     "--load_model", run["checkpoint"], "--split", "test",
+                     "--output", os.path.join(WORK, "node_family_preds.csv"),
+                     "--edge_capacity", str(run["edge_capacity"]),
+                     "--node_capacity", str(run["node_capacity"]))
+    stats: dict = {}
+    out, counts, wall = serve(argv, stats)
+    nodes = build_dataset(config_from_args(create_parser().parse_args(
+        node_argv(root, "--model", run["model"], *run["flags"])))).nodes
+    want = nodes.tensor_frame.y[nodes.split()[2].indices, 1].astype(np.int64)
+    check(np.array_equal(out["id"], want),
+          f"served {len(out['id'])} node ids, not the {len(want)} test "
+          "nodes in order")
+    if "score" in out:
+        check(np.isfinite(out["score"]).all(), "non-finite node scores")
+    rows = len(out["id"])
+    return {"rows": rows, "batches": -(-rows // 200), "launches": counts,
+            "wall_s": wall, "setup_s": stats["setup_s"],
+            "predict_s": stats["predict_s"],
+            "rows_per_s_predict": rows / stats["predict_s"],
+            "rows_per_s_wall": rows / wall,
+            "pred_mean": float(out["pred"].mean())}
+
+
+def eth_node_phase(card: str, root: str) -> dict:
+    """Ethereum phishing node classification on the card: ``tabgnn`` at
+    the launcher's widths for an epoch through the training CLI, whose
+    ``ethereum-phishing`` override sets lr 8e-4, dropout 0.123, w_ce2 1.16
+    and 2 layers (``node_cli``); then the predict CLI on its ``-1/``
+    checkpoint over the whole test split (the served ids are the test
+    split's nodes). 4 tiled calls each way a step and 4 tiled forwards an
+    evaluated or served batch."""
+    run = node_cli(root, "tabgnn", lambda f, b: menu_counts("tabgnn", f, b))
+    check((run["lr"], run["dropout"], run["w_ce2"], run["n_gnn_layers"],
+           run["n_classes"]) == (8e-4, ETH_DROPOUT, 1.16, 2, 2),
+          f"the Ethereum overrides did not apply: {run}")
+    served = node_serve(root, run)
+    check(served["launches"] == menu_counts("tabgnn", served["batches"], 0),
+          f"launches {served['launches']} serving {served['batches']} "
+          "node batches")
+    out = {"phase": "eth_node", "nodes": ETH_NODES, "edges": ETH_EDGES,
+           "channels": 32, "layers": 2, "heads": 8, "batch": 200,
+           "fanouts": [100, 100], **run, "serve": served, "card": card,
+           "ok": True}
+    emit(out)
+    return out
+
+
+def node_menu_phase(card: str, root: str) -> dict:
+    """The other seven models (``fttransformer``, ``gin``, ``pna``,
+    ``cpna``, ``cpnatab``, ``tabgnninterleaved``, ``tabgnnfused``), then
+    ``tabgnn`` with ``--ports`` and with ``--ego``, each for an epoch
+    through the training CLI (``node_cli``) on the Ethereum cut:
+    ``menu_counts``' launches a step and a batch; ``--ports`` adds the two
+    port columns to the edges (S = 8) and ``--ego`` makes the node token
+    ``EgoID``."""
+    import torch
+
+    from rmm_tpu_torch.datasets import build_dataset
+    from rmm_tpu_torch.frame.stype import Stype
+    from rmm_tpu_torch.utils.config import config_from_args, create_parser
+
+    runs = {}
+    for model in NODE_MENU_CALLS:
+        if model != "tabgnn":
+            runs[model] = node_cli(
+                root, model, lambda f, b, m=model: menu_counts(m, f, b))
+            torch.cuda.empty_cache()
+    for flag in ("--ports", "--ego"):
+        runs[f"tabgnn {flag}"] = node_cli(
+            root, "tabgnn", lambda f, b: menu_counts("tabgnn", f, b), flag)
+        torch.cuda.empty_cache()
+    ds = build_dataset(config_from_args(create_parser().parse_args(
+        node_argv(root, "--model", "tabgnn", "--ports", "--ego"))))
+    edge_tokens = ds.edges.tensor_frame.num_cols + 1
+    check(edge_tokens == 8 and ds.nodes.tensor_frame.col_names == {
+        Stype.relation: ["EgoID"]},
+        f"--ports --ego: {edge_tokens} edge tokens, node columns "
+        f"{ds.nodes.tensor_frame.col_names}")
+    out = {"phase": "node_menu", "nodes": ETH_CUT_NODES,
+           "edges": ETH_CUT_EDGES, "ports_edge_tokens": edge_tokens,
+           "runs": runs, "card": card, "ok": True}
+    emit(out)
+    return out
+
+
+def eth_ssl_phase(card: str, root: str) -> dict:
+    """The SSL CLI (``fused.main``: a path holding ``eth`` is Ethereum
+    phishing, split by ``--split_type``) for an epoch with
+    ``--save_model`` on the Ethereum cut at the SSL config of record
+    (C = 128, 3 layers, 64 negatives, batch 200, fanouts 100/100). 10 split
+    calls each way a step and 10 split forwards an evaluated val batch; a
+    finite loss and RMSE, MRR and Hits@k in (0, 1], an MCM accuracy and a
+    categorical loss of 0 (no categorical masked column, as the reference
+    reports it); the epoch's checkpoint with ``best_m.json`` and a
+    ``best_*`` snapshot for each metric (each improves on its first
+    value)."""
+    import torch
+
+    from rmm_tpu_torch.cli import fused
+    from rmm_tpu_torch.utils.checkpoint import load_best_m
+
+    runs = os.path.join(WORK, "eth_ssl_runs")
+    stats: dict = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    (ep,), best = fused.main(
+        ["--dataset", root, *SSL_ARGV, "--epochs", "1", "--testing",
+         "--sampler_threads", "4", "--wandb_dir", runs, "--device", "cuda",
+         "--save_model"], stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    b = 200
+    train_rows, val_rows, _ = stats["split_rows"]
+    steps, evals = -(-train_rows // b), -(-val_rows // b)
+    k = SSL_LAUNCHES
+    check(counts == route_counts(k * (steps + evals), k * steps),
+          f"Ethereum SSL CLI launches {counts} for {steps} steps and "
+          f"{evals} evaluated batches (expected {k} split calls each way a "
+          "step)")
+    check(math.isfinite(ep["loss"]) and math.isfinite(ep["val_rmse"])
+          and 0 < ep["val_mrr"] <= 1
+          and all(0 <= ep[f"val_hits@{n}"] <= 1 for n in (1, 2, 5, 10)),
+          f"Ethereum SSL epoch {ep}")
+    check(ep["val_accuracy"] == 0.0 and ep["train_loss_c"] == 0.0,
+          f"an MCM accuracy or categorical loss without a categorical "
+          f"column: {ep['val_accuracy']}, {ep['train_loss_c']}")
+    run_dir = stats["run_dir"]
+    saved = load_best_m(os.path.join(run_dir, "0"))
+    want = {"accuracy": ep["val_accuracy"], "rmse": ep["val_rmse"],
+            "mrr": ep["val_mrr"]}
+    check(saved == best == want and all(
+        os.path.exists(os.path.join(run_dir, f"best_{t}", "model.pt"))
+        for t in ("acc", "rmse", "mrr")),
+        f"Ethereum SSL checkpoint: best_m.json {saved}, fit's {best}, the "
+        f"epoch's {want}")
+    out = {"phase": "eth_ssl", "mode": "mcm-lp", "nodes": ETH_CUT_NODES,
+           "edges": ETH_CUT_EDGES, "channels": 128, "layers": 3,
+           "num_neg": 64, "batch": b, "split_type": "temporal_daily",
+           "split_rows": stats["split_rows"],
+           "edge_capacity": stats["edge_capacity"],
+           "node_capacity": stats["node_capacity"], "steps": steps,
+           "evaluated_batches": evals, "loss": ep["loss"],
+           "train_loss_n": ep["train_loss_n"],
+           **{key: v for key, v in ep.items() if key.startswith("val_")},
+           "best_m": saved, "step_ms_median": ep.get("step_ms"),
+           "epoch_s": ep["sec"], "train_rows_per_s": train_rows / ep["sec"],
+           "setup_s": stats["setup_s"], "wall_s": wall, "launches": counts,
+           "card": card, "ok": True}
+    emit(out)
+    torch.cuda.empty_cache()
+    return out
+
+
+def node_families_phase(card: str, roots: dict) -> dict:
+    """``tabgnn`` node classification on ogbn-arxiv, MUSAE GitHub and
+    LastFM Asia at 128 features (node tokens S = 130, 129 and 129: the
+    split route's long cores; edge tokens S = 2, tiled), each for an epoch
+    through the training CLI (``node_cli``: ogbn-arxiv's 40 and LastFM
+    Asia's 18 classes take the weighted f1 and no AUC), ``node_counts``'
+    launches; ogbn-arxiv's test split served from its ``-1/``
+    checkpoint through the predict CLI."""
+    import torch
+
+    out = {}
+    for family in NODE_FAMILIES:
+        run = node_cli(roots[family], "tabgnn", node_counts)
+        check(run["n_classes"] == NODE_FAMILIES[family][3],
+              f"{family}: {run['n_classes']} classes")
+        if family == "ogbn":
+            run["serve"] = node_serve(roots[family], run)
+            check(run["serve"]["launches"] == node_counts(
+                run["serve"]["batches"], 0),
+                f"launches {run['serve']['launches']} serving ogbn-arxiv")
+        name, nodes, edges, _ = NODE_FAMILIES[family]
+        out[family] = {"data": name, "nodes": nodes, "edges": edges,
+                       "node_tokens": FAMILY_FEATS + 1 + (family == "ogbn"),
+                       **run}
+        torch.cuda.empty_cache()
+    emit({"phase": "node_families", "families": out, "card": card,
+          "ok": True})
+    return out
+
+
+def parity_counts(st: dict, run: dict) -> tuple[dict, dict]:
+    """The launches of a record run's served batch and of its steps: on
+    Ethereum phishing ``menu_counts``; ``tabgnn`` on a family through the
+    long cores where its node tokens pass 16 (``node_counts``), else all
+    tiled."""
+    n = st["steps"]
+    if run["data"] == "eth":
+        return (menu_counts(run["model"], 1, 0),
+                menu_counts(run["model"], n, n))
+    d = st["data"][run["data"]]
+    s = d["num_feats"] + 1 + (d["family"] == "ogbn")
+    if s > 16:
+        return node_counts(1, 0), node_counts(n, n)
+    return menu_counts("tabgnn", 1, 0), menu_counts("tabgnn", n, n)
+
+
+def node_family_parity_phase(card: str) -> dict:
+    """Every run of the JAX CPU record ``node_family_record.npz``
+    (``tools/make_torch_port_node_family_fixture.py``) on the card, from
+    its start: the first test batch served (the same node ids, logits
+    within SCORE_TOL), three steps (dropout 0) by ``convert.check_record``
+    (``cpna`` and ``cpnatab`` at the default float32 limits with
+    ``--ego``, at ``CPNA_*`` without it), the same parameters unmoved;
+    then three mcm-lp steps on the Ethereum data at the SSL widths (batch
+    64; the first batch's negatives equal). The runs of
+    :data:`NODE_FAMILY_REPEATS` take their three steps again from the
+    record's start and report each component's median over its limit and
+    the faults ``check_record`` finds. The launches of each run by
+    route."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.convert import (check_record, from_jax, load_record,
+                                       loss_terms, random_variables,
+                                       torch_key)
+    from rmm_tpu_torch.datasets import (build_dataset,
+                                        write_synthetic_node_dataset)
+    from rmm_tpu_torch.nn.dropout import set_rate
+    from rmm_tpu_torch.train.trainer import Trainer
+    from rmm_tpu_torch.utils.config import config_from_args, create_parser
+
+    rec = load_record(NODE_FAMILY_FIXTURE)
+    st = json.loads(str(rec["settings"]))
+    roots = {name: write_synthetic_node_dataset(
+        os.path.join(WORK, "parity", f"{d['dir']}_{d['nodes']}"),
+        family=d["family"], num_nodes=d["nodes"], num_edges=d["edges"],
+        num_feats=d["num_feats"], n_classes=d["n_classes"],
+        seed=st["data_seed"]) for name, d in st["data"].items()}
+    out, faults = {}, []
+    for name, run in st["runs"].items():
+        argv = ["--data", roots[run["data"]], "--model", run["model"],
+                "--task", "node_classification", "--n_hidden",
+                str(st["n_hidden"]), "--n_gnn_layers",
+                str(st["n_gnn_layers"]), "--num_neighs",
+                *map(str, st["num_neighs"]), "--batch_size",
+                str(st["batch_size"]), "--seed", str(st["seed"]),
+                *run["flags"], "--device", "cuda"]
+        cfg = config_from_args(create_parser().parse_args(argv)).replace(
+            dropout=0.0, **st["capacities"][run["data"]])
+        ds = build_dataset(cfg)
+        tr = Trainer(cfg.replace(n_classes=ds.n_classes), ds)
+        tr.model.load_state_dict(from_jax(
+            random_variables(run["shapes"], st["var_seed"]), tr.model))
+        set_rate(tr.model, 0.0)
+        train, _, test = ds.nodes.split()
+        gb = next(tr._batches(test, "test"))
+        reset_counts()
+        with torch.inference_mode():
+            logits = tr._logits(gb.to(tr.device)).cpu().numpy()
+        serve_counts = read_counts()
+        keep = gb.seed_mask
+        ids_equal = bool(np.array_equal(gb.node_gather[:cfg.batch_size][keep],
+                                        rec[f"{name}/serve/id"]))
+        err = float(np.abs(logits[keep] - rec[f"{name}/serve/logits"]).max())
+        before = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        batches = list(itertools.islice(
+            tr._batches(train, "train", st["epoch"]), st["steps"]))
+        reset_counts()
+        tr.model.train()
+        terms = [loss_terms(tr._step(b.to(tr.device))[0], {})
+                 for b in batches]
+        counts = read_counts()
+        state = tr.model.state_dict()
+        limits = "" if "--ego" in run["flags"] else run["model"]
+        run_faults, summary = check_record(
+            state, terms, rec, f"{name}/", cfg.lr, st["steps"],
+            st["n_hidden"], model=limits)
+        unmoved = {k for k, _ in tr.model.named_parameters()
+                   if torch.equal(state[k], before[k])}
+        if unmoved != {torch_key(k)[0] for k in run["unmoved"]}:
+            run_faults.append(f"unmoved {sorted(unmoved)}, the "
+                              f"reference's {run['unmoved']}")
+        if not ids_equal:
+            run_faults.append("served node ids differ")
+        if not err <= SCORE_TOL:
+            run_faults.append(f"logit error {err} > {SCORE_TOL}")
+        want = parity_counts(st, run)
+        if (serve_counts, counts) != (want[0], want[1]):
+            run_faults.append(f"launches {serve_counts} serving a batch, "
+                              f"{counts} for the steps, not {want}")
+        medians = [summary["param_median_abs_err"]]
+        repeat_launches, repeat_faults = [], []
+        for r in range(NODE_FAMILY_REPEATS.get(name, 0)):
+            tr = Trainer(cfg.replace(n_classes=ds.n_classes), ds)
+            tr.model.load_state_dict(from_jax(
+                random_variables(run["shapes"], st["var_seed"]), tr.model))
+            set_rate(tr.model, 0.0)
+            reset_counts()
+            tr.model.train()
+            again = [loss_terms(tr._step(b.to(tr.device))[0], {})
+                     for b in batches]
+            repeat_launches.append(read_counts())
+            rep_faults, rep = check_record(
+                tr.model.state_dict(), again, rec, f"{name}/", cfg.lr,
+                st["steps"], st["n_hidden"], model=limits)
+            repeat_faults += [f"repeat {r + 1}: {f}" for f in rep_faults]
+            if repeat_launches[-1] != want[1]:
+                run_faults.append(f"repeat {r + 1}: launches "
+                                  f"{repeat_launches[-1]}, not {want[1]}")
+            medians.append(rep["param_median_abs_err"])
+        faults += [f"{name}: {f}" for f in run_faults]
+        out[name] = {"model": run["model"], "flags": run["flags"],
+                     "limits": "default" if "--ego" in run["flags"]
+                     or run["model"] not in ("cpna", "cpnatab") else "cpna",
+                     "max_logit_err": err, "terms": terms,
+                     "jax_terms": run["losses"], **summary,
+                     "serve_launches": serve_counts, "launches": counts}
+        if repeat_launches:
+            tol = summary["param_median_tol"]
+            out[name].update(
+                median_over_limit={c: [m[c] / tol for m in medians]
+                                   for c in medians[0]},
+                repeat_faults=repeat_faults,
+                repeat_launches=repeat_launches)
+        del tr, ds
+        torch.cuda.empty_cache()
+    ssl = st["ssl"]
+    tr = ssl_trainer(roots["eth"], [
+        "--mode", "mcm-lp", "--channels", str(ssl["channels"]),
+        "--num_layers", str(ssl["num_layers"]), "--num_neg_samples",
+        str(ssl["num_neg_samples"]), "--batch_size", str(ssl["batch_size"]),
+        "--khop_neighbors", *map(str, ssl["khop_neighbors"]), "--dropout",
+        "0", "--lr", str(ssl["lr"])], ssl["edge_capacity"],
+        ssl["node_capacity"], seed=st["seed"])
+    tr.model.load_state_dict(from_jax(
+        random_variables(ssl["shapes"], st["var_seed"]), tr.model))
+    batches = list(itertools.islice(
+        tr._batches(tr.dataset.edges.split()[0], "train", st["epoch"]),
+        st["steps"]))
+    if not np.array_equal(batches[0].neg_edge_index, rec["ssl/neg0"]):
+        faults.append("ssl: the first batch's negatives differ")
+    reset_counts()
+    tr.model.train()
+    terms = [loss_terms(*tr._step(gb.to(tr.device))) for gb in batches]
+    counts = read_counts()
+    ssl_faults, summary = check_record(tr.model.state_dict(), terms, rec,
+                                       "ssl/", ssl["lr"], 2 * st["steps"],
+                                       ssl["channels"])
+    faults += [f"ssl: {f}" for f in ssl_faults]
+    n, k = st["steps"], SSL_LAUNCHES
+    if counts != route_counts(k * n, k * n):
+        faults.append(f"ssl: launches {counts} for {n} steps")
+    out["ssl"] = {"terms": terms, "jax_terms": ssl["terms"], **summary,
+                  "launches": counts}
+    del tr
+    torch.cuda.empty_cache()
+    check(not faults, "node-family runs off the JAX record: "
+          + "; ".join(faults))
+    res = {"phase": "node_family_parity", "runs": out, "steps": st["steps"],
+           "score_tol": SCORE_TOL, "card": card, "ok": True}
+    emit(res)
+    return res
 
 
 def family_train_phase(card: str, csv: str) -> dict:
@@ -2011,14 +2626,15 @@ def family_parity_phase(card: str) -> dict:
     import numpy as np
     import torch
 
-    from rmm_tpu_torch.convert import (check_record, from_jax, loss_terms,
-                                       random_variables, torch_key)
+    from rmm_tpu_torch.convert import (check_record, from_jax, load_record,
+                                       loss_terms, random_variables,
+                                       torch_key)
     from rmm_tpu_torch.datasets import build_dataset, write_synthetic_aml_csv
     from rmm_tpu_torch.nn.dropout import set_rate
     from rmm_tpu_torch.train.trainer import Trainer
     from rmm_tpu_torch.utils.config import config_from_args, create_parser
 
-    rec = np.load(FAMILY_FIXTURE)
+    rec = load_record(FAMILY_FIXTURE)
     st = json.loads(str(rec["settings"]))
     csv = write_synthetic_aml_csv(os.path.join(WORK, "aml_family.csv"),
                                   num_rows=st["rows"],
@@ -2699,10 +3315,11 @@ def mcm_parity_phase(card: str) -> dict:
     import numpy as np
     import torch
 
-    from rmm_tpu_torch.convert import check_record, loss_terms, torch_key
+    from rmm_tpu_torch.convert import (check_record, load_record, loss_terms,
+                                       torch_key)
     from rmm_tpu_torch.train.trainer import MCM_SUMS
 
-    rec = np.load(MCM_FIXTURE)
+    rec = load_record(MCM_FIXTURE)
     st = json.loads(str(rec["settings"]))
     csvs = mcm_cuts(st, WORK)
     n, out = st["steps"], {}
@@ -2894,6 +3511,16 @@ def main() -> int:
             node_serve = timed("node_serve", node_serve_phase, card,
                                node_root, node)
             node_parity = timed("node_parity", node_parity_phase, card)
+            nf_roots = timed("node_family_data", prepare_node_family_data)
+            eth = timed("eth_node", eth_node_phase, card, nf_roots["eth"])
+            menu = timed("node_menu", node_menu_phase, card,
+                         nf_roots["eth_cut"])
+            eth_ssl = timed("eth_ssl", eth_ssl_phase, card,
+                            nf_roots["eth_cut"])
+            families = timed("node_families", node_families_phase, card,
+                             nf_roots)
+            nf_parity = timed("node_family_parity", node_family_parity_phase,
+                              card)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
         emit({"phase": "seconds", **seconds,
@@ -2957,29 +3584,65 @@ def main() -> int:
                                         mcm_launches("bwd_tiled"))
         mcm_fwd_split, mcm_bwd_split = (mcm_launches("fwd_split"),
                                         mcm_launches("bwd_split"))
+        # the node-classification paths of Ethereum phishing and of the
+        # feature-node families by path and route: tiled (every Ethereum
+        # token, the families' edge tokens and LastFM's record run) and
+        # split (the families' node tokens past S = 16: the long cores);
+        # the Ethereum SSL path's split calls at C = 128
+        nf_runs = {
+            "eth_node": [eth["launches"], eth["serve"]["launches"]],
+            **{f"node_menu {m}": [r["launches"]]
+               for m, r in menu["runs"].items()},
+            **{f"node_families {f}": [r["launches"]]
+               + ([r["serve"]["launches"]] if "serve" in r else [])
+               for f, r in families.items()},
+            **{f"node_family_parity {m}": [r["serve_launches"],
+                                           r["launches"]]
+               + r.get("repeat_launches", [])
+               for m, r in nf_parity["runs"].items() if m != "ssl"}}
+        eth_ssl_runs = {
+            "eth_ssl": [eth_ssl["launches"]],
+            "node_family_parity ssl": [nf_parity["runs"]["ssl"]["launches"]]}
+
+        def by_path(runs, key):
+            out = {path: sum(c[key] for c in cs) for path, cs in runs.items()}
+            return {path: v for path, v in out.items() if v}
+
+        nf_fwd_tiled, nf_bwd_tiled = (by_path(nf_runs, "fwd_tiled"),
+                                      by_path(nf_runs, "bwd_tiled"))
+        nf_fwd_long, nf_bwd_long = (by_path(nf_runs, "fwd_split"),
+                                    by_path(nf_runs, "bwd_split"))
+        eth_fwd_split, eth_bwd_split = (by_path(eth_ssl_runs, "fwd_split"),
+                                        by_path(eth_ssl_runs, "bwd_split"))
         emit({"kernels": [
             kernel_entry("column_attention_fwd", 165, kern["fwd"],
                          kern["fwd"], {
                              "path": "main, node (edge tokens), families "
                                      "(fttransformer, tabgnninterleaved, "
                                      "cpnatab), mcm_edge (tabgnn), "
-                                     "mcm_parity",
+                                     "mcm_parity, Ethereum phishing node "
+                                     "classification (every model with "
+                                     "attention), the node families' edge "
+                                     "tokens",
                              "launches": serve_rec["launches"]
                              + train_rec["launches"]["fwd"]
                              + sum(node_fwd_tiled.values())
                              + sum(fam_fwd.values())
-                             + sum(mcm_fwd_tiled.values()),
+                             + sum(mcm_fwd_tiled.values())
+                             + sum(nf_fwd_tiled.values()),
                              "tiled_launches": serve_rec["tiled_launches"]
                              + train_rec["launches"]["fwd_tiled"]
                              + sum(node_fwd_tiled.values())
                              + sum(fam_fwd.values())
-                             + sum(mcm_fwd_tiled.values()),
+                             + sum(mcm_fwd_tiled.values())
+                             + sum(nf_fwd_tiled.values()),
                              "launches_by_path": {
                                  "serve": serve_rec["launches"],
                                  "train": train_rec["launches"]["fwd"],
                                  **node_fwd_tiled, **fam_fwd,
-                                 **mcm_fwd_tiled},
+                                 **mcm_fwd_tiled, **nf_fwd_tiled},
                              "family": shape_times(kern["family_fwd"]),
+                             "ports": shape_times(kern["ports_fwd"]),
                              # the float32 edge tokens at --precision bf16
                              "launches_under_bf16": sum(
                                  c["fwd_tiled"] - c["fwd_bf16"]
@@ -2997,24 +3660,31 @@ def main() -> int:
                              "path": "main, node (edge tokens), families "
                                      "(fttransformer, tabgnninterleaved, "
                                      "cpnatab), mcm_edge (tabgnn), "
-                                     "mcm_parity",
+                                     "mcm_parity, Ethereum phishing node "
+                                     "classification (every model with "
+                                     "attention), the node families' edge "
+                                     "tokens",
                              "launches": train_rec["launches"]["bwd"]
                              + sum(node_bwd_tiled.values())
                              + sum(fam_bwd.values())
-                             + sum(mcm_bwd_tiled.values()),
+                             + sum(mcm_bwd_tiled.values())
+                             + sum(nf_bwd_tiled.values()),
                              "tiled_launches":
                                  train_rec["launches"]["bwd_tiled"]
                              + sum(node_bwd_tiled.values())
                              + sum(fam_bwd.values())
-                             + sum(mcm_bwd_tiled.values()),
+                             + sum(mcm_bwd_tiled.values())
+                             + sum(nf_bwd_tiled.values()),
                              "launches_by_path": {
                                  "train": train_rec["launches"]["bwd"],
                                  **node_bwd_tiled, **fam_bwd,
-                                 **mcm_bwd_tiled},
+                                 **mcm_bwd_tiled, **nf_bwd_tiled},
                              "family": shape_times(kern["family_bwd"]),
+                             "ports": shape_times(kern["ports_bwd"]),
                              "reduce_launches":
                                  train_rec["launches"]["reduce"]
-                             + sum(mcm_bwd_tiled.values()),
+                             + sum(mcm_bwd_tiled.values())
+                             + sum(nf_bwd_tiled.values()),
                              "max_rel_err": max(max(r["max_rel_err"].values())
                                                 for r in kern["bwd"]),
                              "library_masked": False}),
@@ -3022,17 +3692,21 @@ def main() -> int:
                          kern["ssl_fwd"], kern["ssl_fwd_unmasked"], {
                              "path": "ssl_train, transfer, tabular_mcm, "
                                      "mcm_edge (tabgnnfused), ssl_moco, "
-                                     "mcm_parity",
+                                     "mcm_parity, eth_ssl, "
+                                     "node_family_parity (ssl)",
                              "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
                              "launches": sum(split_fwd.values())
-                             + sum(mcm_fwd_split.values()),
+                             + sum(mcm_fwd_split.values())
+                             + sum(eth_fwd_split.values()),
                              "launches_by_path": {**split_fwd,
-                                                  **mcm_fwd_split},
+                                                  **mcm_fwd_split,
+                                                  **eth_fwd_split},
                              "split_launches":
                                  ssl_rec["train_launches"]["fwd_split"]
                                  + ssl_rec["eval_launches"]["fwd_split"]
                                  + transfer_split["fwd"]
-                                 + sum(mcm_fwd_split.values()),
+                                 + sum(mcm_fwd_split.values())
+                                 + sum(eth_fwd_split.values()),
                              "core_max_abs_err": max(
                                  r["core_max_abs_err"]
                                  for r in kern["ssl_fwd"]),
@@ -3049,20 +3723,25 @@ def main() -> int:
                          kern["ssl_bwd"], kern["ssl_bwd_unmasked"], {
                              "path": "ssl_train, transfer, tabular_mcm, "
                                      "mcm_edge (tabgnnfused), ssl_moco "
-                                     "(a pull a loss), mcm_parity",
+                                     "(a pull a loss), mcm_parity, eth_ssl, "
+                                     "node_family_parity (ssl)",
                              "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
                              "launches": sum(split_bwd.values())
-                             + sum(mcm_bwd_split.values()),
+                             + sum(mcm_bwd_split.values())
+                             + sum(eth_bwd_split.values()),
                              "launches_by_path": {**split_bwd,
-                                                  **mcm_bwd_split},
+                                                  **mcm_bwd_split,
+                                                  **eth_bwd_split},
                              "split_launches":
                                  ssl_rec["train_launches"]["bwd_split"]
                                  + transfer_split["bwd"]
-                                 + sum(mcm_bwd_split.values()),
+                                 + sum(mcm_bwd_split.values())
+                                 + sum(eth_bwd_split.values()),
                              "reduce_launches":
                                  ssl_rec["train_launches"]["reduce"]
                                  + transfer["train_launches"]["reduce"]
-                                 + sum(mcm_bwd_split.values()),
+                                 + sum(mcm_bwd_split.values())
+                                 + sum(eth_bwd_split.values()),
                              "launches_under_bf16":
                                  ssl16["train_launches"]["bwd_split"]
                                  + ssl_parity16["launches"]["bwd_split"],
@@ -3074,11 +3753,16 @@ def main() -> int:
                              "library_masked": False}),
             kernel_entry("column_attention_fwd_long", 165,
                          klong["node_fwd"][:1], klong["node_fwd"][1:], {
-                             "path": "node (node tokens, S = 167)",
+                             "path": "node (node tokens, S = 167), the "
+                                     "node families' node tokens (S = 129, "
+                                     "130; the record's 18 and 129)",
                              "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
                              "core": "column_attention_fwd_core_long_kernel",
-                             "launches": sum(node_fwd_split.values()),
-                             "launches_by_path": node_fwd_split,
+                             "launches": sum(node_fwd_split.values())
+                             + sum(nf_fwd_long.values()),
+                             "launches_by_path": {**node_fwd_split,
+                                                  **nf_fwd_long},
+                             "families": shape_times(klong["family_fwd"]),
                              "core_max_abs_err": max(
                                  r["core_max_abs_err"]
                                  for r in klong["node_fwd"]),
@@ -3087,11 +3771,16 @@ def main() -> int:
                              "library_masked": False}),
             kernel_entry("column_attention_bwd_long", 178,
                          klong["node_bwd"][:1], klong["node_bwd"][1:], {
-                             "path": "node (node tokens, S = 167)",
+                             "path": "node (node tokens, S = 167), the "
+                                     "node families' node tokens (S = 129, "
+                                     "130; the record's 18 and 129)",
                              "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
                              "core": "column_attention_bwd_core_long_kernel",
-                             "launches": sum(node_bwd_split.values()),
-                             "launches_by_path": node_bwd_split,
+                             "launches": sum(node_bwd_split.values())
+                             + sum(nf_bwd_long.values()),
+                             "launches_by_path": {**node_bwd_split,
+                                                  **nf_bwd_long},
+                             "families": shape_times(klong["family_bwd"]),
                              "max_rel_err": max(max(r["max_rel_err"].values())
                                                 for r in klong["node_bwd"]),
                              "unmasked": shape_times(klong["node_bwd"][1:]),

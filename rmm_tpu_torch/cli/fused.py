@@ -9,7 +9,9 @@ lr 2e-4; ``bench.py`` pretrains it with ``--precision bf16``; ``--moo
 moco`` weights mcm-lp's two gradients by MoCo) plus
 ``--device`` (``cuda`` by default, which raises without CUDA; ``cpu`` runs
 the kernels' plain versions). Flags whose behaviour is not
-ported are refused by name. The run directory is
+ported are refused by name. ``--dataset`` is an IBM AML CSV, or an
+Ethereum phishing directory (any path holding ``eth``, in any case):
+``build_ssl_dataset``. The run directory is
 ``<wandb_dir>/run_<run_name>``: ``metrics.jsonl``, ``config.json``,
 ``logs.log`` and, under ``--save_model`` or ``--checkpoint``, the per-epoch
 checkpoints ``<epoch>/`` and the best-metric snapshots ``best_acc``,
@@ -32,8 +34,7 @@ from typing import Optional
 
 #: flag → the only value the port accepts (the JAX CLI's default)
 UNPORTED = {"dp": 0, "scan_layers": False, "steps_per_dispatch": 1,
-            "frontier_capacity": 0, "inflight_groups": 2, "ports": False,
-            "split_type": "temporal_daily"}
+            "frontier_capacity": 0, "inflight_groups": 2}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -94,9 +95,6 @@ def config_from_args(args: argparse.Namespace):
                 f"--{flag} {getattr(args, flag)} is not ported yet")
     if args.sampler == "device":
         raise NotImplementedError("--sampler device is not ported yet")
-    if "eth" in args.dataset.lower():
-        raise NotImplementedError(
-            "the Ethereum phishing dataset is not ported yet")
     return Config(
         model="tabgnnfused", data=args.dataset, batch_size=args.batch_size,
         lr=args.lr, adam_eps=args.eps, weight_decay=args.weight_decay,
@@ -105,7 +103,8 @@ def config_from_args(args: argparse.Namespace):
         num_neg_samples=args.num_neg_samples,
         num_neighs=tuple(args.khop_neighbors), split_type=args.split_type,
         splits=tuple(args.splits), reverse_mp=args.reverse_mp, ego=args.ego,
-        edge_capacity=args.edge_capacity, node_capacity=args.node_capacity,
+        ports=args.ports, edge_capacity=args.edge_capacity,
+        node_capacity=args.node_capacity,
         pretrain=(("mask",) if "mcm" in args.mode else ()) + ("lp",),
         save_model=args.save_model, testing=args.testing,
         wandb_dir=args.wandb_dir, group=str(args.group),
@@ -113,8 +112,27 @@ def config_from_args(args: argparse.Namespace):
         moo=args.moo, device=args.device)
 
 
+def build_ssl_dataset(cfg):
+    """The SSL CLI's own dispatch (``rmm_tpu/cli/fused.py``): a path whose
+    lower case holds ``eth`` is Ethereum phishing (split by
+    ``--split_type`` at ``--splits``), any other IBM AML; both with the
+    pretraining targets of ``cfg.pretrain``, ``--ports`` and ``--ego``.
+    (The supervised CLI's ``build_dataset`` matches ``ethereum-phishing``
+    instead and fixes ``temporal_daily``.)"""
+    from ..datasets import EthereumPhishing, IBMTransactionsAML
+    from ..datasets.base import parse_pretrain_args
+
+    kw = dict(pretrain=parse_pretrain_args(cfg.pretrain),
+              split_type=cfg.split_type, splits=tuple(cfg.splits),
+              khop_neighbors=tuple(cfg.num_neighs), ports=cfg.ports,
+              ego=cfg.ego, edge_capacity=cfg.edge_capacity,
+              node_capacity=cfg.node_capacity)
+    if "eth" in cfg.data.lower():
+        return EthereumPhishing(root=cfg.data, **kw)
+    return IBMTransactionsAML(root=cfg.data, **kw)
+
+
 def main(argv=None, stats: Optional[dict] = None):
-    from ..datasets import build_dataset
     from ..train.pretrain import PretrainTrainer
     from ..utils.checkpoint import parse_checkpoint_path
     from ..utils.device import resolve_device
@@ -128,7 +146,7 @@ def main(argv=None, stats: Optional[dict] = None):
     logging.info(cfg.to_json())
 
     t0 = time.perf_counter()
-    dataset = build_dataset(cfg)
+    dataset = build_ssl_dataset(cfg)
     trainer = PretrainTrainer(cfg, dataset, mode=args.mode)
     start_epoch, best = 0, None
     if args.checkpoint:

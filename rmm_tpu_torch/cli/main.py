@@ -7,6 +7,11 @@
 ``gin``, ``pna``, ``cpna``, ``cpnatab`` (the GNN baselines; ``--emlps``
 turns their edge updates on), ``tabgnn``, ``tabgnninterleaved`` and
 ``tabgnnfused``; ``--precision bf16`` runs ``tabgnn`` and ``tabgnnfused``.
+``--data`` is an IBM AML CSV or a node dataset's directory, told apart by
+its path (``datasets.build_dataset``: ``ethereum-phishing``, ``elliptic``,
+``ogbn``, ``musae``, ``lastfm``), which ``--task node_classification``
+takes with any model (``elliptic`` and ``ogbn-arxiv`` set the task); the
+dataset's ``n_classes`` sizes the head.
 Same flags as ``rmm_tpu.cli.main`` plus ``--device`` (``cuda`` by default,
 which raises without CUDA; ``cpu`` runs the kernels' plain versions), and
 without ``--dp``. The run directory is ``<wandb_dir>/run_<pid>`` (or the

@@ -11,7 +11,8 @@
 Same flags as ``rmm_tpu.cli.predict`` plus ``--device`` (``cuda`` by
 default, which raises without CUDA; ``cpu`` runs the kernels' plain
 versions). Writes one row per scored seed edge, or seed node for node
-classification (Elliptic's; its "unknown" rows are not scored):
+classification (any node dataset; Elliptic's "unknown" rows are not
+scored):
 ``id,pred[,score]``.
 ``--split all`` scores every row with the full-graph sampler.
 

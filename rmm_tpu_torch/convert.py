@@ -27,6 +27,7 @@ against such a record or against a second run, with the tolerances below.
 from __future__ import annotations
 
 import math
+import re
 from typing import Optional, Sequence
 
 import numpy as np
@@ -274,6 +275,78 @@ def record_errors(state: dict, record, prefix: str) -> dict[str, tuple]:
             abs(float(arr.sum()) - float(record[f"{prefix}sum/{path}"])),
             arr.size)
     return out
+
+
+#: the arrays a record keeps of each sampled variable
+SAMPLED = ("idx", "val", "sum", "norm")
+_SAMPLED_KEY = re.compile(
+    r"^(.*?)(idx|val|sum|norm)/((?:params|batch_stats)/.*)$")
+
+
+class Record(dict):
+    """A parity record in memory: its arrays by key, and the keys as
+    ``np.load``'s ``files`` (what :func:`check_record` reads)."""
+
+    @property
+    def files(self) -> list[str]:
+        return list(self)
+
+
+def pack_record(arrays: dict) -> dict:
+    """The layout every parity record is saved in: its sampled variables
+    (``<prefix>idx|val|sum|norm/<path>``, ``<path>`` under ``params/`` or
+    ``batch_stats/``) packed a prefix at a time into
+    ``<prefix>packed/keys``, ``count`` (entries a variable), ``idx``,
+    ``val``, ``sum`` and ``norm``: each npz member costs about 200 bytes
+    of zip headers, which a record of many runs and variables would spend
+    mostly on them. Every other array stays as it is."""
+    out, groups = {}, {}
+    for key, arr in arrays.items():
+        m = _SAMPLED_KEY.match(key)
+        if m is None:
+            out[key] = arr
+            continue
+        prefix, kind, path = m.groups()
+        groups.setdefault(prefix, {}).setdefault(path, {})[kind] = arr
+    for prefix, paths in groups.items():
+        keys = sorted(paths)
+        out[f"{prefix}packed/keys"] = np.asarray(keys)
+        out[f"{prefix}packed/count"] = np.asarray(
+            [len(paths[k]["idx"]) for k in keys], np.int32)
+        for kind in SAMPLED:
+            out[f"{prefix}packed/{kind}"] = np.concatenate(
+                [np.atleast_1d(paths[k][kind]) for k in keys])
+    return out
+
+
+def unpack_record(record) -> Record:
+    """:func:`pack_record`'s inverse, on a loaded npz."""
+    out = Record()
+    for key in record.files:
+        if "packed/" not in key:
+            out[key] = record[key]
+    for key in record.files:
+        if not key.endswith("packed/keys"):
+            continue
+        prefix = key[:-len("packed/keys")]
+        keys = [str(k) for k in record[key]]
+        ends = np.cumsum(record[f"{prefix}packed/count"])[:-1]
+        idx = np.split(record[f"{prefix}packed/idx"], ends)
+        val = np.split(record[f"{prefix}packed/val"], ends)
+        sums = record[f"{prefix}packed/sum"]
+        norms = record[f"{prefix}packed/norm"]
+        for i, path in enumerate(keys):
+            out[f"{prefix}idx/{path}"] = idx[i]
+            out[f"{prefix}val/{path}"] = val[i]
+            out[f"{prefix}sum/{path}"] = np.asarray(sums[i])
+            out[f"{prefix}norm/{path}"] = np.asarray(norms[i])
+    return out
+
+
+def load_record(path: str) -> Record:
+    """A parity record from its file (:func:`pack_record`'s layout)."""
+    with np.load(path) as f:
+        return unpack_record(f)
 
 
 def _loss_faults(terms: Sequence[dict], want: dict[str, Sequence[float]],

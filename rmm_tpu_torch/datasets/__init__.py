@@ -1,35 +1,46 @@
-"""Datasets of the port: IBM AML (CSV), Elliptic (a nodes and an edges
-CSV in a directory) and their synthetic twins."""
+"""Datasets of the port: IBM AML (a CSV), Ethereum phishing, Elliptic,
+ogbn-arxiv, MUSAE GitHub and LastFM Asia (a nodes and an edges CSV in a
+directory each) and their synthetic twins."""
 from .base import PretrainType, parse_pretrain_args  # noqa: F401
 from .elliptic import EllipticBitcoin  # noqa: F401
+from .eth_phishing import EthereumPhishing  # noqa: F401
 from .graph_dataset import EdgeTable, GraphTableDataset, NodeTable  # noqa: F401
 from .ibm_aml import IBMTransactionsAML  # noqa: F401
+from .lastfm_asia import LastFMAsia  # noqa: F401
+from .musae_github import MusaeGitHub  # noqa: F401
+from .ogbn_arxiv import OgbnArxiv  # noqa: F401
 from .synthetic import (synthetic_aml_frame, write_synthetic_aml_csv,  # noqa: F401
                         write_synthetic_node_dataset)
 
 
 def build_dataset(cfg) -> GraphTableDataset:
-    """Dataset dispatch by path (``rmm_tpu/datasets/__init__.py``): a path
-    naming ``elliptic`` is the Elliptic directory (supervised node
-    classification), any other IBM AML, supervised or with the pretraining
-    targets of ``cfg.pretrain`` (the SSL CLI's); an ``mcm`` task without
-    them takes the masked-cell and link targets."""
-    for family in ("ethereum-phishing", "ogbn", "musae", "lastfm"):
-        if family in cfg.data:
-            raise NotImplementedError(
-                f"dataset family {family!r} is not ported yet")
+    """Dataset dispatch by path substring (``rmm_tpu/datasets/
+    __init__.py``), in its order: ``ethereum-phishing`` (the
+    ``temporal_daily`` edge split), ``elliptic``, ``ogbn`` (the
+    ``temporal`` split), ``musae``, ``lastfm``; a Rel-H&M path (``hm`` with
+    ``rel`` or ``h-and-m``) is refused; any other path is IBM AML. AML and
+    Ethereum phishing take the pretraining targets of ``cfg.pretrain`` (the
+    SSL CLI's); an ``mcm`` task without them takes the masked-cell and link
+    targets. ``--ports`` and ``--ego`` reach every dataset."""
     pretrain = parse_pretrain_args(cfg.pretrain)
     if "mcm" in cfg.task and not pretrain:
         pretrain = {PretrainType.MASK, PretrainType.LINK_PRED}
-    if cfg.ports:
-        raise NotImplementedError("--ports is not ported yet")
-    if "elliptic" in cfg.data:
-        return EllipticBitcoin(
-            root=cfg.data, khop_neighbors=tuple(cfg.num_neighs),
-            ego=cfg.ego, pretrain=pretrain, edge_capacity=cfg.edge_capacity,
-            node_capacity=cfg.node_capacity)
-    return IBMTransactionsAML(
-        root=cfg.data, split_type=cfg.split_type, splits=tuple(cfg.splits),
-        khop_neighbors=tuple(cfg.num_neighs), ego=cfg.ego,
-        edge_capacity=cfg.edge_capacity, node_capacity=cfg.node_capacity,
-        pretrain=pretrain)
+    common = dict(khop_neighbors=tuple(cfg.num_neighs), ports=cfg.ports,
+                  ego=cfg.ego, edge_capacity=cfg.edge_capacity,
+                  node_capacity=cfg.node_capacity, pretrain=pretrain)
+    data = cfg.data
+    if "ethereum-phishing" in data:
+        return EthereumPhishing(root=data, split_type="temporal_daily",
+                                **common)
+    if "elliptic" in data:
+        return EllipticBitcoin(root=data, **common)
+    if "ogbn" in data:
+        return OgbnArxiv(root=data, split_type="temporal", **common)
+    if "musae" in data:
+        return MusaeGitHub(root=data, **common)
+    if "lastfm" in data:
+        return LastFMAsia(root=data, **common)
+    if "hm" in data and ("rel" in data or "h-and-m" in data):
+        raise NotImplementedError("the Rel-H&M dataset is not ported yet")
+    return IBMTransactionsAML(root=data, split_type=cfg.split_type,
+                              splits=tuple(cfg.splits), **common)

@@ -112,22 +112,44 @@ def write_csv_columns(path: str, columns: dict[str, np.ndarray]) -> None:
 def apply_split(columns: dict[str, np.ndarray], split_type: str,
                 splits: Sequence[float],
                 timestamp_col: Optional[str]) -> dict[str, np.ndarray]:
-    """Adds the int64 ``split`` column (0 train, 1 val, 2 test) of the node
-    families: ``temporal`` over ``timestamp_col``, or ``random``
-    (``RandomState(0)``'s permutation, its first ``int(n · splits[0])``
-    rows train, the next ``int(n · splits[1])`` val)."""
+    """Adds the int64 ``split`` column (0 train, 1 val, 2 test) of an edge
+    or node table: ``temporal_daily`` (:func:`temporal_balanced_split`),
+    ``temporal`` (:func:`temporal_split`), ``cutoff``
+    (:func:`cutoff_split`, ``splits`` the cut-off times) over
+    ``timestamp_col``, and ``random`` for any other name
+    (:func:`random_split`)."""
+    if split_type == "temporal_daily":
+        return temporal_balanced_split(columns, splits, timestamp_col)
     if split_type == "temporal":
         return temporal_split(columns, splits, timestamp_col)
-    if split_type != "random":
-        raise NotImplementedError(
-            f"split_type={split_type!r} is not ported for the node "
-            "families yet")
+    if split_type == "cutoff":
+        return cutoff_split(columns, splits, timestamp_col)
+    return random_split(columns, splits)
+
+
+def random_split(columns: dict[str, np.ndarray],
+                 splits: Sequence[float]) -> dict[str, np.ndarray]:
+    """``RandomState(0)``'s permutation of the rows: its first
+    ``int(n · splits[0])`` train, the next ``int(n · splits[1])`` val, the
+    rest test."""
     n = len(next(iter(columns.values())))
     perm = np.random.RandomState(0).permutation(n)
     n_train, n_val = int(n * splits[0]), int(n * splits[1])
     split = np.full(n, 2, dtype=np.int64)
     split[perm[:n_train]] = 0
     split[perm[n_train:n_train + n_val]] = 1
+    columns["split"] = split
+    return columns
+
+
+def cutoff_split(columns: dict[str, np.ndarray], cutoffs: Sequence[float],
+                 timestamp_col: str) -> dict[str, np.ndarray]:
+    """Rows before ``cutoffs[0]`` train, after ``cutoffs[-1]`` test, the
+    rest (both cut-offs included) val."""
+    ts = np.asarray(columns[timestamp_col])
+    split = np.ones(len(ts), dtype=np.int64)
+    split[ts < cutoffs[0]] = 0
+    split[ts > cutoffs[-1]] = 2
     columns["split"] = split
     return columns
 

@@ -12,20 +12,25 @@ from ..frame.stats import StatType
 from ..frame.stype import Stype
 from ..graph.store import GraphStore
 from ..utils.batch import GraphBatch, graph_inputs, lp_inputs, node_inputs
-from .base import (PretrainType, blank_masked_cells, build_mask_target,
-                   category_codes, create_mask, pack_link_column,
-                   pack_target, temporal_balanced_split)
+from .base import (PretrainType, apply_split, blank_masked_cells,
+                   build_mask_target, category_codes, create_mask,
+                   pack_link_column, pack_target)
 
 
 class EdgeTable(Dataset):
-    """Transactions as edges: temporal split, per-split graphs and the packed
-    target (``base.py``'s layouts). ``pretrain`` ⊆ {MASK, LINK_PRED}; empty
-    is supervised. Under MASK each row has one masked column
-    (``create_mask``, cached next to ``cache_root``), whose cell is blanked
-    before the column statistics are computed."""
+    """Transactions as edges: the split (``apply_split``'s types over
+    ``timestamp_col``; under ``cutoff`` ``splits`` holds the cut-off
+    times), per-split graphs and the packed target (``base.py``'s layouts;
+    none for a table without a label that pretrains on nothing).
+    ``pretrain`` ⊆ {MASK, LINK_PRED}; empty is supervised. Under MASK each
+    row has one masked column (``create_mask``, cached next to
+    ``cache_root``), whose cell is blanked before the column statistics
+    are computed. ``ports`` adds the numerical columns ``in_port`` and
+    ``out_port`` (``GraphStore.ports`` over the full graph in time
+    order)."""
 
     def __init__(self, columns: dict[str, np.ndarray], col_to_stype: dict,
-                 src_col: str, dst_col: str, timestamp_col: str,
+                 src_col: str, dst_col: str, timestamp_col: Optional[str],
                  supervised_col: Optional[str],
                  masked_numerical_columns: Sequence[str] = (),
                  masked_categorical_columns: Sequence[str] = (),
@@ -33,20 +38,23 @@ class EdgeTable(Dataset):
                  split_type: str = "temporal_daily",
                  splits: Sequence[float] = (0.6, 0.2, 0.2),
                  khop_neighbors: Sequence[int] = (100, 100),
-                 cache_root: Optional[str] = None):
-        if split_type != "temporal_daily":
-            raise NotImplementedError(
-                f"split_type={split_type!r}: the port has temporal_daily only")
+                 ports: bool = False, cache_root: Optional[str] = None):
         self.pretrain = set(pretrain or ())
         self.masked_numerical_columns = list(masked_numerical_columns)
         self.masked_categorical_columns = list(masked_categorical_columns)
         col_to_stype = dict(col_to_stype)
-        columns = temporal_balanced_split(dict(columns), list(splits),
-                                          timestamp_col)
+        columns = apply_split(dict(columns), split_type, list(splits),
+                              timestamp_col)
         src = np.asarray(columns[src_col]).astype(np.int64)
         dst = np.asarray(columns[dst_col]).astype(np.int64)
+        ts = (np.asarray(columns[timestamp_col]).astype(np.int64)
+              if timestamp_col else None)
         self.graph = GraphStore(src, dst, split=columns["split"],
-                                fanouts=khop_neighbors)
+                                timestamps=ts, fanouts=khop_neighbors)
+        if ports:
+            columns["in_port"], columns["out_port"] = self.graph.ports()
+            col_to_stype["in_port"] = Stype.numerical
+            col_to_stype["out_port"] = Stype.numerical
         mask_target = None
         if PretrainType.MASK in self.pretrain:
             maskable = (self.masked_numerical_columns

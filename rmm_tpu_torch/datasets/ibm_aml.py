@@ -1,7 +1,8 @@
 """IBM Transactions for AML: the transaction CSV becomes the edges table
 (3 categorical columns, 1 numerical, the timestamp) beside an id-only nodes
 table (counterpart of ``rmm_tpu/datasets/ibm_aml.py``). Maskable columns
-for pretraining: Amount Paid, then the three categoricals."""
+for pretraining: Amount Paid, then the three categoricals. ``ports`` adds
+the ``in_port`` and ``out_port`` numerical columns."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -30,7 +31,8 @@ class IBMTransactionsAML(GraphTableDataset):
                  splits: Sequence[float] = (0.6, 0.2, 0.2),
                  khop_neighbors: Sequence[int] = (100, 100),
                  ego: bool = False, edge_capacity: int = 0,
-                 node_capacity: int = 0, pretrain: Optional[set] = None):
+                 node_capacity: int = 0, pretrain: Optional[set] = None,
+                 ports: bool = False):
         columns = read_csv_columns(root)
         if list(columns)[:3] != AML_COLUMNS[:3]:
             # headerless-style exports: rename positionally
@@ -43,6 +45,6 @@ class IBMTransactionsAML(GraphTableDataset):
             masked_categorical_columns=[
                 "Receiving Currency", "Payment Currency", "Payment Format"],
             pretrain=pretrain, split_type=split_type, splits=splits,
-            khop_neighbors=khop_neighbors, cache_root=root)
+            khop_neighbors=khop_neighbors, ports=ports, cache_root=root)
         nodes = NodeTable.synthetic(edges.graph.num_nodes - 1, ego=ego)
         super().__init__(edges, nodes, edge_capacity, node_capacity)

@@ -1,10 +1,13 @@
 """Node-classification families (counterpart of
 ``rmm_tpu/datasets/node_family.py``): a feature-rich nodes table whose
 every column but the id and the label is a numerical token, beside an edges
-table with one dummy attribute; batches are node-seeded k-hop samples.
+table with one dummy attribute (or the two port columns); batches are
+node-seeded k-hop samples.
 
-Supervised only: the pretraining targets (``pretrain``), port numbering
-(``--ports``) and ego ids (``--ego``) of these families are not ported.
+Supervised only: the pretraining targets (``pretrain``) of these families
+are refused. No entry point reaches them (the JAX ``build_dataset`` passes
+no ``pretrain`` to a node family); only a direct caller of
+``FeatureNodeTable`` does.
 """
 from __future__ import annotations
 
@@ -19,23 +22,13 @@ from .base import apply_split
 from .graph_dataset import GraphTableDataset, NodeTable
 
 
-def _refuse(pretrain=None, ports: bool = False, ego: bool = False):
-    if pretrain:
-        raise NotImplementedError(
-            "pretraining targets of the node-classification families are "
-            "not ported yet")
-    for flag, value in (("--ports", ports), ("--ego", ego)):
-        if value:
-            raise NotImplementedError(
-                f"{flag} is not ported for the node-classification "
-                "families yet")
-
-
 class FeatureNodeTable(NodeTable):
     """The nodes table: every column but ``label_col``, ``id_col`` and
-    ``exclude`` numerical, the packed target ``[label, id]`` (float32) and
-    a ``split`` column (``split_type`` over ``timestamp_col``, or random
-    where there is none)."""
+    ``exclude`` numerical, the packed target ``[label, id]`` (float32), a
+    ``split`` column (``split_type`` over ``timestamp_col``, or random
+    where there is none) and, under ``ego``, an ``EgoID`` relation column
+    of zeros (the wrappers mark a column named ``ego`` alone, so it stays
+    zero, as in the reference)."""
 
     def __init__(self, columns: dict[str, np.ndarray], label_col: str,
                  id_col: str, exclude: Sequence[str] = (),
@@ -43,7 +36,10 @@ class FeatureNodeTable(NodeTable):
                  splits: Sequence[float] = (0.6, 0.2, 0.2),
                  timestamp_col: Optional[str] = None,
                  pretrain: Optional[set] = None, ego: bool = False):
-        _refuse(pretrain, ego=ego)
+        if pretrain:
+            raise NotImplementedError(
+                "pretraining targets of the node-classification families "
+                "are not ported: no entry point reaches them")
         columns = dict(columns)
         feat_cols = [c for c in columns
                      if c not in set(exclude) | {label_col, id_col}]
@@ -57,19 +53,25 @@ class FeatureNodeTable(NodeTable):
             [np.asarray(columns[label_col], np.float64),
              np.asarray(columns[id_col], np.float64)], axis=1)
         col_to_stype["target"] = Stype.relation
+        if ego:
+            columns["EgoID"] = np.zeros(len(columns["target"]))
+            col_to_stype["EgoID"] = Stype.relation
         super().__init__(columns, col_to_stype, split_col="split",
                          target_col="target")
 
 
 class SimpleEdgeTable(Dataset):
-    """The edges table: one numerical ``edge_attr`` of 1.0 a row, and the
-    one graph of all edges that every sampling mode shares (node
-    classification has no edge split)."""
+    """The edges table: one ``edge_attr`` of 1.0 a row or, under ``ports``,
+    the ``in_port`` and ``out_port`` columns (``GraphStore.ports`` with
+    every edge at time 0), all of ``attr_stype`` (numerical, or relation
+    for ogbn-arxiv); and the one graph of all edges that every sampling
+    mode shares (node classification has no edge split)."""
 
     def __init__(self, columns: dict[str, np.ndarray], src_col: str,
-                 dst_col: str, khop_neighbors: Sequence[int] = (100, 100),
-                 num_nodes: Optional[int] = None, ports: bool = False):
-        _refuse(ports=ports)
+                 dst_col: str, attr_stype: Stype = Stype.numerical,
+                 ports: bool = False,
+                 khop_neighbors: Sequence[int] = (100, 100),
+                 num_nodes: Optional[int] = None):
         self.masked_numerical_columns: list[str] = []
         self.masked_categorical_columns: list[str] = []
         src = np.asarray(columns[src_col], np.int64)
@@ -77,8 +79,13 @@ class SimpleEdgeTable(Dataset):
         self.graph = GraphStore(src, dst, split=None, fanouts=khop_neighbors,
                                 num_nodes=num_nodes)
         columns = dict(columns)
-        columns["edge_attr"] = np.ones(len(src))
-        super().__init__(columns, {"edge_attr": Stype.numerical})
+        if ports:
+            columns["in_port"], columns["out_port"] = self.graph.ports()
+            col_to_stype = {"in_port": attr_stype, "out_port": attr_stype}
+        else:
+            columns["edge_attr"] = np.ones(len(src))
+            col_to_stype = {"edge_attr": attr_stype}
+        super().__init__(columns, col_to_stype)
 
 
 class NodeClassificationDataset(GraphTableDataset):

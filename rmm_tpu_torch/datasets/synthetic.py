@@ -1,5 +1,6 @@
 """Synthetic datasets (numpy only): IBM-AML-shaped transactions and the
-Elliptic node-classification family.
+node-classification families (Elliptic, ogbn-arxiv, MUSAE GitHub, LastFM
+Asia, Ethereum phishing).
 
 Same generators as ``rmm_tpu/datasets/synthetic.py``
 (``synthetic_aml_frame``, ``write_synthetic_node_dataset``): the same
@@ -85,26 +86,64 @@ def write_synthetic_node_dataset(root: str, family: str = "elliptic",
                                  num_nodes: int = 300, num_edges: int = 900,
                                  num_feats: int = 8, n_classes: int = 4,
                                  seed: int = 0) -> str:
-    """``<root>/nodes.csv`` and ``<root>/edges.csv`` in the Elliptic schema
-    (the only family ported): ``txId`` (not contiguous), ``class`` ("1",
-    "2" by label parity, 20% "unknown"), the feature columns "1".."F" with
-    "1" the time step (an integer in [1, 50), independent of the label),
-    and edges ``txId1``, ``txId2``."""
-    if family != "elliptic":
-        raise NotImplementedError(
-            f"synthetic node family {family!r} is not ported yet")
+    """``<root>/nodes.csv`` and ``<root>/edges.csv`` in a family's schema,
+    the labels drawn in ``[0, n_classes)``, the features a normal draw
+    shifted by 0.8 · label and 70% of the edges within a label:
+
+    * ``elliptic``: ``txId`` (not contiguous), ``class`` ("1", "2" by label
+      parity, 20% "unknown"), the feature columns "1".."F" with "1" the
+      time step (an integer in [1, 50), independent of the label); edges
+      ``txId1``, ``txId2``;
+    * ``musae``: ``f0``..``f{F-1}``, ``id``, ``name``, ``ml_target`` (the
+      label's parity); edges ``id_1``, ``id_2``;
+    * ``lastfm``: the features, ``id``, ``target``; edges ``node_1``,
+      ``node_2``;
+    * ``eth``: ``node``, ``label`` (the label's parity),
+      ``first_transaction`` (seconds in 30 days); edges ``from_address``,
+      ``to_address``, ``nonce``, ``value``, ``gas``, ``gas_price``,
+      ``block_timestamp`` (no feature column is written);
+    * any other name (``ogbn``): the features, ``id``, ``label``, ``year``
+      (2010-2019); edges ``src``, ``dst``."""
     os.makedirs(root, exist_ok=True)
     rng = np.random.RandomState(seed)
     labels = rng.randint(0, n_classes, num_nodes)
     feats = rng.randn(num_nodes, num_feats) + labels[:, None] * 0.8
     src, dst = _planted_edges(rng, num_nodes, num_edges, labels)
-    feats[:, 0] = rng.randint(1, 50, num_nodes).astype(np.float32)
-    tx = np.arange(num_nodes) * 7 + 3
-    cls = np.where(labels % 2 == 0, "1", "2").astype(object)
-    cls[rng.rand(num_nodes) < 0.2] = "unknown"
-    nodes = {"txId": tx, "class": cls}
-    nodes.update((str(i + 1), feats[:, i]) for i in range(num_feats))
+    ids = np.arange(num_nodes)
+
+    def features() -> dict:
+        return {f"f{i}": feats[:, i] for i in range(num_feats)}
+
+    if family == "elliptic":
+        feats[:, 0] = rng.randint(1, 50, num_nodes).astype(np.float32)
+        tx = ids * 7 + 3
+        cls = np.where(labels % 2 == 0, "1", "2").astype(object)
+        cls[rng.rand(num_nodes) < 0.2] = "unknown"
+        nodes = {"txId": tx, "class": cls}
+        nodes.update((str(i + 1), feats[:, i]) for i in range(num_feats))
+        edges = {"txId1": tx[src], "txId2": tx[dst]}
+    elif family == "musae":
+        nodes = {**features(), "id": ids,
+                 "name": np.array([f"dev{i}" for i in ids], dtype=object),
+                 "ml_target": labels % 2}
+        edges = {"id_1": src, "id_2": dst}
+    elif family == "lastfm":
+        nodes = {**features(), "id": ids, "target": labels}
+        edges = {"node_1": src, "node_2": dst}
+    elif family == "eth":
+        nodes = {"node": ids, "label": labels % 2,
+                 "first_transaction": rng.randint(0, 30 * 86400, num_nodes)}
+        # draw order: the edge columns left to right
+        edges = {"from_address": src, "to_address": dst}
+        edges["nonce"] = rng.randint(0, 100, num_edges).astype(float)
+        edges["value"] = rng.lognormal(0, 1, num_edges)
+        edges["gas"] = rng.lognormal(1, 0.3, num_edges)
+        edges["gas_price"] = rng.lognormal(2, 0.5, num_edges)
+        edges["block_timestamp"] = rng.randint(0, 30 * 86400, num_edges)
+    else:
+        nodes = {**features(), "id": ids, "label": labels,
+                 "year": rng.randint(2010, 2020, num_nodes)}
+        edges = {"src": src, "dst": dst}
     write_csv_columns(os.path.join(root, "nodes.csv"), nodes)
-    write_csv_columns(os.path.join(root, "edges.csv"),
-                      {"txId1": tx[src], "txId2": tx[dst]})
+    write_csv_columns(os.path.join(root, "edges.csv"), edges)
     return root

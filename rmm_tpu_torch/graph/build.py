@@ -48,5 +48,9 @@ def load_library() -> ctypes.CDLL:
         lib.rmm_negative_sample.argtypes = [
             i64p, i64p, ctypes.c_int64, i64p, i64p, ctypes.c_int64,
             ctypes.c_int64, ctypes.c_int64, ctypes.c_uint64, i64p, i64p]
+        f64p = ctypes.POINTER(ctypes.c_double)
+        lib.rmm_ports.restype = None
+        lib.rmm_ports.argtypes = [i64p, i64p, i64p, ctypes.c_int64,
+                                  ctypes.c_int64, f64p, f64p]
         _lib = lib
         return _lib

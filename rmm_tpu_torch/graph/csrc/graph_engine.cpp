@@ -6,9 +6,8 @@
 // Only what the port's paths read: the CSR graph, its in-degrees,
 // edge-seeded k-hop sampling (pyg-lib's NeighborSampler contract: seed edges
 // first, PADDED fixed-capacity neighborhoods, local relabeling in the same
-// pass), node-seeded k-hop sampling (node classification: seed nodes first)
-// and negative sampling for link prediction. Port numbering comes with the
-// slice that uses it.
+// pass), node-seeded k-hop sampling (node classification: seed nodes first),
+// negative sampling for link prediction and port numbering.
 //
 // Exposed through a plain C ABI consumed via ctypes (no pybind11 in image).
 
@@ -332,6 +331,38 @@ void rmm_negative_sample(const int64_t* src, const int64_t* dst,
       ++w;
     }
   }
+}
+
+// Port numbering: for each directed edge (u -> v), in_port = rank of u among
+// v's time-sorted unique in-neighbors; out_port analogously on the reversed
+// graph (reference src/datasets/util/graph.py:81-102).
+void rmm_ports(const int64_t* src, const int64_t* dst, const int64_t* ts,
+               int64_t n_edges, int64_t num_nodes, double* in_ports,
+               double* out_ports) {
+  struct Inc {
+    int64_t nbr, t, eid;
+  };
+  auto compute = [&](const int64_t* key, const int64_t* other, double* out) {
+    std::vector<std::vector<Inc>> by_node(num_nodes);
+    for (int64_t i = 0; i < n_edges; ++i)
+      by_node[key[i]].push_back({other[i], ts ? ts[i] : 0, i});
+    std::unordered_map<int64_t, int64_t> rank;
+    for (int64_t v = 0; v < num_nodes; ++v) {
+      auto& inc = by_node[v];
+      if (inc.empty()) continue;
+      std::stable_sort(inc.begin(), inc.end(),
+                       [](const Inc& a, const Inc& b) { return a.t < b.t; });
+      rank.clear();
+      int64_t next = 0;
+      for (auto& e : inc) {
+        auto it = rank.find(e.nbr);
+        if (it == rank.end()) it = rank.emplace(e.nbr, next++).first;
+        out[e.eid] = static_cast<double>(it->second);
+      }
+    }
+  };
+  compute(dst, src, in_ports);   // in-ports: group by destination
+  compute(src, dst, out_ports);  // out-ports: group by source
 }
 
 }  // extern "C"

@@ -5,10 +5,12 @@
 A wrapper takes the device-resident edge and node tables and a
 :class:`~rmm_tpu_torch.utils.batch.GraphBatch` of ids and masks on the same
 device, gathers the batch's rows there and runs encode → backbone → head.
-Seed edges occupy lanes ``[0, B)``; the head reads that block (for
-``tabgnn``'s node classification the seed nodes, node lanes ``[0, B)``).
-The fused wrapper message-passes over the context lanes ``[B:)`` only and
-fuses the seed block as its targets.
+Seed edges occupy lanes ``[0, B)``; the head reads that block. Under
+``node_classification`` every wrapper's head reads the seed nodes, node
+lanes ``[0, B)``, through a ``NodeClassificationHead`` as wide as the node
+states. The fused wrapper message-passes over the edge lanes ``[B:)`` only
+and fuses the block ``[0, B)`` as its targets, on a node-seeded batch too
+(whatever edges the sampler put there), as the reference does.
 
 Under ``mcm_edge_table`` (masked-cell modeling of the seed edges' masked
 cells) a wrapper's head is an ``MCMHead`` over each seed edge's
@@ -81,7 +83,7 @@ def _deghist_to_avg_log(deg_histogram) -> float:
     return float((hist * np.log(d + 1)).sum() / max(hist.sum(), 1.0))
 
 
-def _refuse_task(model: str, task: str, tasks=("edge_classification",)):
+def _refuse_task(model: str, task: str, tasks: tuple):
     if task not in tasks:
         raise NotImplementedError(
             f"task {task!r} is not ported yet for model {model!r}")
@@ -111,41 +113,58 @@ def _encode(wrapper: nn.Module, edge_table: TensorFrame,
 
 
 class TT(nn.Module):
-    """Tabular-only edge classifier (model ``fttransformer``): one shared
-    ``FTTransformer`` over the node tokens and over the edge tokens; the
-    classifier reads the nodes' and the seed edges' CLS states. Like the
-    reference it never marks the ``ego`` column."""
+    """Tabular-only classifier (model ``fttransformer``): one shared
+    ``FTTransformer``. Edge classification runs it over the node tokens and
+    over the edge tokens, and the classifier reads the nodes' and the seed
+    edges' CLS states; node classification runs it over the node tokens
+    alone (the reference builds no edge encoder then) and reads the seed
+    nodes' CLS states. Like the reference it never marks the ``ego``
+    column and has no ``mcm_edge_table`` branch."""
+
+    TASKS = ("edge_classification", "node_classification")
 
     def __init__(self, node_encoder: StypeWiseFeatureEncoder,
                  edge_encoder: StypeWiseFeatureEncoder, channels: int,
                  num_layers: int, n_classes: int = 2, dropout: float = 0.1,
                  task: str = "edge_classification", ego: bool = False):
         super().__init__()
-        _refuse_task("fttransformer", task)
+        _refuse_task("fttransformer", task, self.TASKS)
+        self.task = task
         self.node_encoder = node_encoder
-        self.edge_encoder = edge_encoder
         self.model = FTTransformer(channels, num_layers, dropout=dropout)
-        self.decoder = ClassifierHead(n_classes, channels, channels, dropout)
+        if task == "node_classification":
+            self.decoder = NodeClassificationHead(n_classes, channels,
+                                                  dropout)
+        else:
+            self.edge_encoder = edge_encoder
+            self.decoder = ClassifierHead(n_classes, channels, channels,
+                                          dropout)
 
     def forward(self, edge_table: TensorFrame, node_table: TensorFrame,
                 batch: GraphBatch) -> torch.Tensor:
         b = batch.num_seeds
         x_tok = self.node_encoder(gather_rows(node_table, batch.node_gather))
-        e_tok = self.edge_encoder(gather_rows(edge_table, batch.edge_gather))
         _, x_cls = self.model(x_tok)
+        if self.task == "node_classification":
+            return self.decoder(x_cls[:b])
+        e_tok = self.edge_encoder(gather_rows(edge_table, batch.edge_gather))
         _, e_cls = self.model(e_tok)
         return self.decoder(x_cls, batch.edge_index[:, :b], e_cls[:b])
 
 
 class GNNWrap(nn.Module):
-    """Pure-GNN edge classifier or masked-cell model (models ``gin``,
-    ``pna``, ``cpna``, ``cpnatab``). ``cpna`` and ``cpnatab`` keep one edge
-    state per column, so the classifier reads ``num_edge_cols · n_hidden``
-    edge features. Their edge updates are ``emlps``'s, as the reference
-    passes them."""
+    """Pure-GNN edge or node classifier or masked-cell model (models
+    ``gin``, ``pna``, ``cpna``, ``cpnatab``). ``cpna`` and ``cpnatab`` keep
+    one edge state per column, so the edge classifier reads
+    ``num_edge_cols · n_hidden`` edge features. Their node states are
+    ``n_hidden`` wide, and so is the node classifier's input: the
+    reference declares ``num_edge_cols · n_hidden`` for it, but its dense
+    layers take their width from the input. Their edge updates are
+    ``emlps``'s, as the reference passes them."""
 
     MODELS = ("gin", "pna", "cpna", "cpnatab")
-    TASKS = ("edge_classification", "mcm_edge_table")
+    TASKS = ("edge_classification", "node_classification",
+             "mcm_edge_table")
 
     def __init__(self, node_encoder: StypeWiseFeatureEncoder,
                  edge_encoder: StypeWiseFeatureEncoder, model_name: str,
@@ -182,6 +201,9 @@ class GNNWrap(nn.Module):
             self.decoder = MCMHead(n_hidden, mcm_num_numerical,
                                    mcm_categorical,
                                    w=2 + edge_width // n_hidden)
+        elif task == "node_classification":
+            self.decoder = NodeClassificationHead(n_classes, n_hidden,
+                                                  dropout)
         else:
             self.decoder = ClassifierHead(n_classes, n_hidden, edge_width,
                                           dropout)
@@ -192,6 +214,8 @@ class GNNWrap(nn.Module):
         x_tok, e_tok = _encode(self, edge_table, node_table, batch)
         x, edge_attr = self.model(x_tok, batch.edge_index, e_tok,
                                   batch.edge_mask, batch.node_mask)
+        if self.task == "node_classification":
+            return self.decoder(x[:b])
         if self.task == "mcm_edge_table":
             return self.decoder(_mcm_target(x, batch.edge_index[:, :b],
                                             edge_attr[:b]))
@@ -200,13 +224,13 @@ class GNNWrap(nn.Module):
 
 class TABGNNS(nn.Module):
     """Hybrid tabular + GNN classifier (models ``tabgnn`` and
-    ``tabgnninterleaved``) of the seed edges (``edge_classification``) or,
-    for ``tabgnn``, of the seed nodes (``node_classification``), or the
-    masked-cell model of the seed edges (``mcm_edge_table``)."""
+    ``tabgnninterleaved``) of the seed edges (``edge_classification``) or
+    of the seed nodes (``node_classification``), or the masked-cell model
+    of the seed edges (``mcm_edge_table``)."""
 
-    TASKS = {"tabgnn": ("edge_classification", "node_classification",
-                        "mcm_edge_table"),
-             "tabgnninterleaved": ("edge_classification", "mcm_edge_table")}
+    TASKS = ("edge_classification", "node_classification",
+             "mcm_edge_table")
+    MODELS = ("tabgnn", "tabgnninterleaved")
 
     def __init__(self, node_encoder: StypeWiseFeatureEncoder,
                  edge_encoder: StypeWiseFeatureEncoder, channels: int,
@@ -216,9 +240,9 @@ class TABGNNS(nn.Module):
                  model_name: str = "tabgnn", mcm_num_numerical: int = 0,
                  mcm_categorical=()):
         super().__init__()
-        if model_name not in self.TASKS:
+        if model_name not in self.MODELS:
             raise ValueError(model_name)
-        _refuse_task(model_name, task, self.TASKS[model_name])
+        _refuse_task(model_name, task, self.TASKS)
         self.ego = ego
         self.task = task
         self.node_encoder = node_encoder
@@ -261,12 +285,14 @@ class TABGNNS(nn.Module):
 
 
 class TABGNNFusedS(nn.Module):
-    """The fused model as an edge classifier or masked-cell model (model
-    ``tabgnnfused``): the node tokens flattened to ``node_dim = S_n·C`` into
-    ``TABGNNFused``, whose targets are the seed edges; the head reads the
-    nodes and the targets' embeddings."""
+    """The fused model as an edge or node classifier or masked-cell model
+    (model ``tabgnnfused``): the node tokens flattened to ``node_dim =
+    S_n·C`` into ``TABGNNFused``, whose targets are the edges of lanes
+    ``[0, B)``; the edge head reads the nodes and the targets' embeddings,
+    the node head the node lanes ``[0, B)``."""
 
-    TASKS = ("edge_classification", "mcm_edge_table")
+    TASKS = ("edge_classification", "node_classification",
+             "mcm_edge_table")
 
     def __init__(self, node_encoder: StypeWiseFeatureEncoder,
                  edge_encoder: StypeWiseFeatureEncoder, channels: int,
@@ -287,14 +313,17 @@ class TABGNNFusedS(nn.Module):
         if task == "mcm_edge_table":
             self.decoder = MCMHead(channels, mcm_num_numerical,
                                    mcm_categorical, w=3)
+        elif task == "node_classification":
+            self.decoder = NodeClassificationHead(n_classes, channels,
+                                                  dropout)
         else:
             self.decoder = ClassifierHead(n_classes, channels, channels,
                                           dropout)
 
     def forward(self, edge_table: TensorFrame, node_table: TensorFrame,
                 batch: GraphBatch):
-        """→ logits [B, n_classes] for the seed edges, or the MCM
-        outputs."""
+        """→ logits [B, n_classes] for the seed edges (or nodes), or the
+        MCM outputs."""
         b = batch.num_seeds
         x_tok, e_tok = _encode(self, edge_table, node_table, batch)
         target_ei = batch.edge_index[:, :b]
@@ -302,6 +331,8 @@ class TABGNNFusedS(nn.Module):
             x_tok.reshape(x_tok.shape[0], -1), batch.edge_index[:, b:],
             e_tok[b:], target_ei, e_tok[:b], False, batch.edge_mask[b:],
             batch.node_mask)
+        if self.task == "node_classification":
+            return self.decoder(x[:b])
         if self.task == "mcm_edge_table":
             return self.decoder(_mcm_target(x, target_ei, target))
         return self.decoder(x, target_ei, target)

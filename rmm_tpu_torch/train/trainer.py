@@ -11,9 +11,12 @@ the card once. Steps and forwards are only enqueued per batch: losses and
 predictions stay on the device until the end of the epoch (one host sync),
 so the host samples the next batch while the card computes the last one.
 
-Node classification (``--task node_classification``, Elliptic's) seeds
-each batch with the view's node ids, which fill node lanes ``[0, B)``; rows
-of the dataset's ``ignore_label`` class are left out of the loss, the
+Node classification (``--task node_classification``: Elliptic, Ethereum
+phishing, ogbn-arxiv, MUSAE GitHub, LastFM Asia; every model) seeds each
+batch with the view's node ids, which fill node lanes ``[0, B)``, sampled
+through the mode's graph (on a dataset with an edge split, such as
+Ethereum phishing, the train graph holds the train edges alone); rows of
+the dataset's ``ignore_label`` class are left out of the loss, the
 metrics and the predictions.
 
 Masked-cell modeling of the edge table (``--task mcm_edge_table``): the

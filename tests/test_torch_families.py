@@ -43,7 +43,7 @@ from rmm_tpu_torch.convert import from_jax
 from rmm_tpu_torch.datasets import (IBMTransactionsAML,
                                     write_synthetic_aml_csv)
 from rmm_tpu_torch.nn import transformer
-from rmm_tpu_torch.nn.decoders import MCMHead
+from rmm_tpu_torch.nn.decoders import MCMHead, NodeClassificationHead
 from rmm_tpu_torch.nn.gnn import conv, models
 from rmm_tpu_torch.nn.models import ft_transformer, interleaved
 from rmm_tpu_torch.ops.segment import segment_sum
@@ -384,13 +384,19 @@ def test_emlps_reaches_the_gnn_baselines_only(tiny_aml, model):
 @pytest.mark.parametrize("model", FAMILIES)
 @pytest.mark.parametrize("task", ["node_classification", "mcm_edge_table"])
 def test_other_tasks_are_refused_by_name(tiny_aml, model, task):
-    """Node classification is refused by every family; ``mcm_edge_table``
-    by ``fttransformer`` alone, as the reference's ``TT`` has no such
-    branch (the others build their MCM head: tests/test_torch_mcm_edge.py
-    holds them against the reference)."""
+    """Every family builds its node classifier (tests/test_torch_node_
+    models.py holds them against the reference); ``mcm_edge_table`` is
+    refused by ``fttransformer`` alone, as the reference's ``TT`` has no
+    such branch (the others build their MCM head: tests/test_torch_mcm_
+    edge.py holds them against the reference)."""
     csv, ds = tiny_aml
     cfg = tiny_cfg(csv, model, task=task)
-    if task == "mcm_edge_table" and model != "fttransformer":
+    if task == "node_classification":
+        head = build_task_model(cfg, ds).decoder
+        assert isinstance(head, NodeClassificationHead)
+        assert head.mlp.fc1.in_features == C
+        return
+    if model != "fttransformer":
         assert isinstance(build_task_model(cfg, ds).decoder, MCMHead)
         return
     with pytest.raises(NotImplementedError, match=f"task {task!r}.*{model}"):

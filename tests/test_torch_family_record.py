@@ -22,8 +22,8 @@ import numpy as np
 import pytest
 import torch
 
-from rmm_tpu_torch.convert import (check_record, from_jax, loss_terms,
-                                   random_variables, torch_key)
+from rmm_tpu_torch.convert import (check_record, from_jax, load_record,
+                                   loss_terms, random_variables, torch_key)
 from rmm_tpu_torch.datasets import build_dataset, write_synthetic_aml_csv
 from rmm_tpu_torch.nn.dropout import set_rate
 from rmm_tpu_torch.train.trainer import Trainer
@@ -39,7 +39,7 @@ SCORE_TOL = 1e-4
 
 @pytest.fixture(scope="module")
 def record(tmp_path_factory):
-    rec = np.load(RECORD)
+    rec = load_record(RECORD)
     st = json.loads(str(rec["settings"]))
     csv = write_synthetic_aml_csv(
         str(tmp_path_factory.mktemp("family") / "aml.csv"),

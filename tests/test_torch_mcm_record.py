@@ -38,7 +38,8 @@ import torch
 from chip_smoke import (MCM_FIXTURE, MCM_OUT_TOL, mcm_cuts, mcm_edge_trainer,
                         mcm_moco_trainer, mcm_output_error,
                         mcm_tabular_trainer, moco_faults)
-from rmm_tpu_torch.convert import check_record, loss_terms, torch_key
+from rmm_tpu_torch.convert import (check_record, load_record, loss_terms,
+                                   torch_key)
 from rmm_tpu_torch.nn.weighting import moco_combine
 from rmm_tpu_torch.train import pretrain
 from rmm_tpu_torch.train.trainer import MCM_SUMS
@@ -49,7 +50,7 @@ EDGE_MODELS = ("tabgnn", "pna", "cpna", "tabgnnfused")
 
 @pytest.fixture(scope="module")
 def record(tmp_path_factory):
-    rec = np.load(MCM_FIXTURE)
+    rec = load_record(MCM_FIXTURE)
     st = json.loads(str(rec["settings"]))
     assert tuple(st["edge_models"]) == EDGE_MODELS
     return rec, st, mcm_cuts(st, str(tmp_path_factory.mktemp("mcm")))

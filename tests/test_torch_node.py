@@ -33,8 +33,8 @@ from rmm_tpu.train.trainer import Trainer as JaxTrainer
 from rmm_tpu.utils.config import Config as JaxConfig
 from rmm_tpu_torch.cli import main as train_cli
 from rmm_tpu_torch.cli import predict
-from rmm_tpu_torch.convert import (check_record, from_jax, loss_terms,
-                                   random_variables, torch_key)
+from rmm_tpu_torch.convert import (check_record, from_jax, load_record,
+                                   loss_terms, random_variables, torch_key)
 from rmm_tpu_torch.datasets import base
 from rmm_tpu_torch.datasets.elliptic import EllipticBitcoin
 from rmm_tpu_torch.datasets.synthetic import write_synthetic_node_dataset
@@ -76,8 +76,15 @@ def test_synthetic_csvs_equal_the_jax_generator_byte_for_byte(
 
 
 def test_synthetic_refuses_the_unported_families(tmp_path):
-    with pytest.raises(NotImplementedError, match="ogbn"):
-        write_synthetic_node_dataset(str(tmp_path), family="ogbn")
+    """Every family of the JAX writer is ported (tests/test_torch_node_
+    data.py holds each CSV to it byte for byte): ``ogbn`` writes its
+    schema."""
+    write_synthetic_node_dataset(str(tmp_path), family="ogbn", num_nodes=20,
+                                 num_edges=30, num_feats=2)
+    cols = base.read_csv_columns(str(tmp_path / "nodes.csv"))
+    assert list(cols) == ["f0", "f1", "id", "label", "year"]
+    assert list(base.read_csv_columns(str(tmp_path / "edges.csv"))) == [
+        "src", "dst"]
 
 
 @pytest.mark.parametrize("splits", [(0.6, 0.2, 0.2), (0.5, 0.3, 0.2)])
@@ -217,7 +224,7 @@ def test_tabgnn_node_forward_matches_jax(elliptic_pair, monkeypatch):
 
 @pytest.fixture(scope="module")
 def record(tmp_path_factory):
-    rec = np.load(RECORD)
+    rec = load_record(RECORD)
     st = json.loads(str(rec["settings"]))
     root = str(tmp_path_factory.mktemp("record") / f"elliptic_{st['nodes']}")
     write_synthetic_node_dataset(root, num_nodes=st["nodes"],
@@ -329,13 +336,20 @@ def test_node_families_refuse_what_is_not_ported(tmp_path):
             ["--data", root, "--model", "tabgnn", "--device", "cpu",
              *extra]))
 
-    with pytest.raises(NotImplementedError, match="--ports"):
-        build_dataset(cfg("--ports"))
-    with pytest.raises(NotImplementedError, match="--ego"):
-        build_dataset(cfg("--ego"))
+    # --ports and --ego are ported: the port columns, the EgoID column
+    ports = build_dataset(cfg("--ports"))
+    assert list(ports.edges.col_to_stype) == ["in_port", "out_port"]
+    ego = build_dataset(cfg("--ego"))
+    assert list(ego.nodes.col_to_stype)[-1] == "EgoID"
+    # the pretraining targets of the node families stay refused: no entry
+    # point reaches them
     with pytest.raises(NotImplementedError, match="pretraining"):
         build_dataset(cfg().replace(pretrain=("mask",)))
-    with pytest.raises(NotImplementedError, match="cutoff"):
-        EllipticBitcoin(root, split_type="cutoff")
-    with pytest.raises(NotImplementedError, match="ogbn"):
+    # every split type is ported: cutoff takes the splits as cut-offs
+    cut = EllipticBitcoin(root, split_type="cutoff", splits=(10, 30))
+    ts = cut.nodes.columns["1"]
+    assert (cut.nodes.columns["split"][ts < 10] == 0).all()
+    assert (cut.nodes.columns["split"][ts > 30] == 2).all()
+    # ogbn-arxiv is ported: its path dispatches to it
+    with pytest.raises(FileNotFoundError, match="ogbn-arxiv"):
         build_dataset(cfg().replace(data=str(tmp_path / "ogbn-arxiv")))

@@ -52,8 +52,8 @@ from rmm_tpu.ops.pallas.column_attention import \
 from rmm_tpu.ops.segment import pna_aggregate as jax_pna
 from rmm_tpu_torch.cli import main as train_cli
 from rmm_tpu_torch.cli import predict
-from rmm_tpu_torch.convert import (check_record, from_jax, loss_terms,
-                                   random_variables)
+from rmm_tpu_torch.convert import (check_record, from_jax, load_record,
+                                   loss_terms, random_variables)
 from rmm_tpu_torch.datasets import IBMTransactionsAML, write_synthetic_aml_csv
 from rmm_tpu_torch.datasets.base import PretrainType
 from rmm_tpu_torch.nn import norms
@@ -362,7 +362,7 @@ def test_pna_aggregate_sums_bf16_messages_in_float32():
 
 @pytest.fixture(scope="module")
 def record(tmp_path_factory):
-    rec = np.load(RECORD)
+    rec = load_record(RECORD)
     st = json.loads(str(rec["settings"]))
     sup = st["sup"]
     csv = write_synthetic_aml_csv(

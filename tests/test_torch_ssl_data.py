@@ -153,9 +153,13 @@ def test_build_dataset_takes_the_pretraining_targets(mcm_lp):
                               num_neighs=FANOUTS))
     assert ds.edges.pretrain == {PretrainType.MASK, PretrainType.LINK_PRED}
     assert ds.edges.tensor_frame.y.shape[1] == 5
-    with pytest.raises(NotImplementedError, match="--ports"):
-        build_dataset(Config(data=csvs[1], pretrain=("mask", "lp"),
-                             ports=True))
+    # --ports adds the two port columns to the edge tokens
+    ports = build_dataset(Config(data=csvs[1], pretrain=("mask", "lp"),
+                                 num_neighs=FANOUTS, ports=True))
+    assert ports.edges.tensor_frame.num_cols == \
+        ds.edges.tensor_frame.num_cols + 2
+    np.testing.assert_array_equal(ports.edges.tensor_frame.y,
+                                  ds.edges.tensor_frame.y)
     # 'mv' adds no target of its own (its loss reads the MASK target), and
     # an mcm task without targets takes the masked-cell and link ones
     mv = build_dataset(Config(data=csvs[1], pretrain=("mask", "mv")))

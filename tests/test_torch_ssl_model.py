@@ -31,7 +31,7 @@ from rmm_tpu.train.pretrain import adamw_no_decay_groups
 from rmm_tpu.utils import loss as jloss
 from rmm_tpu.utils import metric as jmetric
 from rmm_tpu_torch.convert import flatten_variables, from_jax, \
-    random_variables, torch_key
+    load_record, random_variables, torch_key
 from rmm_tpu_torch.datasets import IBMTransactionsAML
 from rmm_tpu_torch.datasets.base import PretrainType
 from rmm_tpu_torch.nn.decoders import LinkPredHead, MCMHead
@@ -301,7 +301,7 @@ def tiny(tmp_path_factory):
     """The port's PretrainModel at the tiny record's config, and the JAX
     pretrainer's variable shapes the record holds (written by
     ``tools/make_torch_port_ssl_fixture.py`` from ``rmm_tpu``)."""
-    rec = np.load(TINY_RECORD)
+    rec = load_record(TINY_RECORD)
     st = json.loads(str(rec["settings"]))
     csv = str(tmp_path_factory.mktemp("ssl") / "aml.csv")
     write_synthetic_aml_csv(csv, num_rows=st["rows"],

@@ -23,9 +23,10 @@ import pytest
 import torch
 
 from rmm_tpu_torch.cli import fused
-from rmm_tpu_torch.convert import (check_record, from_jax, loss_terms,
-                                   random_variables)
-from rmm_tpu_torch.datasets import IBMTransactionsAML, write_synthetic_aml_csv
+from rmm_tpu_torch.convert import (check_record, from_jax, load_record,
+                                   loss_terms, random_variables)
+from rmm_tpu_torch.datasets import (IBMTransactionsAML, write_synthetic_aml_csv,
+                                    write_synthetic_node_dataset)
 from rmm_tpu_torch.datasets.base import PretrainType
 from rmm_tpu_torch.train.pretrain import PretrainTrainer
 from rmm_tpu_torch.utils.config import Config
@@ -37,7 +38,7 @@ RECORD = os.path.join(os.path.dirname(__file__), "fixtures", "torch_port",
 
 @pytest.fixture(scope="module")
 def record(tmp_path_factory):
-    rec = np.load(RECORD)
+    rec = load_record(RECORD)
     st = json.loads(str(rec["settings"]))
     csv = write_synthetic_aml_csv(
         str(tmp_path_factory.mktemp("ssl") / "aml.csv"), num_rows=st["rows"],
@@ -163,8 +164,6 @@ def test_cli_needs_cuda_unless_asked_for_cpu(record, tmp_path):
     (["--sampler", "device"], "--sampler device"),
     (["--frontier_capacity", "64"], "--frontier_capacity"),
     (["--inflight_groups", "3"], "--inflight_groups"),
-    (["--ports"], "--ports"),
-    (["--split_type", "temporal"], "--split_type"),
 ])
 def test_cli_refuses_unported_flags_by_name(record, tmp_path, flags, name):
     _, _, csv = record
@@ -190,5 +189,16 @@ def test_cli_pretrains_an_epoch_in_bf16(record, tmp_path):
 
 
 def test_cli_refuses_the_ethereum_dataset(tmp_path):
-    with pytest.raises(NotImplementedError, match="Ethereum"):
-        fused.main(argv(str(tmp_path / "eth_phishing.csv"), str(tmp_path)))
+    """Ethereum phishing is ported: a path holding ``eth`` pretrains on it
+    (tests/test_torch_node_data.py holds the dispatch to the reference's,
+    tests/test_torch_node_family_record.py the steps), with ``--ports``
+    and another ``--split_type`` too."""
+    root = write_synthetic_node_dataset(str(tmp_path / "ETH"),
+                                        family="eth", num_nodes=120,
+                                        num_edges=600, seed=1)
+    stats = {}
+    (rec,), _ = fused.main(argv(root, str(tmp_path), "--ports",
+                                "--split_type", "temporal"), stats)
+    assert np.isfinite(rec["loss"]) and 0 < rec["val_mrr"] <= 1
+    assert rec["val_accuracy"] == 0.0   # no categorical masked column
+    assert sum(stats["split_rows"]) == 600

@@ -35,7 +35,8 @@ from rmm_tpu_torch.cli import fused
 from rmm_tpu_torch.cli import main as train_cli
 from rmm_tpu_torch.cli import predict
 from rmm_tpu_torch.convert import (check_record, flatten_variables, from_jax,
-                                   loss_terms, random_variables, torch_key)
+                                   load_record, loss_terms, random_variables,
+                                   torch_key)
 from rmm_tpu_torch.datasets import IBMTransactionsAML
 from rmm_tpu_torch.datasets.base import PretrainType
 from rmm_tpu_torch.train.pretrain import PretrainTrainer
@@ -52,7 +53,7 @@ TRANSFER = ["node_encoder", "edge_encoder"]
 
 @pytest.fixture(scope="module")
 def record(tmp_path_factory):
-    rec = np.load(RECORD)
+    rec = load_record(RECORD)
     st = json.loads(str(rec["settings"]))
     csv = write_synthetic_aml_csv(
         str(tmp_path_factory.mktemp("transfer") / "aml.csv"),
@@ -339,10 +340,12 @@ def test_reference_pna_cumsum_sums_part_from_float64_the_port_does_not():
 
 def test_tabgnnfused_refuses_the_unported_tasks(record):
     _, st, csv, _ = record
-    with pytest.raises(NotImplementedError, match="node_classification"):
-        TABGNNFusedS(None, None, 16, 2, task="node_classification")
-    # mcm_edge_table is ported (tests/test_torch_mcm_edge.py)
-    assert "mcm_edge_table" in TABGNNFusedS.TASKS
+    with pytest.raises(NotImplementedError, match="edge_regression"):
+        TABGNNFusedS(None, None, 16, 2, task="edge_regression")
+    # mcm_edge_table (tests/test_torch_mcm_edge.py) and node_classification
+    # (tests/test_torch_node_models.py) are ported
+    assert {"mcm_edge_table", "node_classification"} <= set(
+        TABGNNFusedS.TASKS)
     # every model of the reference's menu is ported: a name outside it
     with pytest.raises(NotImplementedError, match="'gat'"):
         port_trainer(st, csv, "gat")

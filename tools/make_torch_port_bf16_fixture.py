@@ -63,7 +63,7 @@ from rmm_tpu.frame.dataset import DatasetView  # noqa: E402
 from rmm_tpu.train.trainer import Trainer  # noqa: E402
 from rmm_tpu.utils.config import Config  # noqa: E402
 from rmm_tpu_torch.convert import (flatten_variables, loss_terms,  # noqa: E402
-                                   random_variables)
+                                   pack_record, random_variables)
 from tests.torch_port_util import jax_kernel_attention, nest  # noqa: E402
 
 FIXTURES = ssl_fixture.FIXTURES
@@ -210,7 +210,7 @@ def main(argv=None):
                         "modes": {"mcm-lp": mode}, "lr": 2e-4,
                         "weight_decay": 1e-3, "adam_eps": 1e-8, "nhead": 8}
         path = os.path.join(FIXTURES, rec["out"])
-        np.savez_compressed(path, **arrays,
+        np.savez_compressed(path, **pack_record(arrays),
                             settings=np.array(json.dumps(settings)))
         print(json.dumps({"record": name, "out": os.path.relpath(path, ROOT),
                           "bytes": os.path.getsize(path),

@@ -27,7 +27,7 @@ scatter``), as ``tools/make_torch_port_node_fixture.py``'s do; ``cpnatab``'s
 row attention, whose dropout 0.1 no flag reaches, runs at 0
 (``tests.torch_port_util.jax_cpnatab_without_row_dropout``; the port takes
 ``nn.dropout.set_rate(model, 0)``). The record is
-``tests/fixtures/torch_port/family_record.npz`` (~0.3 MB, each model's
+``tests/fixtures/torch_port/family_record.npz`` (~0.17 MB, each model's
 arrays under ``<model>/``). About 5 minutes and 5 GB of memory.
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_family_fixture.py
@@ -68,6 +68,7 @@ from rmm_tpu.utils.config import Config  # noqa: E402
 import torch  # noqa: E402
 
 from rmm_tpu_torch.convert import (check_record, flatten_variables,  # noqa: E402
+                                   load_record, pack_record,
                                    random_variables, torch_key)
 from tests.torch_port_util import jax_cpnatab_without_row_dropout, nest  # noqa: E402
 
@@ -134,7 +135,7 @@ def against(model: str, csv: str, impl: str) -> dict:
     """The reference's steps on the PNA path ``impl`` against the record:
     its faults and errors by ``check_record``'s limits for ``model``."""
     os.environ["RMM_SEGMENT_IMPL"] = impl
-    rec = np.load(RECORD)
+    rec = load_record(RECORD)
     st = json.loads(str(rec["settings"]))
     _, info, after = run(model, csv)
     state = {}
@@ -178,7 +179,7 @@ def main(argv=None):
     settings = dict(SPEC, models=models, steps=STEPS, epoch=0, seed=SEED,
                     var_seed=VAR_SEED, dropout=0.0, nhead=8,
                     segment_impl="scatter")
-    np.savez_compressed(RECORD, **arrays,
+    np.savez_compressed(RECORD, **pack_record(arrays),
                         settings=np.array(json.dumps(settings)))
     print(json.dumps({"record": os.path.relpath(RECORD, ROOT),
                       "bytes": os.path.getsize(RECORD)}))

@@ -26,7 +26,7 @@ On the CPU, with ``rmm_tpu``:
    reference's scatter PNA aggregation (``RMM_SEGMENT_IMPL=scatter``), as
    ``tools/make_torch_port_transfer_fixture.py`` does.
 
-The record is ``tests/fixtures/torch_port/node_record.npz`` (~0.2 MB).
+The record is ``tests/fixtures/torch_port/node_record.npz`` (~25 KB).
 About 2 minutes and 6 GB of memory (the attention's [1024, 8, 167, 167]
 scores a layer).
 
@@ -56,7 +56,8 @@ from rmm_tpu.datasets.elliptic import EllipticBitcoin  # noqa: E402
 from rmm_tpu.datasets.synthetic import write_synthetic_node_dataset  # noqa: E402
 from rmm_tpu.train.trainer import Trainer  # noqa: E402
 from rmm_tpu.utils.config import Config  # noqa: E402
-from rmm_tpu_torch.convert import flatten_variables, random_variables  # noqa: E402
+from rmm_tpu_torch.convert import (flatten_variables, pack_record,  # noqa: E402
+                                   random_variables)
 from tests.torch_port_util import nest  # noqa: E402
 
 FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_port")
@@ -139,7 +140,7 @@ def main(argv=None):
                     node_capacity=tr.cfg.node_capacity,
                     split_rows=split_rows, served_rows=len(served["id"]),
                     losses=losses)
-    np.savez_compressed(RECORD, **arrays,
+    np.savez_compressed(RECORD, **pack_record(arrays),
                         settings=np.array(json.dumps(settings)))
     print(json.dumps({"record": os.path.relpath(RECORD, ROOT),
                       "bytes": os.path.getsize(RECORD),

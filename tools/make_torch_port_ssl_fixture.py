@@ -50,8 +50,8 @@ from rmm_tpu.datasets.base import PretrainType  # noqa: E402
 from rmm_tpu.train.pretrain import PretrainTrainer  # noqa: E402
 from rmm_tpu.utils.config import Config  # noqa: E402
 from rmm_tpu_torch.convert import (flatten_variables,  # noqa: E402
-                                   loss_terms, pretrain_variables,
-                                   random_variables)
+                                   loss_terms, pack_record,
+                                   pretrain_variables, random_variables)
 from tests.torch_port_util import nest  # noqa: E402
 
 FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_port")
@@ -174,7 +174,7 @@ def main(argv=None):
                         var_seed=VAR_SEED, lr=2e-4, weight_decay=1e-3,
                         adam_eps=1e-8, dropout=0.0, nhead=8)
         path = os.path.join(FIXTURES, spec["out"])
-        np.savez_compressed(path, **arrays,
+        np.savez_compressed(path, **pack_record(arrays),
                             settings=np.array(json.dumps(settings)))
         print(json.dumps({"record": name, "out": os.path.relpath(path, ROOT),
                           "bytes": os.path.getsize(path),

@@ -64,7 +64,8 @@ from rmm_tpu.train.pretrain import PretrainTrainer  # noqa: E402
 from rmm_tpu.train.trainer import Trainer  # noqa: E402
 from rmm_tpu.utils.checkpoint import load_components, save_checkpoint  # noqa: E402
 from rmm_tpu.utils.config import Config  # noqa: E402
-from rmm_tpu_torch.convert import flatten_variables, random_variables  # noqa: E402
+from rmm_tpu_torch.convert import (flatten_variables, pack_record,  # noqa: E402
+                                   random_variables)
 from tests.torch_port_util import nest  # noqa: E402
 
 FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_port")
@@ -157,7 +158,7 @@ def main(argv=None):
                     kept=sorted(set(start) - set(grafted)), unmoved=unmoved,
                     edge_capacity=tr.cfg.edge_capacity,
                     node_capacity=tr.cfg.node_capacity, losses=losses)
-    np.savez_compressed(RECORD, **arrays,
+    np.savez_compressed(RECORD, **pack_record(arrays),
                         settings=np.array(json.dumps(settings)))
     sizes = {f: os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck)}
     print(json.dumps({"record": os.path.relpath(RECORD, ROOT),

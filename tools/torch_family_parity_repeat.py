@@ -36,8 +36,8 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 import rmm_tpu_torch.nn.gnn.conv as gnn_conv  # noqa: E402
 from rmm_tpu_torch.convert import (check_record, from_jax,  # noqa: E402
-                                   loss_terms, random_variables,
-                                   record_errors)
+                                   load_record, loss_terms,
+                                   random_variables, record_errors)
 from rmm_tpu_torch.datasets import (build_dataset,  # noqa: E402
                                     write_synthetic_aml_csv)
 from rmm_tpu_torch.nn.dropout import set_rate  # noqa: E402
@@ -78,7 +78,7 @@ def main(argv=None):
     if args.device == "cuda":
         from rmm_tpu_torch.ops.build import build_all
         build_all()
-    rec = np.load(cs.FAMILY_FIXTURE)
+    rec = load_record(cs.FAMILY_FIXTURE)
     st = json.loads(str(rec["settings"]))
     csv = write_synthetic_aml_csv(os.path.join(cs.WORK, "aml_family.csv"),
                                   num_rows=st["rows"],

@@ -4,7 +4,7 @@
     python3 tools/torch_train_profile.py --ssl [--rows 131072] [--batches 12]
     python3 tools/torch_train_profile.py --ssl --precision bf16
     python3 tools/torch_train_profile.py --model tabgnnfused
-    python3 tools/torch_train_profile.py --node
+    python3 tools/torch_train_profile.py --node [elliptic|eth|ogbn]
     python3 tools/torch_train_profile.py --model pna   # or any family
     python3 tools/torch_train_profile.py --tabular [--mask_vector]
     python3 tools/torch_train_profile.py --ssl --moo moco
@@ -41,7 +41,13 @@ batch 200, dropout 0.083) on the port's synthetic Elliptic (Elliptic's
 S = 167 through the split routes' long cores, edge tokens S = 2 through
 the tiled kernels), with its forward by layer (each
 ``tab_layer`` twice a step: the node and the edge tokens) and the peak
-memory of a step.
+memory of a step. ``--node eth`` profiles Ethereum phishing node
+classification the same way (the ``ethereum-phishing`` overrides: lr
+8e-4, dropout 0.123; the port's synthetic Ethereum phishing at
+``chip_smoke.py``'s 57,521 accounts and 262,144 transactions: node tokens
+S = 2, edge tokens S = 6, all tiled), ``--node ogbn`` ogbn-arxiv at
+``chip_smoke.py``'s 32,768 papers, 225,669 citations and 128 features
+(node tokens S = 130 through the long cores, edge tokens S = 2).
 
 With ``--ssl`` the same for SSL pretraining at the SSL config of record
 (``PretrainTrainer``, mcm-lp, C = 128, 3 layers, 8 heads, 64 negatives,
@@ -63,7 +69,8 @@ names its precision. Prints one JSON line per measurement and writes the
 profiler's kernel table to ``--table`` (default ``outputs/
 train_profile.txt``, ``outputs/<model>_profile.txt`` with another
 ``--model``, ``outputs/ssl_profile.txt`` with ``--ssl``,
-``outputs/node_profile.txt`` with ``--node``). Needs a CUDA card.
+``outputs/node_profile.txt`` with ``--node``, ``outputs/<family>_profile.txt``
+with ``--node eth|ogbn``). Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -82,8 +89,15 @@ from tools.torch_serve_profile import emit as emit_line  # noqa: E402
 
 PRECISION = "f32"
 
-#: Elliptic's published size (Weber et al. 2019): transactions and edges
-ELLIPTIC_NODES, ELLIPTIC_EDGES = 203769, 234355
+#: the node datasets of ``--node``: Elliptic at its published size (Weber
+#: et al. 2019), Ethereum phishing and ogbn-arxiv at ``chip_smoke.py``'s
+NODE_DATA = {
+    "elliptic": dict(num_nodes=203769, num_edges=234355, num_feats=166),
+    "eth": dict(num_nodes=57521, num_edges=262144),
+    "ogbn": dict(num_nodes=32768, num_edges=225669, num_feats=128,
+                 n_classes=40)}
+NODE_DIRS = {"elliptic": "elliptic", "eth": "ethereum-phishing",
+             "ogbn": "ogbn-arxiv"}
 
 
 def emit(obj: dict):
@@ -355,7 +369,8 @@ def main(argv=None):
     p.add_argument("--ssl", action="store_true")
     p.add_argument("--model", default="tabgnn",
                    choices=("tabgnn", "tabgnnfused") + FAMILIES)
-    p.add_argument("--node", action="store_true")
+    p.add_argument("--node", nargs="?", const="elliptic", default=None,
+                   choices=("elliptic", "eth", "ogbn"))
     p.add_argument("--tabular", action="store_true")
     p.add_argument("--mask_vector", action="store_true")
     p.add_argument("--moo", default="sum", choices=("sum", "moco"))
@@ -370,7 +385,9 @@ def main(argv=None):
         args.table = os.path.join(ROOT, "outputs", "ssl_profile.txt"
                                   if args.ssl else "tabular_profile.txt"
                                   if args.tabular else "node_profile.txt"
-                                  if args.node else "train_profile.txt"
+                                  if args.node == "elliptic" else
+                                  f"{args.node}_profile.txt" if args.node
+                                  else "train_profile.txt"
                                   if args.model == "tabgnn" else
                                   f"{args.model}_profile.txt")
 
@@ -379,12 +396,13 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    from rmm_tpu_torch.datasets import (EllipticBitcoin, IBMTransactionsAML,
+    from rmm_tpu_torch.datasets import (IBMTransactionsAML, build_dataset,
                                         write_synthetic_aml_csv,
                                         write_synthetic_node_dataset)
     from rmm_tpu_torch.frame.dataset import DatasetView
     from rmm_tpu_torch.train.trainer import Trainer
-    from rmm_tpu_torch.utils.config import Config
+    from rmm_tpu_torch.utils.config import (Config, config_from_args,
+                                            create_parser)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -403,24 +421,33 @@ def main(argv=None):
         return
     if args.node:
         data = write_synthetic_node_dataset(
-            os.path.join(work, "elliptic"), num_nodes=ELLIPTIC_NODES,
-            num_edges=ELLIPTIC_EDGES, num_feats=166, seed=0)
+            os.path.join(work, NODE_DIRS[args.node]), family=args.node,
+            seed=0, **NODE_DATA[args.node])
     else:
         data = write_synthetic_aml_csv(
             os.path.join(work, "aml.csv"), num_rows=args.rows,
             num_accounts=max(args.rows // 16, 64), seed=0)
     t0 = time.perf_counter()
     fused = args.model == "tabgnnfused"
-    cfg = Config(model=args.model, data=data, batch_size=200,
-                 task="node_classification" if args.node
-                 else "edge_classification",
-                 n_hidden=128 if fused else 32,
-                 n_gnn_layers=3 if fused else 2, num_neighs=(100, 100),
-                 device="cuda", sampler_threads=4, precision=args.precision)
-    ds = (EllipticBitcoin(data, khop_neighbors=cfg.num_neighs) if args.node
-          else IBMTransactionsAML(data, khop_neighbors=cfg.num_neighs))
+    if args.node:   # the training CLI's config: the datasets' overrides
+        cfg = config_from_args(create_parser().parse_args([
+            "--data", data, "--model", "tabgnn", "--task",
+            "node_classification", "--n_hidden", "32", "--n_gnn_layers",
+            "2", "--num_neighs", "100", "100", "--batch_size", "200",
+            "--sampler_threads", "4", "--device", "cuda", "--precision",
+            args.precision]))
+        ds = build_dataset(cfg)
+        cfg = cfg.replace(n_classes=ds.n_classes)
+    else:
+        cfg = Config(model=args.model, data=data, batch_size=200,
+                     n_hidden=128 if fused else 32,
+                     n_gnn_layers=3 if fused else 2, num_neighs=(100, 100),
+                     device="cuda", sampler_threads=4,
+                     precision=args.precision)
+        ds = IBMTransactionsAML(data, khop_neighbors=cfg.num_neighs)
     tr = Trainer(cfg, ds)
-    emit({"phase": "setup", "model": args.model, "task": cfg.task,
+    emit({"phase": "setup", "model": cfg.model, "task": cfg.task,
+          "data": args.node or "aml", "dropout": cfg.dropout,
           "seconds": time.perf_counter() - t0,
           "edge_capacity": tr.cfg.edge_capacity,
           "node_capacity": tr.cfg.node_capacity, "card": card})
