@@ -39,7 +39,8 @@ through all of them:
              masked 32768x6x126/6 are bitwise equal. Max error (the
              backward's relative to each reference tensor's largest
              entry), kernel / plain / library times (CUDA events, warm,
-             median) and the bound.
+             the median of 5 windows of 10 calls, the plain and library
+             calls' of 3) and the bound.
 4. serve   — the port's predict CLI (``rmm_tpu_torch.cli.predict.main``)
              at the config of record: 131,072-row synthetic AML, tabgnn,
              C = 32, 2 layers, fanouts 100/100, batch 200, test split, on
@@ -215,6 +216,57 @@ through all of them:
              ogbn-arxiv's steps 8 more times from the start, each
              component's median over its limit reported), three mcm-lp
              steps on the Ethereum data; the launches by route.
+27. device_sampler — the device sampler (``graph/device_sampler.py``)
+             alone at the config of record, capacities calibrated (the
+             frontier buffer too): 50 train batches sampled on the card
+             (CUDA events, ms a batch) beside the host sampler's (the C++
+             engine on 4 threads); on every batch the seed edges first in
+             input order, each kept edge one of the train split's, nodes
+             sorted-unique, the local edge index mapping back; one batch
+             under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+             sync); drops counted at a tight edge buffer; on the device
+             record's cut (every in-degree at most the fanout) the host
+             sampler's edge sets and node order.
+28. device_train — the training CLI with ``--sampler device`` at the
+             config of record for an epoch (``--save_model``), then the
+             predict CLI with ``--sampler device`` over the test split:
+             train's launch counts, train and served rows/s, the median
+             step and the drop rate beside the host sampler's.
+29. device_ssl — eth_ssl with ``--sampler device`` (subgraph and
+             negatives on the card; run after eth_ssl): the SSL CLI for an
+             epoch with ``--save_model`` on the Ethereum cut, the frontier
+             buffer calibrated, eth_ssl's batches and checks; its
+             launches, MRR, the negatives' residual, the median step
+             beside eth_ssl's.
+30. device_node — Elliptic node classification through the training CLI
+             for an epoch on a cut of 16,384 nodes and 18,843 edges,
+             with the host sampler and with ``--sampler device`` (the
+             frontier buffer calibrated), then the predict CLI with
+             ``--sampler device`` from the device run's ``-1/``: 2 split
+             (S = 167, the long cores) and 2 tiled calls each way a step.
+31. device_parity — ``device_record.npz`` (the JAX package's device path
+             on the CPU, ``tools/make_torch_port_device_fixture.py``: edge,
+             node and mcm-lp parts, C = 16, fanouts 64/64 over cuts whose
+             in-degrees are at most 64): every sampled array and drop count
+             equal to the record's, the port's negatives outside the
+             banned set, three steps each by ``convert.check_record`` (the
+             mcm-lp steps fed the record's negatives).
+32. rel_hm — Rel-H&M on a synthetic cut of 65,536 transactions, 2,829
+             customers and 218 articles (S = 15 edge tokens): ``cli/main.py
+             --model tabgnn --task mcm_edge_table`` at the config of
+             record's widths for an epoch (``--save_model``; 4 tiled calls
+             each way a step), the pretrainer's mcm-lp at the SSL widths
+             for 12 train and 12 val batches (10 split calls each way a
+             step), both directions at those runs' token shapes (the edge
+             capacity x 15 x 32/8, tiled, p = 0.083 and 0; the SSL context
+             tokens x 15 x 128/8, split, p = 0.5 and 0) and three steps of
+             each against ``rel_hm_record.npz`` (its 800-row cut).
+33. data_tools — ``prepare_aml`` on a raw CSV in the Kaggle layout and
+             ``export_eth`` on a networkx ``MultiDiGraph`` pickle (both
+             committed under ``tests/fixtures/torch_port/data_tools``) in
+             a child process where importing pandas or networkx fails,
+             each output byte for byte the JAX package's, read back by the
+             port's datasets.
 
 And at ``--precision bf16`` (the reference's scheme: float32 masters,
 bf16 parameters and tables in each step; under it the AML edge tokens are
@@ -255,7 +307,8 @@ path), with their times at the transfer and the narrow shapes beside, the split 
 (the node path's node tokens: their times at the node shape and at the
 other long shapes), and the bf16 builds of the tiled and split kernels,
 likewise; the masked-cell paths' launches in the tiled and split
-entries),
+entries; the device-sampled paths' and Rel-H&M's launches in the tiled,
+split and long entries, Rel-H&M's shapes beside them),
 the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 package beside it, the script fails and prints no result.
@@ -342,6 +395,9 @@ TRANSFER_ARGV = ["--model", "tabgnnfused", "--n_hidden", "128",
 ELLIPTIC_NODES, ELLIPTIC_EDGES, ELLIPTIC_FEATS = 203769, 234355, 166
 NODE_S = ELLIPTIC_FEATS + 1
 NODE_BATCHES = 24
+# device_node's cut of it for an epoch through the CLIs: 16,384 nodes at
+# the published 1.15 edges a node (~12.4x; 50 train steps an epoch)
+ELLIPTIC_CUT_NODES, ELLIPTIC_CUT_EDGES = 16384, 18843
 NODE_ARGV = ["--model", "tabgnn", "--n_hidden", "32", "--n_gnn_layers", "2",
              "--num_neighs", "100", "100", "--batch_size", "200"]
 NODE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
@@ -625,6 +681,14 @@ NARROW_SHAPES = [(b, s, c, h, rate) for b, s, c, h in
 PATH_TIMING, OFF_PATH_TIMING = (10, 5), (1, 1)
 
 
+def ref_timing(timing: tuple) -> tuple:
+    """A record's ``timing`` for its plain and library calls: at most 3
+    windows (3-70 ms a call, against the kernel's 0.04-10: five windows of
+    each would take ~80 s of the run's time limit)."""
+    reps, windows = timing
+    return reps, min(windows, 3)
+
+
 def off_path(b: int, s: int, c: int, h: int) -> bool:
     """A float32 shape that no path runs: C % 4 ≠ 0, 32768x6x100/4,
     131072x7x32/8 and 16384x3x32/8, and past S = 16 every row but
@@ -689,14 +753,15 @@ def fwd_record(rng, dev, b, s, c, h, rate, card, repeat=False,
             del tok
         k_ms = time_ms(lambda: ca.fused_column_attention(*args), *timing)
         p_ms = time_ms(lambda: ca.reference_column_attention(*args),
-                       *timing)
+                       *ref_timing(timing))
         lib_ms = None
         if mask is None:   # no library call takes an explicit keep-mask
             lib = (x, wqkv, bqkv, wout, bout, h)
             lib_err = float((library_attention(*lib) - ref).abs().max())
             check(lib_err <= KERNEL_TOL,
                   f"library attention disagrees: {lib_err}")
-            lib_ms = time_ms(lambda: library_attention(*lib), *timing)
+            lib_ms = time_ms(lambda: library_attention(*lib),
+                             *ref_timing(timing))
     t_bytes, t_ops = attention_floor(b, s, c, h, mask is not None)
     bound_ms, by = bound(t_bytes, t_ops)
     plan = ca.fwd_plan(b, s, c, h)
@@ -760,7 +825,8 @@ def bwd_record(rng, dev, b, s, c, h, rate, card, repeat=False,
           f"relative errors {errs} > {GRAD_TOL}")
     k_ms = time_ms(lambda: ca.column_attention_bwd(*args), *timing)
     p_ms = time_ms(lambda: torch.autograd.grad(out, leaves, do,
-                                               retain_graph=True), *timing)
+                                               retain_graph=True),
+                   *ref_timing(timing))
     lib_ms = None
     if mask is None:   # the backward alone of the library call
         lib_out = library_attention(*leaves, h)
@@ -771,7 +837,7 @@ def bwd_record(rng, dev, b, s, c, h, rate, card, repeat=False,
         check(lib_err <= GRAD_TOL,
               f"library attention backward disagrees: {lib_err}")
         lib_ms = time_ms(lambda: torch.autograd.grad(
-            lib_out, leaves, do, retain_graph=True), *timing)
+            lib_out, leaves, do, retain_graph=True), *ref_timing(timing))
         del lib_out, lib_dx
     plan = ca.bwd_plan(b, s, c, h)
     t_bytes, t_ops = attention_bwd_floor(b, s, c, h, mask is not None)
@@ -1038,7 +1104,7 @@ def kernel_bf16_phase(card: str) -> dict:
                   "one bf16 rounding of the plain twin")
             k_ms = time_ms(lambda: ca.fused_column_attention(*args), *timing)
             p_ms = time_ms(lambda: ca.reference_column_attention(
-                x, *masters, h, mask, rate), *timing)
+                x, *masters, h, mask, rate), *ref_timing(timing))
             lib_ms = None
             if mask is None:
                 lib = (x, *weights, h)
@@ -1047,7 +1113,8 @@ def kernel_bf16_phase(card: str) -> dict:
                 check(lib_err <= LIBRARY_BF16_TOL * float(
                     ref.float().abs().max()),
                       f"bf16 library attention disagrees: {lib_err}")
-                lib_ms = time_ms(lambda: library_attention(*lib), *timing)
+                lib_ms = time_ms(lambda: library_attention(*lib),
+                                 *ref_timing(timing))
         t_bytes, t_ops = attention_floor(b, s, c, h, mask is not None, 2,
                                          PEAK_BF16_FLOP_PER_S)
         bound_ms, by = bound(t_bytes, t_ops)
@@ -1102,14 +1169,15 @@ def kernel_bf16_phase(card: str) -> dict:
         k_ms = time_ms(lambda: ca.column_attention_bwd(*bargs), *timing)
         p_ms = time_ms(lambda: torch.autograd.grad(ref, leaves, do,
                                                    retain_graph=True),
-                       *timing)
+                       *ref_timing(timing))
         lib_ms = None
         if mask is None:
             lib_leaves = [x.detach().requires_grad_()] + [
                 w.detach().requires_grad_() for w in weights]
             lib_out = library_attention(*lib_leaves, h)
             lib_ms = time_ms(lambda: torch.autograd.grad(
-                lib_out, lib_leaves, do, retain_graph=True), *timing)
+                lib_out, lib_leaves, do, retain_graph=True),
+                *ref_timing(timing))
             del lib_out, lib_leaves
         t_bytes, t_ops = attention_bwd_floor(b, s, c, h, mask is not None, 2,
                                              PEAK_BF16_FLOP_PER_S)
@@ -1880,7 +1948,7 @@ def node_train_phase(card: str, root: str) -> dict:
            "card": card, "ok": True}
     emit(rec)
     return {**rec, "checkpoint": ck,
-            "test_ids": labelled[:, 1].astype(np.int64)}
+            "test_ids": labelled[:, 1].astype(np.int64), "dataset": dataset}
 
 
 def node_serve_phase(card: str, root: str, trained: dict) -> dict:
@@ -2088,6 +2156,7 @@ def node_cli(root: str, model: str, expect, *flags) -> dict:
             "n_classes": cfg["n_classes"],
             "edge_capacity": stats["edge_capacity"],
             "node_capacity": stats["node_capacity"],
+            "frontier_capacity": stats["frontier_capacity"],
             "split_rows": stats["split_rows"], "steps": steps,
             "evaluated_batches": evals, "loss": ep["loss"],
             "train_f1": ep["f1"], "val_f1": ep["val_f1"],
@@ -2102,10 +2171,12 @@ def node_cli(root: str, model: str, expect, *flags) -> dict:
 
 
 def node_serve(root: str, run: dict) -> dict:
-    """The predict CLI on a node run's ``-1/`` checkpoint over the whole
-    test split: the served ids are the test split's nodes, once each and
-    in order; finite scores (where the head is binary). The launches and
-    rows/s."""
+    """The predict CLI on a node run's ``-1/`` checkpoint (its flags and
+    capacities, the frontier buffer's too) over the whole test split: the
+    served ids are the test split's nodes but those of the dataset's
+    ``ignore_label`` class, once each and in order; finite scores (where
+    the head is binary). The launches, the batches (the whole split's)
+    and rows/s."""
     import numpy as np
 
     from rmm_tpu_torch.datasets import build_dataset
@@ -2115,19 +2186,24 @@ def node_serve(root: str, run: dict) -> dict:
                      "--load_model", run["checkpoint"], "--split", "test",
                      "--output", os.path.join(WORK, "node_family_preds.csv"),
                      "--edge_capacity", str(run["edge_capacity"]),
-                     "--node_capacity", str(run["node_capacity"]))
+                     "--node_capacity", str(run["node_capacity"]),
+                     "--frontier_capacity", str(run["frontier_capacity"]))
     stats: dict = {}
     out, counts, wall = serve(argv, stats)
-    nodes = build_dataset(config_from_args(create_parser().parse_args(
-        node_argv(root, "--model", run["model"], *run["flags"])))).nodes
-    want = nodes.tensor_frame.y[nodes.split()[2].indices, 1].astype(np.int64)
+    ds = build_dataset(config_from_args(create_parser().parse_args(
+        node_argv(root, "--model", run["model"], *run["flags"]))))
+    y = ds.nodes.tensor_frame.y[ds.nodes.split()[2].indices]
+    batches = -(-len(y) // 200)
+    if getattr(ds, "ignore_label", None) is not None:
+        y = y[y[:, 0] != ds.ignore_label]
+    want = y[:, 1].astype(np.int64)
     check(np.array_equal(out["id"], want),
-          f"served {len(out['id'])} node ids, not the {len(want)} test "
-          "nodes in order")
+          f"served {len(out['id'])} node ids, not the {len(want)} labelled "
+          "test nodes in order")
     if "score" in out:
         check(np.isfinite(out["score"]).all(), "non-finite node scores")
     rows = len(out["id"])
-    return {"rows": rows, "batches": -(-rows // 200), "launches": counts,
+    return {"rows": rows, "batches": batches, "launches": counts,
             "wall_s": wall, "setup_s": stats["setup_s"],
             "predict_s": stats["predict_s"],
             "rows_per_s_predict": rows / stats["predict_s"],
@@ -2197,30 +2273,31 @@ def node_menu_phase(card: str, root: str) -> dict:
     return out
 
 
-def eth_ssl_phase(card: str, root: str) -> dict:
+def ssl_cli_epoch(root: str, runs: str, *flags) -> dict:
     """The SSL CLI (``fused.main``: a path holding ``eth`` is Ethereum
     phishing, split by ``--split_type``) for an epoch with
     ``--save_model`` on the Ethereum cut at the SSL config of record
-    (C = 128, 3 layers, 64 negatives, batch 200, fanouts 100/100). 10 split
-    calls each way a step and 10 split forwards an evaluated val batch; a
-    finite loss and RMSE, MRR and Hits@k in (0, 1], an MCM accuracy and a
-    categorical loss of 0 (no categorical masked column, as the reference
-    reports it); the epoch's checkpoint with ``best_m.json`` and a
-    ``best_*`` snapshot for each metric (each improves on its first
-    value)."""
+    (C = 128, 3 layers, 64 negatives, batch 200, fanouts 100/100; the
+    capacities calibrated), the launch counts set to 0 just before it and
+    read just after: 10 split calls each way a step and 10 split forwards
+    an evaluated val batch; a finite loss and RMSE, MRR and Hits@k in
+    (0, 1], an MCM accuracy and a categorical loss of 0 (no categorical
+    masked column, as the reference reports it), a drop rate in [0, 1];
+    the epoch's checkpoint with ``best_m.json`` and a ``best_*`` snapshot
+    for each metric (each improves on its first value)."""
     import torch
 
     from rmm_tpu_torch.cli import fused
     from rmm_tpu_torch.utils.checkpoint import load_best_m
 
-    runs = os.path.join(WORK, "eth_ssl_runs")
+    name = f"Ethereum SSL CLI {' '.join(flags)}".strip()
     stats: dict = {}
     reset_counts()
     t0 = time.perf_counter()
     (ep,), best = fused.main(
         ["--dataset", root, *SSL_ARGV, "--epochs", "1", "--testing",
-         "--sampler_threads", "4", "--wandb_dir", runs, "--device", "cuda",
-         "--save_model"], stats)
+         "--sampler_threads", "4", "--wandb_dir", os.path.join(WORK, runs),
+         "--device", "cuda", "--save_model", *flags], stats)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -2229,16 +2306,15 @@ def eth_ssl_phase(card: str, root: str) -> dict:
     steps, evals = -(-train_rows // b), -(-val_rows // b)
     k = SSL_LAUNCHES
     check(counts == route_counts(k * (steps + evals), k * steps),
-          f"Ethereum SSL CLI launches {counts} for {steps} steps and "
-          f"{evals} evaluated batches (expected {k} split calls each way a "
-          "step)")
+          f"{name}: launches {counts} for {steps} steps and {evals} "
+          f"evaluated batches (expected {k} split calls each way a step)")
     check(math.isfinite(ep["loss"]) and math.isfinite(ep["val_rmse"])
-          and 0 < ep["val_mrr"] <= 1
+          and 0 < ep["val_mrr"] <= 1 and 0 <= ep["drop_rate"] <= 1
           and all(0 <= ep[f"val_hits@{n}"] <= 1 for n in (1, 2, 5, 10)),
-          f"Ethereum SSL epoch {ep}")
+          f"{name}: epoch {ep}")
     check(ep["val_accuracy"] == 0.0 and ep["train_loss_c"] == 0.0,
-          f"an MCM accuracy or categorical loss without a categorical "
-          f"column: {ep['val_accuracy']}, {ep['train_loss_c']}")
+          f"{name}: an MCM accuracy or categorical loss without a "
+          f"categorical column: {ep['val_accuracy']}, {ep['train_loss_c']}")
     run_dir = stats["run_dir"]
     saved = load_best_m(os.path.join(run_dir, "0"))
     want = {"accuracy": ep["val_accuracy"], "rmse": ep["val_rmse"],
@@ -2246,23 +2322,32 @@ def eth_ssl_phase(card: str, root: str) -> dict:
     check(saved == best == want and all(
         os.path.exists(os.path.join(run_dir, f"best_{t}", "model.pt"))
         for t in ("acc", "rmse", "mrr")),
-        f"Ethereum SSL checkpoint: best_m.json {saved}, fit's {best}, the "
-        f"epoch's {want}")
-    out = {"phase": "eth_ssl", "mode": "mcm-lp", "nodes": ETH_CUT_NODES,
+        f"{name}: best_m.json {saved}, fit's {best}, the epoch's {want}")
+    out = {"mode": "mcm-lp", "flags": list(flags), "nodes": ETH_CUT_NODES,
            "edges": ETH_CUT_EDGES, "channels": 128, "layers": 3,
            "num_neg": 64, "batch": b, "split_type": "temporal_daily",
            "split_rows": stats["split_rows"],
            "edge_capacity": stats["edge_capacity"],
-           "node_capacity": stats["node_capacity"], "steps": steps,
+           "node_capacity": stats["node_capacity"],
+           "frontier_capacity": stats["frontier_capacity"], "steps": steps,
            "evaluated_batches": evals, "loss": ep["loss"],
            "train_loss_n": ep["train_loss_n"],
+           "neg_residual": ep["neg_residual"], "drop_rate": ep["drop_rate"],
            **{key: v for key, v in ep.items() if key.startswith("val_")},
            "best_m": saved, "step_ms_median": ep.get("step_ms"),
-           "epoch_s": ep["sec"], "train_rows_per_s": train_rows / ep["sec"],
-           "setup_s": stats["setup_s"], "wall_s": wall, "launches": counts,
+           "sample_ms": ep.get("sample_ms"), "epoch_s": ep["sec"],
+           "train_rows_per_s": train_rows / ep["sec"],
+           "setup_s": stats["setup_s"], "wall_s": wall, "launches": counts}
+    torch.cuda.empty_cache()
+    return out
+
+
+def eth_ssl_phase(card: str, root: str) -> dict:
+    """The SSL CLI for an epoch on the Ethereum cut with the host sampler
+    (``ssl_cli_epoch``)."""
+    out = {"phase": "eth_ssl", **ssl_cli_epoch(root, "eth_ssl_runs"),
            "card": card, "ok": True}
     emit(out)
-    torch.cuda.empty_cache()
     return out
 
 
@@ -3445,6 +3530,811 @@ def mcm_parity_phase(card: str) -> dict:
     return res
 
 
+# The device sampler (--sampler device, graph/device_sampler.py): each
+# split's CSR in device memory, each batch's k-hop subgraph (and, for
+# pretraining, its negatives) drawn on the card from its seed ids.
+# device_sampler times it alone at the config of record (capacities
+# calibrated, frontier buffer too) on DEVICE_SAMPLER_BATCHES train batches
+# against the host sampler on 4 threads; the device_* phases run the
+# entry points with it.
+DEVICE_SAMPLER_BATCHES = 50
+DEVICE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
+                              "device_record.npz")
+# Rel-H&M: a synthetic cut keeping the Kaggle H&M data's 23.2 transactions
+# a customer and 13.0 customers an article (31,788,324 transactions cut
+# ~485x for the time limit); 14 edge columns, S = 15 tokens with the CLS
+HM_ROWS, HM_CUSTOMERS, HM_ARTICLES = 65536, 2829, 218
+HM_S = 15
+HM_SSL_BATCHES = 12
+REL_HM_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
+                              "rel_hm_record.npz")
+DATA_TOOLS = os.path.join(ROOT, "tests", "fixtures", "torch_port",
+                          "data_tools")
+#: the parity records' sampled arrays, held bit for bit
+SAMPLED = ("edge_gather", "edge_mask", "edge_index", "node_gather",
+           "node_mask", "seed_mask")
+
+
+def device_record() -> tuple:
+    from rmm_tpu_torch.convert import load_record
+
+    rec = load_record(DEVICE_FIXTURE)
+    return rec, json.loads(str(rec["settings"]))
+
+
+def device_record_data(st: dict, root: str | None = None) -> dict:
+    """The device record's cuts (AML and Elliptic) under ``root`` (the
+    build dir by default)."""
+    root = root or WORK
+    from rmm_tpu_torch.datasets import (write_synthetic_aml_csv,
+                                        write_synthetic_node_dataset)
+
+    d = st["data"]
+    csv = write_synthetic_aml_csv(
+        os.path.join(root, f"aml_{d['aml_rows']}.csv"),
+        num_rows=d["aml_rows"], num_accounts=d["aml_rows"] // 16,
+        seed=d["aml_seed"])
+    elliptic = write_synthetic_node_dataset(
+        os.path.join(root, f"elliptic_{d['node_nodes']}"),
+        family="elliptic", num_nodes=d["node_nodes"],
+        num_edges=d["node_edges"], num_feats=d["node_feats"],
+        seed=d["node_seed"])
+    return {"edge": csv, "mcm_lp": csv, "node": elliptic}
+
+
+def check_sample(out: dict, sb, dg, b: int, split_ids, what: str):
+    """The host sampler's contract on a device sample: the seed edges in
+    lanes [0, B) in input order, every kept edge one of the split's (or a
+    seed), nodes sorted-unique, local ids mapping back to the endpoints."""
+    import torch
+
+    eg, em, ei = out["edge_gather"], out["edge_mask"], out["edge_index"]
+    ng, nm = out["node_gather"], out["node_mask"]
+    real = sb.seed_mask
+    check(torch.equal(em[:b], real) and torch.equal(eg[:b][real],
+                                                    sb.seeds[:, 2][real]),
+          f"{what}: the seed lanes are not the seeds in input order")
+    kept = eg[b:][em[b:]]
+    check(bool(torch.isin(kept, split_ids).all()),
+          f"{what}: a kept edge is not an edge of the split")
+    nodes = ng[nm]
+    check(bool((nodes[1:] > nodes[:-1]).all()),
+          f"{what}: the node ids are not sorted-unique")
+    src, dst = dg.src.long(), dg.dst.long()
+    check(bool(torch.equal(ng[ei[0][em]], src[eg[em]])
+               and torch.equal(ng[ei[1][em]], dst[eg[em]])),
+          f"{what}: the local edge index does not map back to the "
+          "endpoints")
+
+
+def device_sampler_phase(card: str, csv: str) -> dict:
+    """The device sampler alone at the config of record on the card: the
+    dataset calibrated as the training CLI does (edge, node and frontier
+    buffers), the train split's CSR uploaded, DEVICE_SAMPLER_BATCHES train
+    batches sampled on the device (CUDA events; the seed ids' pinned copy
+    included) and on the host (the C++ engine on 4 threads, the host
+    path's batches); the sampler's contract on every device batch; no
+    host sync inside one (``torch.cuda.set_sync_debug_mode("error")``);
+    drops counted at a tight edge capacity; on the device record's AML cut
+    (every in-degree at most the fanouts 64/64) the edge sets and node
+    order of the port's host sampler."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.datasets import IBMTransactionsAML
+    from rmm_tpu_torch.graph import device_sampler as ds
+    from rmm_tpu_torch.train.trainer import seed_batches, threaded_map
+    from rmm_tpu_torch.utils.batch import graph_inputs
+    from rmm_tpu_torch.utils.config import config_from_args, create_parser
+    from rmm_tpu_torch.utils.device import resolve_device
+
+    st = fixture_settings()
+    cfg = config_from_args(create_parser().parse_args(
+        record_argv(st, csv) + ["--sampler", "device", "--device", "cuda"]))
+    dev = resolve_device(cfg.device)
+    t0 = time.perf_counter()
+    dataset = IBMTransactionsAML(csv, khop_neighbors=cfg.num_neighs)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ec, nc = dataset.calibrate_capacities(cfg.batch_size)
+    calibrate_s = time.perf_counter() - t0
+    check((ec, nc) == (st["edge_capacity"], st["node_capacity"]),
+          f"calibrated capacities {ec}/{nc} vs the fixture's")
+    fc = dataset.frontier_capacity
+    fanouts = cfg.num_neighs
+    t0 = time.perf_counter()
+    dg = ds.DeviceGraph.from_store(dataset.graph, "train", dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    n, b = DEVICE_SAMPLER_BATCHES, cfg.batch_size
+    sbs = list(itertools.islice(seed_batches(
+        cfg, dataset.edges.split()[0], "train", 0), n))
+
+    def sample(sb, edge_capacity=ec):
+        d = sb.to(dev)
+        return d, ds.sample_edges_device(
+            dg, d.seeds, d.seed_mask, ds.batch_generator(sb.sampler_seed,
+                                                         dev),
+            fanouts, edge_capacity, nc, fc)
+
+    sample(sbs[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sample(sbs[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    outs = [sample(sb) for sb in sbs]
+    end.record()
+    enqueue_s = time.perf_counter() - t0
+    end.synchronize()
+    wall_s = time.perf_counter() - t0
+    device_ms = start.elapsed_time(end) / n
+
+    def host(item):
+        i, sb = item
+        by = np.concatenate([sb.y, sb.seeds.astype(np.float32)], axis=1)
+        return graph_inputs(by, int(sb.seed_mask.sum()), dataset.graph,
+                            "train", ec, nc, sb.sampler_seed)
+
+    list(threaded_map(host, enumerate(sbs[:8]), 4))     # warm
+    t0 = time.perf_counter()
+    host_out = list(threaded_map(host, enumerate(sbs), 4))
+    host_ms = 1e3 * (time.perf_counter() - t0) / n
+
+    split_ids = torch.from_numpy(
+        dataset.graph.sampler("train").edge_ids).to(dev)
+    for i, (d, out) in enumerate(outs):
+        check_sample(out, d, dg, b, split_ids, f"device batch {i}")
+    dropped = int(sum(o["num_dropped"] for _, o in outs))
+    node_dropped = int(sum(o["num_node_dropped"] for _, o in outs))
+    kept = int(sum(o["edge_mask"].sum() for _, o in outs))
+    host_kept = sum(int(g.edge_mask.sum()) for g in host_out)
+    # drops counted, never silent: a tight edge buffer loses edges and
+    # counts at least as many draws dropped (a draw can repeat an edge)
+    _, loose = outs[0]
+    n0 = int(loose["edge_mask"].sum())
+    tight_cap = b + (n0 - b) // 2
+    _, tight = sample(sbs[0], tight_cap)
+    t_kept = int(tight["edge_mask"].sum())
+    t_dropped = int(tight["num_dropped"]) - int(loose["num_dropped"])
+    check(t_kept < n0 <= t_kept + t_dropped,
+          f"a {tight_cap}-lane edge buffer kept {t_kept} of {n0} edges and "
+          f"counted {t_dropped} dropped")
+
+    # the deterministic regime: the port's host sampler's edges and nodes
+    rst = device_record()[1]
+    cut = device_record_data(rst)["edge"]
+    small = IBMTransactionsAML(cut, khop_neighbors=tuple(rst["num_neighs"]))
+    part = rst["parts"]["edge"]
+    sdg = ds.DeviceGraph.from_store(small.graph, "train", dev)
+    scfg = cfg.replace(num_neighs=tuple(rst["num_neighs"]),
+                       batch_size=rst["batch_size"])
+    for i, sb in enumerate(itertools.islice(seed_batches(
+            scfg, small.edges.split()[0], "train", 0), 3)):
+        d = sb.to(dev)
+        out = ds.sample_edges_device(
+            sdg, d.seeds, d.seed_mask, ds.batch_generator(sb.sampler_seed,
+                                                          dev),
+            scfg.num_neighs, part["edge_capacity"], part["node_capacity"],
+            part["frontier_capacity"])
+        sub = small.graph.sample_edges(sb.seeds, "train",
+                                       part["edge_capacity"],
+                                       part["node_capacity"], 7)
+        em = out["edge_mask"].cpu().numpy()
+        check(set(out["edge_gather"].cpu().numpy()[em].tolist())
+              == set(sub.edge_ids[sub.edge_mask].tolist()),
+              f"deterministic batch {i}: the edge set differs from the "
+              "host sampler's")
+        check(np.array_equal(
+            out["node_gather"].cpu().numpy()[out["node_mask"].cpu().numpy()],
+            sub.node_ids[sub.node_mask]),
+            f"deterministic batch {i}: the node order differs from the "
+            "host sampler's")
+    rec = {"phase": "device_sampler", "rows": dataset.graph.num_edges,
+           "batches": n, "batch": b, "fanouts": list(fanouts),
+           "edge_capacity": ec, "node_capacity": nc,
+           "frontier_capacity": fc, "device_ms_per_batch": device_ms,
+           "device_wall_ms_per_batch": 1e3 * wall_s / n,
+           "enqueue_ms_per_batch": 1e3 * enqueue_s / n,
+           "host_ms_per_batch_4_threads": host_ms,
+           "edges_per_batch": kept / n, "host_edges_per_batch":
+               host_kept / n, "num_dropped": dropped,
+           "num_node_dropped": node_dropped,
+           "drop_rate": dropped / max(dropped + kept, 1),
+           "tight_edge_capacity": tight_cap, "tight_kept": t_kept,
+           "tight_dropped": t_dropped,
+           "upload_s": upload_s, "calibrate_s": calibrate_s,
+           "data_s": data_s, "no_host_sync": True,
+           "deterministic_batches_equal": 3, "card": card, "ok": True}
+    emit(rec)
+    del outs, dg, sdg
+    torch.cuda.empty_cache()
+    return rec
+
+
+def device_train_phase(card: str, csv: str, host_train: dict,
+                       host_serve: dict) -> dict:
+    """The training CLI at the config of record with ``--sampler device``
+    for an epoch (``--testing --save_model``), then its checkpoint through
+    the predict CLI with ``--sampler device`` over the test split: the
+    train phase's launch counts (4 tiled forwards a batch, 4 backwards and
+    reduces a step), finite losses, metrics and scores; train rows/s, the
+    median step, the drop rate and served rows/s beside the host
+    sampler's."""
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.cli import main as train_cli
+
+    st = fixture_settings()
+    argv = record_argv(st, csv) + [
+        "--epochs", "1", "--testing", "--sampler", "device", "--save_model",
+        "--wandb_dir", os.path.join(WORK, "runs_device"), "--device",
+        "cuda"]
+    stats: dict = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    history, _ = train_cli.main(argv, stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    (ep,) = history
+    b = st["batch_size"]
+    train_rows, val_rows, test_rows = stats["split_rows"]
+    steps = -(-train_rows // b)
+    evals = -(-val_rows // b) + -(-test_rows // b)
+    check(counts == {"fwd": 4 * (steps + evals),
+                     "fwd_tiled": 4 * (steps + evals), "fwd_split": 0,
+                     "bwd": 4 * steps, "bwd_tiled": 4 * steps,
+                     "bwd_split": 0, "reduce": 4 * steps, **NO_BF16},
+          f"launches {counts} for {steps} device-sampled train steps and "
+          f"{evals} evaluated batches")
+    check(math.isfinite(ep["loss"]) and 0 <= ep["drop_rate"] <= 1,
+          f"device-sampled epoch {ep}")
+    for key in ("val_f1", "test_f1", "val_auc", "test_auc"):
+        check(math.isfinite(ep[key]), f"{key} = {ep[key]}")
+    run: dict = {}
+    out, serve_counts, serve_wall = serve(record_argv(st, csv) + [
+        "--sampler", "device", "--load_model",
+        os.path.join(stats["run_dir"], "0"), "--split", "test", "--output",
+        os.path.join(WORK, "device_preds.csv"), "--device", "cuda"], run)
+    rows = len(out["id"])
+    batches = -(-rows // b)
+    check(rows == test_rows and len(np.unique(out["id"])) == rows
+          and np.isfinite(out["score"]).all(),
+          f"the device-sampled serve scored {rows} of {test_rows} rows")
+    check(serve_counts["fwd"] == 4 * batches == serve_counts["fwd_tiled"],
+          f"serve launches {serve_counts} for {batches} batches")
+    rec = {"phase": "device_train", "train_rows": train_rows,
+           "steps": steps, "evaluated_batches": evals, "launches": counts,
+           "loss": ep["loss"], "val_f1": ep["val_f1"],
+           "val_auc": ep["val_auc"], "test_f1": ep["test_f1"],
+           "drop_rate": ep["drop_rate"], "epoch_s": ep["sec"],
+           "train_rows_per_s": train_rows / ep["sec"],
+           "step_ms_median": ep.get("step_ms"), "fit_s": stats["fit_s"],
+           "setup_s": stats["setup_s"], "wall_s": wall,
+           "frontier_capacity": stats.get("frontier_capacity"),
+           "host_train_rows_per_s": host_train["train_rows_per_s"],
+           "host_step_ms_median": host_train["step_ms_median"],
+           "host_drop_rate": host_train["drop_rate"],
+           "served_rows": rows, "serve_launches": serve_counts,
+           "served_rows_per_s_predict": rows / run["predict_s"],
+           "served_rows_per_s_wall": rows / serve_wall,
+           "host_served_rows_per_s_predict":
+               host_serve["rows_per_s_predict"],
+           "card": card, "ok": True}
+    emit(rec)
+    return rec
+
+
+def device_node_phase(card: str) -> dict:
+    """Elliptic node classification with ``--sampler device`` on a cut of
+    the synthetic Elliptic (:data:`ELLIPTIC_CUT_NODES`): ``tabgnn`` for an
+    epoch through the training CLI (``node_cli``, the capacities and the
+    frontier buffer calibrated), beside the host sampler's epoch on the
+    same batches; then the predict CLI with ``--sampler device`` on its
+    ``-1/`` checkpoint over the test split (``node_serve``: every labelled
+    test node once, in order). node_train's launch counts: 2 split (the
+    node tokens, S = 167: the long cores) and 2 tiled calls each way a
+    step, the forwards an evaluated or served batch. The median step,
+    train rows/s, the drop rate and served rows/s beside the host
+    sampler's."""
+    from rmm_tpu_torch.datasets import write_synthetic_node_dataset
+
+    root = write_synthetic_node_dataset(
+        os.path.join(WORK, "elliptic-cut"), num_nodes=ELLIPTIC_CUT_NODES,
+        num_edges=ELLIPTIC_CUT_EDGES, num_feats=ELLIPTIC_FEATS, seed=0)
+    host = node_cli(root, "tabgnn", node_counts, "--sampler", "host")
+    run = node_cli(root, "tabgnn", node_counts, "--sampler", "device")
+    check(0 < run["frontier_capacity"] <= run["node_capacity"]
+          and (run["edge_capacity"], run["node_capacity"])
+          == (host["edge_capacity"], host["node_capacity"]),
+          f"device-sampled Elliptic capacities edge={run['edge_capacity']} "
+          f"node={run['node_capacity']} frontier={run['frontier_capacity']}"
+          f", the host run's edge={host['edge_capacity']} "
+          f"node={host['node_capacity']}")
+    served = node_serve(root, run)
+    check(served["launches"] == node_counts(served["batches"], 0),
+          f"launches {served['launches']} serving {served['batches']} "
+          "device-sampled Elliptic batches")
+    rec = {"phase": "device_node", "nodes": ELLIPTIC_CUT_NODES,
+           "edges": ELLIPTIC_CUT_EDGES, "node_tokens": NODE_S,
+           "channels": 32, "layers": 2, "heads": 8, "batch": 200,
+           "fanouts": [100, 100], **run, "serve": served,
+           "host_step_ms_median": host["step_ms_median"],
+           "host_train_rows_per_s": host["train_rows_per_s"],
+           "host_drop_rate": host["drop_rate"], "host_val_f1": host["val_f1"],
+           "host_launches": host["launches"], "card": card, "ok": True}
+    emit(rec)
+    return rec
+
+
+def device_ssl_phase(card: str, root: str, host: dict) -> dict:
+    """The SSL CLI with ``--sampler device`` (k-hop subgraph and negatives
+    on the card) for an epoch on the Ethereum cut, on eth_ssl's batches
+    (``ssl_cli_epoch``): eth_ssl's launch counts and checks, the frontier
+    buffer calibrated (above 0, at most the node buffer), the negatives'
+    residual; the median step and train rows/s beside the host
+    sampler's."""
+    run = ssl_cli_epoch(root, "device_ssl_runs", "--sampler", "device")
+    check(0 < run["frontier_capacity"] <= run["node_capacity"]
+          and (run["edge_capacity"], run["node_capacity"])
+          == (host["edge_capacity"], host["node_capacity"]),
+          f"device-sampled SSL capacities edge={run['edge_capacity']} "
+          f"node={run['node_capacity']} frontier={run['frontier_capacity']}"
+          f", the host run's edge={host['edge_capacity']} "
+          f"node={host['node_capacity']}")
+    check(run["launches"] == host["launches"],
+          f"device-sampled SSL launches {run['launches']}, the host run's "
+          f"{host['launches']}")
+    rec = {"phase": "device_ssl", **run,
+           "negatives": run["split_rows"][0] * run["num_neg"],
+           "host_step_ms_median": host["step_ms_median"],
+           "host_train_rows_per_s": host["train_rows_per_s"],
+           "host_sample_ms": host["sample_ms"],
+           "host_val_mrr": host["val_mrr"], "card": card, "ok": True}
+    emit(rec)
+    return rec
+
+
+def device_part_trainer(st: dict, data: dict, name: str,
+                        device: str = "cuda"):
+    """The port's trainer of a device-record part: device sampling, the
+    record's capacities and start, dropout 0."""
+    from rmm_tpu_torch.convert import from_jax, random_variables
+    from rmm_tpu_torch.datasets import EllipticBitcoin, IBMTransactionsAML
+    from rmm_tpu_torch.datasets.base import PretrainType
+    from rmm_tpu_torch.nn.dropout import set_rate
+    from rmm_tpu_torch.train.pretrain import PretrainTrainer
+    from rmm_tpu_torch.train.trainer import Trainer
+    from rmm_tpu_torch.utils.config import Config
+
+    part = st["parts"][name]
+    fanouts = tuple(st["num_neighs"])
+    cfg = Config(model=part["model"], data=data[name],
+                 n_hidden=st["n_hidden"], n_gnn_layers=st["n_gnn_layers"],
+                 num_neighs=fanouts, batch_size=st["batch_size"],
+                 dropout=0.0, seed=st["seed"], sampler="device",
+                 device=device, lr=part["lr"],
+                 edge_capacity=part["edge_capacity"],
+                 node_capacity=part["node_capacity"],
+                 frontier_capacity=part["frontier_capacity"])
+    if name == "mcm_lp":
+        dset = IBMTransactionsAML(data[name], khop_neighbors=fanouts,
+                                  pretrain={PretrainType.MASK,
+                                            PretrainType.LINK_PRED})
+        tr = PretrainTrainer(cfg.replace(
+            num_neg_samples=st["num_neg_samples"],
+            weight_decay=st["weight_decay"]), dset, "mcm-lp")
+        view = dset.edges.split()[0]
+    elif name == "node":
+        dset = EllipticBitcoin(data[name], khop_neighbors=fanouts)
+        tr = Trainer(cfg.replace(task="node_classification"), dset)
+        view = dset.nodes.split()[0]
+    else:
+        dset = IBMTransactionsAML(data[name], khop_neighbors=fanouts)
+        tr = Trainer(cfg, dset)
+        view = dset.edges.split()[0]
+    tr.model.load_state_dict(from_jax(random_variables(
+        part["shapes"], st["var_seed"]), tr.model))
+    set_rate(tr.model, 0.0)
+    return tr, view
+
+
+def check_negatives(gb, num_neg: int, what: str):
+    """Each real seed's negatives: the first half keep the source, the
+    rest the destination, and none is an endpoint or a neighbour of
+    either in the batch's subgraph."""
+    import numpy as np
+
+    neg = gb.neg_edge_index.cpu().numpy()
+    ei = gb.edge_index.cpu().numpy()
+    em = gb.edge_mask.cpu().numpy()
+    pairs = set(zip(ei[0][em].tolist(), ei[1][em].tolist()))
+    half = num_neg // 2
+    for j in np.flatnonzero(gb.seed_mask.cpu().numpy()):
+        s, d = int(ei[0, j]), int(ei[1, j])
+        blk = neg[:, j * num_neg:(j + 1) * num_neg]
+        check((blk[0, :half] == s).all() and (blk[1, half:] == d).all(),
+              f"{what}: the negatives of seed {j} corrupt the wrong end")
+        for v in np.concatenate([blk[1, :half], blk[0, half:]]).tolist():
+            check(v not in (s, d) and not {(s, v), (v, s), (d, v),
+                                           (v, d)} & pairs,
+                  f"{what}: negative {v} of ({s}, {d}) is banned")
+
+
+def replay_device_part(rec, st: dict, data: dict, name: str,
+                       device: str = "cuda") -> dict:
+    """One part of the device record on ``device``: the first three seed
+    batches equal to the record's, each sampled array (int64 ids, bool
+    masks) and drop count (``num_node_dropped`` from the sampler itself)
+    equal to the record's, the port's own negatives (mcm-lp) outside the
+    banned set, then three steps from the record's start (the mcm-lp steps
+    fed the record's negatives) within ``convert.check_record``'s limits.
+    Returns the launches, the loss terms and the limits' summary."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.convert import check_record, loss_terms
+    from rmm_tpu_torch.graph import device_sampler as ds
+    from rmm_tpu_torch.train.trainer import seed_batches
+    from rmm_tpu_torch.utils.seeding import mix_seed
+
+    tr, view = device_part_trainer(st, data, name, device)
+    pretrain = name == "mcm_lp"
+    node_task = name == "node"
+    cfg = tr.cfg
+    dgraph = ds.cached_dgraph(tr.dataset.graph, {}, "train", tr.device)
+    sbs = itertools.islice(seed_batches(
+        cfg, view, "train", st["epoch"], node_task,
+        getattr(tr.dataset, "ignore_label", None)), st["steps"])
+    reset_counts()
+    tr.model.train()
+    terms, residual = [], 0
+    for i, sb in enumerate(sbs):
+        p = f"{name}/batch{i}/"
+        check(np.array_equal(sb.seeds, rec[f"{p}seeds"])
+              and np.array_equal(sb.seed_mask, rec[f"{p}seed_mask_in"])
+              and np.array_equal(sb.y, rec[f"{p}y"])
+              and sb.sampler_seed == int(rec[f"{p}sampler_seed"]),
+              f"{p}: the seed batch differs from the record's")
+        d = sb.to(tr.device)
+        res = tr._materialize_dev(d, dgraph)
+        gb = res[0]
+        for k in SAMPLED:
+            got = getattr(gb, k)
+            check(got.dtype == (torch.bool if "mask" in k else torch.int64)
+                  and np.array_equal(got.cpu().numpy(), rec[p + k]),
+                  f"{p}{k} differs from the record's")
+        gen = ds.batch_generator(mix_seed(sb.sampler_seed, 1) if pretrain
+                                 else sb.sampler_seed, tr.device)
+        args = (gen, cfg.num_neighs, cfg.edge_capacity, cfg.node_capacity,
+                cfg.frontier_capacity)
+        out = (ds.sample_nodes_device(dgraph, d.seeds[:, 0], d.sample_mask,
+                                      *args) if node_task else
+               ds.sample_edges_device(dgraph, d.seeds, d.seed_mask, *args))
+        check(int(res[1]) == int(rec[f"{p}num_dropped"])
+              and int(res[2]) == int(rec[f"{p}kept"])
+              and int(out["num_node_dropped"])
+              == int(rec[f"{p}num_node_dropped"]),
+              f"{p}: drop counts differ from the record's")
+        if pretrain:
+            residual += int(res[3])
+            check_negatives(gb, st["num_neg_samples"], p)
+            gb.neg_edge_index = torch.from_numpy(
+                rec[f"{p}neg_edge_index"]).long().to(tr.device)
+            terms.append(loss_terms(*tr._step(gb)))
+        else:
+            terms.append(loss_terms(tr._step(gb)[0], {}))
+    if tr.device.type == "cuda":
+        torch.cuda.synchronize()
+    counts = read_counts()
+    updates = 2 * st["steps"] if pretrain else st["steps"]
+    faults, summary = check_record(tr.model.state_dict(), terms, rec,
+                                   f"{name}/", cfg.lr, updates,
+                                   st["n_hidden"])
+    check(not faults, f"device record {name}: {faults}")
+    return {"launches": counts, "terms": terms, "neg_residual": residual,
+            **summary}
+
+
+def device_parity_phase(card: str) -> dict:
+    """The device record (``device_record.npz``, the JAX package's device
+    path on the CPU, ``tools/make_torch_port_device_fixture.py``) on the
+    card, for its edge, node and mcm-lp parts (``replay_device_part``;
+    every in-degree of its cuts is at most the fanout), each part's
+    launches."""
+    rec, st = device_record()
+    data = device_record_data(st)
+    out = {"phase": "device_parity", "parts": {}, "card": card}
+    for name in ("edge", "node", "mcm_lp"):
+        part = replay_device_part(rec, st, data, name)
+        check(part["launches"]["fwd"] > 0 and part["launches"]["bwd"] > 0,
+              f"device_parity {name}: no kernel launched "
+              f"({part['launches']})")
+        out["parts"][name] = part
+    out["ok"] = True
+    emit(out)
+    return out
+
+
+def rel_hm_trainer(st: dict, csv: str, name: str, device: str = "cuda"):
+    """The port's trainer of a Rel-H&M record part (host sampling, the
+    record's capacities and start, dropout 0)."""
+    from rmm_tpu_torch.convert import from_jax, random_variables
+    from rmm_tpu_torch.datasets import RelHM
+    from rmm_tpu_torch.datasets.base import PretrainType
+    from rmm_tpu_torch.nn.dropout import set_rate
+    from rmm_tpu_torch.train.pretrain import PretrainTrainer
+    from rmm_tpu_torch.train.trainer import Trainer
+    from rmm_tpu_torch.utils.config import Config
+
+    part = st["parts"][name]
+    common = dict(data=csv, n_hidden=st["n_hidden"],
+                  n_gnn_layers=st["n_gnn_layers"],
+                  num_neighs=tuple(st["num_neighs"]),
+                  batch_size=st["batch_size"], dropout=0.0, seed=st["seed"],
+                  lr=part["lr"], device=device,
+                  edge_capacity=part["edge_capacity"],
+                  node_capacity=part["node_capacity"])
+    ds = RelHM(root=csv, pretrain={PretrainType.MASK,
+                                   PretrainType.LINK_PRED},
+               khop_neighbors=common["num_neighs"])
+    if name == "mcm_edge":
+        tr = Trainer(Config(model="tabgnn", task="mcm_edge_table",
+                            **common), ds)
+    else:
+        tr = PretrainTrainer(Config(
+            model="tabgnnfused", num_neg_samples=st["num_neg_samples"],
+            weight_decay=st["weight_decay"], **common), ds, "mcm-lp")
+    tr.model.load_state_dict(from_jax(random_variables(
+        part["shapes"], st["var_seed"]), tr.model))
+    set_rate(tr.model, 0.0)
+    return tr
+
+
+def replay_rel_hm_part(rec, st: dict, csv: str, name: str,
+                       device: str = "cuda") -> dict:
+    """Three steps of a Rel-H&M record part (``mcm_edge``: tabgnn under
+    ``--task mcm_edge_table``; ``mcm_lp``: the pretrainer, its first
+    negatives equal to the record's) from the record's start on ``device``
+    within ``convert.check_record``'s limits: the launches, the loss terms
+    and the limits' summary."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.convert import check_record, loss_terms
+
+    tr = rel_hm_trainer(st, csv, name, device)
+    batches = list(itertools.islice(tr._batches(
+        tr.dataset.edges.split()[0], "train", st["epoch"]), st["steps"]))
+    reset_counts()
+    tr.model.train()
+    if name == "mcm_lp":
+        check(np.array_equal(batches[0].neg_edge_index, rec["mcm_lp/neg0"]),
+              "Rel-H&M record: the first negatives differ")
+        terms = [loss_terms(*tr._step(g.to(tr.device))) for g in batches]
+    else:
+        terms = [loss_terms(tr._step(g.to(tr.device))[0], {})
+                 for g in batches]
+    if tr.device.type == "cuda":
+        torch.cuda.synchronize()
+    counts = read_counts()
+    updates = st["steps"] * (2 if name == "mcm_lp" else 1)
+    faults, summary = check_record(tr.model.state_dict(), terms, rec,
+                                   f"{name}/", tr.cfg.lr, updates,
+                                   st["n_hidden"])
+    check(not faults, f"Rel-H&M record {name}: {faults}")
+    return {"launches": counts, "terms": terms, **summary}
+
+
+def rel_hm_phase(card: str) -> dict:
+    """Rel-H&M on the card: a synthetic cut of HM_ROWS transactions,
+    HM_CUSTOMERS customers and HM_ARTICLES articles (S = 15 edge tokens);
+    ``cli/main.py --model tabgnn --task mcm_edge_table`` at the config of
+    record's widths for an epoch with ``--save_model`` (4 tiled calls each
+    way a step, 4 forwards an evaluated batch); the pretrainer's mcm-lp at
+    the SSL widths for HM_SSL_BATCHES train and val batches (10 split
+    calls each way a step); both directions at the runs' token shapes
+    against their plain versions (the edge tokens at C = 32, tiled, and
+    the SSL context tokens at C = 128, split; masked and not); the
+    record ``rel_hm_record.npz`` (its 800-row cut, C = 16): three steps of
+    each within ``convert.check_record``'s limits."""
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.cli import fused
+    from rmm_tpu_torch.cli import main as train_cli
+    from rmm_tpu_torch.convert import load_record
+    from rmm_tpu_torch.datasets import RelHM, write_synthetic_hm_csv
+    from rmm_tpu_torch.datasets.base import PretrainType
+    from rmm_tpu_torch.frame.dataset import DatasetView
+    from rmm_tpu_torch.train.pretrain import PretrainTrainer
+    from rmm_tpu_torch.utils.checkpoint import load_best_m
+    from rmm_tpu_torch.utils.device import resolve_device
+
+    t0 = time.perf_counter()
+    root = os.path.join(WORK, "rel-hm")
+    os.makedirs(root, exist_ok=True)
+    csv = write_synthetic_hm_csv(os.path.join(root, "hm.csv"),
+                                 num_rows=HM_ROWS,
+                                 num_customers=HM_CUSTOMERS,
+                                 num_articles=HM_ARTICLES, seed=0)
+    data_s = time.perf_counter() - t0
+    st = fixture_settings()
+    argv = ["--data", csv, "--model", "tabgnn", "--task", "mcm_edge_table",
+            "--n_hidden", str(st["n_hidden"]), "--n_gnn_layers",
+            str(st["n_gnn_layers"]), "--num_neighs",
+            *map(str, st["num_neighs"]), "--batch_size",
+            str(st["batch_size"]), "--epochs", "1", "--testing",
+            "--sampler_threads", "4", "--save_model", "--wandb_dir",
+            os.path.join(WORK, "rel_hm_runs"), "--device", "cuda"]
+    stats: dict = {}
+    reset_counts()
+    history, best = train_cli.main(argv, stats)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    (ep,) = history
+    b = st["batch_size"]
+    train_rows, val_rows, test_rows = stats["split_rows"]
+    steps = -(-train_rows // b)
+    evals = -(-val_rows // b) + -(-test_rows // b)
+    check(counts == {"fwd": 4 * (steps + evals),
+                     "fwd_tiled": 4 * (steps + evals), "fwd_split": 0,
+                     "bwd": 4 * steps, "bwd_tiled": 4 * steps,
+                     "bwd_split": 0, "reduce": 4 * steps, **NO_BF16},
+          f"Rel-H&M mcm_edge_table launches {counts} for {steps} steps "
+          f"and {evals} evaluated batches")
+    check(math.isfinite(ep["loss"]) and all(
+        0 <= ep[k] <= 1 for k in ("train_acc", "val_acc", "test_acc"))
+        and all(math.isfinite(ep[k]) for k in ("val_rmse", "test_rmse")),
+        f"Rel-H&M epoch {ep}")
+    check(load_best_m(os.path.join(stats["run_dir"], "0")) == best
+          and os.path.isdir(os.path.join(stats["run_dir"], "-1")),
+          "the Rel-H&M checkpoint lacks its best metrics or -1/")
+
+    # the pretrainer's mcm-lp at the SSL widths
+    cfg = fused.config_from_args(fused.build_parser().parse_args(
+        ["--dataset", csv, *SSL_ARGV, "--sampler_threads", "4",
+         "--device", "cuda"]))
+    pds = RelHM(root=csv, pretrain={PretrainType.MASK,
+                                    PretrainType.LINK_PRED},
+                khop_neighbors=cfg.num_neighs)
+    tr = PretrainTrainer(cfg, pds, "mcm-lp")
+    n = HM_SSL_BATCHES
+    train, val, _ = pds.edges.split()
+    train = DatasetView(train.parent, train.indices[:n * b])
+    val = DatasetView(val.parent, val.indices[:n * b])
+    reset_counts()
+    t0 = time.perf_counter()
+    tm = tr.train_epoch(train, 0)
+    torch.cuda.synchronize()
+    ssl_wall = time.perf_counter() - t0
+    ssl_counts = read_counts()
+    reset_counts()
+    vm = tr.evaluate(val, "val")
+    ssl_eval = read_counts()
+    k = SSL_LAUNCHES
+    check(ssl_counts == {"fwd": k * n, "fwd_tiled": 0, "fwd_split": k * n,
+                         "bwd": k * n, "bwd_tiled": 0, "bwd_split": k * n,
+                         "reduce": k * n, **NO_BF16}
+          and ssl_eval["fwd_split"] == k * n,
+          f"Rel-H&M SSL launches {ssl_counts}, {ssl_eval}")
+    check(math.isfinite(tm["loss"]) and 0 < vm["mrr"] <= 1
+          and 0 <= vm["accuracy"] <= 1 and math.isfinite(vm["rmse"]),
+          f"Rel-H&M SSL {tm}, {vm}")
+    ssl_edges = tr.cfg.edge_capacity
+    del tr
+    torch.cuda.empty_cache()
+
+    # the kernels at the runs' token shapes
+    rng = np.random.RandomState(18)
+    dev = resolve_device("cuda")
+    e_cap = stats["edge_capacity"]
+    shapes = [(e_cap, HM_S, 32, 8, TRAIN_DROPOUT), (e_cap, HM_S, 32, 8, 0.0),
+              (ssl_edges - b, HM_S, 128, 8, SSL_DROPOUT),
+              (ssl_edges - b, HM_S, 128, 8, 0.0)]
+    kfwd = [fwd_record(rng, dev, *s, card) for s in shapes]
+    kbwd = [bwd_record(rng, dev, *s, card) for s in shapes]
+
+    # the record's three steps of each part
+    hrec = load_record(REL_HM_FIXTURE)
+    hst = json.loads(str(hrec["settings"]))
+    d = hst["data"]
+    cut = write_synthetic_hm_csv(os.path.join(root, "hm_cut.csv"),
+                                 num_rows=d["rows"],
+                                 num_customers=d["customers"],
+                                 num_articles=d["articles"], seed=d["seed"])
+    parity = {name: replay_rel_hm_part(hrec, hst, cut, name)
+              for name in ("mcm_edge", "mcm_lp")}
+    rec = {"phase": "rel_hm", "transactions": HM_ROWS,
+           "customers": HM_CUSTOMERS, "articles": HM_ARTICLES,
+           "edge_tokens": HM_S, "split_rows": stats["split_rows"],
+           "steps": steps, "evaluated_batches": evals, "launches": counts,
+           "edge_capacity": e_cap, "node_capacity": stats["node_capacity"],
+           "loss": ep["loss"], "train_rmse": ep["train_rmse"],
+           "train_acc": ep["train_acc"], "val_rmse": ep["val_rmse"],
+           "val_acc": ep["val_acc"], "best": best, "epoch_s": ep["sec"],
+           "train_rows_per_s": train_rows / ep["sec"],
+           "step_ms_median": ep.get("step_ms"), "drop_rate": ep["drop_rate"],
+           "ssl_steps": n, "ssl_launches": ssl_counts,
+           "ssl_eval_launches": ssl_eval, "ssl_edge_capacity": ssl_edges,
+           "ssl_loss": tm["loss"], "ssl_val_mrr": vm["mrr"],
+           "ssl_val_accuracy": vm["accuracy"], "ssl_val_rmse": vm["rmse"],
+           "ssl_step_ms_median": tm.get("step_ms"),
+           "ssl_train_rows_per_s": train.tensor_frame.num_rows / ssl_wall,
+           "parity": parity, "data_s": data_s, "card": card, "ok": True}
+    emit(rec)
+    return {**rec, "kernel_fwd": kfwd, "kernel_bwd": kbwd}
+
+
+def data_tools_phase(card: str) -> dict:
+    """The data tools with pandas and networkx blocked (a child process
+    in which importing either fails): ``prepare_aml`` on the committed raw
+    CSV in the Kaggle layout and ``export_eth`` on the committed
+    ``MultiDiGraph`` pickle (networkx's cached views in it), each output
+    byte for byte the JAX package's (``expected.json``,
+    ``tools/make_torch_port_data_tools_fixture.py``), then read by the
+    port's datasets."""
+    import hashlib
+
+    from rmm_tpu_torch.datasets import EthereumPhishing, IBMTransactionsAML
+
+    def sha(path):
+        with open(path, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    with open(os.path.join(DATA_TOOLS, "expected.json")) as f:
+        expected = json.load(f)
+    out = os.path.join(WORK, "aml_prepared.csv")
+    eth = os.path.join(WORK, "ethereum-phishing")
+    code = (
+        "import sys, time\n"
+        "sys.modules['pandas'] = sys.modules['networkx'] = None\n"
+        "from rmm_tpu_torch.datasets import export_eth, prepare_aml\n"
+        "t0 = time.perf_counter()\n"
+        f"prepare_aml.main([{os.path.join(DATA_TOOLS, 'raw_aml.csv')!r}, "
+        f"{out!r}])\n"
+        "t1 = time.perf_counter()\n"
+        f"export_eth.main([{os.path.join(DATA_TOOLS, 'eth_graph.pkl')!r}, "
+        f"{eth!r}])\n"
+        "print(t1 - t0, time.perf_counter() - t1)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    check(res.returncode == 0, f"the data tools failed: {res.stderr}")
+    prepare_s, export_s = map(float, res.stdout.split()[-2:])
+    check(sha(out) == expected["prepare_aml"]["sha256"],
+          "prepare_aml's output differs from the reference's")
+    for name in ("nodes.csv", "edges.csv"):
+        check(sha(os.path.join(eth, name))
+              == expected[f"export_eth/{name}"]["sha256"],
+              f"export_eth's {name} differs from the reference's")
+    aml = IBMTransactionsAML(out, khop_neighbors=(4, 4))
+    eds = EthereumPhishing(eth, khop_neighbors=(4, 4))
+    check(aml.graph.num_edges == expected["prepare_aml"]["rows"]
+          and eds.nodes.num_rows == expected["export_eth/nodes.csv"]["rows"],
+          "the prepared tables do not read back")
+    rec = {"phase": "data_tools", "pandas_and_networkx": "blocked",
+           "prepare_aml_rows": aml.graph.num_edges,
+           "export_eth_accounts": eds.nodes.num_rows,
+           "export_eth_transactions": eds.graph.num_edges,
+           "prepare_aml_s": prepare_s, "export_eth_s": export_s,
+           "card": card, "ok": True}
+    emit(rec)
+    return rec
+
 def main() -> int:
     import torch
 
@@ -3484,6 +4374,10 @@ def main() -> int:
             serve_rec = timed("serve", serve_phase, card, csv)
             serve16 = timed("serve_bf16", serve_bf16_phase, card, csv)
             train_rec = timed("train", train_phase, card, csv)
+            dsampler = timed("device_sampler", device_sampler_phase, card,
+                             csv)
+            dtrain = timed("device_train", device_train_phase, card, csv,
+                           train_rec, serve_rec)
             timed("train_parity", train_parity_phase, card)
             family = timed("family_train", family_train_phase, card, csv)
             fparity = timed("family_parity", family_parity_phase, card)
@@ -3510,6 +4404,7 @@ def main() -> int:
                           node["node_capacity"])
             node_serve = timed("node_serve", node_serve_phase, card,
                                node_root, node)
+            dnode = timed("device_node", device_node_phase, card)
             node_parity = timed("node_parity", node_parity_phase, card)
             nf_roots = timed("node_family_data", prepare_node_family_data)
             eth = timed("eth_node", eth_node_phase, card, nf_roots["eth"])
@@ -3517,10 +4412,15 @@ def main() -> int:
                          nf_roots["eth_cut"])
             eth_ssl = timed("eth_ssl", eth_ssl_phase, card,
                             nf_roots["eth_cut"])
+            dssl = timed("device_ssl", device_ssl_phase, card,
+                         nf_roots["eth_cut"], eth_ssl)
             families = timed("node_families", node_families_phase, card,
                              nf_roots)
             nf_parity = timed("node_family_parity", node_family_parity_phase,
                               card)
+            dparity = timed("device_parity", device_parity_phase, card)
+            hm = timed("rel_hm", rel_hm_phase, card)
+            timed("data_tools", data_tools_phase, card)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
         emit({"phase": "seconds", **seconds,
@@ -3614,6 +4514,31 @@ def main() -> int:
                                     by_path(nf_runs, "bwd_split"))
         eth_fwd_split, eth_bwd_split = (by_path(eth_ssl_runs, "fwd_split"),
                                         by_path(eth_ssl_runs, "bwd_split"))
+        # the device-sampled paths and Rel-H&M by path and route: tiled
+        # (device_train, device_node's and the device record's edge tokens,
+        # the device record's C = 16 runs, Rel-H&M's mcm_edge_table and its
+        # record), split at C = 128 (device_ssl, Rel-H&M's pretraining) and
+        # the long cores (device_node's node tokens, the device record's
+        # node part: S = 21)
+        dev_runs = {
+            "device_train": [dtrain["launches"], dtrain["serve_launches"]],
+            "device_node": [dnode["launches"], dnode["serve"]["launches"],
+                            dnode["host_launches"]],
+            **{f"device_parity {p}": [r["launches"]]
+               for p, r in dparity["parts"].items()},
+            "rel_hm": [hm["launches"]],
+            **{f"rel_hm parity {p}": [r["launches"]]
+               for p, r in hm["parity"].items()}}
+        dev_split_runs = {
+            "device_ssl": [dssl["launches"]],
+            "rel_hm ssl": [hm["ssl_launches"], hm["ssl_eval_launches"]]}
+        dev_fwd_tiled, dev_bwd_tiled = (by_path(dev_runs, "fwd_tiled"),
+                                        by_path(dev_runs, "bwd_tiled"))
+        dev_fwd_long, dev_bwd_long = (by_path(dev_runs, "fwd_split"),
+                                      by_path(dev_runs, "bwd_split"))
+        dev_fwd_split, dev_bwd_split = (by_path(dev_split_runs, "fwd_split"),
+                                        by_path(dev_split_runs, "bwd_split"))
+        hm_fwd, hm_bwd = hm["kernel_fwd"], hm["kernel_bwd"]
         emit({"kernels": [
             kernel_entry("column_attention_fwd", 165, kern["fwd"],
                          kern["fwd"], {
@@ -3623,24 +4548,29 @@ def main() -> int:
                                      "mcm_parity, Ethereum phishing node "
                                      "classification (every model with "
                                      "attention), the node families' edge "
-                                     "tokens",
+                                     "tokens, device-sampled training and "
+                                     "serving, Rel-H&M mcm_edge_table",
                              "launches": serve_rec["launches"]
                              + train_rec["launches"]["fwd"]
                              + sum(node_fwd_tiled.values())
                              + sum(fam_fwd.values())
                              + sum(mcm_fwd_tiled.values())
-                             + sum(nf_fwd_tiled.values()),
+                             + sum(nf_fwd_tiled.values())
+                             + sum(dev_fwd_tiled.values()),
                              "tiled_launches": serve_rec["tiled_launches"]
                              + train_rec["launches"]["fwd_tiled"]
                              + sum(node_fwd_tiled.values())
                              + sum(fam_fwd.values())
                              + sum(mcm_fwd_tiled.values())
-                             + sum(nf_fwd_tiled.values()),
+                             + sum(nf_fwd_tiled.values())
+                             + sum(dev_fwd_tiled.values()),
                              "launches_by_path": {
                                  "serve": serve_rec["launches"],
                                  "train": train_rec["launches"]["fwd"],
                                  **node_fwd_tiled, **fam_fwd,
-                                 **mcm_fwd_tiled, **nf_fwd_tiled},
+                                 **mcm_fwd_tiled, **nf_fwd_tiled,
+                                 **dev_fwd_tiled},
+                             "rel_hm": shape_times(hm_fwd[:2]),
                              "family": shape_times(kern["family_fwd"]),
                              "ports": shape_times(kern["ports_fwd"]),
                              # the float32 edge tokens at --precision bf16
@@ -3663,28 +4593,34 @@ def main() -> int:
                                      "mcm_parity, Ethereum phishing node "
                                      "classification (every model with "
                                      "attention), the node families' edge "
-                                     "tokens",
+                                     "tokens, device-sampled training, "
+                                     "Rel-H&M mcm_edge_table",
                              "launches": train_rec["launches"]["bwd"]
                              + sum(node_bwd_tiled.values())
                              + sum(fam_bwd.values())
                              + sum(mcm_bwd_tiled.values())
-                             + sum(nf_bwd_tiled.values()),
+                             + sum(nf_bwd_tiled.values())
+                             + sum(dev_bwd_tiled.values()),
                              "tiled_launches":
                                  train_rec["launches"]["bwd_tiled"]
                              + sum(node_bwd_tiled.values())
                              + sum(fam_bwd.values())
                              + sum(mcm_bwd_tiled.values())
-                             + sum(nf_bwd_tiled.values()),
+                             + sum(nf_bwd_tiled.values())
+                             + sum(dev_bwd_tiled.values()),
                              "launches_by_path": {
                                  "train": train_rec["launches"]["bwd"],
                                  **node_bwd_tiled, **fam_bwd,
-                                 **mcm_bwd_tiled, **nf_bwd_tiled},
+                                 **mcm_bwd_tiled, **nf_bwd_tiled,
+                                 **dev_bwd_tiled},
+                             "rel_hm": shape_times(hm_bwd[:2]),
                              "family": shape_times(kern["family_bwd"]),
                              "ports": shape_times(kern["ports_bwd"]),
                              "reduce_launches":
                                  train_rec["launches"]["reduce"]
                              + sum(mcm_bwd_tiled.values())
-                             + sum(nf_bwd_tiled.values()),
+                             + sum(nf_bwd_tiled.values())
+                             + sum(dev_bwd_tiled.values()),
                              "max_rel_err": max(max(r["max_rel_err"].values())
                                                 for r in kern["bwd"]),
                              "library_masked": False}),
@@ -3693,20 +4629,25 @@ def main() -> int:
                              "path": "ssl_train, transfer, tabular_mcm, "
                                      "mcm_edge (tabgnnfused), ssl_moco, "
                                      "mcm_parity, eth_ssl, "
-                                     "node_family_parity (ssl)",
+                                     "node_family_parity (ssl), device_ssl, "
+                                     "Rel-H&M mcm-lp",
                              "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
                              "launches": sum(split_fwd.values())
                              + sum(mcm_fwd_split.values())
-                             + sum(eth_fwd_split.values()),
+                             + sum(eth_fwd_split.values())
+                             + sum(dev_fwd_split.values()),
                              "launches_by_path": {**split_fwd,
                                                   **mcm_fwd_split,
-                                                  **eth_fwd_split},
+                                                  **eth_fwd_split,
+                                                  **dev_fwd_split},
                              "split_launches":
                                  ssl_rec["train_launches"]["fwd_split"]
                                  + ssl_rec["eval_launches"]["fwd_split"]
                                  + transfer_split["fwd"]
                                  + sum(mcm_fwd_split.values())
-                                 + sum(eth_fwd_split.values()),
+                                 + sum(eth_fwd_split.values())
+                                 + sum(dev_fwd_split.values()),
+                             "rel_hm": shape_times(hm_fwd[2:]),
                              "core_max_abs_err": max(
                                  r["core_max_abs_err"]
                                  for r in kern["ssl_fwd"]),
@@ -3724,24 +4665,30 @@ def main() -> int:
                              "path": "ssl_train, transfer, tabular_mcm, "
                                      "mcm_edge (tabgnnfused), ssl_moco "
                                      "(a pull a loss), mcm_parity, eth_ssl, "
-                                     "node_family_parity (ssl)",
+                                     "node_family_parity (ssl), device_ssl, "
+                                     "Rel-H&M mcm-lp",
                              "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
                              "launches": sum(split_bwd.values())
                              + sum(mcm_bwd_split.values())
-                             + sum(eth_bwd_split.values()),
+                             + sum(eth_bwd_split.values())
+                             + sum(dev_bwd_split.values()),
                              "launches_by_path": {**split_bwd,
                                                   **mcm_bwd_split,
-                                                  **eth_bwd_split},
+                                                  **eth_bwd_split,
+                                                  **dev_bwd_split},
                              "split_launches":
                                  ssl_rec["train_launches"]["bwd_split"]
                                  + transfer_split["bwd"]
                                  + sum(mcm_bwd_split.values())
-                                 + sum(eth_bwd_split.values()),
+                                 + sum(eth_bwd_split.values())
+                                 + sum(dev_bwd_split.values()),
                              "reduce_launches":
                                  ssl_rec["train_launches"]["reduce"]
                                  + transfer["train_launches"]["reduce"]
                                  + sum(mcm_bwd_split.values())
-                                 + sum(eth_bwd_split.values()),
+                                 + sum(eth_bwd_split.values())
+                                 + sum(dev_bwd_split.values()),
+                             "rel_hm": shape_times(hm_bwd[2:]),
                              "launches_under_bf16":
                                  ssl16["train_launches"]["bwd_split"]
                                  + ssl_parity16["launches"]["bwd_split"],
@@ -3755,13 +4702,17 @@ def main() -> int:
                          klong["node_fwd"][:1], klong["node_fwd"][1:], {
                              "path": "node (node tokens, S = 167), the "
                                      "node families' node tokens (S = 129, "
-                                     "130; the record's 18 and 129)",
+                                     "130; the record's 18 and 129), "
+                                     "device_node, device_parity (node, "
+                                     "S = 21)",
                              "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
                              "core": "column_attention_fwd_core_long_kernel",
                              "launches": sum(node_fwd_split.values())
-                             + sum(nf_fwd_long.values()),
+                             + sum(nf_fwd_long.values())
+                             + sum(dev_fwd_long.values()),
                              "launches_by_path": {**node_fwd_split,
-                                                  **nf_fwd_long},
+                                                  **nf_fwd_long,
+                                                  **dev_fwd_long},
                              "families": shape_times(klong["family_fwd"]),
                              "core_max_abs_err": max(
                                  r["core_max_abs_err"]
@@ -3773,13 +4724,17 @@ def main() -> int:
                          klong["node_bwd"][:1], klong["node_bwd"][1:], {
                              "path": "node (node tokens, S = 167), the "
                                      "node families' node tokens (S = 129, "
-                                     "130; the record's 18 and 129)",
+                                     "130; the record's 18 and 129), "
+                                     "device_node, device_parity (node, "
+                                     "S = 21)",
                              "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
                              "core": "column_attention_bwd_core_long_kernel",
                              "launches": sum(node_bwd_split.values())
-                             + sum(nf_bwd_long.values()),
+                             + sum(nf_bwd_long.values())
+                             + sum(dev_bwd_long.values()),
                              "launches_by_path": {**node_bwd_split,
-                                                  **nf_bwd_long},
+                                                  **nf_bwd_long,
+                                                  **dev_bwd_long},
                              "families": shape_times(klong["family_bwd"]),
                              "max_rel_err": max(max(r["max_rel_err"].values())
                                                 for r in klong["node_bwd"]),

@@ -34,7 +34,7 @@ from typing import Optional
 
 #: flag → the only value the port accepts (the JAX CLI's default)
 UNPORTED = {"dp": 0, "scan_layers": False, "steps_per_dispatch": 1,
-            "frontier_capacity": 0, "inflight_groups": 2}
+            "inflight_groups": 2}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -93,8 +93,6 @@ def config_from_args(args: argparse.Namespace):
         if getattr(args, flag) != default:
             raise NotImplementedError(
                 f"--{flag} {getattr(args, flag)} is not ported yet")
-    if args.sampler == "device":
-        raise NotImplementedError("--sampler device is not ported yet")
     return Config(
         model="tabgnnfused", data=args.dataset, batch_size=args.batch_size,
         lr=args.lr, adam_eps=args.eps, weight_decay=args.weight_decay,
@@ -105,6 +103,7 @@ def config_from_args(args: argparse.Namespace):
         splits=tuple(args.splits), reverse_mp=args.reverse_mp, ego=args.ego,
         ports=args.ports, edge_capacity=args.edge_capacity,
         node_capacity=args.node_capacity,
+        frontier_capacity=args.frontier_capacity, sampler=args.sampler,
         pretrain=(("mask",) if "mcm" in args.mode else ()) + ("lp",),
         save_model=args.save_model, testing=args.testing,
         wandb_dir=args.wandb_dir, group=str(args.group),
@@ -169,6 +168,7 @@ def main(argv=None, stats: Optional[dict] = None):
                      split_rows=[v.tensor_frame.num_rows
                                  for v in dataset.edges.split()],
                      edge_capacity=trainer.cfg.edge_capacity,
+                     frontier_capacity=trainer.cfg.frontier_capacity,
                      node_capacity=trainer.cfg.node_capacity,
                      device=str(device))
     return history, best

@@ -100,6 +100,7 @@ def main(argv=None, stats: Optional[dict] = None):
                      split_rows=[v.tensor_frame.num_rows
                                  for v in trainer.seed_table().split()],
                      edge_capacity=trainer.cfg.edge_capacity,
+                     frontier_capacity=trainer.cfg.frontier_capacity,
                      node_capacity=trainer.cfg.node_capacity,
                      device=str(device))
     return history, best

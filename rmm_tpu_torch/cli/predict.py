@@ -72,6 +72,7 @@ def main(argv=None, stats: Optional[dict] = None) -> dict:
     if stats is not None:
         stats.update(setup_s=t1 - t0, predict_s=t2 - t1, rows=len(out["id"]),
                      edge_capacity=trainer.cfg.edge_capacity,
+                     frontier_capacity=trainer.cfg.frontier_capacity,
                      node_capacity=trainer.cfg.node_capacity,
                      device=str(device))
     logging.info("wrote %d predictions to %s", len(out["id"]), args.output)

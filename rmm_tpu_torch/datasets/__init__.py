@@ -1,6 +1,7 @@
-"""Datasets of the port: IBM AML (a CSV), Ethereum phishing, Elliptic,
-ogbn-arxiv, MUSAE GitHub and LastFM Asia (a nodes and an edges CSV in a
-directory each) and their synthetic twins."""
+"""Datasets of the port: IBM AML and Rel-H&M (a CSV each), Ethereum
+phishing, Elliptic, ogbn-arxiv, MUSAE GitHub and LastFM Asia (a nodes and
+an edges CSV in a directory each) and their synthetic twins; the raw-data
+tools ``prepare_aml`` and ``export_eth``."""
 from .base import PretrainType, parse_pretrain_args  # noqa: F401
 from .elliptic import EllipticBitcoin  # noqa: F401
 from .eth_phishing import EthereumPhishing  # noqa: F401
@@ -9,18 +10,19 @@ from .ibm_aml import IBMTransactionsAML  # noqa: F401
 from .lastfm_asia import LastFMAsia  # noqa: F401
 from .musae_github import MusaeGitHub  # noqa: F401
 from .ogbn_arxiv import OgbnArxiv  # noqa: F401
+from .rel_hm import RelHM  # noqa: F401
 from .synthetic import (synthetic_aml_frame, write_synthetic_aml_csv,  # noqa: F401
-                        write_synthetic_node_dataset)
+                        write_synthetic_hm_csv, write_synthetic_node_dataset)
 
 
 def build_dataset(cfg) -> GraphTableDataset:
     """Dataset dispatch by path substring (``rmm_tpu/datasets/
     __init__.py``), in its order: ``ethereum-phishing`` (the
     ``temporal_daily`` edge split), ``elliptic``, ``ogbn`` (the
-    ``temporal`` split), ``musae``, ``lastfm``; a Rel-H&M path (``hm`` with
-    ``rel`` or ``h-and-m``) is refused; any other path is IBM AML. AML and
-    Ethereum phishing take the pretraining targets of ``cfg.pretrain`` (the
-    SSL CLI's); an ``mcm`` task without them takes the masked-cell and link
+    ``temporal`` split), ``musae``, ``lastfm``, Rel-H&M (``hm`` with ``rel``
+    or ``h-and-m``); any other path is IBM AML. AML, Ethereum phishing and
+    Rel-H&M take the pretraining targets of ``cfg.pretrain`` (the SSL
+    CLI's); an ``mcm`` task without them takes the masked-cell and link
     targets. ``--ports`` and ``--ego`` reach every dataset."""
     pretrain = parse_pretrain_args(cfg.pretrain)
     if "mcm" in cfg.task and not pretrain:
@@ -41,6 +43,6 @@ def build_dataset(cfg) -> GraphTableDataset:
     if "lastfm" in data:
         return LastFMAsia(root=data, **common)
     if "hm" in data and ("rel" in data or "h-and-m" in data):
-        raise NotImplementedError("the Rel-H&M dataset is not ported yet")
+        return RelHM(root=data, **common)
     return IBMTransactionsAML(root=data, split_type=cfg.split_type,
                               splits=tuple(cfg.splits), **common)

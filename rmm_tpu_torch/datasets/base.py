@@ -56,6 +56,18 @@ def _parse_column(cells: list[str]) -> np.ndarray:
         return np.asarray(cells, dtype=object)
 
 
+def mangle_duplicates(header: list[str]) -> list[str]:
+    """A repeated column name gets ``.1``, ``.2``, ... as pandas' reader
+    gives it (the raw IBM AML CSV has two ``Account`` columns)."""
+    seen: dict[str, int] = {}
+    out = []
+    for name in header:
+        k = seen.get(name, 0)
+        seen[name] = k + 1
+        out.append(name if k == 0 else f"{name}.{k}")
+    return out
+
+
 def read_csv_columns(path: str, text_columns: Optional[Sequence[str]] = None
                      ) -> dict[str, np.ndarray]:
     """The CSV's columns by name, each typed as :func:`_parse_column` infers.
@@ -64,7 +76,7 @@ def read_csv_columns(path: str, text_columns: Optional[Sequence[str]] = None
     table, such as Elliptic's 166 feature columns, reads 4× faster); a cell
     of them that does not parse raises numpy's ``ValueError``."""
     with open(path, newline="") as f:
-        header = next(csv.reader(f))
+        header = mangle_duplicates(next(csv.reader(f)))
     keep = (range(len(header)) if text_columns is None else
             [i for i, n in enumerate(header) if n in set(text_columns)])
     floats = [i for i in range(len(header)) if i not in set(keep)]

@@ -8,7 +8,9 @@ target ``[label, node]``, one constant token (``node_attr`` = 1.0, or an
 ``first_transaction`` quantiles of the split ratios. ``edges.csv``
 (``from_address``, ``to_address``, ``nonce``, ``value``, ``gas``,
 ``gas_price``, ``block_timestamp``): four numerical columns, all maskable
-for MCM, and the timestamp; no label column; split by ``split_type``.
+for MCM, and the timestamp; no label column; split by ``split_type``, or,
+with ``use_cutoffs``, at the accounts' cut-offs (``cutoff_split``: an edge
+before the first is train, after the second test, val between them).
 """
 from __future__ import annotations
 
@@ -65,6 +67,7 @@ class EthereumPhishing(NodeClassificationDataset):
                  splits: Sequence[float] = (0.65, 0.15, 0.2),
                  khop_neighbors: Sequence[int] = (100, 100),
                  ports: bool = False, ego: bool = False,
+                 use_cutoffs: bool = False,
                  edge_capacity: int = 0, node_capacity: int = 0):
         node_cols = read_csv_columns(os.path.join(root, "nodes.csv"))
         edge_cols = read_csv_columns(
@@ -76,7 +79,8 @@ class EthereumPhishing(NodeClassificationDataset):
             dst_col="to_address", timestamp_col="block_timestamp",
             supervised_col=None, masked_numerical_columns=ETH_MASKED,
             masked_categorical_columns=[], pretrain=pretrain,
-            split_type=split_type, splits=list(splits),
+            split_type="cutoff" if use_cutoffs else split_type,
+            splits=list(nodes.cutoffs) if use_cutoffs else list(splits),
             khop_neighbors=khop_neighbors, ports=ports,
             cache_root=os.path.join(root, "edges"))
         super().__init__(edges, nodes, edge_capacity, node_capacity,

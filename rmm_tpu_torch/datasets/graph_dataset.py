@@ -10,6 +10,7 @@ import numpy as np
 from ..frame.dataset import Dataset
 from ..frame.stats import StatType
 from ..frame.stype import Stype
+from ..graph.sampler import group_by
 from ..graph.store import GraphStore
 from ..utils.batch import GraphBatch, graph_inputs, lp_inputs, node_inputs
 from .base import (PretrainType, apply_split, blank_masked_cells,
@@ -109,11 +110,13 @@ class GraphTableDataset:
     calibrated on first use."""
 
     def __init__(self, edges: EdgeTable, nodes: NodeTable,
-                 edge_capacity: int = 0, node_capacity: int = 0):
+                 edge_capacity: int = 0, node_capacity: int = 0,
+                 frontier_capacity: int = 0):
         self.edges = edges
         self.nodes = nodes
         self.edge_capacity = edge_capacity
         self.node_capacity = node_capacity
+        self.frontier_capacity = frontier_capacity
         edges.materialize()
         nodes.materialize()
 
@@ -129,13 +132,14 @@ class GraphTableDataset:
         to a multiple of 256 below 1k and to a power of two above. The
         probes are seed edges for node tasks too, as the reference's are:
         a batch of B edges has up to 2·B end nodes, so the buffers hold a
-        batch of B seed nodes. (The reference also sizes the frontier
-        buffer of its on-device sampler, which the port does not have.)"""
+        batch of B seed nodes. The device sampler's frontier buffer is
+        sized the same way from :meth:`_frontier_need` (at least 256, at
+        most the node capacity) and set as ``frontier_capacity``."""
         g = self.graph
         rng = np.random.RandomState(0)
         b = max(int(batch_size), 1)
         cap_e = cap_n = 1 << 16
-        need_e = need_n = 1
+        need_e = need_n = need_f = 1
         for mode in ("train", "test"):
             for p in range(n_probe):
                 take = min(b, g.num_edges)
@@ -156,6 +160,8 @@ class GraphTableDataset:
                     break
                 need_e = max(need_e, sub.num_edges)
                 need_n = max(need_n, sub.num_nodes)
+                need_f = max(need_f, self._frontier_need(
+                    mode, np.unique(seeds[:, :2])))
 
         def rnd(x):
             need = max(int(x * safety), 256)
@@ -165,7 +171,37 @@ class GraphTableDataset:
 
         self.edge_capacity = max(rnd(need_e), b)
         self.node_capacity = max(rnd(need_n), b)
+        self.frontier_capacity = min(rnd(need_f), self.node_capacity)
         return self.edge_capacity, self.node_capacity
+
+    def _frontier_need(self, mode: str, seed_nodes: np.ndarray) -> int:
+        """A bound on the device sampler's distinct inter-hop frontier for
+        one probe batch: at each hop but the last, the union of the
+        frontier's whole neighbour lists (a draw is a subset of them) minus
+        the nodes already seen, bounded by the number of draws (the sum of
+        ``min(deg, fanout)``); the reference's ``_frontier_need`` over
+        incoming edges (the port's samplers are directed). The split's host
+        in-CSR is built once a mode."""
+        s = self.graph.sampler(mode)
+        cache = self.__dict__.setdefault("_frontier_csr", {})
+        if mode not in cache:
+            indptr, order = group_by(s.dst, self.graph.num_nodes)
+            cache[mode] = indptr, np.asarray(s.src)[order]
+        indptr, nbr = cache[mode]
+        seen = frontier = np.unique(seed_nodes)
+        need = 1
+        for fanout in [int(f) for f in s.fanouts][:-1]:
+            p0 = indptr[frontier]
+            deg = indptr[frontier + 1] - p0
+            draws = int(np.minimum(deg, fanout).sum())
+            # every neighbour-list position of the frontier, in order
+            at = np.repeat(p0 - np.cumsum(deg) + deg, deg)
+            nxt = np.setdiff1d(np.unique(nbr[at + np.arange(len(at))]), seen,
+                               assume_unique=True)
+            need = max(need, min(len(nxt), draws))
+            seen = np.union1d(seen, nxt)
+            frontier = nxt
+        return need
 
     def get_graph_inputs(self, batch_y, valid, mode="train",
                          rng_seed: int = 0) -> GraphBatch:

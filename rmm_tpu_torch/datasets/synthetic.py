@@ -147,3 +147,39 @@ def write_synthetic_node_dataset(root: str, family: str = "elliptic",
     write_csv_columns(os.path.join(root, "nodes.csv"), nodes)
     write_csv_columns(os.path.join(root, "edges.csv"), edges)
     return root
+
+
+#: the categorical columns of the synthetic Rel-H&M, in the CSV's order
+HM_CATEGORIES = {
+    "postal_code": [f"pc{i}" for i in range(10)],
+    "product_type_name": ["Trousers", "Dress", "Sweater", "T-shirt"],
+    "product_group_name": ["Garment Lower body", "Garment Upper body"],
+    "graphical_appearance_name": ["Solid", "Stripe", "Print"],
+    "colour_group_name": ["Black", "White", "Blue", "Red"],
+    "perceived_colour_value_name": ["Dark", "Light", "Medium"],
+    "perceived_colour_master_name": ["Black", "White", "Blue"],
+    "department_name": ["Jersey", "Knitwear", "Trouser"],
+    "index_name": ["Ladieswear", "Menswear", "Divided"],
+    "index_group_name": ["Ladieswear", "Menswear"],
+    "section_name": ["Womens Everyday", "Mens Basics"],
+    "garment_group_name": ["Jersey Fancy", "Knitwear"],
+}
+
+
+def write_synthetic_hm_csv(path: str, num_rows: int = 800,
+                           num_customers: int = 80, num_articles: int = 40,
+                           seed: int = 0) -> str:
+    """H&M-shaped transactions joined with article columns
+    (``rmm_tpu/datasets/synthetic.py::write_synthetic_hm_csv``): ``t_dat``
+    seconds over 20 days, customer ids ``[0, num_customers)``, article ids
+    after them, a ``price`` in [0, 1) and the 12 categorical columns."""
+    rng = np.random.RandomState(seed)
+    n = num_rows
+    columns = {
+        "t_dat": rng.randint(0, 20 * 86400, n).astype(np.int64),
+        "customer_id": rng.randint(0, num_customers, n),
+        "article_id": num_customers + rng.randint(0, num_articles, n),
+        "price": rng.rand(n)}
+    columns.update((k, rng.choice(v, n)) for k, v in HM_CATEGORIES.items())
+    write_csv_columns(path, columns)
+    return path

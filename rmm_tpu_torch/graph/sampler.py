@@ -37,6 +37,17 @@ def _i64p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
 
 
+def group_by(key: np.ndarray, num_nodes: int) -> tuple:
+    """The CSR layout of edges grouped by ``key`` (one node id an edge):
+    int64 offsets [num_nodes + 1] and the stable order that lists each
+    node's edges in their input order. The host sampler, the device
+    sampler's upload and the frontier calibration share it."""
+    key = np.asarray(key, np.int64)
+    offsets = np.zeros(int(num_nodes) + 1, dtype=np.int64)
+    np.cumsum(np.bincount(key, minlength=int(num_nodes)), out=offsets[1:])
+    return offsets, np.argsort(key, kind="stable")
+
+
 class NeighborSampler:
     def __init__(self, edge_index: np.ndarray, edge_ids: Optional[np.ndarray],
                  num_nodes: int, fanouts: Sequence[int] = (100, 100),
@@ -63,10 +74,7 @@ class NeighborSampler:
             self._lib.rmm_graph_destroy(self._handle)
 
     def _csr(self, key, other):
-        order = np.argsort(key, kind="stable")
-        offsets = np.zeros(self.num_nodes + 1, dtype=np.int64)
-        np.add.at(offsets, key[order] + 1, 1)
-        np.cumsum(offsets, out=offsets)
+        offsets, order = group_by(key, self.num_nodes)
         return offsets, other[order], self.edge_ids[order]
 
     def in_degrees(self) -> np.ndarray:

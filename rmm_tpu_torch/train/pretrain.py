@@ -1,6 +1,6 @@
 """Self-supervised pretraining of ``TABGNNFused``: masked cell modeling
 (MCM), link prediction (LP) or both (``rmm_tpu/train/pretrain.py`` without
-its device-sampler, scan and prefetch paths).
+its scan and prefetch paths).
 
 :class:`PretrainModel` is the edge encoder, the fused backbone and the two
 heads as one module; its forward gives the losses of a mode on a device
@@ -14,7 +14,13 @@ order.
 :class:`PretrainTrainer` samples on the host (the C++ k-hop sampler and
 negative sampler, ``--sampler_threads`` as the supervised trainer), ships
 id/mask arrays to the card and keeps the losses and predictions there until
-the end of a pass: one host sync an epoch. The optimizer is AdamW whose
+the end of a pass: one host sync an epoch. Under ``--sampler device`` each
+batch's k-hop subgraph and negatives are drawn on the card
+(``graph/device_sampler.py``) from two generators seeded from the batch's
+sampler seed, one for the hops and one for the negatives, the negatives over
+the sampled subgraph; a seed whose endpoint a full node buffer evicted leaves
+``seed_mask`` before the negatives are drawn
+(``rmm_tpu/train/pretrain.py:250-310``). The optimizer is AdamW whose
 weight decay reaches only the parameters of two or more dimensions (the
 JAX mask ``ndim >= 2``; the port's parameters have the JAX leaves' shapes,
 transposed where they are kernels). A parameter that a mode does not use
@@ -48,6 +54,9 @@ import torch
 from torch import nn
 
 from ..frame.loader import DataLoader
+from ..graph.device_sampler import (batch_generator, cached_dgraph,
+                                    negative_samples_device,
+                                    sample_edges_device, use_device_sampler)
 from ..nn.decoders import LinkPredHead, MCMHead
 from ..nn.dropout import set_generator
 from ..nn.encoders import make_stypewise_encoder
@@ -55,7 +64,7 @@ from ..nn.gnn.conv import gather
 from ..nn.models.fused import TABGNNFused
 from ..nn.weighting import MoCoState, init_moco, moco_combine
 from ..utils import checkpoint
-from ..utils.batch import GraphBatch
+from ..utils.batch import GraphBatch, SeedBatch
 from ..utils.config import Config
 from ..utils.device import resolve_device
 from ..utils.loss import SSLoss, lp_loss
@@ -63,7 +72,8 @@ from ..utils.metric import MCMAccumulator, mrr
 from ..utils.precision import apply, compute_cast, out_f32
 from ..utils.seeding import mix_seed
 from .task_models import _deghist_to_avg_log, gather_rows, init_parameters
-from .trainer import features, resolve_capacities, threaded_map
+from .trainer import (features, resolve_capacities, seed_batches,
+                      threaded_map)
 
 logger = logging.getLogger(__name__)
 
@@ -220,6 +230,8 @@ class PretrainTrainer:
         self.edge_table = compute_cast(
             features(dataset.edges.tensor_frame, self.device), cfg.precision)
         self.sample_s: list[float] = []   # host seconds of each batch built
+        self.device_sampling = use_device_sampler(cfg)
+        self._dgraphs: dict = {}
 
     def _batches(self, view, mode: str, epoch: int = 0):
         """LP GraphBatches (host numpy) for a split view, in order: the
@@ -243,6 +255,48 @@ class PretrainTrainer:
 
         yield from threaded_map(build, enumerate(loader),
                                 int(cfg.sampler_threads))
+
+    def _materialize_dev(self, sb: SeedBatch, dgraph):
+        """The LP batch of a device ``SeedBatch``, sampled on the device:
+        (GraphBatch of device tensors, dropped edges, kept edges, the
+        negatives' residual), the counts 0-d device tensors."""
+        cfg = self.cfg
+        b = sb.num_seeds
+        out = sample_edges_device(
+            dgraph, sb.seeds, sb.seed_mask,
+            batch_generator(mix_seed(sb.sampler_seed, 1), self.device),
+            cfg.num_neighs, cfg.edge_capacity, cfg.node_capacity,
+            cfg.frontier_capacity or None)
+        seed_mask = sb.seed_mask & out["edge_mask"][:b]
+        ei = out["edge_index"]
+        neg, residual = negative_samples_device(
+            ei, out["edge_mask"], ei[0, :b], ei[1, :b], seed_mask,
+            cfg.num_neg_samples, cfg.node_capacity, out["node_mask"].sum(),
+            batch_generator(mix_seed(sb.sampler_seed, 2), self.device))
+        gb = GraphBatch(
+            edge_gather=out["edge_gather"], edge_mask=out["edge_mask"],
+            edge_index=ei, node_gather=out["node_gather"],
+            node_mask=out["node_mask"], seed_mask=seed_mask, y=sb.y,
+            neg_edge_index=neg)
+        return gb, out["num_dropped"], out["edge_mask"].sum(), residual
+
+    def _stream(self, view, mode: str, epoch: int = 0):
+        """A pass's LP batches on the device, each as (device GraphBatch,
+        real seed rows, host y, dropped edges, kept edges, the negatives'
+        residual): host numbers under host sampling, device counts under
+        device sampling."""
+        if not self.device_sampling:
+            for gb in self._batches(view, mode, epoch):
+                yield (gb.to(self.device), int(gb.seed_mask.sum()), gb.y,
+                       gb.num_dropped, int(gb.edge_mask.sum()), 0)
+            return
+        dgraph = cached_dgraph(self.dataset.graph, self._dgraphs, mode,
+                               self.device)
+        for sb in seed_batches(self.cfg, view, mode, epoch):
+            gb, dropped, kept, residual = self._materialize_dev(
+                sb.to(self.device), dgraph)
+            yield (gb, int(sb.seed_mask.sum()), sb.y, dropped, kept,
+                   residual)
 
     def _step(self, batch: GraphBatch):
         """One train step on a device batch (the model in train mode): both
@@ -297,18 +351,20 @@ class PretrainTrainer:
 
     def train_epoch(self, view, epoch: int) -> dict:
         """One pass over the shuffled train view: mean loss, seconds,
-        sampler drop rate, the MCM train losses, the host's sampling ms a
-        batch and, on the card, the median step on the device's clock."""
+        sampler drop rate, the negatives' residual (device sampling), the
+        MCM train losses, the host's sampling ms a batch and, on the card,
+        the median step on the device's clock."""
         t0 = time.time()
         self.model.train()
         self.sample_s = []
         rows, events = [], []
-        dropped = kept = 0
+        dropped = kept = residual = 0
         cuda = self.device.type == "cuda"
-        for gb in self._batches(view, "train", epoch):
-            dropped += gb.num_dropped
-            kept += int(gb.edge_mask.sum())
-            loss, aux = self._step(gb.to(self.device))
+        for gb, _, _, b_dropped, b_kept, b_residual in self._stream(
+                view, "train", epoch):
+            dropped, kept = dropped + b_dropped, kept + b_kept
+            residual = residual + b_residual
+            loss, aux = self._step(gb)
             rows.append(torch.stack([loss] + [aux[k].float() for k in aux]))
             if cuda:
                 events.append(torch.cuda.Event(enable_timing=True))
@@ -325,8 +381,10 @@ class PretrainTrainer:
         if len(events) > 1:
             out["step_ms"] = statistics.median(
                 a.elapsed_time(b) for a, b in zip(events, events[1:]))
+        dropped, kept = int(dropped), int(kept)
         out.update(sec=time.time() - t0,
                    drop_rate=dropped / max(dropped + kept, 1),
+                   neg_residual=int(residual),
                    sample_ms=1e3 * float(np.mean(self.sample_s))
                    if self.sample_s else float("nan"))
         if out["drop_rate"] > self.cfg.max_drop_rate:
@@ -343,9 +401,9 @@ class PretrainTrainer:
         self.model.eval()
         outs = []
         with torch.inference_mode():
-            for gb in self._batches(view, mode):
-                _, aux = self._forward(gb.to(self.device))
-                outs.append((int(gb.seed_mask.sum()), gb.y, {
+            for gb, valid, y, *_ in self._stream(view, mode):
+                _, aux = self._forward(gb)
+                outs.append((valid, y, {
                     k: aux[k] for k in ("pos_pred", "neg_pred", "num_out",
                                         "cat_out") if k in aux}))
         outs = [(valid, y, _to_numpy(aux)) for valid, y, aux in outs]

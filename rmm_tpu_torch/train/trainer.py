@@ -1,7 +1,7 @@
-"""Trainer: capacities, model, device-resident tables, host-sampled
-batches, the train step, the epoch loop, evaluation and batch inference
-(``rmm_tpu/train/trainer.py``: ``Trainer`` without the scan/device-sampler
-paths) for the task models of ``TASK_MODELS``: ``fttransformer``, ``gin``,
+"""Trainer: capacities, model, device-resident tables, sampled batches,
+the train step, the epoch loop, evaluation and batch inference
+(``rmm_tpu/train/trainer.py``: ``Trainer`` without its scan and
+graph-partition paths) for the task models of ``TASK_MODELS``: ``fttransformer``, ``gin``,
 ``pna``, ``cpna``, ``cpnatab``, ``tabgnn``, ``tabgnninterleaved`` and
 ``tabgnnfused``.
 
@@ -18,6 +18,14 @@ through the mode's graph (on a dataset with an edge split, such as
 Ethereum phishing, the train graph holds the train edges alone); rows of
 the dataset's ``ignore_label`` class are left out of the loss, the
 metrics and the predictions.
+
+``--sampler device`` samples on the card instead
+(``graph/device_sampler.py``): each split's CSR goes to the device once,
+each batch ships its seed ids (``SeedBatch``) and its k-hop subgraph is
+drawn there from a generator seeded with the batch's sampler seed; the
+batch is born on the device, and its drop counts stay there until the end
+of the pass. A seed edge whose endpoint a full node buffer evicted leaves
+``seed_mask`` (its loss, metrics and prediction). ``auto`` is the host.
 
 Masked-cell modeling of the edge table (``--task mcm_edge_table``): the
 seed edges' masked cells (``y = [masked_value, masked_col_idx]``) through
@@ -54,10 +62,13 @@ import torch
 
 from ..frame.loader import DataLoader
 from ..frame.tensor_frame import TensorFrame
+from ..graph.device_sampler import (DeviceGraph, batch_generator,
+                                    cached_dgraph, sample_edges_device,
+                                    sample_nodes_device, use_device_sampler)
 from ..nn.dropout import set_generator
 from ..nn.encoders import make_stypewise_encoder
 from ..utils import checkpoint
-from ..utils.batch import GraphBatch
+from ..utils.batch import GraphBatch, SeedBatch
 from ..utils.config import Config
 from ..utils.device import resolve_device
 from ..utils.loss import SSLoss, cross_entropy
@@ -116,20 +127,27 @@ def build_task_model(cfg: Config, dataset) -> torch.nn.Module:
 
 def resolve_capacities(cfg: Config, dataset) -> Config:
     """Explicit config capacities win; otherwise the dataset's (calibrated
-    if unset) are adopted."""
+    if unset) are adopted; ``frontier_capacity > 0`` overrides the
+    calibrated frontier buffer (``rmm_tpu/train/trainer.py:89-106``)."""
     if cfg.edge_capacity > 0 and cfg.node_capacity > 0:
         dataset.edge_capacity = cfg.edge_capacity
         dataset.node_capacity = cfg.node_capacity
+        if cfg.frontier_capacity > 0:
+            dataset.frontier_capacity = cfg.frontier_capacity
         return cfg
     if dataset.edge_capacity <= 0 or dataset.node_capacity <= 0:
         ec, nc = dataset.calibrate_capacities(cfg.batch_size)
-        logger.info("auto-calibrated capacities: edge=%d node=%d", ec, nc)
+        logger.info("auto-calibrated capacities: edge=%d node=%d "
+                    "frontier=%d", ec, nc, dataset.frontier_capacity)
     if cfg.edge_capacity > 0:
         dataset.edge_capacity = cfg.edge_capacity
     if cfg.node_capacity > 0:
         dataset.node_capacity = cfg.node_capacity
+    if cfg.frontier_capacity > 0:
+        dataset.frontier_capacity = cfg.frontier_capacity
     return cfg.replace(edge_capacity=dataset.edge_capacity,
-                       node_capacity=dataset.node_capacity)
+                       node_capacity=dataset.node_capacity,
+                       frontier_capacity=dataset.frontier_capacity)
 
 
 def threaded_map(fn, items, threads: int):
@@ -180,6 +198,44 @@ def features(tf: TensorFrame, device) -> TensorFrame:
     return TensorFrame(feats=tf.feats, col_names=tf.col_names).to(device)
 
 
+def to_host(parts: list) -> np.ndarray:
+    """Numpy arrays, or device tensors (concatenated on the device and
+    copied in one go: a pass's one host sync), as one numpy array."""
+    if parts and torch.is_tensor(parts[0]):
+        return torch.cat(parts).cpu().numpy()
+    return np.concatenate(parts)
+
+
+def seed_batches(cfg: Config, view, mode: str, epoch: int,
+                 node_task: bool = False, ignore_label=None):
+    """The ``SeedBatch`` of each batch of a split view, in the host
+    batches' order and with their sampler seeds (``mix_seed(seed, epoch,
+    i)``; the JAX device path's ``_seed_batches``). Edge batches: the packed
+    target's last 3 slots seed, y keeps the rest. Node batches: the node
+    ids (``y[:, 1]``) in column 0, y the label; a row of ``ignore_label``
+    seeds the expansion but leaves ``seed_mask``."""
+    loader = DataLoader(view.tensor_frame, cfg.batch_size,
+                        shuffle=(mode == "train"),
+                        seed=mix_seed(cfg.seed, epoch))
+    for i, (tf, valid) in enumerate(loader):
+        by = np.asarray(tf.y)
+        mask = np.arange(len(by)) < valid
+        seed = mix_seed(cfg.seed, epoch, i) & 0xFFFFFFFF
+        if node_task:
+            ids = by[:, 1].astype(np.int32)
+            lmask = mask.copy()
+            if ignore_label is not None:
+                lmask &= by[:, 0] != ignore_label
+            zeros = np.zeros_like(ids)
+            yield SeedBatch(seeds=np.stack([ids, zeros, zeros], axis=1),
+                            y=by[:, :1].astype(np.float32), seed_mask=lmask,
+                            sampler_seed=seed, sample_mask=mask)
+        else:
+            yield SeedBatch(seeds=by[:, -3:].astype(np.int32),
+                            y=by[:, :-3].astype(np.float32), seed_mask=mask,
+                            sampler_seed=seed)
+
+
 def is_frozen(name: str) -> bool:
     """``--freeze``: the tabular backbone layers (JAX: any path key holding
     ``tab_layer``, ``rmm_tpu/train/trainer.py:141-150``). ``tabgnnfused``
@@ -215,6 +271,8 @@ class Trainer:
             features(dataset.edges.tensor_frame, self.device), cfg.precision)
         self.node_table = compute_cast(
             features(dataset.nodes.tensor_frame, self.device), cfg.precision)
+        self.device_sampling = use_device_sampler(cfg)
+        self._dgraphs: dict = {}
 
     @property
     def node_task(self) -> bool:
@@ -258,6 +316,56 @@ class Trainer:
 
         yield from threaded_map(build, enumerate(loader),
                                 int(cfg.sampler_threads))
+
+    def dgraph(self, mode: str) -> DeviceGraph:
+        """The split's CSR on the trainer's device, uploaded once."""
+        return cached_dgraph(self.dataset.graph, self._dgraphs, mode,
+                             self.device)
+
+    def _materialize_dev(self, sb: SeedBatch, dgraph: DeviceGraph):
+        """The k-hop subgraph of a device ``SeedBatch``, sampled on the
+        device: (GraphBatch of device tensors, dropped edges, kept edges),
+        the counts 0-d device tensors. An edge batch's seed whose endpoint a
+        full node buffer evicted (its lane out of ``edge_mask``) leaves
+        ``seed_mask`` (``rmm_tpu/train/trainer.py:238-242``)."""
+        cfg = self.cfg
+        gen = batch_generator(sb.sampler_seed, self.device)
+        args = (gen, cfg.num_neighs, cfg.edge_capacity, cfg.node_capacity,
+                cfg.frontier_capacity or None)
+        seed_mask = sb.seed_mask
+        if self.node_task:
+            smask = sb.seed_mask if sb.sample_mask is None else sb.sample_mask
+            out = sample_nodes_device(dgraph, sb.seeds[:, 0], smask, *args)
+        else:
+            out = sample_edges_device(dgraph, sb.seeds, sb.seed_mask, *args)
+            seed_mask = seed_mask & out["edge_mask"][:sb.num_seeds]
+        gb = GraphBatch(
+            edge_gather=out["edge_gather"], edge_mask=out["edge_mask"],
+            edge_index=out["edge_index"], node_gather=out["node_gather"],
+            node_mask=out["node_mask"], seed_mask=seed_mask, y=sb.y)
+        return gb, out["num_dropped"], out["edge_mask"].sum()
+
+    def _stream(self, view, mode: str, epoch: int = 0):
+        """A pass's batches on the device, each as (device GraphBatch,
+        seed_mask, y[:, 0], the seed rows' ids, dropped edges, kept edges).
+        Host sampling: the mask and counts on the host. Device sampling:
+        the mask and counts stay on the device, y and the ids (edge rows, or
+        node ids) come from the seed batch."""
+        if not self.device_sampling:
+            b = self.cfg.batch_size
+            for gb in self._batches(view, mode, epoch):
+                seeds = gb.node_gather if self.node_task else gb.edge_gather
+                yield (gb.to(self.device), gb.seed_mask, gb.y[:, 0],
+                       seeds[:b].astype(np.int64), gb.num_dropped,
+                       int(gb.edge_mask.sum()))
+            return
+        dgraph = self.dgraph(mode)
+        for sb in seed_batches(self.cfg, view, mode, epoch, self.node_task,
+                               getattr(self.dataset, "ignore_label", None)):
+            gb, dropped, kept = self._materialize_dev(sb.to(self.device),
+                                                      dgraph)
+            ids = sb.seeds[:, 0 if self.node_task else 2].astype(np.int64)
+            yield gb, gb.seed_mask, sb.y[:, 0], ids, dropped, kept
 
     def _mcm_loss(self, out, batch: GraphBatch):
         """The MCM loss of the model's ``(num_out, cat_out)`` on the real
@@ -318,7 +426,7 @@ class Trainer:
     def _gather(auxes: list, masks: list) -> tuple:
         """Device aux tensors of a pass → host (preds, scores) on the real
         rows; the pass's one host sync."""
-        m = np.concatenate(masks)
+        m = to_host(masks)
         preds = torch.cat([a["pred_cls"] for a in auxes]).cpu().numpy()[m]
         scores = None
         if "score" in auxes[0]:
@@ -337,13 +445,12 @@ class Trainer:
         losses, auxes, masks, labels, events = [], [], [], [], []
         dropped = kept = 0
         cuda = self.device.type == "cuda"
-        for gb in self._batches(view, "train", epoch):
-            dropped += gb.num_dropped
-            kept += int(gb.edge_mask.sum())
-            masks.append(gb.seed_mask)
-            if not self.mcm_task:
-                labels.append(gb.y[gb.seed_mask, 0].astype(np.int64))
-            loss, aux = self._step(gb.to(self.device))
+        for gb, mask, y0, _, b_dropped, b_kept in self._stream(
+                view, "train", epoch):
+            dropped, kept = dropped + b_dropped, kept + b_kept
+            masks.append(mask)
+            labels.append(y0)
+            loss, aux = self._step(gb)
             losses.append(loss)
             auxes.append(aux)
             if cuda:
@@ -357,11 +464,12 @@ class Trainer:
                 out["train_rmse"], out["train_acc"] = self._mcm_pass(auxes)
             else:
                 preds, scores = self._gather(auxes, masks)
-                out.update(self._metrics(np.concatenate(labels), preds,
-                                         scores))
+                out.update(self._metrics(self._labels(labels, masks),
+                                         preds, scores))
         if len(events) > 1:
             out["step_ms"] = statistics.median(
                 a.elapsed_time(b) for a, b in zip(events, events[1:]))
+        dropped, kept = int(dropped), int(kept)
         out.update(sec=time.time() - t0,
                    drop_rate=dropped / max(dropped + kept, 1))
         if out["drop_rate"] > cfg.max_drop_rate:
@@ -371,6 +479,11 @@ class Trainer:
                 " edge; parity needs ~zero drops)", 100 * out["drop_rate"],
                 cfg.edge_capacity)
         return out
+
+    @staticmethod
+    def _labels(labels: list, masks: list) -> np.ndarray:
+        """The real rows' labels of a pass (int64)."""
+        return np.concatenate(labels)[to_host(masks)].astype(np.int64)
 
     @staticmethod
     def _mcm_pass(auxes: list) -> list:
@@ -385,15 +498,14 @@ class Trainer:
         accuracy]``."""
         self.model.eval()
         auxes, masks, labels = [], [], []
-        for gb in self._batches(view, mode):
-            masks.append(gb.seed_mask)
-            if not self.mcm_task:
-                labels.append(gb.y[gb.seed_mask, 0].astype(np.int64))
-            auxes.append(self._forward_eval(gb.to(self.device)))
+        for gb, mask, y0, *_ in self._stream(view, mode):
+            masks.append(mask)
+            labels.append(y0)
+            auxes.append(self._forward_eval(gb))
         if self.mcm_task:
             return self._mcm_pass(auxes)
         preds, scores = self._gather(auxes, masks)
-        return self._metrics(np.concatenate(labels), preds, scores)
+        return self._metrics(self._labels(labels, masks), preds, scores)
 
     def predict(self, view, mode: str = "test") -> dict:
         """Batch inference over a view's rows: ``id`` (edge-table row id,
@@ -406,18 +518,15 @@ class Trainer:
             raise ValueError("predict() serves classification tasks; MCM "
                              "is a pretraining objective")
         self.model.eval()
-        b = self.cfg.batch_size
         rows, masks, auxes = [], [], []
-        for gb in self._batches(view, mode):
-            seeds = gb.node_gather if self.node_task else gb.edge_gather
-            rows.append(seeds[:b].astype(np.int64))
-            masks.append(gb.seed_mask)
-            auxes.append(self._forward_eval(gb.to(self.device)))
+        for gb, mask, _, ids, *_ in self._stream(view, mode):
+            rows.append(ids)
+            masks.append(mask)
+            auxes.append(self._forward_eval(gb))
         if not auxes:
             return {"id": np.zeros(0, np.int64), "pred": np.zeros(0, np.int64)}
         preds, scores = self._gather(auxes, masks)
-        out = {"id": np.concatenate(rows)[np.concatenate(masks)],
-               "pred": preds}
+        out = {"id": np.concatenate(rows)[to_host(masks)], "pred": preds}
         if scores is not None:
             out["score"] = scores
         return out

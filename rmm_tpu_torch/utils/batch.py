@@ -6,7 +6,9 @@ device from the resident tables (``edge_table[edge_gather]``). Seed edges
 occupy lanes ``[0, num_seeds)`` (seed nodes, in a node-classification
 batch, node lanes ``[0, num_seeds)``); ``seed_mask`` marks the real rows
 (the last batch is padded). A link-prediction batch also carries
-``neg_edge_index``, ``num_neg`` corrupted edges for each seed edge.
+``neg_edge_index``, ``num_neg`` corrupted edges for each seed edge. A batch
+sampled on the device (:class:`SeedBatch` in, ``graph/device_sampler.py``)
+is born there as a GraphBatch of tensors and never passes through ``to``.
 """
 from __future__ import annotations
 
@@ -18,6 +20,44 @@ import torch
 
 from ..graph.negative import generate_negative_samples
 from ..graph.sampler import SampledSubgraph
+
+
+@dataclasses.dataclass
+class SeedBatch:
+    """What a batch ships when it is sampled on the device
+    (``graph/device_sampler.py``): the seed ids, the packed target and the
+    batch's sampler seed, a few KB where a sampled subgraph takes MBs."""
+
+    seeds: np.ndarray           # [B, 3] int32 (src, dst, edge id); a node
+                                # batch puts its node ids in column 0
+    y: Optional[np.ndarray]     # [B, T] float32 packed target (leading slots)
+    seed_mask: np.ndarray       # [B] bool: the loss mask (no padding, no
+                                # ignore-label row)
+    sampler_seed: int           # the batch's mix_seed(...), as uint32
+    sample_mask: Optional[np.ndarray] = None   # [B] bool: the lanes that
+                                # seed the expansion (default seed_mask;
+                                # a node batch keeps ignore-label rows here)
+
+    @property
+    def num_seeds(self) -> int:
+        return int(self.seed_mask.shape[0])
+
+    def to(self, device) -> "SeedBatch":
+        """The arrays on ``device`` (pinned + non-blocking on CUDA)."""
+        device = torch.device(device)
+
+        def put(a):
+            if a is None:
+                return None
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if device.type == "cuda":
+                t = t.pin_memory()
+            return t.to(device, non_blocking=True)
+
+        return SeedBatch(seeds=put(self.seeds), y=put(self.y),
+                         seed_mask=put(self.seed_mask),
+                         sampler_seed=self.sampler_seed,
+                         sample_mask=put(self.sample_mask))
 
 
 @dataclasses.dataclass

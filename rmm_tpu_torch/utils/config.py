@@ -36,6 +36,9 @@ class Config:
     num_neighs: Sequence[int] = (100, 100)
     edge_capacity: int = 0            # 0 = auto-calibrate from probe batches
     node_capacity: int = 0
+    frontier_capacity: int = 0        # device sampler's inter-hop frontier
+                                      # buffer (0: the calibrated one, or
+                                      # the node capacity uncalibrated)
     max_drop_rate: float = 0.0        # warn when epoch drop-rate exceeds this
 
     # optimization (AML supervised config of record)
@@ -51,6 +54,7 @@ class Config:
 
     # misc
     sampler_threads: int = 1      # >1: host sampling on a thread pool
+    sampler: str = "auto"         # auto | host | device (auto: the host)
     precision: str = "f32"        # f32 | bf16 (tabgnn, tabgnnfused)
     device: str = "cuda"          # cuda | cpu (cpu: tests, no kernels)
 
@@ -80,7 +84,7 @@ class Config:
 
 
 #: flag → the only value this slice accepts (the JAX package's default)
-UNPORTED = {"frontier_capacity": 0, "dp": 0, "steps_per_dispatch": 1,
+UNPORTED = {"dp": 0, "steps_per_dispatch": 1,
             "inflight_groups": 2, "scan_layers": False,
             "ckpt_backend": "msgpack"}
 
@@ -113,7 +117,8 @@ def create_parser() -> argparse.ArgumentParser:
                    help="static subgraph edge buffer (0 = auto-calibrate)")
     p.add_argument("--node_capacity", default=0, type=int,
                    help="static subgraph node buffer (0 = auto-calibrate)")
-    p.add_argument("--frontier_capacity", default=0, type=int)
+    p.add_argument("--frontier_capacity", default=0, type=int,
+                   help="device sampler's frontier buffer (0 = calibrate)")
     p.add_argument("--lr", default=None, type=float)
     p.add_argument("--dropout", default=None, type=float)
     p.add_argument("--dp", default=0, type=int)
@@ -135,8 +140,6 @@ def config_from_args(args: argparse.Namespace) -> Config:
     for flag, default in UNPORTED.items():
         if getattr(args, flag) != default:
             raise NotImplementedError(f"--{flag} is not ported yet")
-    if args.sampler == "device":
-        raise NotImplementedError("--sampler device is not ported yet")
     cfg = Config(
         model=args.model, data=args.data, task=args.task,
         batch_size=args.batch_size, epochs=args.epochs,
@@ -149,6 +152,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
         output_path=args.output_path, wandb_dir=args.wandb_dir,
         group=args.group, edge_capacity=args.edge_capacity,
         node_capacity=args.node_capacity,
+        frontier_capacity=args.frontier_capacity, sampler=args.sampler,
         sampler_threads=args.sampler_threads, precision=args.precision,
         device=args.device,
     )

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``rmm_tpu_torch`` (nor
-``chip_smoke.py``) imports jax, flax, optax, pandas, msgpack or anything of
-``rmm_tpu``, and the package imports with those names blocked."""
+``chip_smoke.py``) imports jax, flax, optax, pandas, networkx, msgpack or
+anything of ``rmm_tpu``, and the package imports with those names
+blocked."""
 import ast
 import os
 import subprocess
@@ -10,8 +11,8 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "rmm_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pandas", "msgpack",
-             "rmm_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pandas", "networkx",
+             "msgpack", "rmm_tpu")
 
 
 def sources():

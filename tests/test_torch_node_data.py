@@ -323,13 +323,6 @@ def test_build_dataset_dispatch_equals_jax(monkeypatch, path, flags):
     assert got[1]["pretrain"] == set()
 
 
-@pytest.mark.parametrize("path", ["/d/rel-hm", "/d/h-and-m/hm.csv"])
-def test_build_dataset_refuses_rel_hm_by_name(path):
-    with pytest.raises(NotImplementedError, match="Rel-H&M"):
-        build_dataset(config_from_args(create_parser().parse_args(
-            argv(path))))
-
-
 @pytest.mark.parametrize("path,name", [
     ("/d/eth.csv", "EthereumPhishing"), ("/d/ETH", "EthereumPhishing"),
     ("/d/Method-1.csv", "EthereumPhishing"),   # 'eth' inside a word

@@ -161,8 +161,6 @@ def test_cli_needs_cuda_unless_asked_for_cpu(record, tmp_path):
 @pytest.mark.parametrize("flags,name", [
     (["--dp", "2"], "--dp"), (["--scan_layers"], "--scan_layers"),
     (["--steps_per_dispatch", "4"], "--steps_per_dispatch"),
-    (["--sampler", "device"], "--sampler device"),
-    (["--frontier_capacity", "64"], "--frontier_capacity"),
     (["--inflight_groups", "3"], "--inflight_groups"),
 ])
 def test_cli_refuses_unported_flags_by_name(record, tmp_path, flags, name):

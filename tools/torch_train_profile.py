@@ -8,6 +8,7 @@
     python3 tools/torch_train_profile.py --model pna   # or any family
     python3 tools/torch_train_profile.py --tabular [--mask_vector]
     python3 tools/torch_train_profile.py --ssl --moo moco
+    python3 tools/torch_train_profile.py [--ssl | --node] --sampler device
 
 Builds the supervised config of record with ``rmm_tpu_torch`` (synthetic
 AML, tabgnn, C = 32, 2 layers, fanouts 100/100, batch 200, dropout 0.083;
@@ -63,6 +64,13 @@ mask-vector head): no sampler, the batches gathered on the card; its
 forward by part (the encoder, the backbone, the head). ``--ssl --moo
 moco`` profiles the SSL step under MoCo (two gradient pulls a step).
 
+``--sampler device`` samples on the card instead (``graph/
+device_sampler.py``): the sampling line is the device's (CUDA events
+around the batches' sampling, the seed ids' copies included), the staged
+batches are the device-sampled ones, and the train loop samples each batch
+on the card before its step, so its busy share counts the sampler's
+kernels.
+
 ``--precision bf16`` measures either at ``--precision bf16`` (the steps'
 forwards through the trainers' own cast of the parameters); every line
 names its precision. Prints one JSON line per measurement and writes the
@@ -88,6 +96,7 @@ from tools.torch_serve_profile import device_us, kernel_table  # noqa: E402
 from tools.torch_serve_profile import emit as emit_line  # noqa: E402
 
 PRECISION = "f32"
+SAMPLER = "host"
 
 #: the node datasets of ``--node``: Elliptic at its published size (Weber
 #: et al. 2019), Ethereum phishing and ogbn-arxiv at ``chip_smoke.py``'s
@@ -101,7 +110,7 @@ NODE_DIRS = {"elliptic": "elliptic", "eth": "ethereum-phishing",
 
 
 def emit(obj: dict):
-    emit_line({**obj, "precision": PRECISION})
+    emit_line({**obj, "precision": PRECISION, "sampler": SAMPLER})
 
 
 def top_kernels(prof, n: int, k: int = 15) -> tuple[float, list]:
@@ -172,6 +181,31 @@ def _layer_times(model, names, run, n: int) -> dict:
             for name, evs in events.items()}
 
 
+def device_sampled(tr, view, n: int, card: str) -> list:
+    """The view's train batches sampled on the card (``_stream``), timed
+    by CUDA events after one warm pass (the sort kernels' first load);
+    emits the sampling line."""
+    import torch
+
+    list(tr._stream(view, "train"))
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    dev = [item[0] for item in tr._stream(view, "train")]
+    end.record()
+    enqueue = time.perf_counter() - t0
+    end.synchronize()
+    emit({"phase": "device_sampling", "batches": n,
+          "ms_per_batch": start.elapsed_time(end) / n,
+          "host_enqueue_ms_per_batch": 1e3 * enqueue / n,
+          "sampled_edges_per_batch": float(sum(
+              int(g.edge_mask.sum()) for g in dev) / n),
+          "frontier_capacity": tr.cfg.frontier_capacity, "card": card})
+    return dev
+
+
 def ssl_main(args, card: str, work: str):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -191,7 +225,8 @@ def ssl_main(args, card: str, work: str):
     cfg = Config(model="tabgnnfused", data=csv, batch_size=200,
                  n_hidden=128, n_gnn_layers=3, num_neighs=(100, 100),
                  dropout=0.5, lr=2e-4, num_neg_samples=64, device="cuda",
-                 sampler_threads=4, precision=args.precision, moo=args.moo)
+                 sampler_threads=4, precision=args.precision, moo=args.moo,
+                 sampler=args.sampler)
     ds = IBMTransactionsAML(csv, khop_neighbors=cfg.num_neighs, pretrain={
         PretrainType.MASK, PretrainType.LINK_PRED})
     tr = PretrainTrainer(cfg, ds, "mcm-lp")
@@ -204,18 +239,23 @@ def ssl_main(args, card: str, work: str):
     n = args.batches
     view = DatasetView(train.parent, train.indices[:n * cfg.batch_size])
 
-    for threads in (1, 4):
-        tr.cfg = tr.cfg.replace(sampler_threads=threads)
-        tr.sample_s = []
-        t0 = time.perf_counter()
-        host = list(tr._batches(view, "train"))
-        emit({"phase": "host_sampling", "threads": threads, "batches": n,
-              "ms_per_batch": 1e3 * (time.perf_counter() - t0) / n,
-              "build_ms_per_batch": 1e3 * sum(tr.sample_s) / n,
-              "neg_edges_per_batch": int(host[0].neg_edge_index.shape[1]),
-              "sampled_edges_per_batch": float(
-                  sum(int(g.edge_mask.sum()) for g in host) / n)})
-    dev = [g.to(tr.device) for g in host]
+    if args.sampler == "device":
+        dev = device_sampled(tr, view, n, card)
+    else:
+        for threads in (1, 4):
+            tr.cfg = tr.cfg.replace(sampler_threads=threads)
+            tr.sample_s = []
+            t0 = time.perf_counter()
+            host = list(tr._batches(view, "train"))
+            emit({"phase": "host_sampling", "threads": threads,
+                  "batches": n,
+                  "ms_per_batch": 1e3 * (time.perf_counter() - t0) / n,
+                  "build_ms_per_batch": 1e3 * sum(tr.sample_s) / n,
+                  "neg_edges_per_batch": int(
+                      host[0].neg_edge_index.shape[1]),
+                  "sampled_edges_per_batch": float(
+                      sum(int(g.edge_mask.sum()) for g in host) / n)})
+        dev = [g.to(tr.device) for g in host]
     tr.model.train()
     for g in dev[:2]:
         tr._step(g)
@@ -375,10 +415,11 @@ def main(argv=None):
     p.add_argument("--mask_vector", action="store_true")
     p.add_argument("--moo", default="sum", choices=("sum", "moco"))
     p.add_argument("--precision", default="f32", choices=("f32", "bf16"))
+    p.add_argument("--sampler", default="host", choices=("host", "device"))
     p.add_argument("--table", default=None)
     args = p.parse_args(argv)
-    global PRECISION
-    PRECISION = args.precision
+    global PRECISION, SAMPLER
+    PRECISION, SAMPLER = args.precision, args.sampler
     if args.batches is None:
         args.batches = 12 if args.ssl else 48 if args.tabular else 24
     if args.table is None:
@@ -435,7 +476,7 @@ def main(argv=None):
             "node_classification", "--n_hidden", "32", "--n_gnn_layers",
             "2", "--num_neighs", "100", "100", "--batch_size", "200",
             "--sampler_threads", "4", "--device", "cuda", "--precision",
-            args.precision]))
+            args.precision, "--sampler", args.sampler]))
         ds = build_dataset(cfg)
         cfg = cfg.replace(n_classes=ds.n_classes)
     else:
@@ -443,7 +484,7 @@ def main(argv=None):
                      n_hidden=128 if fused else 32,
                      n_gnn_layers=3 if fused else 2, num_neighs=(100, 100),
                      device="cuda", sampler_threads=4,
-                     precision=args.precision)
+                     precision=args.precision, sampler=args.sampler)
         ds = IBMTransactionsAML(data, khop_neighbors=cfg.num_neighs)
     tr = Trainer(cfg, ds)
     emit({"phase": "setup", "model": cfg.model, "task": cfg.task,
@@ -455,11 +496,14 @@ def main(argv=None):
     n = args.batches
     view = DatasetView(train.parent, train.indices[:n * cfg.batch_size])
 
-    t0 = time.perf_counter()
-    host = list(tr._batches(view, "train"))
-    emit({"phase": "host_sampling", "threads": 4, "batches": n,
-          "ms_per_batch": 1e3 * (time.perf_counter() - t0) / n})
-    dev = [g.to(tr.device) for g in host]
+    if args.sampler == "device":
+        dev = device_sampled(tr, view, n, card)
+    else:
+        t0 = time.perf_counter()
+        host = list(tr._batches(view, "train"))
+        emit({"phase": "host_sampling", "threads": 4, "batches": n,
+              "ms_per_batch": 1e3 * (time.perf_counter() - t0) / n})
+        dev = [g.to(tr.device) for g in host]
     tr.model.train()
     for g in dev[:2]:
         tr._step(g)
