@@ -116,8 +116,8 @@ through all of them:
 13. kernel_long — both directions at S > 16 against the plain twin: the
              node path's [node capacity, 167, 32/8], 4096x17x32/8,
              4096x65x32/8, 4096x40x128/8 and the longest S the cores take
-             at C = 32 and at C = 128, each with the 0.083 keep-mask and
-             without it
+             two blocks an SM at C = 32 and at C = 128 (4096x195x32/8,
+             4096x54x128/8), each with the 0.083 keep-mask and without it
              (records as the kernel phase's; two calls bitwise equal at the
              node shape); the node families' 4096x129x32/8 and
              4096x130x32/8, with the 0.083 keep-mask and without it, one
@@ -268,6 +268,34 @@ through all of them:
              each output byte for byte the JAX package's, read back by the
              port's datasets.
 
+34. kernel_text — both directions at the text paths' shapes, with the
+             LMs' 0.1 keep-mask (two calls bitwise equal) and without it,
+             timed once: 256x8x64/8 (the FTTransformer's review tokens,
+             tiled), 256x64x64/4 (the downstream LM's 64 token positions)
+             and 128x64x128/4 (``finetune_llm``'s; split, the long cores).
+             First the cores' shared-memory budget
+             (``column_attention.core_budget``): rows within half an SM
+             on their old plan, ``finetune_llm``'s backward rows one
+             block an SM.
+35. text_frozen, text_finetune — ``cli/downstream_llm.py`` for an epoch
+             each at its defaults (C = 64, 2 layers, batch 256) on a
+             synthetic Amazon Fashion of 32,768 reviews, 8,192 reviewers
+             and 1,024 items (seed 0): 2 tiled calls each way a step, and
+             under ``finetune`` 2 split ones (the LM's layer, once a text
+             column), forwards alone an evaluated batch; a finite loss
+             falling from the first ten steps to the last ten; val and test
+             RMSE beside a constant prediction's; the materialization
+             seconds, the step ms and rows/s.
+36. finetune_llm — ``cli/finetune_llm.py`` for an epoch at its defaults
+             (hidden 128, 2 layers, 4 heads, 64 tokens, batch 128) on the
+             same reviews with ``--save_model``: 2 split calls each way a
+             step at 128x64x128/4, finite MSEs, the export read back to the
+             same eval MSE.
+37. text_parity — ``text_record.npz``
+             (``tools/make_torch_port_text_fixture.py``): three steps each
+             of both downstream paths and of ``finetune_llm`` at dropout 0
+             and C = 16 within ``convert.check_record``'s float32 limits.
+
 And at ``--precision bf16`` (the reference's scheme: float32 masters,
 bf16 parameters and tables in each step; under it the AML edge tokens are
 float32, their timestamp block being so, and the node tokens bf16):
@@ -308,7 +336,9 @@ path), with their times at the transfer and the narrow shapes beside, the split 
 other long shapes), and the bf16 builds of the tiled and split kernels,
 likewise; the masked-cell paths' launches in the tiled and split
 entries; the device-sampled paths' and Rel-H&M's launches in the tiled,
-split and long entries, Rel-H&M's shapes beside them),
+split and long entries, Rel-H&M's shapes beside them; the text paths'
+launches in the tiled and long entries, their shapes and the cores'
+budget beside them),
 the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 package beside it, the script fails and prints no result.
@@ -954,13 +984,19 @@ def long_shapes(node_capacity: int) -> list:
     the node path's 0.083 keep-mask and without it: the node path's
     [node capacity, 167, 32/8], 4096x17x32/8, 4096x65x32/8 (a lane's third
     query, a third chunk of keys), 4096x40x128/8 and the longest S the
-    cores take at C = 32 and at C = 128 (8 heads)."""
+    cores take at C = 32 and at C = 128 (8 heads) two blocks an SM
+    (``column_attention.core_max_s`` with the library's bytes a row at
+    half an SM: 195 and 54 on an H100; longer rows, up to ``max_s``, run
+    one block an SM: ``kernel_text``'s 128x64x128/4)."""
     from rmm_tpu_torch.ops import column_attention as ca
 
+    block, sm = ca._card_smem()
+    half = min(block, sm // 2 - 1024)
+    longest = {c: ca.core_max_s(c, 8, half, sm, ca.core_row_bytes)
+               for c in (32, 128)}
     shapes = [(node_capacity, NODE_S, 32, 8), (4096, 17, 32, 8),
               (4096, 65, 32, 8), (4096, 40, 128, 8),
-              (4096, ca.max_s(32, 8), 32, 8),
-              (4096, ca.max_s(128, 8), 128, 8)]
+              (4096, longest[32], 32, 8), (4096, longest[128], 128, 8)]
     return [(*shape, rate) for shape in shapes
             for rate in (TRAIN_DROPOUT, 0.0)]
 
@@ -4335,6 +4371,335 @@ def data_tools_phase(card: str) -> dict:
     emit(rec)
     return rec
 
+# ---------------------------------------------------------------------------
+# the text modality: Amazon Fashion reviews, the two downstream paths and
+# the pure-LM finetune
+# ---------------------------------------------------------------------------
+
+TEXT_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
+                            "text_record.npz")
+#: the synthetic Amazon Fashion of the text phases (the published
+#: AMAZON_FASHION of Amazon Review Data 2018 has 883,636 reviews)
+TEXT_DATA = dict(rows=32768, reviewers=8192, items=1024, seed=0)
+TEXT_BATCH, LLM_BATCH = 256, 128     # the two CLIs' defaults
+TEXT_LAYERS, LLM_LAYERS = 2, 2       # the FTTransformer's, the LM's
+TEXT_DROPOUT = 0.1   # downstream_llm's default and the LMs' fixed dropout
+#: (B, S, C, H) of the text paths' attention rows: the FTTransformer's
+#: review tokens (7 columns and the CLS, C = 64, tiled), the downstream
+#: LM's 64 token positions at C = 64/4 and finetune_llm's at 128/4 (split,
+#: the long cores; the last one's backward one block an SM)
+TEXT_SHAPES = [(TEXT_BATCH, 8, 64, 8), (TEXT_BATCH, 64, 64, 4),
+               (LLM_BATCH, 64, 128, 4)]
+
+
+def prepare_text_data() -> str:
+    from rmm_tpu_torch.datasets.amazon_fashion import synthetic_amazon_fashion
+
+    root = os.path.join(WORK, "amazon_fashion")
+    os.makedirs(root, exist_ok=True)
+    d = TEXT_DATA
+    return synthetic_amazon_fashion(
+        os.path.join(root, "reviews.csv"), num_rows=d["rows"],
+        num_reviewers=d["reviewers"], num_items=d["items"], seed=d["seed"])
+
+
+def kernel_text_phase(card: str) -> dict:
+    """Both directions at the text paths' shapes (``TEXT_SHAPES``) against
+    the plain twin, with the paths' 0.1 keep-mask (two calls bitwise
+    equal) and without it, each timed once (records as the kernel
+    phase's, the route held to ``route(c, s)``). First the attention
+    cores' budget: the rows that fit half an SM keeping that budget (and
+    so their plan: rows a block as ``core_rows`` gives them at half an SM)
+    and finetune_llm's backward rows, past half an SM, one block an SM."""
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.ops import column_attention as ca
+
+    block, sm = ca._card_smem()
+    half = min(block, sm // 2 - 1024)
+    budget = {"block_bytes": block, "sm_bytes": sm, "half_sm_bytes": half,
+              "max_s_128_4": ca.max_s(128, 4), "shapes": {}}
+    for b, s, c, h in TEXT_SHAPES:
+        rows = ca.core_row_bytes(s, c, h)
+        entry = {"row_bytes": list(rows)}
+        if ca.route(c, s) == "split":
+            fplan, bplan = ca.fwd_plan(b, s, c, h), ca.bwd_plan(b, s, c, h)
+            entry.update(fwd_rows=fplan.rows, bwd_rows=bplan.rows,
+                         budget=[ca.core_budget(r, block, sm) for r in rows])
+            for r, got in zip(rows, (fplan.rows, bplan.rows)):
+                if r <= half:   # a row that fit before keeps its plan
+                    check(got == ca.core_rows(b, s, h, half, r),
+                          f"{b}x{s}x{c}/{h}: rows {got} a block, not the "
+                          "half-SM plan's")
+        budget["shapes"][f"{b}x{s}x{c}/{h}"] = entry
+    llm_bwd = ca.core_row_bytes(64, 128, 4)[1]
+    check(half < llm_bwd <= block
+          and ca.core_budget(llm_bwd, block, sm) == block
+          and budget["max_s_128_4"] >= 64,
+          f"finetune_llm's rows are not admitted one block an SM: {budget}")
+    emit({"phase": "kernel_text_budget", **budget, "card": card})
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(19)
+    shapes = [(*shape, rate) for shape in TEXT_SHAPES
+              for rate in (TEXT_DROPOUT, 0.0)]
+    fwd = [fwd_record(rng, dev, *shape, card, repeat=shape[-1] > 0,
+                      timing=OFF_PATH_TIMING) for shape in shapes]
+    bwd = [bwd_record(rng, dev, *shape, card, repeat=shape[-1] > 0,
+                      timing=OFF_PATH_TIMING) for shape in shapes]
+    return {"fwd_tiled": fwd[:2], "bwd_tiled": bwd[:2], "fwd_long": fwd[2:],
+            "bwd_long": bwd[2:], "budget": budget}
+
+
+def text_counts(steps: int, evals: int, tiled: int, split: int) -> dict:
+    """The launches of an epoch of ``steps`` steps and ``evals`` evaluated
+    batches with ``tiled`` and ``split`` attention calls each way a step
+    (forwards alone an evaluated batch)."""
+    return {"fwd": (tiled + split) * (steps + evals),
+            "fwd_tiled": tiled * (steps + evals),
+            "fwd_split": split * (steps + evals),
+            "bwd": (tiled + split) * steps, "bwd_tiled": tiled * steps,
+            "bwd_split": split * steps, "reduce": (tiled + split) * steps,
+            **NO_BF16}
+
+
+def text_phase(card: str, csv: str, path: str) -> dict:
+    """``cli/downstream_llm.py --text_path <path>`` for an epoch at its
+    defaults (C = 64, 2 layers, batch 256, dropout 0.1): the
+    FTTransformer's 2 tiled calls each way a step, and under ``finetune``
+    the LM's 2 split calls (its one layer, once a text column; rows of 64
+    tokens, the long cores); forwards alone an evaluated batch. A finite
+    loss that falls from the first 10 steps to the last 10; val and test
+    RMSE beside a constant prediction's; the materialization seconds, the
+    step ms and rows/s."""
+    import torch
+
+    from rmm_tpu_torch.cli import downstream_llm
+
+    argv = ["--dataset", csv, "--text_path", path, "--epochs", "1",
+            "--testing", "--device", "cuda", "--wandb_dir",
+            os.path.join(WORK, "text_runs")]
+    stats: dict = {}
+    reset_counts()
+    history, best = downstream_llm.main(argv, stats)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    (ep,) = history
+    train_rows, val_rows, test_rows = stats["split_rows"]
+    steps = -(-train_rows // TEXT_BATCH)
+    evals = -(-val_rows // TEXT_BATCH) + -(-test_rows // TEXT_BATCH)
+    split = 2 if path == "finetune" else 0
+    want = text_counts(steps, evals, TEXT_LAYERS, split)
+    check(counts == want, f"text {path} launches {counts}, not {want}")
+    losses = stats["step_losses"]
+    first, last = (statistics.fmean(losses[:10]),
+                   statistics.fmean(losses[-10:]))
+    check(len(losses) == steps and all(map(math.isfinite, losses))
+          and last < first,
+          f"text {path}: {len(losses)} step losses, the first ten's mean "
+          f"{first}, the last ten's {last}")
+    check(all(math.isfinite(ep[k]) for k in ("val_rmse", "test_rmse")),
+          f"text {path} epoch {ep}")
+    train_s = ep["data_load"] + ep["transfer"] + ep["step"]
+    rec = {"phase": f"text_{path}", "reviews": TEXT_DATA["rows"],
+           "split_rows": stats["split_rows"], "steps": steps,
+           "evaluated_batches": evals, "launches": counts,
+           "loss": ep["loss"], "loss_first10": first, "loss_last10": last,
+           "val_rmse": ep["val_rmse"], "test_rmse": ep["test_rmse"],
+           "constant_rmse": stats["constant_rmse"], "best": best,
+           "materialize_s": stats["materialize_s"],
+           "setup_s": stats["setup_s"], "fit_s": stats["fit_s"],
+           "step_ms_median": ep.get("step_ms"),
+           "step_ms_wall": 1e3 * ep["step"] / steps,
+           "train_rows_per_s": train_rows / train_s,
+           "timers": {k: ep[k] for k in ("data_load", "transfer", "step")},
+           "card": card, "ok": True}
+    emit(rec)
+    return rec
+
+
+def finetune_llm_phase(card: str, csv: str) -> dict:
+    """``cli/finetune_llm.py`` for an epoch at its defaults (hidden 128, 2
+    layers, 4 heads, LoRA 8, 64 tokens, batch 128) with ``--save_model``:
+    the LM's 2 split calls each way a step through the long cores at
+    128x64x128/4 (the backward one block an SM), forwards alone an eval
+    batch; finite train and eval MSE; the export read back
+    (``load_finetuned``) gives the eval MSE again."""
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.cli import finetune_llm as fl
+    from rmm_tpu_torch.ops import column_attention as ca
+
+    export = os.path.join(WORK, "finetune_llm_export")
+    argv = ["--dataset", csv, "--epochs", "1", "--device", "cuda",
+            "--save_model", export, "--wandb_dir",
+            os.path.join(WORK, "text_runs")]
+    stats: dict = {}
+    reset_counts()
+    history = fl.main(argv, stats)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    (ep,) = history
+    n = TEXT_DATA["rows"]
+    n_train = int(n * 0.8)
+    steps = n_train // LLM_BATCH
+    evals = -(-(n - n_train) // LLM_BATCH)
+    want = text_counts(steps, evals, 0, LLM_LAYERS)
+    check(counts == want and ep["steps"] == steps,
+          f"finetune_llm launches {counts} over {ep['steps']} steps, not "
+          f"{want}")
+    check(math.isfinite(ep["train_mse"]) and math.isfinite(ep["eval_mse"]),
+          f"finetune_llm epoch {ep}")
+    plan = ca.bwd_plan(LLM_BATCH, 64, 128, 4)
+    # the export, read back, evaluates the same rows to the same MSE
+    model = fl.load_finetuned(export, "cuda")
+    ids, y = fl.read_dataset(csv)
+    _, _, te_idx = fl.split(len(y), 0)
+    reset_counts()
+    again = fl.eval_mse(model, torch.from_numpy(ids).cuda(), y, te_idx,
+                        LLM_BATCH)
+    reload_counts = read_counts()
+    check(abs(again - ep["eval_mse"]) <= 1e-5 * max(1.0, ep["eval_mse"]),
+          f"finetune_llm export: eval MSE {again} against the run's "
+          f"{ep['eval_mse']}")
+    rec = {"phase": "finetune_llm", "reviews": n, "train_rows": n_train,
+           "steps": steps, "eval_batches": evals, "launches": counts,
+           "reload_launches": reload_counts, "train_mse": ep["train_mse"],
+           "eval_mse": ep["eval_mse"], "reload_eval_mse": again,
+           "label_var": float(np.var(y[te_idx].astype(np.float64))),
+           "bwd_plan": plan._asdict(), "epoch_s": ep["sec"],
+           "fit_s": stats["fit_s"], "step_ms_median": ep.get("step_ms"),
+           "train_rows_per_s": steps * LLM_BATCH / ep["sec"],
+           "card": card, "ok": True}
+    emit(rec)
+    return rec
+
+
+def replay_text_part(rec, st: dict, root: str, name: str,
+                     device: str = "cuda") -> dict:
+    """Three steps of a text record part (``frozen``, ``finetune``: the
+    downstream trainer on its 600-review data; ``finetune_llm``: the LM's
+    CLI function for three one-step epochs on its 80 reviews) from the
+    record's start on ``device``, dropout 0, within
+    ``convert.check_record``'s float32 limits; the downstream parts' start
+    predictions on the first validation batch within ``SCORE_TOL``
+    (relative past 1: the served scores' limit; on the CPU the port lands
+    5e-5 to 1e-4 from the record, float32 sums in another order),
+    ``finetune_llm``'s eval MSE each epoch within the loss limits.
+    Returns the launches, the loss terms and the limits' summary."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.cli import finetune_llm as fl
+    from rmm_tpu_torch.convert import LOSS_RTOL, check_record, from_jax, \
+        random_variables
+    from rmm_tpu_torch.datasets.amazon_fashion import (
+        AmazonFashionDataset, synthetic_amazon_fashion)
+    from rmm_tpu_torch.frame.stype import Stype
+    from rmm_tpu_torch.nn.dropout import set_rate
+    from rmm_tpu_torch.train.downstream_text import \
+        TextTabularRegressionTrainer
+    from rmm_tpu_torch.utils.config import Config
+
+    os.makedirs(root, exist_ok=True)
+    run = st["runs"][name]
+    start = random_variables(run["shapes"], st["var_seed"])
+    out = {}
+    if name == "finetune_llm":
+        d, m = st["llm_data"], st["llm"]
+        csv = synthetic_amazon_fashion(
+            os.path.join(root, "reviews_llm.csv"), num_rows=d["rows"],
+            num_reviewers=d["reviewers"], num_items=d["items"],
+            seed=d["seed"])
+        model = fl.LLMRegressor(m["hidden"], m["num_layers"],
+                                m["lora_rank"], m["max_length"], 0.0)
+        start["params/head/w"] = np.zeros((m["hidden"], 1), np.float32)
+        start["params/head/b"] = np.zeros(1, np.float32)
+        model.load_state_dict(from_jax(start, model))
+        reset_counts()
+        history, model = fl.finetune_llm(
+            csv, epochs=st["steps"], batch_size=m["batch_size"], lr=m["lr"],
+            hidden=m["hidden"], num_layers=m["num_layers"],
+            lora_rank=m["lora_rank"], max_length=m["max_length"],
+            seed=m["seed"], device=device, model=model)
+        terms = [{"loss": h["train_mse"]} for h in history]
+        got = [h["eval_mse"] for h in history]
+        want = rec["finetune_llm/eval_mse"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+        check(len(rel) == len(want) and rel[0] <= LOSS_RTOL[0]
+              and max(rel) <= LOSS_RTOL[1],
+              f"text record finetune_llm: eval MSE {got} against {list(want)}")
+        out["eval_mse_rel_err"] = rel
+        state, lr, width = model.state_dict(), m["lr"], m["hidden"]
+    else:
+        d, t = st["data"], st["downstream"]
+        csv = synthetic_amazon_fashion(
+            os.path.join(root, "reviews.csv"), num_rows=d["rows"],
+            num_reviewers=d["reviewers"], num_items=d["items"],
+            seed=d["seed"])
+        finetune = name == "finetune"
+        cfg = Config(model="fttransformer", data=csv,
+                     batch_size=t["batch_size"], n_hidden=t["channels"],
+                     n_gnn_layers=t["num_layers"], dropout=0.0, lr=t["lr"],
+                     seed=st["seed"], device=device, epochs=1)
+        ds = AmazonFashionDataset(
+            csv, text_stype=(Stype.text_tokenized if finetune
+                             else Stype.text_embedded))
+        tr = TextTabularRegressionTrainer(cfg, ds, finetune_text=finetune,
+                                          lora_rank=t["lora_rank"])
+        tr.model.load_state_dict(from_jax(start, tr.model))
+        set_rate(tr.model, 0.0)
+        train, val, _ = ds.edges.split()
+        reset_counts()
+        with torch.inference_mode():
+            tf, _, _ = next(tr._batches(val, False))
+            pred = tr.model(tf).cpu().numpy()[:st["out_rows"]]
+        want = rec[f"{name}/out/pred"]
+        err = float(np.max(np.abs(pred - want) / np.maximum(np.abs(want),
+                                                            1.0)))
+        check(err <= SCORE_TOL, f"text record {name}: start predictions "
+              f"off by {err} > {SCORE_TOL}")
+        out["pred_max_err"] = err
+        tr.model.train()
+        terms = [{"loss": float(tr._step(tf, mask))} for tf, mask, _ in
+                 itertools.islice(tr._batches(train, True), st["steps"])]
+        state, lr, width = tr.model.state_dict(), cfg.lr, cfg.n_hidden
+    if device == "cuda":
+        torch.cuda.synchronize()
+    counts = read_counts()
+    faults, summary = check_record(state, terms, rec, f"{name}/", lr, 0,
+                                   width)
+    check(not faults, f"text record {name}: {faults}")
+    return {"launches": counts, "terms": terms, **out, **summary}
+
+
+def text_parity_phase(card: str) -> dict:
+    """The text record (``text_record.npz``,
+    ``tools/make_torch_port_text_fixture.py``: C = 16, hidden 16, dropout
+    0) on the card: three steps each of the frozen and finetune downstream
+    paths and of ``finetune_llm`` (:func:`replay_text_part`); the
+    launches by route (the LMs' 64-token rows split, the FTTransformer's
+    tiled)."""
+    from rmm_tpu_torch.convert import load_record
+
+    rec = load_record(TEXT_FIXTURE)
+    st = json.loads(str(rec["settings"]))
+    root = os.path.join(WORK, "text_parity")
+    parts = {name: replay_text_part(rec, st, root, name)
+             for name in ("frozen", "finetune", "finetune_llm")}
+    check(parts["frozen"]["launches"]["fwd_split"] == 0
+          and parts["finetune"]["launches"]["bwd_split"] > 0
+          and parts["finetune_llm"]["launches"]["bwd_tiled"] == 0,
+          f"text record launches by route: "
+          f"{ {k: v['launches'] for k, v in parts.items()} }")
+    out = {"phase": "text_parity", "parts": parts, "card": card, "ok": True}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4421,6 +4786,14 @@ def main() -> int:
             dparity = timed("device_parity", device_parity_phase, card)
             hm = timed("rel_hm", rel_hm_phase, card)
             timed("data_tools", data_tools_phase, card)
+            ktext = timed("kernel_text", kernel_text_phase, card)
+            text_csv = timed("text_data", prepare_text_data)
+            tfrozen = timed("text_frozen", text_phase, card, text_csv,
+                            "frozen")
+            tfine = timed("text_finetune", text_phase, card, text_csv,
+                          "finetune")
+            tllm = timed("finetune_llm", finetune_llm_phase, card, text_csv)
+            tparity = timed("text_parity", text_parity_phase, card)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
         emit({"phase": "seconds", **seconds,
@@ -4539,6 +4912,23 @@ def main() -> int:
         dev_fwd_split, dev_bwd_split = (by_path(dev_split_runs, "fwd_split"),
                                         by_path(dev_split_runs, "bwd_split"))
         hm_fwd, hm_bwd = hm["kernel_fwd"], hm["kernel_bwd"]
+        # the text paths by route: tiled (the FTTransformer's review
+        # tokens), split past S = 16 (the LMs' 64-token rows: the long
+        # cores)
+        text_runs = {
+            "text_frozen": [tfrozen["launches"]],
+            "text_finetune": [tfine["launches"]],
+            "finetune_llm": [tllm["launches"], tllm["reload_launches"]],
+            "text_parity": [p["launches"]
+                            for p in tparity["parts"].values()]}
+        text_fwd_tiled, text_bwd_tiled = (by_path(text_runs, "fwd_tiled"),
+                                          by_path(text_runs, "bwd_tiled"))
+        text_fwd_long, text_bwd_long = (by_path(text_runs, "fwd_split"),
+                                        by_path(text_runs, "bwd_split"))
+        dev_fwd_tiled.update(text_fwd_tiled)
+        dev_bwd_tiled.update(text_bwd_tiled)
+        dev_fwd_long.update(text_fwd_long)
+        dev_bwd_long.update(text_bwd_long)
         emit({"kernels": [
             kernel_entry("column_attention_fwd", 165, kern["fwd"],
                          kern["fwd"], {
@@ -4549,7 +4939,8 @@ def main() -> int:
                                      "classification (every model with "
                                      "attention), the node families' edge "
                                      "tokens, device-sampled training and "
-                                     "serving, Rel-H&M mcm_edge_table",
+                                     "serving, Rel-H&M mcm_edge_table, "
+                                     "the text paths' FTTransformer",
                              "launches": serve_rec["launches"]
                              + train_rec["launches"]["fwd"]
                              + sum(node_fwd_tiled.values())
@@ -4571,6 +4962,7 @@ def main() -> int:
                                  **mcm_fwd_tiled, **nf_fwd_tiled,
                                  **dev_fwd_tiled},
                              "rel_hm": shape_times(hm_fwd[:2]),
+                             "text": shape_times(ktext["fwd_tiled"]),
                              "family": shape_times(kern["family_fwd"]),
                              "ports": shape_times(kern["ports_fwd"]),
                              # the float32 edge tokens at --precision bf16
@@ -4594,7 +4986,8 @@ def main() -> int:
                                      "classification (every model with "
                                      "attention), the node families' edge "
                                      "tokens, device-sampled training, "
-                                     "Rel-H&M mcm_edge_table",
+                                     "Rel-H&M mcm_edge_table, the text "
+                                     "paths' FTTransformer",
                              "launches": train_rec["launches"]["bwd"]
                              + sum(node_bwd_tiled.values())
                              + sum(fam_bwd.values())
@@ -4614,6 +5007,7 @@ def main() -> int:
                                  **mcm_bwd_tiled, **nf_bwd_tiled,
                                  **dev_bwd_tiled},
                              "rel_hm": shape_times(hm_bwd[:2]),
+                             "text": shape_times(ktext["bwd_tiled"]),
                              "family": shape_times(kern["family_bwd"]),
                              "ports": shape_times(kern["ports_bwd"]),
                              "reduce_launches":
@@ -4704,7 +5098,9 @@ def main() -> int:
                                      "node families' node tokens (S = 129, "
                                      "130; the record's 18 and 129), "
                                      "device_node, device_parity (node, "
-                                     "S = 21)",
+                                     "S = 21), the text LMs' 64-token rows "
+                                     "(text_finetune, finetune_llm, "
+                                     "text_parity)",
                              "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
                              "core": "column_attention_fwd_core_long_kernel",
                              "launches": sum(node_fwd_split.values())
@@ -4719,6 +5115,7 @@ def main() -> int:
                                  for r in klong["node_fwd"]),
                              "unmasked": shape_times(klong["node_fwd"][1:]),
                              "long": shape_times(klong["fwd"]),
+                             "text": shape_times(ktext["fwd_long"]),
                              "library_masked": False}),
             kernel_entry("column_attention_bwd_long", 178,
                          klong["node_bwd"][:1], klong["node_bwd"][1:], {
@@ -4726,7 +5123,9 @@ def main() -> int:
                                      "node families' node tokens (S = 129, "
                                      "130; the record's 18 and 129), "
                                      "device_node, device_parity (node, "
-                                     "S = 21)",
+                                     "S = 21), the text LMs' 64-token rows "
+                                     "(text_finetune, finetune_llm, "
+                                     "text_parity)",
                              "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
                              "core": "column_attention_bwd_core_long_kernel",
                              "launches": sum(node_bwd_split.values())
@@ -4740,6 +5139,8 @@ def main() -> int:
                                                 for r in klong["node_bwd"]),
                              "unmasked": shape_times(klong["node_bwd"][1:]),
                              "long": shape_times(klong["bwd"]),
+                             "text": shape_times(ktext["bwd_long"]),
+                             "text_budget": ktext["budget"],
                              "library_masked": False}),
             *bf16_entries(kern16, serve16, parity16, ssl16, ssl_parity16)]})
         print(card, flush=True)

@@ -19,7 +19,11 @@ models' components ``node_encoder``, ``edge_encoder``, ``model``,
 ``decoder``, or the pretrainer's) into such a ``state_dict``.
 :func:`pretrain_variables` lays the JAX pretrainer's variables out as the
 port's ``PretrainModel``, :func:`tabular_variables` the JAX tabular
-trainer's as ``TabularMCMModel``, and :func:`random_variables` is the
+trainer's as ``TabularMCMModel``, :func:`text_variables` the JAX text
+trainer's as ``TextTabularModel`` and :func:`finetune_llm_variables`
+``cli/finetune_llm.py``'s as ``LLMRegressor`` (the LM's ``tok_emb``,
+``pos_emb``, ``layer_i`` and LoRA ``lora_out``: ``kernel`` → ``weight``
+transposed, ``lora_a``/``lora_b`` as they are), and :func:`random_variables` is the
 numpy recipe that both packages' SSL parity records start from.
 :func:`check_record` and :func:`check_states` hold three pretraining steps
 against such a record or against a second run, with the tolerances below.
@@ -210,6 +214,23 @@ def tabular_variables(params: dict) -> dict:
     return {"params": {"edge_encoder": params["encoder"]["params"],
                        "model": params["model"]["params"],
                        "head": params["head"]["params"]}}
+
+
+def text_variables(params: dict) -> dict:
+    """The JAX text trainer's ``params`` (``encoder``, ``model``, ``head``,
+    each a flax variable dict; the LM of the finetune path inside the
+    encoder as ``text_model``) → variables in the module layout of
+    ``rmm_tpu_torch.train.downstream_text.TextTabularModel``."""
+    return {"params": {k: params[k]["params"]
+                       for k in ("encoder", "model", "head")}}
+
+
+def finetune_llm_variables(params: dict) -> dict:
+    """``cli/finetune_llm.py``'s ``params`` (``encoder``, the LM's flax
+    variables, and ``head``, ``{"w", "b"}``) → variables in the layout of
+    ``rmm_tpu_torch.cli.finetune_llm.LLMRegressor``."""
+    return {"params": {"encoder": params["encoder"]["params"],
+                       "head": params["head"]}}
 
 
 def random_variables(shapes: dict, seed: int) -> dict[str, np.ndarray]:

@@ -41,10 +41,19 @@ def parse_pretrain_args(pretrain) -> set:
 # CSV (numpy + the csv module; no pandas)
 # ---------------------------------------------------------------------------
 
+#: the cells pandas' reader takes as missing (its default ``na_values``)
+PANDAS_NA = frozenset({
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+    "nan", "null"})
+
+
 def _parse_column(cells: list[str]) -> np.ndarray:
-    """Infer a column's type as a CSV reader would: int64 if every cell is
-    an integer, else float64 if every non-empty cell is a number (empty =
+    """Infer a column's type as pandas' reader would: a cell it reads as
+    missing (:data:`PANDAS_NA`) is empty; then int64 if every cell is an
+    integer, else float64 if every non-empty cell is a number (empty =
     NaN), else an object column of strings ('' = missing)."""
+    cells = ["" if c in PANDAS_NA else c for c in cells]
     arr = np.asarray(cells, dtype=str)
     try:
         return arr.astype(np.int64)
@@ -94,6 +103,22 @@ def read_csv_columns(path: str, text_columns: Optional[Sequence[str]] = None
     out = {i: _parse_column(c) for i, c in cells.items()}
     out.update((i, block[:, k]) for k, i in enumerate(floats))
     return {name: out[i] for i, name in enumerate(header)}
+
+
+def shared_node_ids(src: np.ndarray, dst: np.ndarray):
+    """Source and destination ids (customers and articles, reviewers and
+    items) → codes in one id space: the index of ``str(src)`` or ``"a_" +
+    str(dst)`` in their sorted union (pandas' category codes)."""
+    keys = np.array([str(v) for v in src] + ["a_" + str(v) for v in dst])
+    codes = np.unique(keys, return_inverse=True)[1].astype(np.int64)
+    return codes[:len(src)], codes[len(src):]
+
+
+def text_cells(values: np.ndarray) -> list[str]:
+    """A text column of :func:`read_csv_columns` as strings, a missing cell
+    as ``""`` (what ``fillna("")`` gives after pandas' reader; a column of
+    missing cells alone reads as NaN floats)."""
+    return [v if isinstance(v, str) else "" for v in values]
 
 
 def _format_column(values: np.ndarray) -> np.ndarray:

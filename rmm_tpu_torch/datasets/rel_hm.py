@@ -18,7 +18,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ..frame.stype import Stype
-from .base import read_csv_columns
+from .base import read_csv_columns, shared_node_ids
 from .graph_dataset import EdgeTable, GraphTableDataset, NodeTable
 
 HM_SCHEMA = {
@@ -40,15 +40,6 @@ HM_SCHEMA = {
 HM_MASKED_NUMERICAL = ["price"]
 HM_MASKED_CATEGORICAL = ["product_type_name", "department_name",
                          "perceived_colour_value_name"]
-
-
-def shared_node_ids(customer: np.ndarray, article: np.ndarray):
-    """Customer and article ids → codes in one id space: the index of
-    ``str(customer)`` or ``"a_" + str(article)`` in their sorted union."""
-    keys = np.array([str(v) for v in customer]
-                    + ["a_" + str(v) for v in article])
-    codes = np.unique(keys, return_inverse=True)[1].astype(np.int64)
-    return codes[:len(customer)], codes[len(customer):]
 
 
 class RelHM(GraphTableDataset):

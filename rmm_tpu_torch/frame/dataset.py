@@ -1,7 +1,9 @@
 """Dataset: a table of numpy columns → materialized TensorFrame + stats.
 
 Counterpart of ``rmm_tpu/frame/dataset.py`` without pandas: the table is an
-ordered ``dict`` of 1-D numpy columns (object arrays for strings).
+ordered ``dict`` of 1-D numpy columns (object arrays for strings), but a
+text column, which holds a row's vector (``text_embedded``) or token ids
+(``text_tokenized``) as a 2-D ``[N, D]`` array.
 Categorical values are coded by count-descending rank (``value_counts``
 order), missing cells as −1; numerical columns stay raw (the encoder
 normalizes with the recorded stats); timestamps are unix seconds.
@@ -81,6 +83,11 @@ class Dataset:
                     for c in cols], axis=1)
             elif st == Stype.timestamp:
                 block = np.stack([np.asarray(self.columns[c], np.int64)
+                                  for c in cols], axis=1)
+            elif st in (Stype.text_embedded, Stype.text_tokenized):
+                dtype = (np.float32 if st == Stype.text_embedded
+                         else np.int32)
+                block = np.stack([np.asarray(self.columns[c], dtype)
                                   for c in cols], axis=1)
             else:  # relation: scalars or fixed-width rows
                 block = np.concatenate(

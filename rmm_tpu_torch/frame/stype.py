@@ -1,4 +1,4 @@
-"""Semantic column types (stypes) the AML serving path uses.
+"""Semantic column types (stypes) of the port's tables.
 
 The integer values are those of ``rmm_tpu.frame.stype.Stype``: they fix the
 order in which per-stype column blocks are concatenated into the
@@ -14,6 +14,8 @@ class Stype(enum.IntEnum):
     numerical = 0
     categorical = 1
     timestamp = 3
+    text_embedded = 4    # a frozen embedder's vectors, [N, n, emb_dim]
+    text_tokenized = 5   # token ids a text model reads in the forward
     relation = 7   # raw relation/id columns (link targets, node ids)
 
 

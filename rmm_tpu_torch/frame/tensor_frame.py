@@ -3,10 +3,12 @@
 A plain dataclass whose blocks are numpy arrays on the host or torch tensors
 on a device (``.to(device)``):
 
-    numerical   [N, n_num]  float32
-    categorical [N, n_cat]  int32 (−1 = missing)
-    timestamp   [N, n_ts]   int64 (unix seconds)
-    relation    [N, n_rel]  float32
+    numerical       [N, n_num]           float32
+    categorical     [N, n_cat]           int32 (−1 = missing)
+    timestamp       [N, n_ts]            int64 (unix seconds)
+    text_embedded   [N, n_text, emb_dim] float32
+    text_tokenized  [N, n_text, L]       int32 (0 = padding)
+    relation        [N, n_rel]           float32
 
 ``col_names`` maps each stype to its column names; ``y`` is an optional
 packed target ``[N, T]``.

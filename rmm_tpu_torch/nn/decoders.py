@@ -1,6 +1,6 @@
-"""Task heads (``rmm_tpu/nn/decoders.py``): the edge and node classifiers
-and the self-supervised heads (link prediction, masked-cell modeling and
-the mask vector)."""
+"""Task heads (``rmm_tpu/nn/decoders.py``): the supervised head off a CLS
+state, the edge and node classifiers and the self-supervised heads (link
+prediction, masked-cell modeling and the mask vector)."""
 from __future__ import annotations
 
 import torch
@@ -9,6 +9,18 @@ from torch import nn
 from .dropout import GeneratorDropout
 from .gnn.conv import gather
 from .layers import Dense, LayerNorm
+
+
+class SupervisedHead(nn.Module):
+    """LayerNorm → ReLU → Linear off the CLS state (``norm``, ``lin``)."""
+
+    def __init__(self, channels: int, out_channels: int):
+        super().__init__()
+        self.norm = LayerNorm(channels)
+        self.lin = Dense(channels, out_channels)
+
+    def forward(self, x_cls: torch.Tensor) -> torch.Tensor:
+        return self.lin(torch.relu(self.norm(x_cls)))
 
 
 class _MLP50(nn.Module):

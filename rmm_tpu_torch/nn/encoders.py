@@ -1,14 +1,15 @@
 """Per-stype feature encoders and the stype-wise dispatcher.
 
-Counterparts of ``rmm_tpu/nn/encoders.py`` for the stypes of the AML path.
-Parameter names and layouts follow the JAX modules (``embedding_{i}``,
-``weight [n, ...]``, ``bias [n, C]``) so converted weights load unchanged;
-column statistics are non-persistent buffers (configuration, not state).
+Counterparts of ``rmm_tpu/nn/encoders.py`` for the stypes of the AML path
+and of the text columns. Parameter names and layouts follow the JAX
+modules (``embedding_{i}``, ``weight [n, ...]``, ``bias [n, C]``) so
+converted weights load unchanged; column statistics are non-persistent
+buffers (configuration, not state).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Sequence
+from typing import Any, Optional, Sequence
 
 import torch
 from torch import nn
@@ -120,14 +121,54 @@ class ProjectionEncoder(nn.Module):
         return x[:, :, None] * self.weight[None] + self.bias[None]
 
 
+class LinearEmbeddingEncoder(nn.Module):
+    """Precomputed text vectors ``[B, n, emb_dim]`` → a linear map a column
+    (``weight [n, emb_dim, C]``, ``bias [n, C]``): the frozen-embedder
+    path."""
+
+    def __init__(self, channels: int, emb_dim: int, num_cols: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num_cols, emb_dim, channels))
+        self.bias = nn.Parameter(torch.empty(num_cols, channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.einsum("bne,nec->bnc", x, self.weight) + self.bias[None]
+
+
+class LinearModelEncoder(nn.Module):
+    """Token ids ``[B, n, L]`` → for each of the n columns, one call of the
+    text model (token ids ``[B, L]`` → ``[B, model_dim]``) and a linear map
+    (``weight [n, model_dim, C]``, ``bias [n, C]``): the finetune path.
+    The text model is one module shared by every column; it is the
+    dispatcher's ``text_model`` and is passed to :meth:`forward`, so its
+    parameters sit there once, as in the JAX encoder."""
+
+    def __init__(self, channels: int, num_cols: int, model_dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num_cols, model_dim,
+                                               channels))
+        self.bias = nn.Parameter(torch.empty(num_cols, channels))
+
+    def forward(self, x: torch.Tensor, text_model: nn.Module) -> torch.Tensor:
+        return torch.stack([text_model(x[:, i]) @ self.weight[i]
+                            + self.bias[i] for i in range(x.shape[1])],
+                           dim=1)
+
+
 class StypeWiseFeatureEncoder(nn.Module):
     """Encode each stype block, concatenate to ``[B, num_cols, C]`` in
-    ``STYPE_ORDER``. Build it with :func:`make_stypewise_encoder`."""
+    ``STYPE_ORDER``. Build it with :func:`make_stypewise_encoder`.
+    ``text_model`` (a module of its own, ``text_model``) reads the
+    ``text_tokenized`` columns."""
 
-    def __init__(self, channels: int, col_names: dict, col_config: dict):
+    def __init__(self, channels: int, col_names: dict, col_config: dict,
+                 text_model: Optional[nn.Module] = None):
         super().__init__()
         self.col_names = {st: tuple(v) for st, v in col_names.items()}
         self.stypes = [st for st in STYPE_ORDER if st in self.col_names]
+        if Stype.text_tokenized in self.col_names and text_model is None:
+            raise ValueError("text_tokenized columns need a text model")
+        self.text_model = text_model
         for st in self.stypes:
             cfg = col_config.get(st, {})
             n = len(self.col_names[st])
@@ -137,6 +178,10 @@ class StypeWiseFeatureEncoder(nn.Module):
                 enc = EmbeddingEncoder(channels, cfg["cardinalities"])
             elif st == Stype.timestamp:
                 enc = TimestampEncoder(channels, n)
+            elif st == Stype.text_embedded:
+                enc = LinearEmbeddingEncoder(channels, cfg["emb_dim"], n)
+            elif st == Stype.text_tokenized:
+                enc = LinearModelEncoder(channels, n, cfg["model_dim"])
             else:
                 enc = ProjectionEncoder(channels, cfg.get("width", n))
             self.add_module(st.name, enc)
@@ -146,8 +191,14 @@ class StypeWiseFeatureEncoder(nn.Module):
         return sum(len(v) for v in self.col_names.values())
 
     def forward(self, tf: TensorFrame) -> torch.Tensor:
-        blocks = [getattr(self, st.name)(tf.feats[st]) for st in self.stypes
-                  if st in tf.feats]
+        blocks = []
+        for st in self.stypes:
+            if st not in tf.feats:
+                continue
+            enc = getattr(self, st.name)
+            blocks.append(enc(tf.feats[st], self.text_model)
+                          if st == Stype.text_tokenized
+                          else enc(tf.feats[st]))
         return torch.cat(blocks, dim=1)
 
 
@@ -168,9 +219,20 @@ def stype_encoder_config(dataset) -> tuple[dict, dict[Stype, dict[str, Any]]]:
                 len(dataset.col_stats[c][StatType.COUNT][0]) for c in cols)}
         elif st == Stype.relation:
             col_config[st] = {"width": int(tf.feats[st].shape[1])}
+        elif st == Stype.text_embedded:
+            col_config[st] = {"emb_dim": int(tf.feats[st].shape[-1])}
+        elif st == Stype.text_tokenized:
+            col_config[st] = {"model_dim": 0}   # the text model's width
     return col_names, col_config
 
 
-def make_stypewise_encoder(dataset, channels: int) -> StypeWiseFeatureEncoder:
+def make_stypewise_encoder(dataset, channels: int,
+                           text_model: Optional[nn.Module] = None,
+                           model_dim: int = 0) -> StypeWiseFeatureEncoder:
+    """The dispatcher of a materialized Dataset; ``text_model`` (its output
+    ``model_dim`` wide) reads the ``text_tokenized`` columns."""
     col_names, col_config = stype_encoder_config(dataset)
-    return StypeWiseFeatureEncoder(channels, col_names, col_config)
+    if Stype.text_tokenized in col_config:
+        col_config[Stype.text_tokenized]["model_dim"] = model_dim
+    return StypeWiseFeatureEncoder(channels, col_names, col_config,
+                                   text_model)

@@ -25,9 +25,11 @@ by width and row length (:func:`route`):
   :mod:`.gemm_mma`). The forward is three launches, the projections, the
   attention core and the output projection; the backward five, the
   projections, its attention core, dx, the weight gradients and the
-  reduce. A row past S = 16 must fit a block's share of shared memory
-  (:func:`max_s`: 195 tokens at C = 32 and 54 at C = 128, 8 heads, on an
-  H100); longer rows and C > 128 raise :class:`UnsupportedShape`.
+  reduce. A row past S = 16 must fit a block's shared memory: half an
+  SM's where it fits that (two blocks an SM), else a whole block's (one
+  block an SM, :func:`core_budget`; :func:`max_s`: 392 tokens at C = 32
+  and 109 at C = 128, 8 heads, 110 at C = 128, 4 heads, on an H100);
+  longer rows and C > 128 raise :class:`UnsupportedShape`.
 
 The backward recomputes from ``x`` alone, as the TPU kernel does: the
 Function saves ``x``, the weights and the keep-mask, nothing of the
@@ -439,13 +441,45 @@ def split_fwd_plan(b: int, s: int, nhead: int, smem_budget: int,
     return FwdPlan(rows, -(-b // rows))
 
 
-def _core_budget() -> int:
+def core_budget(row_bytes: int, block_bytes: int, sm_bytes: int) -> int:
     """The shared memory a block of a split route's attention core may
-    take on the current card: half an SM's (two blocks an SM), at most a
-    block's."""
+    take, for a core whose row takes ``row_bytes``, on a card whose block
+    may opt into ``block_bytes`` and whose SM holds ``sm_bytes`` (less
+    1 kB a block that the runtime reserves): two blocks an SM (half an SM
+    each, at most a block's) where a row fits that, else one block an SM
+    (a whole block's). Rows that fit two blocks an SM keep their plan;
+    longer ones, up to a block's bytes, run one block an SM (the LM's
+    64-token rows at C = 128, 4 heads, backward). H100: 232,448 bytes a
+    block, 233,472 an SM."""
+    half = min(block_bytes, sm_bytes // 2 - 1024)
+    return half if row_bytes <= half else block_bytes
+
+
+def core_max_s(c: int, nhead: int, block_bytes: int, sm_bytes: int,
+               row_bytes) -> int:
+    """The longest row, in tokens, whose forward and backward rows
+    (``row_bytes(s, c, nhead)``) both fit :func:`core_budget` on a card of
+    ``block_bytes`` a block and ``sm_bytes`` an SM; at least 16 (the short
+    cores hold their rows in any case)."""
+    def fits(s):
+        return all(r <= core_budget(r, block_bytes, sm_bytes)
+                   for r in row_bytes(s, c, nhead))
+
+    s = MAX_S
+    while fits(s + 1):
+        s += 1
+    return s
+
+
+def _card_smem() -> tuple[int, int]:
+    """(bytes a block may opt into, bytes an SM) of the current card."""
     lib = _kernel()
-    return min(lib.rmm_cuda_max_smem_per_block(),
-               lib.rmm_cuda_smem_per_sm() // 2 - 1024)
+    return lib.rmm_cuda_max_smem_per_block(), lib.rmm_cuda_smem_per_sm()
+
+
+def _core_budget(row_bytes: int) -> int:
+    """:func:`core_budget` on the current card."""
+    return core_budget(row_bytes, *_card_smem())
 
 
 def _check_core_fits(smem_bytes, s: int, c: int, nhead: int, rows: int):
@@ -454,12 +488,13 @@ def _check_core_fits(smem_bytes, s: int, c: int, nhead: int, rows: int):
     and past S = 16 unless a row fits the core's budget
     (:class:`UnsupportedShape`: keys streamed through shared memory would
     take longer rows)."""
-    if s > MAX_S and smem_bytes(s, c, nhead, 1) > _core_budget():
+    row = smem_bytes(s, c, nhead, 1)
+    if s > MAX_S and row > _core_budget(row):
         raise UnsupportedShape(
-            f"a row of S={s} tokens at C={c}, nhead={nhead} takes "
-            f"{smem_bytes(s, c, nhead, 1)} bytes of a split route's "
-            f"attention core, more than the {_core_budget()} a block may "
-            f"take (at most S={max_s(c, nhead)} at this width)")
+            f"a row of S={s} tokens at C={c}, nhead={nhead} takes {row} "
+            f"bytes of a split route's attention core, more than the "
+            f"{_core_budget(row)} a block may take (at most "
+            f"S={max_s(c, nhead)} at this width)")
     most = _kernel().rmm_cuda_max_smem_per_block()
     if smem_bytes(s, c, nhead, rows) > most:
         raise ValueError(f"a split route's attention core does not fit "
@@ -467,17 +502,21 @@ def _check_core_fits(smem_bytes, s: int, c: int, nhead: int, rows: int):
                          "shared memory")
 
 
+def core_row_bytes(s: int, c: int, nhead: int) -> tuple[int, int]:
+    """(forward, backward) shared-memory bytes a row of S tokens takes in
+    a split route's attention core: the library's ``fwd_core_smem_bytes``
+    and ``bwd_core_smem_bytes`` at one row."""
+    lib = _kernel()
+    return (lib.rmm_column_attention_fwd_core_smem_bytes(s, c, nhead, 1),
+            lib.rmm_column_attention_bwd_core_smem_bytes(s, c, nhead, 1))
+
+
 def max_s(c: int, nhead: int) -> int:
     """The longest row, in tokens, that both split routes' attention cores
-    take at width ``c`` on the current card: a row's token rows (and the
-    backward's 2·nhead floats a token) within :func:`_core_budget`."""
-    lib = _kernel()
-    fits = [lib.rmm_column_attention_fwd_core_smem_bytes,
-            lib.rmm_column_attention_bwd_core_smem_bytes]
-    budget, s = _core_budget(), MAX_S
-    while all(f(s + 1, c, nhead, 1) <= budget for f in fits):
-        s += 1
-    return s
+    take at width ``c`` on the current card (:func:`core_max_s` with the
+    library's bytes a row): on an H100 392 at C = 32 and 109 at C = 128,
+    8 heads, and 110 at C = 128, 4 heads."""
+    return core_max_s(c, nhead, *_card_smem(), core_row_bytes)
 
 
 @functools.lru_cache(maxsize=256)
@@ -486,8 +525,8 @@ def _fwd_plan(b, s, c, nhead, rows, dtype, device) -> FwdPlan:
     lib = _kernel(dtype)
     if route(c, s) == "split":
         smem_bytes = lib.rmm_column_attention_fwd_core_smem_bytes
-        plan = split_fwd_plan(b, s, nhead, _core_budget(),
-                              smem_bytes(s, c, nhead, 1), rows)
+        row = smem_bytes(s, c, nhead, 1)
+        plan = split_fwd_plan(b, s, nhead, _core_budget(row), row, rows)
         _check_core_fits(smem_bytes, s, c, nhead, plan.rows)
         return plan
     if rows is None:
@@ -588,8 +627,9 @@ def _bwd_plan(b, s, c, nhead, rows, dtype, device) -> BwdPlan:
         sms = torch.cuda.get_device_properties(
             torch.cuda.current_device()).multi_processor_count
         smem_bytes = lib.rmm_column_attention_bwd_core_smem_bytes
-        plan = split_plan(b, s, c, nhead, sms, per_sm, _core_budget(),
-                          smem_bytes(s, c, nhead, 1), rows)
+        row = smem_bytes(s, c, nhead, 1)
+        plan = split_plan(b, s, c, nhead, sms, per_sm, _core_budget(row),
+                          row, rows)
         _check_core_fits(smem_bytes, s, c, nhead, plan.rows)
         return plan
     if rows is None:

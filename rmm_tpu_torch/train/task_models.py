@@ -31,7 +31,9 @@ from ..frame.tensor_frame import TensorFrame
 from ..nn.decoders import ClassifierHead, MCMHead, NodeClassificationHead
 from ..nn.encoders import (
     EmbeddingEncoder,
+    LinearEmbeddingEncoder,
     LinearEncoder,
+    LinearModelEncoder,
     ProjectionEncoder,
     StypeWiseFeatureEncoder,
     TimestampEncoder,
@@ -43,6 +45,7 @@ from ..nn.models.ft_transformer import FTTransformer
 from ..nn.models.interleaved import TABGNNInterleaved
 from ..nn.models.tabgnn import TABGNN
 from ..nn.norms import MaskedBatchNorm
+from ..nn.text import Embed, LoRADense, TextToEmbeddingFinetune
 from ..nn.transformer import CLSToken, MultiHeadSelfAttention
 from ..utils.batch import GraphBatch
 
@@ -357,7 +360,11 @@ def lecun_normal_(t: torch.Tensor, fan_in: int,
 def init_parameters(model: nn.Module, seed: int) -> nn.Module:
     """Seeded initialization after the JAX modules' initializers: dense and
     attention kernels lecun-normal, biases zero, norms one/zero, encoder
-    weights normal(0.1), the CLS token normal(0.01)."""
+    weights normal(0.1), the CLS token normal(0.01); of the text modules
+    the text encoders' weights ``[n, in, C]`` lecun-normal at fan-in
+    ``n · in`` (flax's for a 3-D kernel), token embeddings normal with
+    std ``1/√features`` (flax's ``Embed``), positional embeddings and LoRA
+    ``A`` normal(0.02), LoRA ``B`` zero."""
     g = torch.Generator().manual_seed(int(seed))
 
     def normal(t, std):
@@ -387,4 +394,19 @@ def init_parameters(model: nn.Module, seed: int) -> nn.Module:
                 mod.bias.zero_()
             elif isinstance(mod, CLSToken):
                 normal(mod.cls, 0.01)
+            elif isinstance(mod, (LinearEmbeddingEncoder,
+                                  LinearModelEncoder)):
+                n, fan_in, _ = mod.weight.shape
+                lecun_normal_(mod.weight, n * fan_in, g)
+                mod.bias.zero_()
+            elif isinstance(mod, Embed):
+                normal(mod.embedding, mod.embedding.shape[1] ** -0.5)
+            elif isinstance(mod, TextToEmbeddingFinetune):
+                normal(mod.pos_emb, 0.02)
+            elif isinstance(mod, LoRADense):
+                lecun_normal_(mod.weight, mod.weight.shape[1], g)
+                mod.bias.zero_()
+                if mod.rank > 0:
+                    normal(mod.lora_a, 0.02)
+                    mod.lora_b.zero_()
     return model

@@ -231,10 +231,10 @@ def test_column_attention_kernel_refuses_what_it_cannot_run(cuda):
     wide = attention_inputs(0, 8, 6, 136, cuda)
     with pytest.raises(ca.UnsupportedShape, match="C <= 128"):
         ca.fused_column_attention(*wide, 8)
-    # past S = 16 a row must fit a split core's share of shared memory:
-    # 400 tokens fit neither core at C = 32, one past max_s not the
-    # backward's (the larger a token)
-    too_long = torch.zeros(2, 400, 32, device=cuda)
+    # past S = 16 a row must fit a block's shared memory (one block an SM
+    # past half an SM): 600 tokens fit neither core at C = 32, one past
+    # max_s not the backward's (the larger a token)
+    too_long = torch.zeros(2, 600, 32, device=cuda)
     with pytest.raises(ca.UnsupportedShape, match="at most S="):
         ca.fused_column_attention(too_long, wqkv, bqkv, wout, bout, 8)
     with pytest.raises(ca.UnsupportedShape, match="at most S="):
@@ -276,6 +276,9 @@ LONG_SHAPES = [
     (11, 195, 32, 8),
     (21, 54, 128, 8),
     (1, 167, 32, 8),
+    (33, 64, 64, 4),     # the downstream text LM's rows
+    (17, 64, 128, 4),    # finetune_llm's: the backward one block an SM
+    (5, 110, 128, 4),    # the longest rows one block an SM takes there
 ]
 
 
@@ -396,9 +399,15 @@ def test_long_rows_take_a_keep_mask_at_any_offset(cuda, b, s, c, h, offset):
 
 def test_longest_rows_of_record_fit(cuda):
     """Both cores take the longest rows they took before their redesign:
-    195 tokens at C = 32 and 54 at C = 128, 8 heads."""
+    195 tokens at C = 32 and 54 at C = 128, 8 heads; and, one block an SM,
+    the text LM's 64 at C = 128, 4 heads, whose backward row (134,144
+    bytes) takes a whole block."""
     assert ca.max_s(32, 8) >= 195
     assert ca.max_s(128, 8) >= 54
+    assert ca.max_s(128, 4) >= 64
+    assert ca.core_row_bytes(64, 128, 4) == (99_328, 134_144)
+    block, _ = ca._card_smem()
+    assert ca._core_budget(134_144) == block
 
 
 def test_long_rows_repeat_bitwise(cuda):
@@ -998,6 +1007,7 @@ BF16_SHAPES = [
     (11, 195, 32, 8),    # the longest rows the cores take
     (21, 54, 128, 8),
     (1, 167, 32, 8),     # one row
+    (17, 64, 128, 4),    # finetune_llm's rows: the backward one block an SM
 ]
 
 
