@@ -15,7 +15,7 @@ through all of them:
              edge capacity, node tokens at the node capacity, both read
              from the fixture), at the same shapes with the training
              keep-mask (dropout 0.083), and more (node tokens at the edge
-             capacity, C = 128, a ragged batch, a numpy keep-mask); the
+             capacity, C = 128, a ragged batch, a keep-mask at 0.3); the
              backward (and its reduce) against ``torch.autograd.grad`` of
              the plain version at the training shapes with the keep-mask,
              the same unmasked, C = 128 and a ragged batch; both
@@ -40,7 +40,7 @@ through all of them:
              backward's relative to each reference tensor's largest
              entry), kernel / plain / library times (CUDA events, warm,
              the median of 5 windows of 10 calls, the plain and library
-             calls' of 3) and the bound.
+             calls' of 2) and the bound.
 4. serve   — the port's predict CLI (``rmm_tpu_torch.cli.predict.main``)
              at the config of record: 131,072-row synthetic AML, tabgnn,
              C = 32, 2 layers, fanouts 100/100, batch 200, test split, on
@@ -309,7 +309,11 @@ float32, their timestamp block being so, and the node tokens bf16):
              cores; Elliptic's node tokens are bf16 under bf16),
              4096x167x32/8, 4096x40x128/8, 4096x17x32/8, 4096x65x32/8,
              4096x195x32/8 and 4096x54x128/8 (the node keep-mask and
-             unmasked); the split route's GEMMs on the tensor cores at
+             unmasked), and the shapes bf16 puts on the paths across the
+             menu, timed once: the node families' node tokens
+             4096x129x32/8 and 4096x130x32/8 (the node keep-mask) and the
+             downstream LM's 256x64x64/4 (0.1), each unmasked too; the
+             split route's GEMMs on the tensor cores at
              every C % 4 = 0 (csrc/gemm_mma.cuh): out and dx within one
              bf16 rounding, the float32 weight gradients at the float32
              tolerance, bitwise repeats, kernel / plain / library times
@@ -324,7 +328,30 @@ float32, their timestamp block being so, and the node tokens bf16):
              the split float32 kernels, no bf16 launch).
 8b. ssl_parity_bf16 — three bf16 mcm-lp steps against
              ``ssl_bf16_record.npz``.
-(the bf16 records: ``tools/make_torch_port_bf16_fixture.py``).
+(the bf16 records: ``tools/make_torch_port_bf16_fixture.py``), and across
+the model menu, the launches counted by route and dtype (``read_routes``):
+16b. family_bf16 — each family at the launcher's flags, 12 train, val and
+             served batches through the training CLI's trainer (only
+             fttransformer's node tokens run bf16 calls: 2 tiled each way
+             a step); pna's bf16-trained checkpoint (float32 masters, the
+             precision in its meta) served by the predict CLI at
+             ``--precision bf16``; each beside family_train's float32 step,
+             rows/s and launches.
+18b. tabular_bf16 — the tabular MCM trainer at C = 128, 12 steps (its rows
+             hold the float32 timestamp block: 3 float32 split calls each
+             way a step); float32 masters and AdamW state.
+26b. node_bf16 — tabgnn on ogbn-arxiv (2 bf16 long-core calls, S = 130,
+             and 2 bf16 tiled ones each way a step) and pna on the
+             Ethereum cut, 12 train, val and served batches each.
+37b. text_bf16 — the downstream text trainer, frozen and finetune, 12
+             steps each (finetune: the LM's rows through the bf16 long
+             cores, 2 calls each way a step).
+37c. bf16_family_parity — every part of ``bf16_family_record.npz``
+             (``tools/make_torch_port_bf16_family_fixture.py``: each
+             family, tabgnn and pna on Ethereum and MUSAE (S = 129),
+             mcm_edge_table, the tabular and text trainers, C = 16) by
+             ``replay_bf16_part``: the start's outputs and three steps
+             within ``convert.check_record``'s bf16 limits for the part.
 
 Then the seconds each phase took, a ``{"kernels": [...]}`` line (an entry
 per kernel, each with its ``path``: the main path's tiled kernels at C = 32
@@ -338,7 +365,8 @@ likewise; the masked-cell paths' launches in the tiled and split
 entries; the device-sampled paths' and Rel-H&M's launches in the tiled,
 split and long entries, Rel-H&M's shapes beside them; the text paths'
 launches in the tiled and long entries, their shapes and the cores'
-budget beside them),
+budget beside them; the bf16 phases' launches in the bf16 entries by
+route, the long cores' by path, the bf16 path shapes' times beside),
 the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 package beside it, the script fails and prints no result.
@@ -648,6 +676,17 @@ def random_inputs(rng, b, s, c, device):
             t(c, c, scale=c ** -0.5), t(c, scale=0.1))
 
 
+def keep_mask(rng, b: int, h: int, s: int, rate: float, dev):
+    """A keep-mask [b, h, s, s], each entry kept with probability 1 -
+    ``rate``, drawn on the card from a generator that ``rng`` seeds (drawn
+    by numpy on the host, the masks of the long rows, up to 1.25 billion
+    entries each, took most of the long kernel phases' time)."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(int(rng.randint(2 ** 31)))
+    return torch.rand((b, h, s, s), generator=gen, device=dev) >= rate
+
+
 # The CUDA grid's y limit: PyTorch's flash attention lays the batch out
 # along y, so on bf16 it refuses to launch past 65,535 rows ("invalid
 # configuration argument"), and the library call takes its math backend
@@ -712,11 +751,12 @@ PATH_TIMING, OFF_PATH_TIMING = (10, 5), (1, 1)
 
 
 def ref_timing(timing: tuple) -> tuple:
-    """A record's ``timing`` for its plain and library calls: at most 3
+    """A record's ``timing`` for its plain and library calls: at most 2
     windows (3-70 ms a call, against the kernel's 0.04-10: five windows of
-    each would take ~80 s of the run's time limit)."""
+    each would take ~80 s of the run's time limit, and three kept the
+    whole run past 1,000 s of its 1,200)."""
     reps, windows = timing
-    return reps, min(windows, 3)
+    return reps, min(windows, 2)
 
 
 def off_path(b: int, s: int, c: int, h: int) -> bool:
@@ -750,7 +790,7 @@ def fwd_record(rng, dev, b, s, c, h, rate, card, repeat=False,
     x, wqkv, bqkv, wout, bout = random_inputs(rng, b, s, c, dev)
     mask = None
     if rate > 0:
-        mask = torch.from_numpy(rng.rand(b, h, s, s) >= rate).to(dev)
+        mask = keep_mask(rng, b, h, s, rate, dev)
     args = (x, wqkv, bqkv, wout, bout, h, mask, rate)
     with torch.inference_mode():
         before = (ca.fwd_tiled_launches, ca.fwd_split_launches)
@@ -826,7 +866,7 @@ def bwd_record(rng, dev, b, s, c, h, rate, card, repeat=False,
     do = random_inputs(rng, b, s, c, dev)[0]
     mask = None
     if rate > 0:
-        mask = torch.from_numpy(rng.rand(b, h, s, s) >= rate).to(dev)
+        mask = keep_mask(rng, b, h, s, rate, dev)
     x, wqkv, bqkv, wout, _ = inputs
     args = (x, do, wqkv, bqkv, wout, h, mask, rate)
     before = (ca.bwd_tiled_launches, ca.bwd_split_launches)
@@ -913,7 +953,7 @@ def kernel_phase(card: str) -> dict:
         (edges, 2, c, 8, 0.0),       # node tokens at the edge capacity
         (32768, 6, 128, 8, 0.0),     # SSL width, the split route
         (100003, 6, 32, 8, 0.0),     # ragged batch
-        (4099, 6, 64, 4, 0.3),       # numpy keep-mask, dropout 0.3
+        (4099, 6, 64, 4, 0.3),       # a keep-mask at dropout 0.3
     ] + NARROW_SHAPES + transfer + SSL_SHAPES + extra
     bwd_shapes = [
         (edges, 6, c, 8, p),         # training path: edge tokens
@@ -1076,8 +1116,10 @@ def kernel_bf16_phase(card: str) -> dict:
     """Both directions on bf16 x, do and weights against their plain twin
     on the same values: out and dx within one bf16 rounding, the float32
     weight and bias gradients at GRAD_TOL; two calls of each direction
-    bitwise equal at the masked edge shapes, at C = 100 and at the masked
-    node shape past S = 16; kernel / plain / library
+    bitwise equal at the masked edge shapes, at C = 100, at the masked
+    node shape past S = 16 and at the masked ``BF16_PATH_SHAPES`` (the node
+    families' and the text LM's rows, returned under ``path_fwd`` and
+    ``path_bwd``); kernel / plain / library
     (``F.multi_head_attention_forward`` on bf16) times and the bound from
     bf16 bytes. Returns the records by direction, in the order of
     :func:`bf16_shapes`, and those of :func:`bf16_long_shapes` by
@@ -1092,24 +1134,28 @@ def kernel_bf16_phase(card: str) -> dict:
     shapes = bf16_shapes(st["edge_capacity"], st["node_capacity"],
                          st["n_hidden"])
     long = bf16_long_shapes()
-    repeat_at = {shapes[2], shapes[4], shapes[8], NARROW_SHAPES[0], long[0]}
+    repeat_at = {shapes[2], shapes[4], shapes[8], NARROW_SHAPES[0], long[0],
+                 BF16_PATH_SHAPES[0], BF16_PATH_SHAPES[4]}
     dev = torch.device("cuda")
     rng = np.random.RandomState(1)
-    recs = {"fwd": [], "bwd": [], "long_fwd": [], "long_bwd": []}
-    for b, s, c, h, rate in shapes + long:
-        key = "long_" if s > 16 else ""
+    recs = {"fwd": [], "bwd": [], "long_fwd": [], "long_bwd": [],
+            "path_fwd": [], "path_bwd": []}
+    for b, s, c, h, rate in shapes + long + BF16_PATH_SHAPES:
+        key = ("path_" if (b, s, c, h, rate) in BF16_PATH_SHAPES
+               else "long_" if s > 16 else "")
         x, *weights = (t.bfloat16() for t in random_inputs(rng, b, s, c,
                                                            dev))
         do = random_inputs(rng, b, s, c, dev)[0].bfloat16()
         masters = [w.float() for w in weights]   # the weights' values
         mask = None
         if rate > 0:
-            mask = torch.from_numpy(rng.rand(b, h, s, s) >= rate).to(dev)
+            mask = keep_mask(rng, b, h, s, rate, dev)
         args = (x, *weights, h, mask, rate)
         repeat = (b, s, c, h, rate) in repeat_at
         kind = ca.route(c, s)
-        # every bf16 split shape but the node path's is off the paths (the
-        # SSL path's tokens are float32 under bf16)
+        # every bf16 split shape but the node path's is timed once: off
+        # the paths (the SSL path's tokens are float32 under bf16), or the
+        # node families' and the text LM's rows (BF16_PATH_SHAPES)
         timing = (PATH_TIMING if kind == "tiled" or s == NODE_S
                   else OFF_PATH_TIMING)
         check(kind == "split" or ((b, s, c, h, rate) not in NARROW_SHAPES
@@ -1265,6 +1311,8 @@ def reset_counts():
     ca.launches = ca.fwd_tiled_launches = ca.fwd_split_launches = 0
     ca.bwd_launches = ca.bwd_tiled_launches = ca.bwd_split_launches = 0
     ca.fwd_bf16_launches = ca.bwd_bf16_launches = ca.reduce_launches = 0
+    ca.fwd_tiled_bf16_launches = ca.fwd_long_bf16_launches = 0
+    ca.bwd_tiled_bf16_launches = ca.bwd_long_bf16_launches = 0
 
 
 def read_counts() -> dict:
@@ -2730,6 +2778,7 @@ def family_train_phase(card: str, csv: str) -> dict:
            "node_capacity": st["node_capacity"], "data_s": data_s,
            "models": out, "card": card, "ok": True}
     emit(rec)
+    rec["dataset"] = dataset   # family_bf16 trains on it again
     return rec
 
 
@@ -3330,7 +3379,7 @@ def two_pulls_record(rng, dev) -> dict:
 
     b, s, c, h, rate = SSL_SHAPES[1]
     leaves = [t.requires_grad_() for t in random_inputs(rng, b, s, c, dev)]
-    mask = torch.from_numpy(rng.rand(b, h, s, s) >= rate).to(dev)
+    mask = keep_mask(rng, b, h, s, rate, dev)
     out = ca.fused_column_attention(*leaves, h, mask, rate)
     losses = [(out * random_inputs(rng, b, s, c, dev)[0]).sum()
               for _ in range(2)]
@@ -4282,8 +4331,11 @@ def rel_hm_phase(card: str) -> dict:
     shapes = [(e_cap, HM_S, 32, 8, TRAIN_DROPOUT), (e_cap, HM_S, 32, 8, 0.0),
               (ssl_edges - b, HM_S, 128, 8, SSL_DROPOUT),
               (ssl_edges - b, HM_S, 128, 8, 0.0)]
-    kfwd = [fwd_record(rng, dev, *s, card) for s in shapes]
-    kbwd = [bwd_record(rng, dev, *s, card) for s in shapes]
+    # timed once (one warm repetition), to keep the run inside its limit
+    kfwd = [fwd_record(rng, dev, *s, card, timing=OFF_PATH_TIMING)
+            for s in shapes]
+    kbwd = [bwd_record(rng, dev, *s, card, timing=OFF_PATH_TIMING)
+            for s in shapes]
 
     # the record's three steps of each part
     hrec = load_record(REL_HM_FIXTURE)
@@ -4700,6 +4752,589 @@ def text_parity_phase(card: str) -> dict:
     return out
 
 
+# --precision bf16 across the model menu, the node tasks and the tabular
+# and text trainers. Under bf16 a column-attention call runs the bf16 build
+# where its tokens are bf16: the node tokens everywhere, the edge tokens of
+# the node families (one dummy column) and the text LM's 64-token rows; the
+# AML and Ethereum edge tokens, the review rows and the edge states that
+# cpnatab's and tabgnninterleaved's calls take hold a float32 timestamp
+# block, so those calls run the float32 build on bf16-valued weights. The
+# record (``bf16_family_record.npz``, ``tools/make_torch_port_bf16_family_
+# fixture.py``) holds every part at C = 16.
+BF16_FAMILY_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
+                                   "bf16_family_record.npz")
+BF16_BATCHES = 12     # train, val and served batches of the bf16 phases
+#: bf16 column-attention calls a step of each family makes on the AML data,
+#: each way (every call tiled): fttransformer's node tokens
+FAMILY_BF16_CALLS = {"fttransformer": 2, "gin": 0, "pna": 0, "cpna": 0,
+                     "cpnatab": 0, "tabgnninterleaved": 0}
+#: the bf16 kernel shapes the slice puts on its paths, each with the path's
+#: keep-mask and without it, timed once: the node families' node tokens
+#: (ogbn-arxiv S = 130, MUSAE and LastFM S = 129) at the node lanes of a
+#: 4,096-node batch, and the downstream LM's 64-token rows
+BF16_PATH_SHAPES = [(4096, 129, 32, 8, TRAIN_DROPOUT), (4096, 129, 32, 8, 0.0),
+                    (4096, 130, 32, 8, TRAIN_DROPOUT), (4096, 130, 32, 8, 0.0),
+                    (256, 64, 64, 4, 0.1), (256, 64, 64, 4, 0.0)]
+
+
+def read_routes() -> dict:
+    """:func:`read_counts` with the bf16 launches by route: through the
+    tiled kernels, the split route's long cores (S > 16) and in all
+    through the split route, each way."""
+    from rmm_tpu_torch.ops import column_attention as ca
+
+    out = read_counts()
+    for d in ("fwd", "bwd"):
+        out[f"{d}_tiled_bf16"] = getattr(ca, f"{d}_tiled_bf16_launches")
+        out[f"{d}_long_bf16"] = getattr(ca, f"{d}_long_bf16_launches")
+        out[f"{d}_split_bf16"] = out[f"{d}_bf16"] - out[f"{d}_tiled_bf16"]
+    return out
+
+
+def bf16_counts(fwd: int, bwd: int, tiled: int = 0, tiled16: int = 0,
+                long16: int = 0) -> dict:
+    """The launches by route and dtype of ``fwd`` forwards and ``bwd``
+    backwards of a path whose step makes ``tiled`` tiled calls each way,
+    ``tiled16`` of them on bf16 tokens, and ``long16`` bf16 calls through
+    the long cores."""
+    out = {}
+    for d, n in (("fwd", fwd), ("bwd", bwd)):
+        out.update({d: (tiled + long16) * n, f"{d}_tiled": tiled * n,
+                    f"{d}_split": long16 * n,
+                    f"{d}_bf16": (tiled16 + long16) * n,
+                    f"{d}_tiled_bf16": tiled16 * n,
+                    f"{d}_long_bf16": long16 * n,
+                    f"{d}_split_bf16": long16 * n})
+    out["reduce"] = out["bwd"]
+    return out
+
+
+def bf16_trainer_pass(tr, table, n: int, expect) -> dict:
+    """Up to ``n`` train, val and served batches of a trainer (the first
+    ``n`` of each split of ``table``) on the card, the launch counts set
+    to 0 just before each pass and read just after (:func:`read_routes`),
+    held to ``expect(fwd, bwd)`` of its batches: a finite loss, f1 in [0,
+    1], finite served scores; the median step, train and served rows/s."""
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.frame.dataset import DatasetView
+
+    b = tr.cfg.batch_size
+    train, val, test = (DatasetView(v.parent, v.indices[:n * b])
+                        for v in table.split())
+    n_tr, n_val, n_te = (-(-len(v.indices) // b)
+                         for v in (train, val, test))
+    reset_counts()
+    t0 = time.perf_counter()
+    tm = tr.train_epoch(train, 0)
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train_counts = read_routes()
+    reset_counts()
+    vm = tr.evaluate(val, "val")
+    eval_counts = read_routes()
+    reset_counts()
+    t0 = time.perf_counter()
+    served = tr.predict(test, "test")
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_counts = read_routes()
+    rows = len(served["id"])
+    name = f"{tr.cfg.model} on {os.path.basename(tr.cfg.data)} (bf16)"
+    check(math.isfinite(tm["loss"]) and 0 <= vm["f1"] <= 1 and rows > 0
+          and np.isfinite(served.get("score", served["pred"])).all(),
+          f"{name}: loss {tm['loss']}, val f1 {vm['f1']}, {rows} served "
+          "rows or non-finite scores")
+    for what, got, want in (("train", train_counts, expect(n_tr, n_tr)),
+                            ("val", eval_counts, expect(n_val, 0)),
+                            ("serve", serve_counts, expect(n_te, 0))):
+        check(got == want, f"{name}: {what} launches {got}, not {want}")
+    return {"steps": n_tr, "evaluated_batches": n_val,
+            "served_batches": n_te, "loss": tm["loss"], "val_f1": vm["f1"],
+            "step_ms_median": tm.get("step_ms"), "train_wall_s": train_wall,
+            "train_rows_per_s": len(train.indices) / train_wall,
+            "rows_per_s_predict": rows / serve_s, "served_rows": rows,
+            "train_launches": train_counts, "eval_launches": eval_counts,
+            "serve_launches": serve_counts,
+            "launches_per_step": {k: train_counts[k] / n_tr for k in (
+                "fwd", "fwd_bf16", "bwd", "bwd_bf16")}}
+
+
+def family_bf16_phase(card: str, csv: str, f32: dict) -> dict:
+    """Each family under ``--precision bf16`` at the supervised launcher's
+    flags on the config of record's data (``family_train``'s loaded
+    dataset): the trainer the training CLI builds, BF16_BATCHES train, val
+    and test batches (:func:`bf16_trainer_pass`; ``FAMILY_CALLS`` tiled
+    calls a step, ``FAMILY_BF16_CALLS`` of them bf16); ``pna``'s trained
+    model saved as the CLI saves it (float32 masters, ``"precision":
+    "bf16"`` in its meta) and served by the predict CLI with ``--precision
+    bf16`` over the whole test split. Beside each: ``family_train``'s
+    float32 step, rows/s and launches from the same run."""
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.train.trainer import Trainer
+    from rmm_tpu_torch.utils import checkpoint
+    from rmm_tpu_torch.utils.config import config_from_args, create_parser
+
+    st = fixture_settings()
+    dataset = f32["dataset"]
+    argv = ["--data", csv, *FAMILY_ARGV, "--seed", str(st["seed"]),
+            "--sampler_threads", "4", "--device", "cuda", "--precision",
+            "bf16", "--edge_capacity", str(st["edge_capacity"]),
+            "--node_capacity", str(st["node_capacity"])]
+    out = {}
+    for model in FAMILIES:
+        cfg = config_from_args(create_parser().parse_args(
+            argv + ["--model", model]))
+        tr = Trainer(cfg, dataset)
+        k, k16 = FAMILY_CALLS[model], FAMILY_BF16_CALLS[model]
+        run = bf16_trainer_pass(tr, dataset.edges, BF16_BATCHES,
+                                lambda f, b: bf16_counts(f, b, k, k16))
+        if model == "pna":
+            run_dir = os.path.join(WORK, "family_bf16")
+            checkpoint.save_epoch(run_dir, 0, tr.model, tr.optimizer, 0.0,
+                                  precision="bf16")
+            ck = os.path.join(run_dir, "0")
+            with open(os.path.join(ck, "meta.json")) as f:
+                meta = json.load(f)
+            saved = torch.load(os.path.join(ck, "model.pt"),
+                               weights_only=True)
+            check(meta["precision"] == "bf16" and all(
+                v.dtype == torch.float32 for v in saved.values()
+                if v.is_floating_point()),
+                f"pna's bf16 checkpoint: meta {meta}, or not float32 masters")
+            stats: dict = {}
+            served, counts, wall = serve(argv + [
+                "--model", "pna", "--load_model", ck, "--split", "test",
+                "--output", os.path.join(WORK, "pna_bf16.csv")], stats)
+            rows = len(served["id"])
+            check(rows == dataset.edges.split()[2].tensor_frame.num_rows
+                  and np.isfinite(served["score"]).all()
+                  and counts == route_counts(0, 0),
+                  f"pna bf16 served {rows} rows, launches {counts}")
+            run["cli_serve"] = {"rows": rows, "launches": counts,
+                                "rows_per_s_predict": rows
+                                / stats["predict_s"],
+                                "rows_per_s_wall": rows / wall}
+        ref = f32["models"][model]
+        run["f32"] = {key: ref.get(key) for key in (
+            "step_ms_median", "train_rows_per_s", "rows_per_s_predict",
+            "launches_per_step")}
+        out[model] = run
+        del tr
+        torch.cuda.empty_cache()
+    rec = {"phase": "family_bf16", "batches": BF16_BATCHES, "models": out,
+           "card": card, "ok": True}
+    emit(rec)
+    return rec
+
+
+def node_bf16_phase(card: str, roots: dict) -> dict:
+    """Node classification under ``--precision bf16`` at the launcher's
+    widths: ``tabgnn`` on ogbn-arxiv (node tokens S = 130 through the bf16
+    long cores, edge tokens S = 2 through the bf16 tiled kernels, 2 of each
+    a step each way) and ``pna`` on the Ethereum cut (no attention; bf16
+    node states into float32 messages: the edges hold a timestamp),
+    BF16_BATCHES train, val and served batches each
+    (:func:`bf16_trainer_pass`)."""
+    import torch
+
+    from rmm_tpu_torch.datasets import build_dataset
+    from rmm_tpu_torch.train.trainer import Trainer
+    from rmm_tpu_torch.utils.config import config_from_args, create_parser
+
+    out = {}
+    for name, root, model, expect in (
+            ("ogbn", roots["ogbn"], "tabgnn",
+             lambda f, b: bf16_counts(f, b, 2, 2, 2)),
+            ("eth", roots["eth_cut"], "pna",
+             lambda f, b: bf16_counts(f, b))):
+        cfg = config_from_args(create_parser().parse_args(node_argv(
+            root, "--model", model, "--precision", "bf16")))
+        ds = build_dataset(cfg)
+        cfg = cfg.replace(n_classes=ds.n_classes)
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, ds)
+        setup_s = time.perf_counter() - t0
+        out[name] = {"model": model, "setup_s": setup_s,
+                     **bf16_trainer_pass(tr, ds.nodes, BF16_BATCHES,
+                                         expect)}
+        del tr
+        torch.cuda.empty_cache()
+    rec = {"phase": "node_bf16", "runs": out, "card": card, "ok": True}
+    emit(rec)
+    return rec
+
+
+def text_bf16_phase(card: str, csv: str) -> dict:
+    """The downstream text trainer under ``Config(precision="bf16")`` at
+    ``text_phase``'s widths (C = 64, 2 layers, batch 256, dropout 0.1),
+    frozen and finetune, BF16_BATCHES steps each: the review rows (S = 8,
+    tiled) hold the float32 timestamp block; under ``finetune`` the LM's
+    64-token rows run the bf16 long cores, 2 calls each way a step. A
+    finite, falling loss; the step ms and rows/s."""
+    import torch
+
+    from rmm_tpu_torch.datasets.amazon_fashion import AmazonFashionDataset
+    from rmm_tpu_torch.frame.dataset import DatasetView
+    from rmm_tpu_torch.frame.stype import Stype
+    from rmm_tpu_torch.train.downstream_text import \
+        TextTabularRegressionTrainer
+    from rmm_tpu_torch.utils.config import Config
+
+    out = {}
+    for path in ("frozen", "finetune"):
+        finetune = path == "finetune"
+        ds = AmazonFashionDataset(csv, text_stype=(
+            Stype.text_tokenized if finetune else Stype.text_embedded))
+        cfg = Config(model="fttransformer", data=csv, batch_size=TEXT_BATCH,
+                     n_hidden=64, n_gnn_layers=TEXT_LAYERS,
+                     dropout=TEXT_DROPOUT, device="cuda", precision="bf16")
+        tr = TextTabularRegressionTrainer(cfg, ds, finetune_text=finetune)
+        train = ds.edges.split()[0]
+        train = DatasetView(train.parent,
+                            train.indices[:BF16_BATCHES * TEXT_BATCH])
+        reset_counts()
+        t0 = time.perf_counter()
+        ep = tr.train_epoch(train)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_routes()
+        long16 = 2 if finetune else 0
+        want = bf16_counts(BF16_BATCHES, BF16_BATCHES, TEXT_LAYERS, 0,
+                           long16)
+        losses = tr.step_losses
+        check(counts == want and all(map(math.isfinite, losses))
+              and losses[-1] < losses[0],
+              f"text {path} (bf16): launches {counts}, not {want}; losses "
+              f"{losses}")
+        out[path] = {"steps": BF16_BATCHES, "losses": losses,
+                     "step_ms_median": ep.get("step_ms"), "wall_s": wall,
+                     "train_rows_per_s": BF16_BATCHES * TEXT_BATCH / wall,
+                     "launches": counts}
+        del tr
+        torch.cuda.empty_cache()
+    rec = {"phase": "text_bf16", "paths": out, "card": card, "ok": True}
+    emit(rec)
+    return rec
+
+
+def tabular_bf16_phase(card: str, csv: str) -> dict:
+    """The tabular MCM trainer under ``Config(precision="bf16")`` at the
+    tabular CLI's defaults (C = 128, 3 layers, batch 200) on the config of
+    record's data, BF16_BATCHES steps: its rows hold the float32 timestamp
+    block, so its 3 split calls each way a step run the float32 build on
+    bf16-valued weights. Finite losses, float32 masters and AdamW state;
+    the step ms and rows/s."""
+    import torch
+
+    from rmm_tpu_torch.cli import fttransformer
+    from rmm_tpu_torch.datasets import IBMTransactionsAML
+    from rmm_tpu_torch.datasets.base import PretrainType
+    from rmm_tpu_torch.frame.dataset import DatasetView
+    from rmm_tpu_torch.train.tabular import TabularMCMTrainer
+
+    cfg = fttransformer.config_from_args(fttransformer.build_parser(
+    ).parse_args(["--dataset", csv, "--device", "cuda"])).replace(
+        precision="bf16")
+    edges = IBMTransactionsAML(root=csv, pretrain={PretrainType.MASK}).edges
+    tr = TabularMCMTrainer(cfg, edges)
+    train = edges.split()[0]
+    train = DatasetView(train.parent,
+                        train.indices[:BF16_BATCHES * cfg.batch_size])
+    reset_counts()
+    t0 = time.perf_counter()
+    ep = tr.train_epoch(train, 0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_routes()
+    k = TABULAR_LAYERS
+    want = {**route_counts(k * BF16_BATCHES, k * BF16_BATCHES),
+            **{f"{d}_{r}_bf16": 0 for d in ("fwd", "bwd")
+               for r in ("tiled", "long", "split")}}
+    masters = all(p.dtype == torch.float32 for p in tr.model.parameters())
+    moments = all(v.dtype == torch.float32 for s in tr.optimizer.state.values()
+                  for v in s.values() if torch.is_tensor(v)
+                  and v.is_floating_point())
+    check(counts == want and math.isfinite(ep["loss"]) and masters
+          and moments, f"tabular bf16: launches {counts}, not {want}; loss "
+          f"{ep['loss']}; float32 masters {masters}, AdamW state {moments}")
+    rec = {"phase": "tabular_bf16", "channels": cfg.n_hidden,
+           "steps": BF16_BATCHES, "loss": ep["loss"],
+           "train_acc": ep["train_acc"], "train_rmse": ep["train_rmse"],
+           "step_ms_median": ep.get("step_ms"), "wall_s": wall,
+           "train_rows_per_s": BF16_BATCHES * cfg.batch_size / wall,
+           "launches": counts, "card": card, "ok": True}
+    emit(rec)
+    return rec
+
+
+def bf16_record_data(st: dict, root: str) -> dict:
+    """The bf16 record's data under ``root``: the AML cut, the node cuts
+    and the reviews, each written as the record's tool wrote it."""
+    from rmm_tpu_torch.datasets import (write_synthetic_aml_csv,
+                                        write_synthetic_node_dataset)
+    from rmm_tpu_torch.datasets.amazon_fashion import synthetic_amazon_fashion
+
+    os.makedirs(root, exist_ok=True)
+    a = st["aml"]
+    roots = {"aml": write_synthetic_aml_csv(
+        os.path.join(root, "bf16_aml.csv"), num_rows=a["rows"],
+        num_accounts=a["num_accounts"], seed=a["data_seed"])}
+    for name, d in st["node_data"].items():
+        roots[name] = write_synthetic_node_dataset(
+            os.path.join(root, f"bf16_{d['dir']}_{d['nodes']}"),
+            family=d["family"], num_nodes=d["nodes"], num_edges=d["edges"],
+            num_feats=d["num_feats"], n_classes=d["n_classes"],
+            seed=st["data_seed"])
+    t = st["text_data"]
+    roots["text"] = synthetic_amazon_fashion(
+        os.path.join(root, "bf16_reviews.csv"), num_rows=t["rows"],
+        num_reviewers=t["reviewers"], num_items=t["items"], seed=t["seed"])
+    return roots
+
+
+def bf16_part_limits(run: dict) -> dict:
+    """``convert.check_record``'s ``model`` and ``messages`` for a part of
+    the bf16 record: the CPNA rule for cpna and cpnatab, the bf16-sum rule
+    where the reference's own bf16 sums moved its run (its ``sums_gap``,
+    measured by the record's tool, is not zero: the run feeds bf16
+    messages to the sums)."""
+    gap = run.get("sums_gap") or {}
+    return {"model": run.get("model", ""),
+            "messages": "bf16-sums" if gap.get("param_max_abs_err", 0.0) > 0
+            else "f32"}
+
+
+def replay_bf16_part(rec, st: dict, roots: dict, name: str,
+                     device: str = "cuda", skip: str = "",
+                     hold: bool = True) -> dict:
+    """A part of the bf16 record (``bf16_family_record.npz``) on
+    ``device`` from the record's start under ``--precision bf16``, dropout
+    0 (cpnatab's row attention and the text LM's too): the start's outputs
+    on the recorded batch (the served ids equal; logits, MCM outputs or
+    ratings within ``convert.BF16_OUT_TOL`` relative past 1), three steps
+    by ``convert.check_record``'s bf16 limits for the part
+    (:func:`bf16_part_limits`), the same parameters unmoved. Where the
+    reference's sums are bf16, the part is held too to the reference's run
+    with float32 sums (the record's ``<part>/f32sums/``), as the port sums
+    (``messages="bf16"``'s limits). ``skip``
+    plants a fault: that component's parameters keep their values through
+    the last step. Returns the launches by route and dtype, the loss terms
+    and the limits' summary; raises ``SmokeFailure`` on a fault, or with
+    ``hold`` false returns the faults too."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch import convert
+    from rmm_tpu_torch.datasets import IBMTransactionsAML, build_dataset
+    from rmm_tpu_torch.datasets.amazon_fashion import AmazonFashionDataset
+    from rmm_tpu_torch.datasets.base import PretrainType
+    from rmm_tpu_torch.frame.stype import Stype
+    from rmm_tpu_torch.nn.dropout import set_rate
+    from rmm_tpu_torch.train.downstream_text import \
+        TextTabularRegressionTrainer
+    from rmm_tpu_torch.train.tabular import TabularMCMTrainer
+    from rmm_tpu_torch.train.trainer import MCM_SUMS, Trainer
+    from rmm_tpu_torch.utils.config import (Config, config_from_args,
+                                            create_parser)
+
+    run = st["runs"][name]
+    p = f"{name}/"
+    start = convert.random_variables(run["shapes"], st["var_seed"])
+    limits = bf16_part_limits(run)
+    out_tol = convert.BF16_OUT_TOL
+    kind = run["kind"]
+    if kind == "trainer":
+        argv = ["--data", roots[run["data"]], "--model", run["model"],
+                "--task", run["task"], "--n_hidden", str(st["n_hidden"]),
+                "--n_gnn_layers", str(st["n_gnn_layers"]), "--num_neighs",
+                *map(str, st["num_neighs"]), "--batch_size",
+                str(st["batch_size"]), "--seed", str(st["seed"]),
+                "--precision", "bf16", "--dropout", "0", "--edge_capacity",
+                str(run["edge_capacity"]), "--node_capacity",
+                str(run["node_capacity"]), "--device", device,
+                *run["flags"]]
+        cfg = config_from_args(create_parser().parse_args(argv))
+        ds = build_dataset(cfg)
+        node = run["task"] == "node_classification"
+        if node:
+            cfg = cfg.replace(n_classes=ds.n_classes)
+        tr = Trainer(cfg, ds)
+        model, lr, width, updates = tr.model, cfg.lr, cfg.n_hidden, \
+            st["steps"]
+        model.load_state_dict(convert.from_jax(start, model))
+        set_rate(model, 0.0)
+        train, val, test = (ds.nodes if node else ds.edges).split()
+        mcm = run["task"] == "mcm_edge_table"
+        gb = next(tr._batches(val if mcm else test, "val" if mcm
+                              else "test"))
+        reset_counts()
+        with torch.inference_mode():
+            got = tr._logits(gb.to(tr.device))
+        if mcm:
+            outs = {"num": got[0], **{f"cat_{i}": c
+                                      for i, c in enumerate(got[1])}}
+        else:
+            gather = gb.node_gather if node else gb.edge_gather
+            ids = gather[:cfg.batch_size][gb.seed_mask]
+            check(np.array_equal(ids, rec[f"{p}serve/id"]),
+                  f"bf16 record {name}: served ids differ")
+            outs = {"logits": got[torch.from_numpy(gb.seed_mask).to(
+                got.device)]}
+
+        def steps():
+            model.train()
+            for g in itertools.islice(tr._batches(train, "train", 0),
+                                      st["steps"]):
+                loss, aux = tr._step(g.to(tr.device))
+                yield loss, (dict(zip(MCM_SUMS, aux["sums"].tolist()))
+                             if mcm else {})
+    elif kind == "tabular":
+        csv = roots["aml"]
+        cfg = Config(model="fttransformer", data=csv,
+                     batch_size=run["batch_size"], n_hidden=run["channels"],
+                     n_gnn_layers=run["num_layers"], dropout=0.0,
+                     lr=run["lr"], weight_decay=run["weight_decay"],
+                     adam_eps=run["adam_eps"], seed=st["seed"],
+                     device=device, precision="bf16")
+        edges = IBMTransactionsAML(root=csv,
+                                   pretrain={PretrainType.MASK}).edges
+        tr = TabularMCMTrainer(cfg, edges)
+        model, lr, width, updates = tr.model, cfg.lr, cfg.n_hidden, 0
+        model.load_state_dict(convert.from_jax(start, model))
+        train, val, _ = edges.split()
+        tf, _, _, _ = next(tr._batches(val, False))
+        reset_counts()
+        with torch.inference_mode():
+            num_out, cat_out, _ = tr._forward(tf)
+        outs = {"num": num_out, **{f"cat_{i}": c
+                                   for i, c in enumerate(cat_out)}}
+
+        def steps():
+            model.train()
+            for tf_, mask, _, _ in itertools.islice(
+                    tr._batches(train, True, 0), st["steps"]):
+                loss, sums = tr._step(tf_, mask)
+                yield loss, dict(zip(MCM_SUMS, sums.tolist()))
+    else:
+        finetune = run["finetune"]
+        csv = roots["text"]
+        cfg = Config(model="fttransformer", data=csv,
+                     batch_size=run["batch_size"], n_hidden=run["channels"],
+                     n_gnn_layers=run["num_layers"], dropout=0.0,
+                     lr=run["lr"], seed=st["seed"], device=device, epochs=1,
+                     precision="bf16")
+        ds = AmazonFashionDataset(csv, text_stype=(
+            Stype.text_tokenized if finetune else Stype.text_embedded))
+        tr = TextTabularRegressionTrainer(cfg, ds, finetune_text=finetune,
+                                          lora_rank=run["lora_rank"])
+        model, lr, width, updates = tr.model, cfg.lr, cfg.n_hidden, 0
+        model.load_state_dict(convert.from_jax(start, model))
+        set_rate(model, 0.0)
+        train, val, _ = ds.edges.split()
+        tf, _, _ = next(tr._batches(val, False))
+        reset_counts()
+        with torch.inference_mode():
+            outs = {"pred": tr.predict(tf)}
+
+        def steps():
+            model.train()
+            for tf_, mask, _ in itertools.islice(tr._batches(train, True),
+                                                 st["steps"]):
+                yield tr._step(tf_, mask), {}
+    fwd_counts = read_routes()
+    err = 0.0
+    for key, t in outs.items():
+        want = rec[f"{p}out/{key}" if key != "logits" else f"{p}serve/logits"]
+        got = t.detach().float().cpu().numpy()[:len(want)]
+        err = max(err, float(np.abs(got - want).max())
+                  / max(1.0, float(np.abs(want).max())))
+    check(err <= out_tol, f"bf16 record {name}: start outputs off by {err} "
+          f"> {out_tol}")
+    twin = f"{p}f32sums/"
+    twin_err = None
+    if limits["messages"] == "bf16-sums":
+        # the reference's run with float32 sums, as the port's
+        key = next(iter(outs))
+        want = rec[f"{twin}serve/logits" if key == "logits"
+                   else f"{twin}out/{key}"]
+        got = outs[key].detach().float().cpu().numpy()[:len(want)]
+        twin_err = float(np.abs(got - want).max()
+                         / max(1.0, float(np.abs(want).max())))
+        check(twin_err <= convert.BF16_OUT_TOL,
+              f"bf16 record {name}: start outputs off the float32-sum run "
+              f"by {twin_err} > {convert.BF16_OUT_TOL}")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    frozen = [q for n_, q in model.named_parameters()
+              if skip and n_.split(".")[0] == skip]
+    reset_counts()
+    terms = []
+    for i, (loss, sums) in enumerate(steps()):
+        if frozen and i == st["steps"] - 2:   # keep step 2's values
+            kept = [q.detach().clone() for q in frozen]
+        terms.append(convert.loss_terms(loss, sums))
+    if frozen:
+        with torch.no_grad():
+            for q, k_ in zip(frozen, kept):
+                q.copy_(k_)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    counts = read_routes()
+    state = model.state_dict()
+    faults, summary = convert.check_record(
+        state, terms, rec, p, lr, updates, width, precision="bf16",
+        **limits)
+    if limits["messages"] == "bf16-sums":
+        twin_faults, twin_summary = convert.check_record(
+            state, terms, rec, twin, lr, updates, width, precision="bf16",
+            model=limits["model"], messages="bf16")
+        faults += [f"against the float32-sum run: {f}" for f in twin_faults]
+        summary["f32sums"] = {"output_err": twin_err, **twin_summary}
+    unmoved = {n_ for n_, _ in model.named_parameters()
+               if torch.equal(state[n_], before[n_])}
+    want_unmoved = {convert.torch_key(k)[0] for k in run["unmoved"]}
+    if not skip and unmoved != want_unmoved:
+        faults.append(f"unmoved parameters {sorted(unmoved)}, the "
+                      f"reference's {sorted(want_unmoved)}")
+    if hold:
+        check(not faults, f"bf16 record {name}: " + "; ".join(faults))
+    return {"output_err": err, "output_tol": out_tol, "limits": limits,
+            "faults": faults,
+            "terms": terms, "jax_terms": run["terms"],
+            "forward_launches": fwd_counts, "launches": counts, **summary}
+
+
+def bf16_family_parity_phase(card: str) -> dict:
+    """The bf16 record on the card: every part (:func:`replay_bf16_part`)
+    from the record's start, each held to its limits; the launches by
+    route and dtype (MUSAE's node tokens, S = 129, and the text LM's
+    64-token rows through the bf16 long cores)."""
+    import torch
+
+    from rmm_tpu_torch.convert import load_record
+
+    rec = load_record(BF16_FAMILY_FIXTURE)
+    st = json.loads(str(rec["settings"]))
+    roots = bf16_record_data(st, os.path.join(WORK, "bf16_record"))
+    parts = {}
+    for name in st["runs"]:
+        parts[name] = replay_bf16_part(rec, st, roots, name)
+        torch.cuda.empty_cache()
+    for name in ("musae_tabgnn", "text_finetune"):
+        c = parts[name]["launches"]
+        check(c["fwd_long_bf16"] > 0 and c["bwd_long_bf16"] > 0,
+              f"bf16 record {name}: no bf16 long-core launch: {c}")
+    res = {"phase": "bf16_family_parity", "parts": parts, "card": card,
+           "ok": True}
+    emit(res)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -4746,6 +5381,8 @@ def main() -> int:
             timed("train_parity", train_parity_phase, card)
             family = timed("family_train", family_train_phase, card, csv)
             fparity = timed("family_parity", family_parity_phase, card)
+            fam16 = timed("family_bf16", family_bf16_phase, card, csv,
+                          family)
             parity16 = timed("train_parity_bf16", train_parity_bf16_phase,
                              card)
             ssl_rec = timed("ssl_train", ssl_train_phase, card, csv)
@@ -4760,6 +5397,7 @@ def main() -> int:
                              ssl_rec["checkpoint"])
             timed("transfer_parity", transfer_parity_phase, card)
             tabular = timed("tabular_mcm", tabular_mcm_phase, card, csv)
+            tab16 = timed("tabular_bf16", tabular_bf16_phase, card, csv)
             mcm_edge = timed("mcm_edge", mcm_edge_phase, card, csv)
             moco = timed("ssl_moco", ssl_moco_phase, card, csv)
             mcm_parity = timed("mcm_parity", mcm_parity_phase, card)
@@ -4783,6 +5421,7 @@ def main() -> int:
                              nf_roots)
             nf_parity = timed("node_family_parity", node_family_parity_phase,
                               card)
+            node16 = timed("node_bf16", node_bf16_phase, card, nf_roots)
             dparity = timed("device_parity", device_parity_phase, card)
             hm = timed("rel_hm", rel_hm_phase, card)
             timed("data_tools", data_tools_phase, card)
@@ -4794,6 +5433,9 @@ def main() -> int:
                           "finetune")
             tllm = timed("finetune_llm", finetune_llm_phase, card, text_csv)
             tparity = timed("text_parity", text_parity_phase, card)
+            text16 = timed("text_bf16", text_bf16_phase, card, text_csv)
+            bparity = timed("bf16_family_parity", bf16_family_parity_phase,
+                            card)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
         emit({"phase": "seconds", **seconds,
@@ -5142,7 +5784,10 @@ def main() -> int:
                              "text": shape_times(ktext["bwd_long"]),
                              "text_budget": ktext["budget"],
                              "library_masked": False}),
-            *bf16_entries(kern16, serve16, parity16, ssl16, ssl_parity16)]})
+            *bf16_entries(kern16, serve16, parity16, ssl16, ssl_parity16,
+                          {"family": fam16, "node": node16,
+                           "tabular": tab16, "text": text16,
+                           "parity": bparity})]})
         print(card, flush=True)
     except Exception:
         traceback.print_exc()
@@ -5153,62 +5798,101 @@ def main() -> int:
 
 
 def bf16_entries(kern16: dict, serve16: dict, parity16: dict, ssl16: dict,
-                 ssl_parity16: dict) -> list:
+                 ssl_parity16: dict, menu16: dict) -> list:
     """The ``kernels`` entries of the bf16 builds: the tiled pair at the
     main path's edge + node shapes (under --precision bf16 the path runs
     its node tokens through them, the edge tokens holding the float32
-    timestamp block) and the split pair at the SSL path's (whose tokens
-    are float32 under bf16 too: the split bf16 kernels run in the kernel
-    phase alone)."""
+    timestamp block; so do fttransformer's node tokens and the node
+    families' edge tokens) and the split pair at the SSL path's (whose
+    tokens are float32 under bf16 too), whose launches are the long cores'
+    on the node families' node tokens and the text LM's rows. ``menu16``:
+    the phases of --precision bf16 across the menu (family_bf16,
+    node_bf16, tabular_bf16, text_bf16, bf16_family_parity), whose
+    launches count by route and dtype."""
     fwd, bwd = kern16["fwd"], kern16["bwd"]
     nn = len(NARROW_SHAPES)
+    runs = {
+        **{f"family_bf16 {m}": [r["train_launches"], r["eval_launches"],
+                                r["serve_launches"]]
+           for m, r in menu16["family"]["models"].items()},
+        **{f"node_bf16 {n}": [r["train_launches"], r["eval_launches"],
+                              r["serve_launches"]]
+           for n, r in menu16["node"]["runs"].items()},
+        "tabular_bf16": [menu16["tabular"]["launches"]],
+        **{f"text_bf16 {p}": [r["launches"]]
+           for p, r in menu16["text"]["paths"].items()},
+        **{f"bf16_family_parity {n}": [r["forward_launches"], r["launches"]]
+           for n, r in menu16["parity"]["parts"].items()}}
+
+    def by_path(key):
+        out = {path: sum(c[key] for c in cs) for path, cs in runs.items()}
+        return {path: v for path, v in out.items() if v}
+
     tiled_fwd = {"serve_bf16": serve16["launches"]["fwd_bf16"],
-                 "train_parity_bf16": parity16["launches"]["fwd_bf16"]}
+                 "train_parity_bf16": parity16["launches"]["fwd_bf16"],
+                 **by_path("fwd_tiled_bf16")}
+    tiled_bwd = {"train_parity_bf16": parity16["launches"]["bwd_bf16"],
+                 **by_path("bwd_tiled_bf16")}
     split_fwd = {"ssl_train_bf16": ssl16["train_launches"]["fwd_bf16"]
                  + ssl16["eval_launches"]["fwd_bf16"],
-                 "ssl_parity_bf16": ssl_parity16["launches"]["fwd_bf16"]}
+                 "ssl_parity_bf16": ssl_parity16["launches"]["fwd_bf16"],
+                 **by_path("fwd_split_bf16")}
+    split_bwd = {"ssl_train_bf16": ssl16["train_launches"]["bwd_bf16"],
+                 "ssl_parity_bf16": ssl_parity16["launches"]["bwd_bf16"],
+                 **by_path("bwd_split_bf16")}
     return [
         kernel_entry("column_attention_fwd_bf16", 165, fwd[0:2], fwd[0:2], {
-            "path": "main at --precision bf16: the node tokens",
-            "dtype": "bf16", "launches": sum(tiled_fwd.values()),
+            "path": "main, fttransformer (family_bf16), the node families' "
+                    "edge tokens (node_bf16) at --precision bf16: the node "
+                    "tokens", "dtype": "bf16",
+            "launches": sum(tiled_fwd.values()),
             "launches_by_path": tiled_fwd,
             "masked_ms": sum(r["kernel_ms"] for r in fwd[2:4]),
             "masked_plain_ms": sum(r["plain_ms"] for r in fwd[2:4])}),
         kernel_entry("column_attention_bwd_bf16", 178, bwd[2:4], bwd[0:2], {
-            "path": "main at --precision bf16: the node tokens",
-            "dtype": "bf16", "launches": parity16["launches"]["bwd_bf16"],
-            "launches_by_path": {
-                "train_parity_bf16": parity16["launches"]["bwd_bf16"]},
+            "path": "main, fttransformer (family_bf16), the node families' "
+                    "edge tokens (node_bf16) at --precision bf16: the node "
+                    "tokens", "dtype": "bf16",
+            "launches": sum(tiled_bwd.values()),
+            "launches_by_path": tiled_bwd,
             "max_rel_err": max(max(r["max_rel_err"].values())
                                for r in bwd[2:4]),
             "library_masked": False}),
         kernel_entry("column_attention_fwd_split_bf16", 165, fwd[4:6],
                      fwd[6:8], {
-                         "path": "kernel phase (the SSL path's tokens are "
-                                 "float32 under bf16)",
+                         "path": "the long cores at --precision bf16: the "
+                                 "node families' node tokens (node_bf16, "
+                                 "S = 130; the record's MUSAE, S = 129), "
+                                 "the text LM's 64-token rows (text_bf16, "
+                                 "the record's finetune); the SSL path's "
+                                 "tokens are float32 under bf16",
                          "dtype": "bf16",
                          "includes": "rmm_tpu_torch/csrc/gemm_mma.cuh "
                                      "(C % 4 = 0), rmm_tpu_torch/csrc/"
                                      "gemm_f32.cuh (narrow)",
                          "launches": sum(split_fwd.values()),
                          "launches_by_path": split_fwd,
+                         "long_launches_by_path": by_path("fwd_long_bf16"),
                          "narrow": shape_times(fwd[-nn:]),
                          "long": shape_times(kern16["long_fwd"]),
+                         "paths": shape_times(kern16["path_fwd"]),
                          "library_masked": False}),
         kernel_entry("column_attention_bwd_split_bf16", 178, bwd[4:6],
                      bwd[6:8], {
-                         "path": "kernel phase (the SSL path's tokens are "
-                                 "float32 under bf16)",
+                         "path": "the long cores at --precision bf16 (as "
+                                 "the forward's)",
                          "dtype": "bf16",
                          "includes": "rmm_tpu_torch/csrc/gemm_mma.cuh "
                                      "(C % 4 = 0), rmm_tpu_torch/csrc/"
                                      "gemm_f32.cuh (narrow)",
-                         "launches": ssl16["train_launches"]["bwd_bf16"]
-                         + ssl_parity16["launches"]["bwd_bf16"],
+                         "launches": sum(split_bwd.values()),
+                         "launches_by_path": split_bwd,
+                         "long_launches_by_path": by_path("bwd_long_bf16"),
                          "max_rel_err": max(max(r["max_rel_err"].values())
                                             for r in bwd[4:6]),
                          "narrow": shape_times(bwd[-nn:]),
                          "long": shape_times(kern16["long_bwd"]),
+                         "paths": shape_times(kern16["path_bwd"]),
                          "library_masked": False})]
 
 

@@ -6,7 +6,8 @@
 ``--model`` is one of ``fttransformer`` (the column transformer alone),
 ``gin``, ``pna``, ``cpna``, ``cpnatab`` (the GNN baselines; ``--emlps``
 turns their edge updates on), ``tabgnn``, ``tabgnninterleaved`` and
-``tabgnnfused``; ``--precision bf16`` runs ``tabgnn`` and ``tabgnnfused``.
+``tabgnnfused``; ``--precision bf16`` runs every one of them, on every
+task (float32 masters, bf16 compute: ``utils/precision.py``).
 ``--data`` is an IBM AML CSV or a node dataset's directory, told apart by
 its path (``datasets.build_dataset``: ``ethereum-phishing``, ``elliptic``,
 ``ogbn``, ``musae``, ``lastfm``), which ``--task node_classification``

@@ -6,7 +6,8 @@
 ``--model`` is any of the training CLI's: ``fttransformer``, ``gin``,
 ``pna``, ``cpna``, ``cpnatab``, ``tabgnn``, ``tabgnninterleaved`` or
 ``tabgnnfused``; the checkpoint is the port's or the JAX package's
-(``utils/checkpoint.py::load_strict``).
+(``utils/checkpoint.py::load_strict``), its float32 masters served under
+``--precision f32`` or ``bf16`` whatever precision trained them.
 
 Same flags as ``rmm_tpu.cli.predict`` plus ``--device`` (``cuda`` by
 default, which raises without CUDA; ``cpu`` runs the kernels' plain

@@ -59,7 +59,10 @@ and the split route, ``fwd_bf16_launches`` those on bf16 ``x``,
 ``bwd_tiled_launches`` and ``bwd_split_launches`` those through the tiled
 and the split route, ``bwd_bf16_launches`` those on bf16 ``x``, and
 ``reduce_launches`` launches of the backward's reduce (one per backward),
-and nothing else.
+and nothing else. ``fwd_tiled_bf16_launches`` and ``fwd_long_bf16_launches``
+(``bwd_*`` for the backward) count the bf16 calls through the tiled route
+and through the split route's long cores (S > 16): the launches by route
+and dtype.
 """
 from __future__ import annotations
 
@@ -76,10 +79,14 @@ launches = 0
 fwd_tiled_launches = 0
 fwd_split_launches = 0
 fwd_bf16_launches = 0
+fwd_tiled_bf16_launches = 0
+fwd_long_bf16_launches = 0
 bwd_launches = 0
 bwd_tiled_launches = 0
 bwd_split_launches = 0
 bwd_bf16_launches = 0
+bwd_tiled_bf16_launches = 0
+bwd_long_bf16_launches = 0
 reduce_launches = 0
 
 MAX_S = 16    # rows up to here keep their S×S scores on chip (the tiled
@@ -334,7 +341,7 @@ def column_attention_fwd(x, wqkv, bqkv, wout, bout, nhead, keep=None,
     in one dtype), by the route of :func:`route`, into an output of x's
     dtype. ``plan`` (from :func:`fwd_plan`) overrides the default one."""
     global launches, fwd_tiled_launches, fwd_split_launches
-    global fwd_bf16_launches
+    global fwd_bf16_launches, fwd_tiled_bf16_launches, fwd_long_bf16_launches
     b, s, c = x.shape
     out = torch.empty_like(x)
     if b == 0:
@@ -365,7 +372,10 @@ def column_attention_fwd(x, wqkv, bqkv, wout, bout, nhead, keep=None,
     launches += 1
     fwd_tiled_launches += int(kind == "tiled")
     fwd_split_launches += int(kind == "split")
-    fwd_bf16_launches += int(x.dtype == torch.bfloat16)
+    bf16 = x.dtype == torch.bfloat16
+    fwd_bf16_launches += int(bf16)
+    fwd_tiled_bf16_launches += int(bf16 and kind == "tiled")
+    fwd_long_bf16_launches += int(bf16 and kind == "split" and s > MAX_S)
     return out
 
 
@@ -655,6 +665,7 @@ def column_attention_bwd(x, do, wqkv, bqkv, wout, nhead, keep=None,
     overrides the default one."""
     global bwd_launches, bwd_tiled_launches, bwd_split_launches
     global bwd_bf16_launches, reduce_launches
+    global bwd_tiled_bf16_launches, bwd_long_bf16_launches
     b, s, c = x.shape
     dx = torch.empty_like(x)
     lib = _kernel(x.dtype)
@@ -689,7 +700,11 @@ def column_attention_bwd(x, do, wqkv, bqkv, wout, nhead, keep=None,
         bwd_launches += 1
         bwd_tiled_launches += int(plan.route == "tiled")
         bwd_split_launches += int(plan.route == "split")
-        bwd_bf16_launches += int(x.dtype == torch.bfloat16)
+        bf16 = x.dtype == torch.bfloat16
+        bwd_bf16_launches += int(bf16)
+        bwd_tiled_bf16_launches += int(bf16 and plan.route == "tiled")
+        bwd_long_bf16_launches += int(bf16 and plan.route == "split"
+                                      and s > MAX_S)
         reduce_launches += 1
     k1, k2, k3 = 3 * c * c, 3 * c * c + 3 * c, 4 * c * c + 3 * c
     return (dx, grads[:k1].view(c, 3 * c), grads[k1:k2],

@@ -44,6 +44,7 @@ from ..nn.models.ft_transformer import FTTransformer
 from ..nn.text import TextToEmbeddingFinetune
 from ..utils.config import Config
 from ..utils.device import resolve_device
+from ..utils.precision import apply, compute_cast
 from .task_models import init_parameters
 
 logger = logging.getLogger(__name__)
@@ -136,9 +137,15 @@ class TextTabularRegressionTrainer:
             yield tf, lanes < valid, valid
             t_last = time.perf_counter()
 
+    def predict(self, tf: TensorFrame) -> torch.Tensor:
+        """The float32 predicted rating ``[B]`` under the precision of the
+        config."""
+        prec = self.cfg.precision
+        return apply(self.model, prec, compute_cast(tf, prec))
+
     def loss(self, tf: TensorFrame, mask: torch.Tensor) -> torch.Tensor:
         """The MSE of the predicted rating over the real rows."""
-        pred = self.model(tf)
+        pred = self.predict(tf)
         m = mask.to(torch.float32)
         err = (pred - tf.y[:, 0]) ** 2 * m
         return err.sum() / m.sum().clamp(min=1.0)
@@ -181,7 +188,7 @@ class TextTabularRegressionTrainer:
         se, n = 0.0, 0
         with torch.inference_mode():
             for tf, _, valid in self._batches(view, False):
-                pred = self.model(tf).cpu().numpy()[:valid]
+                pred = self.predict(tf).cpu().numpy()[:valid]
                 y = tf.y[:valid, 0].cpu().numpy()
                 se += float(((pred - y) ** 2).sum())
                 n += valid

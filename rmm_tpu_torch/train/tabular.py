@@ -15,8 +15,12 @@ and its real rows are the seed mask. The loss is ``SSLoss.mcm_loss`` (plus
 ``mv_loss`` with the mask vector) over the real rows; the optimizer AdamW
 whose weight decay reaches the parameters of two or more dimensions, as
 the pretrainer's. Losses and sums stay on the device until the end of a
-pass: one host sync an epoch. Float32 only: the entry point has no
-precision flag.
+pass: one host sync an epoch. ``Config.precision`` ``"bf16"`` casts as
+``rmm_tpu/train/tabular.py`` does (``utils/precision.py``): the float32
+parameters and the batch's feature blocks to bf16 at the top of each
+forward, the outputs back to float32 before the loss and the metrics;
+the parameters and AdamW's state stay float32. The entry point has no
+precision flag, as the reference's has none.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ from ..utils.config import Config
 from ..utils.device import resolve_device
 from ..utils.loss import SSLoss
 from ..utils.metric import MCMAccumulator, mv_accuracy
+from ..utils.precision import apply, compute_cast
 from ..utils.seeding import mix_seed
 from .pretrain import adamw
 from .task_models import init_parameters
@@ -106,8 +111,14 @@ class TabularMCMTrainer:
                 col_names=t.col_names, y=t.y.index_select(0, rows))
             yield tf, lanes < valid, valid, idx
 
+    def _forward(self, tf: TensorFrame):
+        """The model's float32 outputs under the precision of the
+        config."""
+        prec = self.cfg.precision
+        return apply(self.model, prec, compute_cast(tf, prec))
+
     def _loss(self, tf: TensorFrame, mask: torch.Tensor):
-        num_out, cat_out, mv_out = self.model(tf)
+        num_out, cat_out, mv_out = self._forward(tf)
         total, cat, num = self.ssloss.mcm_loss(cat_out, num_out, tf.y,
                                                valid_mask=mask)
         if mv_out is not None:
@@ -158,7 +169,7 @@ class TabularMCMTrainer:
         outs = []
         with torch.inference_mode():
             for tf, _, valid, idx in self._batches(view, False):
-                outs.append((valid, idx, self.model(tf)))
+                outs.append((valid, idx, self._forward(tf)))
         acc = MCMAccumulator(self.ssloss.num_numerical)
         mv_accs = []
         y_all = view.tensor_frame.y
@@ -183,7 +194,8 @@ class TabularMCMTrainer:
         return checkpoint.save_epoch(
             run_dir, epoch, self.model,
             self.optimizer if with_opt else None, best,
-            prune_previous=isinstance(epoch, int))
+            prune_previous=isinstance(epoch, int),
+            precision=self.cfg.precision)
 
     def restore(self, ck_dir: str, with_opt: bool = True) -> dict:
         """Load a checkpoint of either package, every entry or raise (the

@@ -87,16 +87,11 @@ TASK_MODELS = {"fttransformer": task_models.TT,
                "tabgnn": task_models.TABGNNS,
                "tabgnninterleaved": task_models.TABGNNS,
                "tabgnnfused": task_models.TABGNNFusedS}
-#: the models that run under ``--precision bf16``
-BF16_MODELS = ("tabgnn", "tabgnnfused")
 
 
 def build_task_model(cfg: Config, dataset) -> torch.nn.Module:
     if cfg.model not in TASK_MODELS:
         raise NotImplementedError(f"model {cfg.model!r} is not ported yet")
-    if cfg.precision != "f32" and cfg.model not in BF16_MODELS:
-        raise NotImplementedError(f"--precision {cfg.precision} is not "
-                                  f"ported yet for model {cfg.model!r}")
     edges = dataset.edges
     common = dict(
         node_encoder=make_stypewise_encoder(dataset.nodes, cfg.n_hidden),

@@ -55,7 +55,7 @@ class Config:
     # misc
     sampler_threads: int = 1      # >1: host sampling on a thread pool
     sampler: str = "auto"         # auto | host | device (auto: the host)
-    precision: str = "f32"        # f32 | bf16 (tabgnn, tabgnnfused)
+    precision: str = "f32"        # f32 | bf16 (every model and task)
     device: str = "cuda"          # cuda | cpu (cpu: tests, no kernels)
 
     seed: int = 1

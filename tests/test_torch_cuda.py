@@ -1008,7 +1008,18 @@ BF16_SHAPES = [
     (21, 54, 128, 8),
     (1, 167, 32, 8),     # one row
     (17, 64, 128, 4),    # finetune_llm's rows: the backward one block an SM
+    (4096, 129, 32, 8),  # the node families' node tokens under bf16
+    (4096, 130, 32, 8),  # ogbn-arxiv's (its year a feature too)
+    (256, 64, 64, 4),    # the downstream LM's 64-token rows
+    (8192, 2, 32, 8),    # the node families' edge tokens (tiled)
 ]
+#: (B, S, C, H) that --precision bf16 puts on a path through the bf16
+#: build, by the route they take: the node families' node tokens and the
+#: downstream LM's rows (the long cores), their edge tokens and the node
+#: tokens of every other dataset (tiled)
+BF16_PATH_SHAPES = {(4096, 129, 32, 8): "long", (4096, 130, 32, 8): "long",
+                    (256, 64, 64, 4): "long", (8192, 2, 32, 8): "tiled",
+                    (16384, 2, 32, 8): "tiled"}
 
 
 def bf16_inputs(seed, b, s, c, device):
@@ -1071,6 +1082,27 @@ def test_bf16_kernels_match_plain(cuda, b, s, c, h, masked):
         scale = float(w.abs().max())
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
                                    rtol=0, atol=1e-4 * max(scale, 1.0))
+
+
+@pytest.mark.parametrize("shape", list(BF16_PATH_SHAPES))
+def test_bf16_path_shapes_launch_the_bf16_build(cuda, shape):
+    """A bf16 CUDA tensor at a shape of the bf16 paths launches the bf16
+    build through its route (the counters by route and dtype move), each
+    way; float32 x at the same shape launches the float32 build (they
+    stay)."""
+    b, s, c, h = shape
+    kind = BF16_PATH_SHAPES[shape]
+    x, masters = bf16_inputs(s, b, s, c, cuda)
+    names = [f"{d}_{kind}_bf16_launches" for d in ("fwd", "bwd")]
+    for x_ in (x, x.float()):
+        x_ = x_.detach().requires_grad_()
+        before = [getattr(ca, n) for n in names]
+        out = ca.fused_column_attention(
+            x_, *cast_floats(masters, torch.bfloat16), h)
+        out.float().sum().backward()
+        moved = [getattr(ca, n) - m for n, m in zip(names, before)]
+        bf16 = x_.dtype == torch.bfloat16
+        assert out.dtype == x_.dtype and moved == [int(bf16)] * 2, moved
 
 
 @pytest.mark.parametrize("c", [32, 100, 128, 126])

@@ -404,11 +404,34 @@ def test_other_tasks_are_refused_by_name(tiny_aml, model, task):
 
 
 @pytest.mark.parametrize("model", FAMILIES)
-def test_bf16_is_refused_by_name(tiny_aml, model):
+def test_bf16_builds_and_takes_a_finite_step(tiny_aml, model):
+    """Every family builds under ``--precision bf16`` and takes a finite
+    train step whose parameters, gradients, Adam moments and BatchNorm
+    statistics stay float32 masters, its loss and scores float32
+    (``tests/test_torch_bf16_families.py`` holds the steps against the
+    reference)."""
+    from rmm_tpu_torch.train.trainer import Trainer
+
     csv, ds = tiny_aml
-    with pytest.raises(NotImplementedError,
-                       match=f"--precision bf16.*{model}"):
-        build_task_model(tiny_cfg(csv, model, precision="bf16"), ds)
+    tr = Trainer(tiny_cfg(csv, model, precision="bf16"), ds)
+    before = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    tr.model.train()
+    gb = next(tr._batches(ds.edges.split()[0], "train", 0))
+    loss, aux = tr._step(gb.to("cpu"))
+    assert loss.dtype == aux["score"].dtype == torch.float32
+    assert np.isfinite(float(loss)) and torch.isfinite(aux["score"]).all()
+    for name, p in tr.model.named_parameters():
+        assert p.dtype == torch.float32, name
+        if p.grad is not None:
+            assert p.grad.dtype == torch.float32, name
+            state = tr.optimizer.state[p]
+            assert state["exp_avg"].dtype == state["exp_avg_sq"].dtype \
+                == torch.float32, name
+    for name, b in tr.model.named_buffers():
+        if b.is_floating_point():
+            assert b.dtype == torch.float32, name
+    assert any(not torch.equal(v, before[k])
+               for k, v in tr.model.state_dict().items())
 
 
 def test_wide_gnn_heads_read_every_column(tiny_aml):

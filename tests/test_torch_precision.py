@@ -335,8 +335,10 @@ def test_pna_layer_bf16_matches_jax():
 
 def test_pna_aggregate_sums_bf16_messages_in_float32():
     """bf16 messages, a node of 600 (past bf16's exact integers, 256):
-    the port sums in float32 and rounds once, within a bf16 rounding of
-    the exact aggregates; the reference's paths sum in bf16 (``cv`` as
+    the port sums in float32 and keeps the aggregates float32 (the
+    reference's scatter path divides by a float32 count), within a bf16
+    rounding of the exact aggregates (the squares rounded to bf16, as the
+    reference takes them); the reference's paths sum in bf16 (``cv`` as
     differences of one running cumsum) and land ~0.14 of the largest
     aggregate off, the std up to ~0.96 of its own (its E[x²] − E[x]²
     cancels in bf16). Pinned so that the difference is not taken for a
@@ -348,7 +350,7 @@ def test_pna_aggregate_sums_bf16_messages_in_float32():
     msg = t((rng.randn(e, f) + 3.0).astype(np.float32)).to(BF16)
     exact = pna_aggregate(msg.double(), t(dst), n, 1.3).numpy()
     got = pna_aggregate(msg, t(dst), n, 1.3)
-    assert got.dtype == BF16
+    assert got.dtype == torch.float32
     assert_one_rounding(got, exact)
     scale = np.abs(exact).max()
     for impl in ("cv", "scatter"):

@@ -143,3 +143,37 @@ def jax_cpnatab_without_row_dropout():
         yield
     finally:
         task_models.CPNATAB = saved
+
+
+@contextlib.contextmanager
+def jax_float32_segment_sums():
+    """Within the block, ``rmm_tpu``'s segment sums add bf16 data in
+    float32, as the port's do (``rmm_tpu_torch/ops/segment.py``): a sum
+    that a float32 count then divides (the scatter path's means, PNA's
+    aggregates, the fused model's mean pool) stays float32, and GINE's sum
+    is rounded to the data's dtype once. Everything else of the reference
+    is unchanged, so a run inside the block against one outside measures
+    how far the reference's own bf16 sums move it. Only module attributes
+    are patched, for the block's duration (trace a step inside it)."""
+    import jax.numpy as jnp
+
+    from rmm_tpu.nn.gnn import conv as jax_conv
+    from rmm_tpu.ops import segment as jax_segment
+
+    saved = (jax_segment.segment_sum, jax_conv.segment_sum)
+
+    def f32_sum(data, segment_ids, num_segments, mask=None, impl=None):
+        if data.dtype != jnp.bfloat16:
+            return saved[0](data, segment_ids, num_segments, mask, impl)
+        return saved[0](data.astype(jnp.float32), segment_ids,
+                        num_segments, mask, impl)
+
+    def rounded_sum(data, segment_ids, num_segments, mask=None, impl=None):
+        return f32_sum(data, segment_ids, num_segments, mask,
+                       impl).astype(data.dtype)
+
+    jax_segment.segment_sum, jax_conv.segment_sum = f32_sum, rounded_sum
+    try:
+        yield
+    finally:
+        jax_segment.segment_sum, jax_conv.segment_sum = saved
