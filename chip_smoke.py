@@ -353,6 +353,44 @@ the model menu, the launches counted by route and dtype (``read_routes``):
              ``replay_bf16_part``: the start's outputs and three steps
              within ``convert.check_record``'s bf16 limits for the part.
 
+And at the widths and row lengths past the kernels' old limits (C > 128;
+rows past ``max_s``, which the long cores walk in device memory, their
+direct form), and through the profiling and sweep CLIs:
+
+38. wide_paths — at C = 256, 8 heads: ``cli/main.py``'s tabgnn on the
+             config of record's data (24 train and 24 val batches float32,
+             12 + 12 at ``--precision bf16``: 4 split calls each way a
+             step, 2 of them bf16), ``cli/fused.py --mode mcm-lp
+             --channels 256`` (12 + 12: 10 split calls each way a step)
+             and tabgnn on device_node's Elliptic cut (12 + 12: 2 of its 4
+             split calls each way through the direct form, S = 167); each
+             a step at a time, finite losses, the loss's (mcm-lp: the LP
+             loss's) last third's mean below the first third's, each
+             step's loss terms (mcm-lp: beside the same run at C = 128),
+             the launches by route, the shapes the runs gave the kernels.
+39. kernel_wide — both directions, float32 and bf16, with the runs'
+             keep-mask and without it, against the plain twin and the
+             library call, each timed once: every shape that wide_paths
+             gave the kernels (the AML edge and node tokens, the SSL edge
+             lanes and target rows, Elliptic's node rows, 167 tokens past
+             the old ``max_s``, and edge tokens at its calibrated
+             capacities), then 200x6x512/8, 32768x6x130/10 (the narrow
+             GEMMs at 10 heads), and through the direct form
+             4096x167x256/8, 4096x130x256/8 (Elliptic's and ogbn-arxiv's
+             node tokens at ``--n_hidden 256``, p = 0.083) and
+             256x600x32/8; the direct counters move exactly where S passes
+             ``max_s``; two calls each way bitwise equal at the masked SSL
+             lanes and Elliptic rows.
+40. bench_cli — ``cli/benchmark.py`` at the config of record, ``--iters
+             20 --profile`` (the phase table; the Chrome trace's CUDA
+             events name the column-attention kernels), then ``--loop
+             mcm-lp`` at the SSL widths for 10 iterations; launches as the
+             iterations make them.
+41. sweep — ``cli/sweep.py --kind supervised --trials 2 --epochs 1`` and
+             ``--kind fused --trials 1`` on the 16,384-row cut: a JSONL
+             line a trial with the reference's keys and the params its
+             seed draws.
+
 Then the seconds each phase took, a ``{"kernels": [...]}`` line (an entry
 per kernel, each with its ``path``: the main path's tiled kernels at C = 32
 (with the node path's edge tokens and the families' calls, their launches
@@ -366,13 +404,16 @@ entries; the device-sampled paths' and Rel-H&M's launches in the tiled,
 split and long entries, Rel-H&M's shapes beside them; the text paths'
 launches in the tiled and long entries, their shapes and the cores'
 budget beside them; the bf16 phases' launches in the bf16 entries by
-route, the long cores' by path, the bf16 path shapes' times beside),
+route, the long cores' by path, the bf16 path shapes' times beside; the
+wide entries (the split routes at C = 256) and the direct form's, with
+wide_paths' launches by path and kernel_wide's shapes beside),
 the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 package beside it, the script fails and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -676,6 +717,21 @@ def random_inputs(rng, b, s, c, device):
             t(c, c, scale=c ** -0.5), t(c, scale=0.1))
 
 
+def card_inputs(rng, b, s, c, device):
+    """:func:`random_inputs`' tensors, drawn on the card from a generator
+    that ``rng`` seeds (numpy's host draws of ~200M entries took most of
+    kernel_wide's time)."""
+    import torch
+
+    gen = torch.Generator(device).manual_seed(int(rng.randint(2 ** 31)))
+
+    def t(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=device) * scale
+
+    return (t(b, s, c), t(c, 3 * c, scale=c ** -0.5), t(3 * c, scale=0.1),
+            t(c, c, scale=c ** -0.5), t(c, scale=0.1))
+
+
 def keep_mask(rng, b: int, h: int, s: int, rate: float, dev):
     """A keep-mask [b, h, s, s], each entry kept with probability 1 -
     ``rate``, drawn on the card from a generator that ``rng`` seeds (drawn
@@ -777,7 +833,8 @@ def timing_of(b: int, s: int, c: int, h: int, *_) -> tuple:
 
 
 def fwd_record(rng, dev, b, s, c, h, rate, card, repeat=False,
-               timing=PATH_TIMING) -> dict:
+               timing=PATH_TIMING, phase: str = "kernel",
+               draw=random_inputs) -> dict:
     """The forward at one shape (seeded inputs, a keep-mask where ``rate``
     > 0) against its plain version on the card: the route it took (held to
     ``route(c, s)``), two calls bitwise equal where ``repeat``, the split
@@ -787,7 +844,7 @@ def fwd_record(rng, dev, b, s, c, h, rate, card, repeat=False,
 
     from rmm_tpu_torch.ops import column_attention as ca
 
-    x, wqkv, bqkv, wout, bout = random_inputs(rng, b, s, c, dev)
+    x, wqkv, bqkv, wout, bout = draw(rng, b, s, c, dev)
     mask = None
     if rate > 0:
         mask = keep_mask(rng, b, h, s, rate, dev)
@@ -835,9 +892,10 @@ def fwd_record(rng, dev, b, s, c, h, rate, card, repeat=False,
     t_bytes, t_ops = attention_floor(b, s, c, h, mask is not None)
     bound_ms, by = bound(t_bytes, t_ops)
     plan = ca.fwd_plan(b, s, c, h)
-    rec = {"phase": "kernel", "kernel": "column_attention_fwd",
+    rec = {"phase": phase, "kernel": "column_attention_fwd",
            "B": b, "S": s, "C": c, "H": h, "dropout": rate,
            "route": route, "rows": plan.rows, "blocks": plan.grid,
+           "direct": plan.direct,
            "repeat_bitwise_equal": repeat_equal, "max_abs_err": err,
            "core_max_abs_err": core_err,
            "tol": KERNEL_TOL, "kernel_ms": k_ms,
@@ -852,7 +910,8 @@ def fwd_record(rng, dev, b, s, c, h, rate, card, repeat=False,
 
 
 def bwd_record(rng, dev, b, s, c, h, rate, card, repeat=False,
-               timing=PATH_TIMING) -> dict:
+               timing=PATH_TIMING, phase: str = "kernel",
+               draw=random_inputs) -> dict:
     """The backward (and its reduce) at one shape against
     ``torch.autograd.grad`` of the plain version: the route (held to
     ``route(c, s)``), two calls bitwise equal where ``repeat``, each
@@ -862,8 +921,8 @@ def bwd_record(rng, dev, b, s, c, h, rate, card, repeat=False,
 
     from rmm_tpu_torch.ops import column_attention as ca
 
-    inputs = random_inputs(rng, b, s, c, dev)
-    do = random_inputs(rng, b, s, c, dev)[0]
+    inputs = draw(rng, b, s, c, dev)
+    do = draw(rng, b, s, c, dev)[0]
     mask = None
     if rate > 0:
         mask = keep_mask(rng, b, h, s, rate, dev)
@@ -912,10 +971,11 @@ def bwd_record(rng, dev, b, s, c, h, rate, card, repeat=False,
     plan = ca.bwd_plan(b, s, c, h)
     t_bytes, t_ops = attention_bwd_floor(b, s, c, h, mask is not None)
     bound_ms, by = bound(t_bytes, t_ops)
-    rec = {"phase": "kernel", "kernel": "column_attention_bwd",
+    rec = {"phase": phase, "kernel": "column_attention_bwd",
            "B": b, "S": s, "C": c, "H": h, "dropout": rate,
            "route": route, "rows": plan.rows,
            "blocks": plan.grid, "slices": plan.slices,
+           "direct": plan.direct,
            "repeat_bitwise_equal": repeat_equal,
            "max_rel_err": errs, "tol": GRAD_TOL,
            "max_abs_err": max(float((g - w).abs().max())
@@ -1112,6 +1172,150 @@ def bf16_long_shapes() -> list:
             for rate in (TRAIN_DROPOUT, 0.0)]
 
 
+def bf16_pair(rng, dev, b, s, c, h, rate, card, repeat=False,
+              timing=PATH_TIMING, phase: str = "kernel_bf16",
+              draw=random_inputs) -> tuple:
+    """Both directions at one shape on bf16 x, do and weights (seeded, a
+    keep-mask where ``rate`` > 0) against their plain twin on the same
+    values: out and dx within one bf16 rounding, the float32 weight and
+    bias gradients at GRAD_TOL, through the bf16 build of ``route(c, s)``;
+    two calls of each direction bitwise equal where ``repeat``; kernel /
+    plain / library times (``timing``) and the bound from bf16 bytes.
+    Returns the (forward, backward) records."""
+    import torch
+
+    from rmm_tpu_torch.ops import column_attention as ca
+
+    x, *weights = (t.bfloat16() for t in draw(rng, b, s, c, dev))
+    do = draw(rng, b, s, c, dev)[0].bfloat16()
+    masters = [w.float() for w in weights]   # the weights' values
+    mask = None
+    if rate > 0:
+        mask = keep_mask(rng, b, h, s, rate, dev)
+    args = (x, *weights, h, mask, rate)
+    kind = ca.route(c, s)
+    with torch.inference_mode():
+        before = (ca.fwd_bf16_launches, ca.fwd_tiled_launches,
+                  ca.fwd_split_launches)
+        out = ca.fused_column_attention(*args)
+        check((ca.fwd_bf16_launches - before[0],
+               ca.fwd_tiled_launches - before[1],
+               ca.fwd_split_launches - before[2])
+              == (1, int(kind == "tiled"), int(kind == "split")),
+              f"bf16 forward {b}x{s}x{c}/{h} did not take the bf16 "
+              f"{kind} kernel")
+        repeat_equal = None
+        if repeat:
+            repeat_equal = torch.equal(out, ca.fused_column_attention(
+                *args))
+            check(repeat_equal, f"bf16 forward {b}x{s}x{c}/{h}: two "
+                  "calls on the same inputs differ")
+        ref = ca.reference_column_attention(x, *masters, h, mask, rate)
+        torch.cuda.synchronize()
+        excess = bf16_close(out, ref)
+        err = float((out.float() - ref.float()).abs().max())
+        check(out.dtype == torch.bfloat16 and excess <= 0,
+              f"bf16 forward {b}x{s}x{c}/{h} p={rate}: {excess} past "
+              "one bf16 rounding of the plain twin")
+        k_ms = time_ms(lambda: ca.fused_column_attention(*args), *timing)
+        p_ms = time_ms(lambda: ca.reference_column_attention(
+            x, *masters, h, mask, rate), *ref_timing(timing))
+        lib_ms = None
+        if mask is None:
+            lib = (x, *weights, h)
+            lib_err = float((library_attention(*lib).float()
+                             - ref.float()).abs().max())
+            check(lib_err <= LIBRARY_BF16_TOL * float(
+                ref.float().abs().max()),
+                  f"bf16 library attention disagrees: {lib_err}")
+            lib_ms = time_ms(lambda: library_attention(*lib),
+                             *ref_timing(timing))
+    t_bytes, t_ops = attention_floor(b, s, c, h, mask is not None, 2,
+                                     PEAK_BF16_FLOP_PER_S)
+    bound_ms, by = bound(t_bytes, t_ops)
+    rec = {"phase": phase, "kernel": "column_attention_fwd",
+           "dtype": "bf16", "B": b, "S": s, "C": c, "H": h,
+           "dropout": rate, "route": kind,
+           "library_backend": library_backend(x),
+           "repeat_bitwise_equal": repeat_equal, "max_abs_err": err,
+           "past_one_bf16_rounding": excess, "kernel_ms": k_ms,
+           "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+           "bound_by": by, "bytes_ms": t_bytes, "ops_ms": t_ops,
+           "exp_floor_ms": exp_floor_ms(b, s, h, 1), "card": card,
+           "ok": True}
+    emit(rec)
+    fwd = rec
+    del out, ref
+
+    before = (ca.bwd_bf16_launches, ca.bwd_tiled_launches,
+              ca.bwd_split_launches)
+    bargs = (x, do, weights[0], weights[1], weights[2], h, mask, rate)
+    got = ca.column_attention_bwd(*bargs)
+    check((ca.bwd_bf16_launches - before[0],
+           ca.bwd_tiled_launches - before[1],
+           ca.bwd_split_launches - before[2])
+          == (1, int(kind == "tiled"), int(kind == "split")),
+          f"bf16 backward {b}x{s}x{c}/{h} did not take the bf16 {kind} "
+          "kernel")
+    repeat_equal = None
+    if repeat:
+        again = ca.column_attention_bwd(*bargs)
+        repeat_equal = all(torch.equal(g, a) for g, a in zip(got, again))
+        check(repeat_equal, f"bf16 backward {b}x{s}x{c}/{h}: two calls "
+              "on the same inputs differ")
+        del again
+    leaves = [x.detach().requires_grad_()] + [
+        m.detach().requires_grad_() for m in masters]
+    ref = ca.reference_column_attention(*leaves, h, mask, rate)
+    want = torch.autograd.grad(ref, leaves, do, retain_graph=True)
+    torch.cuda.synchronize()
+    excess = bf16_close(got[0], want[0])
+    errs = {n: float((g - w).abs().max() / w.abs().max().clamp(
+        min=1e-30)) for n, g, w in zip(
+            ("dwqkv", "dbqkv", "dwout", "dbout"), got[1:], want[1:])}
+    check(got[0].dtype == torch.bfloat16 and excess <= 0,
+          f"bf16 backward {b}x{s}x{c}/{h} p={rate}: dx {excess} past "
+          "one bf16 rounding of the plain twin")
+    check(all(g.dtype == torch.float32 for g in got[1:])
+          and all(math.isfinite(e) and e <= GRAD_TOL
+                  for e in errs.values()),
+          f"bf16 backward {b}x{s}x{c}/{h} p={rate}: weight gradients' "
+          f"relative errors {errs} > {GRAD_TOL}")
+    k_ms = time_ms(lambda: ca.column_attention_bwd(*bargs), *timing)
+    p_ms = time_ms(lambda: torch.autograd.grad(ref, leaves, do,
+                                               retain_graph=True),
+                   *ref_timing(timing))
+    lib_ms = None
+    if mask is None:
+        lib_leaves = [x.detach().requires_grad_()] + [
+            w.detach().requires_grad_() for w in weights]
+        lib_out = library_attention(*lib_leaves, h)
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            lib_out, lib_leaves, do, retain_graph=True),
+            *ref_timing(timing))
+        del lib_out, lib_leaves
+    t_bytes, t_ops = attention_bwd_floor(b, s, c, h, mask is not None, 2,
+                                         PEAK_BF16_FLOP_PER_S)
+    bound_ms, by = bound(t_bytes, t_ops)
+    rec = {"phase": phase, "kernel": "column_attention_bwd",
+           "dtype": "bf16", "B": b, "S": s, "C": c, "H": h,
+           "dropout": rate, "route": kind,
+           "library_backend": library_backend(x),
+           "repeat_bitwise_equal": repeat_equal,
+           "dx_past_one_bf16_rounding": excess, "max_rel_err": errs,
+           "tol": GRAD_TOL,
+           "max_abs_err": max(float((g.float() - w.float()).abs().max())
+                              for g, w in zip(got, want)),
+           "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+           "bound_ms": bound_ms, "bound_by": by, "bytes_ms": t_bytes,
+           "ops_ms": t_ops, "exp_floor_ms": exp_floor_ms(b, s, h, 3),
+           "card": card, "ok": True}
+    emit(rec)
+    del x, do, weights, masters, mask, got, leaves, ref, want
+    torch.cuda.empty_cache()
+    return fwd, rec
+
+
 def kernel_bf16_phase(card: str) -> dict:
     """Both directions on bf16 x, do and weights against their plain twin
     on the same values: out and dx within one bf16 rounding, the float32
@@ -1143,15 +1347,6 @@ def kernel_bf16_phase(card: str) -> dict:
     for b, s, c, h, rate in shapes + long + BF16_PATH_SHAPES:
         key = ("path_" if (b, s, c, h, rate) in BF16_PATH_SHAPES
                else "long_" if s > 16 else "")
-        x, *weights = (t.bfloat16() for t in random_inputs(rng, b, s, c,
-                                                           dev))
-        do = random_inputs(rng, b, s, c, dev)[0].bfloat16()
-        masters = [w.float() for w in weights]   # the weights' values
-        mask = None
-        if rate > 0:
-            mask = keep_mask(rng, b, h, s, rate, dev)
-        args = (x, *weights, h, mask, rate)
-        repeat = (b, s, c, h, rate) in repeat_at
         kind = ca.route(c, s)
         # every bf16 split shape but the node path's is timed once: off
         # the paths (the SSL path's tokens are float32 under bf16), or the
@@ -1161,126 +1356,10 @@ def kernel_bf16_phase(card: str) -> dict:
         check(kind == "split" or ((b, s, c, h, rate) not in NARROW_SHAPES
                                   and s <= 16),
               f"bf16 {b}x{s}x{c}/{h} does not take the split route")
-        with torch.inference_mode():
-            before = (ca.fwd_bf16_launches, ca.fwd_tiled_launches,
-                      ca.fwd_split_launches)
-            out = ca.fused_column_attention(*args)
-            check((ca.fwd_bf16_launches - before[0],
-                   ca.fwd_tiled_launches - before[1],
-                   ca.fwd_split_launches - before[2])
-                  == (1, int(kind == "tiled"), int(kind == "split")),
-                  f"bf16 forward {b}x{s}x{c}/{h} did not take the bf16 "
-                  f"{kind} kernel")
-            repeat_equal = None
-            if repeat:
-                repeat_equal = torch.equal(out, ca.fused_column_attention(
-                    *args))
-                check(repeat_equal, f"bf16 forward {b}x{s}x{c}/{h}: two "
-                      "calls on the same inputs differ")
-            ref = ca.reference_column_attention(x, *masters, h, mask, rate)
-            torch.cuda.synchronize()
-            excess = bf16_close(out, ref)
-            err = float((out.float() - ref.float()).abs().max())
-            check(out.dtype == torch.bfloat16 and excess <= 0,
-                  f"bf16 forward {b}x{s}x{c}/{h} p={rate}: {excess} past "
-                  "one bf16 rounding of the plain twin")
-            k_ms = time_ms(lambda: ca.fused_column_attention(*args), *timing)
-            p_ms = time_ms(lambda: ca.reference_column_attention(
-                x, *masters, h, mask, rate), *ref_timing(timing))
-            lib_ms = None
-            if mask is None:
-                lib = (x, *weights, h)
-                lib_err = float((library_attention(*lib).float()
-                                 - ref.float()).abs().max())
-                check(lib_err <= LIBRARY_BF16_TOL * float(
-                    ref.float().abs().max()),
-                      f"bf16 library attention disagrees: {lib_err}")
-                lib_ms = time_ms(lambda: library_attention(*lib),
-                                 *ref_timing(timing))
-        t_bytes, t_ops = attention_floor(b, s, c, h, mask is not None, 2,
-                                         PEAK_BF16_FLOP_PER_S)
-        bound_ms, by = bound(t_bytes, t_ops)
-        rec = {"phase": "kernel_bf16", "kernel": "column_attention_fwd",
-               "dtype": "bf16", "B": b, "S": s, "C": c, "H": h,
-               "dropout": rate, "route": kind,
-               "library_backend": library_backend(x),
-               "repeat_bitwise_equal": repeat_equal, "max_abs_err": err,
-               "past_one_bf16_rounding": excess, "kernel_ms": k_ms,
-               "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-               "bound_by": by, "bytes_ms": t_bytes, "ops_ms": t_ops,
-               "exp_floor_ms": exp_floor_ms(b, s, h, 1), "card": card,
-               "ok": True}
-        emit(rec)
-        recs[key + "fwd"].append(rec)
-        del out, ref
-
-        before = (ca.bwd_bf16_launches, ca.bwd_tiled_launches,
-                  ca.bwd_split_launches)
-        bargs = (x, do, weights[0], weights[1], weights[2], h, mask, rate)
-        got = ca.column_attention_bwd(*bargs)
-        check((ca.bwd_bf16_launches - before[0],
-               ca.bwd_tiled_launches - before[1],
-               ca.bwd_split_launches - before[2])
-              == (1, int(kind == "tiled"), int(kind == "split")),
-              f"bf16 backward {b}x{s}x{c}/{h} did not take the bf16 {kind} "
-              "kernel")
-        repeat_equal = None
-        if repeat:
-            again = ca.column_attention_bwd(*bargs)
-            repeat_equal = all(torch.equal(g, a) for g, a in zip(got, again))
-            check(repeat_equal, f"bf16 backward {b}x{s}x{c}/{h}: two calls "
-                  "on the same inputs differ")
-            del again
-        leaves = [x.detach().requires_grad_()] + [
-            m.detach().requires_grad_() for m in masters]
-        ref = ca.reference_column_attention(*leaves, h, mask, rate)
-        want = torch.autograd.grad(ref, leaves, do, retain_graph=True)
-        torch.cuda.synchronize()
-        excess = bf16_close(got[0], want[0])
-        errs = {n: float((g - w).abs().max() / w.abs().max().clamp(
-            min=1e-30)) for n, g, w in zip(
-                ("dwqkv", "dbqkv", "dwout", "dbout"), got[1:], want[1:])}
-        check(got[0].dtype == torch.bfloat16 and excess <= 0,
-              f"bf16 backward {b}x{s}x{c}/{h} p={rate}: dx {excess} past "
-              "one bf16 rounding of the plain twin")
-        check(all(g.dtype == torch.float32 for g in got[1:])
-              and all(math.isfinite(e) and e <= GRAD_TOL
-                      for e in errs.values()),
-              f"bf16 backward {b}x{s}x{c}/{h} p={rate}: weight gradients' "
-              f"relative errors {errs} > {GRAD_TOL}")
-        k_ms = time_ms(lambda: ca.column_attention_bwd(*bargs), *timing)
-        p_ms = time_ms(lambda: torch.autograd.grad(ref, leaves, do,
-                                                   retain_graph=True),
-                       *ref_timing(timing))
-        lib_ms = None
-        if mask is None:
-            lib_leaves = [x.detach().requires_grad_()] + [
-                w.detach().requires_grad_() for w in weights]
-            lib_out = library_attention(*lib_leaves, h)
-            lib_ms = time_ms(lambda: torch.autograd.grad(
-                lib_out, lib_leaves, do, retain_graph=True),
-                *ref_timing(timing))
-            del lib_out, lib_leaves
-        t_bytes, t_ops = attention_bwd_floor(b, s, c, h, mask is not None, 2,
-                                             PEAK_BF16_FLOP_PER_S)
-        bound_ms, by = bound(t_bytes, t_ops)
-        rec = {"phase": "kernel_bf16", "kernel": "column_attention_bwd",
-               "dtype": "bf16", "B": b, "S": s, "C": c, "H": h,
-               "dropout": rate, "route": kind,
-               "library_backend": library_backend(x),
-               "repeat_bitwise_equal": repeat_equal,
-               "dx_past_one_bf16_rounding": excess, "max_rel_err": errs,
-               "tol": GRAD_TOL,
-               "max_abs_err": max(float((g.float() - w.float()).abs().max())
-                                  for g, w in zip(got, want)),
-               "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-               "bound_ms": bound_ms, "bound_by": by, "bytes_ms": t_bytes,
-               "ops_ms": t_ops, "exp_floor_ms": exp_floor_ms(b, s, h, 3),
-               "card": card, "ok": True}
-        emit(rec)
-        recs[key + "bwd"].append(rec)
-        del x, do, weights, masters, mask, got, leaves, ref, want
-        torch.cuda.empty_cache()
+        fwd, bwd = bf16_pair(rng, dev, b, s, c, h, rate, card,
+                             (b, s, c, h, rate) in repeat_at, timing)
+        recs[key + "fwd"].append(fwd)
+        recs[key + "bwd"].append(bwd)
     return recs
 
 
@@ -1313,6 +1392,7 @@ def reset_counts():
     ca.fwd_bf16_launches = ca.bwd_bf16_launches = ca.reduce_launches = 0
     ca.fwd_tiled_bf16_launches = ca.fwd_long_bf16_launches = 0
     ca.bwd_tiled_bf16_launches = ca.bwd_long_bf16_launches = 0
+    ca.fwd_direct_launches = ca.bwd_direct_launches = 0
 
 
 def read_counts() -> dict:
@@ -4481,7 +4561,7 @@ def kernel_text_phase(card: str) -> dict:
                          budget=[ca.core_budget(r, block, sm) for r in rows])
             for r, got in zip(rows, (fplan.rows, bplan.rows)):
                 if r <= half:   # a row that fit before keeps its plan
-                    check(got == ca.core_rows(b, s, h, half, r),
+                    check(got == ca.core_rows(b, s, h, half // r),
                           f"{b}x{s}x{c}/{h}: rows {got} a block, not the "
                           "half-SM plan's")
         budget["shapes"][f"{b}x{s}x{c}/{h}"] = entry
@@ -5335,6 +5415,433 @@ def bf16_family_parity_phase(card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Widths past 128 and rows past max_s (the staged cores' longest row; longer
+# ones take the long cores' direct form), and the profiling and sweep CLIs.
+
+#: (B, S, C, H, dropout) of kernel_wide beside the shapes that wide_paths
+#: gives the kernels (:func:`wide_shapes`), each with its keep-mask and
+#: without it: 200 target rows at C = 512 (the SSL dropout),
+#: 32768x6x130/10 (the narrow GEMMs at 10 heads), and rows past the old
+#: max_s, through the direct form: 4096 lanes of Elliptic's 167 and of
+#: ogbn-arxiv's 130 node tokens at --n_hidden 256 and 600 tokens at C = 32
+#: (the node path's dropout)
+WIDE_EXTRA = [(200, 6, 512, 8, SSL_DROPOUT), (32768, 6, 130, 10, SSL_DROPOUT),
+              (4096, NODE_S, 256, 8, TRAIN_DROPOUT),
+              (4096, 130, 256, 8, TRAIN_DROPOUT),
+              (256, 600, 32, 8, TRAIN_DROPOUT)]
+WIDE_C = 256
+#: wide_paths' batches: the supervised float32 run's train and val batches;
+#: its bf16 run's, the SSL run's and Elliptic's
+WIDE_BATCHES, WIDE_SHORT_BATCHES = 24, 12
+BENCH_ITERS, BENCH_SSL_ITERS = 20, 10
+
+
+def read_direct() -> dict:
+    """The launches whose attention core took the direct form, each way."""
+    from rmm_tpu_torch.ops import column_attention as ca
+
+    return {"fwd_direct": ca.fwd_direct_launches,
+            "bwd_direct": ca.bwd_direct_launches}
+
+
+@contextlib.contextmanager
+def kernel_shapes():
+    """Records the (B, S, C, H, dropout) of every column-attention forward
+    on the card while it is open (the wrapper's ``column_attention_fwd``,
+    which every call on a CUDA tensor runs, wrapped; the backward runs at
+    its forward's shape), with x's dtype: a set of (shape, dtype)."""
+    from rmm_tpu_torch.ops import column_attention as ca
+
+    seen, fwd = set(), ca.column_attention_fwd
+
+    def recorded(x, wqkv, bqkv, wout, bout, nhead, keep=None, rate=0.0,
+                 plan=None):
+        seen.add(((*x.shape, nhead, rate), str(x.dtype).split(".")[-1]))
+        return fwd(x, wqkv, bqkv, wout, bout, nhead, keep, rate, plan)
+
+    ca.column_attention_fwd = recorded
+    try:
+        yield seen
+    finally:
+        ca.column_attention_fwd = fwd
+
+
+def wide_shapes(path_shapes) -> list:
+    """kernel_wide's shapes: every (B, S, C, H, dropout) that wide_paths'
+    runs at C = 256 gave the kernels (``path_shapes``, in order), then
+    :data:`WIDE_EXTRA`, each with its keep-mask and without it, once."""
+    out = []
+    for b, s, c, h, p in [*sorted(map(tuple, path_shapes)), *WIDE_EXTRA]:
+        for shape in ((b, s, c, h, p), (b, s, c, h, 0.0)):
+            if shape not in out:
+                out.append(shape)
+    return out
+
+
+def kernel_wide_phase(card: str, wide: dict) -> dict:
+    """Both directions at :func:`wide_shapes` of ``wide`` (wide_paths'
+    record: the shapes its runs gave the kernels), float32
+    (``fwd_record``, ``bwd_record``) and bf16 (``bf16_pair``), against
+    their plain twin and the library call; every shape through the split
+    route, its core in the direct form exactly where S passes
+    ``max_s(C, H)`` (the direct counters move there and nowhere else); two
+    calls of each direction bitwise equal at the masked SSL lanes (staged)
+    and Elliptic's masked node rows (direct); each shape timed once; the
+    inputs drawn on the card (:func:`card_inputs`). Returns the records by
+    direction and dtype, in the order of the shapes, and the shapes."""
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.ops import column_attention as ca
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(3)
+    shapes = wide_shapes(wide["shapes"])
+    repeat = (wide["ssl_lanes"], wide["elliptic_rows"])
+    check(all(tuple(r) in shapes for r in repeat),
+          f"the repeated shapes {repeat} are not wide_paths' shapes")
+    recs = {"fwd": [], "bwd": [], "fwd_bf16": [], "bwd_bf16": [],
+            "shapes": shapes}
+    for shape in shapes:
+        b, s, c, h, rate = shape
+        direct = s > ca.max_s(c, h)
+        check(ca.route(c, s) == "split"
+              and ca.fwd_plan(b, s, c, h).direct == direct
+              and ca.bwd_plan(b, s, c, h).direct == direct,
+              f"{b}x{s}x{c}/{h}: not the split route, or its core not "
+              f"{'direct' if direct else 'staged'}")
+        again = list(shape) in map(list, repeat)
+        before = read_direct()
+        recs["fwd"].append(fwd_record(rng, dev, *shape, card, again,
+                                      OFF_PATH_TIMING, "kernel_wide",
+                                      card_inputs))
+        recs["bwd"].append(bwd_record(rng, dev, *shape, card, again,
+                                      OFF_PATH_TIMING, "kernel_wide",
+                                      card_inputs))
+        f16, b16 = bf16_pair(rng, dev, *shape, card, again,
+                             OFF_PATH_TIMING, "kernel_wide", card_inputs)
+        recs["fwd_bf16"].append(f16)
+        recs["bwd_bf16"].append(b16)
+        moved = {k: v > before[k] for k, v in read_direct().items()}
+        check(moved == {"fwd_direct": direct, "bwd_direct": direct},
+              f"{b}x{s}x{c}/{h}: direct launches moved {moved}, the core "
+              f"{'direct' if direct else 'staged'}")
+    return recs
+
+
+def wide_counts(fwd: int, bwd: int, split: int, direct: int = 0,
+                bf16: int = 0) -> dict:
+    """The launches of ``fwd`` forwards and ``bwd`` backwards of a path
+    whose step makes ``split`` split calls each way (none tiled), ``direct``
+    of them through the direct form and ``bf16`` of them on bf16 tokens."""
+    return {"fwd": split * fwd, "fwd_tiled": 0, "fwd_split": split * fwd,
+            "bwd": split * bwd, "bwd_tiled": 0, "bwd_split": split * bwd,
+            "reduce": split * bwd, "fwd_bf16": bf16 * fwd,
+            "bwd_bf16": bf16 * bwd, "fwd_direct": direct * fwd,
+            "bwd_direct": direct * bwd}
+
+
+def wide_pass(tr, n: int, name: str, calls: dict,
+              falling: str | None = None) -> dict:
+    """``n`` train steps of a trainer (``Trainer`` or ``PretrainTrainer``) on
+    its first ``n`` train batches, one at a time (each step's loss and
+    scalar terms kept on the card), then ``n`` val batches, the launch
+    counts set to 0 just before each pass and read just after, held to
+    :func:`wide_counts` of ``calls``; finite losses, and the loss (or the
+    step's term ``falling``) with its mean over the last third of the steps
+    below that over the first third; a metric in range. The median step on
+    the device's clock, train rows/s, peak memory, and each scalar term by
+    step (under MCM also its two losses as the total sums them:
+    ``mcm_num``, the numerical RMSE, and ``mcm_cat``, the categorical
+    cross-entropy)."""
+    import statistics as stats
+
+    import torch
+
+    from rmm_tpu_torch.frame.dataset import DatasetView
+
+    b = tr.cfg.batch_size
+    table = (tr.seed_table() if hasattr(tr, "seed_table")
+             else tr.dataset.edges)
+    train, val, _ = (DatasetView(v.parent, v.indices[:n * b])
+                     for v in table.split())
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    tr.model.train()
+    losses, auxes, events = [], [], []
+    t0 = time.perf_counter()
+    for item in tr._stream(train, "train"):
+        loss, aux = tr._step(item[0])
+        losses.append(loss)
+        auxes.append({k: v for k, v in aux.items() if v.dim() == 0})
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+    tr.model.eval()
+    losses = [float(v) for v in torch.stack(losses).float().cpu()]
+    steps = {k: [float(v) for v in torch.stack([a[k] for a in auxes])
+                 .double().cpu()] for k in auxes[0]}
+    if "loss_n" in steps:
+        steps["mcm_num"] = [math.sqrt(v / max(t, 1)) for v, t in
+                            zip(steps["loss_n"], steps["t_n"])]
+        steps["mcm_cat"] = [v / max(t, 1) for v, t in
+                            zip(steps["loss_c"], steps["t_c"])]
+    terms = steps[falling] if falling else losses
+    train_wall = time.perf_counter() - t0
+    train_counts = {**read_counts(), **read_direct()}
+    peak = torch.cuda.max_memory_allocated()
+    reset_counts()
+    vm = tr.evaluate(val, "val")
+    torch.cuda.synchronize()
+    eval_counts = {**read_counts(), **read_direct()}
+    n_steps, n_val = len(losses), -(-len(val.indices) // b)
+    k = max(1, n_steps // 3)
+    first, last = stats.fmean(terms[:k]), stats.fmean(terms[-k:])
+    what = falling or "loss"
+    check(all(math.isfinite(v) for v in losses + terms) and last < first,
+          f"{name}: losses {losses}, {what} {terms}: not finite, or the "
+          f"{what} not falling (first {k} steps' mean {first}, last {k}'s "
+          f"{last})")
+    metric = "mrr" if "mrr" in vm else "f1"
+    check(0 <= vm[metric] <= 1, f"{name}: val {metric} {vm[metric]}")
+    for run, got, want in (
+            ("train", train_counts, wide_counts(n_steps, n_steps, **calls)),
+            ("val", eval_counts, wide_counts(n_val, 0, **calls))):
+        check(got == want, f"{name}: {run} launches {got}, not {want}")
+    return {"steps": n_steps, "evaluated_batches": n_val, "losses": losses,
+            "falling": what, f"{what}_first_third": first,
+            f"{what}_last_third": last, "term_steps": steps,
+            f"val_{metric}": vm[metric],
+            "step_ms_median": stats.median(
+                a.elapsed_time(e) for a, e in zip(events, events[1:])),
+            "train_wall_s": train_wall,
+            "train_rows_per_s": len(train.indices) / train_wall,
+            "peak_memory_gb": peak / 1e9, "train_launches": train_counts,
+            "eval_launches": eval_counts}
+
+
+def wide_paths_phase(card: str, csv: str) -> dict:
+    """The paths at C = 256, 8 heads, as their CLIs configure them:
+    ``cli/main.py --model tabgnn --n_hidden 256`` on the config of record's
+    data (4 split calls each way a step: the edge and node tokens of 2
+    layers) for WIDE_BATCHES train and val batches, then at ``--precision
+    bf16`` for WIDE_SHORT_BATCHES (2 of the 4 on bf16 node tokens);
+    ``cli/fused.py --mode mcm-lp --channels 256`` at the SSL config's
+    other flags (10 split calls each way a step), and beside it the same
+    at the config's C = 128 (the spread of its loss terms at the width of
+    record); ``tabgnn --n_hidden 256`` on device_node's Elliptic cut
+    (S = 167 node tokens past max_s: 2 of its 4 split calls each way
+    through the direct form), each WIDE_SHORT_BATCHES +
+    WIDE_SHORT_BATCHES (:func:`wide_pass`). The record's ``shapes`` are
+    those the runs at C = 256 gave the kernels (:func:`kernel_shapes`),
+    ``dtypes`` their x dtypes by shape, ``ssl_lanes`` and
+    ``elliptic_rows`` the masked SSL edge lanes' and Elliptic node rows'
+    shapes among them."""
+    import torch
+
+    from rmm_tpu_torch.datasets import (build_dataset,
+                                        write_synthetic_node_dataset)
+    from rmm_tpu_torch.train.trainer import Trainer
+    from rmm_tpu_torch.utils.config import config_from_args, create_parser
+
+    st = fixture_settings()
+    caps = ["--edge_capacity", str(st["edge_capacity"]),
+            "--node_capacity", str(st["node_capacity"])]
+    argv = ["--model", "tabgnn", "--n_hidden", str(WIDE_C),
+            "--n_gnn_layers", "2", "--num_neighs", "100", "100",
+            "--batch_size", "200", "--sampler_threads", "4",
+            "--device", "cuda"]
+    out = {"phase": "wide_paths", "channels": WIDE_C, "heads": 8,
+           "card": card}
+    cfg = config_from_args(create_parser().parse_args(
+        ["--data", csv, *argv, *caps]))
+    dataset = build_dataset(cfg)
+    with kernel_shapes() as seen:
+        for precision, n, bf16 in (("f32", WIDE_BATCHES, 0),
+                                   ("bf16", WIDE_SHORT_BATCHES, 2)):
+            tr = Trainer(cfg.replace(precision=precision), dataset)
+            out[f"aml_{precision}"] = wide_pass(
+                tr, n, f"tabgnn C={WIDE_C} ({precision})",
+                dict(split=4, bf16=bf16))
+            del tr
+            torch.cuda.empty_cache()
+        del dataset
+        ssl_argv = list(SSL_ARGV)
+        ssl_argv[ssl_argv.index("--channels") + 1] = str(WIDE_C)
+        tr = ssl_trainer(csv, ssl_argv + ["--sampler_threads", "4"],
+                         st["edge_capacity"], st["node_capacity"])
+        # the LP loss falls; the sum moves with the MCM numerical term
+        # (an RMSE over raw amounts) from batch to batch: its steps are in
+        # the record, beside the same run's at C = 128 below
+        out["ssl"] = wide_pass(tr, WIDE_SHORT_BATCHES,
+                               f"mcm-lp C={WIDE_C}",
+                               dict(split=SSL_LAUNCHES), falling="lp")
+        lanes = (st["edge_capacity"], 6, WIDE_C, 8, tr.cfg.dropout)
+        del tr
+        torch.cuda.empty_cache()
+        root = os.path.join(WORK, "elliptic-cut")
+        if not os.path.isdir(root):
+            write_synthetic_node_dataset(
+                root, num_nodes=ELLIPTIC_CUT_NODES,
+                num_edges=ELLIPTIC_CUT_EDGES, num_feats=ELLIPTIC_FEATS,
+                seed=0)
+        ecfg = config_from_args(create_parser().parse_args(["--data", root,
+                                                            *argv]))
+        tr = Trainer(ecfg, build_dataset(ecfg))
+        out["elliptic"] = wide_pass(tr, WIDE_SHORT_BATCHES,
+                                    f"Elliptic tabgnn C={WIDE_C}",
+                                    dict(split=4, direct=2))
+        rows = (tr.cfg.node_capacity, NODE_S, WIDE_C, 8, tr.cfg.dropout)
+        out.update(elliptic_node_capacity=tr.cfg.node_capacity,
+                   elliptic_edge_capacity=tr.cfg.edge_capacity)
+        del tr
+        torch.cuda.empty_cache()
+    tr = ssl_trainer(csv, SSL_ARGV + ["--sampler_threads", "4"],
+                     st["edge_capacity"], st["node_capacity"])
+    out["ssl_c128"] = wide_pass(tr, WIDE_SHORT_BATCHES, "mcm-lp C=128",
+                                dict(split=SSL_LAUNCHES), falling="lp")
+    del tr
+    torch.cuda.empty_cache()
+    shapes = sorted({shape for shape, _ in seen})
+    out.update(shapes=shapes, dtypes={
+        "x".join(map(str, shape)): sorted(d for sh, d in seen if sh == shape)
+        for shape in shapes}, ssl_lanes=lanes, elliptic_rows=rows)
+    check(all(shape[2] == WIDE_C for shape in shapes)
+          and lanes in shapes and rows in shapes,
+          f"wide_paths gave the kernels {shapes}: not all at C = {WIDE_C}, "
+          f"or without the SSL lanes {lanes} or Elliptic's rows {rows}")
+    check(any(d == "bfloat16" for _, d in seen),
+          "the bf16 run gave the kernels no bf16 tokens")
+    out["ok"] = True
+    emit(out)
+    return out
+
+
+def trace_kernels(path: str) -> dict:
+    """The CUDA kernels of a Chrome trace by name: launches and device
+    ms."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            n, ms = out.get(e["name"], (0, 0.0))
+            out[e["name"]] = (n + 1, ms + e.get("dur", 0) / 1e3)
+    return out
+
+
+def bench_cli_phase(card: str, csv: str) -> dict:
+    """The profiling CLI (``cli/benchmark.py``) at the config of record
+    with ``--iters BENCH_ITERS --profile``: each phase's table printed, the
+    Chrome trace under ``WORK`` parsed, the column-attention kernels among
+    its CUDA events; launches as the iterations make them (a warm-up, 10
+    traced and BENCH_ITERS timed, each a forward of 4 tiled calls and a
+    step of 4 each way). Then ``--loop mcm-lp`` at the SSL widths for
+    BENCH_SSL_ITERS (10 split calls each way a step, after a warm-up)."""
+    import numpy as np
+    import torch
+
+    from rmm_tpu_torch.cli import benchmark
+
+    st = fixture_settings()
+    caps = ["--edge_capacity", str(st["edge_capacity"]),
+            "--node_capacity", str(st["node_capacity"])]
+    trace_dir = os.path.join(WORK, "trace")
+    reset_counts()
+    t0 = time.perf_counter()
+    sup = benchmark.main(record_argv(st, csv) + caps + [
+        "--sampler_threads", "4", "--iters", str(BENCH_ITERS), "--profile",
+        "--trace_dir", trace_dir])
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    iters = 1 + min(BENCH_ITERS, benchmark.PROFILE_ITERS) + BENCH_ITERS
+    want = {"fwd": 8 * iters, "fwd_tiled": 8 * iters, "fwd_split": 0,
+            "bwd": 4 * iters, "bwd_tiled": 4 * iters, "bwd_split": 0,
+            "reduce": 4 * iters, **NO_BF16}
+    check(counts == want, f"benchmark launches {counts}, not {want}")
+    check(tuple(sup["phases"]) == benchmark.SUPERVISED_PHASES
+          and all(np.isfinite(v) for p in sup["phases"].values()
+                  for v in p.values())
+          and sup["device"] == torch.cuda.get_device_name(0),
+          f"benchmark summary {sup}")
+    kernels = trace_kernels(sup["trace"])
+    attention = {k: v for k, v in kernels.items()
+                 if "column_attention" in k}
+    check(any("fwd_tiled" in k for k in attention)
+          and any("bwd_tiled" in k for k in attention),
+          f"the trace's CUDA kernels name no column-attention kernel of "
+          f"both directions: {sorted(kernels)[:20]}")
+    reset_counts()
+    ssl = benchmark.main([
+        "--data", csv, "--model", "tabgnnfused", "--n_hidden", "128",
+        "--n_gnn_layers", "3", "--batch_size", "200", "--num_neighs", "100",
+        "100", *caps, "--iters", str(BENCH_SSL_ITERS), "--loop", "mcm-lp"])
+    ssl_counts = read_counts()
+    k = SSL_LAUNCHES * (1 + BENCH_SSL_ITERS)
+    check(ssl_counts == route_counts(k, k),
+          f"benchmark --loop mcm-lp launches {ssl_counts}, not "
+          f"{route_counts(k, k)}")
+    check(ssl["loop"] == "pretrain:mcm-lp" and ssl["rows_per_sec"] > 0,
+          f"benchmark --loop mcm-lp summary {ssl}")
+    out = {"phase": "bench_cli", "supervised": sup, "launches": counts,
+           "wall_s": wall, "trace_bytes": os.path.getsize(sup["trace"]),
+           "trace_kernels": len(kernels),
+           "trace_attention_kernels": {k: {"launches": n, "device_ms": ms}
+                                       for k, (n, ms) in attention.items()},
+           "mcm_lp": ssl, "mcm_lp_launches": ssl_counts, "card": card,
+           "ok": True}
+    emit(out)
+    return out
+
+
+def sweep_phase(card: str) -> dict:
+    """The sweep CLI (``cli/sweep.py``) on the config of record's
+    16,384-row cut (``aml_train_record.npz``'s data): ``--kind supervised
+    --trials 2 --epochs 1`` and ``--kind fused --trials 1 --epochs 1``,
+    each at the CLI's other defaults; each writes a JSONL line a trial
+    with the reference's keys, the params the reference's seed draws, and
+    launches column-attention kernels both ways."""
+    import numpy as np
+
+    from rmm_tpu_torch.cli import sweep
+    from rmm_tpu_torch.datasets import write_synthetic_aml_csv
+
+    st = json.loads(str(np.load(TRAIN_FIXTURE)["settings"]))
+    csv = write_synthetic_aml_csv(os.path.join(WORK, "aml_sweep.csv"),
+                                  num_rows=st["rows"],
+                                  num_accounts=st["num_accounts"],
+                                  seed=st["data_seed"])
+    out = {"phase": "sweep", "rows": st["rows"], "card": card}
+    for kind, trials, metric in (("supervised", 2, "val_f1"),
+                                 ("fused", 1, "val_mrr")):
+        path = os.path.join(WORK, f"sweep_{kind}.jsonl")
+        reset_counts()
+        t0 = time.perf_counter()
+        results, best = sweep.main([
+            "--kind", kind, "--data", csv, "--trials", str(trials),
+            "--epochs", "1", "--out", path, "--testing"])
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        with open(path) as f:
+            lines = [json.loads(line) for line in f]
+        rng = np.random.RandomState(0)
+        space = (sweep.SUPERVISED_SPACE if kind == "supervised"
+                 else sweep.FUSED_SPACE)
+        check(lines == results and len(lines) == trials
+              and all(set(r) == {"trial", "params", metric}
+                      and 0 <= r[metric] <= 1 for r in lines)
+              and [r["params"] for r in lines]
+              == [sweep.sample_params(space, rng) for _ in range(trials)],
+              f"{kind} sweep lines {lines}")
+        check(counts["fwd"] > 0 and counts["bwd"] > 0,
+              f"{kind} sweep launched no column attention: {counts}")
+        out[kind] = {"lines": lines, "best": best, "wall_s": wall,
+                     "launches": counts}
+    out["ok"] = True
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5436,6 +5943,10 @@ def main() -> int:
             text16 = timed("text_bf16", text_bf16_phase, card, text_csv)
             bparity = timed("bf16_family_parity", bf16_family_parity_phase,
                             card)
+            wide = timed("wide_paths", wide_paths_phase, card, csv)
+            kwide = timed("kernel_wide", kernel_wide_phase, card, wide)
+            timed("bench_cli", bench_cli_phase, card, csv)
+            timed("sweep", sweep_phase, card)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
         emit({"phase": "seconds", **seconds,
@@ -5787,7 +6298,8 @@ def main() -> int:
             *bf16_entries(kern16, serve16, parity16, ssl16, ssl_parity16,
                           {"family": fam16, "node": node16,
                            "tabular": tab16, "text": text16,
-                           "parity": bparity})]})
+                           "parity": bparity}),
+            *wide_entries(kwide, wide)]})
         print(card, flush=True)
     except Exception:
         traceback.print_exc()
@@ -5894,6 +6406,69 @@ def bf16_entries(kern16: dict, serve16: dict, parity16: dict, ssl16: dict,
                          "long": shape_times(kern16["long_bwd"]),
                          "paths": shape_times(kern16["path_bwd"]),
                          "library_masked": False})]
+
+
+def wide_entries(kwide: dict, wide: dict) -> list:
+    """The ``kernels`` entries of the wide widths (the split routes at
+    C = 256, their cores staged) and of the long cores' direct form: each
+    direction's record at wide_paths' SSL lanes at --channels 256 (0.5
+    keep-mask; the library time unmasked), resp. at its Elliptic node rows
+    at --n_hidden 256 (0.083), their launches on ``wide_paths`` by path,
+    the other wide shapes' times beside, float32 and bf16."""
+
+    def at(recs, shape, rate=None):
+        shape = (*shape[:4], shape[4] if rate is None else rate)
+        return [next(r for r in recs if (r["B"], r["S"], r["C"], r["H"],
+                                         r["dropout"]) == shape)]
+
+    runs = {"wide_paths tabgnn": [wide["aml_f32"], wide["aml_bf16"]],
+            "wide_paths mcm-lp": [wide["ssl"]],
+            "wide_paths elliptic": [wide["elliptic"]]}
+
+    def by_path(key):
+        out = {path: sum(r["train_launches"][key] + r["eval_launches"][key]
+                         for r in rs) for path, rs in runs.items()}
+        return {path: v for path, v in out.items() if v}
+
+    entries = []
+    for d, line in (("fwd", 165), ("bwd", 178)):
+        recs, recs16 = kwide[d], kwide[f"{d}_bf16"]
+        split, direct = by_path(f"{d}_split"), by_path(f"{d}_direct")
+        staged = {p: n - direct.get(p, 0) for p, n in split.items()}
+        entries += [
+            kernel_entry(f"column_attention_{d}_wide", line,
+                         at(recs, wide["ssl_lanes"]),
+                         at(recs, wide["ssl_lanes"], 0.0), {
+                             "path": "wide_paths: tabgnn at --n_hidden 256 "
+                                     "(float32 and bf16), mcm-lp at "
+                                     "--channels 256, Elliptic's edge "
+                                     "tokens at --n_hidden 256",
+                             "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh, "
+                                         "rmm_tpu_torch/csrc/gemm_mma.cuh "
+                                         "(bf16)",
+                             "launches": sum(staged.values()),
+                             "launches_by_path": staged,
+                             "bf16_launches_by_path": by_path(f"{d}_bf16"),
+                             "wide": shape_times([r for r in recs
+                                                  if r["S"] <= 16]),
+                             "bf16": shape_times(recs16),
+                             "library_masked": False}),
+            kernel_entry(f"column_attention_{d}_direct", line,
+                         at(recs, wide["elliptic_rows"]),
+                         at(recs, wide["elliptic_rows"], 0.0), {
+                             "path": "wide_paths: Elliptic's node tokens "
+                                     "(S = 167) at --n_hidden 256",
+                             "core": f"column_attention_{d}_core_long_kernel"
+                                     " (DIRECT)",
+                             "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
+                             "launches": sum(direct.values()),
+                             "launches_by_path": direct,
+                             "long": shape_times([r for r in recs
+                                                  if r["direct"]]),
+                             "bf16": shape_times([r for r in recs16
+                                                  if r["S"] > 16]),
+                             "library_masked": False})]
+    return entries
 
 
 def shape_times(recs: list) -> dict:

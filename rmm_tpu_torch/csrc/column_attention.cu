@@ -24,9 +24,9 @@
 // kernels (column_attention_fwd_tiled_kernel and
 // column_attention_bwd_tiled_kernel, further down) for every C <= 64 that
 // is a multiple of 4, the main path's C = 32 among them; and the split
-// routes for every other C up to 128 (C = 96, the SSL path's C = 128, and
-// every C that is not a multiple of 4): GEMMs (gemm_f32.cuh) around a
-// per-row attention core. Against the TPU kernel's choices, the kernels
+// routes for every other C (C = 96, the SSL path's C = 128, C = 256 and
+// wider, and every C that is not a multiple of 4): GEMMs (gemm_f32.cuh)
+// around a per-row attention core. Against the TPU kernel's choices, the kernels
 // index the heads as column slices (no channel-mask trick), and a tiled
 // block walks groups of `rows` rows (grid-stride) with the ragged last
 // group masked (no multiple-of-8 batch tiling or padding).
@@ -90,11 +90,13 @@
 // takes their one-float chunks. So every width that nhead divides runs
 // through GEMM kernels.
 //
-// The tiled kernels take S <= 16; the split routes any S whose row fits
-// a block's shared memory (past S = 16 through the long attention cores
-// below). All take C <= 128 and C % nhead == 0 (the wrapper checks). They
-// launch on the caller's stream, allocate nothing and do not
-// synchronize; the C entry points return cudaGetLastError().
+// The tiled kernels take S <= 16; the split routes any S and any C: a row
+// that fits a block's shared memory is staged there (past S = 16 through
+// the long attention cores below), a longer one is walked where it lies in
+// device memory (the direct form of the long cores). All take C % nhead
+// == 0 (the wrapper checks). They launch on the caller's stream, allocate
+// nothing and do not synchronize; the C entry points return
+// cudaGetLastError().
 //
 // Element types. This file builds two libraries: float32, and, with
 // RMM_ATTENTION_BF16 defined, bf16 (elem_t below): x, do, out, dx, the
@@ -171,7 +173,7 @@ constexpr int kThreads = 256;
 // Two routes compute it, chosen by width as the forward's are: the
 // register-tiled kernel right below for every C <= 64 that is a multiple
 // of 4 (the main path's C = 32), and the split route (the note at the top
-// of this file) for every other C up to 128.
+// of this file) for every other C.
 //
 // The TPU kernel sums the weight gradients across its sequential grid. A
 // Hopper grid runs in parallel, so both routes sum fixed parts of the
@@ -950,8 +952,8 @@ column_attention_fwd_tiled_kernel(const elem_t* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// The split backward: every C <= 128 that the tiled kernel does not take
-// (64 < C, the SSL width among them, or C not a multiple of 4). Five
+// The split backward: every C that the tiled kernel does not take (64 <
+// C, the SSL width among them, or C not a multiple of 4). Five
 // launches, each a kernel of this file or of gemm_f32.cuh, over a scratch
 // row of 4C floats a token (the design and what bounds it are in the note
 // at the top of this file):
@@ -1216,8 +1218,8 @@ struct SplitGemms {
 };
 
 // ---------------------------------------------------------------------------
-// The split forward: every C <= 128 that the tiled kernel does not take
-// (64 < C, the SSL width among them, or C not a multiple of 4). Three
+// The split forward: every C that the tiled kernel does not take (64 <
+// C, the SSL width among them, or C not a multiple of 4). Three
 // launches over a scratch row of TT = 3C floats a token, rounded up to a
 // multiple of 4 (fwd_row_floats; the design and what bounds it are in the
 // note at the top of this file):
@@ -1403,6 +1405,24 @@ column_attention_fwd_core_kernel(float* __restrict__ tok,
 // 700 W), the whole split route: forward 1.02 ms unmasked and 2.02 with
 // the node keep-mask, backward + reduce 5.19 and 7.69 (bounds 0.30, 0.33
 // and 0.88; exp floors 0.22 and 0.66). See PERF.md.
+//
+// The direct form (DIRECT): a row too long for a block's shared memory (S
+// past max_s, e.g. 56 tokens at C = 256, 8 heads; or, at a very wide C, a
+// short row) is walked where it lies in device memory: the same walks,
+// reading the row's token rows from the scratch `tok` (L1 and L2 serve the
+// rereads), nothing staged. So that no walk reads what another warp of the
+// row writes, the outputs go to columns of the row that no walk reads: the
+// forward's scratch row is q | k | v | ctx (4C floats), the backward's
+// q | k | v | dctx | dq | dk | dv | ctx (8C), the GEMMs after the core
+// reading ctx and dqkv there; the backward's L and D go to a region of
+// 2·H·S floats a row after the token rows, written by the query walks and
+// read by the key walks after the block's barrier (one block holds all of
+// a row's heads, and no read goes through the non-coherent path). Both
+// directions stay one lane's FMA chain an output, in the staged form's
+// order: two calls give the same bits, and so do the staged and the direct
+// form at a row that fits both. The direct form runs the runtime head
+// width (HD = 0) at every width. Speed is later work (streaming key chunks
+// through shared memory, ROADMAP.md).
 // ---------------------------------------------------------------------------
 
 constexpr int kWarps = kCoreThreads / 32;  // warps of a long core's block
@@ -1873,11 +1893,18 @@ __device__ __forceinline__ LongItem long_item(int it, int nr, int H) {
   return {g, rh / H, rh % H};
 }
 
-// The long forward core (S > kShortS): staging as the short core's, then a
-// warp per (group of 32·kFwdQ queries, row, head); ONE: a query a lane
-// (rows of at most 32 tokens, where more would only cost registers and so
-// blocks an SM). scale = 1/√hd.
-template <int HD, int W, bool MASKED, bool ONE>
+// Floats of a direct-form scratch row a token: forward q | k | v | ctx,
+// backward q | k | v | dctx | dq | dk | dv | ctx.
+__host__ __device__ inline int direct_row_floats(int C, bool backward) {
+  return (backward ? 8 : 4) * C;
+}
+
+// The long forward core (S > kShortS; the direct form at any S): staging
+// as the short core's (DIRECT: none, the walks read `tok`), then a warp per
+// (group of 32·kFwdQ queries, row, head); ONE: a query a lane (rows of at
+// most 32 tokens, where more would only cost registers and so blocks an
+// SM). scale = 1/√hd.
+template <int HD, int W, bool MASKED, bool ONE, bool DIRECT>
 __global__ void __launch_bounds__(kCoreThreads, 2)
 column_attention_fwd_core_long_kernel(float* __restrict__ tok,
                                       const uint8_t* __restrict__ keep,
@@ -1887,35 +1914,45 @@ column_attention_fwd_core_long_kernel(float* __restrict__ tok,
   extern __shared__ __align__(16) float smem[];
   constexpr int R = ONE ? 1 : LongHead<HD>::kFwdQ;
   const int tid = threadIdx.x, lane = tid % 32;
-  const int TT = fwd_row_floats(C), TS = fwd_core_stride(C), Q4 = TT / 4;
+  // a token row in device memory, and as the walks read it
+  const int TT = DIRECT ? direct_row_floats(C, false) : fwd_row_floats(C);
+  const int TS = DIRECT ? TT : fwd_core_stride(C);
   const int r0 = blockIdx.x * rows;
   const int nr = min(rows, B - r0);
   float* tg = tok + (size_t)r0 * S * TT;
+  const float* rows_at = tg;
 
-  for (int i = tid; i < nr * S * Q4; i += kCoreThreads) {
-    const int t = i / Q4;
-    const int q = i - t * Q4;
-    cp_async16(smem + t * TS + 4 * q, tg + (size_t)t * TT + 4 * q);
+  if constexpr (!DIRECT) {
+    const int Q4 = TT / 4;
+    for (int i = tid; i < nr * S * Q4; i += kCoreThreads) {
+      const int t = i / Q4;
+      const int q = i - t * Q4;
+      cp_async16(smem + t * TS + 4 * q, tg + (size_t)t * TT + 4 * q);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    rows_at = smem;
   }
-  cp_async_wait_all();
-  __syncthreads();
   const int hd = HD > 0 ? HD : C / H;
+  const int ctx_at = DIRECT ? 3 * C : 0;  // ctx beside v, or over q
   const int ng = (S + 32 * R - 1) / (32 * R);
   for (int it = tid / 32; it < ng * nr * H; it += kWarps) {
     const LongItem t = long_item(it, nr, H);
     const uint8_t* kp =
         MASKED ? keep + ((size_t)(r0 + t.r) * H + t.h) * S * S : nullptr;
     fwd_long_group<HD, W, R, MASKED>(
-        smem + t.r * S * TS + t.h * hd, tg + (size_t)t.r * S * TT + t.h * hd,
-        kp, t.g * 32 * R, S, C, hd, TS, TT, scale * kLog2e, inv_keep, lane);
+        rows_at + (size_t)t.r * S * TS + t.h * hd,
+        tg + (size_t)t.r * S * TT + ctx_at + t.h * hd, kp, t.g * 32 * R, S,
+        C, hd, TS, TT, scale * kLog2e, inv_keep, lane);
   }
 }
 
-// The long backward core (S > kShortS): staging as the short core's, the
-// query walks (a warp per (group of 32·kBwdQ queries, row, head)), a
-// barrier, the key walk (a warp per (group of 32·kK keys, row, head)); ONE
-// as the forward's.
-template <int HD, int W, bool MASKED, bool ONE>
+// The long backward core (S > kShortS; the direct form at any S): staging
+// as the short core's (DIRECT: none), the query walks (a warp per (group of
+// 32·kBwdQ queries, row, head)), a barrier, the key walk (a warp per (group
+// of 32·kK keys, row, head)); ONE as the forward's. DIRECT: the outputs at
+// 4C of each token row, L and D after the B·S token rows.
+template <int HD, int W, bool MASKED, bool ONE, bool DIRECT>
 __global__ void __launch_bounds__(kCoreThreads, 2)
 column_attention_bwd_core_long_kernel(float* __restrict__ tok,
                                       const uint8_t* __restrict__ keep,
@@ -1926,20 +1963,28 @@ column_attention_bwd_core_long_kernel(float* __restrict__ tok,
   constexpr int RQ = ONE ? 1 : LongHead<HD>::kBwdQ;
   constexpr int RK = ONE ? 1 : LongHead<HD>::kK;
   const int tid = threadIdx.x, lane = tid % 32;
-  const int TT = 4 * C;      // a token row in device memory
-  const int TS = TT + 4;     // in shared memory
+  // a token row in device memory, and as the walks read it
+  const int TT = DIRECT ? direct_row_floats(C, true) : 4 * C;
+  const int TS = DIRECT ? TT : TT + 4;
   const int r0 = blockIdx.x * rows;
   const int nr = min(rows, B - r0);
-  float* sT = smem;
-  float* sLD = sT + (size_t)rows * S * TS;  // (L, D) of each (row, head, query)
   float* tg = tok + (size_t)r0 * S * TT;
-
-  for (int i = tid; i < nr * S * C; i += kCoreThreads) {  // C float4s a row
-    const int t = i / C;
-    const int q = i - t * C;
-    st4(sT + t * TS + 4 * q, ld4(tg + (size_t)t * TT + 4 * q));
+  const float* rows_at = tg;
+  float* sLD;  // (L, D) of each (row, head, query) of the block
+  if constexpr (DIRECT) {
+    sLD = tok + (size_t)B * S * TT + 2 * (size_t)r0 * H * S;
+  } else {
+    float* sT = smem;
+    for (int i = tid; i < nr * S * C; i += kCoreThreads) {  // C float4s a row
+      const int t = i / C;
+      const int q = i - t * C;
+      st4(sT + t * TS + 4 * q, ld4(tg + (size_t)t * TT + 4 * q));
+    }
+    __syncthreads();
+    rows_at = sT;
+    sLD = sT + (size_t)rows * S * TS;
   }
-  __syncthreads();
+  float* out = tg + (DIRECT ? 4 * C : 0);  // dq | dk | dv | ctx
   const int hd = HD > 0 ? HD : C / H;
   const float qs = scale * kLog2e;
   const int ngq = (S + 32 * RQ - 1) / (32 * RQ);
@@ -1948,8 +1993,9 @@ column_attention_bwd_core_long_kernel(float* __restrict__ tok,
     const uint8_t* kp =
         MASKED ? keep + ((size_t)(r0 + t.r) * H + t.h) * S * S : nullptr;
     bwd_long_query_group<HD, W, RQ, MASKED>(
-        sT + t.r * S * TS + t.h * hd, sLD + 2 * (t.r * H + t.h) * S,
-        tg + (size_t)t.r * S * TT + t.h * hd, kp, t.g * 32 * RQ, S, C, hd,
+        rows_at + (size_t)t.r * S * TS + t.h * hd,
+        sLD + 2 * (size_t)(t.r * H + t.h) * S,
+        out + (size_t)t.r * S * TT + t.h * hd, kp, t.g * 32 * RQ, S, C, hd,
         TS, TT, qs, scale, inv_keep, lane);
   }
   __syncthreads();
@@ -1959,55 +2005,66 @@ column_attention_bwd_core_long_kernel(float* __restrict__ tok,
     const uint8_t* kp =
         MASKED ? keep + ((size_t)(r0 + t.r) * H + t.h) * S * S : nullptr;
     bwd_long_key_group<HD, W, RK, MASKED>(
-        sT + t.r * S * TS + t.h * hd, sLD + 2 * (t.r * H + t.h) * S,
-        tg + (size_t)t.r * S * TT + t.h * hd, kp, t.g * 32 * RK, S, C, hd,
+        rows_at + (size_t)t.r * S * TS + t.h * hd,
+        sLD + 2 * (size_t)(t.r * H + t.h) * S,
+        out + (size_t)t.r * S * TT + t.h * hd, kp, t.g * 32 * RK, S, C, hd,
         TS, TT, qs, scale, inv_keep, lane);
   }
 }
 
-// Calls f(HD, W, MASKED, ONE) (std::integral_constant values) for the long
-// cores' instantiation that takes head width hd and rows of S tokens.
+// Calls f(HD, W, MASKED, ONE, DIRECT) (std::integral_constant values) for
+// the long cores' instantiation that takes head width hd and rows of S
+// tokens, staged or (direct) not.
 template <class F>
-cudaError_t long_dispatch(int hd, int S, bool masked, F f) {
-  auto go = [&](auto head, auto w, auto one) {
-    return masked ? f(head, w, std::true_type{}, one)
-                  : f(head, w, std::false_type{}, one);
+cudaError_t long_dispatch(int hd, int S, bool masked, bool direct, F f) {
+  auto go = [&](auto head, auto w, auto one, auto dir) {
+    return masked ? f(head, w, std::true_type{}, one, dir)
+                  : f(head, w, std::false_type{}, one, dir);
   };
   using I4 = std::integral_constant<int, 4>;
   using I16 = std::integral_constant<int, 16>;
   using I0 = std::integral_constant<int, 0>;
+  using I1 = std::integral_constant<int, 1>;
+  using No = std::false_type;
+  using Yes = std::true_type;
+  // the direct form: the runtime width, a query (key) a lane
+  if (direct) return hd % 4 ? go(I0{}, I1{}, No{}, Yes{})
+                            : go(I0{}, I4{}, No{}, Yes{});
   if (hd == 4)
-    return S <= 32 ? go(I4{}, I4{}, std::true_type{})
-                   : go(I4{}, I4{}, std::false_type{});
+    return S <= 32 ? go(I4{}, I4{}, Yes{}, No{}) : go(I4{}, I4{}, No{}, No{});
   if (hd == 16)
-    return S <= 32 ? go(I16{}, I4{}, std::true_type{})
-                   : go(I16{}, I4{}, std::false_type{});
+    return S <= 32 ? go(I16{}, I4{}, Yes{}, No{})
+                   : go(I16{}, I4{}, No{}, No{});
   // a runtime width: a query (key) a lane whatever S is
-  if (hd % 4 == 0) return go(I0{}, I4{}, std::false_type{});
-  return go(I0{}, std::integral_constant<int, 1>{}, std::false_type{});
+  if (hd % 4 == 0) return go(I0{}, I4{}, No{}, No{});
+  return go(I0{}, I1{}, No{}, No{});
 }
 
-// The forward core on `tok` ([B·S, fwd_row_floats(C)] floats, 16-byte
-// aligned): the short core up to kShortS, the long one past it.
+// The forward core on `tok` ([B·S, fwd_row_floats(C)] floats, or direct
+// [B·S, 4C], 16-byte aligned): the short core up to kShortS, the long one
+// past it; the direct form's long core at any S.
 cudaError_t launch_fwd_core(float* tok, const uint8_t* keep, int B, int S,
                             int C, int H, float inv_keep, int rows,
-                            cudaStream_t st) {
-  const size_t smem = fwd_core_smem_floats(S, C, rows) * sizeof(float);
+                            bool direct, cudaStream_t st) {
+  const size_t smem =
+      direct ? 0 : fwd_core_smem_floats(S, C, rows) * sizeof(float);
   const float scale = 1.0f / sqrtf((float)(C / H));
-  if (S > kShortS)
-    return long_dispatch(C / H, S, keep != nullptr, [&](auto hd, auto w,
-                                                        auto masked,
-                                                        auto one) {
-      auto kernel = &column_attention_fwd_core_long_kernel<
-          decltype(hd)::value, decltype(w)::value, decltype(masked)::value,
-          decltype(one)::value>;
-      cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return e;
-      kernel<<<(B + rows - 1) / rows, kCoreThreads, smem, st>>>(
-          tok, keep, B, S, C, H, scale, inv_keep, rows);
-      return cudaGetLastError();
-    });
+  if (direct || S > kShortS)
+    return long_dispatch(
+        C / H, S, keep != nullptr, direct,
+        [&](auto hd, auto w, auto masked, auto one, auto dir) {
+          auto kernel = &column_attention_fwd_core_long_kernel<
+              decltype(hd)::value, decltype(w)::value,
+              decltype(masked)::value, decltype(one)::value,
+              decltype(dir)::value>;
+          cudaError_t e = cudaFuncSetAttribute(
+              kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+              (int)smem);
+          if (e != cudaSuccess) return e;
+          kernel<<<(B + rows - 1) / rows, kCoreThreads, smem, st>>>(
+              tok, keep, B, S, C, H, scale, inv_keep, rows);
+          return cudaGetLastError();
+        });
   return by_s(S, [&](auto ms) {
     constexpr int kMaxS = decltype(ms)::value;
     auto kernel = C % 4 ? &column_attention_fwd_core_kernel<kMaxS, true>
@@ -2059,18 +2116,21 @@ cudaError_t launch_reduce(const float* partials, int nparts, int total,
 }
 
 // The split backward's five launches (rmm_column_attention_bwd_split), in
-// the aligned or the narrow GEMM form.
+// the aligned or the narrow GEMM form, the core staged or direct.
 template <bool NARROW>
 cudaError_t bwd_split(const elem_t* x, const elem_t* dout,
                       const elem_t* wqkv, const elem_t* bqkv,
                       const elem_t* wout, const uint8_t* keep, elem_t* dx,
                       float* tok, float* partials, float* grads, int B,
                       int S, int C, int H, float inv_keep, int rows,
-                      int split_tokens, cudaStream_t st) {
+                      int split_tokens, bool direct, cudaStream_t st) {
   using rmm_gemm::Gemm;
   using rmm_gemm::make_gemm;
   using G = SplitGemms<NARROW>;
-  const int N = B * S, C3 = 3 * C, TT = 4 * C;
+  const int N = B * S, C3 = 3 * C;
+  const int TT = direct ? direct_row_floats(C, true) : 4 * C;
+  // the core's outputs dq | dk | dv | ctx: over its inputs, or beside them
+  float* res = tok + (direct ? 4 * C : 0);
   const long long total = 4LL * C * C + 4 * C;
   // 1. the projections: A = x or do (tokens × channels), B = Wqkv (k-major)
   //    or Wout read as Woutᵀ (n-major).
@@ -2082,8 +2142,10 @@ cudaError_t bwd_split(const elem_t* x, const elem_t* dout,
       G::template launch<typename G::Qkv, typename G::Dctx>(qkv, &dctx,
                                                             st);
   if (err != cudaSuccess) return err;
-  // 2. the attention core (4C floats a token row: 16-byte rows at any C)
-  const size_t smem = core_smem_floats(S, C, H, rows) * sizeof(float);
+  // 2. the attention core (4C floats a token row: 16-byte rows at any C;
+  //    direct: 8C, nothing staged)
+  const size_t smem =
+      direct ? 0 : core_smem_floats(S, C, H, rows) * sizeof(float);
   const float scale = 1.0f / sqrtf((float)(C / H));
   auto run_core = [&](auto kernel) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -2093,14 +2155,16 @@ cudaError_t bwd_split(const elem_t* x, const elem_t* dout,
         tok, keep, B, S, C, H, scale, inv_keep, rows);
     return cudaGetLastError();
   };
-  err = S > kShortS
-            ? long_dispatch(C / H, S, keep != nullptr,
-                            [&](auto hd, auto w, auto masked, auto one) {
+  err = direct || S > kShortS
+            ? long_dispatch(C / H, S, keep != nullptr, direct,
+                            [&](auto hd, auto w, auto masked, auto one,
+                                auto dir) {
                               return run_core(
                                   column_attention_bwd_core_long_kernel<
                                       decltype(hd)::value, decltype(w)::value,
                                       decltype(masked)::value,
-                                      decltype(one)::value>);
+                                      decltype(one)::value,
+                                      decltype(dir)::value>);
                             })
             : by_s(S, [&](auto ms) {
                 return run_core(
@@ -2108,7 +2172,7 @@ cudaError_t bwd_split(const elem_t* x, const elem_t* dout,
               });
   if (err != cudaSuccess) return err;
   // 3. dx = dqkv·Wqkvᵀ: B(k = j, n = c) = Wqkv[c][j] is n-major
-  const Gemm gdx = make_gemm(tok, TT, wqkv, C3, dx, C, nullptr, N, C, C3,
+  const Gemm gdx = make_gemm(res, TT, wqkv, C3, dx, C, nullptr, N, C, C3,
                              C3, 0, 0);
   err = G::template launch<typename G::Dx, typename G::Dx>(gdx, nullptr,
                                                           st);
@@ -2116,9 +2180,9 @@ cudaError_t bwd_split(const elem_t* x, const elem_t* dout,
   // 4. the weight and bias gradients over token splits: A = x or ctx read
   //    as xᵀ (k-major), B = dqkv or do (k-major); the bias rows follow
   //    each weight in the partials layout.
-  const Gemm gwq = make_gemm(x, C, tok, TT, partials, C3, nullptr, C, C3, N,
+  const Gemm gwq = make_gemm(x, C, res, TT, partials, C3, nullptr, C, C3, N,
                              split_tokens, total, 1);
-  const Gemm gwo = make_gemm(tok + C3, TT, dout, C,
+  const Gemm gwo = make_gemm(res + C3, TT, dout, C,
                              partials + (size_t)C * C3 + C3, C, nullptr, C,
                              C, N, split_tokens, total, 1);
   err = G::template launch<typename G::Dwq, typename G::Dwo>(gwq, &gwo,
@@ -2130,17 +2194,18 @@ cudaError_t bwd_split(const elem_t* x, const elem_t* dout,
 }
 
 // The split forward's three launches (rmm_column_attention_fwd_split), in
-// the aligned or the narrow GEMM form.
+// the aligned or the narrow GEMM form, the core staged or direct.
 template <bool NARROW>
 cudaError_t fwd_split(const elem_t* x, const elem_t* wqkv,
                       const elem_t* bqkv, const elem_t* wout,
                       const elem_t* bout, const uint8_t* keep, elem_t* out,
                       float* tok, int B, int S, int C, int H, float inv_keep,
-                      int rows, cudaStream_t st) {
+                      int rows, bool direct, cudaStream_t st) {
   using rmm_gemm::Gemm;
   using rmm_gemm::make_gemm;
   using G = SplitGemms<NARROW>;
-  const int N = B * S, C3 = 3 * C, TT = fwd_row_floats(C);
+  const int N = B * S, C3 = 3 * C;
+  const int TT = direct ? direct_row_floats(C, false) : fwd_row_floats(C);
   // 1. qkv = x·Wqkv + bqkv: A = x (tokens × channels), B = Wqkv (k-major);
   //    the backward's projection instantiation, one problem.
   const Gemm qkv = make_gemm(x, C, wqkv, C3, tok, TT, bqkv, N, C3, C, C, 0,
@@ -2149,12 +2214,13 @@ cudaError_t fwd_split(const elem_t* x, const elem_t* wqkv,
       G::template launch<typename G::Qkv, typename G::Dctx>(qkv, nullptr,
                                                             st);
   if (err != cudaSuccess) return err;
-  // 2. the attention core: ctx over q
-  err = launch_fwd_core(tok, keep, B, S, C, H, inv_keep, rows, st);
+  // 2. the attention core: ctx over q (direct: beside v)
+  err = launch_fwd_core(tok, keep, B, S, C, H, inv_keep, rows, direct, st);
   if (err != cudaSuccess) return err;
   // 3. out = ctx·Wout + bout: A = ctx (the first C floats of each token
-  //    row), B = Wout (k-major)
-  const Gemm o = make_gemm(tok, TT, wout, C, out, C, bout, N, C, C, C, 0, 0);
+  //    row; direct: the last C), B = Wout (k-major)
+  const Gemm o = make_gemm(tok + (direct ? C3 : 0), TT, wout, C, out, C,
+                           bout, N, C, C, C, 0, 0);
   return G::template launch<typename G::Out, typename G::Dctx>(o, nullptr,
                                                               st);
 }
@@ -2249,19 +2315,26 @@ int rmm_column_attention_bwd_tiled(const elem_t* x, const elem_t* dout,
                             4 * C * C + 4 * C, grads, st);
 }
 
-// The shapes both split routes take: any S whose rows fit a block's
-// shared memory (the launch refuses the others), C <= 128.
+// The shapes both split routes take: any S and C (a staged row must fit a
+// block's shared memory: the launch refuses the others).
 static bool split_shape_ok(int S, int C, int H, int rows) {
-  return S >= 1 && C >= 1 && C <= 128 && H >= 1 && C % H == 0 && rows >= 1;
+  return S >= 1 && C >= 1 && H >= 1 && C % H == 0 && rows >= 1;
 }
 
-// The split backward (C <= 128; the wrapper routes the widths the tiled
-// kernel does not take): the attention core's shared memory for `rows`
-// rows, and the blocks of the weight-gradient GEMM an SM holds (or a
-// negative CUDA error code).
+// The split backward (the wrapper routes the widths the tiled kernel does
+// not take): the staged attention core's shared memory for `rows` rows,
+// the floats of its scratch (staged: B·S token rows of 4C; direct: of 8C,
+// then 2·H·S floats a row of L and D), and the blocks of the
+// weight-gradient GEMM an SM holds (or a negative CUDA error code).
 size_t rmm_column_attention_bwd_core_smem_bytes(int S, int C, int H,
                                                 int rows) {
   return core_smem_floats(S, C, H, rows) * sizeof(float);
+}
+
+size_t rmm_column_attention_bwd_scratch_floats(int B, int S, int C, int H,
+                                               int direct) {
+  if (!direct) return (size_t)B * S * 4 * C;
+  return (size_t)B * S * direct_row_floats(C, true) + 2 * (size_t)B * H * S;
 }
 
 int rmm_column_attention_gemm_blocks_per_sm() {
@@ -2271,33 +2344,38 @@ int rmm_column_attention_gemm_blocks_per_sm() {
 }
 
 // The split backward's five launches (see the note at the top of this
-// file), on the scratch `tok` ([B·S, 4C] floats) and `partials`
-// (ceil(B·S / split_tokens) slices of 4C² + 4C floats), into dx and the
-// float grads (layout as the tiled backward's). Where C % 4 == 0, x, dout,
-// wqkv, wout and tok must be 16-byte aligned; otherwise the narrow GEMMs
-// take them as they are. Returns the first launch's cudaGetLastError()
-// that is not 0, else 0.
+// file), on the scratch `tok` (rmm_column_attention_bwd_scratch_floats)
+// and `partials` (ceil(B·S / split_tokens) slices of 4C² + 4C floats),
+// into dx and the float grads (layout as the tiled backward's); the
+// attention core staged, or direct (the long cores' direct form). Where C
+// % 4 == 0, x, dout, wqkv, wout and tok must be 16-byte aligned; otherwise
+// the narrow GEMMs take them as they are. Returns the first launch's
+// cudaGetLastError() that is not 0, else 0.
 int rmm_column_attention_bwd_split(const elem_t* x, const elem_t* dout,
                                    const elem_t* wqkv, const elem_t* bqkv,
                                    const elem_t* wout, const uint8_t* keep,
                                    elem_t* dx, float* tok, float* partials,
                                    float* grads, int B, int S, int C, int H,
                                    float inv_keep, int rows,
-                                   int split_tokens, void* stream) {
+                                   int split_tokens, int direct,
+                                   void* stream) {
   if (B <= 0) return 0;
   if (!split_shape_ok(S, C, H, rows) || split_tokens < 1)
     return (int)cudaErrorInvalidValue;
   auto run = C % 4 ? &bwd_split<true> : &bwd_split<false>;
   return (int)run(x, dout, wqkv, bqkv, wout, keep, dx, tok, partials, grads,
-                  B, S, C, H, inv_keep, rows, split_tokens,
+                  B, S, C, H, inv_keep, rows, split_tokens, direct != 0,
                   static_cast<cudaStream_t>(stream));
 }
 
-// The split forward (C <= 128; the wrapper routes the widths the tiled
-// kernel does not take): the floats of its scratch row a token, and the
+// The split forward (the wrapper routes the widths the tiled kernel does
+// not take): the floats of its scratch row a token (staged: q | k | v
+// padded to a multiple of 4; direct: q | k | v | ctx), and the staged
 // forward core's shared memory for `rows` rows (H is not needed: the
 // forward core keeps no S×S tiles).
-int rmm_column_attention_fwd_row_floats(int C) { return fwd_row_floats(C); }
+int rmm_column_attention_fwd_row_floats(int C, int direct) {
+  return direct ? direct_row_floats(C, false) : fwd_row_floats(C);
+}
 
 size_t rmm_column_attention_fwd_core_smem_bytes(int S, int C, int H,
                                                 int rows) {
@@ -2305,34 +2383,43 @@ size_t rmm_column_attention_fwd_core_smem_bytes(int S, int C, int H,
   return fwd_core_smem_floats(S, C, rows) * sizeof(float);
 }
 
-// The forward core alone, in place on `tok` ([B·S, fwd_row_floats(C)]
-// floats, q | k | v and the pad, 16-byte aligned): ctx over q. The split
+// The forward core alone, on `tok` ([B·S, row floats] floats, q | k | v
+// and the pad, 16-byte aligned), its ctx copied out of the rows (staged:
+// over q; direct: at 3C, beside v) into `ctx` ([B·S, C] floats). The split
 // forward's second launch, for holding it against its plain twin.
-int rmm_column_attention_fwd_core(float* tok, const uint8_t* keep, int B,
-                                  int S, int C, int H, float inv_keep,
-                                  int rows, void* stream) {
+int rmm_column_attention_fwd_core(float* tok, const uint8_t* keep,
+                                  float* ctx, int B, int S, int C, int H,
+                                  float inv_keep, int rows, int direct,
+                                  void* stream) {
   if (B <= 0) return 0;
   if (!split_shape_ok(S, C, H, rows)) return (int)cudaErrorInvalidValue;
-  return (int)launch_fwd_core(tok, keep, B, S, C, H, inv_keep, rows,
-                              static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_fwd_core(tok, keep, B, S, C, H, inv_keep, rows,
+                                    direct != 0, st);
+  if (err != cudaSuccess) return (int)err;
+  const int TT = direct ? direct_row_floats(C, false) : fwd_row_floats(C);
+  return (int)cudaMemcpy2DAsync(
+      ctx, C * sizeof(float), tok + (direct ? 3 * C : 0), TT * sizeof(float),
+      C * sizeof(float), (size_t)B * S, cudaMemcpyDeviceToDevice, st);
 }
 
 // The split forward's three launches (see the note at the top of this
-// file) on the scratch `tok` ([B·S, fwd_row_floats(C)] floats, 16-byte
-// aligned), into out. Where C % 4 == 0, x, wqkv, wout and out must be
-// 16-byte aligned too. Returns the first launch's cudaGetLastError() that
-// is not 0, else 0.
+// file) on the scratch `tok` ([B·S, rmm_column_attention_fwd_row_floats]
+// floats, 16-byte aligned), into out; the attention core staged or direct.
+// Where C % 4 == 0, x, wqkv, wout and out must be 16-byte aligned too.
+// Returns the first launch's cudaGetLastError() that is not 0, else 0.
 int rmm_column_attention_fwd_split(const elem_t* x, const elem_t* wqkv,
                                    const elem_t* bqkv, const elem_t* wout,
                                    const elem_t* bout, const uint8_t* keep,
                                    elem_t* out, float* tok, int B, int S,
                                    int C, int H, float inv_keep, int rows,
-                                   void* stream) {
+                                   int direct, void* stream) {
   if (B <= 0) return 0;
   if (!split_shape_ok(S, C, H, rows)) return (int)cudaErrorInvalidValue;
   auto run = C % 4 ? &fwd_split<true> : &fwd_split<false>;
   return (int)run(x, wqkv, bqkv, wout, bout, keep, out, tok, B, S, C, H,
-                  inv_keep, rows, static_cast<cudaStream_t>(stream));
+                  inv_keep, rows, direct != 0,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // One problem of the narrow GEMM form alone, for holding it against a

@@ -45,7 +45,12 @@
 //    half-warp on 32 distinct banks), float k-major of 132 (≡ 4 mod 32:
 //    k rows 2t apart and 8 columns on 32 distinct banks).
 //  * Every output is one thread's accumulator through a fixed sequence of
-//    MMAs, so two calls give the same bits.
+//    MMAs, so two calls give the same bits. The MMAs' float32 sums are
+//    not rounded as an FMA's are (an exact 24-bit sum of three terms came
+//    out 2^-19 short on an H100), so the drift grows with K: the split
+//    routes' weight gradients sum at most 4,096 tokens a split
+//    (ops/column_attention.py::MMA_SPLIT_TOKENS), the reduce adding the
+//    splits in float32.
 //  * Bias rows (the weight gradients: A and B k-major): the MMA fragments
 //    hold no column of B whole, so the blocks of the first row tile sum
 //    B's columns on the CUDA cores from the staged slices, in float32, a

@@ -15,8 +15,8 @@ by width and row length (:func:`route`):
 * ``tiled``: every C <= 64 that is a multiple of 4 (the main path's
   C = 32) at S <= 16, the register-tiled kernels (and the backward's
   reduce);
-* ``split``: every other shape up to C = 128 (C = 96, the SSL path's
-  C = 128, every C that is not a multiple of 4, and every S > 16):
+* ``split``: every other shape (C = 96, the SSL path's C = 128, C = 256
+  and wider, every C that is not a multiple of 4, and every S > 16):
   hand-written GEMMs around a per-row attention kernel (past S = 16 its
   long form, which walks the keys with an online softmax): float32 FMA
   tiles (``csrc/gemm_f32.cuh``, in their narrow form where C is not a
@@ -25,11 +25,14 @@ by width and row length (:func:`route`):
   :mod:`.gemm_mma`). The forward is three launches, the projections, the
   attention core and the output projection; the backward five, the
   projections, its attention core, dx, the weight gradients and the
-  reduce. A row past S = 16 must fit a block's shared memory: half an
-  SM's where it fits that (two blocks an SM), else a whole block's (one
-  block an SM, :func:`core_budget`; :func:`max_s`: 392 tokens at C = 32
-  and 109 at C = 128, 8 heads, 110 at C = 128, 4 heads, on an H100);
-  longer rows and C > 128 raise :class:`UnsupportedShape`.
+  reduce. The core stages a row in shared memory where it fits a block
+  (half an SM's where it fits that, two blocks an SM, else a whole
+  block's, one block an SM: :func:`core_budget`; :func:`max_s`, the
+  longest staged row: 392 tokens at C = 32, 109 at C = 128 and 55 at
+  C = 256, 8 heads, on an H100), and walks a longer row where it lies in
+  device memory, the long cores' direct form (:func:`core_form`). The
+  kernels take every shape whose C ``nhead`` divides; only device memory
+  bounds them.
 
 The backward recomputes from ``x`` alone, as the TPU kernel does: the
 Function saves ``x``, the weights and the keep-mask, nothing of the
@@ -62,7 +65,8 @@ and the split route, ``bwd_bf16_launches`` those on bf16 ``x``, and
 and nothing else. ``fwd_tiled_bf16_launches`` and ``fwd_long_bf16_launches``
 (``bwd_*`` for the backward) count the bf16 calls through the tiled route
 and through the split route's long cores (S > 16): the launches by route
-and dtype.
+and dtype. ``fwd_direct_launches`` and ``bwd_direct_launches`` count
+the calls whose attention core took the direct form (either dtype).
 """
 from __future__ import annotations
 
@@ -87,14 +91,21 @@ bwd_split_launches = 0
 bwd_bf16_launches = 0
 bwd_tiled_bf16_launches = 0
 bwd_long_bf16_launches = 0
+fwd_direct_launches = 0
+bwd_direct_launches = 0
 reduce_launches = 0
 
 MAX_S = 16    # rows up to here keep their S×S scores on chip (the tiled
 #               kernels, the split routes' short cores); longer, long cores
-MAX_C = 128
 _TILED_MAX_C = 64            # the tiled kernels keep their weights in smem
 _CORE_THREADS = 256          # the split routes' attention cores: a block
 _GEMM_TILE = 128             # rows and columns of a GEMM block tile
+#: the most tokens a split of the bf16 build's weight-gradient GEMM sums:
+#: its tensor cores' float32 sums drop low bits (``csrc/gemm_mma.cuh``),
+#: and a split of ~49k tokens (131072x6x256/8, one a slot of the card) left
+#: the weight gradients 1.4e-4 of their largest entry off float32; the
+#: reduce adds the splits with float32 adds
+MMA_SPLIT_TOKENS = 4096
 
 #: the kernel library of each element type (``ops/build.py`` builds both
 #: from ``csrc/column_attention.cu``)
@@ -115,14 +126,15 @@ _SIGNATURES = {
     "rmm_column_attention_bwd_tiled": (
         _I, [_P] * 9 + [_I] * 4 + [_F, _I, _I, _P]),
     "rmm_column_attention_bwd_core_smem_bytes": (_Z, [_I] * 4),
-    "rmm_column_attention_fwd_row_floats": (_I, [_I]),
+    "rmm_column_attention_bwd_scratch_floats": (_Z, [_I] * 5),
+    "rmm_column_attention_fwd_row_floats": (_I, [_I, _I]),
     "rmm_column_attention_fwd_core_smem_bytes": (_Z, [_I] * 4),
     "rmm_column_attention_fwd_core": (
-        _I, [_P, _P] + [_I] * 4 + [_F, _I, _P]),
+        _I, [_P] * 3 + [_I] * 4 + [_F, _I, _I, _P]),
     "rmm_column_attention_fwd_split": (
-        _I, [_P] * 8 + [_I] * 4 + [_F, _I, _P]),
+        _I, [_P] * 8 + [_I] * 4 + [_F, _I, _I, _P]),
     "rmm_column_attention_bwd_split": (
-        _I, [_P] * 10 + [_I] * 4 + [_F, _I, _I, _P]),
+        _I, [_P] * 10 + [_I] * 4 + [_F, _I, _I, _I, _P]),
     "rmm_cuda_max_smem_per_block": (_I, []),
     "rmm_cuda_smem_per_sm": (_I, []),
     "rmm_column_attention_gemm_blocks_per_sm": (_I, []),
@@ -203,7 +215,8 @@ def fused_column_attention(x, wqkv, bqkv, wout, bout, nhead: int,
         raise ValueError(f"x must be [B, S, C], got {tuple(x.shape)}")
     b, s, c = x.shape
     if nhead < 1 or c % nhead:
-        raise ValueError(f"channels {c} must be divisible by nhead {nhead}")
+        raise UnsupportedShape(
+            f"channels {c} must be divisible by nhead {nhead}")
     expect = {"wqkv": (c, 3 * c), "bqkv": (3 * c,), "wout": (c, c),
               "bout": (c,)}
     for name, t in zip(expect, (wqkv, bqkv, wout, bout)):
@@ -286,13 +299,11 @@ class ColumnAttentionFunction(torch.autograd.Function):
 
 
 class UnsupportedShape(ValueError):
-    """A shape the kernels do not take on the card: C > MAX_C, or a row of
-    S > MAX_S tokens that does not fit a block's share of shared memory in
-    a split route's attention core (:func:`max_s`)."""
+    """A shape no kernel takes: a width ``nhead`` does not divide (the
+    only one; the reference's kernel takes no other)."""
 
 
 def _check_cuda_inputs(x, wqkv, bqkv, wout, bout, keep):
-    c = x.shape[2]
     tensors = {"x": x, "wqkv": wqkv, "bqkv": bqkv, "wout": wout,
                "bout": bout}
     for name, t in tensors.items():
@@ -308,9 +319,6 @@ def _check_cuda_inputs(x, wqkv, bqkv, wout, bout, keep):
                              or not keep.is_contiguous()):
         raise ValueError("drop_mask must be a contiguous bool tensor on the "
                          "device of x")
-    if c > MAX_C:
-        raise UnsupportedShape(f"the kernels take C <= {MAX_C} (C a "
-                               f"multiple of nhead), got C={c}")
 
 
 def _raise_on(err: int, what: str):
@@ -322,9 +330,10 @@ def _raise_on(err: int, what: str):
 def route(c: int, s: int) -> str:
     """The route of both directions for width ``c`` and rows of ``s``
     tokens: ``"tiled"`` for every ``c <= 64`` that is a multiple of 4 at
-    ``s <= 16``, ``"split"`` for every other shape up to ``c = 128`` (in
-    the GEMMs' narrow form where ``c`` is not a multiple of 4, through the
-    long attention cores past ``s = 16``)."""
+    ``s <= 16``, ``"split"`` for every other shape (in the GEMMs' narrow
+    form where ``c`` is not a multiple of 4, through the long attention
+    cores past ``s = 16``; :func:`core_form` says whether the core stages
+    a row)."""
     tiled = s <= MAX_S and c <= _TILED_MAX_C and c % 4 == 0
     return "tiled" if tiled else "split"
 
@@ -342,6 +351,7 @@ def column_attention_fwd(x, wqkv, bqkv, wout, bout, nhead, keep=None,
     dtype. ``plan`` (from :func:`fwd_plan`) overrides the default one."""
     global launches, fwd_tiled_launches, fwd_split_launches
     global fwd_bf16_launches, fwd_tiled_bf16_launches, fwd_long_bf16_launches
+    global fwd_direct_launches
     b, s, c = x.shape
     out = torch.empty_like(x)
     if b == 0:
@@ -352,26 +362,28 @@ def column_attention_fwd(x, wqkv, bqkv, wout, bout, nhead, keep=None,
     kind = route(c, s)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rows, grid = plan or fwd_plan(b, s, c, nhead, dtype=x.dtype)
+        plan = plan or fwd_plan(b, s, c, nhead, dtype=x.dtype)
         x = _aligned(x)
         if kind == "tiled":
             err = lib.rmm_column_attention_fwd_tiled(
                 x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
                 wout.data_ptr(), bout.data_ptr(), keep_ptr, out.data_ptr(),
-                b, s, c, nhead, inv_keep, rows, grid, stream)
+                b, s, c, nhead, inv_keep, plan.rows, plan.grid, stream)
         else:
             wqkv, wout = _aligned(wqkv), _aligned(wout)
-            row = lib.rmm_column_attention_fwd_row_floats(c)
+            row = lib.rmm_column_attention_fwd_row_floats(c, plan.direct)
             tok = torch.empty(b * s, row, dtype=torch.float32,
                               device=x.device)
             err = lib.rmm_column_attention_fwd_split(
                 x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
                 wout.data_ptr(), bout.data_ptr(), keep_ptr, out.data_ptr(),
-                tok.data_ptr(), b, s, c, nhead, inv_keep, rows, stream)
+                tok.data_ptr(), b, s, c, nhead, inv_keep, plan.rows,
+                plan.direct, stream)
     _raise_on(err, f"{kind} forward")
     launches += 1
     fwd_tiled_launches += int(kind == "tiled")
     fwd_split_launches += int(kind == "split")
+    fwd_direct_launches += int(kind == "split" and plan.direct)
     bf16 = x.dtype == torch.bfloat16
     fwd_bf16_launches += int(bf16)
     fwd_tiled_bf16_launches += int(bf16 and kind == "tiled")
@@ -380,37 +392,45 @@ def column_attention_fwd(x, wqkv, bqkv, wout, bout, nhead, keep=None,
 
 
 def attention_core_fwd(tok, nhead: int, keep=None, rate: float = 0.0,
-                       rows: int | None = None):
+                       rows: int | None = None, direct: bool | None = None):
     """The split forward's attention core alone on token rows ``tok``
-    [B, S, 3C] of q | k | v (C at most 128): ctx [B, S, C], computed on a
-    copy padded as the split forward pads its scratch rows. The twin of
-    :func:`reference_attention_core` (which CPU tensors take), for holding
-    the core against it; no forward path calls it, and it counts no
-    launch."""
+    [B, S, 3C] of q | k | v: ctx [B, S, C], computed on a copy laid out as
+    the split forward lays out its scratch rows. The twin of
+    :func:`reference_attention_core`
+    (which CPU tensors take), for holding the core against it; no forward
+    path calls it, and it counts no launch. ``rows`` and ``direct``
+    override the plan's."""
     if tok.device.type == "cpu":
         return reference_attention_core(tok, nhead, keep, rate)
     b, s, c3 = tok.shape
     c = c3 // 3
     lib = _kernel()
-    work = tok.new_zeros(b, s, lib.rmm_column_attention_fwd_row_floats(c))
+    with torch.cuda.device(tok.device):
+        plan = fwd_plan(b, s, c, nhead, rows)
+    if direct is not None:
+        plan = plan._replace(direct=direct)
+    work = tok.new_zeros(b, s, lib.rmm_column_attention_fwd_row_floats(
+        c, plan.direct))
     work[..., :c3] = tok
+    ctx = tok.new_empty(b, s, c)
     if b:
         inv_keep = 1.0 / (1.0 - rate) if keep is not None else 1.0
         with torch.cuda.device(tok.device):
-            rows = fwd_plan(b, s, c, nhead, rows).rows
             err = lib.rmm_column_attention_fwd_core(
                 work.data_ptr(), None if keep is None else keep.data_ptr(),
-                b, s, c, nhead, inv_keep, rows,
-                torch.cuda.current_stream().cuda_stream)
+                ctx.data_ptr(), b, s, c, nhead, inv_keep, plan.rows,
+                plan.direct, torch.cuda.current_stream().cuda_stream)
         _raise_on(err, "split forward's attention core")
-    return work[..., :c]
+    return ctx
 
 
 class FwdPlan(NamedTuple):
     """How the tiled forward runs a shape (rows a group and blocks), or
-    the split forward's attention core (rows a block and blocks)."""
+    the split forward's attention core (rows a block, blocks, and whether
+    it takes the direct form)."""
     rows: int
     grid: int
+    direct: bool = False
 
 
 def fwd_plan(b: int, s: int, c: int, nhead: int, rows: int | None = None,
@@ -421,34 +441,37 @@ def fwd_plan(b: int, s: int, c: int, nhead: int, rows: int | None = None,
     every block walks the same number of groups (the choice of
     ``tools/torch_attn_sweep.py``'s and ``tools/torch_attn_stages.py``'s
     runs, in ``PERF.md``). The split route's core takes the rows of
-    :func:`split_fwd_plan` on this card. ``rows`` overrides the rows a
-    group (a block of the core). ``dtype`` is x's: each has its own
-    build of the kernels. Cached by shape, dtype and card, as
-    :func:`bwd_plan` is."""
+    :func:`split_fwd_plan` on this card, staged or direct by
+    :func:`core_form`. ``rows`` overrides the rows a group (a block of the
+    core). ``dtype`` is x's: each has its own build of the kernels. Cached
+    by shape, dtype and card, as :func:`bwd_plan` is."""
     return _fwd_plan(b, s, c, nhead, rows, dtype,
                      torch.cuda.current_device())
 
 
-def core_rows(b: int, s: int, nhead: int, smem_budget: int,
-              smem_per_row: int) -> int:
+def core_rows(b: int, s: int, nhead: int, smem_rows: int | None) -> int:
     """Rows a block of a split route's attention core (either direction):
     as many as give each of its 256 threads at most one (row, head, query)
-    (past S = 16, the long cores: each of its 8 warps at most one (row,
-    head)) and fit ``smem_budget`` bytes of shared memory at
-    ``smem_per_row`` a row, at least one (where a row has more items, as
-    at 8 heads past S = 32, its warps walk them in steps of the block)."""
+    (past S = 16, the long cores, and in the direct form at any S: each of
+    its 8 warps at most one (row, head)) and, where the core stages its
+    rows, at most ``smem_rows``, the rows its shared memory holds (None:
+    the direct form, which stages nothing); at least one (where a row has
+    more items, as at 8 heads past S = 32, its warps walk them in steps of
+    the block)."""
+    if smem_rows is None:
+        return max(1, min(b, _CORE_THREADS // 32 // nhead))
     items = (_CORE_THREADS // (nhead * s) if s <= MAX_S
              else _CORE_THREADS // 32 // nhead)
-    return max(1, min(b, items, smem_budget // smem_per_row))
+    return max(1, min(b, items, smem_rows))
 
 
-def split_fwd_plan(b: int, s: int, nhead: int, smem_budget: int,
-                   smem_per_row: int, rows: int | None = None) -> FwdPlan:
+def split_fwd_plan(b: int, s: int, nhead: int, smem_rows: int | None,
+                   rows: int | None = None) -> FwdPlan:
     """The split forward's plan: its attention core's rows a block
-    (:func:`core_rows`, or ``rows``) and the blocks that cover the B rows
-    once."""
-    rows = rows or core_rows(b, s, nhead, smem_budget, smem_per_row)
-    return FwdPlan(rows, -(-b // rows))
+    (:func:`core_rows`, or ``rows``), the blocks that cover the B rows
+    once, and its form (direct where ``smem_rows`` is None)."""
+    rows = rows or core_rows(b, s, nhead, smem_rows)
+    return FwdPlan(rows, -(-b // rows), smem_rows is None)
 
 
 def core_budget(row_bytes: int, block_bytes: int, sm_bytes: int) -> int:
@@ -459,21 +482,36 @@ def core_budget(row_bytes: int, block_bytes: int, sm_bytes: int) -> int:
     each, at most a block's) where a row fits that, else one block an SM
     (a whole block's). Rows that fit two blocks an SM keep their plan;
     longer ones, up to a block's bytes, run one block an SM (the LM's
-    64-token rows at C = 128, 4 heads, backward). H100: 232,448 bytes a
-    block, 233,472 an SM."""
+    64-token rows at C = 128, 4 heads, backward); longer still take the
+    direct form (:func:`core_form`). H100: 232,448 bytes a block, 233,472
+    an SM."""
     half = min(block_bytes, sm_bytes // 2 - 1024)
     return half if row_bytes <= half else block_bytes
+
+
+def core_form(s: int, c: int, nhead: int, block_bytes: int, sm_bytes: int,
+              row_bytes) -> str:
+    """How both split routes' attention cores take rows of ``s`` tokens at
+    width ``c``: ``"staged"`` where the forward's and the backward's row
+    (``row_bytes(s, c, nhead)``) each fit :func:`core_budget` on a card of
+    ``block_bytes`` a block and ``sm_bytes`` an SM (a row is staged in
+    shared memory), else ``"direct"`` (the long cores walk the row where it
+    lies in device memory). Past S = 16 that is ``s <= core_max_s(...)``;
+    at S <= 16 only a very wide row (C near a thousand) goes direct."""
+    return ("staged" if all(r <= core_budget(r, block_bytes, sm_bytes)
+                            for r in row_bytes(s, c, nhead)) else "direct")
 
 
 def core_max_s(c: int, nhead: int, block_bytes: int, sm_bytes: int,
                row_bytes) -> int:
     """The longest row, in tokens, whose forward and backward rows
     (``row_bytes(s, c, nhead)``) both fit :func:`core_budget` on a card of
-    ``block_bytes`` a block and ``sm_bytes`` an SM; at least 16 (the short
-    cores hold their rows in any case)."""
+    ``block_bytes`` a block and ``sm_bytes`` an SM: the longest row past
+    S = 16 that the cores stage (longer ones take the direct form); at
+    least 16 (the short cores' rows)."""
     def fits(s):
-        return all(r <= core_budget(r, block_bytes, sm_bytes)
-                   for r in row_bytes(s, c, nhead))
+        return core_form(s, c, nhead, block_bytes, sm_bytes,
+                         row_bytes) == "staged"
 
     s = MAX_S
     while fits(s + 1):
@@ -492,19 +530,10 @@ def _core_budget(row_bytes: int) -> int:
     return core_budget(row_bytes, *_card_smem())
 
 
-def _check_core_fits(smem_bytes, s: int, c: int, nhead: int, rows: int):
-    """Raises unless ``rows`` rows of a split route's attention core (its
-    bytes from the library's ``smem_bytes(S, C, H, rows)``) fit a block,
-    and past S = 16 unless a row fits the core's budget
-    (:class:`UnsupportedShape`: keys streamed through shared memory would
-    take longer rows)."""
-    row = smem_bytes(s, c, nhead, 1)
-    if s > MAX_S and row > _core_budget(row):
-        raise UnsupportedShape(
-            f"a row of S={s} tokens at C={c}, nhead={nhead} takes {row} "
-            f"bytes of a split route's attention core, more than the "
-            f"{_core_budget(row)} a block may take (at most "
-            f"S={max_s(c, nhead)} at this width)")
+def _check_rows_fit(smem_bytes, s: int, c: int, nhead: int, rows: int):
+    """Raises unless ``rows`` rows of a staged attention core (its bytes
+    from the library's ``smem_bytes(S, C, H, rows)``) fit a block: a plan
+    given too many ``rows``."""
     most = _kernel().rmm_cuda_max_smem_per_block()
     if smem_bytes(s, c, nhead, rows) > most:
         raise ValueError(f"a split route's attention core does not fit "
@@ -514,8 +543,8 @@ def _check_core_fits(smem_bytes, s: int, c: int, nhead: int, rows: int):
 
 def core_row_bytes(s: int, c: int, nhead: int) -> tuple[int, int]:
     """(forward, backward) shared-memory bytes a row of S tokens takes in
-    a split route's attention core: the library's ``fwd_core_smem_bytes``
-    and ``bwd_core_smem_bytes`` at one row."""
+    a split route's staged attention core: the library's
+    ``fwd_core_smem_bytes`` and ``bwd_core_smem_bytes`` at one row."""
     lib = _kernel()
     return (lib.rmm_column_attention_fwd_core_smem_bytes(s, c, nhead, 1),
             lib.rmm_column_attention_bwd_core_smem_bytes(s, c, nhead, 1))
@@ -523,10 +552,16 @@ def core_row_bytes(s: int, c: int, nhead: int) -> tuple[int, int]:
 
 def max_s(c: int, nhead: int) -> int:
     """The longest row, in tokens, that both split routes' attention cores
-    take at width ``c`` on the current card (:func:`core_max_s` with the
-    library's bytes a row): on an H100 392 at C = 32 and 109 at C = 128,
-    8 heads, and 110 at C = 128, 4 heads."""
+    stage at width ``c`` on the current card (:func:`core_max_s` with the
+    library's bytes a row): on an H100 392 at C = 32, 109 at C = 128 and
+    55 at C = 256, 8 heads, and 110 at C = 128, 4 heads. Longer rows take
+    the direct form."""
     return core_max_s(c, nhead, *_card_smem(), core_row_bytes)
+
+
+def _core_form(s: int, c: int, nhead: int) -> str:
+    """:func:`core_form` on the current card."""
+    return core_form(s, c, nhead, *_card_smem(), core_row_bytes)
 
 
 @functools.lru_cache(maxsize=256)
@@ -534,10 +569,12 @@ def _fwd_plan(b, s, c, nhead, rows, dtype, device) -> FwdPlan:
     del device  # only a cache key: the plan depends on the card
     lib = _kernel(dtype)
     if route(c, s) == "split":
+        if _core_form(s, c, nhead) == "direct":
+            return split_fwd_plan(b, s, nhead, None, rows)
         smem_bytes = lib.rmm_column_attention_fwd_core_smem_bytes
         row = smem_bytes(s, c, nhead, 1)
-        plan = split_fwd_plan(b, s, nhead, _core_budget(row), row, rows)
-        _check_core_fits(smem_bytes, s, c, nhead, plan.rows)
+        plan = split_fwd_plan(b, s, nhead, _core_budget(row) // row, rows)
+        _check_rows_fit(smem_bytes, s, c, nhead, plan.rows)
         return plan
     if rows is None:
         rows = _tiled_rows(
@@ -576,12 +613,13 @@ class BwdPlan(NamedTuple):
     partial slices of ``4C² + 4C`` floats the reduce adds (blocks ×
     stage-F token splits for the tiled kernel, the token splits of the
     weight-gradient GEMM for the split route) and, for the split route,
-    the tokens a split."""
+    the tokens a split and whether its core takes the direct form."""
     route: str
     rows: int
     grid: int
     slices: int
     split_tokens: int = 0
+    direct: bool = False
 
 
 def bwd_plan(b: int, s: int, c: int, nhead: int, rows: int | None = None,
@@ -593,7 +631,8 @@ def bwd_plan(b: int, s: int, c: int, nhead: int, rows: int | None = None,
     block walks the same number of groups (the choice of
     ``tools/torch_attn_sweep.py``'s runs, in ``PERF.md``); ``rows``
     overrides the rows a group (of the attention core, on the split
-    route). The split route's plan is :func:`split_plan` on this card.
+    route). The split route's plan is :func:`split_plan` on this card,
+    staged or direct by :func:`core_form`.
     Plans are cached by shape, x's dtype (each has its own build) and
     card: a plan costs a few dozen calls into the library, about as long
     as the node-shape kernel itself."""
@@ -602,27 +641,31 @@ def bwd_plan(b: int, s: int, c: int, nhead: int, rows: int | None = None,
 
 
 def split_plan(b: int, s: int, c: int, nhead: int, sms: int,
-               gemm_per_sm: int, smem_budget: int, smem_per_row: int,
-               rows: int | None = None) -> BwdPlan:
+               gemm_per_sm: int, smem_rows: int | None,
+               rows: int | None = None,
+               max_split_tokens: int | None = None) -> BwdPlan:
     """The split route's plan on a card of ``sms`` SMs, where an SM holds
     ``gemm_per_sm`` blocks of the weight-gradient GEMM and a block of the
-    attention core may take ``smem_budget`` bytes of shared memory, of
-    which it needs ``smem_per_row`` a row.
+    attention core stages at most ``smem_rows`` rows in its shared memory
+    (None: the core's direct form, which stages nothing).
 
     The attention core takes :func:`core_rows` rows a block (``rows``
     overrides it). The weight-gradient GEMM cuts the B·S tokens into
     ranges of ``split_tokens`` (range ``i`` is tokens ``i·split_tokens`` up
     to the next range or B·S), as many as give its output tiles (4 at
-    C = 128) one block on every slot of the card, and writes one partial
-    slice per range."""
-    rows = rows or core_rows(b, s, nhead, smem_budget, smem_per_row)
+    C = 128) one block on every slot of the card, each at most
+    ``max_split_tokens`` (the bf16 build's :data:`MMA_SPLIT_TOKENS`), and
+    writes one partial slice per range."""
+    rows = rows or core_rows(b, s, nhead, smem_rows)
     tiles = -(-c // _GEMM_TILE) * (-(-3 * c // _GEMM_TILE)
                                    + -(-c // _GEMM_TILE))
     n = b * s
     want = max(1, sms * max(gemm_per_sm, 1) // tiles)
     split_tokens = -(-n // want)
+    if max_split_tokens:
+        split_tokens = min(split_tokens, max_split_tokens)
     return BwdPlan("split", rows, -(-b // rows), -(-n // split_tokens),
-                   split_tokens)
+                   split_tokens, smem_rows is None)
 
 
 @functools.lru_cache(maxsize=256)
@@ -636,11 +679,16 @@ def _bwd_plan(b, s, c, nhead, rows, dtype, device) -> BwdPlan:
             _raise_on(-per_sm, "split backward's GEMM")
         sms = torch.cuda.get_device_properties(
             torch.cuda.current_device()).multi_processor_count
+        most = MMA_SPLIT_TOKENS if dtype == torch.bfloat16 else None
+        if _core_form(s, c, nhead) == "direct":
+            return split_plan(b, s, c, nhead, sms, per_sm, None, rows,
+                              max_split_tokens=most)
         smem_bytes = lib.rmm_column_attention_bwd_core_smem_bytes
         row = smem_bytes(s, c, nhead, 1)
-        plan = split_plan(b, s, c, nhead, sms, per_sm, _core_budget(row),
-                          row, rows)
-        _check_core_fits(smem_bytes, s, c, nhead, plan.rows)
+        plan = split_plan(b, s, c, nhead, sms, per_sm,
+                          _core_budget(row) // row, rows,
+                          max_split_tokens=most)
+        _check_rows_fit(smem_bytes, s, c, nhead, plan.rows)
         return plan
     if rows is None:
         rows = _tiled_rows(
@@ -666,6 +714,7 @@ def column_attention_bwd(x, do, wqkv, bqkv, wout, nhead, keep=None,
     global bwd_launches, bwd_tiled_launches, bwd_split_launches
     global bwd_bf16_launches, reduce_launches
     global bwd_tiled_bf16_launches, bwd_long_bf16_launches
+    global bwd_direct_launches
     b, s, c = x.shape
     dx = torch.empty_like(x)
     lib = _kernel(x.dtype)
@@ -683,13 +732,14 @@ def column_attention_bwd(x, do, wqkv, bqkv, wout, nhead, keep=None,
             keep_ptr = None if keep is None else keep.data_ptr()
             if plan.route == "split":
                 wqkv, wout = _aligned(wqkv), _aligned(wout)
-                tok = torch.empty(b * s, 4 * c, **f32)
+                tok = torch.empty(lib.rmm_column_attention_bwd_scratch_floats(
+                    b, s, c, nhead, plan.direct), **f32)
                 err = lib.rmm_column_attention_bwd_split(
                     x.data_ptr(), do.data_ptr(), wqkv.data_ptr(),
                     bqkv.data_ptr(), wout.data_ptr(), keep_ptr,
                     dx.data_ptr(), tok.data_ptr(), partials.data_ptr(),
                     grads.data_ptr(), b, s, c, nhead, inv_keep, plan.rows,
-                    plan.split_tokens, stream)
+                    plan.split_tokens, plan.direct, stream)
             else:
                 err = lib.rmm_column_attention_bwd_tiled(
                     x.data_ptr(), do.data_ptr(), wqkv.data_ptr(),
@@ -700,6 +750,7 @@ def column_attention_bwd(x, do, wqkv, bqkv, wout, nhead, keep=None,
         bwd_launches += 1
         bwd_tiled_launches += int(plan.route == "tiled")
         bwd_split_launches += int(plan.route == "split")
+        bwd_direct_launches += int(plan.route == "split" and plan.direct)
         bf16 = x.dtype == torch.bfloat16
         bwd_bf16_launches += int(bf16)
         bwd_tiled_bf16_launches += int(bf16 and plan.route == "tiled")

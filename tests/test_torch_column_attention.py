@@ -227,7 +227,7 @@ def test_split_plan_token_ranges_cover_every_token_once(b, s, sms, per_sm):
     # the core's bytes a row at C = 128, nhead 8, as the library reports
     # them: S token rows of 4C + 4 floats and 2·nhead·S² floats of P and dS
     per_row = 4 * (s * (4 * c + 4) + 2 * h * s * s)
-    plan = ca.split_plan(b, s, c, h, sms, per_sm, budget, per_row)
+    plan = ca.split_plan(b, s, c, h, sms, per_sm, budget // per_row)
     n = b * s
     # the kernel's ranges: split i sums tokens i·split_tokens up to the
     # next split or n
@@ -264,10 +264,10 @@ def test_long_core_rows_give_each_warp_a_row_head(b, s, h, budget,
     as many rows a block as give each of its 8 warps at most one (row,
     head) and fit its budget, at least one; both routes' plans take them
     and cover the B rows once."""
-    assert ca.core_rows(b, s, h, budget, per_row) == want
+    assert ca.core_rows(b, s, h, budget // per_row) == want
     assert want == 1 or (want * h <= 8 and want * per_row <= budget)
-    for plan in (ca.split_fwd_plan(b, s, h, budget, per_row),
-                 ca.split_plan(b, s, 32, h, 132, 2, budget, per_row)):
+    for plan in (ca.split_fwd_plan(b, s, h, budget // per_row),
+                 ca.split_plan(b, s, 32, h, 132, 2, budget // per_row)):
         assert plan.rows == want
         assert (plan.grid - 1) * plan.rows < b <= plan.grid * plan.rows
 
@@ -315,10 +315,10 @@ def test_split_forward_plan_covers_every_row_once(b, s, h, budget):
     (row, head, query), fits its shared-memory budget (S token rows of
     3C + 4 floats a row at C = 128) and its blocks cover the B rows once."""
     per_row = 4 * s * (3 * 128 + 4)
-    plan = ca.split_fwd_plan(b, s, h, budget, per_row)
+    plan = ca.split_fwd_plan(b, s, h, budget // per_row)
     assert 1 <= plan.rows <= b
     assert plan.rows * h * s <= 256
     assert plan.rows * per_row <= budget
     assert (plan.grid - 1) * plan.rows < b <= plan.grid * plan.rows
     assert plan.rows == min(b, 256 // (h * s), budget // per_row)
-    assert ca.split_fwd_plan(b, s, h, budget, per_row, rows=3).rows == 3
+    assert ca.split_fwd_plan(b, s, h, budget // per_row, rows=3).rows == 3

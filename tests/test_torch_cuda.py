@@ -228,18 +228,115 @@ def test_column_attention_kernel_refuses_what_it_cannot_run(cuda):
                                   bout, 8)
     with pytest.raises(ValueError, match="is on cpu"):
         ca.fused_column_attention(x, wqkv.cpu(), bqkv, wout, bout, 8)
-    wide = attention_inputs(0, 8, 6, 136, cuda)
-    with pytest.raises(ca.UnsupportedShape, match="C <= 128"):
-        ca.fused_column_attention(*wide, 8)
-    # past S = 16 a row must fit a block's shared memory (one block an SM
-    # past half an SM): 600 tokens fit neither core at C = 32, one past
-    # max_s not the backward's (the larger a token)
-    too_long = torch.zeros(2, 600, 32, device=cuda)
-    with pytest.raises(ca.UnsupportedShape, match="at most S="):
-        ca.fused_column_attention(too_long, wqkv, bqkv, wout, bout, 8)
-    with pytest.raises(ca.UnsupportedShape, match="at most S="):
-        ca.bwd_plan(2, ca.max_s(32, 8) + 1, 32, 8)
+    # the only shape no kernel takes: a width nhead does not divide (C =
+    # 136 and rows past max_s run: test_wide_and_long_rows_match_plain)
+    with pytest.raises(ca.UnsupportedShape, match="divisible"):
+        ca.fused_column_attention(x, wqkv, bqkv, wout, bout, 7)
     assert ca.launches == before
+
+
+# Widths past 128 and rows past max_s (both split routes; the rows that do
+# not fit a block's shared memory through the long cores' direct form): C
+# = 136 and 256 at head widths 17 and 32 (256 also at S = 2, the node
+# tokens' short core), 256 at 64, 512, 130 at 13 (the narrow GEMMs), a row
+# past max_s at C = 256 (56 tokens) and at C = 32 (600), and 60 tokens at
+# C = 130.
+WIDE_SHAPES = [
+    (5, 6, 136, 8),
+    (33, 6, 256, 8),
+    (37, 2, 256, 8),
+    (29, 6, 256, 4),
+    (7, 6, 512, 8),
+    (45, 6, 130, 10),
+    (9, 56, 256, 8),
+    (3, 600, 32, 8),
+    (4, 60, 130, 10),
+]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,s,c,h", WIDE_SHAPES)
+def test_wide_and_long_rows_match_plain(cuda, b, s, c, h, masked):
+    """Both directions through ``fused_column_attention`` against autograd
+    of the plain version: the split route, its direct form exactly where a
+    row does not fit a block (``max_s``), counted by the direct
+    counters."""
+    direct = s > ca.max_s(c, h)
+    before = (ca.fwd_split_launches, ca.bwd_split_launches,
+              ca.fwd_direct_launches, ca.bwd_direct_launches)
+    with torch.inference_mode():
+        out, ref = forward_case(cuda, b, s, c, h, None)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
+    got, want = backward_case(cuda, b, s, c, h, masked)
+    assert_gradients_match(got, want)
+    assert ca.route(c, s) == "split"
+    assert ca.fwd_plan(b, s, c, h).direct == ca.bwd_plan(b, s, c, h).direct \
+        == direct
+    assert (ca.fwd_split_launches, ca.bwd_split_launches,
+            ca.fwd_direct_launches, ca.bwd_direct_launches) == (
+        before[0] + 2, before[1] + 1, before[2] + 2 * direct,
+        before[3] + direct)
+
+
+@pytest.mark.parametrize("b,s,c,h", [(13, 40, 256, 8), (9, 20, 130, 10),
+                                     (7, 6, 256, 8), (5, 17, 96, 4)])
+def test_direct_form_gives_the_staged_bits(cuda, b, s, c, h):
+    """At rows that fit a block, the direct form (the same walks on the
+    rows where they lie) gives the staged long cores' bits in both
+    directions, the forward core alone too (head widths 32, 13 and 24:
+    the staged cores' runtime-width code, which the direct form runs);
+    at S = 6 it holds against the plain twin."""
+    args = attention_inputs(b + c, b, s, c, cuda)
+    do = torch.from_numpy(np.random.RandomState(s).randn(b, s, c).astype(
+        np.float32)).to(cuda)
+    mask = torch.from_numpy(
+        np.random.RandomState(b).rand(b, h, s, s) >= 0.3).to(cuda)
+    fplan, bplan = ca.fwd_plan(b, s, c, h), ca.bwd_plan(b, s, c, h)
+    assert not fplan.direct and not bplan.direct
+    with torch.inference_mode():
+        staged, direct = (
+            ca.column_attention_fwd(*args, h, mask, 0.3, plan=p)
+            for p in (fplan, fplan._replace(direct=True, rows=1)))
+        ref = ca.reference_column_attention(*args, h, mask, 0.3)
+    x, wqkv, bqkv, wout, _ = args
+    gs, gd = (ca.column_attention_bwd(x, do, wqkv, bqkv, wout, h, mask, 0.3,
+                                      plan=p)
+              for p in (bplan, bplan._replace(direct=True, rows=1)))
+    if s > 16:
+        assert torch.equal(staged, direct)
+        for g, d in zip(gs, gd):
+            assert torch.equal(g, d)
+        tok = torch.matmul(x, wqkv) + bqkv
+        assert torch.equal(ca.attention_core_fwd(tok, h, mask, 0.3),
+                           ca.attention_core_fwd(tok, h, mask, 0.3,
+                                                 direct=True))
+    np.testing.assert_allclose(direct.cpu().numpy(), ref.cpu().numpy(),
+                               **TOL)
+    leaves = [a.detach().requires_grad_() for a in args]
+    want = torch.autograd.grad(
+        ca.reference_column_attention(*leaves, h, mask, 0.3), leaves, do)
+    assert_gradients_match(gd, want)
+
+
+def test_direct_form_repeats_bitwise(cuda):
+    """Both directions of the direct form twice on the same inputs (C =
+    256, 60 tokens, the keep-mask): the same bits."""
+    b, s, c, h = 11, 60, 256, 8
+    args = attention_inputs(1, b, s, c, cuda)
+    do = torch.from_numpy(np.random.RandomState(2).randn(b, s, c).astype(
+        np.float32)).to(cuda)
+    mask = torch.from_numpy(
+        np.random.RandomState(3).rand(b, h, s, s) >= 0.083).to(cuda)
+    assert ca.fwd_plan(b, s, c, h).direct
+    with torch.inference_mode():
+        first, second = (ca.column_attention_fwd(*args, h, mask, 0.083)
+                         for _ in range(2))
+    assert torch.equal(first, second)
+    x, wqkv, bqkv, wout, _ = args
+    first, second = (ca.column_attention_bwd(x, do, wqkv, bqkv, wout, h,
+                                             mask, 0.083) for _ in range(2))
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 # Rows past S = 16: the long attention cores of the split routes (a warp
@@ -398,14 +495,20 @@ def test_long_rows_take_a_keep_mask_at_any_offset(cuda, b, s, c, h, offset):
 
 
 def test_longest_rows_of_record_fit(cuda):
-    """Both cores take the longest rows they took before their redesign:
-    195 tokens at C = 32 and 54 at C = 128, 8 heads; and, one block an SM,
-    the text LM's 64 at C = 128, 4 heads, whose backward row (134,144
-    bytes) takes a whole block."""
-    assert ca.max_s(32, 8) >= 195
-    assert ca.max_s(128, 8) >= 54
-    assert ca.max_s(128, 4) >= 64
+    """``max_s`` is now the longest row the cores stage (longer ones take
+    the direct form): on an H100 392 tokens at C = 32, 109 at C = 128, 55
+    at C = 256, 8 heads, and 110 at C = 128, 4 heads, beyond the rows of
+    record (195 and 54; the text LM's 64 at C = 128, 4 heads, one block an
+    SM: its backward row of 134,144 bytes takes a whole block); the
+    library's bytes a row are those ``tests/test_torch_wide_attention.py``
+    plans with."""
+    assert (ca.max_s(32, 8), ca.max_s(128, 8), ca.max_s(256, 8),
+            ca.max_s(128, 4)) == (392, 109, 55, 110)
     assert ca.core_row_bytes(64, 128, 4) == (99_328, 134_144)
+    assert ca.core_row_bytes(56, 256, 8) == (4 * 56 * 772,
+                                             4 * 56 * (1028 + 16))
+    assert ca.core_row_bytes(6, 130, 10) == (4 * 6 * 420,
+                                             4 * (6 * 524 + 2 * 10 * 36))
     block, _ = ca._card_smem()
     assert ca._core_budget(134_144) == block
 
@@ -1012,6 +1115,11 @@ BF16_SHAPES = [
     (4096, 130, 32, 8),  # ogbn-arxiv's (its year a feature too)
     (256, 64, 64, 4),    # the downstream LM's 64-token rows
     (8192, 2, 32, 8),    # the node families' edge tokens (tiled)
+    (33, 6, 256, 8),     # C = 256 (tensor-core GEMMs)
+    (37, 2, 256, 8),     # its node tokens (the bf16 run's bf16 calls)
+    (45, 6, 130, 10),    # C = 130 (narrow GEMMs)
+    (9, 60, 256, 8),     # past max_s: the direct form
+    (3, 600, 32, 8),
 ]
 #: (B, S, C, H) that --precision bf16 puts on a path through the bf16
 #: build, by the route they take: the node families' node tokens and the
@@ -1246,6 +1354,29 @@ def test_mma_gemm_matches_float64(cuda, problem, m, n, k, split_k):
         tol = tol + 2.0 ** -8 * np.abs(want)
     excess = np.abs(got - want) - tol
     assert excess.max() <= 0, float(excess.max())
+
+
+def test_bf16_weight_gradients_over_786k_tokens(cuda):
+    """The bf16 build's weight gradients at the SSL edge lanes at C = 256
+    (786,432 tokens, the 0.5 keep-mask), their GEMM summing at most
+    MMA_SPLIT_TOKENS tokens a split, within 1e-4 of the largest entry of
+    the plain version's float32 gradients (one split a slot, ~49k tokens,
+    left them 1.4e-4 off: the tensor cores' float32 sums drop low bits)."""
+    b, s, c, h = 131072, 6, 256, 8
+    x, masters = bf16_inputs(7, b, s, c, cuda)
+    weights = [m.bfloat16() for m in masters]
+    gen = torch.Generator(cuda).manual_seed(5)
+    do = torch.randn(b, s, c, device=cuda, generator=gen).bfloat16()
+    mask = torch.rand(b, h, s, s, device=cuda, generator=gen) >= 0.5
+    plan = ca.bwd_plan(b, s, c, h, dtype=torch.bfloat16)
+    assert plan.split_tokens <= ca.MMA_SPLIT_TOKENS
+    got = ca.column_attention_bwd(x, do, *weights[:3], h, mask, 0.5)
+    leaves = [m.requires_grad_() for m in masters]
+    want = torch.autograd.grad(ca.reference_column_attention(
+        x, *leaves, h, mask, 0.5), leaves, do)
+    for g, w in zip(got[1:], want):
+        err = float((g - w).abs().max() / w.abs().max())
+        assert err <= 1e-4, err
 
 
 @pytest.mark.parametrize("problem", list(gm.PROBLEMS))
