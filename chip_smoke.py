@@ -894,7 +894,8 @@ def fwd_record(rng, dev, b, s, c, h, rate, card, repeat=False,
     plan = ca.fwd_plan(b, s, c, h)
     rec = {"phase": phase, "kernel": "column_attention_fwd",
            "B": b, "S": s, "C": c, "H": h, "dropout": rate,
-           "route": route, "rows": plan.rows, "blocks": plan.grid,
+           "route": route, "rows": plan.rows,
+           "blocks": ca.core_blocks(plan, h),
            "direct": plan.direct,
            "repeat_bitwise_equal": repeat_equal, "max_abs_err": err,
            "core_max_abs_err": core_err,
@@ -974,7 +975,7 @@ def bwd_record(rng, dev, b, s, c, h, rate, card, repeat=False,
     rec = {"phase": phase, "kernel": "column_attention_bwd",
            "B": b, "S": s, "C": c, "H": h, "dropout": rate,
            "route": route, "rows": plan.rows,
-           "blocks": plan.grid, "slices": plan.slices,
+           "blocks": ca.core_blocks(plan, h), "slices": plan.slices,
            "direct": plan.direct,
            "repeat_bitwise_equal": repeat_equal,
            "max_rel_err": errs, "tol": GRAD_TOL,
@@ -5424,12 +5425,16 @@ def bf16_family_parity_phase(card: str) -> dict:
 #: without it: 200 target rows at C = 512 (the SSL dropout),
 #: 32768x6x130/10 (the narrow GEMMs at 10 heads), and rows past the old
 #: max_s, through the direct form: 4096 lanes of Elliptic's 167 and of
-#: ogbn-arxiv's 130 node tokens at --n_hidden 256 and 600 tokens at C = 32
-#: (the node path's dropout)
+#: ogbn-arxiv's 130 node tokens at --n_hidden 256, 600 tokens at C = 32
+#: and :data:`WIDE_RAGGED` (the node path's dropout)
 WIDE_EXTRA = [(200, 6, 512, 8, SSL_DROPOUT), (32768, 6, 130, 10, SSL_DROPOUT),
               (4096, NODE_S, 256, 8, TRAIN_DROPOUT),
               (4096, 130, 256, 8, TRAIN_DROPOUT),
               (256, 600, 32, 8, TRAIN_DROPOUT)]
+#: a direct-form row whose last chunk of 32 keys holds 8 (520 tokens at
+#: C = 256, 8 heads: two rounds of the forward's query groups), checked
+#: with two calls bitwise equal as Elliptic's masked node rows are
+WIDE_RAGGED = (256, 520, 256, 8, TRAIN_DROPOUT)
 WIDE_C = 256
 #: wide_paths' batches: the supervised float32 run's train and val batches;
 #: its bf16 run's, the SSL run's and Elliptic's
@@ -5472,7 +5477,8 @@ def wide_shapes(path_shapes) -> list:
     runs at C = 256 gave the kernels (``path_shapes``, in order), then
     :data:`WIDE_EXTRA`, each with its keep-mask and without it, once."""
     out = []
-    for b, s, c, h, p in [*sorted(map(tuple, path_shapes)), *WIDE_EXTRA]:
+    for b, s, c, h, p in [*sorted(map(tuple, path_shapes)), *WIDE_EXTRA,
+                          WIDE_RAGGED]:
         for shape in ((b, s, c, h, p), (b, s, c, h, 0.0)):
             if shape not in out:
                 out.append(shape)
@@ -5486,10 +5492,11 @@ def kernel_wide_phase(card: str, wide: dict) -> dict:
     their plain twin and the library call; every shape through the split
     route, its core in the direct form exactly where S passes
     ``max_s(C, H)`` (the direct counters move there and nowhere else); two
-    calls of each direction bitwise equal at the masked SSL lanes (staged)
-    and Elliptic's masked node rows (direct); each shape timed once; the
-    inputs drawn on the card (:func:`card_inputs`). Returns the records by
-    direction and dtype, in the order of the shapes, and the shapes."""
+    calls of each direction bitwise equal at the masked SSL lanes (staged),
+    Elliptic's masked node rows and :data:`WIDE_RAGGED` (direct); each
+    shape timed once; the inputs drawn on the card (:func:`card_inputs`).
+    Returns the records by direction and dtype, in the order of the
+    shapes, and the shapes."""
     import numpy as np
     import torch
 
@@ -5498,7 +5505,7 @@ def kernel_wide_phase(card: str, wide: dict) -> dict:
     dev = torch.device("cuda")
     rng = np.random.RandomState(3)
     shapes = wide_shapes(wide["shapes"])
-    repeat = (wide["ssl_lanes"], wide["elliptic_rows"])
+    repeat = (wide["ssl_lanes"], wide["elliptic_rows"], WIDE_RAGGED)
     check(all(tuple(r) in shapes for r in repeat),
           f"the repeated shapes {repeat} are not wide_paths' shapes")
     recs = {"fwd": [], "bwd": [], "fwd_bf16": [], "bwd_bf16": [],
@@ -6458,8 +6465,8 @@ def wide_entries(kwide: dict, wide: dict) -> list:
                          at(recs, wide["elliptic_rows"], 0.0), {
                              "path": "wide_paths: Elliptic's node tokens "
                                      "(S = 167) at --n_hidden 256",
-                             "core": f"column_attention_{d}_core_long_kernel"
-                                     " (DIRECT)",
+                             "core": f"column_attention_{d}_core_stream"
+                                     "_kernel",
                              "includes": "rmm_tpu_torch/csrc/gemm_f32.cuh",
                              "launches": sum(direct.values()),
                              "launches_by_path": direct,

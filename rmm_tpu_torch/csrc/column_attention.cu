@@ -92,8 +92,9 @@
 //
 // The tiled kernels take S <= 16; the split routes any S and any C: a row
 // that fits a block's shared memory is staged there (past S = 16 through
-// the long attention cores below), a longer one is walked where it lies in
-// device memory (the direct form of the long cores). All take C % nhead
+// the long attention cores below), a longer one streams through shared
+// memory in chunks, a (row, head) a block (the direct form: the streamed
+// cores). All take C % nhead
 // == 0 (the wrapper checks). They launch on the caller's stream, allocate
 // nothing and do not synchronize; the C entry points return
 // cudaGetLastError().
@@ -793,6 +794,30 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// 8 and 4 bytes from device memory to shared memory (cp.async through L1:
+// the .cg form takes only 16), and the group forms: commit the copies
+// started so far as a group; wait until at most N groups are in flight.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // 4 elements of x into a float token row: float32 by cp.async (landing by
 // cp_async_wait_all()), bf16 through registers, converted (cp.async copies
 // bytes as they lie).
@@ -1375,8 +1400,9 @@ column_attention_fwd_core_kernel(float* __restrict__ tok,
 //    32·R take more groups, each group of a row's heads one round of the
 //    block's warps.
 //  * The head width a compile-time constant where the paths need speed
-//    (hd = 4 at C = 32/8, 16 at C = 128/8): the channel loops unroll and
-//    the sums hold the head's live channels. Any other width takes the
+//    (hd = 4 at C = 32/8, 16 at C = 128/8, 32 at C = 256/8): the channel
+//    loops unroll, the sums hold the head's live channels and each score
+//    is computed once. Any other width takes the
 //    same code at a runtime width, in slices of kSlice channels (a wider
 //    head walks the keys again for each), its own vector read from shared
 //    memory.
@@ -1406,23 +1432,62 @@ column_attention_fwd_core_kernel(float* __restrict__ tok,
 // the node keep-mask, backward + reduce 5.19 and 7.69 (bounds 0.30, 0.33
 // and 0.88; exp floors 0.22 and 0.66). See PERF.md.
 //
-// The direct form (DIRECT): a row too long for a block's shared memory (S
-// past max_s, e.g. 56 tokens at C = 256, 8 heads; or, at a very wide C, a
-// short row) is walked where it lies in device memory: the same walks,
-// reading the row's token rows from the scratch `tok` (L1 and L2 serve the
-// rereads), nothing staged. So that no walk reads what another warp of the
-// row writes, the outputs go to columns of the row that no walk reads: the
-// forward's scratch row is q | k | v | ctx (4C floats), the backward's
-// q | k | v | dctx | dq | dk | dv | ctx (8C), the GEMMs after the core
-// reading ctx and dqkv there; the backward's L and D go to a region of
-// 2·H·S floats a row after the token rows, written by the query walks and
-// read by the key walks after the block's barrier (one block holds all of
-// a row's heads, and no read goes through the non-coherent path). Both
-// directions stay one lane's FMA chain an output, in the staged form's
-// order: two calls give the same bits, and so do the staged and the direct
-// form at a row that fits both. The direct form runs the runtime head
-// width (HD = 0) at every width. Speed is later work (streaming key chunks
-// through shared memory, ROADMAP.md).
+// The direct form, for a row too long for a block's shared memory (S past
+// max_s, e.g. 56 tokens at C = 256, 8 heads; or, at a very wide C, a short
+// row): the streamed cores (column_attention_fwd_core_stream_kernel and
+// column_attention_bwd_core_stream_kernel, further down) run the same walks
+// with one block per (row, head), and stage chunks of the row instead of
+// the whole row:
+//  * The block's warps run over the head's groups of 32·R queries (of keys
+//    in the backward's key walk), in rounds where a row has more groups
+//    than a block has warps (kStreamWarps forward, kStreamBwdWarps
+//    backward; evened out over the rounds): S = 167 at hd = 32 gives 8
+//    blocks a row of 6 warps forward, of 2 warps and 3 rounds backward.
+//    A block writes
+//    only its own head's columns of the scratch row, and no walk reads
+//    them: the forward's row is q | k | v | ctx (4C floats), the backward's
+//    q | k | v | dctx | dq | dk | dv | ctx (8C); the GEMMs after the core
+//    read ctx and dqkv there. The backward's L and D (2·S floats a (row,
+//    head), after the B·S token rows) are written by its query walks and
+//    read by its key walk after the block's barrier.
+//  * The walks' other operand streams through a ring of kStreamStages
+//    chunks of up to 32 keys in shared memory (k | v of the head, 2·hd
+//    floats a key; in the key walk chunks of queries, q | dctx | L, D),
+//    filled by cp.async across the block: chunk n + 1's copies run under
+//    chunk n's walk, each chunk is read from device memory once a walk in
+//    16-byte granules that coalesce (the head's 128 contiguous bytes of k
+//    and of v a key at hd = 32), and every lane of every warp reads it as
+//    broadcast shared loads, as the staged cores read their staged row.
+//    The ring does not grow with S (17 kB at hd = 32; fewer keys a chunk
+//    past hd = 95, at least 4: 65 kB at hd = 1024), so a row of any length
+//    runs several blocks an SM.
+//  * The lane's own vectors (its query's q and dctx, or its key's k and v)
+//    and its sums in registers at the compile-time head widths (hd = 4, 16
+//    and 32: C = 32, 128 and 256 at 8 heads), each score computed once.
+//    Other widths run the runtime-width code in kSlice-channel slices (the
+//    ring streamed again for each), their own vectors read from the scratch.
+//  * The walks are the staged cores' own code (online_chunk, dq_chunk and
+//    dkdv_query on a chunk instead of the staged row): every output is one
+//    lane's chain of FMAs in the walk's order, so two calls give the same
+//    bits, and so do the staged and the direct form at a row that fits
+//    both.
+// What bounds it, at [4096, 167, 256/8] (0.91 G (query, key) pairs a walk
+// and head): the FMAs on the CUDA cores, 64 a pair forward (117 GFLOP, 1.75
+// ms at 67 TFLOP/s; the exps' floor 0.22 ms) and 288 over the backward's
+// three walks (524 GFLOP, 7.8 ms; floor 0.66), against ~10.5 and ~30 ms of
+// split GEMMs around the core at that token count. Next the shared loads:
+// with one query a lane each key's k and v are 16 broadcast 16-byte loads
+// for 64 FMAs, so loads share the issue limit with the FMAs; and the
+// registers: at hd = 32 a thread holds its 32-float vectors and sums
+// (the key walk k, v, dk and dv, 128 floats, beside the query it reads),
+// 224-228 registers in the backward, 146-152 in the forward at one query
+// a lane (no launch bound caps them, and nothing spills), so an SM holds
+// 8 warps of the backward. The constants are measured
+// (tools/torch_attn_shapes.py --variants, PERF.md): one query a lane
+// forward at hd = 32 (kFwdQ32; two, each key's loads feeding both, ran
+// 3.7% slower at 3 warps a block) and blocks of at most 2 warps backward
+// (kStreamBwdWarps; 8 warps ran 12% slower, at one block an SM; capping
+// the registers for more blocks, 4-5% slower).
 // ---------------------------------------------------------------------------
 
 constexpr int kWarps = kCoreThreads / 32;  // warps of a long core's block
@@ -1442,17 +1507,23 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // The long cores' instantiations: a head of HD channels, 4 (C = 32, 8
-// heads: the node path) or 16 (C = 128, 8 heads) at compile time, or 0 for
-// any other width (hd at run time, in chunks of W floats). kFwdQ and kBwdQ:
-// the queries a lane of the forward's and of the backward's query walks
-// owns; kK: the keys a lane of the key walk owns. Registers bound them: two
-// blocks of 256 threads an SM leave 128 a thread, and the backward's query
-// walk at hd = 16 holds q, dctx, dq, k_j and v_j (80 floats a query).
+// heads: the node path), 16 (C = 128, 8 heads) or 32 (C = 256, 8 heads) at
+// compile time, or 0 for any other width (hd at run time, in chunks of W
+// floats). kFwdQ and kBwdQ: the queries a lane of the forward's and of the
+// backward's query walks owns; kK: the keys a lane of the key walk owns.
+// Registers bound them: two staged blocks of 256 threads an SM leave 128 a
+// thread, and the backward's query walk at hd = 16 holds q, dctx, dq, k_j
+// and v_j (80 floats a query). At hd = 32 the key walk holds k, v, dk and
+// dv (128 floats), so its staged core asks for one block an SM
+// (kMinBlocks).
+constexpr int kFwdQ32 = 1;  // the forward's queries a lane at hd = 32
 template <int HD>
 struct LongHead {
-  static constexpr int kFwdQ = HD == 4 ? 6 : HD == 16 ? 2 : 1;
+  static constexpr int kFwdQ =
+      HD == 4 ? 6 : HD == 16 ? 2 : HD == 32 ? kFwdQ32 : 1;
   static constexpr int kBwdQ = HD == 4 ? 4 : 1;
   static constexpr int kK = HD == 4 ? 3 : 1;
+  static constexpr int kMinBlocks = HD == 32 ? 1 : 2;
 };
 
 // A head's vector as a walk reads it: HD > 0, its HD channels in registers
@@ -1521,7 +1592,7 @@ struct Sum {
         if (w * W < n) a[w].fma(f, Chunk<W>::load(x.p + c0 + w * W));
     }
   }
-  // acc + a · x[c0 ..] (x in shared memory)
+  // acc + a · x[c0 ..]
   __device__ float dot(const float* x, int c0, int n, float acc) const {
 #pragma unroll
     for (int w = 0; w < kN; ++w)
@@ -1605,19 +1676,20 @@ __device__ __forceinline__ int slot_pos(int g0, int r, int lane, int S) {
 constexpr int kKeys = 4;  // keys of an online walk's step
 
 // One step of an online walk: keys j .. j + kKeys − 1 (RAGGED: only nk of
-// them), their keep bits at bit 0 on of kb. Every slot's scores first, one
-// test whether any passes its running max by kRaise (then raised), then the
-// exps and the context: no branch between the slots' chains.
+// them; key i's k at kt + i·KS, its v voff floats past its k), their keep
+// bits at bit 0 on of kb. Every slot's scores first, one test whether
+// any passes its running max by kRaise (then raised), then the exps and
+// the context: no branch between the slots' chains.
 template <bool RAGGED, int HD, int W, int R, bool MASKED>
 __device__ __forceinline__ void online_step(
     Sum<HD, W> (&acc)[R], float (&m)[R], float (&l)[R],
-    const Vec<HD, W> (&q)[R], const unsigned (&kb)[R], const float* tr,
-    int j, int nk, int nr, int C, int hd, int TS, int c0, int n) {
+    const Vec<HD, W> (&q)[R], const unsigned (&kb)[R], const float* kt,
+    int j, int KS, int voff, int nk, int nr, int hd, int c0, int n) {
   float d[R][kKeys];
 #pragma unroll
   for (int t = 0; t < kKeys; ++t) {
     Vec<HD, W> k;
-    k.set(tr + (j + (RAGGED ? min(t, nk - 1) : t)) * TS + C);
+    k.set(kt + (j + (RAGGED ? min(t, nk - 1) : t)) * KS);
 #pragma unroll
     for (int r = 0; r < R; ++r)
       d[r][t] = !RAGGED || t < nk ? vdot(q[r], k, hd, -m[r]) : -INFINITY;
@@ -1647,7 +1719,7 @@ __device__ __forceinline__ void online_step(
   for (int t = 0; t < kKeys; ++t) {
     if (!RAGGED || t < nk) {
       Vec<HD, W> v;
-      v.set(tr + (j + t) * TS + 2 * C);
+      v.set(kt + (j + t) * KS + voff);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if (r < nr) {
@@ -1660,12 +1732,53 @@ __device__ __forceinline__ void online_step(
   }
 }
 
-// One query walk's online softmax for channels [c0, c0 + n) of the
-// context: for each slot r, acc[r] = Σ_j keep_ij · 2^(s_ij − m[r]) · v_j,
-// l[r] = Σ_j 2^(s_ij − m[r]), s_ij = q[r] · k_j (q scaled by log2(e)/√hd),
-// m[r] within kRaise of max_j s_ij. tr: token 0 of the staged row at the
-// head's channels (k at +C, v at +2C, rows TS floats apart); kp: the
-// head's keep-mask or null.
+// The start of a query walk's online softmax: no sums yet, and each slot's
+// running max at its score against key 0 (its k at k0).
+template <int HD, int W, int R>
+__device__ __forceinline__ void online_init(Sum<HD, W> (&acc)[R],
+                                            float (&m)[R], float (&l)[R],
+                                            const Vec<HD, W> (&q)[R],
+                                            const float* k0, int hd) {
+  Vec<HD, W> k;
+  k.set(k0);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    acc[r].zero();
+    l[r] = 0.f;
+    m[r] = vdot(q[r], k, hd, 0.f);
+  }
+}
+
+// Keys j0 .. j0 + nj − 1 of a query walk's online softmax (key j0 + u's k
+// at kt + (jb + u)·KS, its v voff floats past its k), for channels
+// [c0, c0 + n)
+// of the context: for each slot r, acc[r] += Σ_j keep_ij · 2^(s_ij − m[r])
+// · v_j, l[r] += Σ_j 2^(s_ij − m[r]), s_ij = q[r] · k_j (q scaled by
+// log2(e)/√hd), m[r] within kRaise of the max so far. kp: the head's
+// keep-mask or null.
+template <int HD, int W, int R, bool MASKED>
+__device__ __forceinline__ void online_chunk(
+    Sum<HD, W> (&acc)[R], float (&m)[R], float (&l)[R],
+    const Vec<HD, W> (&q)[R], const float* kt, int jb, int KS, int voff,
+    const uint8_t* kp, int g0, int nr, int S, int j0, int nj, int hd, int c0,
+    int n, int lane) {
+  unsigned keep[R], kb[R];
+  if (MASKED) keep_chunk(keep, kp, g0, nr, S, j0, nj, lane);
+  for (int u = 0; u < nj; u += kKeys) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) kb[r] = MASKED ? keep[r] >> u : 0u;
+    if (u + kKeys <= nj)
+      online_step<false, HD, W, R, MASKED>(acc, m, l, q, kb, kt, jb + u, KS,
+                                           voff, kKeys, nr, hd, c0, n);
+    else
+      online_step<true, HD, W, R, MASKED>(acc, m, l, q, kb, kt, jb + u, KS,
+                                          voff, nj - u, nr, hd, c0, n);
+  }
+}
+
+// One query walk's online softmax over a staged row's S keys (tr: token 0
+// at the head's channels, k at +C, v at +2C, rows TS floats apart), in
+// chunks of 32 keys.
 template <int HD, int W, int R, bool MASKED>
 __device__ __forceinline__ void online_walk(Sum<HD, W> (&acc)[R],
                                             float (&m)[R], float (&l)[R],
@@ -1675,27 +1788,70 @@ __device__ __forceinline__ void online_walk(Sum<HD, W> (&acc)[R],
                                             int nr, int S, int C, int hd,
                                             int TS, int c0, int n,
                                             int lane) {
-  Vec<HD, W> k0;
-  k0.set(tr + C);
+  online_init(acc, m, l, q, tr + C, hd);
+  for (int j0 = 0; j0 < S; j0 += 32)
+    online_chunk<HD, W, R, MASKED>(acc, m, l, q, tr + C, j0, TS, C, kp, g0,
+                                   nr, S, j0, min(32, S - j0), hd, c0, n,
+                                   lane);
+}
+
+// Keys j0 .. j0 + nj − 1 of the backward's second query walk (laid out as
+// online_chunk's): dq[r] += Σ_j P_ij (dP_ij − D_i) k_j over
+// channels [c0, c0 + n), P_ij = 2^(q_i · k_j − L_i), dP_ij = g_i · v_j
+// (g = dctx) times keep/(1 − p).
+template <int HD, int W, int R, bool MASKED>
+__device__ __forceinline__ void dq_chunk(
+    Sum<HD, W> (&dq)[R], const Vec<HD, W> (&q)[R], const Vec<HD, W> (&g)[R],
+    const float (&L)[R], const float (&D)[R], const float* kt, int jb,
+    int KS, int voff, const uint8_t* kp, int g0, int nr, int S, int j0,
+    int nj, int hd, int c0, int n, float inv_keep, int lane) {
+  unsigned keep[R];
+  if (MASKED) keep_chunk(keep, kp, g0, nr, S, j0, nj, lane);
+#pragma unroll 4
+  for (int u = 0; u < nj; ++u) {
+    const float* tj = kt + (jb + u) * KS;
+    Vec<HD, W> k, v;
+    k.set(tj);
+    v.set(tj + voff);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r < nr) {
+        const float p = ex2(vdot(q[r], k, hd, -L[r]));
+        const float e = vdot(g[r], v, hd, 0.f);
+        float t = e - D[r];
+        if (MASKED)
+          t = (keep[r] >> u) & 1u ? fmaf(e, inv_keep, -D[r]) : -D[r];
+        dq[r].fma(p * t, k, c0, n);
+      }
+    }
+  }
+}
+
+// One query i of the backward's key walk, for each slot r with key t:
+// dk[r] += P_it (dP_it − D_i) q_i, dv[r] += P_d,it dctx_i over channels
+// [c0, c0 + n); kb[r]: keep byte (i, t); the query's q at qi, dctx at gi,
+// (L_i, D_i) in ld.
+template <int HD, int W, int R, bool MASKED>
+__device__ __forceinline__ void dkdv_query(
+    Sum<HD, W> (&dk)[R], Sum<HD, W> (&dv)[R], const Vec<HD, W> (&k)[R],
+    const Vec<HD, W> (&v)[R], const uint8_t (&kb)[R], const float* qi_at,
+    const float* gi_at, float2 ld, int nr, int hd, int c0, int n,
+    float inv_keep) {
+  Vec<HD, W> qi, gi;
+  qi.set(qi_at);
+  gi.set(gi_at);
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    acc[r].zero();
-    l[r] = 0.f;
-    m[r] = vdot(q[r], k0, hd, 0.f);  // key 0's score
-  }
-  unsigned keep[R], kb[R];
-  for (int j0 = 0; j0 < S; j0 += 32) {
-    const int nj = min(32, S - j0);
-    if (MASKED) keep_chunk(keep, kp, g0, nr, S, j0, nj, lane);
-    for (int u = 0; u < nj; u += kKeys) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) kb[r] = MASKED ? keep[r] >> u : 0u;
-      if (u + kKeys <= nj)
-        online_step<false, HD, W, R, MASKED>(acc, m, l, q, kb, tr, j0 + u,
-                                             kKeys, nr, C, hd, TS, c0, n);
-      else
-        online_step<true, HD, W, R, MASKED>(acc, m, l, q, kb, tr, j0 + u,
-                                            nj - u, nr, C, hd, TS, c0, n);
+    if (r < nr) {
+      const float p = ex2(vdot(k[r], qi, hd, -ld.x));
+      const float e = vdot(v[r], gi, hd, 0.f);
+      float pd = p, t = e - ld.y;
+      if (MASKED) {
+        pd = kb[r] ? p * inv_keep : 0.f;
+        t = kb[r] ? fmaf(e, inv_keep, -ld.y) : -ld.y;
+      }
+      dk[r].fma(p * t, qi, c0, n);
+      dv[r].fma(pd, gi, c0, n);
     }
   }
 }
@@ -1782,29 +1938,10 @@ __device__ __forceinline__ void bwd_long_query_group(
     Sum<HD, W> dq[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) dq[r].zero();
-    unsigned keep[R];
-    for (int j0 = 0; j0 < S; j0 += 32) {
-      const int nj = min(32, S - j0);
-      if (MASKED) keep_chunk(keep, kp, g0, nr, S, j0, nj, lane);
-#pragma unroll 4
-      for (int u = 0; u < nj; ++u) {
-        const float* tj = tr + (j0 + u) * TS;
-        Vec<HD, W> k, v;
-        k.set(tj + C);
-        v.set(tj + 2 * C);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          if (r < nr) {
-            const float p = ex2(vdot(q[r], k, hd, -L[r]));
-            const float e = vdot(g[r], v, hd, 0.f);
-            float t = e - D[r];
-            if (MASKED)
-              t = (keep[r] >> u) & 1u ? fmaf(e, inv_keep, -D[r]) : -D[r];
-            dq[r].fma(p * t, k, c0, n);
-          }
-        }
-      }
-    }
+    for (int j0 = 0; j0 < S; j0 += 32)
+      dq_chunk<HD, W, R, MASKED>(dq, q, g, L, D, tr + C, j0, TS, C, kp, g0,
+                                 nr, S, j0, min(32, S - j0), hd, c0, n,
+                                 inv_keep, lane);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int i = g0 + 32 * r + lane;
@@ -1841,11 +1978,6 @@ __device__ __forceinline__ void bwd_long_key_group(
       kb[r] = MASKED && r < nr && t < S ? __ldg(kp + t) : 0;
     }
     for (int i = 0; i < S; ++i) {
-      const float* ti = tr + i * TS;
-      Vec<HD, W> qi, gi;
-      qi.set(ti);
-      gi.set(ti + 3 * C);
-      const float2 ld = *reinterpret_cast<const float2*>(sLD + 2 * i);
       uint8_t nb[R];  // the next query's bytes, loaded ahead
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -1854,21 +1986,13 @@ __device__ __forceinline__ void bwd_long_key_group(
                     ? __ldg(kp + (size_t)(i + 1) * S + t)
                     : 0;
       }
+      const float* ti = tr + i * TS;
+      dkdv_query<HD, W, R, MASKED>(
+          dk, dv, k, v, kb, ti, ti + 3 * C,
+          *reinterpret_cast<const float2*>(sLD + 2 * i), nr, hd, c0, n,
+          inv_keep);
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (r < nr) {
-          const float p = ex2(vdot(k[r], qi, hd, -ld.x));
-          const float e = vdot(v[r], gi, hd, 0.f);
-          float pd = p, t = e - ld.y;
-          if (MASKED) {
-            pd = kb[r] ? p * inv_keep : 0.f;
-            t = kb[r] ? fmaf(e, inv_keep, -ld.y) : -ld.y;
-          }
-          dk[r].fma(p * t, qi, c0, n);
-          dv[r].fma(pd, gi, c0, n);
-        }
-        kb[r] = nb[r];
-      }
+      for (int r = 0; r < R; ++r) kb[r] = nb[r];
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -1899,13 +2023,12 @@ __host__ __device__ inline int direct_row_floats(int C, bool backward) {
   return (backward ? 8 : 4) * C;
 }
 
-// The long forward core (S > kShortS; the direct form at any S): staging
-// as the short core's (DIRECT: none, the walks read `tok`), then a warp per
-// (group of 32·kFwdQ queries, row, head); ONE: a query a lane (rows of at
-// most 32 tokens, where more would only cost registers and so blocks an
-// SM). scale = 1/√hd.
-template <int HD, int W, bool MASKED, bool ONE, bool DIRECT>
-__global__ void __launch_bounds__(kCoreThreads, 2)
+// The long forward core (S > kShortS): staging as the short core's, then a
+// warp per (group of 32·kFwdQ queries, row, head); ONE: a query a lane
+// (rows of at most 32 tokens, where more would only cost registers and so
+// blocks an SM). scale = 1/√hd.
+template <int HD, int W, bool MASKED, bool ONE>
+__global__ void __launch_bounds__(kCoreThreads, LongHead<HD>::kMinBlocks)
 column_attention_fwd_core_long_kernel(float* __restrict__ tok,
                                       const uint8_t* __restrict__ keep,
                                       int B, int S, int C, int H,
@@ -1914,46 +2037,39 @@ column_attention_fwd_core_long_kernel(float* __restrict__ tok,
   extern __shared__ __align__(16) float smem[];
   constexpr int R = ONE ? 1 : LongHead<HD>::kFwdQ;
   const int tid = threadIdx.x, lane = tid % 32;
-  // a token row in device memory, and as the walks read it
-  const int TT = DIRECT ? direct_row_floats(C, false) : fwd_row_floats(C);
-  const int TS = DIRECT ? TT : fwd_core_stride(C);
+  // a token row in device memory, and in shared memory
+  const int TT = fwd_row_floats(C);
+  const int TS = fwd_core_stride(C);
   const int r0 = blockIdx.x * rows;
   const int nr = min(rows, B - r0);
   float* tg = tok + (size_t)r0 * S * TT;
-  const float* rows_at = tg;
-
-  if constexpr (!DIRECT) {
-    const int Q4 = TT / 4;
-    for (int i = tid; i < nr * S * Q4; i += kCoreThreads) {
-      const int t = i / Q4;
-      const int q = i - t * Q4;
-      cp_async16(smem + t * TS + 4 * q, tg + (size_t)t * TT + 4 * q);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    rows_at = smem;
+  const int Q4 = TT / 4;
+  for (int i = tid; i < nr * S * Q4; i += kCoreThreads) {
+    const int t = i / Q4;
+    const int q = i - t * Q4;
+    cp_async16(smem + t * TS + 4 * q, tg + (size_t)t * TT + 4 * q);
   }
+  cp_async_wait_all();
+  __syncthreads();
   const int hd = HD > 0 ? HD : C / H;
-  const int ctx_at = DIRECT ? 3 * C : 0;  // ctx beside v, or over q
   const int ng = (S + 32 * R - 1) / (32 * R);
   for (int it = tid / 32; it < ng * nr * H; it += kWarps) {
     const LongItem t = long_item(it, nr, H);
     const uint8_t* kp =
         MASKED ? keep + ((size_t)(r0 + t.r) * H + t.h) * S * S : nullptr;
     fwd_long_group<HD, W, R, MASKED>(
-        rows_at + (size_t)t.r * S * TS + t.h * hd,
-        tg + (size_t)t.r * S * TT + ctx_at + t.h * hd, kp, t.g * 32 * R, S,
-        C, hd, TS, TT, scale * kLog2e, inv_keep, lane);
+        smem + (size_t)t.r * S * TS + t.h * hd,
+        tg + (size_t)t.r * S * TT + t.h * hd, kp, t.g * 32 * R, S, C, hd,
+        TS, TT, scale * kLog2e, inv_keep, lane);
   }
 }
 
-// The long backward core (S > kShortS; the direct form at any S): staging
-// as the short core's (DIRECT: none), the query walks (a warp per (group of
-// 32·kBwdQ queries, row, head)), a barrier, the key walk (a warp per (group
-// of 32·kK keys, row, head)); ONE as the forward's. DIRECT: the outputs at
-// 4C of each token row, L and D after the B·S token rows.
-template <int HD, int W, bool MASKED, bool ONE, bool DIRECT>
-__global__ void __launch_bounds__(kCoreThreads, 2)
+// The long backward core (S > kShortS): staging as the short core's, the
+// query walks (a warp per (group of 32·kBwdQ queries, row, head)), a
+// barrier, the key walk (a warp per (group of 32·kK keys, row, head)); ONE
+// as the forward's.
+template <int HD, int W, bool MASKED, bool ONE>
+__global__ void __launch_bounds__(kCoreThreads, LongHead<HD>::kMinBlocks)
 column_attention_bwd_core_long_kernel(float* __restrict__ tok,
                                       const uint8_t* __restrict__ keep,
                                       int B, int S, int C, int H,
@@ -1963,28 +2079,20 @@ column_attention_bwd_core_long_kernel(float* __restrict__ tok,
   constexpr int RQ = ONE ? 1 : LongHead<HD>::kBwdQ;
   constexpr int RK = ONE ? 1 : LongHead<HD>::kK;
   const int tid = threadIdx.x, lane = tid % 32;
-  // a token row in device memory, and as the walks read it
-  const int TT = DIRECT ? direct_row_floats(C, true) : 4 * C;
-  const int TS = DIRECT ? TT : TT + 4;
+  // a token row in device memory, and in shared memory
+  const int TT = 4 * C;
+  const int TS = TT + 4;
   const int r0 = blockIdx.x * rows;
   const int nr = min(rows, B - r0);
   float* tg = tok + (size_t)r0 * S * TT;
-  const float* rows_at = tg;
-  float* sLD;  // (L, D) of each (row, head, query) of the block
-  if constexpr (DIRECT) {
-    sLD = tok + (size_t)B * S * TT + 2 * (size_t)r0 * H * S;
-  } else {
-    float* sT = smem;
-    for (int i = tid; i < nr * S * C; i += kCoreThreads) {  // C float4s a row
-      const int t = i / C;
-      const int q = i - t * C;
-      st4(sT + t * TS + 4 * q, ld4(tg + (size_t)t * TT + 4 * q));
-    }
-    __syncthreads();
-    rows_at = sT;
-    sLD = sT + (size_t)rows * S * TS;
+  for (int i = tid; i < nr * S * C; i += kCoreThreads) {  // C float4s a row
+    const int t = i / C;
+    const int q = i - t * C;
+    st4(smem + t * TS + 4 * q, ld4(tg + (size_t)t * TT + 4 * q));
   }
-  float* out = tg + (DIRECT ? 4 * C : 0);  // dq | dk | dv | ctx
+  __syncthreads();
+  // (L, D) of each (row, head, query) of the block
+  float* sLD = smem + (size_t)rows * S * TS;
   const int hd = HD > 0 ? HD : C / H;
   const float qs = scale * kLog2e;
   const int ngq = (S + 32 * RQ - 1) / (32 * RQ);
@@ -1993,9 +2101,9 @@ column_attention_bwd_core_long_kernel(float* __restrict__ tok,
     const uint8_t* kp =
         MASKED ? keep + ((size_t)(r0 + t.r) * H + t.h) * S * S : nullptr;
     bwd_long_query_group<HD, W, RQ, MASKED>(
-        rows_at + (size_t)t.r * S * TS + t.h * hd,
+        smem + (size_t)t.r * S * TS + t.h * hd,
         sLD + 2 * (size_t)(t.r * H + t.h) * S,
-        out + (size_t)t.r * S * TT + t.h * hd, kp, t.g * 32 * RQ, S, C, hd,
+        tg + (size_t)t.r * S * TT + t.h * hd, kp, t.g * 32 * RQ, S, C, hd,
         TS, TT, qs, scale, inv_keep, lane);
   }
   __syncthreads();
@@ -2005,58 +2113,423 @@ column_attention_bwd_core_long_kernel(float* __restrict__ tok,
     const uint8_t* kp =
         MASKED ? keep + ((size_t)(r0 + t.r) * H + t.h) * S * S : nullptr;
     bwd_long_key_group<HD, W, RK, MASKED>(
-        rows_at + (size_t)t.r * S * TS + t.h * hd,
+        smem + (size_t)t.r * S * TS + t.h * hd,
         sLD + 2 * (size_t)(t.r * H + t.h) * S,
-        out + (size_t)t.r * S * TT + t.h * hd, kp, t.g * 32 * RK, S, C, hd,
+        tg + (size_t)t.r * S * TT + t.h * hd, kp, t.g * 32 * RK, S, C, hd,
         TS, TT, qs, scale, inv_keep, lane);
   }
 }
 
-// Calls f(HD, W, MASKED, ONE, DIRECT) (std::integral_constant values) for
-// the long cores' instantiation that takes head width hd and rows of S
-// tokens, staged or (direct) not.
-template <class F>
-cudaError_t long_dispatch(int hd, int S, bool masked, bool direct, F f) {
-  auto go = [&](auto head, auto w, auto one, auto dir) {
-    return masked ? f(head, w, std::true_type{}, one, dir)
-                  : f(head, w, std::false_type{}, one, dir);
+// ---------------------------------------------------------------------------
+// The streamed cores (the direct form; the note above the long cores'
+// helpers): a block per (row, head), its warps over the head's groups, the
+// walks' other operand through a ring of chunks in shared memory.
+
+// The most warps of a streamed forward and backward block, and the blocks
+// an SM their launch bounds ask for (registers: 65,536 an SM).
+constexpr int kStreamWarps = 8;
+constexpr int kStreamMinBlocks = 1;
+constexpr int kStreamBwdWarps = 2;
+constexpr int kStreamBwdMinBlocks = 1;
+constexpr int kStreamStages = 2;  // chunks in the ring
+// Bytes of the ring beyond which its chunks take fewer than 32 keys.
+constexpr int kStreamBudget = 48 * 1024;
+
+// Floats of a ring row: k | v of a key, or q | dctx | L, D of a query (2·hd
+// + 2, rounded up to 16 bytes).
+__host__ __device__ inline int stream_row_floats(int hd) {
+  return (2 * hd + 2 + 3) / 4 * 4;
+}
+
+// Keys (queries) a chunk of the ring: 32 where kStreamStages chunks fit
+// kStreamBudget, else as many as fit, a multiple of 4 (the online walk's
+// steps), at least 4.
+__host__ __device__ inline int stream_keys(int hd) {
+  const int k =
+      kStreamBudget / (kStreamStages * 4 * stream_row_floats(hd)) / 4 * 4;
+  return k < 4 ? 4 : k > 32 ? 32 : k;
+}
+
+// A streamed block's shared memory, the same whatever S is.
+__host__ __device__ inline size_t stream_smem_bytes(int hd) {
+  return (size_t)kStreamStages * stream_keys(hd) * stream_row_floats(hd) *
+         sizeof(float);
+}
+
+// Rows u < nk of a chunk into a ring stage `dst` (KS floats a row) by
+// cp.async across the block's nt threads: row u's hd floats at a + u·TT
+// to 0, its hd floats at a + u·TT + boff to hd, and where ld is given the
+// pair ld[2u], ld[2u + 1] to 2·hd. W = 4: 16-byte granules (hd, C and the
+// rows are multiples of 4 floats), neighbouring threads on neighbouring
+// granules; W = 1: single floats.
+template <int W>
+__device__ __forceinline__ void copy_chunk(float* dst, int KS,
+                                           const float* a, int boff, int TT,
+                                           const float* ld, int nk, int hd,
+                                           int tid, int nt) {
+  const int G = hd / W;  // copies of a row's half
+  for (int i = tid; i < 2 * G * nk; i += nt) {
+    const int u = i / (2 * G), e = i - u * 2 * G;
+    const int half = e >= G ? 1 : 0, c = W * (e - half * G);
+    const float* src = a + (size_t)u * TT + half * boff + c;
+    float* to = dst + u * KS + half * hd + c;
+    if constexpr (W == 4)
+      cp_async16(to, src);
+    else
+      cp_async4(to, src);
+  }
+  if (ld != nullptr)
+    for (int u = tid; u < nk; u += nt)
+      cp_async8(dst + u * KS + 2 * hd, ld + 2 * u);
+}
+
+// One walk of a streamed block over a row's S keys (queries), in chunks of
+// NK rows through the ring (kStreamStages stages of NK rows of KS floats):
+// chunk c + 1's copies (copy(dst, j0, nk)) start before chunk c is walked,
+// and walk(buf, j0, nk) runs on every thread once chunk c has landed and
+// the block has met. Every thread of the block calls it alike.
+template <class Copy, class Walk>
+__device__ __forceinline__ void stream_walk(float* ring, int KS, int S,
+                                            int NK, const Copy& copy,
+                                            const Walk& walk) {
+  const int nch = (S + NK - 1) / NK, stage = NK * KS;
+  for (int c = 0; c < kStreamStages - 1; ++c) {
+    if (c < nch) copy(ring + c * stage, c * NK, min(NK, S - c * NK));
+    cp_async_commit();
+  }
+  for (int c = 0; c < nch; ++c) {
+    const int ahead = c + kStreamStages - 1;
+    if (ahead < nch)
+      copy(ring + (ahead % kStreamStages) * stage, ahead * NK,
+           min(NK, S - ahead * NK));
+    cp_async_commit();
+    cp_async_wait_group<kStreamStages - 1>();
+    __syncthreads();
+    walk(ring + (c % kStreamStages) * stage, c * NK, min(NK, S - c * NK));
+    __syncthreads();
+  }
+}
+
+// The direct form's forward core: block (b, h) takes head h of row b of the
+// scratch `tok` ([B·S, 4C] floats, q | k | v | ctx), its warps the groups
+// of 32·kFwdQ queries, ctx into the row's last C floats. scale = 1/√hd.
+template <int HD, int W, bool MASKED>
+__global__ void __launch_bounds__(32 * kStreamWarps, kStreamMinBlocks)
+column_attention_fwd_core_stream_kernel(float* __restrict__ tok,
+                                        const uint8_t* __restrict__ keep,
+                                        int B, int S, int C, int H,
+                                        float scale, float inv_keep) {
+  extern __shared__ __align__(16) float ring[];
+  constexpr int R = LongHead<HD>::kFwdQ;
+  const int tid = threadIdx.x, lane = tid % 32, nt = blockDim.x;
+  const int warp = tid / 32, nw = nt / 32;
+  const int h = blockIdx.y;
+  const int hd = HD > 0 ? HD : C / H;
+  const int TT = direct_row_floats(C, false);
+  // the row's token 0 at the head's q
+  const float* row = tok + (size_t)blockIdx.x * S * TT + h * hd;
+  float* ctx = tok + (size_t)blockIdx.x * S * TT + 3 * C + h * hd;
+  const uint8_t* kp =
+      MASKED ? keep + ((size_t)blockIdx.x * H + h) * S * S : nullptr;
+  const int KS = stream_row_floats(hd), NK = stream_keys(hd);
+  const float qs = scale * kLog2e;
+  const auto copy = [&](float* dst, int j0, int nk) {
+    copy_chunk<W>(dst, KS, row + (size_t)j0 * TT + C, C, TT, nullptr, nk, hd,
+                  tid, nt);
   };
-  using I4 = std::integral_constant<int, 4>;
-  using I16 = std::integral_constant<int, 16>;
-  using I0 = std::integral_constant<int, 0>;
-  using I1 = std::integral_constant<int, 1>;
+  const int ng = (S + 32 * R - 1) / (32 * R);
+  for (int base = 0; base < ng; base += nw) {
+    const int g0 = (base + warp) * 32 * R;
+    const int nr = base + warp < ng ? group_slots(R, g0, S) : 0;
+    Vec<HD, W> q[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      q[r].set(row + (size_t)slot_pos(g0, r, lane, S) * TT, qs);
+    for (int c0 = 0; c0 < hd; c0 += (HD > 0 ? HD : kSlice)) {
+      const int n = HD > 0 ? HD : min(kSlice, hd - c0);
+      Sum<HD, W> acc[R];
+      float m[R], l[R];
+      stream_walk(ring, KS, S, NK, copy,
+                  [&](const float* buf, int j0, int nj) {
+                    if (nr == 0) return;
+                    if (j0 == 0) online_init(acc, m, l, q, buf, hd);
+                    online_chunk<HD, W, R, MASKED>(acc, m, l, q, buf, 0, KS,
+                                                   hd, kp, g0, nr, S, j0, nj,
+                                                   hd, c0, n, lane);
+                  });
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int i = g0 + 32 * r + lane;
+        if (r < nr && i < S)
+          acc[r].store(ctx + (size_t)i * TT + c0, inv_keep / l[r], n);
+      }
+    }
+  }
+}
+
+// The direct form's backward core: block (b, h) takes head h of row b of
+// the scratch `tok` ([B·S, 8C] floats, q | k | v | dctx | dq | dk | dv |
+// ctx, then 2·H·S floats a row of L and D): the query walks (its warps the
+// groups of 32·kBwdQ queries) stream k | v twice, write ctx, L, D and dq;
+// after the block's barrier the key walk (groups of 32·kK keys) streams
+// q | dctx | L, D into dk and dv.
+template <int HD, int W, bool MASKED>
+__global__ void __launch_bounds__(32 * kStreamBwdWarps, kStreamBwdMinBlocks)
+column_attention_bwd_core_stream_kernel(float* __restrict__ tok,
+                                        const uint8_t* __restrict__ keep,
+                                        int B, int S, int C, int H,
+                                        float scale, float inv_keep) {
+  extern __shared__ __align__(16) float ring[];
+  constexpr int RQ = LongHead<HD>::kBwdQ;
+  constexpr int RK = LongHead<HD>::kK;
+  const int tid = threadIdx.x, lane = tid % 32, nt = blockDim.x;
+  const int warp = tid / 32, nw = nt / 32;
+  const int h = blockIdx.y;
+  const size_t rh = (size_t)blockIdx.x * H + h;
+  const int hd = HD > 0 ? HD : C / H;
+  const int TT = direct_row_floats(C, true);
+  // the row's token 0 at the head's q, and at its dq (dq | dk | dv | ctx)
+  const float* row = tok + (size_t)blockIdx.x * S * TT + h * hd;
+  float* out = tok + (size_t)blockIdx.x * S * TT + 4 * C + h * hd;
+  float* LD = tok + (size_t)B * S * TT + 2 * rh * S;  // query i's at 2i
+  const uint8_t* kp = MASKED ? keep + rh * S * S : nullptr;
+  const int KS = stream_row_floats(hd), NK = stream_keys(hd);
+  const float qs = scale * kLog2e;
+  const auto copy_kv = [&](float* dst, int j0, int nk) {
+    copy_chunk<W>(dst, KS, row + (size_t)j0 * TT + C, C, TT, nullptr, nk, hd,
+                  tid, nt);
+  };
+  const auto copy_qg = [&](float* dst, int j0, int nk) {
+    copy_chunk<W>(dst, KS, row + (size_t)j0 * TT, 3 * C, TT, LD + 2 * j0, nk,
+                  hd, tid, nt);
+  };
+  const int ngq = (S + 32 * RQ - 1) / (32 * RQ);
+  for (int base = 0; base < ngq; base += nw) {
+    const int g0 = (base + warp) * 32 * RQ;
+    const int nr = base + warp < ngq ? group_slots(RQ, g0, S) : 0;
+    Vec<HD, W> q[RQ];
+    float L[RQ], D[RQ];
+#pragma unroll
+    for (int r = 0; r < RQ; ++r) {
+      q[r].set(row + (size_t)slot_pos(g0, r, lane, S) * TT, qs);
+      L[r] = 0.f;
+      D[r] = 0.f;
+    }
+    // walk 1: ctx, L and D
+    for (int c0 = 0; c0 < hd; c0 += (HD > 0 ? HD : kSlice)) {
+      const int n = HD > 0 ? HD : min(kSlice, hd - c0);
+      Sum<HD, W> acc[RQ];
+      float m[RQ], l[RQ];
+      stream_walk(ring, KS, S, NK, copy_kv,
+                  [&](const float* buf, int j0, int nj) {
+                    if (nr == 0) return;
+                    if (j0 == 0) online_init(acc, m, l, q, buf, hd);
+                    online_chunk<HD, W, RQ, MASKED>(acc, m, l, q, buf, 0,
+                                                    KS, hd, kp, g0, nr, S,
+                                                    j0, nj, hd, c0, n, lane);
+                  });
+#pragma unroll
+      for (int r = 0; r < RQ; ++r) {
+        if (r < nr) {
+          const int i = g0 + 32 * r + lane;
+          const float* ti = row + (size_t)slot_pos(g0, r, lane, S) * TT;
+          acc[r].scale(inv_keep / l[r]);
+          D[r] = acc[r].dot(ti + 3 * C, c0, n, D[r]);
+          L[r] = m[r] + log2f(l[r]);
+          if (i < S) acc[r].store(out + (size_t)i * TT + 3 * C + c0, 1.f, n);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RQ; ++r) {
+      const int i = g0 + 32 * r + lane;
+      if (r < nr && i < S) {
+        LD[2 * i] = L[r];
+        LD[2 * i + 1] = D[r];
+      }
+    }
+    // walk 2: dq
+    Vec<HD, W> g[RQ];
+#pragma unroll
+    for (int r = 0; r < RQ; ++r)
+      g[r].set(row + (size_t)slot_pos(g0, r, lane, S) * TT + 3 * C);
+    for (int c0 = 0; c0 < hd; c0 += (HD > 0 ? HD : kSlice)) {
+      const int n = HD > 0 ? HD : min(kSlice, hd - c0);
+      Sum<HD, W> dq[RQ];
+#pragma unroll
+      for (int r = 0; r < RQ; ++r) dq[r].zero();
+      stream_walk(ring, KS, S, NK, copy_kv,
+                  [&](const float* buf, int j0, int nj) {
+                    if (nr == 0) return;
+                    dq_chunk<HD, W, RQ, MASKED>(dq, q, g, L, D, buf, 0, KS,
+                                                hd, kp, g0, nr, S, j0, nj,
+                                                hd, c0, n, inv_keep, lane);
+                  });
+#pragma unroll
+      for (int r = 0; r < RQ; ++r) {
+        const int i = g0 + 32 * r + lane;
+        if (r < nr && i < S) dq[r].store(out + (size_t)i * TT + c0, scale, n);
+      }
+    }
+  }
+  // every L and D of the head written before any is copied
+  __threadfence_block();
+  __syncthreads();
+  const int ngk = (S + 32 * RK - 1) / (32 * RK);
+  for (int base = 0; base < ngk; base += nw) {
+    const int g0 = (base + warp) * 32 * RK;
+    const int nr = base + warp < ngk ? group_slots(RK, g0, S) : 0;
+    Vec<HD, W> k[RK], v[RK];
+#pragma unroll
+    for (int r = 0; r < RK; ++r) {
+      const float* tt = row + (size_t)slot_pos(g0, r, lane, S) * TT;
+      k[r].set(tt + C, qs);
+      v[r].set(tt + 2 * C);
+    }
+    for (int c0 = 0; c0 < hd; c0 += (HD > 0 ? HD : kSlice)) {
+      const int n = HD > 0 ? HD : min(kSlice, hd - c0);
+      Sum<HD, W> dk[RK], dv[RK];
+      uint8_t kb[RK];
+#pragma unroll
+      for (int r = 0; r < RK; ++r) {
+        dk[r].zero();
+        dv[r].zero();
+        const int t = g0 + 32 * r + lane;
+        kb[r] = MASKED && r < nr && t < S ? __ldg(kp + t) : 0;
+      }
+      stream_walk(ring, KS, S, NK, copy_qg,
+                  [&](const float* buf, int j0, int nj) {
+                    if (nr == 0) return;
+                    for (int u = 0; u < nj; ++u) {
+                      const int i = j0 + u;
+                      uint8_t nb[RK];  // the next query's bytes, ahead
+#pragma unroll
+                      for (int r = 0; r < RK; ++r) {
+                        const int t = g0 + 32 * r + lane;
+                        nb[r] = MASKED && r < nr && t < S && i + 1 < S
+                                    ? __ldg(kp + (size_t)(i + 1) * S + t)
+                                    : 0;
+                      }
+                      const float* qi = buf + u * KS;
+                      dkdv_query<HD, W, RK, MASKED>(
+                          dk, dv, k, v, kb, qi, qi + hd,
+                          *reinterpret_cast<const float2*>(qi + 2 * hd), nr,
+                          hd, c0, n, inv_keep);
+#pragma unroll
+                      for (int r = 0; r < RK; ++r) kb[r] = nb[r];
+                    }
+                  });
+#pragma unroll
+      for (int r = 0; r < RK; ++r) {
+        const int t = g0 + 32 * r + lane;
+        if (r < nr && t < S) {
+          dk[r].store(out + (size_t)t * TT + C + c0, scale, n);
+          dv[r].store(out + (size_t)t * TT + 2 * C + c0, 1.f, n);
+        }
+      }
+    }
+  }
+}
+
+using I0 = std::integral_constant<int, 0>;
+using I1 = std::integral_constant<int, 1>;
+using I4 = std::integral_constant<int, 4>;
+using I16 = std::integral_constant<int, 16>;
+using I32 = std::integral_constant<int, 32>;
+
+// Calls f(HD, W, MASKED, ONE) (std::integral_constant values) for the
+// staged long cores' instantiation that takes head width hd and rows of S
+// tokens.
+template <class F>
+cudaError_t long_dispatch(int hd, int S, bool masked, F f) {
+  auto go = [&](auto head, auto w, auto one) {
+    return masked ? f(head, w, std::true_type{}, one)
+                  : f(head, w, std::false_type{}, one);
+  };
   using No = std::false_type;
   using Yes = std::true_type;
-  // the direct form: the runtime width, a query (key) a lane
-  if (direct) return hd % 4 ? go(I0{}, I1{}, No{}, Yes{})
-                            : go(I0{}, I4{}, No{}, Yes{});
   if (hd == 4)
-    return S <= 32 ? go(I4{}, I4{}, Yes{}, No{}) : go(I4{}, I4{}, No{}, No{});
+    return S <= 32 ? go(I4{}, I4{}, Yes{}) : go(I4{}, I4{}, No{});
   if (hd == 16)
-    return S <= 32 ? go(I16{}, I4{}, Yes{}, No{})
-                   : go(I16{}, I4{}, No{}, No{});
+    return S <= 32 ? go(I16{}, I4{}, Yes{}) : go(I16{}, I4{}, No{});
+  if (hd == 32) {
+    // one query (key) a lane in every walk: ONE would be the same code
+    if constexpr (LongHead<32>::kFwdQ == 1) return go(I32{}, I4{}, No{});
+    return S <= 32 ? go(I32{}, I4{}, Yes{}) : go(I32{}, I4{}, No{});
+  }
   // a runtime width: a query (key) a lane whatever S is
-  if (hd % 4 == 0) return go(I0{}, I4{}, No{}, No{});
-  return go(I0{}, I1{}, No{}, No{});
+  if (hd % 4 == 0) return go(I0{}, I4{}, No{});
+  return go(I0{}, I1{}, No{});
+}
+
+// Calls f(HD, W, MASKED) for the streamed cores' instantiation that takes
+// head width hd: the staged long cores' compiled widths, else the runtime
+// width.
+template <class F>
+cudaError_t stream_dispatch(int hd, bool masked, F f) {
+  auto go = [&](auto head, auto w) {
+    return masked ? f(head, w, std::true_type{})
+                  : f(head, w, std::false_type{});
+  };
+  if (hd == 4) return go(I4{}, I4{});
+  if (hd == 16) return go(I16{}, I4{});
+  if (hd == 32) return go(I32{}, I4{});
+  if (hd % 4 == 0) return go(I0{}, I4{});
+  return go(I0{}, I1{});
+}
+
+// Warps of a streamed block for rows of S tokens whose walks take groups
+// of 32·ra and 32·rb queries (keys): as many as the larger walk's groups,
+// at most `most`, evened out over its rounds.
+inline int stream_warps(int S, int ra, int rb, int most) {
+  const int ga = (S + 32 * ra - 1) / (32 * ra);
+  const int gb = (S + 32 * rb - 1) / (32 * rb);
+  const int ng = ga > gb ? ga : gb;
+  const int rounds = (ng + most - 1) / most;
+  return (ng + rounds - 1) / rounds;
+}
+
+// A streamed core on a grid of (B, H) blocks of `warps` warps.
+template <class K>
+cudaError_t launch_stream(K kernel, int warps, float* tok,
+                          const uint8_t* keep, int B, int S, int C, int H,
+                          float inv_keep, cudaStream_t st) {
+  const int smem = (int)stream_smem_bytes(C / H);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const float scale = 1.0f / sqrtf((float)(C / H));
+  kernel<<<dim3(B, H), 32 * warps, smem, st>>>(tok, keep, B, S, C, H, scale,
+                                               inv_keep);
+  return cudaGetLastError();
 }
 
 // The forward core on `tok` ([B·S, fwd_row_floats(C)] floats, or direct
 // [B·S, 4C], 16-byte aligned): the short core up to kShortS, the long one
-// past it; the direct form's long core at any S.
+// past it; the direct form's streamed core at any S.
 cudaError_t launch_fwd_core(float* tok, const uint8_t* keep, int B, int S,
                             int C, int H, float inv_keep, int rows,
                             bool direct, cudaStream_t st) {
-  const size_t smem =
-      direct ? 0 : fwd_core_smem_floats(S, C, rows) * sizeof(float);
+  if (direct)
+    return stream_dispatch(
+        C / H, keep != nullptr, [&](auto hd, auto w, auto masked) {
+          constexpr int HD = decltype(hd)::value;
+          return launch_stream(
+              &column_attention_fwd_core_stream_kernel<
+                  HD, decltype(w)::value, decltype(masked)::value>,
+              stream_warps(S, LongHead<HD>::kFwdQ, LongHead<HD>::kFwdQ,
+                           kStreamWarps),
+              tok, keep, B, S, C, H, inv_keep, st);
+        });
+  const size_t smem = fwd_core_smem_floats(S, C, rows) * sizeof(float);
   const float scale = 1.0f / sqrtf((float)(C / H));
-  if (direct || S > kShortS)
+  if (S > kShortS)
     return long_dispatch(
-        C / H, S, keep != nullptr, direct,
-        [&](auto hd, auto w, auto masked, auto one, auto dir) {
+        C / H, S, keep != nullptr,
+        [&](auto hd, auto w, auto masked, auto one) {
           auto kernel = &column_attention_fwd_core_long_kernel<
               decltype(hd)::value, decltype(w)::value,
-              decltype(masked)::value, decltype(one)::value,
-              decltype(dir)::value>;
+              decltype(masked)::value, decltype(one)::value>;
           cudaError_t e = cudaFuncSetAttribute(
               kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
               (int)smem);
@@ -2143,9 +2616,8 @@ cudaError_t bwd_split(const elem_t* x, const elem_t* dout,
                                                             st);
   if (err != cudaSuccess) return err;
   // 2. the attention core (4C floats a token row: 16-byte rows at any C;
-  //    direct: 8C, nothing staged)
-  const size_t smem =
-      direct ? 0 : core_smem_floats(S, C, H, rows) * sizeof(float);
+  //    direct: 8C, streamed a (row, head) at a time)
+  const size_t smem = core_smem_floats(S, C, H, rows) * sizeof(float);
   const float scale = 1.0f / sqrtf((float)(C / H));
   auto run_core = [&](auto kernel) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -2155,21 +2627,30 @@ cudaError_t bwd_split(const elem_t* x, const elem_t* dout,
         tok, keep, B, S, C, H, scale, inv_keep, rows);
     return cudaGetLastError();
   };
-  err = direct || S > kShortS
-            ? long_dispatch(C / H, S, keep != nullptr, direct,
-                            [&](auto hd, auto w, auto masked, auto one,
-                                auto dir) {
-                              return run_core(
-                                  column_attention_bwd_core_long_kernel<
-                                      decltype(hd)::value, decltype(w)::value,
-                                      decltype(masked)::value,
-                                      decltype(one)::value,
-                                      decltype(dir)::value>);
-                            })
-            : by_s(S, [&](auto ms) {
-                return run_core(
-                    column_attention_bwd_core_kernel<decltype(ms)::value>);
-              });
+  if (direct)
+    err = stream_dispatch(
+        C / H, keep != nullptr, [&](auto hd, auto w, auto masked) {
+          constexpr int HD = decltype(hd)::value;
+          return launch_stream(
+              &column_attention_bwd_core_stream_kernel<
+                  HD, decltype(w)::value, decltype(masked)::value>,
+              stream_warps(S, LongHead<HD>::kBwdQ, LongHead<HD>::kK,
+                           kStreamBwdWarps),
+              tok, keep, B, S, C, H, inv_keep, st);
+        });
+  else if (S > kShortS)
+    err = long_dispatch(C / H, S, keep != nullptr,
+                        [&](auto hd, auto w, auto masked, auto one) {
+                          return run_core(
+                              column_attention_bwd_core_long_kernel<
+                                  decltype(hd)::value, decltype(w)::value,
+                                  decltype(masked)::value,
+                                  decltype(one)::value>);
+                        });
+  else
+    err = by_s(S, [&](auto ms) {
+      return run_core(column_attention_bwd_core_kernel<decltype(ms)::value>);
+    });
   if (err != cudaSuccess) return err;
   // 3. dx = dqkv·Wqkvᵀ: B(k = j, n = c) = Wqkv[c][j] is n-major
   const Gemm gdx = make_gemm(res, TT, wqkv, C3, dx, C, nullptr, N, C, C3,
@@ -2337,6 +2818,14 @@ size_t rmm_column_attention_bwd_scratch_floats(int B, int S, int C, int H,
   return (size_t)B * S * direct_row_floats(C, true) + 2 * (size_t)B * H * S;
 }
 
+// The shared memory of a block of either direction's direct form (a
+// (row, head) of rows of S tokens at width C): its ring of chunks, which
+// does not depend on S; 0 for a shape no split route takes.
+size_t rmm_column_attention_direct_smem_bytes(int S, int C, int H) {
+  if (!split_shape_ok(S, C, H, 1)) return 0;
+  return stream_smem_bytes(C / H);
+}
+
 int rmm_column_attention_gemm_blocks_per_sm() {
   int per_sm = 0;
   const cudaError_t e = SplitGemms<false>::blocks_per_sm(&per_sm);
@@ -2347,7 +2836,7 @@ int rmm_column_attention_gemm_blocks_per_sm() {
 // file), on the scratch `tok` (rmm_column_attention_bwd_scratch_floats)
 // and `partials` (ceil(B·S / split_tokens) slices of 4C² + 4C floats),
 // into dx and the float grads (layout as the tiled backward's); the
-// attention core staged, or direct (the long cores' direct form). Where C
+// attention core staged, or direct (the streamed cores). Where C
 // % 4 == 0, x, dout, wqkv, wout and tok must be 16-byte aligned; otherwise
 // the narrow GEMMs take them as they are. Returns the first launch's
 // cudaGetLastError() that is not 0, else 0.

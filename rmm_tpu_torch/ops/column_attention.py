@@ -29,10 +29,10 @@ by width and row length (:func:`route`):
   (half an SM's where it fits that, two blocks an SM, else a whole
   block's, one block an SM: :func:`core_budget`; :func:`max_s`, the
   longest staged row: 392 tokens at C = 32, 109 at C = 128 and 55 at
-  C = 256, 8 heads, on an H100), and walks a longer row where it lies in
-  device memory, the long cores' direct form (:func:`core_form`). The
-  kernels take every shape whose C ``nhead`` divides; only device memory
-  bounds them.
+  C = 256, 8 heads, on an H100); a longer row takes the direct form
+  (:func:`core_form`), a block per (row, head) that streams the head's
+  keys (queries) through shared memory in chunks. The kernels take every
+  shape whose C ``nhead`` divides; only device memory bounds them.
 
 The backward recomputes from ``x`` alone, as the TPU kernel does: the
 Function saves ``x``, the weights and the keep-mask, nothing of the
@@ -100,6 +100,8 @@ MAX_S = 16    # rows up to here keep their S×S scores on chip (the tiled
 _TILED_MAX_C = 64            # the tiled kernels keep their weights in smem
 _CORE_THREADS = 256          # the split routes' attention cores: a block
 _GEMM_TILE = 128             # rows and columns of a GEMM block tile
+_STREAM_STAGES = 2           # the direct form's ring: chunks in flight
+_STREAM_BUDGET = 48 * 1024   # its bytes before a chunk takes < 32 keys
 #: the most tokens a split of the bf16 build's weight-gradient GEMM sums:
 #: its tensor cores' float32 sums drop low bits (``csrc/gemm_mma.cuh``),
 #: and a split of ~49k tokens (131072x6x256/8, one a slot of the card) left
@@ -127,6 +129,7 @@ _SIGNATURES = {
         _I, [_P] * 9 + [_I] * 4 + [_F, _I, _I, _P]),
     "rmm_column_attention_bwd_core_smem_bytes": (_Z, [_I] * 4),
     "rmm_column_attention_bwd_scratch_floats": (_Z, [_I] * 5),
+    "rmm_column_attention_direct_smem_bytes": (_Z, [_I] * 3),
     "rmm_column_attention_fwd_row_floats": (_I, [_I, _I]),
     "rmm_column_attention_fwd_core_smem_bytes": (_Z, [_I] * 4),
     "rmm_column_attention_fwd_core": (
@@ -426,8 +429,9 @@ def attention_core_fwd(tok, nhead: int, keep=None, rate: float = 0.0,
 
 class FwdPlan(NamedTuple):
     """How the tiled forward runs a shape (rows a group and blocks), or
-    the split forward's attention core (rows a block, blocks, and whether
-    it takes the direct form)."""
+    the split forward's attention core (rows a block, the row groups that
+    cover B once, and whether it takes the direct form, which launches a
+    block per row group and head: :func:`core_blocks`)."""
     rows: int
     grid: int
     direct: bool = False
@@ -451,18 +455,41 @@ def fwd_plan(b: int, s: int, c: int, nhead: int, rows: int | None = None,
 
 def core_rows(b: int, s: int, nhead: int, smem_rows: int | None) -> int:
     """Rows a block of a split route's attention core (either direction):
-    as many as give each of its 256 threads at most one (row, head, query)
-    (past S = 16, the long cores, and in the direct form at any S: each of
-    its 8 warps at most one (row, head)) and, where the core stages its
-    rows, at most ``smem_rows``, the rows its shared memory holds (None:
-    the direct form, which stages nothing); at least one (where a row has
-    more items, as at 8 heads past S = 32, its warps walk them in steps of
-    the block)."""
+    where the core stages its rows, as many as give each of its 256
+    threads at most one (row, head, query) (past S = 16, the long cores:
+    each of its 8 warps at most one (row, head)) and at most
+    ``smem_rows``, the rows its shared memory holds, at least one (where
+    a row has more items, as at 8 heads past S = 32, its warps walk them
+    in steps of the block); in the direct form (``smem_rows`` None) one:
+    its blocks are (row, head) pairs, B·nhead of them
+    (:func:`core_blocks`), whatever S is."""
     if smem_rows is None:
-        return max(1, min(b, _CORE_THREADS // 32 // nhead))
+        return 1
     items = (_CORE_THREADS // (nhead * s) if s <= MAX_S
              else _CORE_THREADS // 32 // nhead)
     return max(1, min(b, items, smem_rows))
+
+
+def core_blocks(plan, nhead: int) -> int:
+    """Blocks a split route's attention core launches for ``plan`` (a
+    :class:`FwdPlan` or a :class:`BwdPlan`): one a group of ``plan.rows``
+    rows where it stages them, one a (row, head) in the direct form."""
+    return plan.grid * nhead if plan.direct else plan.grid
+
+
+def direct_smem_bytes(s: int, c: int, nhead: int) -> int:
+    """Shared memory a block of the direct form takes, either direction
+    (the library's ``rmm_column_attention_direct_smem_bytes``, which the
+    card test ``test_direct_smem_matches_the_library`` holds it to): a
+    ring of ``_STREAM_STAGES`` chunks of up to 32 keys, each a row of
+    ``2·hd + 2`` floats rounded up to 16 bytes (k | v, or q | dctx | L, D),
+    fewer keys a chunk (a multiple of 4, at least 4) where 32 would pass
+    ``_STREAM_BUDGET`` bytes. It does not depend on ``s``: 17,408 bytes at
+    C = 256, 8 heads, 65,664 at C = 1024, 1 head."""
+    del s
+    row = (2 * (c // nhead) + 2 + 3) // 4 * 4
+    keys = _STREAM_BUDGET // (_STREAM_STAGES * 4 * row) // 4 * 4
+    return _STREAM_STAGES * min(32, max(4, keys)) * row * 4
 
 
 def split_fwd_plan(b: int, s: int, nhead: int, smem_rows: int | None,
@@ -495,9 +522,10 @@ def core_form(s: int, c: int, nhead: int, block_bytes: int, sm_bytes: int,
     width ``c``: ``"staged"`` where the forward's and the backward's row
     (``row_bytes(s, c, nhead)``) each fit :func:`core_budget` on a card of
     ``block_bytes`` a block and ``sm_bytes`` an SM (a row is staged in
-    shared memory), else ``"direct"`` (the long cores walk the row where it
-    lies in device memory). Past S = 16 that is ``s <= core_max_s(...)``;
-    at S <= 16 only a very wide row (C near a thousand) goes direct."""
+    shared memory), else ``"direct"`` (a block per (row, head) streams the
+    row's chunks through shared memory, :func:`direct_smem_bytes`). Past
+    S = 16 that is ``s <= core_max_s(...)``; at S <= 16 only a very wide
+    row (C near a thousand) goes direct."""
     return ("staged" if all(r <= core_budget(r, block_bytes, sm_bytes)
                             for r in row_bytes(s, c, nhead)) else "direct")
 
@@ -613,7 +641,8 @@ class BwdPlan(NamedTuple):
     partial slices of ``4C² + 4C`` floats the reduce adds (blocks ×
     stage-F token splits for the tiled kernel, the token splits of the
     weight-gradient GEMM for the split route) and, for the split route,
-    the tokens a split and whether its core takes the direct form."""
+    the tokens a split and whether its core takes the direct form (whose
+    blocks are ``grid`` row groups times the heads: :func:`core_blocks`)."""
     route: str
     rows: int
     grid: int

@@ -322,3 +322,24 @@ def test_split_forward_plan_covers_every_row_once(b, s, h, budget):
     assert (plan.grid - 1) * plan.rows < b <= plan.grid * plan.rows
     assert plan.rows == min(b, 256 // (h * s), budget // per_row)
     assert ca.split_fwd_plan(b, s, h, budget // per_row, rows=3).rows == 3
+
+
+@pytest.mark.parametrize("b,s,c,h", [
+    (4096, 167, 256, 8),   # Elliptic's node tokens at --n_hidden 256
+    (2048, 167, 256, 8),
+    (256, 600, 32, 8),     # past max_s at C = 32
+    (256, 520, 256, 8),
+    (3, 6, 2048, 8),       # a short row too wide for a block
+    (5, 60, 130, 10),
+])
+def test_direct_plans_launch_a_block_per_row_head(b, s, c, h):
+    """The direct form's plans, either direction: one row a block and a
+    block per (row, head), B·nhead blocks; a staged plan launches one
+    block a group of rows."""
+    fwd = ca.split_fwd_plan(b, s, h, None)
+    bwd = ca.split_plan(b, s, c, h, 132, 2, None)
+    for plan in (fwd, bwd):
+        assert plan.direct and plan.rows == 1 and plan.grid == b
+        assert ca.core_blocks(plan, h) == b * h
+    staged = ca.split_fwd_plan(b, s, h, 4)
+    assert ca.core_blocks(staged, h) == staged.grid == -(-b // staged.rows)

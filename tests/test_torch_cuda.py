@@ -239,8 +239,9 @@ def test_column_attention_kernel_refuses_what_it_cannot_run(cuda):
 # not fit a block's shared memory through the long cores' direct form): C
 # = 136 and 256 at head widths 17 and 32 (256 also at S = 2, the node
 # tokens' short core), 256 at 64, 512, 130 at 13 (the narrow GEMMs), a row
-# past max_s at C = 256 (56 tokens) and at C = 32 (600), and 60 tokens at
-# C = 130.
+# past max_s at C = 256 (56 tokens) and at C = 32 (600), 60 tokens at
+# C = 130, and 520 at C = 256 (two rounds of the direct forward's query
+# groups, a last key chunk of 8).
 WIDE_SHAPES = [
     (5, 6, 136, 8),
     (33, 6, 256, 8),
@@ -251,6 +252,7 @@ WIDE_SHAPES = [
     (9, 56, 256, 8),
     (3, 600, 32, 8),
     (4, 60, 130, 10),
+    (2, 520, 256, 8),
 ]
 
 
@@ -283,8 +285,8 @@ def test_wide_and_long_rows_match_plain(cuda, b, s, c, h, masked):
 def test_direct_form_gives_the_staged_bits(cuda, b, s, c, h):
     """At rows that fit a block, the direct form (the same walks on the
     rows where they lie) gives the staged long cores' bits in both
-    directions, the forward core alone too (head widths 32, 13 and 24:
-    the staged cores' runtime-width code, which the direct form runs);
+    directions, the forward core alone too (head width 32, compiled in
+    both forms, and 13 and 24, the runtime-width code of both);
     at S = 6 it holds against the plain twin."""
     args = attention_inputs(b + c, b, s, c, cuda)
     do = torch.from_numpy(np.random.RandomState(s).randn(b, s, c).astype(
@@ -511,6 +513,17 @@ def test_longest_rows_of_record_fit(cuda):
                                              4 * (6 * 524 + 2 * 10 * 36))
     block, _ = ca._card_smem()
     assert ca._core_budget(134_144) == block
+
+
+def test_direct_smem_matches_the_library(cuda):
+    """A direct-form block's shared memory as the library computes it is
+    ``direct_smem_bytes``, the pure function the CPU tests hold to two
+    blocks an SM at every width, at every S."""
+    lib = ca._kernel()
+    for s, c, h in [(167, 256, 8), (600, 32, 8), (6, 2048, 8), (60, 130, 10),
+                    (40, 1024, 1), (17, 96, 4), (520, 256, 8), (56, 95, 1)]:
+        assert lib.rmm_column_attention_direct_smem_bytes(s, c, h) == \
+            ca.direct_smem_bytes(s, c, h)
 
 
 def test_long_rows_repeat_bitwise(cuda):

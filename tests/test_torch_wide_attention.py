@@ -140,12 +140,12 @@ def test_short_rows_of_a_very_wide_c_take_the_direct_form():
     assert h100_row_bytes(6, 2048, 8)[1] == 199_008
 
 
-@pytest.mark.parametrize("b,h,want", [(4096, 8, 1), (4096, 4, 2),
-                                      (4096, 1, 8), (3, 1, 3)])
+@pytest.mark.parametrize("b,h,want", [(4096, 8, 1), (4096, 4, 1),
+                                      (4096, 1, 1), (3, 1, 1)])
 def test_direct_plans_give_each_warp_a_row_head(b, h, want):
-    """The direct form stages nothing: a block takes the rows that give
-    each of its 8 warps at most one (row, head), whatever S and the
-    budget; both plans carry the form and cover the B rows once."""
+    """The direct form stages nothing: a block takes one row (and one of
+    its heads: ``core_blocks``), whatever S and the budget; both plans
+    carry the form and cover the B rows once."""
     assert ca.core_rows(b, 6, h, None) == want
     fwd = ca.split_fwd_plan(b, 400, h, None)
     bwd = ca.split_plan(b, 400, 256, h, 132, 2, None)
@@ -154,6 +154,32 @@ def test_direct_plans_give_each_warp_a_row_head(b, h, want):
         assert (plan.grid - 1) * plan.rows < b <= plan.grid * plan.rows
     staged = ca.split_plan(b, 6, 256, h, 132, 2, 113 * 1024 // 26_976)
     assert not staged.direct
+
+
+@pytest.mark.parametrize("c", [32, 128, 256])
+def test_direct_form_starts_just_past_max_s(c):
+    """On an H100 (8 heads) the cores stage every row up to ``max_s``
+    tokens and take the direct form from the next token on."""
+    longest = ca.core_max_s(c, 8, H100_BLOCK, H100_SM, h100_row_bytes)
+    for s in range(ca.MAX_S + 1, 2 * longest):
+        form = ca.core_form(s, c, 8, H100_BLOCK, H100_SM, h100_row_bytes)
+        assert form == ("staged" if s <= longest else "direct"), s
+
+
+def test_direct_smem_fits_two_blocks_an_sm_whatever_s():
+    """A direct-form block's shared memory (its ring of chunks) is the
+    same at every S and leaves room for at least two blocks an SM of an
+    H100 (each with the runtime's 1 kB) at every C <= 1024 and every
+    nhead that divides it; 32 keys a chunk up to head width 95."""
+    for c in range(1, 1025):
+        for h in (h for h in range(1, c + 1) if c % h == 0):
+            got = {ca.direct_smem_bytes(s, c, h) for s in (1, 17, 167, 5000)}
+            assert len(got) == 1, (c, h, got)
+            (smem,) = got
+            assert 2 * (smem + 1024) <= H100_SM, (c, h, smem)
+    assert ca.direct_smem_bytes(167, 256, 8) == 2 * 32 * 68 * 4
+    assert ca.direct_smem_bytes(167, 1024, 1) == 2 * 4 * 2052 * 4
+    assert ca.direct_smem_bytes(167, 95, 1) == 2 * 32 * 192 * 4
 
 
 @pytest.mark.parametrize("b,s,c", [(131072, 6, 256), (131072, 6, 128),

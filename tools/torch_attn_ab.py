@@ -1,6 +1,7 @@
 """Column attention of two checkouts on one CUDA card, in turns.
 
-    python3 tools/torch_attn_ab.py --other DIR
+    python3 tools/torch_attn_ab.py --other DIR [--cases all|direct|long]
+                                   [--timing CALLS,WINDOWS]
 
 Times the forward and the backward (+ its reduce) of this checkout's
 ``rmm_tpu_torch`` and of the one under ``DIR`` (another commit's package,
@@ -19,16 +20,22 @@ on the same seeded inputs, at ``chip_smoke.py``'s shapes:
   node path's keep-mask (dropout 0.083) and without it, in float32 and
   bf16: the node shape 4096×167×32/8, 4096×40×128/8, 4096×17×32/8,
   4096×65×32/8, 4096×195×32/8 and 4096×54×128/8 (``chip_smoke.py``'s
-  ``kernel_long`` shapes at a node capacity of 4096).
+  ``kernel_long`` shapes at a node capacity of 4096);
+* past ``max_s`` (the direct form), the same way: 4096×167×256/8,
+  4096×130×256/8, Elliptic's 2048×167×256/8 at ``--n_hidden 256``,
+  256×600×32/8 and 256×520×256/8 (``chip_smoke.py``'s ``kernel_wide``
+  direct shapes). ``--cases direct`` times these alone, ``--cases long``
+  the staged long cores' shapes above alone.
 
 Each side runs in a process of its own (the two packages share a name), in
 the order other, self, self, other; both sides' kernels are built first,
 all compilers at once. A measurement is ``chip_smoke.time_ms``: CUDA
-events, warm, the median of 5 windows of 10 calls. Each side's result is
-held against the plain version (the forward's absolute error, the
-backward's relative to each tensor's largest entry). The plain version's,
-the library call's and the bound's times at these shapes are those of
-``chip_smoke.py``'s kernel phases. One JSON line per measurement, each
+events, warm, the median of 5 windows of 10 calls (``--timing 3,3``: of 3
+windows of 3 calls, for a side whose direct form takes ~0.4 s a call).
+Each side's result is held against the plain version (the forward's
+absolute error, the backward's relative to each tensor's largest entry).
+The plain version's, the library call's and the bound's times at these
+shapes are those of ``chip_smoke.py``'s kernel phases. One JSON line per measurement, each
 with the side, its package's path and the card's name and power limit.
 """
 from __future__ import annotations
@@ -52,6 +59,11 @@ TILED = (131072, 6, 32, 8)
 LONG = [((4096, s, c, 8), ("float32", "bfloat16"))
         for s, c in ((NODE_S, 32), (40, 128), (17, 32), (65, 32),
                      (195, 32), (54, 128))]
+# past max_s: the direct form
+DIRECT = [((b, s, c, h), ("float32", "bfloat16"))
+          for b, s, c, h in ((4096, NODE_S, 256, 8), (4096, 130, 256, 8),
+                             (2048, NODE_S, 256, 8), (256, 600, 32, 8),
+                             (256, 520, 256, 8))]
 # the bf16 split shapes at C % 4 = 0 and S <= 16 (B, S, C, H, dropout)
 BF16_SPLIT = SSL_SHAPES + [(32768, 6, 100, 4, 0.0)]
 # (B, S, C, H, dropout, dtype) a direction
@@ -60,10 +72,14 @@ CASES = {
     + [(*TILED, rate, "float32"), (*SSL_SHAPES[0], "float32")]
     + [(*n, 0.0, "bfloat16") for n in NARROW]
     + [(*sh, "bfloat16") for sh in BF16_SPLIT]
-    + [(*shape, p, dtype) for shape, dtypes in LONG for dtype in dtypes
-       for p in (TRAIN_DROPOUT, 0.0)]
+    + [(*shape, p, dtype) for shape, dtypes in LONG + DIRECT
+       for dtype in dtypes for p in (TRAIN_DROPOUT, 0.0)]
     for d, rate in (("fwd", 0.0), ("bwd", TRAIN_DROPOUT))
 }
+PICKED = {name: {d: [(*shape, p, dtype) for shape, dtypes in shapes
+                     for dtype in dtypes for p in (TRAIN_DROPOUT, 0.0)]
+                 for d in ("fwd", "bwd")}
+          for name, shapes in (("direct", DIRECT), ("long", LONG))}
 
 
 def route_of(ca, c: int, s: int) -> str:
@@ -75,8 +91,9 @@ def route_of(ca, c: int, s: int) -> str:
         return ca.route(c)
 
 
-def child(root: str, label: str) -> int:
-    """One side's measurements, with ``root``'s package."""
+def child(root: str, label: str, cases: dict, timing: tuple) -> int:
+    """One side's measurements of ``cases``, with ``root``'s package, each
+    timed over ``timing`` = (calls, windows)."""
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -88,8 +105,8 @@ def child(root: str, label: str) -> int:
     package = os.path.dirname(os.path.dirname(os.path.abspath(ca.__file__)))
     assert os.path.samefile(package, os.path.join(root, "rmm_tpu_torch"))
     dev = torch.device("cuda")
-    for direction, cases in CASES.items():
-        for b, s, c, h, rate, dtype in cases:
+    for direction, shapes in cases.items():
+        for b, s, c, h, rate, dtype in shapes:
             rng = np.random.RandomState(b + c)
             dt = getattr(torch, dtype)
             x, *w = [t.to(dt) for t in random_inputs(rng, b, s, c, dev)]
@@ -123,7 +140,7 @@ def child(root: str, label: str) -> int:
                     rec["max_rel_err"] = max(
                         float((g.float() - v).abs().max() / v.abs().max())
                         for g, v in zip(call(), want))
-                rec["ms"] = time_ms(call)
+                rec["ms"] = time_ms(call, *timing)
             except (NotImplementedError, RuntimeError, AttributeError) as e:
                 rec["refused"] = f"{type(e).__name__}: {e}"
             print(json.dumps(rec), flush=True)
@@ -135,11 +152,18 @@ def child(root: str, label: str) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", help="the other checkout's root")
+    ap.add_argument("--cases", default="all",
+                    choices=("all", "direct", "long"))
+    ap.add_argument("--timing", default="10,5",
+                    help="calls a window, windows")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--label", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
-        return child(args.child, args.label)
+        reps, windows = map(int, args.timing.split(","))
+        return child(args.child, args.label,
+                     PICKED.get(args.cases, CASES),
+                     (reps, windows))
     import torch
 
     if not torch.cuda.is_available():
@@ -155,8 +179,9 @@ def main(argv=None) -> int:
         return 1
     for label in ORDER:
         if subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--child", roots[label], "--label",
-                           label]).returncode:
+                           "--child", roots[label], "--label", label,
+                           "--cases", args.cases, "--timing",
+                           args.timing]).returncode:
             return 1
     return 0
 

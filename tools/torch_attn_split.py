@@ -14,9 +14,11 @@ At the SSL path's shapes (edge tokens 131072×6×128/8 and target rows
 32768×6×128/8, is the first one's aligned twin), each with the 0.5
 keep-mask, or past S = 16 (``--shapes long40x128,long54x128``:
 4096×40×128/8 and 4096×54×128/8 without a keep-mask, the split routes'
-long cores at the shapes where the library call times them), the forward
-(``--direction fwd``) is checked against the plain version (absolute
-error) and timed:
+long cores at the shapes where the library call times them), or past
+``max_s`` (``--shapes direct167x256,direct600x32``: 4096×167×256/8 and
+256×600×32/8 without a keep-mask, the direct form's streamed cores), the
+forward (``--direction fwd``) is checked against the plain version
+(absolute error) and timed:
 
 * the whole forward (``column_attention_fwd``, its three launches and the
   scratch allocation), with CUDA events, warm, median of 5 windows;
@@ -86,7 +88,9 @@ SHAPES = {"edge": (131072, 6, 128, 8, SSL_DROPOUT),
           "aligned128": (32768, 6, 128, 8, SSL_DROPOUT),
           "narrow30": (131072, 6, 30, 6, SSL_DROPOUT),
           "long40x128": (4096, 40, 128, 8, 0.0),
-          "long54x128": (4096, 54, 128, 8, 0.0)}
+          "long54x128": (4096, 54, 128, 8, 0.0),
+          "direct167x256": (4096, 167, 256, 8, 0.0),
+          "direct600x32": (256, 600, 32, 8, 0.0)}
 # (kBK, kStages, kMinBlocks) of each sweep variant; the checkout's values
 # are the first
 VARIANTS = [(16, 3, 2), (16, 2, 2), (16, 4, 2), (32, 3, 2), (32, 2, 2),
